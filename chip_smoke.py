@@ -4,22 +4,42 @@
     python3 chip_smoke.py [--out results.json] [--profile]
 
 Phases (any failure exits non-zero; nothing is caught):
-  1. build: compile ray_tpu_torch/ops/csrc/flash_fwd.cu with nvcc;
+  1. build: compile ray_tpu_torch/ops/csrc/flash_fwd.cu and flash_bwd.cu
+     with nvcc, in parallel, and print their register and spill reports;
   2. kernel vs plain: the flash forward kernel against its plain PyTorch
      version on the same device tensors, per case, with max abs error,
      kernel / plain / library (scaled_dot_product_attention, a yardstick the
      port never calls) times and the bound;
-  3. forward: gpt_1b in bf16 (random weights from a seeded torch.Generator),
+  3. backward kernels vs plain: the dQ and dK/dV kernels against
+     flash_attention_bwd_plain, per case: each row of dq, dk, dv held to its
+     own norm (ray_tpu_torch/ops/tolerance.py), max abs error, each kernel's
+     time and bound, the plain time and the library time
+     (torch.autograd.grad through scaled_dot_product_attention);
+  4. train: three float32 gpt_nano steps on the card held to the same steps
+     on the CPU; then gpt_1b (bf16 compute, float32 master weights and Adam
+     moments, remat "nothing"), b=12, t=2048, ce_chunk 512, lr 1e-4: one
+     warm-up step and 5 timed steps on one repeated batch. Loss and grad
+     norm finite, the last loss below the first, and per step exactly
+     2 * num_layers forward launches and num_layers launches of each
+     backward kernel;
+  5. forward: gpt_1b in bf16 (random weights from a seeded torch.Generator),
      b=4, t=2048; the kernel must launch num_layers times per forward;
-  4. server: the in-process LLMServer at gpt_1b; 8 requests (4 share a
+  6. server: the in-process LLMServer at gpt_1b; 8 requests (4 share a
      512-token prefix), prefix-cache hits, bitwise cached-vs-uncached
      logits, engine prefill vs full forward, and no KV block leaked.
-With --profile, one more forward and one more wave of 4 requests run under
-torch.profiler; device time by kernel and the idle share are printed (and
-written to --out).
+The train phase runs before the server's, whose engine turns on
+deterministic algorithms for the whole process. With --profile, one more
+train step, forward and wave of 4 requests run under torch.profiler;
+device time by kernel and the idle share are printed (and written to
+--out).
 
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero without a card.
+In the kernels line, flash_fwd stands at gpt_1b's forward shape (b=4) with
+the forward phase's launches, and the backward kernels at the train step's
+shape (b=12) with the train phase's; every entry names its shape and its
+launches on each path, and the backward kernels' plain and library times
+are those of the whole backward (dq, dk and dv together).
 """
 
 from __future__ import annotations
@@ -36,6 +56,7 @@ import subprocess  # noqa: E402
 import sys  # noqa: E402
 import threading  # noqa: E402
 import time  # noqa: E402
+from concurrent.futures import ThreadPoolExecutor  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -43,11 +64,9 @@ import torch  # noqa: E402
 # NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, fp32 CUDA cores, HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HBM_BYTES_PER_S = 3.35e12
-# kernel vs plain on the card. bf16: the kernel rounds P to bf16 before the
-# PV product (the plain version keeps it in f32) and both round O to bf16,
-# so |out| <= ~4 allows a few bf16 ulps; lse is f32 from f32 scores (other
-# summation order only). float32: summation order only.
-TOL = {torch.bfloat16: (2e-2, 2e-3), torch.float32: (1e-4, 1e-4)}
+# gpt_nano float32 steps on the card vs the CPU: summation order through two
+# layers, the loss and three optimizer updates
+TRAIN_SMALL_RTOL = 1e-4
 # gpt_1b engine prefill vs full forward, last-position logits, bf16: the two
 # paths round in other places (flash kernel with bf16 P vs f32 softmax, other
 # GEMM shapes) through 16 layers; logits have std ~1 at this init
@@ -87,27 +106,52 @@ def attention_bound(b, h, t_q, t_kv, d, causal, dtype):
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes"), flops, nbytes
 
 
+def bwd_bound(b, h, t_q, t_kv, d, causal, dtype, products):
+    """(bound_ms, bound_by) of one backward kernel: ``products`` matrix
+    products of 2 * d operations per visible (q, k) pair, and q, k, v, dO,
+    lse and delta read once and its outputs written once (dQ: dq; dK/dV:
+    dk and dv)."""
+    _, _, flops4, _ = attention_bound(b, h, t_q, t_kv, d, causal, dtype)
+    flops = flops4 / 4 * 2 * products
+    elem = torch.tensor([], dtype=dtype).element_size()
+    outs = t_q if products == 3 else 2 * t_kv
+    nbytes = b * h * d * elem * (2 * t_q + 2 * t_kv + outs) + 8 * b * h * t_q
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_mem = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
+
+
 def phase_build():
     from ray_tpu_torch.ops import _build
 
+    def timed(name):
+        t0 = time.monotonic()
+        return _build.build(name), time.monotonic() - t0
+
     t0 = time.monotonic()
-    lib = _build.build("flash_fwd")
-    seconds = time.monotonic() - t0
-    print(f"[build] {lib.name} in {seconds:.1f} s")
-    # the compiler's register and spill report, kept beside the library
-    for line in lib.with_name(lib.name + ".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build]   {line.strip()}")
-    return {"seconds": seconds, "library": lib.name}
+    names = ("flash_fwd", "flash_bwd")
+    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
+        built = dict(zip(names, pool.map(timed, names)))
+    out = {"seconds": time.monotonic() - t0}
+    for name, (lib, seconds) in built.items():
+        print(f"[build] {lib.name} in {seconds:.1f} s")
+        # the compiler's register and spill report, kept beside the library
+        for line in lib.with_name(lib.name + ".log").read_text().splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                print(f"[build]   {line.strip()}")
+        out[name] = {"seconds": seconds, "library": lib.name}
+    return out
 
 
 def phase_kernel_vs_plain():
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.ops.tolerance import FWD_TOL
 
     cases = [
         # name, b, h, t_q, t_kv, d, causal, dtype
+        ("gpt_1b_train_b12", 12, 16, 2048, 2048, 128, True, torch.bfloat16),
         ("gpt_1b", 4, 16, 2048, 2048, 128, True, torch.bfloat16),
         ("d64_gpt_125m", 4, 12, 2048, 2048, 64, True, torch.bfloat16),
         ("d256_gpt_j", 1, 16, 2048, 2048, 256, True, torch.bfloat16),
@@ -132,7 +176,7 @@ def phase_kernel_vs_plain():
         torch.cuda.synchronize()
         err = float((out.float() - ref_out.float()).abs().max())
         lse_err = float((lse - ref_lse).abs().max())
-        out_tol, lse_tol = TOL[dtype]
+        out_tol, lse_tol = FWD_TOL[dtype]
         ok = err <= out_tol and lse_err <= lse_tol and bool(torch.isfinite(out).all())
         big = b * h * t_q * t_kv >= 2 ** 26
         ms = cuda_ms(lambda: attn.flash_attention_fwd(q, k, v, causal=causal, scale=scale),
@@ -166,22 +210,214 @@ def phase_kernel_vs_plain():
     return rows
 
 
+BWD_CASES = [
+    # name, b, h, t_q, t_kv, d, causal, dtype
+    ("gpt_1b_train_b12", 12, 16, 2048, 2048, 128, True, torch.bfloat16),
+    ("gpt_1b", 4, 16, 2048, 2048, 128, True, torch.bfloat16),
+    ("d64_gpt_125m", 4, 12, 2048, 2048, 64, True, torch.bfloat16),
+    ("d256_gpt_j", 1, 16, 2048, 2048, 256, True, torch.bfloat16),
+    ("suffix_tq256_tkv2048", 4, 16, 256, 2048, 128, True, torch.bfloat16),
+    ("ragged_tq200_tkv264", 2, 16, 200, 264, 128, True, torch.bfloat16),
+    ("ragged_tkv72_full", 4, 16, 64, 72, 128, False, torch.bfloat16),
+    ("ragged_t2056_causal", 1, 16, 2056, 2056, 128, True, torch.bfloat16),
+    ("noncausal", 4, 16, 2048, 2048, 128, False, torch.bfloat16),
+    ("tq_gt_tkv_empty_rows", 1, 2, 160, 64, 128, True, torch.bfloat16),
+    ("d16_tiny", 2, 4, 24, 40, 16, True, torch.bfloat16),
+    ("d32_tiny_cfg", 2, 8, 256, 256, 32, True, torch.bfloat16),
+    ("f32_cuda_cores", 1, 4, 200, 264, 64, True, torch.float32),
+]
+
+
+def phase_bwd_kernels_vs_plain():
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.ops.tolerance import BWD_TOL, row_err
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for name, b, h, t_q, t_kv, d, causal, dtype in BWD_CASES:
+        q, k, v, do = (torch.randn(b, h, t, d, device="cuda", dtype=dtype, generator=gen)
+                       for t in (t_q, t_kv, t_kv, t_q))
+        scale = 1.0 / d ** 0.5
+        out, lse = attn.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+        got = attn.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, scale=scale)
+        want = attn.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal,
+                                              scale=scale)
+        torch.cuda.synchronize()
+        errs, row_errs = {}, {}
+        for g_name, x, ref in zip(("dq", "dk", "dv"), got, want):
+            errs[g_name] = float((x.float() - ref.float()).abs().max())
+            row_errs[g_name] = row_err(x, ref)
+        tol = BWD_TOL[dtype]
+        ok = all(e <= tol for e in row_errs.values()) and all(
+            bool(torch.isfinite(x).all()) for x in got)
+        big = b * h * t_q * t_kv >= 2 ** 26
+        iters = 10 if big else 50
+        delta = attn.flash_bwd_delta(out, do)
+        dq_ms = cuda_ms(lambda: attn.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal,
+                                                  scale=scale), iters=iters)
+        dkv_ms = cuda_ms(lambda: attn.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal,
+                                                    scale=scale), iters=iters)
+        plain_ms = cuda_ms(lambda: attn.flash_attention_bwd_plain(
+            q, k, v, out, lse, do, causal=causal, scale=scale), iters=3, warmup=1)
+        # the library's backward: autograd through a retained SDPA output
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        if causal and t_q != t_kv:
+            lib_out = F.scaled_dot_product_attention(
+                ql, kl, vl, attn_mask=attn._causal_mask(t_q, t_kv, q.device), scale=scale)
+        else:
+            lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
+                                                     scale=scale)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, (ql, kl, vl), do, retain_graph=True), iters=iters)
+        dq_bound, dq_by = bwd_bound(b, h, t_q, t_kv, d, causal, dtype, 3)
+        dkv_bound, dkv_by = bwd_bound(b, h, t_q, t_kv, d, causal, dtype, 4)
+        row = dict(case=name, shape=[b, h, t_q, t_kv, d], causal=causal,
+                   dtype=str(dtype).replace("torch.", ""), max_abs_err=errs,
+                   row_err=row_errs, row_err_tol=tol, ok=ok, dq_ms=dq_ms, dkv_ms=dkv_ms,
+                   plain_ms=plain_ms, library_ms=library_ms, dq_bound_ms=dq_bound,
+                   dq_bound_by=dq_by, dkv_bound_ms=dkv_bound, dkv_bound_by=dkv_by)
+        rows.append(row)
+        print(f"[bwd] {name:<22} {str(row['shape']):<28} worst-row err dq "
+              f"{row_errs['dq']:.2e} dk {row_errs['dk']:.2e} dv {row_errs['dv']:.2e} "
+              f"(limit {tol:.0e}), max abs err {errs['dq']:.2e} {errs['dk']:.2e} "
+              f"{errs['dv']:.2e} {'ok' if ok else 'FAIL'} | "
+              f"dQ {dq_ms:.4f} ms (bound {dq_bound:.4f}, {dq_by}) dK/dV {dkv_ms:.4f} ms "
+              f"(bound {dkv_bound:.4f}, {dkv_by}) plain {plain_ms:.3f} ms "
+              f"library {library_ms:.4f} ms")
+        del got, want, lib_out
+    bad = [(r["case"], r["row_err"]) for r in rows if not r["ok"]]
+    if bad:
+        raise SystemExit(f"backward kernels disagree with their plain version "
+                         f"(worst-row errors against {BWD_TOL}): {bad}")
+    return rows
+
+
+KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _launch_counts():
+    from ray_tpu_torch.ops import attention as attn
+
+    return (attn.flash_fwd_launches, attn.flash_bwd_dq_launches,
+            attn.flash_bwd_dkv_launches)
+
+
+def _reset_launch_counts():
+    from ray_tpu_torch.ops import attention as attn
+
+    attn.flash_fwd_launches = 0
+    attn.flash_bwd_dq_launches = 0
+    attn.flash_bwd_dkv_launches = 0
+
+
+def train_small_vs_cpu(steps: int = 3):
+    """Float32 gpt_nano steps through the kernels' CUDA-core paths against
+    the same steps on the CPU through the plain versions."""
+    from ray_tpu_torch.models import gpt, inference, training
+
+    cfg = gpt.gpt_nano(ce_chunk=32)
+    tokens = torch.from_numpy(np.random.RandomState(3).randint(0, cfg.vocab_size, (2, 80)))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        opt = training.default_optimizer(1e-2)
+        params = {n: p.to(dev) for n, p in
+                  inference.init_params(cfg, device="cpu", seed=4).items()}
+        state = training.init_train_state(params, opt)
+        step = training.make_train_step(cfg, opt, device=dev)
+        metrics = []
+        for _ in range(steps):
+            state, m = step(state, tokens)
+            metrics.append([float(m["loss"]), float(m["grad_norm"])])
+        runs[dev] = metrics
+    worst = float(np.max(np.abs(np.array(runs["cuda"]) / np.array(runs["cpu"]) - 1)))
+    print(f"[train] gpt_nano f32 {steps} steps, card vs CPU: (loss, grad norm) "
+          f"{runs['cuda']} vs {runs['cpu']}, worst rel diff {worst:.2e} "
+          f"(rtol {TRAIN_SMALL_RTOL})")
+    if not worst <= TRAIN_SMALL_RTOL:
+        raise SystemExit(f"gpt_nano steps on the card differ from the CPU by {worst}")
+    return dict(card=runs["cuda"], cpu=runs["cpu"], worst_rel_diff=worst,
+                rtol=TRAIN_SMALL_RTOL)
+
+
+def phase_train(batch: int, seq: int, steps: int, profile: bool):
+    from ray_tpu_torch.models import gpt, inference, training
+
+    report = {"gpt_nano_vs_cpu": train_small_vs_cpu()}
+    cfg = gpt.gpt_1b(ce_chunk=512)  # bf16 compute, float32 params and moments
+    opt = training.default_optimizer(1e-4)
+    state = training.init_train_state(inference.init_params(cfg, device="cuda", seed=0), opt)
+    step = training.make_train_step(cfg, opt, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), device="cuda", generator=gen)
+    state, warm = step(state, tokens)  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    metrics, per_step = [], []
+    t0 = time.monotonic()
+    for _ in range(steps):
+        before = _launch_counts()
+        state, m = step(state, tokens)
+        per_step.append([a - b for a, b in zip(_launch_counts(), before)])
+        metrics.append(m)
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    launches = _launch_counts()
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    want = [2 * cfg.num_layers, cfg.num_layers, cfg.num_layers]
+    if any(c != want for c in per_step):
+        raise SystemExit(f"launches per step (fwd, dq, dkv) {per_step}, expected {want}")
+    if not all(np.isfinite(losses + norms)):
+        raise SystemExit(f"train step gave loss {losses}, grad norm {norms}")
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"loss did not fall over {steps} steps: {losses}")
+    ms = seconds / steps * 1e3
+    flops = gpt.train_step_flops(cfg, batch, seq)
+    report.update(
+        batch=batch, seq=seq, steps=steps, ce_chunk=cfg.ce_chunk, learning_rate=1e-4,
+        ms_per_step=ms, tokens_per_s=batch * seq * steps / seconds,
+        mfu=flops / (ms / 1e3) / PEAK_FLOPS[torch.bfloat16], train_step_flops=flops,
+        warmup_loss=float(warm["loss"]), losses=losses, grad_norms=norms,
+        launches_per_step=dict(zip(KERNEL_NAMES, want)),
+        launches=dict(zip(KERNEL_NAMES, launches)),
+        max_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    print(f"[train] gpt_1b bf16 compute / f32 master, b={batch} t={seq}, remat "
+          f"'{cfg.remat_policy}': {ms:.1f} ms per step, {report['tokens_per_s']:.0f} "
+          f"tokens/s, MFU {100 * report['mfu']:.1f}% of 989 TFLOP/s "
+          f"({flops / 1e12:.1f} TFLOP per step), peak memory "
+          f"{report['max_memory_gib']:.2f} GiB")
+    print(f"[train] loss {[round(x, 4) for x in losses]} (warm-up step "
+          f"{report['warmup_loss']:.4f}), grad norm {[round(x, 4) for x in norms]}, "
+          f"launches per step (fwd, dq, dkv) {want}")
+    if profile:
+        report["profile"] = profile_window(
+            lambda: (step(state, tokens), torch.cuda.synchronize()),
+            f"one gpt_1b train step, b={batch} t={seq}")
+    del state, step, metrics
+    torch.cuda.empty_cache()
+    return report
+
+
 def phase_forward(cfg, params, batch: int, seq: int, n_forward: int):
     from ray_tpu_torch.models.inference import make_forward
-    from ray_tpu_torch.ops import attention as attn
 
     fwd = make_forward(cfg, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq), device="cuda", generator=gen)
     logits = fwd(params, tokens)  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
-    attn.flash_fwd_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
     t0 = time.monotonic()
     for _ in range(n_forward):
         logits = fwd(params, tokens)
     torch.cuda.synchronize()
     seconds = time.monotonic() - t0
-    launches = attn.flash_fwd_launches
+    counts = dict(zip(KERNEL_NAMES, _launch_counts()))
+    launches = counts["flash_fwd"]
     want = n_forward * cfg.num_layers
     if launches != want:
         raise SystemExit(f"flash kernel launched {launches} times, expected {want}")
@@ -195,7 +431,7 @@ def phase_forward(cfg, params, batch: int, seq: int, n_forward: int):
           f"{tok_s:.0f} tokens/s, flash launches {launches} "
           f"({cfg.num_layers} per forward)")
     return fwd, dict(batch=batch, seq=seq, n_forward=n_forward, ms_per_forward=ms,
-                     tokens_per_s=tok_s, flash_launches=launches,
+                     tokens_per_s=tok_s, launches=counts,
                      max_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
 
 
@@ -215,16 +451,36 @@ def profile_window(fn, label: str):
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = [dict(name=e.key[:100], ms=e.self_device_time_total / 1e3, calls=e.count)
            for e in kernels[:12]]
+    groups = {}
+    for e in kernels:
+        groups[_kernel_group(e.key)] = (groups.get(_kernel_group(e.key), 0.0)
+                                        + e.self_device_time_total / 1e3)
     idle = max(0.0, 1.0 - busy_ms / wall_ms)
     print(f"[profile] {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
-          f"idle share {idle:.3f}; by kernel:")
+          f"idle share {idle:.3f}; by group: "
+          + ", ".join(f"{g} {ms:.1f} ms" for g, ms in sorted(groups.items(),
+                                                            key=lambda x: -x[1]))
+          + "; by kernel:")
     for t in top:
         print(f"[profile]   {t['ms']:9.3f} ms  x{t['calls']:<5} {t['name']}")
-    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=idle, top=top)
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=idle, top=top,
+                groups_ms=groups)
+
+
+def _kernel_group(name: str) -> str:
+    """The profile's coarse groups: the port's kernels, cuBLAS GEMMs, the
+    optimizer's multi-tensor (foreach) kernels, and everything else
+    (elementwise, copies, reductions)."""
+    if "flash_" in name:
+        return "flash kernels"
+    if name.startswith(("nvjet", "sm90_", "cutlass")) or "gemm" in name.lower():
+        return "GEMM"
+    if "multi_tensor_apply" in name:
+        return "foreach"
+    return "other"
 
 
 def phase_server(cfg, params, fwd, profile: bool):
-    from ray_tpu_torch.ops import attention as attn
     from ray_tpu_torch.serve import llm
 
     srv = llm.LLMServer(
@@ -241,7 +497,7 @@ def phase_server(cfg, params, fwd, profile: bool):
     try:
         llm.register_lora("lora:smoke", llm.random_lora(cfg, rank=8, seed=1, scale=2.0))
         srv({"prompt": prompt(100), "max_new_tokens": 4})  # warm-up
-        attn.flash_fwd_launches = 0
+        _reset_launch_counts()
         shared = prompt(512)
         payloads = [{"prompt": shared + prompt(n), "max_new_tokens": 32}
                     for n in (100, 200, 300, 400)]
@@ -290,7 +546,7 @@ def phase_server(cfg, params, fwd, profile: bool):
         bitwise = r1["tokens"] == r2["tokens"] and np.array_equal(r1["logits"], r2["logits"])
         if not bitwise:
             raise SystemExit("cached decode is not bitwise equal to uncached decode")
-        server_launches = attn.flash_fwd_launches
+        server_launches = dict(zip(KERNEL_NAMES, _launch_counts()))
 
         # engine prefill vs the full forward at the last prompt position
         full = fwd(params, torch.tensor([p], device="cuda"))[0, -1].float().cpu().numpy()
@@ -320,7 +576,7 @@ def phase_server(cfg, params, fwd, profile: bool):
             prefix_cached_tokens=[r["prefix_cached_tokens"] for r in results],
             bitwise_cached_vs_uncached=bitwise, engine_vs_forward_max_abs=diff,
             engine_vs_forward_atol=ENGINE_VS_FORWARD_ATOL,
-            kv_blocks_in_use_after=in_use, flash_launches=server_launches,
+            kv_blocks_in_use_after=in_use, launches=server_launches,
             prefill_seconds=st["prefill_seconds"], decode_seconds=st["decode_seconds"],
             steps=st["steps"],
         )
@@ -343,7 +599,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write every measurement to this JSON file")
     ap.add_argument("--profile", action="store_true",
-                    help="profile a gpt_1b forward and a server wave by kernel")
+                    help="profile a gpt_1b train step, a forward and a server wave "
+                         "by kernel")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a card",
@@ -362,6 +619,8 @@ def main() -> int:
     report = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
     report["build"] = phase_build()
     report["kernel_cases"] = phase_kernel_vs_plain()
+    report["bwd_kernel_cases"] = phase_bwd_kernels_vs_plain()
+    report["train"] = phase_train(batch=12, seq=2048, steps=5, profile=args.profile)
 
     cfg = gpt.gpt_1b(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
     params = init_params(cfg, device="cuda", seed=0)
@@ -374,20 +633,56 @@ def main() -> int:
     report["server"] = phase_server(cfg, params, fwd, args.profile)
     report["seconds"] = time.monotonic() - t_start
 
-    main_case = report["kernel_cases"][0]
-    kernels = {"kernels": [{
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "ray_tpu/ops/attention.py:167",
-        "launches": report["forward"]["flash_launches"],
-        "max_abs_err": main_case["max_abs_err"],
-        "ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"],
-    }]}
+    # flash_fwd at gpt_1b's forward shape (b=4) with the forward
+    # phase's launches; the backward kernels at the train step's case (b=12)
+    # with the train phase's. Each entry names its case's shape and carries
+    # the launches of every path. The backward kernels' plain and library
+    # times are of the whole backward: both compute dq, dk and dv together.
+    def case(rows, name):
+        row = next(r for r in rows if r["case"] == name)
+        b, h, t_q, t_kv, d = row["shape"]
+        return row, dict(b=b, h=h, t_q=t_q, t_kv=t_kv, d=d, causal=row["causal"],
+                         dtype=row["dtype"])
+
+    fwd_case, fwd_shape = case(report["kernel_cases"], "gpt_1b")
+    bwd_case, bwd_shape = case(report["bwd_kernel_cases"], "gpt_1b_train_b12")
+    by_path = {name: {path: report[path]["launches"][name]
+                      for path in ("train", "forward", "server")}
+               for name in KERNEL_NAMES}
+    bwd_src = "ray_tpu_torch/ops/csrc/flash_bwd.cu"
+    whole = "dq, dk and dv together"
+    kernels = {"kernels": [
+        dict(name="flash_fwd", route="cuda", source="ray_tpu_torch/ops/csrc/flash_fwd.cu",
+             replaces="ray_tpu/ops/attention.py:167",
+             launches=by_path["flash_fwd"]["forward"],
+             max_abs_err=fwd_case["max_abs_err"], ms=fwd_case["ms"],
+             plain_ms=fwd_case["plain_ms"], bound_ms=fwd_case["bound_ms"],
+             bound_by=fwd_case["bound_by"], library_ms=fwd_case["library_ms"],
+             shape=fwd_shape, launches_path="forward",
+             launches_by_path=by_path["flash_fwd"]),
+        dict(name="flash_bwd_dq", route="cuda", source=bwd_src,
+             replaces="ray_tpu/ops/attention.py:324",
+             launches=by_path["flash_bwd_dq"]["train"],
+             max_abs_err=bwd_case["max_abs_err"]["dq"], ms=bwd_case["dq_ms"],
+             plain_ms=bwd_case["plain_ms"], bound_ms=bwd_case["dq_bound_ms"],
+             bound_by=bwd_case["dq_bound_by"], library_ms=bwd_case["library_ms"],
+             shape=bwd_shape, launches_path="train",
+             launches_by_path=by_path["flash_bwd_dq"],
+             row_err=bwd_case["row_err"]["dq"], row_err_tol=bwd_case["row_err_tol"],
+             plain_ms_computes=whole, library_ms_computes=whole),
+        dict(name="flash_bwd_dkv", route="cuda", source=bwd_src,
+             replaces="ray_tpu/ops/attention.py:394",
+             launches=by_path["flash_bwd_dkv"]["train"],
+             max_abs_err=max(bwd_case["max_abs_err"]["dk"], bwd_case["max_abs_err"]["dv"]),
+             ms=bwd_case["dkv_ms"], plain_ms=bwd_case["plain_ms"],
+             bound_ms=bwd_case["dkv_bound_ms"], bound_by=bwd_case["dkv_bound_by"],
+             library_ms=bwd_case["library_ms"],
+             shape=bwd_shape, launches_path="train",
+             launches_by_path=by_path["flash_bwd_dkv"],
+             row_err=max(bwd_case["row_err"]["dk"], bwd_case["row_err"]["dv"]),
+             row_err_tol=bwd_case["row_err_tol"],
+             plain_ms_computes=whole, library_ms_computes=whole),
+    ]}
     report.update(kernels)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -10,6 +10,10 @@ layout, base 10000). The full-sequence forward runs its attention through
 the KV-cache extend step (``make_extend_fn``) computes its attention with
 plain matmul and softmax, as the reference's extend step does.
 
+Training parts: ``remat`` per block, ``next_token_loss``,
+``blockwise_next_token_loss`` and ``train_step_flops``; the train step
+itself is in ``models/training.py``.
+
 Parameters are a flat ``state_dict`` (``models.convert`` carries them across
 from the reference's flax tree). Each dense kernel is stored as an
 ``nn.Linear`` weight, ``[out_features, in_features]``; see ``convert`` for
@@ -25,6 +29,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.ops.attention import NEG_INF, dot_product_attention
@@ -46,6 +52,14 @@ class GPTConfig:
     param_dtype: torch.dtype = torch.float32  # parameter dtype
     parallel_residual: bool = True            # GPT-J style single-LN block
     tie_embeddings: bool = False
+    # recompute each block in the backward instead of keeping its
+    # activations (torch.utils.checkpoint per block, only while grad is on);
+    # "nothing" keeps only the block inputs. The reference's "dots" and
+    # "attn" policies are not ported yet and raise.
+    remat: bool = True
+    remat_policy: str = "nothing"
+    # sequence rows per [b, chunk, vocab] logits block of the blockwise loss
+    ce_chunk: int = 256
     # mixture-of-experts is not in the port yet: nonzero raises
     moe_num_experts: int = 0
 
@@ -101,6 +115,17 @@ def _check_dense(cfg: GPTConfig) -> None:
     if cfg.moe_num_experts:
         raise NotImplementedError(
             "MoE MLPs are not ported yet (ROADMAP.md, next items)")
+
+
+def _check_remat(cfg: GPTConfig) -> None:
+    if not cfg.remat:
+        return
+    if cfg.remat_policy in ("dots", "attn"):
+        raise NotImplementedError(
+            f"remat_policy {cfg.remat_policy!r} is not ported yet; only "
+            "'nothing' is (ROADMAP.md, next items)")
+    if cfg.remat_policy != "nothing":
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -256,15 +281,31 @@ class LMHead(nn.Module):
             torch.empty(cfg.vocab_size, dtype=cfg.param_dtype, device=device))
 
 
+def _run_block(block: Block, params: Dict[str, torch.Tensor], x: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    return functional_call(block, params, (x, positions))
+
+
 class GPT(nn.Module):
     """``forward(tokens [b, t], positions=None) -> logits [b, t, vocab]``
     in float32. Logits are computed in ``cfg.dtype``, then cast to float32
-    and the float32 head bias added. ``device`` defaults to CUDA (``"meta"``
-    builds a skeleton without storage)."""
+    and the float32 head bias added. With ``return_hidden=True`` it returns
+    ``(hidden [b, t, embed] in cfg.dtype, head weight [vocab, embed], head
+    bias [vocab] or None)`` instead, for ``blockwise_next_token_loss``, which
+    never holds the full logits. ``device`` defaults to CUDA (``"meta"``
+    builds a skeleton without storage).
+
+    While grad is enabled and ``cfg.remat`` is set, each block runs under
+    ``torch.utils.checkpoint``: only its input is kept, and the backward
+    runs the block's forward again (so the attention forward launches twice
+    per layer in a train step). The block's parameters are handed to the
+    checkpointed call, so the recomputation also works under
+    ``torch.func.functional_call``."""
 
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
         _check_dense(cfg)
+        _check_remat(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         self.wte = nn.Embedding(
@@ -274,18 +315,29 @@ class GPT(nn.Module):
         self.lm_head = None if cfg.tie_embeddings else LMHead(cfg, device)
 
     def forward(self, tokens: torch.Tensor,
-                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+                positions: Optional[torch.Tensor] = None,
+                return_hidden: bool = False):
         cfg = self.cfg
         if positions is None:
             positions = torch.arange(
                 tokens.shape[1], device=tokens.device).expand(tokens.shape)
         x = F.embedding(tokens, self.wte.weight.to(cfg.dtype))
+        remat = cfg.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x, positions)
+            if remat:
+                x = checkpoint(_run_block, block, dict(block.named_parameters()),
+                               x, positions, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = block(x, positions)
         x = self.ln_f(x)
         if self.lm_head is None:
-            return _logits(x, self.wte.weight, None, cfg.dtype)
-        return _logits(x, self.lm_head.weight, self.lm_head.bias, cfg.dtype)
+            weight, bias = self.wte.weight, None
+        else:
+            weight, bias = self.lm_head.weight, self.lm_head.bias
+        if return_hidden:
+            return x, weight, bias
+        return _logits(x, weight, bias, cfg.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -401,3 +453,84 @@ def make_extend_fn(cfg: GPTConfig):
         return logits, x.float(), torch.stack(k_new), torch.stack(v_new)
 
     return extend
+
+
+# ---------------------------------------------------------------------------
+# loss / flops helpers
+# ---------------------------------------------------------------------------
+
+
+def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean cross-entropy of predicting tokens[t+1] from position t; with
+    ``mask`` [b, t], the mean over positions whose target is unmasked."""
+    targets = tokens[:, 1:].long()
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    if mask is not None:
+        m = mask[:, 1:].float()
+        return (nll * m).sum() / m.sum().clamp_min(1.0)
+    return nll.mean()
+
+
+def _chunk_nll(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+               targets: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    logits = F.linear(x, weight).float()
+    if bias is not None:
+        logits = logits + bias.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    target_logit = torch.gather(logits, -1, targets[..., None])[..., 0]
+    return ((lse - target_logit) * valid).sum()
+
+
+def blockwise_next_token_loss(
+    hidden: torch.Tensor,
+    head_weight: torch.Tensor,
+    head_bias: Optional[torch.Tensor],
+    tokens: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    chunk: int = 256,
+) -> torch.Tensor:
+    """Mean next-token cross-entropy without holding [b, t, vocab] logits.
+
+    ``hidden`` [b, t, embed] is the final hidden state in the compute dtype,
+    ``head_weight`` [vocab, embed] and ``head_bias`` [vocab] (or None) the
+    output projection, as ``GPT(..., return_hidden=True)`` returns them.
+    The t - 1 predicting positions are taken ``chunk`` at a time (the last
+    chunk may be shorter): each chunk's logits are computed in the hidden
+    dtype, cast to float32 with the float32 bias, reduced to logsumexp minus
+    the target logit, and, while grad is enabled, recomputed in the backward
+    (``torch.utils.checkpoint``), so only one [b, chunk, vocab] float32
+    block lives at a time."""
+    n = hidden.shape[1] - 1
+    xs = hidden[:, :-1]
+    targets = tokens[:, 1:].long()
+    if mask is None:
+        valid = torch.ones(targets.shape, dtype=torch.float32, device=hidden.device)
+    else:
+        valid = mask[:, 1:].float()
+    weight = head_weight.to(hidden.dtype)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, n, chunk):
+        args = (xs[:, c0:c0 + chunk], weight, head_bias,
+                targets[:, c0:c0 + chunk], valid[:, c0:c0 + chunk])
+        if torch.is_grad_enabled():
+            total = total + checkpoint(_chunk_nll, *args, use_reentrant=False,
+                                       preserve_rng_state=False)
+        else:
+            total = total + _chunk_nll(*args)
+    return total / valid.sum().clamp_min(1.0)
+
+
+def train_step_flops(cfg: GPTConfig, batch: int, seq: int) -> float:
+    """Approximate FLOPs of one forward and backward step
+    (6 * matmul params * tokens + attention). The input embedding is a
+    gather, not a matmul, so it is left out; a tied head is a matmul, so it
+    counts once then. Recomputation under remat is not counted."""
+    tokens = batch * seq
+    matmul_params = cfg.num_params() - cfg.vocab_size * cfg.embed_dim
+    if cfg.tie_embeddings:
+        matmul_params += cfg.vocab_size * cfg.embed_dim
+    matmul = 6.0 * matmul_params * tokens
+    attn = 12.0 * cfg.num_layers * batch * cfg.num_heads * seq * seq * cfg.head_dim
+    return matmul + attn

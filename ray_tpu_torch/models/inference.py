@@ -1,6 +1,6 @@
 """Forward entry and initialisation for the port's GPT (counterparts of
 ``ray_tpu/models/training.py``'s ``make_forward`` and ``init_params``; the
-train step comes with the training slice)."""
+train step is in ``models/training.py``)."""
 
 from __future__ import annotations
 

@@ -10,13 +10,20 @@ a shorter q is the suffix of the kv context (``q_pos = q_idx + t_kv - t_q``).
   (``_flash_fwd_kernel``) tile for tile, including what it does to rows that
   see no key. Only the tests and the smoke script's comparison call it
   directly; the kernel's wrapper takes it for tensors on the CPU.
-* ``flash_attention_fwd``, the kernel's wrapper, launches the hand-written
-  Hopper kernel ``csrc/flash_fwd.cu`` on CUDA tensors and counts its
-  launches in ``flash_fwd_launches``; on CPU tensors it takes the plain
-  version and counts nothing. On a CUDA tensor it launches or raises: it
-  never falls back quietly.
-* ``dot_product_attention`` is the public entry, in the [b, h, t, d]
-  layout, over the wrapper.
+* ``flash_attention_bwd_plain`` repeats the arithmetic of the TPU backward
+  kernels (``_flash_bwd_dq_kernel``, ``_flash_bwd_dkv_kernel``), edge rules
+  included.
+* ``flash_attention_fwd``, the forward kernel's wrapper, launches the
+  hand-written Hopper kernel ``csrc/flash_fwd.cu`` on CUDA tensors and
+  counts its launches in ``flash_fwd_launches``; ``flash_attention_bwd``
+  launches the two kernels of ``csrc/flash_bwd.cu`` (``flash_bwd_dq``,
+  ``flash_bwd_dkv``, counted in ``flash_bwd_dq_launches`` and
+  ``flash_bwd_dkv_launches``). On CPU tensors the wrappers take the plain
+  versions and count nothing. On a CUDA tensor they launch or raise: they
+  never fall back quietly.
+* ``FlashAttention`` is the autograd Function over the two wrappers, and
+  ``dot_product_attention`` the public entry, in the [b, h, t, d] layout,
+  over the Function.
 """
 
 from __future__ import annotations
@@ -36,8 +43,10 @@ BLOCK_K = 64
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 
-#: launches of the flash forward kernel, counted where it is launched
+#: launches of each kernel, counted where it is launched
 flash_fwd_launches = 0
+flash_bwd_dq_launches = 0
+flash_bwd_dkv_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -186,22 +195,145 @@ def flash_attention_fwd_plain(
     return out, lse
 
 
+def flash_attention_bwd_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    causal: bool,
+    scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of the flash forward, in the dtypes of q, k and v: the
+    arithmetic of the TPU backward kernels (``_flash_bwd_dq_kernel`` and
+    ``_flash_bwd_dkv_kernel``) in float32, over the whole score matrix.
+
+    P = exp(S - lse) is recomputed from the forward's lse, with S masked to
+    NEG_INF under the causal mask (q the suffix of kv); delta = rowsum(dO * O);
+    dP = dO V^T, dS = P * (dP - delta) * scale; dq = dS K, dk = dS^T Q,
+    dv = P^T dO. Where ``causal and t_q > t_kv``, rows whose lse is at most
+    NEG_INF / 2 (rows that see no key) get P = 0: they add nothing to dk and
+    dv, and their dq is 0, whatever the forward gave them.
+
+    The kernels' other edge rules leave nothing to do here. A masked column
+    has P = exp(NEG_INF - lse) = 0 on every row the guard keeps, so a causal
+    tile that is skipped, a padded kv column of a ragged last tile (where the
+    dQ pass zeroes K and V) and a padded q row of a ragged last tile (where
+    the dK/dV pass zeroes Q, dO, P and dS) add exactly 0 in the tiled
+    kernels as well. Under that guard the result does not depend on the tile
+    size, apart from the order of summation."""
+    t_q, t_kv = q.shape[-2], k.shape[-2]
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    delta = (dof * o.float()).sum(-1)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    if causal:
+        s = torch.where(_causal_mask(t_q, t_kv, q.device), s, NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    if causal and t_q > t_kv:
+        p = torch.where(lse[..., None] > NEG_INF / 2, p, 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 # ---------------------------------------------------------------------------
-# the Hopper kernel
+# the Hopper kernels
 # ---------------------------------------------------------------------------
 
 
-def _flash_lib() -> ctypes.CDLL:
-    lib = _build.load("flash_fwd")
-    fn = lib.ray_tpu_flash_fwd
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        lib.ray_tpu_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.ray_tpu_cuda_error_string.restype = ctypes.c_char_p
+# each source's entry points, with their count of leading pointers, and its
+# error-string function; every entry point then takes bh, t_q, t_kv, d,
+# dtype, causal, scale and the stream
+_SOURCES = {
+    "flash_fwd": ({"ray_tpu_flash_fwd": 5}, "ray_tpu_cuda_error_string"),
+    "flash_bwd": ({"ray_tpu_flash_bwd_dq": 7, "ray_tpu_flash_bwd_dkv": 8},
+                  "ray_tpu_flash_bwd_error_string"),
+}
+_C_TAIL = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+
+
+def _kernel_lib(name: str) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` built and loaded, its functions' types set."""
+    entries, error_fn = _SOURCES[name]
+    lib = _build.load(name)
+    for fn_name, n_ptr in entries.items():
+        fn = getattr(lib, fn_name)
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_void_p] * n_ptr + _C_TAIL
+            fn.restype = ctypes.c_int
+    err = getattr(lib, error_fn)
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
     return lib
+
+
+def _launch(name: str, entry: str, tensors, q, t_kv: int, causal: bool,
+            scale: float) -> None:
+    """Launch ``entry`` of ``csrc/<name>.cu`` on the current stream over
+    ``tensors`` (pointers in the C function's order) and raise if the launch
+    was refused."""
+    lib = _kernel_lib(name)
+    b, h, t_q, d = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, entry)(
+            *(t.data_ptr() for t in tensors), b * h, t_q, t_kv, d,
+            _DTYPE_CODES[q.dtype], int(bool(causal)), float(scale), stream,
+        )
+    if err != 0:
+        msg = getattr(lib, _SOURCES[name][1])(err).decode()
+        raise RuntimeError(f"{entry} launch failed ({err}): {msg}")
+
+
+def _check_kernel_inputs(q, k, v, *same_as_q, rows=()) -> None:
+    """Raise ``ValueError`` unless the kernels take these tensors: on CUDA,
+    contiguous, 16-byte aligned; q [b, h, t_q, d] and k, v [b, h, t_kv, d]
+    of one dtype (bfloat16 or float32), d in ``HEAD_DIMS``; each of
+    ``same_as_q`` (o, do) like q; each of ``rows`` (lse, delta) float32
+    [b, h, t_q]."""
+    named = [("q", q), ("k", k), ("v", v)] + list(same_as_q) + list(rows)
+    for name, t in named:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} is on {t.device}, the kernel needs CUDA")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    for name, t in named[:3] + list(same_as_q):
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be a [b, h, t, d] tensor")
+        if t.dtype != q.dtype or t.dtype not in _DTYPE_CODES:
+            raise ValueError(
+                f"q, k, v must share a dtype in {list(_DTYPE_CODES)}; "
+                f"{name} is {t.dtype}"
+            )
+    b, h, t_q, d = q.shape
+    t_kv = k.shape[2]
+    if k.shape != (b, h, t_kv, d) or v.shape != k.shape:
+        raise ValueError(f"shape mismatch: q {q.shape} k {k.shape} v {v.shape}")
+    for name, t in same_as_q:
+        if t.shape != q.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} must match q {tuple(q.shape)}")
+    for name, t in rows:
+        if t.dtype != torch.float32 or t.shape != (b, h, t_q):
+            raise ValueError(f"{name} must be float32 [b, h, t_q] = {(b, h, t_q)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    if t_q == 0 or t_kv == 0 or b * h > 65535:
+        raise ValueError(f"unsupported shape q {tuple(q.shape)} k {tuple(k.shape)}")
+
+
+def _check_tiles(block_q: int, block_k: int) -> None:
+    if (block_q, block_k) != (BLOCK_Q, BLOCK_K):
+        raise ValueError(
+            f"the flash kernel's tiles are {BLOCK_Q}x{BLOCK_K}, "
+            f"got {block_q}x{block_k}"
+        )
 
 
 def flash_attention_fwd(
@@ -226,46 +358,103 @@ def flash_attention_fwd(
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_fwd_plain(
             q, k, v, causal=causal, scale=scale, block_q=block_q, block_k=block_k)
-    if (block_q, block_k) != (BLOCK_Q, BLOCK_K):
-        raise ValueError(
-            f"the flash kernel's tiles are {BLOCK_Q}x{BLOCK_K}, "
-            f"got {block_q}x{block_k}"
-        )
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda":
-            raise ValueError(f"{name} is on {t.device}, the kernel needs CUDA")
-        if t.dim() != 4 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous [b, h, t, d] tensor")
-        if t.dtype != q.dtype or t.dtype not in _DTYPE_CODES:
-            raise ValueError(
-                f"q, k, v must share a dtype in {list(_DTYPE_CODES)}; "
-                f"{name} is {t.dtype}"
-            )
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
-    b, h, t_q, d = q.shape
-    t_kv = k.shape[2]
-    if k.shape != (b, h, t_kv, d) or v.shape != k.shape:
-        raise ValueError(f"shape mismatch: q {q.shape} k {k.shape} v {v.shape}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
-    if t_q == 0 or t_kv == 0 or b * h > 65535:
-        raise ValueError(f"unsupported shape q {tuple(q.shape)} k {tuple(k.shape)}")
+    _check_tiles(block_q, block_k)
+    _check_kernel_inputs(q, k, v)
     out = torch.empty_like(q)
-    lse = torch.empty(b, h, t_q, dtype=torch.float32, device=q.device)
-    lib = _flash_lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.ray_tpu_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b * h, t_q, t_kv, d, _DTYPE_CODES[q.dtype],
-            int(bool(causal)), float(scale), stream,
-        )
-    if err != 0:
-        msg = lib.ray_tpu_cuda_error_string(err).decode()
-        raise RuntimeError(f"flash_fwd launch failed ({err}): {msg}")
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    _launch("flash_fwd", "ray_tpu_flash_fwd", (q, k, v, out, lse), q, k.shape[2],
+            causal, scale)
     flash_fwd_launches += 1
     return out, lse
+
+
+def flash_bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in float32 [b, h, t_q], as the reference
+    computes it outside its kernels."""
+    return (do.float() * o.float()).sum(-1)
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float
+                 ) -> torch.Tensor:
+    """dq from the dQ kernel of ``csrc/flash_bwd.cu`` (CUDA tensors only),
+    counted in ``flash_bwd_dq_launches``."""
+    global flash_bwd_dq_launches
+    _check_kernel_inputs(q, k, v, ("do", do), rows=(("lse", lse), ("delta", delta)))
+    dq = torch.empty_like(q)
+    _launch("flash_bwd", "ray_tpu_flash_bwd_dq", (q, k, v, do, lse, delta, dq), q,
+            k.shape[2], causal, scale)
+    flash_bwd_dq_launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) from the dK/dV kernel of ``csrc/flash_bwd.cu`` (CUDA tensors
+    only), counted in ``flash_bwd_dkv_launches``."""
+    global flash_bwd_dkv_launches
+    _check_kernel_inputs(q, k, v, ("do", do), rows=(("lse", lse), ("delta", delta)))
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _launch("flash_bwd", "ray_tpu_flash_bwd_dkv", (q, k, v, do, lse, delta, dk, dv),
+            q, k.shape[2], causal, scale)
+    flash_bwd_dkv_launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    causal: bool,
+    scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of the flash forward, given its out ``o``, its ``lse``
+    and the gradient ``do`` of out.
+
+    CPU tensors take ``flash_attention_bwd_plain`` and launch nothing. CUDA
+    tensors launch the two hand-written Hopper kernels of
+    ``csrc/flash_bwd.cu``, dQ then dK/dV, after delta = rowsum(dO * O): the
+    inputs the forward kernel takes, with o and do like q (contiguous) and
+    lse float32 [b, h, t_q]. Anything else raises."""
+    if all(t.device.type == "cpu" for t in (q, k, v, o, lse, do)):
+        return flash_attention_bwd_plain(
+            q, k, v, o, lse, do, causal=causal, scale=scale)
+    _check_kernel_inputs(q, k, v, ("o", o), ("do", do), rows=(("lse", lse),))
+    delta = flash_bwd_delta(o, do)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal=causal, scale=scale)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal, scale=scale)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its flash backward: the counterpart of the
+    reference's ``flash_attention`` custom_vjp.
+
+    ``FlashAttention.apply(q, k, v, causal, scale, block_q, block_k)``. The
+    forward is ``flash_attention_fwd`` and saves (q, k, v, out, lse); the
+    backward is ``flash_attention_bwd`` on a contiguous copy of the
+    incoming gradient. Both take the plain versions on CPU tensors and the
+    Hopper kernels on CUDA tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float,
+                block_q: int = BLOCK_Q, block_k: int = BLOCK_K):
+        out, lse = flash_attention_fwd(
+            q, k, v, causal=causal, scale=scale, block_q=block_q, block_k=block_k)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, lse, do.contiguous(), causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -284,17 +473,15 @@ def dot_product_attention(
     block_q: int = BLOCK_Q,
     block_k: int = BLOCK_K,
 ) -> torch.Tensor:
-    """Attention over [batch, heads, seq, head_dim] inputs.
+    """Attention over [batch, heads, seq, head_dim] inputs, differentiable.
 
-    Goes through ``flash_attention_fwd``: the plain version on CPU tensors,
-    the hand-written kernel on CUDA tensors. With ``segment_ids``, CPU
-    tensors take ``_attention_plain``. On CUDA, ``segment_ids`` and inputs
-    that require grad raise ``NotImplementedError`` (ROADMAP.md, next
-    items)."""
+    Goes through ``FlashAttention``: the plain versions on CPU tensors, the
+    hand-written forward and backward kernels on CUDA tensors. With
+    ``segment_ids``, CPU tensors take ``_attention_plain``; on CUDA they
+    raise ``NotImplementedError`` (ROADMAP.md, next items)."""
     scale_val = float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    on_cpu = q.device.type == "cpu"
     if segment_ids is not None:
-        if on_cpu:
+        if q.device.type == "cpu":
             return _attention_plain(
                 q, k, v, causal=causal, scale=scale_val, segment_ids=segment_ids
             )
@@ -302,13 +489,4 @@ def dot_product_attention(
             "segment_ids on CUDA: the flash kernel has no segment mask yet "
             "(ROADMAP.md, next items)"
         )
-    if (not on_cpu and torch.is_grad_enabled()
-            and any(t.requires_grad for t in (q, k, v))):
-        raise NotImplementedError(
-            "the CUDA attention is forward-only: its backward kernels come "
-            "with the training slice (ROADMAP.md, next items)"
-        )
-    out, _ = flash_attention_fwd(
-        q, k, v, causal=causal, scale=scale_val, block_q=block_q, block_k=block_k
-    )
-    return out
+    return FlashAttention.apply(q, k, v, causal, scale_val, block_q, block_k)

@@ -1,0 +1,44 @@
+"""How the port's kernels are held to their plain PyTorch versions: the
+tolerances and the error reading that ``chip_smoke.py`` and the card tests
+(``tests/test_torch_port_kernels.py``) share.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# forward, (out atol, lse atol). bf16: the kernel rounds P to bf16 before the
+# PV product (the plain version keeps it in float32) and both round O to
+# bf16, so |out| <= ~4 allows a few bf16 ulps; lse comes from float32 scores
+# in both (summation order only). float32: summation order only.
+FWD_TOL = {torch.bfloat16: (2e-2, 2e-3), torch.float32: (1e-4, 1e-4)}
+
+# backward, a limit on ``row_err`` of dq, dk and dv. bf16: the kernels round
+# P and dS to bf16 before they feed a product (2^-9 relative each, random in
+# sign, so a row's sum keeps about that share) and round dq, dk, dv to bf16
+# (at most 2^-9 of each element), where the plain version keeps float32 until
+# the end: a few 1e-3 per row. float32: summation order only.
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+# a row's norm counts for at least this share of the root mean square of the
+# reference's row norms, so that a row whose exact value is 0 (dq of the
+# first causal row: its one term has dP = delta) and which both sides give as
+# rounding noise does not count as a relative error of order 1
+ROW_FLOOR = 1 / 8
+
+
+def row_err(x: torch.Tensor, ref: torch.Tensor) -> float:
+    """The worst row's relative error of ``x`` against ``ref``: the largest,
+    over rows (vectors along the last dimension), of ||x_r - ref_r|| over
+    max(||ref_r||, ROW_FLOOR * rms), rms being the root mean square of the
+    reference's row norms.
+
+    Each row is held to its own norm. A gradient's largest elements sit in
+    its first causal rows, and rows further on are smaller by about the
+    square root of their position, so a limit taken from the largest element
+    would let a whole missing tile of the later rows pass."""
+    diff = torch.linalg.vector_norm(x.float() - ref.float(), dim=-1)
+    norm = torch.linalg.vector_norm(ref.float(), dim=-1)
+    floor = ROW_FLOOR * norm.square().mean().sqrt()
+    floor = torch.clamp(floor, min=torch.finfo(torch.float32).tiny)
+    return float((diff / torch.maximum(norm, floor)).max())

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from ray_tpu_torch.ops import attention as port
+from ray_tpu_torch.ops.tolerance import BWD_TOL, FWD_TOL, row_err
 
 # (b, h, t_q, t_kv, d, causal): the cases of tests/test_torch_port_attention.py
 CASES = [
@@ -28,10 +29,7 @@ CASES = [
     (1, 2, 130, 130, 32, True),
     (1, 1, 200, 264, 256, True),
 ]
-# bf16: the kernel rounds P to bf16 before the PV product (the plain version
-# keeps it in float32) and both round O to bf16; lse comes from float32
-# scores in both. float32: summation order only.
-TOL = {torch.bfloat16: (2e-2, 2e-3), torch.float32: (1e-4, 1e-4)}
+# the tolerances and why: ray_tpu_torch/ops/tolerance.py
 
 
 def _ids(case):
@@ -44,6 +42,46 @@ def _qkv(b, h, tq, tkv, d, device="cpu", dtype=torch.float32, seed=0):
     return tuple(
         torch.from_numpy(rng.randn(b, h, t, d).astype(np.float32)).to(device, dtype)
         for t in (tq, tkv, tkv))
+
+
+def _bwd_inputs(b, h, tq, tkv, d, causal, device, dtype, seed=0):
+    """q, k, v, the forward's out and lse, and a gradient of out."""
+    q, k, v = _qkv(b, h, tq, tkv, d, device=device, dtype=dtype, seed=seed)
+    scale = 1.0 / d ** 0.5
+    o, lse = port.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+    do = torch.from_numpy(np.random.RandomState(seed + 1).randn(b, h, tq, d)
+                          .astype(np.float32)).to(device, dtype)
+    return q, k, v, o, lse, do, scale
+
+
+def _assert_grads_close(got, want, tol):
+    """Each row of dq, dk and dv within ``tol`` of its own norm."""
+    for name, x, ref in zip(("dq", "dk", "dv"), got, want):
+        assert x.dtype == ref.dtype and x.shape == ref.shape, name
+        err = row_err(x, ref)
+        assert err <= tol, f"{name}: worst-row error {err} > {tol}"
+
+
+def test_row_err_holds_each_row_to_its_own_norm():
+    """The backward's comparison: bf16 rounding of the gradients passes, a
+    dK/dV pass that skips the last q tile fails, and a row that is 0 in the
+    reference and rounding noise in the kernel's result does not count."""
+    q, k, v, o, lse, do, scale = _bwd_inputs(1, 2, 512, 512, 64, True, "cpu",
+                                             torch.float32)
+    want = port.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True,
+                                          scale=scale)
+    for x in want:
+        assert row_err(x.to(torch.bfloat16), x) <= BWD_TOL[torch.bfloat16] / 4
+    do_skipped = do.clone()
+    do_skipped[:, :, -64:] = 0  # what the last q tile adds to dk and dv
+    _, dk, dv = port.flash_attention_bwd_plain(q, k, v, o, lse, do_skipped,
+                                               causal=True, scale=scale)
+    assert row_err(dk, want[1]) > 0.5 and row_err(dv, want[2]) > 0.5
+    zero_row = want[0].clone()
+    zero_row[..., 0, :] = 0
+    noisy = zero_row.clone()
+    noisy[..., 0, :] = 1e-6
+    assert row_err(noisy, zero_row) <= BWD_TOL[torch.float32]
 
 
 @pytest.fixture
@@ -70,6 +108,20 @@ def test_kernel_wrapper_refuses_tensors_off_cpu_and_cuda():
         port.flash_attention_fwd(q, k, v, causal=True, scale=0.125)
     with pytest.raises(ValueError, match="tiles"):
         port.flash_attention_fwd(q, k, v, causal=True, scale=0.125, block_q=128)
+    lse = torch.empty(1, 1, 64, device="meta")
+    with pytest.raises(ValueError, match="needs CUDA"):
+        port.flash_attention_bwd(q, k, v, q, lse, q, causal=True, scale=0.125)
+
+
+def test_bwd_wrapper_takes_the_plain_version_on_cpu():
+    q, k, v, o, lse, do, scale = _bwd_inputs(1, 2, 72, 72, 64, True, "cpu",
+                                             torch.float32)
+    before = (port.flash_bwd_dq_launches, port.flash_bwd_dkv_launches)
+    got = port.flash_attention_bwd(q, k, v, o, lse, do, causal=True, scale=scale)
+    want = port.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True,
+                                          scale=scale)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (port.flash_bwd_dq_launches, port.flash_bwd_dkv_launches) == before
 
 
 @pytest.mark.cuda
@@ -88,7 +140,7 @@ def test_flash_kernel_matches_plain_on_card(card, case, dtype):
     ref_o, ref_lse = port.flash_attention_fwd_plain(q, k, v, causal=causal,
                                                     scale=scale)
     torch.cuda.synchronize()
-    out_atol, lse_atol = TOL[dt]
+    out_atol, lse_atol = FWD_TOL[dt]
     assert o.dtype == dt and lse.dtype == torch.float32
     torch.testing.assert_close(o.float(), ref_o.float(), atol=out_atol, rtol=0)
     torch.testing.assert_close(lse, ref_lse, atol=lse_atol, rtol=1e-6)
@@ -110,11 +162,71 @@ def test_dispatcher_raises_for_what_the_kernel_does_not_take(card):
     with pytest.raises(NotImplementedError, match="segment_ids"):
         port.dot_product_attention(
             q, k, v, segment_ids=torch.zeros(1, 64, dtype=torch.int32, device=card))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        port.dot_product_attention(q.requires_grad_(), k, v)
+    # inputs that require grad go through the FlashAttention Function
+    out = port.dot_product_attention(q.clone().requires_grad_(), k, v)
+    assert "FlashAttention" in type(out.grad_fn).__name__
     with pytest.raises(ValueError, match="head_dim"):
         port.dot_product_attention(*_qkv(1, 1, 64, 64, 48, device=card,
                                          dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="dtype"):
         port.dot_product_attention(*_qkv(1, 1, 64, 64, 64, device=card,
                                          dtype=torch.float16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+def test_flash_bwd_kernels_match_plain_on_card(card, case, dtype):
+    """dq, dk, dv of the dQ and dK/dV kernels against the plain backward on
+    the same device tensors, rows that see no key included."""
+    dt = getattr(torch, dtype)
+    q, k, v, o, lse, do, scale = _bwd_inputs(*case, device=card, dtype=dt)
+    causal = case[5]
+    before = (port.flash_bwd_dq_launches, port.flash_bwd_dkv_launches)
+    got = port.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
+    assert (port.flash_bwd_dq_launches, port.flash_bwd_dkv_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = port.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                          scale=scale)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, want, BWD_TOL[dt])
+    again = port.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+
+
+@pytest.mark.cuda
+def test_dispatcher_differentiates_through_the_kernels_on_card(card):
+    q, k, v = (t.requires_grad_() for t in
+               _qkv(2, 4, 80, 80, 64, device=card, dtype=torch.bfloat16))
+    before = (port.flash_fwd_launches, port.flash_bwd_dq_launches,
+              port.flash_bwd_dkv_launches)
+    out = port.dot_product_attention(q, k, v, causal=True)
+    g = torch.ones_like(out).transpose(1, 2).contiguous().transpose(1, 2)
+    out.backward(g)  # a non-contiguous gradient, as the model hands it over
+    assert (port.flash_fwd_launches, port.flash_bwd_dq_launches,
+            port.flash_bwd_dkv_launches) == tuple(n + 1 for n in before)
+    o, lse = port.flash_attention_fwd_plain(q.detach(), k.detach(), v.detach(),
+                                            causal=True, scale=0.125)
+    want = port.flash_attention_bwd_plain(
+        q.detach(), k.detach(), v.detach(), out.detach(), lse,
+        g.contiguous(), causal=True, scale=0.125)
+    _assert_grads_close((q.grad, k.grad, v.grad), want, BWD_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_bwd_wrapper_raises_for_what_the_kernels_do_not_take(card):
+    q, k, v, o, lse, do, scale = _bwd_inputs(1, 2, 64, 64, 64, True, card,
+                                             torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        port.flash_attention_bwd(q, k, v, o, lse, do.transpose(2, 3),
+                                 causal=True, scale=scale)
+    with pytest.raises(ValueError, match="lse"):
+        port.flash_attention_bwd(q, k, v, o, lse.to(torch.bfloat16), do,
+                                 causal=True, scale=scale)
+    with pytest.raises(ValueError, match="dtype"):
+        port.flash_attention_bwd(q, k, v, o, lse, do.float(), causal=True,
+                                 scale=scale)
+    q48, k48, v48 = _qkv(1, 1, 64, 64, 48, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        port.flash_attention_bwd(q48, k48, v48, q48, lse[:, :1], q48,
+                                 causal=True, scale=scale)

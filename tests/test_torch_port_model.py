@@ -233,7 +233,8 @@ def test_extend_prefill_matches_full_forward():
 def test_port_imports_no_jax_and_no_ray_tpu():
     code = (
         "import sys, ray_tpu_torch, ray_tpu_torch.serve.llm, "
-        "ray_tpu_torch.models.convert, ray_tpu_torch.ops.attention\n"
+        "ray_tpu_torch.models.convert, ray_tpu_torch.models.training, "
+        "ray_tpu_torch.ops.attention\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'optax', "
         "'ray_tpu') or m.startswith(('jax.', 'flax.', 'optax.', 'ray_tpu.')))\n"
         "print(bad)\n"

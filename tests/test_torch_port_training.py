@@ -1,0 +1,263 @@
+"""ray_tpu_torch's training parts against ray_tpu's on the CPU: the losses,
+the optimizer, remat and the train and eval steps.
+
+Inputs come from numpy seeds; weights from the JAX init, carried across
+with ``params_from_jax``. Everything runs in float32. Tolerances:
+- losses and their gradients: atol 1e-5, rtol 1e-5 (other summation
+  orders);
+- optimizer against optax: atol 1e-6, rtol 1e-5 over 4 steps (the same
+  arithmetic in another order of operations);
+- gpt_nano train step, 5 steps at lr 1e-2: loss and grad norm within
+  rtol 1e-4 (the port's attention is the tiled flash algorithm, the JAX CPU
+  path the full softmax; the optimizer feeds each step's rounding into the
+  next).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from ray_tpu.models import gpt as jgpt
+from ray_tpu.models import training as jtr
+from ray_tpu_torch.models import convert, gpt, inference, training
+from ray_tpu_torch.ops import attention
+
+LOSS_TOL = dict(atol=1e-5, rtol=1e-5)
+OPT_TOL = dict(atol=1e-6, rtol=1e-5)
+STEP_RTOL = 1e-4
+
+
+def _nano_params(seed=0):
+    variables = jgpt.GPT(jgpt.gpt_nano()).init(
+        jax.random.PRNGKey(seed), jnp.zeros((1, 8), jnp.int32))
+    return jax.tree_util.tree_map(np.asarray, jgpt.unboxed_params(variables))
+
+
+def _tokens(b, t, vocab, seed=0):
+    return np.random.RandomState(seed).randint(0, vocab, (b, t)).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("tied", [False, True], ids=["bias", "tied"])
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "masked"])
+def test_blockwise_loss_matches_jax(masked, tied):
+    """Value and gradients (hidden, head weight, head bias); t - 1 = 36 is
+    not a multiple of the chunk of 8."""
+    rng = np.random.RandomState(1)
+    b, t, d, vocab, chunk = 2, 37, 16, 64, 8
+    hidden = rng.randn(b, t, d).astype(np.float32)
+    kernel = (0.3 * rng.randn(d, vocab)).astype(np.float32)
+    bias = None if tied else (0.1 * rng.randn(vocab)).astype(np.float32)
+    tokens = _tokens(b, t, vocab, seed=2)
+    mask = (rng.rand(b, t) > 0.3).astype(np.float32) if masked else None
+
+    def jloss(h, w, bb):
+        return jgpt.blockwise_next_token_loss(
+            h, w, bb, jnp.asarray(tokens),
+            None if mask is None else jnp.asarray(mask), chunk=chunk)
+
+    jargs = (jnp.asarray(hidden), jnp.asarray(kernel),
+             None if bias is None else jnp.asarray(bias))
+    argnums = (0, 1) if tied else (0, 1, 2)
+    ref, ref_grads = jax.value_and_grad(jloss, argnums=argnums)(*jargs)
+
+    h = torch.from_numpy(hidden).requires_grad_()
+    w = torch.from_numpy(kernel.T.copy()).requires_grad_()
+    bt = None if bias is None else torch.from_numpy(bias).requires_grad_()
+    loss = gpt.blockwise_next_token_loss(
+        h, w, bt, torch.from_numpy(tokens),
+        None if mask is None else torch.from_numpy(mask), chunk=chunk)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(ref), **LOSS_TOL)
+    np.testing.assert_allclose(h.grad.numpy(), np.asarray(ref_grads[0]), **LOSS_TOL)
+    np.testing.assert_allclose(w.grad.numpy().T, np.asarray(ref_grads[1]), **LOSS_TOL)
+    if not tied:
+        np.testing.assert_allclose(bt.grad.numpy(), np.asarray(ref_grads[2]),
+                                   **LOSS_TOL)
+    # without grad the chunks are not checkpointed; same value
+    with torch.no_grad():
+        again = gpt.blockwise_next_token_loss(
+            h, w, bt, torch.from_numpy(tokens),
+            None if mask is None else torch.from_numpy(mask), chunk=chunk)
+    assert torch.equal(again, loss.detach())
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "masked"])
+def test_next_token_loss_matches_jax(masked):
+    rng = np.random.RandomState(3)
+    logits = (2 * rng.randn(2, 19, 50)).astype(np.float32)
+    tokens = _tokens(2, 19, 50, seed=4)
+    mask = (rng.rand(2, 19) > 0.4).astype(np.float32) if masked else None
+    ref = jgpt.next_token_loss(jnp.asarray(logits), jnp.asarray(tokens),
+                               None if mask is None else jnp.asarray(mask))
+    got = gpt.next_token_loss(torch.from_numpy(logits), torch.from_numpy(tokens),
+                              None if mask is None else torch.from_numpy(mask))
+    np.testing.assert_allclose(float(got), float(ref), **LOSS_TOL)
+
+
+def test_blockwise_loss_equals_full_loss_of_the_logits():
+    sd = inference.init_params(gpt.gpt_nano(), device="cpu", seed=3)
+    model = gpt.GPT(gpt.gpt_nano(), device="cpu")
+    model.load_state_dict(sd)
+    tokens = torch.from_numpy(_tokens(2, 50, 256, seed=5)).long()
+    with torch.no_grad():
+        hidden, w, bias = model(tokens, return_hidden=True)
+        full = gpt.next_token_loss(model(tokens), tokens)
+    assert hidden.shape == (2, 50, 64) and w.shape == (256, 64)
+    torch.testing.assert_close(
+        gpt.blockwise_next_token_loss(hidden, w, bias, tokens, chunk=16), full,
+        atol=1e-5, rtol=1e-5)
+
+
+def test_train_step_flops_matches_jax():
+    for name in ("gpt_nano", "gpt_125m", "gpt_1b", "gpt_j_6b"):
+        assert gpt.train_step_flops(getattr(gpt, name)(), 12, 2048) == \
+            jgpt.train_step_flops(getattr(jgpt, name)(), 12, 2048)
+    tied = dict(tie_embeddings=True)
+    assert gpt.train_step_flops(gpt.gpt_1b(**tied), 4, 512) == \
+        jgpt.train_step_flops(jgpt.gpt_1b(**tied), 4, 512)
+
+
+# ---------------------------------------------------------------------------
+# optimizer
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("weight_decay", [0.0, 0.1])
+def test_optimizer_matches_optax(weight_decay):
+    """Four steps on the same numpy gradients; global norms of 3.0, 0.5,
+    2.0 and 0.25, so the clip acts on steps 1 and 3 only."""
+    rng = np.random.RandomState(5)
+    shapes = {"a": (4, 6), "b": (6,), "c": (3, 2, 5)}
+    params = {k: rng.randn(*s).astype(np.float32) for k, s in shapes.items()}
+    grads = []
+    for norm in (3.0, 0.5, 2.0, 0.25):
+        g = {k: rng.randn(*s).astype(np.float32) for k, s in shapes.items()}
+        total = np.sqrt(sum(float((x.astype(np.float64) ** 2).sum()) for x in g.values()))
+        grads.append({k: (x * (norm / total)).astype(np.float32) for k, x in g.items()})
+
+    tx = jtr.default_optimizer(1e-2, weight_decay=weight_decay)
+    jparams = {k: jnp.asarray(v) for k, v in params.items()}
+    jstate = tx.init(jparams)
+    opt = training.default_optimizer(1e-2, weight_decay=weight_decay)
+    tparams = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    tstate = opt.init(tparams)
+    for g in grads:
+        jg = {k: jnp.asarray(v) for k, v in g.items()}
+        updates, jstate = tx.update(jg, jstate, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        tstate, norm = opt.update(
+            tparams, [torch.from_numpy(g[k].copy()) for k in tparams], tstate)
+        np.testing.assert_allclose(float(norm), float(optax.global_norm(jg)),
+                                   rtol=1e-6)
+        for k in params:
+            np.testing.assert_allclose(tparams[k].numpy(), np.asarray(jparams[k]),
+                                       err_msg=k, **OPT_TOL)
+    assert tstate.count == 4
+
+
+# ---------------------------------------------------------------------------
+# remat and the steps
+# ---------------------------------------------------------------------------
+
+
+def _grads(cfg, sd, tokens):
+    params = {k: v.clone().requires_grad_() for k, v in sd.items()}
+    model = gpt.GPT(cfg, device="meta")
+    hidden, w, b = torch.func.functional_call(model, params, (tokens,),
+                                              {"return_hidden": True})
+    loss = gpt.blockwise_next_token_loss(hidden, w, b, tokens, chunk=cfg.ce_chunk)
+    return loss, torch.autograd.grad(loss, list(params.values()))
+
+
+def test_remat_on_and_off_give_the_same_gradients(monkeypatch):
+    """Under remat the attention forward runs twice per layer (forward and
+    recomputation), once per layer without it; the gradients agree."""
+    calls = []
+    plain = attention.flash_attention_fwd_plain
+    monkeypatch.setattr(attention, "flash_attention_fwd_plain",
+                        lambda *a, **kw: calls.append(1) or plain(*a, **kw))
+    cfg_on = gpt.gpt_nano(ce_chunk=32)
+    cfg_off = gpt.gpt_nano(ce_chunk=32, remat=False)
+    sd = inference.init_params(cfg_on, device="cpu", seed=6)
+    tokens = torch.from_numpy(_tokens(2, 70, 256, seed=7)).long()
+    loss_on, g_on = _grads(cfg_on, sd, tokens)
+    assert len(calls) == 2 * cfg_on.num_layers
+    calls.clear()
+    loss_off, g_off = _grads(cfg_off, sd, tokens)
+    assert len(calls) == cfg_on.num_layers
+    assert torch.equal(loss_on, loss_off)
+    for name, a, b in zip(sd, g_on, g_off):
+        torch.testing.assert_close(a, b, atol=1e-7, rtol=1e-6, msg=name)
+    with torch.no_grad():  # no grad, no recomputation
+        calls.clear()
+        gpt.GPT(cfg_on, device="cpu")(tokens)
+        assert len(calls) == cfg_on.num_layers
+
+
+def test_remat_policies_not_ported_raise():
+    for policy in ("dots", "attn"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            gpt.GPT(gpt.gpt_nano(remat_policy=policy), device="meta")
+    with pytest.raises(ValueError, match="remat_policy"):
+        gpt.GPT(gpt.gpt_nano(remat_policy="everything"), device="meta")
+    gpt.GPT(gpt.gpt_nano(remat=False, remat_policy="dots"), device="meta")
+
+
+def test_gpt_nano_train_step_tracks_jax():
+    """Five steps from the same weights on one repeated batch: loss and
+    grad norm against JAX's make_train_step (no mesh)."""
+    tree = _nano_params()
+    tokens = _tokens(2, 64, 256, seed=8)
+    tx = jtr.default_optimizer(1e-2)
+    jstate = jtr.TrainState(step=jnp.zeros((), jnp.int32),
+                            params=jax.tree_util.tree_map(jnp.asarray, tree),
+                            opt_state=tx.init(tree))
+    jstep = jtr.make_train_step(jgpt.gpt_nano(), tx, donate=False)
+    cfg = gpt.gpt_nano()
+    opt = training.default_optimizer(1e-2)
+    state = training.init_train_state(
+        convert.params_from_jax(tree, cfg, device="cpu"), opt)
+    step = training.make_train_step(cfg, opt, device="cpu")
+    losses = []
+    for i in range(5):
+        jstate, jm = jstep(jstate, jnp.asarray(tokens))
+        state, m = step(state, torch.from_numpy(tokens))
+        assert m["step"] == i + 1 and state.step == i + 1
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=STEP_RTOL)
+        np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]),
+                                   rtol=STEP_RTOL)
+        losses.append(float(m["loss"]))
+    assert losses[-1] < losses[0]
+    # the parameters after five steps, carried back
+    back = convert.params_to_jax(state.params, cfg)
+    np.testing.assert_allclose(back["lm_head"]["kernel"],
+                               np.asarray(jstate.params["lm_head"]["kernel"]),
+                               atol=1e-4, rtol=1e-3)
+
+
+def test_eval_step_matches_jax():
+    tree = _nano_params(seed=1)
+    tokens = _tokens(3, 40, 256, seed=9)
+    ref = jtr.make_eval_step(jgpt.gpt_nano())(tree, jnp.asarray(tokens))
+    cfg = gpt.gpt_nano()
+    sd = convert.params_from_jax(tree, cfg, device="cpu")
+    got = training.make_eval_step(cfg, device="cpu")(sd, torch.from_numpy(tokens))
+    np.testing.assert_allclose(float(got), float(ref), **LOSS_TOL)
+    assert not any(p.requires_grad for p in sd.values())
+
+
+def test_train_step_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        training.make_train_step(gpt.gpt_nano(), training.default_optimizer())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        training.make_eval_step(gpt.gpt_nano())
