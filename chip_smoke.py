@@ -7,9 +7,11 @@ Phases (any failure exits non-zero; nothing is caught):
   1. build: compile ray_tpu_torch/ops/csrc/flash_fwd.cu and flash_bwd.cu
      with nvcc, in parallel, and print their register and spill reports;
   2. kernel vs plain: the flash forward kernel against its plain PyTorch
-     version on the same device tensors, per case, with max abs error,
-     kernel / plain / library (scaled_dot_product_attention, a yardstick the
-     port never calls) times and the bound;
+     version on the same device tensors, per case: each row of out held to
+     its own norm and lse to an absolute limit
+     (ray_tpu_torch/ops/tolerance.py), max abs error, kernel / plain /
+     library (scaled_dot_product_attention, a yardstick the port never
+     calls) times and the bound;
   3. backward kernels vs plain: the dQ and dK/dV kernels against
      flash_attention_bwd_plain, per case: each row of dq, dk, dv held to its
      own norm (ray_tpu_torch/ops/tolerance.py), max abs error, each kernel's
@@ -147,7 +149,7 @@ def phase_kernel_vs_plain():
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops import attention as attn
-    from ray_tpu_torch.ops.tolerance import FWD_TOL
+    from ray_tpu_torch.ops.tolerance import FWD_LSE_TOL, FWD_ROW_TOL, row_err
 
     cases = [
         # name, b, h, t_q, t_kv, d, causal, dtype
@@ -175,9 +177,11 @@ def phase_kernel_vs_plain():
         ref_out, ref_lse = attn.flash_attention_fwd_plain(q, k, v, causal=causal, scale=scale)
         torch.cuda.synchronize()
         err = float((out.float() - ref_out.float()).abs().max())
+        out_row_err = row_err(out, ref_out)
         lse_err = float((lse - ref_lse).abs().max())
-        out_tol, lse_tol = FWD_TOL[dtype]
-        ok = err <= out_tol and lse_err <= lse_tol and bool(torch.isfinite(out).all())
+        out_tol, lse_tol = FWD_ROW_TOL[dtype], FWD_LSE_TOL[dtype]
+        ok = (out_row_err <= out_tol and lse_err <= lse_tol
+              and bool(torch.isfinite(out).all()))
         big = b * h * t_q * t_kv >= 2 ** 26
         ms = cuda_ms(lambda: attn.flash_attention_fwd(q, k, v, causal=causal, scale=scale),
                      iters=20 if big else 50)
@@ -194,19 +198,24 @@ def phase_kernel_vs_plain():
         bound_ms, bound_by, flops, nbytes = attention_bound(b, h, t_q, t_kv, d, causal, dtype)
         row = dict(case=name, shape=[b, h, t_q, t_kv, d], causal=causal,
                    dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
-                   lse_max_abs_err=lse_err, out_tol=out_tol, lse_tol=lse_tol, ok=ok,
+                   row_err=out_row_err, row_err_tol=out_tol,
+                   lse_max_abs_err=lse_err, lse_tol=lse_tol, ok=ok,
                    ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                    bound_by=bound_by, tflops=flops / ms / 1e9,
                    bound_share=bound_ms / ms)
         rows.append(row)
-        print(f"[kernel] {name:<22} {str(row['shape']):<28} err {err:.3e} "
-              f"lse {lse_err:.3e} {'ok' if ok else 'FAIL'} | kernel {ms:.4f} ms "
+        print(f"[kernel] {name:<22} {str(row['shape']):<28} worst-row err "
+              f"{out_row_err:.2e} (limit {out_tol:.0e}), max abs err {err:.2e}, lse "
+              f"{lse_err:.2e} (limit {lse_tol:.0e}) {'ok' if ok else 'FAIL'} | "
+              f"kernel {ms:.4f} ms "
               f"({row['tflops']:.1f} TFLOP/s, {100 * row['bound_share']:.1f}% of bound) "
               f"plain {plain_ms:.3f} ms library {library_ms:.4f} ms "
               f"bound {bound_ms:.4f} ms ({bound_by})")
-    bad = [r["case"] for r in rows if not r["ok"]]
+    bad = [(r["case"], r["row_err"], r["lse_max_abs_err"]) for r in rows if not r["ok"]]
     if bad:
-        raise SystemExit(f"kernel disagrees with its plain version: {bad}")
+        raise SystemExit(f"kernel disagrees with its plain version (case, worst-row "
+                         f"error of out against {FWD_ROW_TOL}, lse error against "
+                         f"{FWD_LSE_TOL}): {bad}")
     return rows
 
 

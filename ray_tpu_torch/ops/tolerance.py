@@ -7,11 +7,22 @@ from __future__ import annotations
 
 import torch
 
-# forward, (out atol, lse atol). bf16: the kernel rounds P to bf16 before the
-# PV product (the plain version keeps it in float32) and both round O to
-# bf16, so |out| <= ~4 allows a few bf16 ulps; lse comes from float32 scores
-# in both (summation order only). float32: summation order only.
-FWD_TOL = {torch.bfloat16: (2e-2, 2e-3), torch.float32: (1e-4, 1e-4)}
+# forward, a limit on ``row_err`` of out. bf16: the kernel rounds P to bf16
+# before the PV product (2^-9 relative each, random in sign, so a row's sum
+# keeps about that share; the plain version keeps float32) and both round O
+# to bf16 (at most 2^-9 of each element). At b=1 h=2 t=2048 d=128, causal,
+# that rounding reads ~2e-3, while half of V in one kv tile, seen only by the
+# last q tile, reads ~0.18 and a box of a tile read from the wrong place
+# 0.3-1 (tests/test_torch_port_kernels.py holds the first two). A limit on
+# the largest element cannot tell the V fault from rounding: an element of
+# the last rows has a root mean square of ~0.04, and the fault moves the
+# largest error by about as much as rounding does. float32: summation order
+# only.
+FWD_ROW_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+# forward, lse atol: float32 scores in both, summation order only (the bf16
+# kernel's scores come from bf16 q and k, as the plain version's do).
+FWD_LSE_TOL = {torch.bfloat16: 2e-3, torch.float32: 1e-4}
 
 # backward, a limit on ``row_err`` of dq, dk and dv. bf16: the kernels round
 # P and dS to bf16 before they feed a product (2^-9 relative each, random in

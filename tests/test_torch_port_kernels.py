@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from ray_tpu_torch.ops import attention as port
-from ray_tpu_torch.ops.tolerance import BWD_TOL, FWD_TOL, row_err
+from ray_tpu_torch.ops.tolerance import BWD_TOL, FWD_LSE_TOL, FWD_ROW_TOL, row_err
 
 # (b, h, t_q, t_kv, d, causal): the cases of tests/test_torch_port_attention.py
 CASES = [
@@ -84,6 +84,24 @@ def test_row_err_holds_each_row_to_its_own_norm():
     assert row_err(noisy, zero_row) <= BWD_TOL[torch.float32]
 
 
+def test_fwd_row_err_tells_a_v_fault_from_rounding():
+    """The forward's comparison at b=1 h=2 t=2048 d=128, causal: bf16
+    rounding of the output reads under a quarter of the limit, and half of V
+    in one mid kv tile, seen only by the last q tile (a pipeline stage read
+    at the wrong time), reads over five times the limit."""
+    q, k, v = _qkv(1, 2, 2048, 2048, 128, seed=7)
+    scale = 1.0 / 128 ** 0.5
+    ref, _ = port.flash_attention_fwd_plain(q, k, v, causal=True, scale=scale)
+    tol = FWD_ROW_TOL[torch.bfloat16]
+    assert row_err(ref.to(torch.bfloat16), ref) <= tol / 4
+    v_fault = v.clone()
+    v_fault[:, :, 1024:1088] *= 0.5
+    faulty, _ = port.flash_attention_fwd_plain(q, k, v_fault, causal=True, scale=scale)
+    out = ref.clone()
+    out[:, :, -64:] = faulty[:, :, -64:]
+    assert row_err(out, ref) > 5 * tol
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -140,10 +158,10 @@ def test_flash_kernel_matches_plain_on_card(card, case, dtype):
     ref_o, ref_lse = port.flash_attention_fwd_plain(q, k, v, causal=causal,
                                                     scale=scale)
     torch.cuda.synchronize()
-    out_atol, lse_atol = FWD_TOL[dt]
     assert o.dtype == dt and lse.dtype == torch.float32
-    torch.testing.assert_close(o.float(), ref_o.float(), atol=out_atol, rtol=0)
-    torch.testing.assert_close(lse, ref_lse, atol=lse_atol, rtol=1e-6)
+    err = row_err(o, ref_o)
+    assert err <= FWD_ROW_TOL[dt], f"out: worst-row error {err} > {FWD_ROW_TOL[dt]}"
+    torch.testing.assert_close(lse, ref_lse, atol=FWD_LSE_TOL[dt], rtol=1e-6)
 
 
 @pytest.mark.cuda
@@ -153,7 +171,7 @@ def test_dispatcher_launches_the_kernel_on_card(card):
     out = port.dot_product_attention(q, k, v, causal=True)
     assert port.flash_fwd_launches == before + 1
     plain, _ = port.flash_attention_fwd_plain(q, k, v, causal=True, scale=0.125)
-    torch.testing.assert_close(out.float(), plain.float(), atol=2e-2, rtol=0)
+    assert row_err(out, plain) <= FWD_ROW_TOL[torch.bfloat16]
 
 
 @pytest.mark.cuda
