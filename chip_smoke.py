@@ -4,8 +4,10 @@
     python3 chip_smoke.py [--out results.json] [--profile]
 
 Phases (any failure exits non-zero; nothing is caught):
-  1. build: compile ray_tpu_torch/ops/csrc/flash_fwd.cu and flash_bwd.cu
-     with nvcc, in parallel, and print their register and spill reports;
+  1. build: compile ray_tpu_torch/ops/csrc/flash_fwd_wgmma.cu, flash_fwd.cu
+     and flash_bwd.cu with nvcc, in parallel, and print their register,
+     shared-memory and spill reports; the wgmma forward at head_dim 128 (the
+     main path) must not spill;
   2. kernel vs plain: the flash forward kernel against its plain PyTorch
      version on the same device tensors, per case: each row of out held to
      its own norm and lse to an absolute limit
@@ -22,10 +24,11 @@ Phases (any failure exits non-zero; nothing is caught):
      moments, remat "nothing"), b=12, t=2048, ce_chunk 512, lr 1e-4: one
      warm-up step and 5 timed steps on one repeated batch. Loss and grad
      norm finite, the last loss below the first, and per step exactly
-     2 * num_layers forward launches and num_layers launches of each
-     backward kernel;
+     2 * num_layers forward launches, all on the wgmma design, and
+     num_layers launches of each backward kernel;
   5. forward: gpt_1b in bf16 (random weights from a seeded torch.Generator),
-     b=4, t=2048; the kernel must launch num_layers times per forward;
+     b=4, t=2048; the wgmma forward kernel must launch num_layers times per
+     forward;
   6. server: the in-process LLMServer at gpt_1b; 8 requests (4 share a
      512-token prefix), prefix-cache hits, bitwise cached-vs-uncached
      logits, engine prefill vs full forward, and no KV block leaked.
@@ -37,8 +40,10 @@ device time by kernel and the idle share are printed (and written to
 
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero without a card.
-In the kernels line, flash_fwd stands at gpt_1b's forward shape (b=4) with
-the forward phase's launches, and the backward kernels at the train step's
+Each forward case names the design (FWD_DESIGNS: wgmma or mma_sync) and the
+tiles that ran it. In the kernels line, flash_fwd is the wgmma design, the
+one the main path runs, at gpt_1b's forward shape (b=4) with the forward
+phase's launches, and the backward kernels at the train step's
 shape (b=12) with the train phase's; every entry names its shape and its
 launches on each path, and the backward kernels' plain and library times
 are those of the whole backward (dq, dk and dv together).
@@ -54,6 +59,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import argparse  # noqa: E402
 import json  # noqa: E402
+import re  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 import threading  # noqa: E402
@@ -131,18 +137,38 @@ def phase_build():
         return _build.build(name), time.monotonic() - t0
 
     t0 = time.monotonic()
-    names = ("flash_fwd", "flash_bwd")
+    names = ("flash_fwd_wgmma", "flash_fwd", "flash_bwd")
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
         built = dict(zip(names, pool.map(timed, names)))
     out = {"seconds": time.monotonic() - t0}
     for name, (lib, seconds) in built.items():
         print(f"[build] {lib.name} in {seconds:.1f} s")
-        # the compiler's register and spill report, kept beside the library
-        for line in lib.with_name(lib.name + ".log").read_text().splitlines():
-            if "Compiling entry" in line or "registers" in line or "spill" in line:
+        # the compiler's register, shared-memory and spill report, kept
+        # beside the library
+        report = lib.with_name(lib.name + ".log").read_text()
+        for line in report.splitlines():
+            if any(w in line for w in ("Compiling entry", "registers", "spill", "warning")):
                 print(f"[build]   {line.strip()}")
-        out[name] = {"seconds": seconds, "library": lib.name}
+        out[name] = {"seconds": seconds, "library": lib.name,
+                     "spills": _spills_by_kernel(report)}
+    main = {k: v for k, v in out["flash_fwd_wgmma"]["spills"].items() if "ILi128E" in k}
+    if not main or any(main.values()):
+        raise SystemExit(f"the wgmma forward at head_dim 128 spills: {main}")
     return out
+
+
+def _spills_by_kernel(report: str):
+    """{mangled kernel name: spill stores + spill loads in bytes} from a
+    ``-Xptxas -v`` report."""
+    spills, current = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and current is not None:
+            spills[current] = int(m.group(1)) + int(m.group(2))
+    return spills
 
 
 def phase_kernel_vs_plain():
@@ -173,6 +199,7 @@ def phase_kernel_vs_plain():
         k = torch.randn(b, h, t_kv, d, device="cuda", dtype=dtype, generator=gen)
         v = torch.randn(b, h, t_kv, d, device="cuda", dtype=dtype, generator=gen)
         scale = 1.0 / d ** 0.5
+        design = attn.FWD_DESIGNS[(d, dtype)]
         out, lse = attn.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
         ref_out, ref_lse = attn.flash_attention_fwd_plain(q, k, v, causal=causal, scale=scale)
         torch.cuda.synchronize()
@@ -197,14 +224,17 @@ def phase_kernel_vs_plain():
         library_ms = cuda_ms(lib_fn, iters=20 if big else 50)
         bound_ms, bound_by, flops, nbytes = attention_bound(b, h, t_q, t_kv, d, causal, dtype)
         row = dict(case=name, shape=[b, h, t_q, t_kv, d], causal=causal,
-                   dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
+                   dtype=str(dtype).replace("torch.", ""), design=design.name,
+                   source=f"ray_tpu_torch/ops/csrc/{design.source}.cu",
+                   tiles=[design.block_q, design.block_k], max_abs_err=err,
                    row_err=out_row_err, row_err_tol=out_tol,
                    lse_max_abs_err=lse_err, lse_tol=lse_tol, ok=ok,
                    ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                    bound_by=bound_by, tflops=flops / ms / 1e9,
                    bound_share=bound_ms / ms)
         rows.append(row)
-        print(f"[kernel] {name:<22} {str(row['shape']):<28} worst-row err "
+        print(f"[kernel] {name:<22} {str(row['shape']):<28} {design.name} "
+              f"{design.block_q}x{design.block_k} worst-row err "
               f"{out_row_err:.2e} (limit {out_tol:.0e}), max abs err {err:.2e}, lse "
               f"{lse_err:.2e} (limit {lse_tol:.0e}) {'ok' if ok else 'FAIL'} | "
               f"kernel {ms:.4f} ms "
@@ -303,22 +333,24 @@ def phase_bwd_kernels_vs_plain():
     return rows
 
 
+# the launch counts read around each path: every forward launch, the
+# backward kernels', and the forward's by design (the wgmma kernel is the
+# main path's; mma_sync takes head_dim 16/32 and float32)
 KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+COUNTS = KERNEL_NAMES + ("flash_fwd_wgmma", "flash_fwd_mma_sync")
 
 
 def _launch_counts():
     from ray_tpu_torch.ops import attention as attn
 
-    return (attn.flash_fwd_launches, attn.flash_bwd_dq_launches,
-            attn.flash_bwd_dkv_launches)
+    return tuple(getattr(attn, f"{name}_launches") for name in COUNTS)
 
 
 def _reset_launch_counts():
     from ray_tpu_torch.ops import attention as attn
 
-    attn.flash_fwd_launches = 0
-    attn.flash_bwd_dq_launches = 0
-    attn.flash_bwd_dkv_launches = 0
+    for name in COUNTS:
+        setattr(attn, f"{name}_launches", 0)
 
 
 def train_small_vs_cpu(steps: int = 3):
@@ -376,9 +408,11 @@ def phase_train(batch: int, seq: int, steps: int, profile: bool):
     launches = _launch_counts()
     losses = [float(m["loss"]) for m in metrics]
     norms = [float(m["grad_norm"]) for m in metrics]
-    want = [2 * cfg.num_layers, cfg.num_layers, cfg.num_layers]
+    # every forward launch (forward and remat recompute) on the wgmma design
+    want = [2 * cfg.num_layers, cfg.num_layers, cfg.num_layers, 2 * cfg.num_layers, 0]
     if any(c != want for c in per_step):
-        raise SystemExit(f"launches per step (fwd, dq, dkv) {per_step}, expected {want}")
+        raise SystemExit(f"launches per step {dict(zip(COUNTS, zip(*per_step)))}, "
+                         f"expected {dict(zip(COUNTS, want))}")
     if not all(np.isfinite(losses + norms)):
         raise SystemExit(f"train step gave loss {losses}, grad norm {norms}")
     if not losses[-1] < losses[0]:
@@ -390,8 +424,8 @@ def phase_train(batch: int, seq: int, steps: int, profile: bool):
         ms_per_step=ms, tokens_per_s=batch * seq * steps / seconds,
         mfu=flops / (ms / 1e3) / PEAK_FLOPS[torch.bfloat16], train_step_flops=flops,
         warmup_loss=float(warm["loss"]), losses=losses, grad_norms=norms,
-        launches_per_step=dict(zip(KERNEL_NAMES, want)),
-        launches=dict(zip(KERNEL_NAMES, launches)),
+        launches_per_step=dict(zip(COUNTS, want)),
+        launches=dict(zip(COUNTS, launches)),
         max_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     print(f"[train] gpt_1b bf16 compute / f32 master, b={batch} t={seq}, remat "
           f"'{cfg.remat_policy}': {ms:.1f} ms per step, {report['tokens_per_s']:.0f} "
@@ -400,7 +434,7 @@ def phase_train(batch: int, seq: int, steps: int, profile: bool):
           f"{report['max_memory_gib']:.2f} GiB")
     print(f"[train] loss {[round(x, 4) for x in losses]} (warm-up step "
           f"{report['warmup_loss']:.4f}), grad norm {[round(x, 4) for x in norms]}, "
-          f"launches per step (fwd, dq, dkv) {want}")
+          f"launches per step (fwd, dq, dkv, fwd on wgmma, fwd on mma_sync) {want}")
     if profile:
         report["profile"] = profile_window(
             lambda: (step(state, tokens), torch.cuda.synchronize()),
@@ -425,11 +459,12 @@ def phase_forward(cfg, params, batch: int, seq: int, n_forward: int):
         logits = fwd(params, tokens)
     torch.cuda.synchronize()
     seconds = time.monotonic() - t0
-    counts = dict(zip(KERNEL_NAMES, _launch_counts()))
+    counts = dict(zip(COUNTS, _launch_counts()))
     launches = counts["flash_fwd"]
     want = n_forward * cfg.num_layers
-    if launches != want:
-        raise SystemExit(f"flash kernel launched {launches} times, expected {want}")
+    if launches != want or counts["flash_fwd_wgmma"] != want:
+        raise SystemExit(f"flash forward launched {counts}, expected {want}, all on "
+                         f"the wgmma design")
     if tuple(logits.shape) != (batch, seq, cfg.vocab_size) or logits.dtype != torch.float32:
         raise SystemExit(f"forward returned {tuple(logits.shape)} {logits.dtype}")
     if not bool(torch.isfinite(logits).all()):
@@ -437,8 +472,8 @@ def phase_forward(cfg, params, batch: int, seq: int, n_forward: int):
     tok_s = batch * seq * n_forward / seconds
     ms = seconds / n_forward * 1e3
     print(f"[forward] gpt_1b bf16 b={batch} t={seq}: {ms:.1f} ms per forward, "
-          f"{tok_s:.0f} tokens/s, flash launches {launches} "
-          f"({cfg.num_layers} per forward)")
+          f"{tok_s:.0f} tokens/s, flash launches {launches}, on wgmma "
+          f"{counts['flash_fwd_wgmma']} ({cfg.num_layers} per forward)")
     return fwd, dict(batch=batch, seq=seq, n_forward=n_forward, ms_per_forward=ms,
                      tokens_per_s=tok_s, launches=counts,
                      max_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
@@ -555,7 +590,7 @@ def phase_server(cfg, params, fwd, profile: bool):
         bitwise = r1["tokens"] == r2["tokens"] and np.array_equal(r1["logits"], r2["logits"])
         if not bitwise:
             raise SystemExit("cached decode is not bitwise equal to uncached decode")
-        server_launches = dict(zip(KERNEL_NAMES, _launch_counts()))
+        server_launches = dict(zip(COUNTS, _launch_counts()))
 
         # engine prefill vs the full forward at the last prompt position
         full = fwd(params, torch.tensor([p], device="cuda"))[0, -1].float().cpu().numpy()
@@ -657,18 +692,20 @@ def main() -> int:
     bwd_case, bwd_shape = case(report["bwd_kernel_cases"], "gpt_1b_train_b12")
     by_path = {name: {path: report[path]["launches"][name]
                       for path in ("train", "forward", "server")}
-               for name in KERNEL_NAMES}
+               for name in COUNTS}
     bwd_src = "ray_tpu_torch/ops/csrc/flash_bwd.cu"
     whole = "dq, dk and dv together"
     kernels = {"kernels": [
-        dict(name="flash_fwd", route="cuda", source="ray_tpu_torch/ops/csrc/flash_fwd.cu",
+        dict(name="flash_fwd", route="cuda", source=fwd_case["source"],
              replaces="ray_tpu/ops/attention.py:167",
-             launches=by_path["flash_fwd"]["forward"],
+             launches=by_path["flash_fwd_wgmma"]["forward"],
              max_abs_err=fwd_case["max_abs_err"], ms=fwd_case["ms"],
              plain_ms=fwd_case["plain_ms"], bound_ms=fwd_case["bound_ms"],
              bound_by=fwd_case["bound_by"], library_ms=fwd_case["library_ms"],
+             design=fwd_case["design"], tiles=fwd_case["tiles"],
+             row_err=fwd_case["row_err"], row_err_tol=fwd_case["row_err_tol"],
              shape=fwd_shape, launches_path="forward",
-             launches_by_path=by_path["flash_fwd"]),
+             launches_by_path=by_path["flash_fwd_wgmma"]),
         dict(name="flash_bwd_dq", route="cuda", source=bwd_src,
              replaces="ray_tpu/ops/attention.py:324",
              launches=by_path["flash_bwd_dq"]["train"],

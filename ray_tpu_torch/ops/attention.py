@@ -8,14 +8,20 @@ a shorter q is the suffix of the kv context (``q_pos = q_idx + t_kv - t_q``).
   plain versions of the reference's XLA functions of the same role.
 * ``flash_attention_fwd_plain`` repeats the TPU flash kernel's algorithm
   (``_flash_fwd_kernel``) tile for tile, including what it does to rows that
-  see no key. Only the tests and the smoke script's comparison call it
-  directly; the kernel's wrapper takes it for tensors on the CPU.
+  see no key, at the tiles of the card's kernel for the input's head_dim and
+  dtype (``fwd_tiles``). Only the tests and the smoke script's comparison
+  call it directly; the kernel's wrapper takes it for tensors on the CPU.
 * ``flash_attention_bwd_plain`` repeats the arithmetic of the TPU backward
   kernels (``_flash_bwd_dq_kernel``, ``_flash_bwd_dkv_kernel``), edge rules
   included.
-* ``flash_attention_fwd``, the forward kernel's wrapper, launches the
-  hand-written Hopper kernel ``csrc/flash_fwd.cu`` on CUDA tensors and
-  counts its launches in ``flash_fwd_launches``; ``flash_attention_bwd``
+* ``flash_attention_fwd``, the forward kernel's wrapper, launches on CUDA
+  tensors the hand-written Hopper kernel that the dispatch table
+  ``FWD_DESIGNS`` names for (head_dim, dtype): ``csrc/flash_fwd_wgmma.cu``
+  (TMA, wgmma, warp-specialised; bf16 at head_dim 64, 128, 256) or
+  ``csrc/flash_fwd.cu`` (mma.sync; head_dim 16, 32 and float32). It counts
+  every launch in ``flash_fwd_launches`` and each design's in
+  ``flash_fwd_wgmma_launches`` or ``flash_fwd_mma_sync_launches``;
+  ``flash_attention_bwd``
   launches the two kernels of ``csrc/flash_bwd.cu`` (``flash_bwd_dq``,
   ``flash_bwd_dkv``, counted in ``flash_bwd_dq_launches`` and
   ``flash_bwd_dkv_launches``). On CPU tensors the wrappers take the plain
@@ -23,12 +29,14 @@ a shorter q is the suffix of the kv context (``q_pos = q_idx + t_kv - t_q``).
   never fall back quietly.
 * ``FlashAttention`` is the autograd Function over the two wrappers, and
   ``dot_product_attention`` the public entry, in the [b, h, t, d] layout,
-  over the Function.
+  over the Function; with ``segment_ids`` it takes ``_attention_plain`` on
+  any device, as the reference's dispatcher takes its XLA path.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 from typing import Optional, Tuple
 
@@ -37,16 +45,59 @@ import torch
 from ray_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-#: the CUDA kernel's tile sizes (rows of q and of kv per tile)
-BLOCK_Q = 64
-BLOCK_K = 64
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 
-#: launches of each kernel, counted where it is launched
+
+@dataclasses.dataclass(frozen=True)
+class FwdDesign:
+    """One hand-written flash forward kernel: its name, its source
+    ``csrc/<source>.cu`` and entry point, and its tiles (q rows and kv rows
+    per tile), which are the semantics of rows that see no key."""
+
+    name: str
+    source: str
+    entry: str
+    block_q: int
+    block_k: int
+
+
+_MMA_SYNC = FwdDesign("mma_sync", "flash_fwd", "ray_tpu_flash_fwd", 64, 64)
+
+
+def _wgmma(block_k: int) -> FwdDesign:
+    return FwdDesign("wgmma", "flash_fwd_wgmma", "ray_tpu_flash_fwd_wgmma", 128, block_k)
+
+
+#: the forward's dispatch table, keyed on (head_dim, dtype): the kernel each
+#: input launches on the card and the tiles the plain version repeats. Both
+#: designs are hand-written kernels; a launch that the kernel refuses raises.
+FWD_DESIGNS = {
+    **{(d, torch.float32): _MMA_SYNC for d in HEAD_DIMS},
+    (16, torch.bfloat16): _MMA_SYNC,
+    (32, torch.bfloat16): _MMA_SYNC,
+    (64, torch.bfloat16): _wgmma(128),
+    (128, torch.bfloat16): _wgmma(128),
+    (256, torch.bfloat16): _wgmma(80),
+}
+
+#: launches of each kernel, counted where it is launched; a forward launch
+#: counts in flash_fwd_launches and in its design's count
 flash_fwd_launches = 0
+flash_fwd_wgmma_launches = 0
+flash_fwd_mma_sync_launches = 0
 flash_bwd_dq_launches = 0
 flash_bwd_dkv_launches = 0
+
+
+def fwd_tiles(head_dim: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """(block_q, block_k) of the forward kernel that ``FWD_DESIGNS`` names
+    for this head_dim and dtype: the one source of the tiles, read by the
+    wrapper, the CPU path and the plain version. A (head_dim, dtype) that no
+    kernel takes, which only the CPU path runs, gets the mma_sync design's
+    64 x 64."""
+    design = FWD_DESIGNS.get((head_dim, dtype), _MMA_SYNC)
+    return design.block_q, design.block_k
 
 
 # ---------------------------------------------------------------------------
@@ -134,13 +185,15 @@ def flash_attention_fwd_plain(
     *,
     causal: bool,
     scale: float,
-    block_q: int = BLOCK_Q,
-    block_k: int = BLOCK_K,
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The TPU flash forward's algorithm in plain PyTorch: (out in q's dtype,
     lse [b, h, t_q] float32).
 
-    Tiles are ``min(block_q, t_q)`` by ``min(block_k, t_kv)``. For each kv
+    Tiles are ``min(block_q, t_q)`` by ``min(block_k, t_kv)``; by default
+    ``block_q`` and ``block_k`` are the card kernel's (``fwd_tiles`` of q's
+    head_dim and dtype). For each kv
     tile, every q row updates its running max m, denominator l and float32
     accumulator, unless the row's q tile skips the kv tile (causal, wholly
     above the diagonal). Padded kv columns of a ragged last tile are masked
@@ -152,6 +205,9 @@ def flash_attention_fwd_plain(
     nothing gets 0 and NEG_INF (denominator 1 where l == 0)."""
     b, h, t_q, d = q.shape
     t_kv = k.shape[-2]
+    tiles = fwd_tiles(d, q.dtype)
+    block_q = tiles[0] if block_q is None else block_q
+    block_k = tiles[1] if block_k is None else block_k
     bq, bk = min(block_q, t_q), min(block_k, t_kv)
     nq, nk = -(-t_q // bq), -(-t_kv // bk)
     rows = nq * bq
@@ -251,6 +307,8 @@ def flash_attention_bwd_plain(
 # dtype, causal, scale and the stream
 _SOURCES = {
     "flash_fwd": ({"ray_tpu_flash_fwd": 5}, "ray_tpu_cuda_error_string"),
+    "flash_fwd_wgmma": ({"ray_tpu_flash_fwd_wgmma": 5},
+                        "ray_tpu_flash_fwd_wgmma_error_string"),
     "flash_bwd": ({"ray_tpu_flash_bwd_dq": 7, "ray_tpu_flash_bwd_dkv": 8},
                   "ray_tpu_flash_bwd_error_string"),
 }
@@ -328,12 +386,38 @@ def _check_kernel_inputs(q, k, v, *same_as_q, rows=()) -> None:
         raise ValueError(f"unsupported shape q {tuple(q.shape)} k {tuple(k.shape)}")
 
 
-def _check_tiles(block_q: int, block_k: int) -> None:
-    if (block_q, block_k) != (BLOCK_Q, BLOCK_K):
+_checked_tiles = set()
+
+
+def _check_tiles(design: FwdDesign, head_dim: int, block_q, block_k) -> None:
+    """Raise ``ValueError`` unless ``block_q`` and ``block_k`` (None for
+    the design's own) are the design's tiles."""
+    asked = (design.block_q if block_q is None else block_q,
+             design.block_k if block_k is None else block_k)
+    if asked != (design.block_q, design.block_k):
         raise ValueError(
-            f"the flash kernel's tiles are {BLOCK_Q}x{BLOCK_K}, "
-            f"got {block_q}x{block_k}"
-        )
+            f"the {design.name} flash kernel's tiles at head_dim {head_dim} are "
+            f"{design.block_q}x{design.block_k}, got {asked[0]}x{asked[1]}")
+
+
+def _check_design(design: FwdDesign, head_dim: int, scale: float) -> None:
+    """Raise ``ValueError`` unless the design takes this scale; check once
+    per head_dim that the built wgmma kernel computes with the table's
+    tiles."""
+    if design.name != "wgmma":
+        return
+    if not scale > 0:
+        raise ValueError(f"the wgmma flash kernel takes a positive scale, got {scale}")
+    if head_dim not in _checked_tiles:
+        lib = _kernel_lib(design.source)
+        bq, bk = ctypes.c_int(), ctypes.c_int()
+        lib.ray_tpu_flash_fwd_wgmma_tiles(head_dim, ctypes.byref(bq), ctypes.byref(bk))
+        if (bq.value, bk.value) != (design.block_q, design.block_k):
+            raise RuntimeError(
+                f"{design.source}.cu computes with {bq.value}x{bk.value} tiles at "
+                f"head_dim {head_dim}; FWD_DESIGNS says "
+                f"{design.block_q}x{design.block_k}")
+        _checked_tiles.add(head_dim)
 
 
 def flash_attention_fwd(
@@ -343,28 +427,39 @@ def flash_attention_fwd(
     *,
     causal: bool,
     scale: float,
-    block_q: int = BLOCK_Q,
-    block_k: int = BLOCK_K,
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, lse) of the flash forward: [b, h, t_q, d] in q's dtype and
     [b, h, t_q] float32.
 
-    CPU tensors take ``flash_attention_fwd_plain`` and launch nothing. CUDA
-    tensors launch the hand-written Hopper kernel ``csrc/flash_fwd.cu``:
-    contiguous q [b, h, t_q, d] and k, v [b, h, t_kv, d] of one dtype
-    (bfloat16 on the tensor cores, float32 on the CUDA cores), d in
-    ``HEAD_DIMS``, tiles of 64 x 64. Anything else raises."""
-    global flash_fwd_launches
+    CPU tensors take ``flash_attention_fwd_plain`` (at ``block_q`` x
+    ``block_k``, by default the card kernel's tiles) and launch nothing.
+    CUDA tensors launch the hand-written Hopper kernel that ``FWD_DESIGNS``
+    names for (head_dim, dtype): contiguous q [b, h, t_q, d] and k, v
+    [b, h, t_kv, d] of one dtype (bfloat16 on the tensor cores, float32 on
+    the CUDA cores), d in ``HEAD_DIMS``, the design's tiles (``block_q`` and
+    ``block_k`` left at None or equal to them) and, for the wgmma design, a
+    positive scale. Anything else raises."""
+    global flash_fwd_launches, flash_fwd_wgmma_launches, flash_fwd_mma_sync_launches
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_fwd_plain(
             q, k, v, causal=causal, scale=scale, block_q=block_q, block_k=block_k)
-    _check_tiles(block_q, block_k)
-    _check_kernel_inputs(q, k, v)
+    d = q.shape[-1]
+    design = FWD_DESIGNS.get((d, q.dtype))
+    if design is not None:
+        _check_tiles(design, d, block_q, block_k)
+    _check_kernel_inputs(q, k, v)  # raises for a (d, dtype) not in the table
+    _check_design(design, d, scale)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", "ray_tpu_flash_fwd", (q, k, v, out, lse), q, k.shape[2],
+    _launch(design.source, design.entry, (q, k, v, out, lse), q, k.shape[2],
             causal, scale)
     flash_fwd_launches += 1
+    if design.name == "wgmma":
+        flash_fwd_wgmma_launches += 1
+    else:
+        flash_fwd_mma_sync_launches += 1
     return out, lse
 
 
@@ -434,7 +529,8 @@ class FlashAttention(torch.autograd.Function):
     """Flash attention with its flash backward: the counterpart of the
     reference's ``flash_attention`` custom_vjp.
 
-    ``FlashAttention.apply(q, k, v, causal, scale, block_q, block_k)``. The
+    ``FlashAttention.apply(q, k, v, causal, scale, block_q, block_k)``, the
+    tiles None for the kernel's own (``fwd_tiles``). The
     forward is ``flash_attention_fwd`` and saves (q, k, v, out, lse); the
     backward is ``flash_attention_bwd`` on a contiguous copy of the
     incoming gradient. Both take the plain versions on CPU tensors and the
@@ -442,7 +538,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float,
-                block_q: int = BLOCK_Q, block_k: int = BLOCK_K):
+                block_q: Optional[int] = None, block_k: Optional[int] = None):
         out, lse = flash_attention_fwd(
             q, k, v, causal=causal, scale=scale, block_q=block_q, block_k=block_k)
         ctx.save_for_backward(q, k, v, out, lse)
@@ -470,23 +566,22 @@ def dot_product_attention(
     causal: bool = True,
     scale: Optional[float] = None,
     segment_ids: Optional[torch.Tensor] = None,
-    block_q: int = BLOCK_Q,
-    block_k: int = BLOCK_K,
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
 ) -> torch.Tensor:
     """Attention over [batch, heads, seq, head_dim] inputs, differentiable.
 
     Goes through ``FlashAttention``: the plain versions on CPU tensors, the
-    hand-written forward and backward kernels on CUDA tensors. With
-    ``segment_ids``, CPU tensors take ``_attention_plain``; on CUDA they
-    raise ``NotImplementedError`` (ROADMAP.md, next items)."""
+    hand-written forward and backward kernels on CUDA tensors, at the
+    kernel's tiles unless ``block_q``/``block_k`` say otherwise (the CPU
+    path takes any; the card's kernel raises for other tiles). With
+    ``segment_ids`` it computes ``_attention_plain`` on the tensors' device,
+    differentiable through autograd and launching no flash kernel: the
+    reference's dispatcher takes its XLA path there, since no kernel has a
+    segment mask."""
     scale_val = float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if segment_ids is not None:
-        if q.device.type == "cpu":
-            return _attention_plain(
-                q, k, v, causal=causal, scale=scale_val, segment_ids=segment_ids
-            )
-        raise NotImplementedError(
-            "segment_ids on CUDA: the flash kernel has no segment mask yet "
-            "(ROADMAP.md, next items)"
+        return _attention_plain(
+            q, k, v, causal=causal, scale=scale_val, segment_ids=segment_ids
         )
     return FlashAttention.apply(q, k, v, causal, scale_val, block_q, block_k)

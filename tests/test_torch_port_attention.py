@@ -43,6 +43,17 @@ def _ids(case):
     return f"{b}x{h}-q{tq}-kv{tkv}-d{d}-{'causal' if causal else 'full'}"
 
 
+# every (block_q, block_k) the forward's dispatch table can return; the
+# mma_sync design's 64 x 64 keeps the case's own id
+TILES = sorted({(dz.block_q, dz.block_k) for dz in port.FWD_DESIGNS.values()})
+TILED_CASES = [(case, tiles) for tiles in TILES for case in CASES]
+
+
+def _tiled_ids(case_tiles):
+    case, (bq, bk) = case_tiles
+    return _ids(case) if (bq, bk) == (64, 64) else f"{_ids(case)}-tiles{bq}x{bk}"
+
+
 def _qkv(b, h, tq, tkv, d, seed=0):
     rng = np.random.RandomState(seed)
     q = rng.randn(b, h, tq, d).astype(np.float32)
@@ -116,19 +127,19 @@ def test_merge_of_two_halves_is_full_attention():
     np.testing.assert_allclose(merged.numpy(), full.numpy(), **OUT_TOL)
 
 
-@pytest.mark.parametrize("case", CASES, ids=_ids)
-def test_flash_plain_matches_pallas_kernel(case):
+@pytest.mark.parametrize("case_tiles", TILED_CASES, ids=_tiled_ids)
+def test_flash_plain_matches_pallas_kernel(case_tiles):
     """Out and lse of the plain flash forward against the TPU kernel in
-    interpret mode, at the port's tiles (64 x 64), every row included: rows
-    that see no key follow the kernel's own convention."""
-    b, h, tq, tkv, d, causal = case
+    interpret mode, at each of the port's tiles (``FWD_DESIGNS``), every row
+    included: rows that see no key follow the kernel's own convention."""
+    (b, h, tq, tkv, d, causal), (block_q, block_k) = case_tiles
     q, k, v = _qkv(b, h, tq, tkv, d)
     scale = 1.0 / d ** 0.5
     ref_o, ref_lse = _flash_attention_tpu(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
-        scale=scale, block_q=port.BLOCK_Q, block_k=port.BLOCK_K, interpret=True)
+        scale=scale, block_q=block_q, block_k=block_k, interpret=True)
     o, lse = port.flash_attention_fwd_plain(
-        *_t(q, k, v), causal=causal, scale=scale)
+        *_t(q, k, v), causal=causal, scale=scale, block_q=block_q, block_k=block_k)
     np.testing.assert_allclose(o.numpy(), np.asarray(ref_o), **OUT_TOL)
     np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), **LSE_TOL)
 
@@ -136,9 +147,11 @@ def test_flash_plain_matches_pallas_kernel(case):
 def test_flash_plain_empty_rows_average_processed_tile():
     """The empty-row convention spelled out: with causal t_q > t_kv, a row
     that sees no key averages V over the processed tile (p = 1 on each of
-    its 64 columns), and its lse stays at the NEG_INF sentinel."""
+    its 64 columns), and its lse stays at the NEG_INF sentinel; tiles of
+    64 x 64."""
     q, k, v = _qkv(1, 1, 160, 64, 16, seed=5)
-    o, lse = port.flash_attention_fwd_plain(*_t(q, k, v), causal=True, scale=0.25)
+    o, lse = port.flash_attention_fwd_plain(*_t(q, k, v), causal=True, scale=0.25,
+                                            block_q=64, block_k=64)
     # rows 0..63 form a q tile whose last row has q_pos = -33: the causal
     # skip drops every kv tile, so they get 0 and NEG_INF
     assert torch.all(o[0, 0, :64] == 0) and torch.all(lse[0, 0, :64] == port.NEG_INF)
@@ -160,3 +173,25 @@ def test_dispatcher_on_cpu_takes_the_plain_flash_version():
     before = port.flash_fwd_launches
     port.dot_product_attention(q, k, v, causal=False)
     assert port.flash_fwd_launches == before  # the CPU path launches nothing
+
+
+@pytest.mark.parametrize("d, dtype, tiles", [
+    (64, torch.bfloat16, (128, 128)),
+    (128, torch.bfloat16, (128, 128)),
+    (256, torch.bfloat16, (128, 80)),
+    (16, torch.bfloat16, (64, 64)),
+    (32, torch.bfloat16, (64, 64)),
+    (128, torch.float32, (64, 64)),
+])
+def test_dispatcher_on_cpu_uses_the_table_tiles(d, dtype, tiles):
+    """The CPU path computes with the tiles of the kernel that the card runs
+    for (head_dim, dtype): rows that see no key (causal, t_q > t_kv) get 0
+    only where a 64-row q tile skips every kv tile; a 128-row tile runs kv
+    tile 0 and they average V."""
+    assert port.fwd_tiles(d, dtype) == tiles
+    q, k, v = (x.to(dtype) for x in _t(*_qkv(1, 1, 160, 64, d, seed=8)))
+    out = port.dot_product_attention(q, k, v, causal=True)
+    want, _ = port.flash_attention_fwd_plain(q, k, v, causal=True, scale=d ** -0.5,
+                                             block_q=tiles[0], block_k=tiles[1])
+    assert torch.equal(out, want)
+    assert bool((out[0, 0, :64] == 0).all()) == (tiles[0] == 64)

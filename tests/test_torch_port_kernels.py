@@ -146,15 +146,18 @@ def test_bwd_wrapper_takes_the_plain_version_on_cpu():
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("case", CASES, ids=_ids)
 def test_flash_kernel_matches_plain_on_card(card, case, dtype):
-    """Out and lse of the Hopper kernel against its plain version on the
-    same device tensors, every row included."""
+    """Out and lse of the Hopper kernel that the dispatch table names
+    against its plain version (at the same tiles) on the same device
+    tensors, every row included."""
     b, h, tq, tkv, d, causal = case
     dt = getattr(torch, dtype)
     q, k, v = _qkv(b, h, tq, tkv, d, device=card, dtype=dt)
     scale = 1.0 / d ** 0.5
-    before = port.flash_fwd_launches
+    counter = f"flash_fwd_{port.FWD_DESIGNS[(d, dt)].name}_launches"
+    before = (port.flash_fwd_launches, getattr(port, counter))
     o, lse = port.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
-    assert port.flash_fwd_launches == before + 1
+    assert (port.flash_fwd_launches, getattr(port, counter)) == (
+        before[0] + 1, before[1] + 1)
     ref_o, ref_lse = port.flash_attention_fwd_plain(q, k, v, causal=causal,
                                                     scale=scale)
     torch.cuda.synchronize()
@@ -177,9 +180,10 @@ def test_dispatcher_launches_the_kernel_on_card(card):
 @pytest.mark.cuda
 def test_dispatcher_raises_for_what_the_kernel_does_not_take(card):
     q, k, v = _qkv(1, 2, 64, 64, 64, device=card, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="segment_ids"):
-        port.dot_product_attention(
-            q, k, v, segment_ids=torch.zeros(1, 64, dtype=torch.int32, device=card))
+    with pytest.raises(ValueError, match="tiles"):
+        port.dot_product_attention(q, k, v, block_q=64, block_k=64)
+    with pytest.raises(ValueError, match="positive scale"):
+        port.dot_product_attention(q, k, v, scale=-0.125)
     # inputs that require grad go through the FlashAttention Function
     out = port.dot_product_attention(q.clone().requires_grad_(), k, v)
     assert "FlashAttention" in type(out.grad_fn).__name__
@@ -189,6 +193,28 @@ def test_dispatcher_raises_for_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="dtype"):
         port.dot_product_attention(*_qkv(1, 1, 64, 64, 64, device=card,
                                          dtype=torch.float16))
+
+
+@pytest.mark.cuda
+def test_segment_ids_on_card_match_the_cpu(card):
+    """With segment_ids the dispatcher computes the reference's XLA route
+    (``_attention_plain``) on the card, differentiable, and launches no
+    flash kernel; result and gradients equal the CPU's."""
+    cpu = [t.requires_grad_() for t in _qkv(2, 2, 48, 48, 32, seed=3)]
+    dev = [t.detach().to(card).requires_grad_() for t in cpu]
+    seg = torch.from_numpy(np.repeat(np.array([[0, 1, 2], [0, 0, 1]]), 16, axis=1))
+    g = torch.from_numpy(np.random.RandomState(4).randn(2, 2, 48, 32).astype(np.float32))
+    before = (port.flash_fwd_launches, port.flash_bwd_dq_launches,
+              port.flash_bwd_dkv_launches)
+    out_dev = port.dot_product_attention(*dev, causal=True, segment_ids=seg.to(card))
+    out_dev.backward(g.to(card))
+    assert (port.flash_fwd_launches, port.flash_bwd_dq_launches,
+            port.flash_bwd_dkv_launches) == before
+    out_cpu = port.dot_product_attention(*cpu, causal=True, segment_ids=seg)
+    out_cpu.backward(g)
+    assert row_err(out_dev.detach().cpu(), out_cpu.detach()) <= FWD_ROW_TOL[torch.float32]
+    _assert_grads_close([t.grad.cpu() for t in dev], [t.grad for t in cpu],
+                        BWD_TOL[torch.float32])
 
 
 @pytest.mark.cuda
