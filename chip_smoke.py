@@ -58,6 +58,7 @@ import os
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import argparse  # noqa: E402
+import ctypes  # noqa: E402
 import json  # noqa: E402
 import re  # noqa: E402
 import subprocess  # noqa: E402
@@ -154,6 +155,13 @@ def phase_build():
     main = {k: v for k, v in out["flash_fwd_wgmma"]["spills"].items() if "ILi128E" in k}
     if not main or any(main.values()):
         raise SystemExit(f"the wgmma forward at head_dim 128 spills: {main}")
+    # dynamic shared memory, which the compiler's report does not show
+    smem_fn = ctypes.CDLL(str(built["flash_fwd_wgmma"][0])).ray_tpu_flash_fwd_wgmma_smem_bytes
+    smem_fn.argtypes, smem_fn.restype = [ctypes.c_int], ctypes.c_int
+    smem = {d: smem_fn(d) for d in (64, 128, 256)}
+    print(f"[build] flash_fwd_wgmma dynamic shared memory per CTA by head_dim: {smem} "
+          f"bytes (of 232448)")
+    out["flash_fwd_wgmma"]["smem_bytes"] = smem
     return out
 
 

@@ -386,9 +386,6 @@ def _check_kernel_inputs(q, k, v, *same_as_q, rows=()) -> None:
         raise ValueError(f"unsupported shape q {tuple(q.shape)} k {tuple(k.shape)}")
 
 
-_checked_tiles = set()
-
-
 def _check_tiles(design: FwdDesign, head_dim: int, block_q, block_k) -> None:
     """Raise ``ValueError`` unless ``block_q`` and ``block_k`` (None for
     the design's own) are the design's tiles."""
@@ -401,23 +398,24 @@ def _check_tiles(design: FwdDesign, head_dim: int, block_q, block_k) -> None:
 
 
 def _check_design(design: FwdDesign, head_dim: int, scale: float) -> None:
-    """Raise ``ValueError`` unless the design takes this scale; check once
-    per head_dim that the built wgmma kernel computes with the table's
-    tiles."""
+    """Raise ``ValueError`` unless the design takes this scale, and
+    ``RuntimeError`` unless the built wgmma kernel computes with the
+    table's tiles at this head_dim."""
     if design.name != "wgmma":
         return
     if not scale > 0:
         raise ValueError(f"the wgmma flash kernel takes a positive scale, got {scale}")
-    if head_dim not in _checked_tiles:
-        lib = _kernel_lib(design.source)
-        bq, bk = ctypes.c_int(), ctypes.c_int()
-        lib.ray_tpu_flash_fwd_wgmma_tiles(head_dim, ctypes.byref(bq), ctypes.byref(bk))
-        if (bq.value, bk.value) != (design.block_q, design.block_k):
-            raise RuntimeError(
-                f"{design.source}.cu computes with {bq.value}x{bk.value} tiles at "
-                f"head_dim {head_dim}; FWD_DESIGNS says "
-                f"{design.block_q}x{design.block_k}")
-        _checked_tiles.add(head_dim)
+    tiles_fn = _kernel_lib(design.source).ray_tpu_flash_fwd_wgmma_tiles
+    tiles_fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                         ctypes.POINTER(ctypes.c_int)]
+    tiles_fn.restype = ctypes.c_int
+    bq, bk = ctypes.c_int(), ctypes.c_int()
+    err = tiles_fn(head_dim, ctypes.byref(bq), ctypes.byref(bk))
+    if err != 0 or (bq.value, bk.value) != (design.block_q, design.block_k):
+        raise RuntimeError(
+            f"{design.source}.cu computes with {bq.value}x{bk.value} tiles at "
+            f"head_dim {head_dim} (status {err}); FWD_DESIGNS says "
+            f"{design.block_q}x{design.block_k}")
 
 
 def flash_attention_fwd(

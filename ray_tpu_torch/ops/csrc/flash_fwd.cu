@@ -1,7 +1,10 @@
-// Flash-attention forward for Hopper (sm_90a), hand-written CUDA C++.
+// Flash-attention forward on mma.sync (sm_90a), hand-written CUDA C++: the
+// design the dispatch table in ops/attention.py (FWD_DESIGNS) sends bf16 at
+// head_dim 16 and 32 and every float32 input to; bf16 at 64, 128 and 256
+// runs csrc/flash_fwd_wgmma.cu.
 //
 // Replaces the TPU kernel ray_tpu/ops/attention.py:_flash_fwd_kernel
-// (launched by _flash_attention_tpu). It computes what that kernel computes:
+// (launched by _flash_attention_tpu) there. It computes what that kernel computes:
 // O = softmax(scale * Q K^T) V and the row logsumexp, with the same
 // conventions:
 //   * NEG_INF = -1e30 is a finite mask value, not -inf;
@@ -17,9 +20,8 @@
 // reference's terms); the plain version in ops/attention.py
 // (flash_attention_fwd_plain) is the same algorithm at the same tiles.
 //
-// What bounds it on an H100: at long t the tensor-core operations
-// (4 * t_q * t_kv * d per head, about half of that under the causal skip);
-// at short t the bytes of q, k, v and o.
+// What bounds it on an H100: at the head_dims it serves, the launch and the
+// bytes of q, k, v and o; the tensor-core operations only at long t.
 //
 // Design: one CTA of 4 warps per (64-row q tile, batch*head). The loop over
 // 64-row kv tiles runs inside the CTA: it takes the place of the TPU grid's
@@ -28,17 +30,17 @@
 // m16n8k16 (bf16 in, f32 accumulate); the running max m, the denominator l
 // and the O accumulator stay in registers in float32. Q, K and V tiles sit
 // in shared memory, rows padded by 16 bytes so that fragment loads hit
-// distinct banks. There is no cp.async pipelining and no wgmma/TMA yet.
-// float32 inputs take a CUDA-core path with the same tiles (one thread per
-// q row), which exists for tests and is not tuned.
+// distinct banks. float32 inputs take a CUDA-core path with the same tiles
+// (one thread per q row), which exists for tests and is not tuned.
 //
 // C interface (bound with ctypes by ray_tpu_torch/ops/attention.py):
 //   int ray_tpu_flash_fwd(q, k, v, o, lse, bh, t_q, t_kv, d, dtype, causal,
 //                         scale, stream)
 // q/o are [bh, t_q, d], k/v [bh, t_kv, d], contiguous, lse [bh, t_q] f32;
-// dtype 0 = bf16, 1 = float32. The kernel launches on `stream`, allocates
-// nothing, and the function returns cudaGetLastError() after the launch
-// (or kUnsupported for a head_dim/dtype it does not take).
+// dtype 0 = bf16 (head_dim 16, 32), 1 = float32 (16 to 256). The kernel
+// launches on `stream`, allocates nothing, and the function returns
+// cudaGetLastError() after the launch (or kUnsupported for a head_dim/dtype
+// it does not take).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -391,9 +393,6 @@ extern "C" int ray_tpu_flash_fwd(const void* q, const void* k, const void* v,
     switch (d) {
       case 16: return launch_bf16<16>(grid, st, p);
       case 32: return launch_bf16<32>(grid, st, p);
-      case 64: return launch_bf16<64>(grid, st, p);
-      case 128: return launch_bf16<128>(grid, st, p);
-      case 256: return launch_bf16<256>(grid, st, p);
     }
   } else if (dtype == 1) {
     switch (d) {

@@ -24,23 +24,29 @@
 // What bounds it on an H100: the tensor-core operations, 4 * d per visible
 // (q, k) pair (about half of t_q * t_kv under the causal mask), at 989
 // TFLOP/s in bf16; q, k, v and o are read or written once from device
-// memory, which at t = 2048 is ~1/20 of that time.
+// memory, which at t = 2048 is ~1/20 of that time, as long as the K and V of
+// a head are read from L2 by all its q tiles (see the launch order below).
 //
 // Design (one CTA of 384 threads per (128-row q tile, batch*head)):
-//   * Warpgroup 0 is the producer: one thread issues every TMA load, the
-//     other warps give their registers away (setmaxnreg 24) and end.
-//     Q (128 x d) is loaded once; K and V tiles go into a ring of kStages
-//     stages, each with a full barrier for K, one for V (arrive + expected
-//     bytes) and one empty barrier that the 8 consumer warps arrive on when
-//     they are done with the stage.
+//   * Warpgroup 0 is the producer: it gives its registers away (setmaxnreg
+//     24) and one thread issues every TMA load. Q (128 x d) is loaded once;
+//     K and V tiles go into a ring of kStages stages, each with a full
+//     barrier for K and one for V (arrive + expected bytes) and an empty
+//     barrier for each, on which the 8 consumer warps arrive when they are
+//     done with it.
 //   * Warpgroups 1 and 2 are consumers (setmaxnreg 240), each owning 64 q
-//     rows. Per kv tile: S = Q K^T on wgmma with both operands in shared
-//     memory (Q and K stored [row, d] are K-major), the online softmax in
+//     rows. S = Q K^T runs on wgmma with both operands in shared memory (Q
+//     and K stored [row, d] are K-major). The online softmax runs in
 //     registers with exp2 (scale * log2 e folded into one FMA; masks only on
-//     tiles that cross the diagonal or the ragged end), P rounded to bf16 in
-//     registers in the A-operand layout, and O += P V on wgmma with A from
-//     registers and V read from shared memory through the descriptor's
-//     transpose bit (V stored [kv, d] is MN-major), so V is never transposed.
+//     tiles that cross the diagonal or the ragged end). P is rounded to bf16
+//     in registers, in the A-operand layout, and O += P V runs on wgmma with
+//     A from registers and V read from shared memory through the
+//     descriptor's transpose bit (V stored [kv, d] is MN-major), so V is
+//     never transposed.
+//   * Overlap: a warpgroup issues S of tile j together with P V of tile
+//     j - 1, so its softmax of tile j runs while that P V is on the tensor
+//     cores; and the two warpgroups take turns to issue (named barriers), so
+//     one's softmax runs while the other's products do.
 //   * Every tile is a row-major [rows, d] array cut into 64-column boxes of
 //     128-byte rows, 128-byte swizzled by TMA; the wgmma descriptors name the
 //     same swizzle. Tensor maps are 3-D [d, t, b*h], so a box never reads the
@@ -48,15 +54,22 @@
 //   * O is normalised in registers, written into the consumer's own rows of
 //     Q's buffer in the same swizzled layout and stored by TMA (which clips
 //     rows past t_q); lse is stored per row.
-//   * q tiles launch heaviest first under the causal mask, so the light
-//     tiles fill the tail.
-// A wait on a barrier that has not completed after kWaitLimitNs traps, so a
-// pipeline fault ends the kernel with an error instead of hanging the card.
+//   * Launch order: heads go in groups whose K and V fit in L2 together
+//     (kL2GroupBytes), and within a group the q tiles run heaviest first
+//     under the causal mask, so the light tiles fill the tail. A global
+//     heaviest-first order re-reads every head's K and V from device memory
+//     once per q tile, which at b=12 made the kernel bound by bytes.
+// The producer's waits trap after kWaitLimitNs, so a pipeline fault ends
+// the kernel with an error instead of hanging the card; it ends by waiting
+// for the consumers' last release of each stage, so every stall reaches one
+// of its waits. The consumers' waits have no such limit: a trap in their
+// loop makes ptxas spill their accumulators.
 //
 // C interface (bound with ctypes by ray_tpu_torch/ops/attention.py):
 //   int ray_tpu_flash_fwd_wgmma(q, k, v, o, lse, bh, t_q, t_kv, d, dtype,
 //                               causal, scale, stream)
 //   int ray_tpu_flash_fwd_wgmma_tiles(d, &block_q, &block_k)
+//   int ray_tpu_flash_fwd_wgmma_smem_bytes(d)  (dynamic shared memory per CTA)
 // q/o are [bh, t_q, d], k/v [bh, t_kv, d], contiguous bf16 (dtype 0), 16-byte
 // aligned; lse [bh, t_q] f32; scale > 0. The kernel launches on `stream`,
 // allocates nothing, and the function returns cudaGetLastError() after the
@@ -72,30 +85,35 @@
 namespace {
 
 constexpr int kBlockM = 128;   // q rows per CTA: two consumer warpgroups of 64
-constexpr int kStages = 2;     // K/V ring depth
 constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 constexpr int kConsumerWarps = 8;
+constexpr int kEpilogueBar = 1;  // named barriers 1, 2: each consumer warpgroup's epilogue
+constexpr int kTurnBar = 3;      // named barriers 3, 4: each consumer warpgroup's turn to issue
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr unsigned long long kWaitLimitNs = 4000000000ull;
+// bytes of K and V that the heads of one launch group may hold in L2 (of
+// the H100's 50 MB)
+constexpr long long kL2GroupBytes = 16ll << 20;
 constexpr int kUnsupported = 100000;
 constexpr int kTensorMapFailed = 100001;
 
-// kv rows per tile for each head_dim: at 256 the O accumulator (128 floats a
-// thread) leaves room for an S tile of 80 columns, and two stages of K and V
-// fit beside Q in 227 KB
-template <int D> struct BlockN;
-template <> struct BlockN<64> { static constexpr int value = 128; };
-template <> struct BlockN<128> { static constexpr int value = 128; };
-template <> struct BlockN<256> { static constexpr int value = 80; };
+// kv rows per tile and K/V ring depth for each head_dim: at 256 the O
+// accumulator (128 floats a thread) leaves room for an S tile of 80 columns,
+// and two stages of K and V fit beside Q in 227 KB
+template <int D> struct Config;
+template <> struct Config<64> { static constexpr int kBN = 128, kStages = 2; };
+template <> struct Config<128> { static constexpr int kBN = 128, kStages = 2; };
+template <> struct Config<256> { static constexpr int kBN = 80, kStages = 2; };
 
 // shared memory, in bytes from a 1024-aligned base (the swizzle's period)
 template <int D>
 struct Smem {
-  static constexpr int kBN = BlockN<D>::value;
+  static constexpr int kBN = Config<D>::kBN;
+  static constexpr int kStages = Config<D>::kStages;
   static constexpr int kBoxes = D / 64;         // 64-column boxes per row
   static constexpr int kQBox = kBlockM * 128;   // one box of Q (and of O)
   static constexpr int kKVBox = kBN * 128;      // one box of a K or V tile
@@ -104,14 +122,18 @@ struct Smem {
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kQBytes;                // kStages K tiles
   static constexpr int kV = kK + kStages * kKVBytes;     // kStages V tiles
-  static constexpr int kBar = kV + kStages * kKVBytes;   // q, k[], v[], empty[]
-  static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages);
+  static constexpr int kBar = kV + kStages * kKVBytes;   // barriers, 8 bytes each:
+  // q full, then per stage K full, V full, K empty, V empty
+  static constexpr int kBytes = kBar + 8 * (1 + 4 * kStages);
   static constexpr int kAlloc = kBytes + 1024;           // room to align
   static_assert(kAlloc <= 232448, "shared memory over the 227 KB a block may use");
 };
 
 struct Params {
   float* lse;
+  int bh;        // batch * heads
+  int n_q;       // q tiles per head
+  int group;     // heads per launch group
   int t_q;
   int t_kv;
   int off;       // t_kv - t_q
@@ -164,6 +186,16 @@ __device__ __forceinline__ unsigned long long global_ns() {
 
 // Waits until the barrier's phase of parity `parity` has completed.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
+}
+
+// The same, ending the kernel with an error after kWaitLimitNs. Only the
+// producer waits so: a trap in the consumers' loop costs them registers
+// (ptxas spills there), and every stall of the pipeline reaches one of the
+// producer's waits, since it ends by waiting for the last release of each
+// stage.
+__device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar, uint32_t parity) {
   if (mbar_try_wait(bar, parity)) return;
   const unsigned long long t0 = global_ns();
   while (!mbar_try_wait(bar, parity)) {
@@ -215,8 +247,16 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
 }
 
 // Keeps the compiler from moving reads or writes of these registers across
@@ -327,6 +367,92 @@ __device__ __forceinline__ int kv_tiles_to_run(const Params& p, int q0) {
   return min(n_kv, last / BN + 1);
 }
 
+// S = Q K^T for a warpgroup's 64 rows: d / 16 wgmmas, 16 columns of d each
+template <int D, int BN>
+__device__ __forceinline__ void issue_qk(float* s, uint32_t q_rows, uint32_t k_tile) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t col_bytes = (kk % 4) * 32;  // 16 columns within a 64-column box
+    wgmma_ss<BN>(s, kmajor_desc(q_rows + (kk / 4) * (kBlockM * 128) + col_bytes),
+                 kmajor_desc(k_tile + (kk / 4) * (BN * 128) + col_bytes), kk > 0);
+  }
+}
+
+// O += P V: BN / 16 k-steps of 16 kv rows, each over d in wgmmas of at most
+// 128 columns (two 64-column boxes of V)
+template <int D, int BN>
+__device__ __forceinline__ void issue_pv(float* o, const uint32_t* pa, uint32_t v_tile) {
+  constexpr int kOn = D < 128 ? D : 128;
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+    for (int h = 0; h < D / kOn; ++h) {
+      wgmma_rs<kOn>(o + h * (kOn / 2), pa + 4 * kk,
+                    mnmajor_desc(v_tile + kk * 16 * 128 + h * (kOn / 64) * (BN * 128),
+                                 BN * 128));
+    }
+  }
+}
+
+// The online softmax of one S tile in log2 units: updates the running max m
+// and this thread's share of the row sums l, returns the factor alpha that
+// rescales O, and leaves P in s. Masks (causal, past t_kv) only where
+// `masked`. Element i of the tile sits at row row0 + 8 * ((i >> 1) & 1) and
+// column k0 + 8 * (i >> 2) + 2 * tq + (i & 1).
+template <int BN>
+__device__ __forceinline__ void softmax_tile(float* s, float* m, float* l, float* alpha,
+                                             const Params& p, int k0, int row0, int tq,
+                                             bool masked) {
+  float mx[2] = {-INFINITY, -INFINITY};
+  if (masked) {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      const int col = k0 + 8 * (i >> 2) + 2 * tq + (i & 1);
+      const int row = row0 + 8 * ((i >> 1) & 1);
+      const bool visible = col < p.t_kv && (!p.causal || row + p.off >= col);
+      if (!visible) s[i] = -INFINITY;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  }
+  bool empty[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_cur = mx[r] == -INFINITY ? kNegInf : mx[r] * p.scale_log2;
+    const float m_new = fmaxf(m[r], m_cur);
+    alpha[r] = fast_exp2(m[r] - m_new);
+    m[r] = m_new;
+    empty[r] = m_new == kNegInf;  // no visible column so far
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    const int r = (i >> 1) & 1;
+    float pe = fast_exp2(fmaf(s[i], p.scale_log2, -m[r]));
+    if (masked && empty[r]) {
+      // every processed column of the row is masked: p = exp(0) = 1 on each
+      // column of the reference's tile
+      pe = 8 * (i >> 2) + 2 * tq + (i & 1) < p.bk_eff ? 1.f : 0.f;
+    }
+    s[i] = pe;
+    rs[r] += pe;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+}
+
+// P in bf16 in the A-operand layout: k-step kk takes registers 4 kk .. 4 kk + 3
+// (columns 16 kk .. 16 kk + 15), which is the accumulator's own order
+template <int BN>
+__device__ __forceinline__ void to_bf16_a(const float* s, uint32_t* pa) {
+#pragma unroll
+  for (int i = 0; i < BN / 4; ++i) pa[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+}
+
 // ---------------------------------------------------------------------------
 // the kernel
 // ---------------------------------------------------------------------------
@@ -339,16 +465,25 @@ __global__ void __launch_bounds__(kThreads, 1)
                            const __grid_constant__ CUtensorMap tm_o, const Params p) {
   using S = Smem<D>;
   constexpr int BN = S::kBN;
-  constexpr int kOn = D < 128 ? D : 128;  // columns of O per P V wgmma
+  constexpr int kStages = S::kStages;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar_q = base + S::kBar;
-  const uint32_t bar_k = bar_q + 8;                  // + 8 * stage
-  const uint32_t bar_v = bar_k + 8 * kStages;        // + 8 * stage
-  const uint32_t bar_empty = bar_v + 8 * kStages;    // + 8 * stage
+  const uint32_t bar_k = bar_q + 8;                  // + 8 * stage, likewise below
+  const uint32_t bar_v = bar_k + 8 * kStages;
+  const uint32_t bar_k_empty = bar_v + 8 * kStages;
+  const uint32_t bar_v_empty = bar_k_empty + 8 * kStages;
 
-  const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockM;  // heaviest tiles first
+  // Blocks start in the order of blockIdx.x. Heads go in groups of
+  // p.group, whose K and V fit in L2 together; within a group the q tiles
+  // run heaviest first (under the causal mask), each tile index across the
+  // group's heads, so the light tiles fill the tail.
+  const int per_group = p.group * p.n_q;
+  const int head0 = blockIdx.x / per_group * p.group;
+  const int heads = min(p.group, p.bh - head0);
+  const int rank = blockIdx.x % per_group;
+  const int bh = head0 + rank % heads;
+  const int q0 = (p.n_q - 1 - rank / heads) * kBlockM;
   const int n_run = kv_tiles_to_run<BN>(p, q0);
 
   if (threadIdx.x == 0) {
@@ -356,7 +491,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int s = 0; s < kStages; ++s) {
       mbar_init(bar_k + 8 * s, 1);
       mbar_init(bar_v + 8 * s, 1);
-      mbar_init(bar_empty + 8 * s, kConsumerWarps);
+      mbar_init(bar_k_empty + 8 * s, kConsumerWarps);
+      mbar_init(bar_v_empty + 8 * s, kConsumerWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -371,22 +507,34 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int c = 0; c < S::kBoxes; ++c) {
         tma_load_3d(base + S::kQ + c * S::kQBox, &tm_q, bar_q, c * 64, q0, bh);
       }
+#pragma unroll 1
       for (int j = 0; j < n_run; ++j) {
         const int stage = j % kStages;
         const int round = j / kStages;
-        if (round > 0) mbar_wait(bar_empty + 8 * stage, (round - 1) & 1);
+        // a stage's K is free once both warpgroups' S of its last tile has
+        // completed, its V once their P V has
+        if (round > 0) mbar_wait_or_trap(bar_k_empty + 8 * stage, (round - 1) & 1);
         const uint32_t k_tile = base + S::kK + stage * S::kKVBytes;
-        const uint32_t v_tile = base + S::kV + stage * S::kKVBytes;
         mbar_arrive_expect_tx(bar_k + 8 * stage, S::kKVBytes);
 #pragma unroll
         for (int c = 0; c < S::kBoxes; ++c) {
           tma_load_3d(k_tile + c * S::kKVBox, &tm_k, bar_k + 8 * stage, c * 64, j * BN, bh);
         }
+        if (round > 0) mbar_wait_or_trap(bar_v_empty + 8 * stage, (round - 1) & 1);
+        const uint32_t v_tile = base + S::kV + stage * S::kKVBytes;
         mbar_arrive_expect_tx(bar_v + 8 * stage, S::kKVBytes);
 #pragma unroll
         for (int c = 0; c < S::kBoxes; ++c) {
           tma_load_3d(v_tile + c * S::kKVBox, &tm_v, bar_v + 8 * stage, c * 64, j * BN, bh);
         }
+      }
+      // the consumers' last release of each stage: a stalled pipeline traps here
+#pragma unroll 1
+      for (int j = max(0, n_run - kStages); j < n_run; ++j) {
+        const int stage = j % kStages;
+        const int round = j / kStages;
+        mbar_wait_or_trap(bar_k_empty + 8 * stage, round & 1);
+        mbar_wait_or_trap(bar_v_empty + 8 * stage, round & 1);
       }
     }
   } else {
@@ -402,114 +550,91 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int row0 = q_wg + 16 * warp + g;    // rows row0 and row0 + 8
     // accumulator element i of an m64nN tile: row 16 * warp + g + 8 * ((i >> 1) & 1),
     // column 8 * (i >> 2) + 2 * tq + (i & 1)
+    const uint32_t q_rows = base + S::kQ + cw * 64 * 128;
+    auto k_tile = [&](int stage) { return base + S::kK + stage * S::kKVBytes; };
+    auto v_tile = [&](int stage) { return base + S::kV + stage * S::kKVBytes; };
+    // masks are needed where the tile crosses the diagonal of this
+    // warpgroup's rows or the end of kv
+    auto masked = [&](int k0) {
+      return (p.causal && q_wg + p.off < k0 + BN - 1) || k0 + BN > p.t_kv;
+    };
 
     float o[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     float m[2] = {kNegInf, kNegInf};  // running max, in log2 units
     float l[2] = {0.f, 0.f};          // this thread's share of the row sums
-    const uint32_t q_rows = base + S::kQ + cw * 64 * 128;
+    float alpha[2];
+    float s[BN / 2];                  // S, then P in float32
+    uint32_t pa[BN / 4];              // P in bf16, the A operand of P V
 
     mbar_wait(bar_q, 0);
-    for (int j = 0; j < n_run; ++j) {
-      const int stage = j % kStages;
-      const uint32_t parity = (j / kStages) & 1;
-      const uint32_t k_tile = base + S::kK + stage * S::kKVBytes;
-      const uint32_t v_tile = base + S::kV + stage * S::kKVBytes;
-      const int k0 = j * BN;
+    if (n_run > 0) {
+      // The two warpgroups take turns to issue their products (named
+      // barriers kTurnBar + cw): one's softmax runs while the other's
+      // wgmmas use the tensor cores. Each waits for its turn before it
+      // issues and hands the turn over after; warpgroup 0 goes first.
+      // Within a warpgroup, S of tile j is issued together with P V of
+      // tile j - 1, so the softmax of tile j overlaps that P V.
+      const int my_turn = kTurnBar + cw;
+      const int their_turn = kTurnBar + 1 - cw;
+      if (cw == 1) named_arrive(kTurnBar);
 
-      // S = Q K^T over d, 16 columns of d per wgmma
-      float s[BN / 2];
-      mbar_wait(bar_k + 8 * stage, parity);
+      mbar_wait(bar_k, 0);
+      named_sync(my_turn);
       fence_regs<BN / 2>(s);
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t col_bytes = (kk % 4) * 32;  // 16 columns within a 64-column box
-        wgmma_ss<BN>(s, kmajor_desc(q_rows + (kk / 4) * S::kQBox + col_bytes),
-                     kmajor_desc(k_tile + (kk / 4) * S::kKVBox + col_bytes), kk > 0);
-      }
+      issue_qk<D, BN>(s, q_rows, k_tile(0));
       wgmma_commit();
-      wgmma_wait_all();
+      named_arrive(their_turn);
+      wgmma_wait<0>();
       fence_regs<BN / 2>(s);
+      if (lane == 0) mbar_arrive(bar_k_empty);
+      softmax_tile<BN>(s, m, l, alpha, p, 0, row0, tq, masked(0));
+      to_bf16_a<BN>(s, pa);
 
-      // online softmax in log2 units; masks only where the tile crosses the
-      // diagonal of this warpgroup's rows or the end of kv
-      const bool masked =
-          (p.causal && q_wg + p.off < k0 + BN - 1) || k0 + BN > p.t_kv;
-      float mx[2] = {-INFINITY, -INFINITY};
-      if (masked) {
+#pragma unroll 1
+      for (int j = 1; j < n_run; ++j) {
+        const int stage = j % kStages;
+        const int prev = (j - 1) % kStages;
+        mbar_wait(bar_k + 8 * stage, (j / kStages) & 1);
+        mbar_wait(bar_v + 8 * prev, ((j - 1) / kStages) & 1);
+        named_sync(my_turn);
+        fence_regs<BN / 2>(s);
+        fence_regs<D / 2>(o);
+        fence_regs<BN / 4>(pa);
+        wgmma_fence();
+        issue_qk<D, BN>(s, q_rows, k_tile(stage));
+        wgmma_commit();
+        issue_pv<D, BN>(o, pa, v_tile(prev));
+        wgmma_commit();
+        named_arrive(their_turn);
+        wgmma_wait<1>();  // S of tile j
+        fence_regs<BN / 2>(s);
+        if (lane == 0) mbar_arrive(bar_k_empty + 8 * stage);
+        softmax_tile<BN>(s, m, l, alpha, p, j * BN, row0, tq, masked(j * BN));
+        wgmma_wait<0>();  // P V of tile j - 1
+        fence_regs<D / 2>(o);
+        fence_regs<BN / 4>(pa);
+        if (lane == 0) mbar_arrive(bar_v_empty + 8 * prev);
 #pragma unroll
-        for (int i = 0; i < BN / 2; ++i) {
-          const int col = k0 + 8 * (i >> 2) + 2 * tq + (i & 1);
-          const int row = row0 + 8 * ((i >> 1) & 1);
-          const bool visible = col < p.t_kv && (!p.causal || row + p.off >= col);
-          if (!visible) s[i] = -INFINITY;
-          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < BN / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-      }
-      float alpha[2];
-      bool empty[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_cur = mx[r] == -INFINITY ? kNegInf : mx[r] * p.scale_log2;
-        const float m_new = fmaxf(m[r], m_cur);
-        alpha[r] = fast_exp2(m[r] - m_new);
-        m[r] = m_new;
-        empty[r] = m_new == kNegInf;  // no visible column so far
-      }
-      float rs[2] = {0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) {
-        const int r = (i >> 1) & 1;
-        float pe = fast_exp2(fmaf(s[i], p.scale_log2, -m[r]));
-        if (masked && empty[r]) {
-          // every processed column of the row is masked: p = exp(0) = 1 on
-          // each column of the reference's tile
-          pe = 8 * (i >> 2) + 2 * tq + (i & 1) < p.bk_eff ? 1.f : 0.f;
-        }
-        s[i] = pe;
-        rs[r] += pe;
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
-#pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
-
-      // P in bf16, A-operand layout: k-step kk takes columns 16 kk .. 16 kk + 15
-      uint32_t pa[BN / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
-        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+        for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+        to_bf16_a<BN>(s, pa);
       }
 
-      // O += P V, 16 kv rows per wgmma, kOn columns of d per wgmma
-      mbar_wait(bar_v + 8 * stage, parity);
+      const int last = (n_run - 1) % kStages;
+      mbar_wait(bar_v + 8 * last, ((n_run - 1) / kStages) & 1);
+      named_sync(my_turn);
       fence_regs<D / 2>(o);
-      fence_regs<BN / 4>(&pa[0][0]);
+      fence_regs<BN / 4>(pa);
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-#pragma unroll
-        for (int h = 0; h < D / kOn; ++h) {
-          wgmma_rs<kOn>(o + h * (kOn / 2), pa[kk],
-                        mnmajor_desc(v_tile + kk * 16 * 128 + h * (kOn / 64) * S::kKVBox,
-                                     S::kKVBox));
-        }
-      }
+      issue_pv<D, BN>(o, pa, v_tile(last));
       wgmma_commit();
-      wgmma_wait_all();
+      if (cw == 0) named_arrive(their_turn);  // warpgroup 1's last turn
+      wgmma_wait<0>();
       fence_regs<D / 2>(o);
-      fence_regs<BN / 4>(&pa[0][0]);
-      if (lane == 0) mbar_arrive(bar_empty + 8 * stage);
+      fence_regs<BN / 4>(pa);
+      if (lane == 0) mbar_arrive(bar_v_empty + 8 * last);
     }
 
     // ---- epilogue: row sums, lse, O / denominator through shared memory
@@ -539,7 +664,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       *reinterpret_cast<uint32_t*>(q_buf + off) = pack_bf16(o[i] * inv[r], o[i + 1] * inv[r]);
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(kEpilogueBar + cw) : "memory");
     if (wtid == 0) {
 #pragma unroll
       for (int c = 0; c < S::kBoxes; ++c) {
@@ -578,7 +703,7 @@ int launch(const void* q, const void* k, const void* v, void* o, const Params& p
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kAlloc);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(bh, (p.t_q + kBlockM - 1) / kBlockM);
+  const dim3 grid(p.n_q * bh);
   kernel<<<grid, kThreads, S::kAlloc, stream>>>(tm_q, tm_k, tm_v, tm_o, p);
   return (int)cudaGetLastError();
 }
@@ -587,12 +712,21 @@ int launch(const void* q, const void* k, const void* v, void* o, const Params& p
 
 extern "C" int ray_tpu_flash_fwd_wgmma_tiles(int d, int* block_q, int* block_k) {
   switch (d) {
-    case 64: *block_k = BlockN<64>::value; break;
-    case 128: *block_k = BlockN<128>::value; break;
-    case 256: *block_k = BlockN<256>::value; break;
+    case 64: *block_k = Config<64>::kBN; break;
+    case 128: *block_k = Config<128>::kBN; break;
+    case 256: *block_k = Config<256>::kBN; break;
     default: return kUnsupported;
   }
   *block_q = kBlockM;
+  return 0;
+}
+
+extern "C" int ray_tpu_flash_fwd_wgmma_smem_bytes(int d) {
+  switch (d) {
+    case 64: return Smem<64>::kAlloc;
+    case 128: return Smem<128>::kAlloc;
+    case 256: return Smem<256>::kAlloc;
+  }
   return 0;
 }
 
@@ -600,13 +734,19 @@ extern "C" int ray_tpu_flash_fwd_wgmma(const void* q, const void* k, const void*
                                        void* o, void* lse, int bh, int t_q, int t_kv,
                                        int d, int dtype, int causal, float scale,
                                        void* stream) {
-  if (bh <= 0 || t_q <= 0 || t_kv <= 0 || dtype != 0 || !(scale > 0.f)) {
+  if (bh <= 0 || t_q <= 0 || t_kv <= 0 || dtype != 0 || !(scale > 0.f) ||
+      (long long)bh * ((t_q + kBlockM - 1) / kBlockM) > 0x7fffffffll) {
     return kUnsupported;
   }
   int block_q = 0, block_k = 0;
   if (ray_tpu_flash_fwd_wgmma_tiles(d, &block_q, &block_k) != 0) return kUnsupported;
   Params p;
   p.lse = static_cast<float*>(lse);
+  p.bh = bh;
+  p.n_q = (t_q + block_q - 1) / block_q;
+  const long long head_bytes = 4ll * t_kv * d;  // K and V of one head, bf16
+  const long long fit = kL2GroupBytes / head_bytes;
+  p.group = fit < 1 ? 1 : (fit > bh ? bh : (int)fit);
   p.t_q = t_q;
   p.t_kv = t_kv;
   p.off = t_kv - t_q;
