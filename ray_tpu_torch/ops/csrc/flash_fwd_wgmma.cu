@@ -123,7 +123,7 @@ struct Smem {
   static constexpr int kK = kQ + kQBytes;                // kStages K tiles
   static constexpr int kV = kK + kStages * kKVBytes;     // kStages V tiles
   static constexpr int kBar = kV + kStages * kKVBytes;   // barriers, 8 bytes each:
-  // q full, then per stage K full, V full, K empty, V empty
+  // Q full, then kStages each of K full, V full, K empty and V empty
   static constexpr int kBytes = kBar + 8 * (1 + 4 * kStages);
   static constexpr int kAlloc = kBytes + 1024;           // room to align
   static_assert(kAlloc <= 232448, "shared memory over the 227 KB a block may use");
