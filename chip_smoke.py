@@ -4,28 +4,30 @@
     python3 chip_smoke.py [--out results.json] [--profile]
 
 Phases (any failure exits non-zero; nothing is caught):
-  1. build: compile ray_tpu_torch/ops/csrc/flash_fwd_wgmma.cu, flash_fwd.cu
-     and flash_bwd.cu with nvcc, in parallel, and print their register,
-     shared-memory and spill reports; the wgmma forward at head_dim 128 (the
-     main path) must not spill;
+  1. build: compile ray_tpu_torch/ops/csrc/flash_fwd_wgmma.cu, flash_fwd.cu,
+     flash_bwd_wgmma.cu and flash_bwd.cu with nvcc, in parallel, and print
+     their register, shared-memory and spill reports; the wgmma forward and
+     both wgmma backward kernels at head_dim 128 (the main path) must not
+     spill;
   2. kernel vs plain: the flash forward kernel against its plain PyTorch
      version on the same device tensors, per case: each row of out held to
      its own norm and lse to an absolute limit
      (ray_tpu_torch/ops/tolerance.py), max abs error, kernel / plain /
      library (scaled_dot_product_attention, a yardstick the port never
      calls) times and the bound;
-  3. backward kernels vs plain: the dQ and dK/dV kernels against
-     flash_attention_bwd_plain, per case: each row of dq, dk, dv held to its
-     own norm (ray_tpu_torch/ops/tolerance.py), max abs error, each kernel's
-     time and bound, the plain time and the library time
+  3. backward kernels vs plain: the dQ and dK/dV kernels of the design
+     BWD_DESIGNS names (wgmma or mma_sync; each case names it and must launch
+     it) against flash_attention_bwd_plain, per case: each row of dq, dk, dv
+     held to its own norm (ray_tpu_torch/ops/tolerance.py), max abs error,
+     each kernel's time and bound, the plain time and the library time
      (torch.autograd.grad through scaled_dot_product_attention);
   4. train: three float32 gpt_nano steps on the card held to the same steps
      on the CPU; then gpt_1b (bf16 compute, float32 master weights and Adam
      moments, remat "nothing"), b=12, t=2048, ce_chunk 512, lr 1e-4: one
      warm-up step and 5 timed steps on one repeated batch. Loss and grad
      norm finite, the last loss below the first, and per step exactly
-     2 * num_layers forward launches, all on the wgmma design, and
-     num_layers launches of each backward kernel;
+     2 * num_layers forward launches and num_layers launches of each
+     backward kernel, all on the wgmma designs;
   5. forward: gpt_1b in bf16 (random weights from a seeded torch.Generator),
      b=4, t=2048; the wgmma forward kernel must launch num_layers times per
      forward;
@@ -41,7 +43,7 @@ device time by kernel and the idle share are printed (and written to
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero without a card.
 Each forward case names the design (FWD_DESIGNS: wgmma or mma_sync) and the
-tiles that ran it. In the kernels line, flash_fwd is the wgmma design, the
+tiles that ran it; each backward case names its design (BWD_DESIGNS). In the kernels line, flash_fwd is the wgmma design, the
 one the main path runs, at gpt_1b's forward shape (b=4) with the forward
 phase's launches, and the backward kernels at the train step's
 shape (b=12) with the train phase's; every entry names its shape and its
@@ -138,7 +140,7 @@ def phase_build():
         return _build.build(name), time.monotonic() - t0
 
     t0 = time.monotonic()
-    names = ("flash_fwd_wgmma", "flash_fwd", "flash_bwd")
+    names = ("flash_fwd_wgmma", "flash_fwd", "flash_bwd_wgmma", "flash_bwd")
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
         built = dict(zip(names, pool.map(timed, names)))
     out = {"seconds": time.monotonic() - t0}
@@ -152,16 +154,30 @@ def phase_build():
                 print(f"[build]   {line.strip()}")
         out[name] = {"seconds": seconds, "library": lib.name,
                      "spills": _spills_by_kernel(report)}
-    main = {k: v for k, v in out["flash_fwd_wgmma"]["spills"].items() if "ILi128E" in k}
-    if not main or any(main.values()):
-        raise SystemExit(f"the wgmma forward at head_dim 128 spills: {main}")
+    # the main path's kernels at head_dim 128: the wgmma forward and both
+    # wgmma backward kernels
+    for source, kernels in (("flash_fwd_wgmma", ("flash_fwd_wgmma_kernel",)),
+                            ("flash_bwd_wgmma", ("flash_bwd_dq_wgmma_kernel",
+                                                 "flash_bwd_dkv_wgmma_kernel"))):
+        for kernel in kernels:
+            main = {k: v for k, v in out[source]["spills"].items()
+                    if kernel in k and "ILi128E" in k}
+            if not main or any(main.values()):
+                raise SystemExit(f"{kernel} at head_dim 128 spills: {main}")
     # dynamic shared memory, which the compiler's report does not show
-    smem_fn = ctypes.CDLL(str(built["flash_fwd_wgmma"][0])).ray_tpu_flash_fwd_wgmma_smem_bytes
-    smem_fn.argtypes, smem_fn.restype = [ctypes.c_int], ctypes.c_int
-    smem = {d: smem_fn(d) for d in (64, 128, 256)}
+    fwd_lib = ctypes.CDLL(str(built["flash_fwd_wgmma"][0]))
+    fwd_lib.ray_tpu_flash_fwd_wgmma_smem_bytes.argtypes = [ctypes.c_int]
+    smem = {d: fwd_lib.ray_tpu_flash_fwd_wgmma_smem_bytes(d) for d in (64, 128, 256)}
     print(f"[build] flash_fwd_wgmma dynamic shared memory per CTA by head_dim: {smem} "
           f"bytes (of 232448)")
     out["flash_fwd_wgmma"]["smem_bytes"] = smem
+    bwd_lib = ctypes.CDLL(str(built["flash_bwd_wgmma"][0]))
+    bwd_lib.ray_tpu_flash_bwd_wgmma_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    smem = {kernel: {d: bwd_lib.ray_tpu_flash_bwd_wgmma_smem_bytes(d, dkv) for d in (64, 128)}
+            for kernel, dkv in (("dq", 0), ("dkv", 1))}
+    print(f"[build] flash_bwd_wgmma dynamic shared memory per CTA by kernel and head_dim: "
+          f"{smem} bytes")
+    out["flash_bwd_wgmma"]["smem_bytes"] = smem
     return out
 
 
@@ -269,6 +285,8 @@ BWD_CASES = [
     ("ragged_t2056_causal", 1, 16, 2056, 2056, 128, True, torch.bfloat16),
     ("noncausal", 4, 16, 2048, 2048, 128, False, torch.bfloat16),
     ("tq_gt_tkv_empty_rows", 1, 2, 160, 64, 128, True, torch.bfloat16),
+    ("tq_gt_tkv_d64", 1, 2, 160, 64, 64, True, torch.bfloat16),
+    ("noncausal_t384", 2, 16, 384, 384, 128, False, torch.bfloat16),
     ("d16_tiny", 2, 4, 24, 40, 16, True, torch.bfloat16),
     ("d32_tiny_cfg", 2, 8, 256, 256, 32, True, torch.bfloat16),
     ("f32_cuda_cores", 1, 4, 200, 264, 64, True, torch.float32),
@@ -287,8 +305,17 @@ def phase_bwd_kernels_vs_plain():
         q, k, v, do = (torch.randn(b, h, t, d, device="cuda", dtype=dtype, generator=gen)
                        for t in (t_q, t_kv, t_kv, t_q))
         scale = 1.0 / d ** 0.5
+        design = attn.BWD_DESIGNS[(d, dtype)]
+        if dtype == torch.bfloat16 and d in (64, 128) and design.name != "wgmma":
+            raise SystemExit(f"BWD_DESIGNS sends bf16 head_dim {d} to {design.name}")
         out, lse = attn.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+        before = _launch_counts()
         got = attn.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, scale=scale)
+        launched = dict(zip(COUNTS, (a - b for a, b in zip(_launch_counts(), before))))
+        if any(launched[f"flash_bwd_{kernel}{suffix}"] != 1 for kernel in ("dq", "dkv")
+               for suffix in ("", f"_{design.name}")):
+            raise SystemExit(f"case {name}: the backward launched {launched}, expected one "
+                             f"dQ and one dK/dV launch on the {design.name} design")
         want = attn.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal,
                                               scale=scale)
         torch.cuda.synchronize()
@@ -302,6 +329,7 @@ def phase_bwd_kernels_vs_plain():
         big = b * h * t_q * t_kv >= 2 ** 26
         iters = 10 if big else 50
         delta = attn.flash_bwd_delta(out, do)
+        delta_ms = cuda_ms(lambda: attn.flash_bwd_delta(out, do), iters=iters)
         dq_ms = cuda_ms(lambda: attn.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal,
                                                   scale=scale), iters=iters)
         dkv_ms = cuda_ms(lambda: attn.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal,
@@ -321,18 +349,20 @@ def phase_bwd_kernels_vs_plain():
         dq_bound, dq_by = bwd_bound(b, h, t_q, t_kv, d, causal, dtype, 3)
         dkv_bound, dkv_by = bwd_bound(b, h, t_q, t_kv, d, causal, dtype, 4)
         row = dict(case=name, shape=[b, h, t_q, t_kv, d], causal=causal,
-                   dtype=str(dtype).replace("torch.", ""), max_abs_err=errs,
+                   dtype=str(dtype).replace("torch.", ""), design=design.name,
+                   source=f"ray_tpu_torch/ops/csrc/{design.source}.cu", max_abs_err=errs,
                    row_err=row_errs, row_err_tol=tol, ok=ok, dq_ms=dq_ms, dkv_ms=dkv_ms,
+                   delta_ms=delta_ms,
                    plain_ms=plain_ms, library_ms=library_ms, dq_bound_ms=dq_bound,
                    dq_bound_by=dq_by, dkv_bound_ms=dkv_bound, dkv_bound_by=dkv_by)
         rows.append(row)
-        print(f"[bwd] {name:<22} {str(row['shape']):<28} worst-row err dq "
+        print(f"[bwd] {name:<22} {str(row['shape']):<28} {design.name:<8} worst-row err dq "
               f"{row_errs['dq']:.2e} dk {row_errs['dk']:.2e} dv {row_errs['dv']:.2e} "
               f"(limit {tol:.0e}), max abs err {errs['dq']:.2e} {errs['dk']:.2e} "
               f"{errs['dv']:.2e} {'ok' if ok else 'FAIL'} | "
               f"dQ {dq_ms:.4f} ms (bound {dq_bound:.4f}, {dq_by}) dK/dV {dkv_ms:.4f} ms "
-              f"(bound {dkv_bound:.4f}, {dkv_by}) plain {plain_ms:.3f} ms "
-              f"library {library_ms:.4f} ms")
+              f"(bound {dkv_bound:.4f}, {dkv_by}) delta {delta_ms:.4f} ms plain "
+              f"{plain_ms:.3f} ms library {library_ms:.4f} ms")
         del got, want, lib_out
     bad = [(r["case"], r["row_err"]) for r in rows if not r["ok"]]
     if bad:
@@ -341,11 +371,12 @@ def phase_bwd_kernels_vs_plain():
     return rows
 
 
-# the launch counts read around each path: every forward launch, the
-# backward kernels', and the forward's by design (the wgmma kernel is the
-# main path's; mma_sync takes head_dim 16/32 and float32)
+# the launch counts read around each path: every launch of each kernel, and
+# each kernel's by design (the wgmma kernels are the main path's; mma_sync
+# takes the other head_dims and float32)
 KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-COUNTS = KERNEL_NAMES + ("flash_fwd_wgmma", "flash_fwd_mma_sync")
+COUNTS = KERNEL_NAMES + tuple(f"{kernel}_{design}" for kernel in KERNEL_NAMES
+                              for design in ("wgmma", "mma_sync"))
 
 
 def _launch_counts():
@@ -416,8 +447,12 @@ def phase_train(batch: int, seq: int, steps: int, profile: bool):
     launches = _launch_counts()
     losses = [float(m["loss"]) for m in metrics]
     norms = [float(m["grad_norm"]) for m in metrics]
-    # every forward launch (forward and remat recompute) on the wgmma design
-    want = [2 * cfg.num_layers, cfg.num_layers, cfg.num_layers, 2 * cfg.num_layers, 0]
+    # every launch (the forward's: forward and remat recompute) on the wgmma
+    # designs
+    expected = {"flash_fwd": 2 * cfg.num_layers, "flash_bwd_dq": cfg.num_layers,
+                "flash_bwd_dkv": cfg.num_layers}
+    expected.update({f"{name}_wgmma": n for name, n in expected.items()})
+    want = [expected.get(name, 0) for name in COUNTS]
     if any(c != want for c in per_step):
         raise SystemExit(f"launches per step {dict(zip(COUNTS, zip(*per_step)))}, "
                          f"expected {dict(zip(COUNTS, want))}")
@@ -442,7 +477,7 @@ def phase_train(batch: int, seq: int, steps: int, profile: bool):
           f"{report['max_memory_gib']:.2f} GiB")
     print(f"[train] loss {[round(x, 4) for x in losses]} (warm-up step "
           f"{report['warmup_loss']:.4f}), grad norm {[round(x, 4) for x in norms]}, "
-          f"launches per step (fwd, dq, dkv, fwd on wgmma, fwd on mma_sync) {want}")
+          f"launches per step {dict(zip(COUNTS, want))}")
     if profile:
         report["profile"] = profile_window(
             lambda: (step(state, tokens), torch.cuda.synchronize()),
@@ -508,6 +543,10 @@ def profile_window(fn, label: str):
         groups[_kernel_group(e.key)] = (groups.get(_kernel_group(e.key), 0.0)
                                         + e.self_device_time_total / 1e3)
     idle = max(0.0, 1.0 - busy_ms / wall_ms)
+    # the backward's delta pass, a torch.profiler.record_function range of
+    # ops/attention.py
+    delta = [dict(device_ms=e.device_time_total / 1e3, calls=e.count)
+             for e in prof.key_averages() if e.key == "flash_bwd_delta"]
     print(f"[profile] {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
           f"idle share {idle:.3f}; by group: "
           + ", ".join(f"{g} {ms:.1f} ms" for g, ms in sorted(groups.items(),
@@ -515,8 +554,11 @@ def profile_window(fn, label: str):
           + "; by kernel:")
     for t in top:
         print(f"[profile]   {t['ms']:9.3f} ms  x{t['calls']:<5} {t['name']}")
+    for r in delta:
+        print(f"[profile]   range flash_bwd_delta: {r['device_ms']:.3f} ms of device time "
+              f"over {r['calls']} calls")
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=idle, top=top,
-                groups_ms=groups)
+                groups_ms=groups, flash_bwd_delta=delta[0] if delta else None)
 
 
 def _kernel_group(name: str) -> str:
@@ -701,7 +743,6 @@ def main() -> int:
     by_path = {name: {path: report[path]["launches"][name]
                       for path in ("train", "forward", "server")}
                for name in COUNTS}
-    bwd_src = "ray_tpu_torch/ops/csrc/flash_bwd.cu"
     whole = "dq, dk and dv together"
     kernels = {"kernels": [
         dict(name="flash_fwd", route="cuda", source=fwd_case["source"],
@@ -714,25 +755,25 @@ def main() -> int:
              row_err=fwd_case["row_err"], row_err_tol=fwd_case["row_err_tol"],
              shape=fwd_shape, launches_path="forward",
              launches_by_path=by_path["flash_fwd_wgmma"]),
-        dict(name="flash_bwd_dq", route="cuda", source=bwd_src,
+        dict(name="flash_bwd_dq", route="cuda", source=bwd_case["source"],
              replaces="ray_tpu/ops/attention.py:324",
-             launches=by_path["flash_bwd_dq"]["train"],
+             launches=by_path[f"flash_bwd_dq_{bwd_case['design']}"]["train"],
              max_abs_err=bwd_case["max_abs_err"]["dq"], ms=bwd_case["dq_ms"],
              plain_ms=bwd_case["plain_ms"], bound_ms=bwd_case["dq_bound_ms"],
              bound_by=bwd_case["dq_bound_by"], library_ms=bwd_case["library_ms"],
-             shape=bwd_shape, launches_path="train",
-             launches_by_path=by_path["flash_bwd_dq"],
+             design=bwd_case["design"], shape=bwd_shape, launches_path="train",
+             launches_by_path=by_path[f"flash_bwd_dq_{bwd_case['design']}"],
              row_err=bwd_case["row_err"]["dq"], row_err_tol=bwd_case["row_err_tol"],
              plain_ms_computes=whole, library_ms_computes=whole),
-        dict(name="flash_bwd_dkv", route="cuda", source=bwd_src,
+        dict(name="flash_bwd_dkv", route="cuda", source=bwd_case["source"],
              replaces="ray_tpu/ops/attention.py:394",
-             launches=by_path["flash_bwd_dkv"]["train"],
+             launches=by_path[f"flash_bwd_dkv_{bwd_case['design']}"]["train"],
              max_abs_err=max(bwd_case["max_abs_err"]["dk"], bwd_case["max_abs_err"]["dv"]),
              ms=bwd_case["dkv_ms"], plain_ms=bwd_case["plain_ms"],
              bound_ms=bwd_case["dkv_bound_ms"], bound_by=bwd_case["dkv_bound_by"],
              library_ms=bwd_case["library_ms"],
-             shape=bwd_shape, launches_path="train",
-             launches_by_path=by_path["flash_bwd_dkv"],
+             design=bwd_case["design"], shape=bwd_shape, launches_path="train",
+             launches_by_path=by_path[f"flash_bwd_dkv_{bwd_case['design']}"],
              row_err=max(bwd_case["row_err"]["dk"], bwd_case["row_err"]["dv"]),
              row_err_tol=bwd_case["row_err_tol"],
              plain_ms_computes=whole, library_ms_computes=whole),

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with a
 plain C interface, at first use, under ``build/ray_tpu_torch/`` at the root
 of the checkout (``.gitignore`` lists ``build/``). The library's file name
-carries a hash of the source and the flags, so an edited source is rebuilt
-and a stale library is never loaded. Nothing here runs at import time: the
+carries a hash of the source, the headers beside it (``csrc/*.cuh``) and
+the flags, so an edited source or header is rebuilt and a stale library is
+never loaded. Nothing here runs at import time: the
 CPU tests import every module on machines without ``nvcc``.
 """
 
@@ -52,10 +53,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    flags = " ".join(NVCC_FLAGS + LINK_FLAGS)
-    digest = hashlib.sha256(src + flags.encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """Where ``csrc/<name>.cu`` is built: the name carries a hash of the
+    source, of every header in ``csrc/`` (``*.cuh``, which a source may
+    include) and of the flags."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

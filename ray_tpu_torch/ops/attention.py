@@ -21,12 +21,15 @@ a shorter q is the suffix of the kv context (``q_pos = q_idx + t_kv - t_q``).
   ``csrc/flash_fwd.cu`` (mma.sync; head_dim 16, 32 and float32). It counts
   every launch in ``flash_fwd_launches`` and each design's in
   ``flash_fwd_wgmma_launches`` or ``flash_fwd_mma_sync_launches``;
-  ``flash_attention_bwd``
-  launches the two kernels of ``csrc/flash_bwd.cu`` (``flash_bwd_dq``,
-  ``flash_bwd_dkv``, counted in ``flash_bwd_dq_launches`` and
-  ``flash_bwd_dkv_launches``). On CPU tensors the wrappers take the plain
-  versions and count nothing. On a CUDA tensor they launch or raise: they
-  never fall back quietly.
+  ``flash_attention_bwd`` launches the dQ and dK/dV kernels
+  (``flash_bwd_dq``, ``flash_bwd_dkv``) of the design that the dispatch
+  table ``BWD_DESIGNS`` names: ``csrc/flash_bwd_wgmma.cu`` (TMA, wgmma,
+  warp-specialised; bf16 at head_dim 64 and 128) or ``csrc/flash_bwd.cu``
+  (mma.sync; head_dim 16, 32, 256 and float32), counted in
+  ``flash_bwd_dq_launches`` and ``flash_bwd_dkv_launches`` and in the
+  design's ``flash_bwd_{dq,dkv}_{wgmma,mma_sync}_launches``. On CPU tensors
+  the wrappers take the plain versions and count nothing. On a CUDA tensor
+  they launch or raise: they never fall back quietly.
 * ``FlashAttention`` is the autograd Function over the two wrappers, and
   ``dot_product_attention`` the public entry, in the [b, h, t, d] layout,
   over the Function; with ``segment_ids`` it takes ``_attention_plain`` on
@@ -81,13 +84,47 @@ FWD_DESIGNS = {
     (256, torch.bfloat16): _wgmma(80),
 }
 
-#: launches of each kernel, counted where it is launched; a forward launch
-#: counts in flash_fwd_launches and in its design's count
+
+@dataclasses.dataclass(frozen=True)
+class BwdDesign:
+    """One pair of hand-written flash backward kernels: its name, its
+    source ``csrc/<source>.cu`` and the entry points of its dQ and dK/dV
+    kernels. The backward's result does not depend on its tiles
+    (``flash_attention_bwd_plain``), so the design names none."""
+
+    name: str
+    source: str
+    dq_entry: str
+    dkv_entry: str
+
+
+_BWD_MMA_SYNC = BwdDesign("mma_sync", "flash_bwd", "ray_tpu_flash_bwd_dq",
+                          "ray_tpu_flash_bwd_dkv")
+_BWD_WGMMA = BwdDesign("wgmma", "flash_bwd_wgmma", "ray_tpu_flash_bwd_dq_wgmma",
+                       "ray_tpu_flash_bwd_dkv_wgmma")
+
+#: the backward's dispatch table, keyed on (head_dim, dtype): the kernels each
+#: input launches on the card. At head_dim 256 the wgmma design's dK and dV
+#: accumulators would not fit in a consumer thread's registers.
+BWD_DESIGNS = {
+    **{(d, torch.float32): _BWD_MMA_SYNC for d in HEAD_DIMS},
+    **{(d, torch.bfloat16): _BWD_MMA_SYNC for d in (16, 32, 256)},
+    (64, torch.bfloat16): _BWD_WGMMA,
+    (128, torch.bfloat16): _BWD_WGMMA,
+}
+
+#: launches of each kernel, counted where it is launched; a launch counts in
+#: its kernel's total (flash_fwd, flash_bwd_dq, flash_bwd_dkv) and in its
+#: design's count
 flash_fwd_launches = 0
 flash_fwd_wgmma_launches = 0
 flash_fwd_mma_sync_launches = 0
 flash_bwd_dq_launches = 0
+flash_bwd_dq_wgmma_launches = 0
+flash_bwd_dq_mma_sync_launches = 0
 flash_bwd_dkv_launches = 0
+flash_bwd_dkv_wgmma_launches = 0
+flash_bwd_dkv_mma_sync_launches = 0
 
 
 def fwd_tiles(head_dim: int, dtype: torch.dtype) -> Tuple[int, int]:
@@ -311,6 +348,8 @@ _SOURCES = {
                         "ray_tpu_flash_fwd_wgmma_error_string"),
     "flash_bwd": ({"ray_tpu_flash_bwd_dq": 7, "ray_tpu_flash_bwd_dkv": 8},
                   "ray_tpu_flash_bwd_error_string"),
+    "flash_bwd_wgmma": ({"ray_tpu_flash_bwd_dq_wgmma": 7, "ray_tpu_flash_bwd_dkv_wgmma": 8},
+                        "ray_tpu_flash_bwd_wgmma_error_string"),
 }
 _C_TAIL = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
 
@@ -463,34 +502,53 @@ def flash_attention_fwd(
 
 def flash_bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """delta = rowsum(dO * O) in float32 [b, h, t_q], as the reference
-    computes it outside its kernels."""
-    return (do.float() * o.float()).sum(-1)
+    computes it outside its kernels; a ``flash_bwd_delta`` range for
+    ``torch.profiler``."""
+    with torch.profiler.record_function("flash_bwd_delta"):
+        return (do.float() * o.float()).sum(-1)
+
+
+def _bwd_design(q, k, v, do, lse, delta) -> BwdDesign:
+    """The ``BWD_DESIGNS`` entry for these inputs, after the checks every
+    backward kernel needs; raises for inputs that no kernel takes."""
+    _check_kernel_inputs(q, k, v, ("do", do), rows=(("lse", lse), ("delta", delta)))
+    return BWD_DESIGNS[(q.shape[-1], q.dtype)]
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float
                  ) -> torch.Tensor:
-    """dq from the dQ kernel of ``csrc/flash_bwd.cu`` (CUDA tensors only),
-    counted in ``flash_bwd_dq_launches``."""
-    global flash_bwd_dq_launches
-    _check_kernel_inputs(q, k, v, ("do", do), rows=(("lse", lse), ("delta", delta)))
+    """dq from the dQ kernel of the design ``BWD_DESIGNS`` names (CUDA
+    tensors only), counted in ``flash_bwd_dq_launches`` and the design's
+    ``flash_bwd_dq_<design>_launches``."""
+    global flash_bwd_dq_launches, flash_bwd_dq_wgmma_launches, flash_bwd_dq_mma_sync_launches
+    design = _bwd_design(q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
-    _launch("flash_bwd", "ray_tpu_flash_bwd_dq", (q, k, v, do, lse, delta, dq), q,
+    _launch(design.source, design.dq_entry, (q, k, v, do, lse, delta, dq), q,
             k.shape[2], causal, scale)
     flash_bwd_dq_launches += 1
+    if design.name == "wgmma":
+        flash_bwd_dq_wgmma_launches += 1
+    else:
+        flash_bwd_dq_mma_sync_launches += 1
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) from the dK/dV kernel of ``csrc/flash_bwd.cu`` (CUDA tensors
-    only), counted in ``flash_bwd_dkv_launches``."""
-    global flash_bwd_dkv_launches
-    _check_kernel_inputs(q, k, v, ("do", do), rows=(("lse", lse), ("delta", delta)))
+    """(dk, dv) from the dK/dV kernel of the design ``BWD_DESIGNS`` names
+    (CUDA tensors only), counted in ``flash_bwd_dkv_launches`` and the
+    design's ``flash_bwd_dkv_<design>_launches``."""
+    global flash_bwd_dkv_launches, flash_bwd_dkv_wgmma_launches, flash_bwd_dkv_mma_sync_launches
+    design = _bwd_design(q, k, v, do, lse, delta)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch("flash_bwd", "ray_tpu_flash_bwd_dkv", (q, k, v, do, lse, delta, dk, dv),
+    _launch(design.source, design.dkv_entry, (q, k, v, do, lse, delta, dk, dv),
             q, k.shape[2], causal, scale)
     flash_bwd_dkv_launches += 1
+    if design.name == "wgmma":
+        flash_bwd_dkv_wgmma_launches += 1
+    else:
+        flash_bwd_dkv_mma_sync_launches += 1
     return dk, dv
 
 
@@ -509,10 +567,11 @@ def flash_attention_bwd(
     and the gradient ``do`` of out.
 
     CPU tensors take ``flash_attention_bwd_plain`` and launch nothing. CUDA
-    tensors launch the two hand-written Hopper kernels of
-    ``csrc/flash_bwd.cu``, dQ then dK/dV, after delta = rowsum(dO * O): the
-    inputs the forward kernel takes, with o and do like q (contiguous) and
-    lse float32 [b, h, t_q]. Anything else raises."""
+    tensors launch the two hand-written Hopper kernels of the design that
+    ``BWD_DESIGNS`` names for (head_dim, dtype), dQ then dK/dV, after
+    delta = rowsum(dO * O): the inputs the forward kernel takes, with o and
+    do like q (contiguous) and lse float32 [b, h, t_q]. Anything else
+    raises."""
     if all(t.device.type == "cpu" for t in (q, k, v, o, lse, do)):
         return flash_attention_bwd_plain(
             q, k, v, o, lse, do, causal=causal, scale=scale)

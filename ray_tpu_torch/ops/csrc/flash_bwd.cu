@@ -1,7 +1,10 @@
-// Flash-attention backward for Hopper (sm_90a), hand-written CUDA C++.
+// Flash-attention backward on mma.sync (sm_90a), hand-written CUDA C++: the
+// design the dispatch table in ops/attention.py (BWD_DESIGNS) sends bf16 at
+// head_dim 16, 32 and 256 and every float32 input to; bf16 at 64 and 128
+// runs csrc/flash_bwd_wgmma.cu.
 //
 // Replaces the two TPU kernels of ray_tpu/ops/attention.py launched by
-// _flash_attention_tpu_bwd:
+// _flash_attention_tpu_bwd there:
 //   * _flash_bwd_dq_kernel  -> flash_bwd_dq_*  (dQ, kv tiles innermost);
 //   * _flash_bwd_dkv_kernel -> flash_bwd_dkv_* (dK and dV, q tiles innermost).
 // Both recompute P = exp(scale * Q K^T - lse) from the forward's row lse,
@@ -42,7 +45,7 @@
 // 16-row group and each keeps the accumulators of half of d, so that dK and
 // dV (2 x 16 x 256 floats a warp) fit in registers; they both compute S and
 // dP. Tiles sit in shared memory with rows padded by 16 bytes. There is no
-// cp.async pipelining, ldmatrix or wgmma/TMA yet. float32 inputs take a
+// cp.async pipelining, ldmatrix or wgmma/TMA. float32 inputs take a
 // CUDA-core path with the same tiles (one thread per row), which exists for
 // tests and is not tuned.
 //

@@ -1,0 +1,353 @@
+// Hopper (sm_90a) pieces shared by the port's wgmma flash kernels
+// (flash_fwd_wgmma.cu, flash_bwd_wgmma.cu): mbarriers, 3-D TMA loads and
+// stores, 128-byte-swizzled wgmma descriptors, wgmma with A from shared
+// memory or from registers, named barriers, and the tensor map every tile
+// of those kernels uses.
+//
+// Every tile is a row-major [rows, d] bf16 array cut into 64-column boxes of
+// 128-byte rows that TMA swizzles with the 128-byte pattern; a box holds all
+// the tile's rows, so box c of a tile of R rows starts at c * R * 128 bytes.
+// A tile stored so is a K-major wgmma operand when d is the product's depth
+// (Q, K of S = Q K^T) and an MN-major one, read through the descriptor's
+// transpose bit, when its rows are the depth (V of O += P V).
+//
+// Everything here is in an anonymous namespace: each source that includes
+// it is its own library.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr unsigned long long kWaitLimitNs = 4000000000ull;
+// bytes of the streamed tiles that the heads of one launch group may hold in
+// L2 (of the H100's 50 MB)
+constexpr long long kL2GroupBytes = 16ll << 20;
+constexpr int kUnsupported = 100000;
+constexpr int kTensorMapFailed = 100001;
+
+// ---------------------------------------------------------------------------
+// PTX wrappers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Waits until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
+}
+
+// The same, ending the kernel with an error after kWaitLimitNs. Only a
+// kernel's producer waits so: a trap in the consumers' loop costs them
+// registers (ptxas spills there), and every stall of the pipeline reaches
+// one of the producer's waits, since it ends by waiting for the last
+// release of each stage.
+__device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const unsigned long long t0 = global_ns();
+  while (!mbar_try_wait(bar, parity)) {
+    if (global_ns() - t0 > kWaitLimitNs) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src,
+                                             int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (in 16-byte units), layout 1
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo_bytes,
+                                               uint32_t sbo_bytes) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFF) << 32) |
+         (1ull << 62);
+}
+
+// K-major operand (rows of 64 bf16 = 128 bytes, 8-row groups 1024 bytes
+// apart; the leading offset is unused)
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  return sw128_desc(addr, 16, 1024);
+}
+
+// MN-major operand: 64-column boxes `box_bytes` apart, 8 k-rows 1024 apart
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr, uint32_t box_bytes) {
+  return sw128_desc(addr, box_bytes, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// named barrier `id` over the two consumer warpgroups (256 threads)
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of these registers across
+// the asynchronous wgmma that owns them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+#define F8(o)                                                                  \
+  "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]), "+f"(d[o + 4]), \
+      "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
+
+// D[64 x N] (+)= A[64 x 16] B[16 x N], A and B K-major in shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : F8(0), F8(8), F8(16), F8(24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<80>(float* d, uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "%40, %41, p, 1, 1, 0, 0;\n}\n"
+      : F8(0), F8(8), F8(16), F8(24), F8(32)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x N] += A[64 x 16] B[16 x N], A in registers (the accumulator layout
+// of a product rounded to bf16), B MN-major in shared memory (transpose bit
+// set)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : F8(0), F8(8), F8(16), F8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef F8
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---------------------------------------------------------------------------
+// the products of the flash kernels, for one warpgroup's 64 rows
+// ---------------------------------------------------------------------------
+
+// acc[64 x BN] = A B^T: A is the warpgroup's 64 rows of a [kARows, D] tile
+// (`a_rows` points at its first row in box 0), B a [BN, D] tile; both
+// K-major. D / 16 wgmmas, 16 columns of d each.
+template <int D, int BN, int kARows = 128>
+__device__ __forceinline__ void issue_nt(float* acc, uint32_t a_rows, uint32_t b_tile) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t col_bytes = (kk % 4) * 32;  // 16 columns within a 64-column box
+    wgmma_ss<BN>(acc, kmajor_desc(a_rows + (kk / 4) * (kARows * 128) + col_bytes),
+                 kmajor_desc(b_tile + (kk / 4) * (BN * 128) + col_bytes), kk > 0);
+  }
+}
+
+// acc[64 x D] += A B: A [64 x BN] in registers in the A-operand layout
+// (to_bf16_a), B a [BN, D] tile read MN-major. BN / 16 k-steps of 16 rows of
+// B, each over D in wgmmas of at most 128 columns (two 64-column boxes).
+template <int D, int BN>
+__device__ __forceinline__ void issue_nn(float* acc, const uint32_t* a, uint32_t b_tile) {
+  constexpr int kOn = D < 128 ? D : 128;
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+    for (int h = 0; h < D / kOn; ++h) {
+      wgmma_rs<kOn>(acc + h * (kOn / 2), a + 4 * kk,
+                    mnmajor_desc(b_tile + kk * 16 * 128 + h * (kOn / 64) * (BN * 128),
+                                 BN * 128));
+    }
+  }
+}
+
+// An accumulator [64 x BN] in bf16 in the A-operand layout: k-step kk takes
+// registers 4 kk .. 4 kk + 3 (columns 16 kk .. 16 kk + 15), which is the
+// accumulator's own order
+template <int BN>
+__device__ __forceinline__ void to_bf16_a(const float* s, uint32_t* pa) {
+#pragma unroll
+  for (int i = 0; i < BN / 4; ++i) pa[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+}
+
+// Writes a warpgroup's accumulator [64 x D], times mul[r] on its rows
+// (element i of the accumulator sits at row 16 * warp + g + 8 * r, r =
+// (i >> 1) & 1, column 8 * (i >> 2) + 2 * tq + (i & 1)), in bf16 into its
+// 64 rows of a swizzled tile whose boxes are `box_bytes` apart, `rows`
+// pointing at the first of them in box 0; a TMA store then takes them.
+template <int D>
+__device__ __forceinline__ void write_rows_bf16(uint8_t* rows, int box_bytes, const float* acc,
+                                                const float* mul, int warp, int g, int tq) {
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int col = 8 * (i >> 2) + 2 * tq;  // columns col, col + 1
+    const int r = (i >> 1) & 1;
+    const int row = 16 * warp + g + 8 * r;  // within the warpgroup's rows
+    const int chunk = ((col % 64) / 8) ^ (row % 8);
+    const uint32_t off = (col / 64) * box_bytes + row * 128 + chunk * 16 + (col % 8) * 2;
+    *reinterpret_cast<uint32_t*>(rows + off) = pack_bf16(acc[i] * mul[r], acc[i + 1] * mul[r]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+// A 3-D tensor map [d, rows, bh] of bf16 with 64-column boxes of box_rows
+// rows, 128-byte swizzle; reads past `rows` fill zeros, writes are clipped.
+int make_map(CUtensorMap* map, const void* ptr, int d, int rows, int bh, int box_rows) {
+  cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)bh};
+  cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)rows * d * 2};
+  cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = cuTensorMapEncodeTiled(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+      box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kTensorMapFailed;
+}
+
+// Heads per launch group: as many as hold `head_bytes` each of streamed
+// tiles within kL2GroupBytes, at least one, at most bh.
+inline int l2_group(long long head_bytes, int bh) {
+  const long long fit = kL2GroupBytes / head_bytes;
+  return fit < 1 ? 1 : (fit > bh ? bh : (int)fit);
+}
+
+}  // namespace

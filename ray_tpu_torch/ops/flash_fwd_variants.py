@@ -2,8 +2,9 @@
 
     python -m ray_tpu_torch.ops.flash_fwd_variants [--out results.json]
 
-Each variant is ``csrc/flash_fwd_wgmma.cu`` with one piece of text replaced,
-built with the port's nvcc flags under ``build/ray_tpu_torch/variants/``:
+Each variant is ``csrc/flash_fwd_wgmma.cu`` and the header it includes
+(``csrc/hopper.cuh``) with one piece of text replaced, built with the port's
+nvcc flags under ``build/ray_tpu_torch/variants/<variant>/``:
 
 * ``as built``: the source unchanged;
 * ``one head per group``: the launch order's L2 budget cut to one head, so
@@ -39,6 +40,7 @@ from ray_tpu_torch.ops import attention as attn
 from ray_tpu_torch.ops.tolerance import FWD_ROW_TOL, row_err
 
 SOURCE = _build.CSRC_DIR / "flash_fwd_wgmma.cu"
+HEADER = _build.CSRC_DIR / "hopper.cuh"
 OUT_DIR = _build.BUILD_DIR / "variants"
 _GROUP = "constexpr long long kL2GroupBytes = 16ll << 20;"
 _WAIT = ("  while (!mbar_try_wait(bar, parity)) {\n  }\n}")
@@ -60,35 +62,41 @@ SHAPES = [(4, 16, 2048, 2048, 128, True), (12, 16, 2048, 2048, 128, True),
           (1, 16, 2048, 2048, 256, True)]
 
 
-def _variant_source(edits) -> str:
-    text = SOURCE.read_text()
+def build_variant(source, name: str, edits):
+    """(library, {kernel name: spill bytes}) of ``source`` and ``hopper.cuh``
+    with ``edits`` applied, each edit's text found once in one of the two."""
+    files = {f.name: f.read_text() for f in (source, HEADER)}
     for old, new in edits:
-        if text.count(old) != 1:
-            raise SystemExit(f"flash_fwd_wgmma.cu no longer holds {old!r} once")
-        text = text.replace(old, new)
-    return text
-
-
-def _build_variant(name: str):
-    """(library, spill bytes by head_dim) of one variant."""
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
-    stem = re.sub(r"\W+", "_", name)
-    src = OUT_DIR / f"{stem}.cu"
-    src.write_text(_variant_source(VARIANTS[name]))
-    lib = OUT_DIR / f"lib{stem}.so"
-    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib), str(src),
-                           *_build.LINK_FLAGS], capture_output=True, text=True)
+        holders = [f for f, text in files.items() if old in text]
+        if len(holders) != 1 or files[holders[0]].count(old) != 1:
+            raise SystemExit(f"{source.name} and hopper.cuh no longer hold {old!r} once")
+        files[holders[0]] = files[holders[0]].replace(old, new)
+    out = OUT_DIR / source.stem / re.sub(r"\W+", "_", name)
+    out.mkdir(parents=True, exist_ok=True)
+    for f, text in files.items():
+        (out / f).write_text(text)
+    lib = out / f"lib{source.stem}.so"
+    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
+                           str(out / source.name), *_build.LINK_FLAGS],
+                          capture_output=True, text=True)
     if proc.returncode != 0:
         raise SystemExit(f"nvcc failed on variant {name!r}:\n{proc.stderr[-4000:]}")
     spills, current = {}, None
     for line in (proc.stdout + proc.stderr).splitlines():
-        m = re.search(r"Function properties for \S+ILi(\d+)E", line)
+        m = re.search(r"Function properties for (\S+)", line)
         if m:
-            current = int(m.group(1))
+            current = m.group(1)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and current is not None:
             spills[current] = int(m.group(1)) + int(m.group(2))
-    fn = ctypes.CDLL(str(lib)).ray_tpu_flash_fwd_wgmma
+    return ctypes.CDLL(str(lib)), spills
+
+
+def _build_variant(name: str):
+    """(launch function, spill bytes by head_dim) of one variant."""
+    lib, by_kernel = build_variant(SOURCE, name, VARIANTS[name])
+    spills = {int(re.search(r"ILi(\d+)E", k).group(1)): v for k, v in by_kernel.items()}
+    fn = lib.ray_tpu_flash_fwd_wgmma
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float,
                                                                  ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -107,7 +115,7 @@ def _run(fn, q, k, v, causal, scale):
     return out
 
 
-def _ms(fn, iters: int = 30) -> float:
+def ms(fn, iters: int = 30) -> float:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -146,8 +154,8 @@ def main() -> int:
         times = {name: [] for name in built}
         for name in list(built) + list(built)[::-1]:
             fn = built[name][0]
-            times[name].append(_ms(lambda: _run(fn, q, k, v, causal, scale)))
-        sdpa = _ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+            times[name].append(ms(lambda: _run(fn, q, k, v, causal, scale)))
+        sdpa = ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                           scale=scale))
         row = dict(shape=[b, h, t_q, t_kv, d], causal=causal, sdpa_ms=sdpa,
                    ms={n: min(t) for n, t in times.items()}, row_err=errs,

@@ -71,6 +71,32 @@ def test_bwd_plain_matches_pallas_kernels(case):
         np.testing.assert_allclose(x.numpy(), want, err_msg=name, **GRAD_TOL)
 
 
+# the wgmma backward's shapes: t_q > t_kv at head_dim 64, three full 128-row
+# q tiles non-causal, and a causal diagonal crossing 128-row tiles
+WGMMA_CASES = [(1, 2, 160, 64, 64, True), (2, 2, 384, 384, 128, False),
+               (1, 2, 256, 256, 128, True)]
+
+
+@pytest.mark.parametrize("case", WGMMA_CASES, ids=_ids)
+def test_bwd_plain_matches_pallas_kernels_at_wgmma_tiles(case):
+    """The wgmma backward kernels cut the work into 128-row tiles: the Pallas
+    kernels at 128 x 128 tiles give the plain backward's dq, dk and dv too,
+    so the plain version holds kernels of either tiling."""
+    causal, d = case[5], case[4]
+    q, k, v, g = _inputs(case)
+    scale = 1.0 / d ** 0.5
+    jq, jk, jv, jg = (jnp.asarray(a) for a in (q, k, v, g))
+    o, lse = _flash_attention_tpu(jq, jk, jv, causal=causal, scale=scale,
+                                  block_q=128, block_k=128, interpret=True)
+    ref = _flash_attention_tpu_bwd(jq, jk, jv, o, lse, jg, causal=causal, scale=scale,
+                                   block_q=128, block_k=128, interpret=True)
+    got = port.flash_attention_bwd_plain(
+        *(torch.from_numpy(np.array(a)) for a in (q, k, v, o, lse, g)),
+        causal=causal, scale=scale)
+    for name, x, want in zip(("dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(x.numpy(), np.array(want), err_msg=name, **GRAD_TOL)
+
+
 @pytest.mark.parametrize("case", CASES, ids=_ids)
 def test_flash_function_grads_match_jax_grad(case):
     """Gradients through ``dot_product_attention`` (the ``FlashAttention``

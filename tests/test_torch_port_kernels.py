@@ -17,6 +17,7 @@ from ray_tpu_torch.ops import attention as port
 from ray_tpu_torch.ops.tolerance import BWD_TOL, FWD_LSE_TOL, FWD_ROW_TOL, row_err
 
 # (b, h, t_q, t_kv, d, causal): the cases of tests/test_torch_port_attention.py
+# and two shapes of the wgmma backward (tests/test_torch_port_attention_bwd.py)
 CASES = [
     (2, 2, 128, 128, 128, True),
     (2, 2, 128, 128, 128, False),
@@ -28,6 +29,8 @@ CASES = [
     (1, 2, 96, 136, 64, True),      # ragged q and kv
     (1, 2, 130, 130, 32, True),
     (1, 1, 200, 264, 256, True),
+    (1, 2, 160, 64, 64, True),      # t_q > t_kv at head_dim 64 (the wgmma backward)
+    (2, 2, 384, 384, 128, False),   # three full q tiles of 128, non-causal
 ]
 # the tolerances and why: ray_tpu_torch/ops/tolerance.py
 
@@ -131,6 +134,23 @@ def test_kernel_wrapper_refuses_tensors_off_cpu_and_cuda():
         port.flash_attention_bwd(q, k, v, q, lse, q, causal=True, scale=0.125)
 
 
+def test_bwd_designs_cover_every_head_dim_and_dtype():
+    """The backward's dispatch table names a design for every head_dim the
+    kernels take in both dtypes, each from a source the port builds, with
+    entry points that source binds; bf16 at head_dim 64 and 128 (gpt_125m's
+    and gpt_1b's) runs the wgmma kernels."""
+    keys = {(d, dt) for d in port.HEAD_DIMS for dt in (torch.bfloat16, torch.float32)}
+    assert set(port.BWD_DESIGNS) == keys
+    for design in port.BWD_DESIGNS.values():
+        entries, _ = port._SOURCES[design.source]
+        assert (port._build.CSRC_DIR / f"{design.source}.cu").exists()
+        assert {design.dq_entry, design.dkv_entry} <= set(entries)
+    assert {d for (d, dt), design in port.BWD_DESIGNS.items()
+            if design.name == "wgmma"} == {64, 128}
+    assert all(dt == torch.bfloat16 for (_, dt), design in port.BWD_DESIGNS.items()
+               if design.name == "wgmma")
+
+
 def test_bwd_wrapper_takes_the_plain_version_on_cpu():
     q, k, v, o, lse, do, scale = _bwd_inputs(1, 2, 72, 72, 64, True, "cpu",
                                              torch.float32)
@@ -226,10 +246,12 @@ def test_flash_bwd_kernels_match_plain_on_card(card, case, dtype):
     dt = getattr(torch, dtype)
     q, k, v, o, lse, do, scale = _bwd_inputs(*case, device=card, dtype=dt)
     causal = case[5]
-    before = (port.flash_bwd_dq_launches, port.flash_bwd_dkv_launches)
+    design = port.BWD_DESIGNS[(case[4], dt)].name
+    counters = [f"flash_bwd_{kernel}{suffix}_launches" for kernel in ("dq", "dkv")
+                for suffix in ("", f"_{design}")]
+    before = [getattr(port, c) for c in counters]
     got = port.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
-    assert (port.flash_bwd_dq_launches, port.flash_bwd_dkv_launches) == (
-        before[0] + 1, before[1] + 1)
+    assert [getattr(port, c) for c in counters] == [n + 1 for n in before]
     want = port.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                           scale=scale)
     torch.cuda.synchronize()
