@@ -28,16 +28,34 @@ Phases (any failure exits non-zero; nothing is caught):
      norm finite, the last loss below the first, and per step exactly
      2 * num_layers forward launches and num_layers launches of each
      backward kernel, all on the wgmma designs;
+  4b. remat_policies: the same gpt_1b train step, batch and fresh seed-0
+     weights under the remat policies "attn" and "dots", one warm-up and 2
+     timed steps each: the warm-up step's loss bitwise equal to phase 4's,
+     its grad norm within 1e-3 relative, and per step num_layers ("attn":
+     the flash forward's output is kept) or 2 * num_layers ("dots")
+     forward launches and num_layers of each backward kernel, on wgmma;
+     ms per step and peak memory per policy;
+  4c. moe_small_vs_cpu: three float32 steps of a mixture-of-experts
+     gpt_nano (4 experts, top 2, capacity factor 0.25, so tokens are
+     dropped) on the card held to the same steps on the CPU (rtol 1e-4),
+     and the same share of assignments dropped on both;
+  4d. train_moe: gpt_1b at full width with a 4-expert MLP per block (top 2,
+     capacity factor 1.25, aux weight 0.01), b=8, t=2048, ce_chunk 512:
+     one warm-up and 3 timed steps; the gates of phase 4; ms per step,
+     tokens/s, MFU by train_step_flops and by the work the experts execute,
+     peak memory, the aux loss and the share of assignments dropped;
   5. forward: gpt_1b in bf16 (random weights from a seeded torch.Generator),
      b=4, t=2048; the wgmma forward kernel must launch num_layers times per
      forward;
   6. server: the in-process LLMServer at gpt_1b; 8 requests (4 share a
      512-token prefix), prefix-cache hits, bitwise cached-vs-uncached
      logits, engine prefill vs full forward, and no KV block leaked.
-The train phase runs before the server's, whose engine turns on
+The train phases run before the server's, whose engine turns on
 deterministic algorithms for the whole process. With --profile, one more
-train step, forward and wave of 4 requests run under torch.profiler;
-device time by kernel and the idle share are printed (and written to
+dense train step under each policy, one more MoE train step, a forward
+and a wave of 4 requests run under torch.profiler; device time by kernel,
+by operator and by range (the delta pass, the MoE router, dispatch,
+experts and combine) and the idle share are printed (and written to
 --out).
 
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
@@ -47,8 +65,9 @@ tiles that ran it; each backward case names its design (BWD_DESIGNS). In the ker
 one the main path runs, at gpt_1b's forward shape (b=4) with the forward
 phase's launches, and the backward kernels at the train step's
 shape (b=12) with the train phase's; every entry names its shape and its
-launches on each path, and the backward kernels' plain and library times
-are those of the whole backward (dq, dk and dv together).
+launches on each path (train, remat_attn, remat_dots, train_moe, forward,
+server: the timed steps or calls of each), and the backward kernels' plain
+and library times are those of the whole backward (dq, dk and dv together).
 """
 
 from __future__ import annotations
@@ -76,8 +95,12 @@ import torch  # noqa: E402
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HBM_BYTES_PER_S = 3.35e12
 # gpt_nano float32 steps on the card vs the CPU: summation order through two
-# layers, the loss and three optimizer updates
+# layers, the loss and three optimizer updates (dense and MoE)
 TRAIN_SMALL_RTOL = 1e-4
+# a remat policy's first step vs "nothing"'s: the same forward (the loss
+# must agree bit for bit); the backward reads kept tensors that are the
+# recomputed ones' bits, so the grad norm differs by summation order at most
+POLICY_GRAD_NORM_RTOL = 1e-3
 # gpt_1b engine prefill vs full forward, last-position logits, bf16: the two
 # paths round in other places (flash kernel with bf16 P vs f32 softmax, other
 # GEMM shapes) through 16 layers; logits have std ~1 at this init
@@ -392,45 +415,61 @@ def _reset_launch_counts():
         setattr(attn, f"{name}_launches", 0)
 
 
-def train_small_vs_cpu(steps: int = 3):
+def train_small_vs_cpu(steps: int = 3, **moe):
     """Float32 gpt_nano steps through the kernels' CUDA-core paths against
-    the same steps on the CPU through the plain versions."""
+    the same steps on the CPU through the plain versions; ``moe`` (config
+    fields) makes each block's MLP a mixture of experts, whose aux loss is
+    held to the same limit and whose share of dropped assignments must be
+    equal on both devices."""
     from ray_tpu_torch.models import gpt, inference, training
 
-    cfg = gpt.gpt_nano(ce_chunk=32)
+    cfg = gpt.gpt_nano(ce_chunk=32, **moe)
+    label = "MoE gpt_nano" if moe else "gpt_nano"
+    keys = ("loss", "grad_norm") + (("moe_aux",) if moe else ())
     tokens = torch.from_numpy(np.random.RandomState(3).randint(0, cfg.vocab_size, (2, 80)))
-    runs = {}
+    runs, dropped = {}, {}
     for dev in ("cpu", "cuda"):
         opt = training.default_optimizer(1e-2)
         params = {n: p.to(dev) for n, p in
                   inference.init_params(cfg, device="cpu", seed=4).items()}
         state = training.init_train_state(params, opt)
         step = training.make_train_step(cfg, opt, device=dev)
-        metrics = []
+        metrics, dropped[dev] = [], []
         for _ in range(steps):
             state, m = step(state, tokens)
-            metrics.append([float(m["loss"]), float(m["grad_norm"])])
+            metrics.append([float(m[k]) for k in keys])
+            if moe:
+                dropped[dev].append(float(m["moe_dropped"]))
         runs[dev] = metrics
     worst = float(np.max(np.abs(np.array(runs["cuda"]) / np.array(runs["cpu"]) - 1)))
-    print(f"[train] gpt_nano f32 {steps} steps, card vs CPU: (loss, grad norm) "
+    print(f"[train] {label} f32 {steps} steps, card vs CPU: ({', '.join(keys)}) "
           f"{runs['cuda']} vs {runs['cpu']}, worst rel diff {worst:.2e} "
-          f"(rtol {TRAIN_SMALL_RTOL})")
+          f"(rtol {TRAIN_SMALL_RTOL})"
+          + (f"; dropped share {dropped['cuda']} vs {dropped['cpu']}" if moe else ""))
     if not worst <= TRAIN_SMALL_RTOL:
-        raise SystemExit(f"gpt_nano steps on the card differ from the CPU by {worst}")
-    return dict(card=runs["cuda"], cpu=runs["cpu"], worst_rel_diff=worst,
-                rtol=TRAIN_SMALL_RTOL)
+        raise SystemExit(f"{label} steps on the card differ from the CPU by {worst}")
+    if dropped["cuda"] != dropped["cpu"] or (moe and not all(d > 0 for d in dropped["cuda"])):
+        raise SystemExit(f"{label}: dropped shares {dropped} differ or drop nothing")
+    out = dict(card=runs["cuda"], cpu=runs["cpu"], keys=list(keys), worst_rel_diff=worst,
+               rtol=TRAIN_SMALL_RTOL)
+    if moe:
+        out.update(config=moe, dropped_card=dropped["cuda"], dropped_cpu=dropped["cpu"])
+    return out
 
 
-def phase_train(batch: int, seq: int, steps: int, profile: bool):
+def run_train(cfg, tokens, steps: int, fwd_per_layer: int, label: str, profile: bool):
+    """Train ``cfg`` on the card from fresh seed-0 weights on one repeated
+    batch: one warm-up step, then ``steps`` timed steps. Gates: per step
+    ``fwd_per_layer * num_layers`` forward launches and ``num_layers`` of
+    each backward kernel, all on the wgmma designs; loss and grad norm
+    finite; the last loss below the first. Returns the report; the state is
+    freed before it returns."""
     from ray_tpu_torch.models import gpt, inference, training
 
-    report = {"gpt_nano_vs_cpu": train_small_vs_cpu()}
-    cfg = gpt.gpt_1b(ce_chunk=512)  # bf16 compute, float32 params and moments
+    batch, seq = tokens.shape
     opt = training.default_optimizer(1e-4)
     state = training.init_train_state(inference.init_params(cfg, device="cuda", seed=0), opt)
     step = training.make_train_step(cfg, opt, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), device="cuda", generator=gen)
     state, warm = step(state, tokens)  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -447,33 +486,35 @@ def phase_train(batch: int, seq: int, steps: int, profile: bool):
     launches = _launch_counts()
     losses = [float(m["loss"]) for m in metrics]
     norms = [float(m["grad_norm"]) for m in metrics]
-    # every launch (the forward's: forward and remat recompute) on the wgmma
-    # designs
-    expected = {"flash_fwd": 2 * cfg.num_layers, "flash_bwd_dq": cfg.num_layers,
+    expected = {"flash_fwd": fwd_per_layer * cfg.num_layers, "flash_bwd_dq": cfg.num_layers,
                 "flash_bwd_dkv": cfg.num_layers}
     expected.update({f"{name}_wgmma": n for name, n in expected.items()})
     want = [expected.get(name, 0) for name in COUNTS]
     if any(c != want for c in per_step):
-        raise SystemExit(f"launches per step {dict(zip(COUNTS, zip(*per_step)))}, "
+        raise SystemExit(f"{label}: launches per step {dict(zip(COUNTS, zip(*per_step)))}, "
                          f"expected {dict(zip(COUNTS, want))}")
     if not all(np.isfinite(losses + norms)):
-        raise SystemExit(f"train step gave loss {losses}, grad norm {norms}")
+        raise SystemExit(f"{label}: train step gave loss {losses}, grad norm {norms}")
     if not losses[-1] < losses[0]:
-        raise SystemExit(f"loss did not fall over {steps} steps: {losses}")
+        raise SystemExit(f"{label}: loss did not fall over {steps} steps: {losses}")
     ms = seconds / steps * 1e3
     flops = gpt.train_step_flops(cfg, batch, seq)
-    report.update(
+    report = dict(
         batch=batch, seq=seq, steps=steps, ce_chunk=cfg.ce_chunk, learning_rate=1e-4,
+        remat_policy=cfg.remat_policy,
         ms_per_step=ms, tokens_per_s=batch * seq * steps / seconds,
         mfu=flops / (ms / 1e3) / PEAK_FLOPS[torch.bfloat16], train_step_flops=flops,
-        warmup_loss=float(warm["loss"]), losses=losses, grad_norms=norms,
+        warmup_loss=float(warm["loss"]), warmup_grad_norm=float(warm["grad_norm"]),
+        losses=losses, grad_norms=norms,
         launches_per_step=dict(zip(COUNTS, want)),
         launches=dict(zip(COUNTS, launches)),
         max_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-    print(f"[train] gpt_1b bf16 compute / f32 master, b={batch} t={seq}, remat "
-          f"'{cfg.remat_policy}': {ms:.1f} ms per step, {report['tokens_per_s']:.0f} "
-          f"tokens/s, MFU {100 * report['mfu']:.1f}% of 989 TFLOP/s "
-          f"({flops / 1e12:.1f} TFLOP per step), peak memory "
+    if cfg.moe_num_experts:
+        report.update(moe_aux=[float(m["moe_aux"]) for m in metrics],
+                      moe_dropped=[float(m["moe_dropped"]) for m in metrics])
+    print(f"[train] {label}, b={batch} t={seq}, remat '{cfg.remat_policy}': {ms:.1f} ms per "
+          f"step, {report['tokens_per_s']:.0f} tokens/s, MFU {100 * report['mfu']:.1f}% of "
+          f"989 TFLOP/s ({flops / 1e12:.1f} TFLOP per step), peak memory "
           f"{report['max_memory_gib']:.2f} GiB")
     print(f"[train] loss {[round(x, 4) for x in losses]} (warm-up step "
           f"{report['warmup_loss']:.4f}), grad norm {[round(x, 4) for x in norms]}, "
@@ -481,10 +522,91 @@ def phase_train(batch: int, seq: int, steps: int, profile: bool):
     if profile:
         report["profile"] = profile_window(
             lambda: (step(state, tokens), torch.cuda.synchronize()),
-            f"one gpt_1b train step, b={batch} t={seq}")
+            f"one {label} train step, b={batch} t={seq}")
     del state, step, metrics
     torch.cuda.empty_cache()
     return report
+
+
+def _train_tokens(cfg, batch: int, seq: int):
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    return torch.randint(0, cfg.vocab_size, (batch, seq), device="cuda", generator=gen)
+
+
+def phase_train(batch: int, seq: int, steps: int, profile: bool):
+    from ray_tpu_torch.models import gpt
+
+    report = {"gpt_nano_vs_cpu": train_small_vs_cpu()}
+    cfg = gpt.gpt_1b(ce_chunk=512)  # bf16 compute, float32 params and moments
+    report.update(run_train(cfg, _train_tokens(cfg, batch, seq), steps, 2,
+                            "gpt_1b bf16 compute / f32 master", profile))
+    return report
+
+
+def phase_remat_policies(nothing, steps: int, profile: bool):
+    """The dense train step of phase 4 under "attn" and "dots": the same
+    batch, fresh seed-0 weights, so the warm-up step must reproduce phase
+    4's loss bit for bit."""
+    from ray_tpu_torch.models import gpt
+
+    out = {}
+    for policy, fwd_per_layer in (("attn", 1), ("dots", 2)):
+        cfg = gpt.gpt_1b(ce_chunk=512, remat_policy=policy)
+        tokens = _train_tokens(cfg, nothing["batch"], nothing["seq"])
+        rep = run_train(cfg, tokens, steps, fwd_per_layer, "gpt_1b bf16 compute / f32 master",
+                        profile)
+        grad_rel = abs(rep["warmup_grad_norm"] / nothing["warmup_grad_norm"] - 1)
+        print(f"[remat] '{policy}': warm-up loss {rep['warmup_loss']!r} vs 'nothing' "
+              f"{nothing['warmup_loss']!r}, grad norm {rep['warmup_grad_norm']!r} vs "
+              f"{nothing['warmup_grad_norm']!r} (rel {grad_rel:.2e}, limit "
+              f"{POLICY_GRAD_NORM_RTOL}); {rep['ms_per_step']:.1f} ms per step "
+              f"('nothing' {nothing['ms_per_step']:.1f}), peak {rep['max_memory_gib']:.2f} GiB "
+              f"('nothing' {nothing['max_memory_gib']:.2f})")
+        if rep["warmup_loss"] != nothing["warmup_loss"]:
+            raise SystemExit(f"remat '{policy}' changed the first step's loss: "
+                             f"{rep['warmup_loss']!r} vs {nothing['warmup_loss']!r}")
+        if not grad_rel <= POLICY_GRAD_NORM_RTOL:
+            raise SystemExit(f"remat '{policy}' changed the first step's grad norm by {grad_rel}")
+        rep["warmup_grad_norm_rel_diff"] = grad_rel
+        out[policy] = rep
+    return out
+
+
+def moe_executed_flops(cfg, batch: int, seq: int) -> float:
+    """``train_step_flops`` with the expert products counted as executed:
+    the formula counts every expert for every token (6 * 2 * d * f * E * s
+    per layer), the step runs each expert over its C capacity slots
+    (6 * 2 * d * f * E * C, empty slots included; E * C is about
+    k * cf * s)."""
+    import math
+
+    from ray_tpu_torch.models import gpt
+
+    s = batch * seq
+    n_exp = cfg.moe_num_experts
+    cap = max(1, int(math.ceil(cfg.moe_top_k * s / n_exp * cfg.moe_capacity_factor)))
+    per_slot = 6.0 * 2 * cfg.embed_dim * cfg.mlp_dim
+    return (gpt.train_step_flops(cfg, batch, seq)
+            - cfg.num_layers * per_slot * n_exp * (s - cap))
+
+
+def phase_train_moe(batch: int, seq: int, steps: int, profile: bool):
+    from ray_tpu_torch.models import gpt
+
+    cfg = gpt.gpt_1b(moe_num_experts=4, ce_chunk=512)
+    rep = run_train(cfg, _train_tokens(cfg, batch, seq), steps, 2,
+                    "gpt_1b MoE (4 experts, top 2, cf 1.25)", profile)
+    executed = moe_executed_flops(cfg, batch, seq)
+    rep.update(num_params=cfg.num_params(), experts=cfg.moe_num_experts,
+               top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor,
+               aux_weight=cfg.moe_aux_weight, executed_flops=executed,
+               mfu_executed=executed / (rep["ms_per_step"] / 1e3) / PEAK_FLOPS[torch.bfloat16])
+    print(f"[moe] {cfg.num_params() / 1e9:.3f} B parameters; MFU {100 * rep['mfu']:.1f}% by "
+          f"train_step_flops (every expert for every token), {100 * rep['mfu_executed']:.1f}% "
+          f"by the executed expert work ({executed / 1e12:.1f} TFLOP per step); aux "
+          f"{[round(x, 4) for x in rep['moe_aux']]}, share of assignments dropped "
+          f"{[round(x, 4) for x in rep['moe_dropped']]}")
+    return rep
 
 
 def phase_forward(cfg, params, batch: int, seq: int, n_forward: int):
@@ -532,8 +654,11 @@ def profile_window(fn, label: str):
         t0 = time.monotonic()
         fn()
         wall_ms = (time.monotonic() - t0) * 1e3
+    # the port's record_function ranges also show as device events: they are
+    # spans over kernels, not kernels, and are read apart below
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+               and e.key not in RANGES]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = [dict(name=e.key[:100], ms=e.self_device_time_total / 1e3, calls=e.count)
@@ -543,10 +668,20 @@ def profile_window(fn, label: str):
         groups[_kernel_group(e.key)] = (groups.get(_kernel_group(e.key), 0.0)
                                         + e.self_device_time_total / 1e3)
     idle = max(0.0, 1.0 - busy_ms / wall_ms)
-    # the backward's delta pass, a torch.profiler.record_function range of
-    # ops/attention.py
-    delta = [dict(device_ms=e.device_time_total / 1e3, calls=e.count)
-             for e in prof.key_averages() if e.key == "flash_bwd_delta"]
+    # device time by operator: each kernel counts for the operator that
+    # launched it (aten::bmm holds the expert products, forward and backward)
+    ops = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CPU and e.self_device_time_total > 0
+           and e.key not in RANGES
+           and not e.key.startswith(("autograd::", "ProfilerStep", "Command Buffer Full"))]
+    ops.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    by_op = [dict(name=e.key, ms=e.self_device_time_total / 1e3, calls=e.count)
+             for e in ops[:12]]
+    # torch.profiler.record_function ranges of the port: the backward's delta
+    # pass (ops/attention.py) and the MoE layer's parts (models/moe.py),
+    # forward and recompute
+    ranges = {e.key: dict(device_ms=e.device_time_total / 1e3, calls=e.count)
+              for e in prof.key_averages() if e.key in RANGES}
     print(f"[profile] {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
           f"idle share {idle:.3f}; by group: "
           + ", ".join(f"{g} {ms:.1f} ms" for g, ms in sorted(groups.items(),
@@ -554,11 +689,18 @@ def profile_window(fn, label: str):
           + "; by kernel:")
     for t in top:
         print(f"[profile]   {t['ms']:9.3f} ms  x{t['calls']:<5} {t['name']}")
-    for r in delta:
-        print(f"[profile]   range flash_bwd_delta: {r['device_ms']:.3f} ms of device time "
+    print("[profile] by operator:")
+    for t in by_op:
+        print(f"[profile]   {t['ms']:9.3f} ms  x{t['calls']:<5} {t['name']}")
+    for name, r in ranges.items():
+        print(f"[profile]   range {name}: {r['device_ms']:.3f} ms of device time "
               f"over {r['calls']} calls")
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=idle, top=top,
-                groups_ms=groups, flash_bwd_delta=delta[0] if delta else None)
+                groups_ms=groups, by_op=by_op, ranges=ranges,
+                flash_bwd_delta=ranges.get("flash_bwd_delta"))
+
+
+RANGES = ("flash_bwd_delta", "moe_router", "moe_dispatch", "moe_experts", "moe_combine")
 
 
 def _kernel_group(name: str) -> str:
@@ -715,6 +857,11 @@ def main() -> int:
     report["kernel_cases"] = phase_kernel_vs_plain()
     report["bwd_kernel_cases"] = phase_bwd_kernels_vs_plain()
     report["train"] = phase_train(batch=12, seq=2048, steps=5, profile=args.profile)
+    report["remat_policies"] = phase_remat_policies(report["train"], steps=2,
+                                                    profile=args.profile)
+    report["moe_small_vs_cpu"] = train_small_vs_cpu(
+        moe_num_experts=4, moe_top_k=2, moe_capacity_factor=0.25)
+    report["train_moe"] = phase_train_moe(batch=8, seq=2048, steps=3, profile=args.profile)
 
     cfg = gpt.gpt_1b(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
     params = init_params(cfg, device="cuda", seed=0)
@@ -740,8 +887,10 @@ def main() -> int:
 
     fwd_case, fwd_shape = case(report["kernel_cases"], "gpt_1b")
     bwd_case, bwd_shape = case(report["bwd_kernel_cases"], "gpt_1b_train_b12")
-    by_path = {name: {path: report[path]["launches"][name]
-                      for path in ("train", "forward", "server")}
+    paths = {"train": report["train"], "remat_attn": report["remat_policies"]["attn"],
+             "remat_dots": report["remat_policies"]["dots"], "train_moe": report["train_moe"],
+             "forward": report["forward"], "server": report["server"]}
+    by_path = {name: {path: rep["launches"][name] for path, rep in paths.items()}
                for name in COUNTS}
     whole = "dq, dk and dv together"
     kernels = {"kernels": [

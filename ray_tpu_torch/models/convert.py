@@ -18,6 +18,9 @@ attn/{q,k,v}/kernel        [embed, heads, hd]      attn.{q,k,v}.weight [heads*hd
 attn/o/kernel              [heads, hd, embed]      attn.o.weight [embed, heads*hd]
 mlp/wi/kernel, bias        [embed, mlp], [mlp]     mlp.wi.weight [mlp, embed], .bias
 mlp/wo/kernel, bias        [mlp, embed], [embed]   mlp.wo.weight [embed, mlp], .bias
+mlp/router (MoE)           [embed, experts]        mlp.router, the same
+mlp/wi, mlp/wo (MoE)       [experts, embed, mlp],  mlp.wi, mlp.wo, the same
+                           [experts, mlp, embed]
 ln*/scale, bias            [embed]                 ln*.weight, ln*.bias
 lm_head/kernel, bias       [embed, vocab]          lm_head.weight [vocab, embed], .bias
 =========================  ======================  ===========================
@@ -82,9 +85,13 @@ def params_from_jax(tree: Dict[str, Any], cfg: GPTConfig, device=None
         for n in "qkv":
             put(pre + f"attn.{n}.weight", leaf("attn", n, "kernel").reshape(d, hq).T)
         put(pre + "attn.o.weight", leaf("attn", "o", "kernel").reshape(hq, d).T)
-        for n in ("wi", "wo"):
-            put(pre + f"mlp.{n}.weight", leaf("mlp", n, "kernel").T)
-            put(pre + f"mlp.{n}.bias", leaf("mlp", n, "bias"))
+        if cfg.moe_num_experts:
+            for n in ("router", "wi", "wo"):
+                put(pre + f"mlp.{n}", leaf("mlp", n))
+        else:
+            for n in ("wi", "wo"):
+                put(pre + f"mlp.{n}.weight", leaf("mlp", n, "kernel").T)
+                put(pre + f"mlp.{n}.bias", leaf("mlp", n, "bias"))
     put("ln_f.weight", _tensor(tree["ln_f"]["scale"]))
     put("ln_f.bias", _tensor(tree["ln_f"]["bias"]))
     if not cfg.tie_embeddings:
@@ -113,11 +120,15 @@ def params_to_jax(params: Dict[str, torch.Tensor], cfg: GPTConfig,
         }
         attn["o"] = {"kernel": _numpy(params[pre + "attn.o.weight"].T).reshape(h, hd, d)}
         tree["attn"] = attn
-        tree["mlp"] = {
-            n: {"kernel": _numpy(params[pre + f"mlp.{n}.weight"].T),
-                "bias": _numpy(params[pre + f"mlp.{n}.bias"])}
-            for n in ("wi", "wo")
-        }
+        if cfg.moe_num_experts:
+            tree["mlp"] = {n: _numpy(params[pre + f"mlp.{n}"])
+                           for n in ("router", "wi", "wo")}
+        else:
+            tree["mlp"] = {
+                n: {"kernel": _numpy(params[pre + f"mlp.{n}.weight"].T),
+                    "bias": _numpy(params[pre + f"mlp.{n}.bias"])}
+                for n in ("wi", "wo")
+            }
         return tree
 
     layers = [layer(i) for i in range(cfg.num_layers)]

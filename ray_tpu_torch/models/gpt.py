@@ -10,9 +10,10 @@ layout, base 10000). The full-sequence forward runs its attention through
 the KV-cache extend step (``make_extend_fn``) computes its attention with
 plain matmul and softmax, as the reference's extend step does.
 
-Training parts: ``remat`` per block, ``next_token_loss``,
-``blockwise_next_token_loss`` and ``train_step_flops``; the train step
-itself is in ``models/training.py``.
+Training parts: ``remat`` per block under the reference's three policies,
+``next_token_loss``, ``blockwise_next_token_loss`` and
+``train_step_flops``; the train step itself is in ``models/training.py``.
+With ``moe_num_experts > 0`` each block's MLP is ``models.moe.MoeMlp``.
 
 Parameters are a flat ``state_dict`` (``models.convert`` carries them across
 from the reference's flax tree). Each dense kernel is stored as an
@@ -23,6 +24,7 @@ the axis map.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -30,10 +32,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from ray_tpu_torch import resolve_device
-from ray_tpu_torch.ops.attention import NEG_INF, dot_product_attention
+from ray_tpu_torch.ops.attention import FLASH_FWD, NEG_INF, dot_product_attention
 
 LN_EPS = 1e-6
 
@@ -53,15 +60,23 @@ class GPTConfig:
     parallel_residual: bool = True            # GPT-J style single-LN block
     tie_embeddings: bool = False
     # recompute each block in the backward instead of keeping its
-    # activations (torch.utils.checkpoint per block, only while grad is on);
-    # "nothing" keeps only the block inputs. The reference's "dots" and
-    # "attn" policies are not ported yet and raise.
+    # activations (torch.utils.checkpoint per block, only while grad is on).
+    # What the block keeps for the backward besides its input:
+    #   "nothing" - nothing: the whole block runs again;
+    #   "dots"    - the outputs of its 2-D matrix products (the reference's
+    #               dots_with_no_batch_dims_saveable); the expert bmms and
+    #               the flash forward run again;
+    #   "attn"    - the flash forward's (out, lse), so it is not launched
+    #               again (the reference's "attn_out" name)
     remat: bool = True
     remat_policy: str = "nothing"
     # sequence rows per [b, chunk, vocab] logits block of the blockwise loss
     ce_chunk: int = 256
-    # mixture-of-experts is not in the port yet: nonzero raises
+    # mixture-of-experts (0 = dense MLP), models/moe.py
     moe_num_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
 
     @property
     def qkv_dim(self) -> int:
@@ -111,21 +126,32 @@ def gpt_j_6b(**kw) -> GPTConfig:
     return GPTConfig(**kw)
 
 
-def _check_dense(cfg: GPTConfig) -> None:
-    if cfg.moe_num_experts:
-        raise NotImplementedError(
-            "MoE MLPs are not ported yet (ROADMAP.md, next items)")
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_attn(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op == FLASH_FWD
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+#: each remat policy's context for torch.utils.checkpoint: "nothing" is
+#: plain recomputation, the others selective (what their ops' policy saves)
+REMAT_CONTEXTS = {
+    "nothing": noop_context_fn,
+    "dots": functools.partial(create_selective_checkpoint_contexts, _save_dots),
+    "attn": functools.partial(create_selective_checkpoint_contexts, _save_attn),
+}
 
 
 def _check_remat(cfg: GPTConfig) -> None:
-    if not cfg.remat:
-        return
-    if cfg.remat_policy in ("dots", "attn"):
-        raise NotImplementedError(
-            f"remat_policy {cfg.remat_policy!r} is not ported yet; only "
-            "'nothing' is (ROADMAP.md, next items)")
-    if cfg.remat_policy != "nothing":
-        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    if cfg.remat and cfg.remat_policy not in REMAT_CONTEXTS:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
+                         f"one of {sorted(REMAT_CONTEXTS)}")
 
 
 # ---------------------------------------------------------------------------
@@ -251,6 +277,9 @@ class Mlp(nn.Module):
 
 
 class Block(nn.Module):
+    """``forward(x, positions)``: the block's output, or with experts
+    ``(output, aux, dropped)`` (``MoeMlp``'s)."""
+
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
         self.parallel_residual = cfg.parallel_residual
@@ -260,14 +289,32 @@ class Block(nn.Module):
             self.ln1 = LayerNorm(cfg, device)
             self.ln2 = LayerNorm(cfg, device)
         self.attn = Attention(cfg, device)
-        self.mlp = Mlp(cfg, device)
+        self.moe = cfg.moe_num_experts > 0
+        if self.moe:
+            from ray_tpu_torch.models.moe import MoeMlp
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+            self.mlp = MoeMlp(cfg, device)
+        else:
+            self.mlp = Mlp(cfg, device)
+
+    def _mlp(self, x: torch.Tensor):
+        """(the MLP's output, MoeMlp's (aux, dropped) or ())"""
+        if self.moe:
+            y, aux, dropped = self.mlp(x)
+            return y, (aux, dropped)
+        return self.mlp(x), ()
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor):
         if self.parallel_residual:
             hidden = self.ln(x)
-            return x + self.attn(hidden, positions) + self.mlp(hidden)
-        x = x + self.attn(self.ln1(x), positions)
-        return x + self.mlp(self.ln2(x))
+            a = self.attn(hidden, positions)
+            m, moe = self._mlp(hidden)
+            out = x + a + m
+        else:
+            x = x + self.attn(self.ln1(x), positions)
+            m, moe = self._mlp(self.ln2(x))
+            out = x + m
+        return (out, *moe) if moe else out
 
 
 class LMHead(nn.Module):
@@ -282,7 +329,7 @@ class LMHead(nn.Module):
 
 
 def _run_block(block: Block, params: Dict[str, torch.Tensor], x: torch.Tensor,
-               positions: torch.Tensor) -> torch.Tensor:
+               positions: torch.Tensor):
     return functional_call(block, params, (x, positions))
 
 
@@ -293,18 +340,24 @@ class GPT(nn.Module):
     ``(hidden [b, t, embed] in cfg.dtype, head weight [vocab, embed], head
     bias [vocab] or None)`` instead, for ``blockwise_next_token_loss``, which
     never holds the full logits. ``device`` defaults to CUDA (``"meta"``
-    builds a skeleton without storage).
+    builds a skeleton without storage). With ``return_moe=True`` it returns
+    ``(output, {"aux", "dropped"})``: the MoE blocks' aux losses summed and
+    divided by ``num_layers`` (the reference's division of the sown sum),
+    and the mean share of assignments dropped for capacity; both 0 for a
+    dense config.
 
     While grad is enabled and ``cfg.remat`` is set, each block runs under
-    ``torch.utils.checkpoint``: only its input is kept, and the backward
-    runs the block's forward again (so the attention forward launches twice
-    per layer in a train step). The block's parameters are handed to the
-    checkpointed call, so the recomputation also works under
-    ``torch.func.functional_call``."""
+    ``torch.utils.checkpoint``: its input is kept, and so is what
+    ``cfg.remat_policy`` names (``REMAT_CONTEXTS``); the backward runs the
+    rest of the block's forward again. Under "nothing" and "dots" the
+    attention forward launches twice per layer in a train step, under
+    "attn" once. The block's parameters are handed to the checkpointed
+    call, so the recomputation also works under
+    ``torch.func.functional_call``, and the aux loss is recomputed with the
+    rest."""
 
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
-        _check_dense(cfg)
         _check_remat(cfg)
         device = resolve_device(device)
         self.cfg = cfg
@@ -316,28 +369,40 @@ class GPT(nn.Module):
 
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
-                return_hidden: bool = False):
+                return_hidden: bool = False, return_moe: bool = False):
         cfg = self.cfg
         if positions is None:
             positions = torch.arange(
                 tokens.shape[1], device=tokens.device).expand(tokens.shape)
         x = F.embedding(tokens, self.wte.weight.to(cfg.dtype))
         remat = cfg.remat and torch.is_grad_enabled()
+        aux, dropped = [], []
         for block in self.blocks:
             if remat:
-                x = checkpoint(_run_block, block, dict(block.named_parameters()),
-                               x, positions, use_reentrant=False,
-                               preserve_rng_state=False)
+                out = checkpoint(_run_block, block, dict(block.named_parameters()),
+                                 x, positions, use_reentrant=False,
+                                 preserve_rng_state=False,
+                                 context_fn=REMAT_CONTEXTS[cfg.remat_policy])
             else:
-                x = block(x, positions)
+                out = block(x, positions)
+            if block.moe:
+                x, block_aux, block_dropped = out
+                aux.append(block_aux)
+                dropped.append(block_dropped)
+            else:
+                x = out
         x = self.ln_f(x)
         if self.lm_head is None:
             weight, bias = self.wte.weight, None
         else:
             weight, bias = self.lm_head.weight, self.lm_head.bias
-        if return_hidden:
-            return x, weight, bias
-        return _logits(x, weight, bias, cfg.dtype)
+        out = (x, weight, bias) if return_hidden else _logits(x, weight, bias, cfg.dtype)
+        if not return_moe:
+            return out
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        moe = {"aux": torch.stack(aux).sum() / cfg.num_layers if aux else zero,
+               "dropped": torch.stack(dropped).mean() if dropped else zero}
+        return out, moe
 
 
 # ---------------------------------------------------------------------------
@@ -375,8 +440,9 @@ def make_extend_fn(cfg: GPTConfig):
     Scores are float32, the softmax is float32 and its weights are cast to
     ``cfg.dtype``; there is no atomic or split reduction, so equal shapes
     give equal bits (what makes prefix-cached decode bitwise-equal to
-    uncached decode)."""
-    _check_dense(cfg)
+    uncached decode). MoE configs raise, as in the reference."""
+    if cfg.moe_num_experts:
+        raise NotImplementedError("KV-cache decode does not support MoE MLPs")
     dtype = cfg.dtype
     h, hd = cfg.num_heads, cfg.head_dim
     scale = 1.0 / math.sqrt(hd)

@@ -5,19 +5,23 @@
   ``clip_by_global_norm(grad_clip)`` as optax applies it, then AdamW with
   b1 0.9, b2 0.95, eps 1e-8 and decoupled weight decay.
 * ``make_train_step`` builds ``step(state, tokens) -> (state, metrics)``:
-  the blockwise next-token loss of ``GPT(..., return_hidden=True)``, its
-  gradients, and the optimizer's update. Metrics are ``loss``,
-  ``grad_norm`` (the global norm before clipping) and ``step``; loss and
-  grad_norm are 0-d float32 tensors on the device, so a step does not wait
-  for the card.
-* ``make_eval_step`` builds ``eval_step(params, tokens) -> loss``.
+  the blockwise next-token loss of ``GPT(..., return_hidden=True)``, plus
+  ``moe_aux_weight`` times the MoE aux loss (the blocks' mean) when the
+  config has experts, its gradients, and the optimizer's update. Metrics
+  are ``loss`` (that sum, as in the reference), ``grad_norm`` (the global
+  norm before clipping) and ``step``; with experts also ``moe_aux`` and
+  ``moe_dropped`` (the share of assignments dropped for capacity), the
+  port's own diagnostics. The tensors are 0-d float32 on the device, so a
+  step does not wait for the card.
+* ``make_eval_step`` builds ``eval_step(params, tokens) -> loss``, the
+  blockwise loss without the aux term, as the reference's.
 
 Dtype policy: compute in ``cfg.dtype``; master parameters, gradients and
 the Adam moments in ``cfg.param_dtype``. The update runs in place on the
 state's tensors (``torch._foreach_*``) with one temporary the size of the
 parameters (the denominator), where a functional update would copy
-parameters and both moments. There is no MoE aux loss: MoE is not ported.
-``init_params`` stays in ``models/inference.py``.
+parameters and both moments. ``init_params`` stays in
+``models/inference.py``.
 """
 
 from __future__ import annotations
@@ -110,12 +114,14 @@ def init_train_state(params: Params, optimizer: ClippedAdamW) -> TrainState:
     return TrainState(step=0, params=params, opt_state=optimizer.init(params))
 
 
-def _loss_fn(cfg: GPTConfig, model: GPT) -> Callable[[Params, torch.Tensor], torch.Tensor]:
-    def loss_fn(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        hidden, weight, bias = functional_call(
-            model, params, (tokens,), {"return_hidden": True})
+def _loss_fn(cfg: GPTConfig, model: GPT
+             ) -> Callable[[Params, torch.Tensor], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
+    """``loss_fn(params, tokens) -> (blockwise loss, {"aux", "dropped"})``"""
+    def loss_fn(params: Params, tokens: torch.Tensor):
+        (hidden, weight, bias), moe = functional_call(
+            model, params, (tokens,), {"return_hidden": True, "return_moe": True})
         return blockwise_next_token_loss(hidden, weight, bias, tokens,
-                                         chunk=cfg.ce_chunk)
+                                         chunk=cfg.ce_chunk), moe
     return loss_fn
 
 
@@ -123,10 +129,12 @@ def make_train_step(cfg: GPTConfig, optimizer: ClippedAdamW, device=None
                     ) -> Callable[[TrainState, torch.Tensor],
                                   Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """``step(state, tokens [b, t]) -> (state, {"loss", "grad_norm",
-    "step"})``. ``state.params`` live on ``device`` (default CUDA) and are
+    "step"})``, with ``"moe_aux"`` and ``"moe_dropped"`` when the config has
+    experts. ``state.params`` live on ``device`` (default CUDA) and are
     updated in place; the returned state holds the same tensors."""
     dev = resolve_device(device)
     loss_fn = _loss_fn(cfg, GPT(cfg, device="meta"))
+    moe = cfg.moe_num_experts > 0
 
     def step(state: TrainState, tokens: torch.Tensor):
         params = state.params
@@ -134,12 +142,16 @@ def make_train_step(cfg: GPTConfig, optimizer: ClippedAdamW, device=None
         with torch.enable_grad():
             for p in leaves:
                 p.requires_grad_(True)
-            loss = loss_fn(params, tokens.to(dev))
+            loss, stats = loss_fn(params, tokens.to(dev))
+            if moe:
+                loss = loss + cfg.moe_aux_weight * stats["aux"]
             grads = list(torch.autograd.grad(loss, leaves))
         opt_state, grad_norm = optimizer.update(params, grads, state.opt_state)
         new = TrainState(step=state.step + 1, params=params, opt_state=opt_state)
-        return new, {"loss": loss.detach(), "grad_norm": grad_norm,
-                     "step": new.step}
+        metrics = {"loss": loss.detach(), "grad_norm": grad_norm, "step": new.step}
+        if moe:
+            metrics.update(moe_aux=stats["aux"].detach(), moe_dropped=stats["dropped"])
+        return new, metrics
 
     return step
 
@@ -153,6 +165,6 @@ def make_eval_step(cfg: GPTConfig, device=None
 
     def eval_step(params: Params, tokens: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():
-            return loss_fn(params, tokens.to(dev))
+            return loss_fn(params, tokens.to(dev))[0]
 
     return eval_step

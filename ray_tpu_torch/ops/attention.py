@@ -4,8 +4,9 @@ Counterpart of ``ray_tpu/ops/attention.py``. Layout [batch, heads, seq,
 head_dim]; ``NEG_INF = -1e30`` is a finite mask value; under the causal mask
 a shorter q is the suffix of the kv context (``q_pos = q_idx + t_kv - t_q``).
 
-* ``_attention_plain``, ``attention_with_lse`` and ``merge_attention`` are the
-  plain versions of the reference's XLA functions of the same role.
+* ``_attention_plain``, ``attention_with_lse``, ``merge_attention`` and
+  ``blockwise_attention`` are the plain versions of the reference's XLA
+  functions of the same role.
 * ``flash_attention_fwd_plain`` repeats the TPU flash kernel's algorithm
   (``_flash_fwd_kernel``) tile for tile, including what it does to rows that
   see no key, at the tiles of the card's kernel for the input's head_dim and
@@ -30,7 +31,10 @@ a shorter q is the suffix of the kv context (``q_pos = q_idx + t_kv - t_q``).
   design's ``flash_bwd_{dq,dkv}_{wgmma,mma_sync}_launches``. On CPU tensors
   the wrappers take the plain versions and count nothing. On a CUDA tensor
   they launch or raise: they never fall back quietly.
-* ``FlashAttention`` is the autograd Function over the two wrappers, and
+* ``flash_fwd_op`` is the forward wrapper as the operator
+  ``ray_tpu_torch::flash_fwd`` (``FLASH_FWD``), which the remat policy
+  "attn" names; ``FlashAttention`` is the autograd Function over it and the
+  backward wrapper, and
   ``dot_product_attention`` the public entry, in the [b, h, t, d] layout,
   over the Function; with ``segment_ids`` it takes ``_attention_plain`` on
   any device, as the reference's dispatcher takes its XLA path.
@@ -44,6 +48,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.ops import _build
 
@@ -213,6 +218,51 @@ def merge_attention(o, lse, o_new, lse_new, valid=True):
     w_old = torch.exp(lse - lse_out)[..., None]
     w_new = torch.where(valid, torch.exp(lse_new - lse_out), 0.0)[..., None]
     return o * w_old + o_new.float() * w_new, lse_out
+
+
+def _chunk_update(o, lse, q, k_c, v_c, kv_offset, causal: bool, scale: float):
+    o_c, lse_c = attention_with_lse(q, k_c, v_c, causal=causal, scale=scale,
+                                    kv_offset=kv_offset)
+    return merge_attention(o, lse, o_c, lse_c)
+
+
+def blockwise_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    chunk: int = 512,
+) -> torch.Tensor:
+    """Attention without a kernel and without the full [b, h, t_q, t_kv]
+    logits (the reference's XLA-only ``blockwise_attention``): a loop over
+    kv chunks of ``chunk`` rows with the online-softmax carry
+    (``attention_with_lse`` and ``merge_attention``), each chunk recomputed
+    in the backward (``torch.utils.checkpoint``) while grad is enabled, so
+    one [b, h, t_q, chunk] block lives at a time. q rows are the suffix of
+    the context. Where ``t_kv % chunk != 0 or t_kv <= chunk`` it computes
+    ``_attention_plain``, as the reference does. Plain PyTorch on every
+    device."""
+    b, h, t_q, d = q.shape
+    t_kv = k.shape[-2]
+    scale_val = float(scale) if scale is not None else 1.0 / math.sqrt(d)
+    if t_kv % chunk != 0 or t_kv <= chunk:
+        return _attention_plain(q, k, v, causal=causal, scale=scale_val)
+    q_off = t_kv - t_q
+    o = torch.zeros(b, h, t_q, d, dtype=torch.float32, device=q.device)
+    lse = torch.full((b, h, t_q), NEG_INF, dtype=torch.float32, device=q.device)
+    for c0 in range(0, t_kv, chunk):
+        # a tensor offset: the chunk's rows are global positions, never the
+        # suffix rule that attention_with_lse takes for an int offset of 0
+        args = (o, lse, q, k[:, :, c0:c0 + chunk], v[:, :, c0:c0 + chunk],
+                torch.tensor(c0 - q_off, device=q.device), causal, scale_val)
+        if torch.is_grad_enabled():
+            o, lse = checkpoint(_chunk_update, *args, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            o, lse = _chunk_update(*args)
+    return o.to(q.dtype)
 
 
 def flash_attention_fwd_plain(
@@ -582,22 +632,42 @@ def flash_attention_bwd(
     return dq, dk, dv
 
 
+@torch.library.custom_op("ray_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                 scale: float, block_q: Optional[int], block_k: Optional[int]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention_fwd`` as one operator, ``ray_tpu_torch.flash_fwd``,
+    so that a selective-checkpoint policy can name it (``FLASH_FWD``) and
+    keep its (out, lse): the op allocates both, so the cache holds the
+    finished tensors and a recomputation that finds them launches nothing."""
+    return flash_attention_fwd(
+        q, k, v, causal=causal, scale=scale, block_q=block_q, block_k=block_k)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, causal, scale, block_q, block_k):
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+#: the forward's operator as a dispatch mode sees it
+FLASH_FWD = torch.ops.ray_tpu_torch.flash_fwd.default
+
+
 class FlashAttention(torch.autograd.Function):
     """Flash attention with its flash backward: the counterpart of the
     reference's ``flash_attention`` custom_vjp.
 
     ``FlashAttention.apply(q, k, v, causal, scale, block_q, block_k)``, the
     tiles None for the kernel's own (``fwd_tiles``). The
-    forward is ``flash_attention_fwd`` and saves (q, k, v, out, lse); the
-    backward is ``flash_attention_bwd`` on a contiguous copy of the
-    incoming gradient. Both take the plain versions on CPU tensors and the
-    Hopper kernels on CUDA tensors."""
+    forward is ``flash_fwd_op`` (``flash_attention_fwd``) and saves
+    (q, k, v, out, lse); the backward is ``flash_attention_bwd`` on a
+    contiguous copy of the incoming gradient. Both take the plain versions
+    on CPU tensors and the Hopper kernels on CUDA tensors."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float,
                 block_q: Optional[int] = None, block_k: Optional[int] = None):
-        out, lse = flash_attention_fwd(
-            q, k, v, causal=causal, scale=scale, block_q=block_q, block_k=block_k)
+        out, lse = flash_fwd_op(q, k, v, causal, scale, block_q, block_k)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale = causal, scale
         return out

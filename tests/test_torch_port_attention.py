@@ -4,10 +4,12 @@ The same numpy inputs go through the JAX functions and the port's plain
 versions, all in float32. The TPU flash kernel runs in Pallas interpret mode,
 as tests/test_attention.py runs it. Tolerance for float32 on the CPU:
 atol 2e-5, rtol 1e-4 on outputs (the two sides sum in other orders) and
-atol 2e-5, rtol 1e-5 on lse. The CUDA kernel is held against the plain
+atol 2e-5, rtol 1e-5 on lse; atol 5e-5, rtol 1e-3 on gradients (as
+tests/test_ring.py holds blockwise attention's). The CUDA kernel is held against the plain
 version on the card in tests/test_torch_port_kernels.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +19,7 @@ from ray_tpu.ops.attention import (
     _attention_xla,
     _flash_attention_tpu,
     attention_with_lse as jax_attention_with_lse,
+    blockwise_attention as jax_blockwise_attention,
     merge_attention as jax_merge_attention,
 )
 from ray_tpu_torch.ops import attention as port
@@ -125,6 +128,43 @@ def test_merge_of_two_halves_is_full_attention():
     merged, _ = port.merge_attention(o1.float(), l1, o2, l2)
     full = port._attention_plain(qt, kt, vt, causal=True)
     np.testing.assert_allclose(merged.numpy(), full.numpy(), **OUT_TOL)
+
+
+# (b, h, t_q, t_kv, d, causal, chunk): tests/test_ring.py's case first; then
+# non-causal, q the suffix of kv, and the two routes to the plain version
+BLOCKWISE_CASES = [
+    (1, 2, 1024, 1024, 32, True, 256),
+    (1, 2, 256, 256, 16, False, 64),
+    (1, 2, 96, 256, 16, True, 64),
+    (1, 2, 64, 200, 16, True, 64),      # t_kv % chunk != 0
+    (1, 2, 64, 64, 16, True, 64),       # t_kv <= chunk
+]
+
+
+@pytest.mark.parametrize("case", BLOCKWISE_CASES,
+                         ids=lambda c: f"q{c[2]}-kv{c[3]}-{'causal' if c[5] else 'full'}-chunk{c[6]}")
+def test_blockwise_attention_matches_jax(case):
+    """Value and the gradients of q, k and v (of sum(out * r))."""
+    b, h, tq, tkv, d, causal, chunk = case
+    q, k, v = _qkv(b, h, tq, tkv, d, seed=9)
+    r = np.random.RandomState(10).randn(b, h, tq, d).astype(np.float32)
+
+    def jloss(q, k, v):
+        out = jax_blockwise_attention(q, k, v, causal=causal, chunk=chunk)
+        return (out * r).sum(), out
+
+    (_, ref), ref_grads = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    qt, kt, vt = (t.requires_grad_() for t in _t(q, k, v))
+    out = port.blockwise_attention(qt, kt, vt, causal=causal, chunk=chunk)
+    grads = torch.autograd.grad((out * torch.from_numpy(r)).sum(), (qt, kt, vt))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), **OUT_TOL)
+    for name, g, want in zip("qkv", grads, ref_grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want), atol=5e-5, rtol=1e-3,
+                                   err_msg=f"d{name}")
+    with torch.no_grad():  # without grad no chunk is checkpointed; same value
+        again = port.blockwise_attention(qt, kt, vt, causal=causal, chunk=chunk)
+    assert torch.equal(again, out.detach())
 
 
 @pytest.mark.parametrize("case_tiles", TILED_CASES, ids=_tiled_ids)

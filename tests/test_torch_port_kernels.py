@@ -296,3 +296,80 @@ def test_bwd_wrapper_raises_for_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="head_dim"):
         port.flash_attention_bwd(q48, k48, v48, q48, lse[:, :1], q48,
                                  causal=True, scale=scale)
+
+
+def _nano_grads(cfg, params, tokens):
+    """The train step's loss (with the weighted aux for MoE) and its
+    gradients, for a fresh copy of ``params``."""
+    from ray_tpu_torch.models import gpt
+
+    params = {k: v.clone().requires_grad_() for k, v in params.items()}
+    (hidden, w, b), moe = torch.func.functional_call(
+        gpt.GPT(cfg, device="meta"), params, (tokens,),
+        {"return_hidden": True, "return_moe": True})
+    loss = gpt.blockwise_next_token_loss(hidden, w, b, tokens, chunk=cfg.ce_chunk)
+    if cfg.moe_num_experts:
+        loss = loss + cfg.moe_aux_weight * moe["aux"]
+    return loss, torch.autograd.grad(loss, list(params.values()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["attn", "dots"])
+def test_remat_policies_on_card_match_nothing(card, policy):
+    """bf16 blocks at head_dim 64 (the wgmma kernels): under "attn" the
+    backward reads the flash forward's kept (out, lse), so the forward
+    launches once per layer, not twice; under "dots" twice. Loss and
+    gradients equal "nothing"'s: the kept tensors are the finished ones."""
+    from ray_tpu_torch.models import gpt, inference
+
+    kw = dict(num_layers=2, num_heads=2, head_dim=64, embed_dim=128, mlp_dim=256,
+              vocab_size=256, max_seq_len=256, rotary_dim=32, ce_chunk=64)
+    params = inference.init_params(gpt.GPTConfig(**kw), device=card, seed=1)
+    tokens = torch.from_numpy(np.random.RandomState(2).randint(0, 256, (2, 256))).to(card)
+    loss_ref, g_ref = _nano_grads(gpt.GPTConfig(**kw), params, tokens)
+    before = port.flash_fwd_wgmma_launches
+    loss, grads = _nano_grads(gpt.GPTConfig(**kw, remat_policy=policy), params, tokens)
+    per_layer = 1 if policy == "attn" else 2
+    assert port.flash_fwd_wgmma_launches - before == per_layer * kw["num_layers"]
+    assert torch.equal(loss, loss_ref)
+    for name, a, b in zip(params, grads, g_ref):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5, msg=name)
+
+
+@pytest.mark.cuda
+def test_moe_layer_on_card_matches_the_cpu(card):
+    """MoeMlp in float32 at capacity factor 0.25 (assignments dropped): the
+    card's output, aux, dropped share and gradients against the CPU's, each
+    tensor within 1e-5 of its own largest magnitude (float32 sums in two
+    orders; the router's gradient reaches ~1800 at this loss, where float32
+    against float64 on the CPU differs by 2e-7 of it); the forward runs with
+    no host synchronisation."""
+    from ray_tpu_torch.models import gpt, moe
+
+    cfg = gpt.GPTConfig(vocab_size=256, num_layers=1, num_heads=2, head_dim=16,
+                        embed_dim=64, mlp_dim=128, max_seq_len=128, rotary_dim=16,
+                        dtype=torch.float32, moe_num_experts=4, moe_capacity_factor=0.25)
+    rng = np.random.RandomState(3)
+    params = {"router": rng.randn(64, 4) * 0.5, "wi": rng.randn(4, 64, 128) * 0.2,
+              "wo": rng.randn(4, 128, 64) * 0.2}
+    x = rng.randn(2, 96, 64)
+    runs = {}
+    for dev in ("cpu", card):
+        p = {k: torch.tensor(v, dtype=torch.float32, device=dev, requires_grad=True)
+             for k, v in params.items()}
+        xt = torch.tensor(x, dtype=torch.float32, device=dev, requires_grad=True)
+        layer = moe.MoeMlp(cfg, device="meta")
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, aux, dropped = torch.func.functional_call(layer, p, (xt,))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        grads = torch.autograd.grad((y * y).sum() + aux, [*p.values(), xt])
+        runs[str(dev)] = [t.detach().cpu() for t in (y, aux, dropped, *grads)]
+    cpu, gpu = runs["cpu"], runs[str(card)]
+    assert torch.equal(cpu[2], gpu[2]) and float(cpu[2]) > 0
+    for name, a, b in zip(("y", "aux", "dropped", "router", "wi", "wo", "x"), gpu, cpu):
+        torch.testing.assert_close(a, b, atol=1e-5 * float(b.abs().max()), rtol=0,
+                                   msg=lambda m, name=name: f"{name}: {m}")

@@ -10,7 +10,11 @@ with ``params_from_jax``. Everything runs in float32. Tolerances:
 - gpt_nano train step, 5 steps at lr 1e-2: loss and grad norm within
   rtol 1e-4 (the port's attention is the tiled flash algorithm, the JAX CPU
   path the full softmax; the optimizer feeds each step's rounding into the
-  next).
+  next);
+- gradients under each remat policy: atol 1e-5, rtol 1e-4 against JAX under
+  the same policy (a whole model's backward, summed in other orders), and
+  atol 1e-7, rtol 1e-6 against the port's "nothing" (the same arithmetic,
+  apart from what a policy keeps instead of recomputing).
 """
 
 import jax
@@ -19,6 +23,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ray_tpu.models import gpt as jgpt
 from ray_tpu.models import training as jtr
@@ -171,44 +176,130 @@ def test_optimizer_matches_optax(weight_decay):
 def _grads(cfg, sd, tokens):
     params = {k: v.clone().requires_grad_() for k, v in sd.items()}
     model = gpt.GPT(cfg, device="meta")
-    hidden, w, b = torch.func.functional_call(model, params, (tokens,),
-                                              {"return_hidden": True})
+    (hidden, w, b), moe = torch.func.functional_call(
+        model, params, (tokens,), {"return_hidden": True, "return_moe": True})
     loss = gpt.blockwise_next_token_loss(hidden, w, b, tokens, chunk=cfg.ce_chunk)
+    if cfg.moe_num_experts:
+        loss = loss + cfg.moe_aux_weight * moe["aux"]
     return loss, torch.autograd.grad(loss, list(params.values()))
 
 
 def test_remat_on_and_off_give_the_same_gradients(monkeypatch):
     """Under remat the attention forward runs twice per layer (forward and
-    recomputation), once per layer without it; the gradients agree."""
+    recomputation) with the policies "nothing" and "dots", once per layer
+    under "attn", which keeps its output, and once per layer without remat;
+    the gradients agree."""
     calls = []
     plain = attention.flash_attention_fwd_plain
     monkeypatch.setattr(attention, "flash_attention_fwd_plain",
                         lambda *a, **kw: calls.append(1) or plain(*a, **kw))
-    cfg_on = gpt.gpt_nano(ce_chunk=32)
     cfg_off = gpt.gpt_nano(ce_chunk=32, remat=False)
-    sd = inference.init_params(cfg_on, device="cpu", seed=6)
+    sd = inference.init_params(cfg_off, device="cpu", seed=6)
     tokens = torch.from_numpy(_tokens(2, 70, 256, seed=7)).long()
-    loss_on, g_on = _grads(cfg_on, sd, tokens)
-    assert len(calls) == 2 * cfg_on.num_layers
-    calls.clear()
     loss_off, g_off = _grads(cfg_off, sd, tokens)
-    assert len(calls) == cfg_on.num_layers
-    assert torch.equal(loss_on, loss_off)
-    for name, a, b in zip(sd, g_on, g_off):
-        torch.testing.assert_close(a, b, atol=1e-7, rtol=1e-6, msg=name)
-    with torch.no_grad():  # no grad, no recomputation
+    assert len(calls) == cfg_off.num_layers
+    for policy, per_layer in (("nothing", 2), ("dots", 2), ("attn", 1)):
+        cfg_on = gpt.gpt_nano(ce_chunk=32, remat_policy=policy)
         calls.clear()
-        gpt.GPT(cfg_on, device="cpu")(tokens)
-        assert len(calls) == cfg_on.num_layers
+        loss_on, g_on = _grads(cfg_on, sd, tokens)
+        assert len(calls) == per_layer * cfg_on.num_layers, policy
+        assert torch.equal(loss_on, loss_off)
+        for name, a, b in zip(sd, g_on, g_off):
+            torch.testing.assert_close(a, b, atol=1e-7, rtol=1e-6, msg=f"{policy} {name}")
+        with torch.no_grad():  # no grad, no recomputation
+            calls.clear()
+            gpt.GPT(cfg_on, device="cpu")(tokens)
+            assert len(calls) == cfg_on.num_layers
 
 
 def test_remat_policies_not_ported_raise():
-    for policy in ("dots", "attn"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            gpt.GPT(gpt.gpt_nano(remat_policy=policy), device="meta")
+    """A policy the reference does not have raises, with remat on; the
+    reference's three build, and with remat off the policy is not read."""
     with pytest.raises(ValueError, match="remat_policy"):
         gpt.GPT(gpt.gpt_nano(remat_policy="everything"), device="meta")
-    gpt.GPT(gpt.gpt_nano(remat=False, remat_policy="dots"), device="meta")
+    for policy in ("nothing", "dots", "attn"):
+        gpt.GPT(gpt.gpt_nano(remat_policy=policy), device="meta")
+    gpt.GPT(gpt.gpt_nano(remat=False, remat_policy="everything"), device="meta")
+
+
+class _CountMatmuls(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += func == torch.ops.aten.mm.default
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("moe", [0, 4], ids=["dense", "moe"])
+def test_dots_policy_keeps_the_matmul_outputs(moe):
+    """The backward under "dots" runs exactly the 2-D products of the
+    backward without remat: the outputs of q, k, v, o, wi and wo (with
+    experts, the router's) are kept, and none is recomputed. Under
+    "nothing" the recomputation runs five per layer again: q, k, v, o and
+    wi, or the router with experts (it stops before wo, whose output no
+    backward needs)."""
+    tokens = torch.from_numpy(_tokens(2, 40, 256, seed=11)).long()
+    counts = {}
+    for policy in ("off", "nothing", "dots"):
+        cfg = gpt.gpt_nano(ce_chunk=32, remat=policy != "off",
+                           remat_policy="nothing" if policy == "off" else policy,
+                           moe_num_experts=moe)
+        params = {k: v.requires_grad_() for k, v in
+                  inference.init_params(cfg, device="cpu", seed=6).items()}
+        hidden, w, b = torch.func.functional_call(
+            gpt.GPT(cfg, device="meta"), params, (tokens,), {"return_hidden": True})
+        loss = gpt.blockwise_next_token_loss(hidden, w, b, tokens, chunk=32)
+        with _CountMatmuls() as mode:
+            torch.autograd.grad(loss, list(params.values()))
+        counts[policy] = mode.n
+    assert counts["dots"] == counts["off"], counts
+    assert counts["nothing"] == counts["off"] + 5 * 2, counts
+
+
+@pytest.mark.parametrize("moe", [0, 4], ids=["dense", "moe"])
+@pytest.mark.parametrize("policy", ["dots", "attn"])
+def test_remat_policy_gradients_match_jax(policy, moe):
+    """Every parameter's gradient of the train step's loss (with the
+    weighted aux loss for MoE) under one policy: against JAX's under the
+    same policy, and against the port's under "nothing"."""
+    jcfg = jgpt.gpt_nano(remat_policy=policy, ce_chunk=32, moe_num_experts=moe)
+    variables = jgpt.GPT(jcfg).init(jax.random.PRNGKey(2), jnp.zeros((1, 8), jnp.int32))
+    tree = jax.tree_util.tree_map(np.asarray, jgpt.unboxed_params(variables))
+    tokens = _tokens(2, 48, 256, seed=10)
+    model = jgpt.GPT(jcfg, return_hidden=True)
+
+    def loss_fn(params):
+        if moe:
+            (hidden, kernel, bias), mut = model.apply(
+                {"params": params}, jnp.asarray(tokens), mutable=["losses"])
+            aux = sum(jnp.sum(v) for v in jax.tree.leaves(mut["losses"])) / jcfg.num_layers
+        else:
+            hidden, kernel, bias = model.apply({"params": params}, jnp.asarray(tokens))
+            aux = 0.0
+        loss = jgpt.blockwise_next_token_loss(hidden, kernel, bias, jnp.asarray(tokens),
+                                              chunk=jcfg.ce_chunk)
+        return loss + jcfg.moe_aux_weight * aux
+
+    ref_loss, ref_grads = jax.value_and_grad(loss_fn)(jax.tree_util.tree_map(jnp.asarray, tree))
+    cfg = gpt.gpt_nano(remat_policy=policy, ce_chunk=32, moe_num_experts=moe)
+    sd = convert.params_from_jax(tree, cfg, device="cpu")
+    loss, grads = _grads(cfg, sd, torch.from_numpy(tokens).long())
+    np.testing.assert_allclose(float(loss.detach()), float(ref_loss), **LOSS_TOL)
+    back = convert.params_to_jax(dict(zip(sd, grads)), cfg)
+    ref = jax.tree_util.tree_map(np.asarray, ref_grads)
+    for path, want in jax.tree_util.tree_leaves_with_path(ref):
+        got = back
+        for key in path:
+            got = got[key.key]
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-4,
+                                   err_msg=jax.tree_util.keystr(path))
+    nothing_loss, nothing_grads = _grads(
+        gpt.gpt_nano(ce_chunk=32, moe_num_experts=moe), sd, torch.from_numpy(tokens).long())
+    assert torch.equal(loss, nothing_loss)
+    for name, a, b in zip(sd, grads, nothing_grads):
+        torch.testing.assert_close(a, b, atol=1e-7, rtol=1e-6, msg=name)
 
 
 def test_gpt_nano_train_step_tracks_jax():
