@@ -10,17 +10,19 @@ Phases (any failure exits non-zero; nothing is caught):
      both wgmma backward kernels at head_dim 128 (the main path) must not
      spill;
   2. kernel vs plain: the flash forward kernel against its plain PyTorch
-     version on the same device tensors, per case: each row of out held to
-     its own norm and lse to an absolute limit
+     version on the same device tensors, per case (among them the shape of
+     each train path and of the forward: gpt_1b at b=12, b=8 and b=4):
+     each row of out held to its own norm and lse to an absolute limit
      (ray_tpu_torch/ops/tolerance.py), max abs error, kernel / plain /
      library (scaled_dot_product_attention, a yardstick the port never
      calls) times and the bound;
   3. backward kernels vs plain: the dQ and dK/dV kernels of the design
      BWD_DESIGNS names (wgmma or mma_sync; each case names it and must launch
-     it) against flash_attention_bwd_plain, per case: each row of dq, dk, dv
-     held to its own norm (ray_tpu_torch/ops/tolerance.py), max abs error,
-     each kernel's time and bound, the plain time and the library time
-     (torch.autograd.grad through scaled_dot_product_attention);
+     it) against flash_attention_bwd_plain, per case (the train paths'
+     shapes among them): each row of dq, dk, dv held to its own norm
+     (ray_tpu_torch/ops/tolerance.py), max abs error, each kernel's time and
+     bound, the plain time and the library time (torch.autograd.grad
+     through scaled_dot_product_attention);
   4. train: three float32 gpt_nano steps on the card held to the same steps
      on the CPU; then gpt_1b (bf16 compute, float32 master weights and Adam
      moments, remat "nothing"), b=12, t=2048, ce_chunk 512, lr 1e-4: one
@@ -38,7 +40,8 @@ Phases (any failure exits non-zero; nothing is caught):
   4c. moe_small_vs_cpu: three float32 steps of a mixture-of-experts
      gpt_nano (4 experts, top 2, capacity factor 0.25, so tokens are
      dropped) on the card held to the same steps on the CPU (rtol 1e-4),
-     and the same share of assignments dropped on both;
+     and every block's slot of every assignment equal on both (the same
+     kept set), some kept and some dropped;
   4d. train_moe: gpt_1b at full width with a 4-expert MLP per block (top 2,
      capacity factor 1.25, aux weight 0.01), b=8, t=2048, ce_chunk 512:
      one warm-up and 3 timed steps; the gates of phase 4; ms per step,
@@ -66,8 +69,9 @@ one the main path runs, at gpt_1b's forward shape (b=4) with the forward
 phase's launches, and the backward kernels at the train step's
 shape (b=12) with the train phase's; every entry names its shape and its
 launches on each path (train, remat_attn, remat_dots, train_moe, forward,
-server: the timed steps or calls of each), and the backward kernels' plain
-and library times are those of the whole backward (dq, dk and dv together).
+server: the timed steps or calls of each) and the case of phases 2-3 that
+checked it at each path's shape, and the backward kernels' plain and
+library times are those of the whole backward (dq, dk and dv together).
 """
 
 from __future__ import annotations
@@ -227,6 +231,7 @@ def phase_kernel_vs_plain():
     cases = [
         # name, b, h, t_q, t_kv, d, causal, dtype
         ("gpt_1b_train_b12", 12, 16, 2048, 2048, 128, True, torch.bfloat16),
+        ("gpt_1b_moe_b8", 8, 16, 2048, 2048, 128, True, torch.bfloat16),
         ("gpt_1b", 4, 16, 2048, 2048, 128, True, torch.bfloat16),
         ("d64_gpt_125m", 4, 12, 2048, 2048, 64, True, torch.bfloat16),
         ("d256_gpt_j", 1, 16, 2048, 2048, 256, True, torch.bfloat16),
@@ -299,6 +304,7 @@ def phase_kernel_vs_plain():
 BWD_CASES = [
     # name, b, h, t_q, t_kv, d, causal, dtype
     ("gpt_1b_train_b12", 12, 16, 2048, 2048, 128, True, torch.bfloat16),
+    ("gpt_1b_moe_b8", 8, 16, 2048, 2048, 128, True, torch.bfloat16),
     ("gpt_1b", 4, 16, 2048, 2048, 128, True, torch.bfloat16),
     ("d64_gpt_125m", 4, 12, 2048, 2048, 64, True, torch.bfloat16),
     ("d256_gpt_j", 1, 16, 2048, 2048, 256, True, torch.bfloat16),
@@ -415,31 +421,56 @@ def _reset_launch_counts():
         setattr(attn, f"{name}_launches", 0)
 
 
+def moe_slots(cfg, params, tokens):
+    """Each MoE block's slot of every assignment (``moe.route`` on the
+    block's MLP input; one past the last slot for a dropped one) in one
+    forward of ``params`` without grad."""
+    from ray_tpu_torch.models import gpt, moe
+
+    model = gpt.GPT(cfg, device="meta")
+    slots = []
+
+    def grab(layer, args):
+        # under functional_call the layer's router is the tensor of params
+        xs = args[0].reshape(-1, cfg.embed_dim).to(cfg.dtype)
+        slots.append(moe.route(xs, layer.router, cfg.moe_top_k,
+                               moe.expert_capacity(cfg, xs.shape[0]))[3])
+
+    for block in model.blocks:
+        block.mlp.register_forward_pre_hook(grab)
+    with torch.no_grad():
+        torch.func.functional_call(model, params, (tokens,))
+    return slots
+
+
 def train_small_vs_cpu(steps: int = 3, **moe):
     """Float32 gpt_nano steps through the kernels' CUDA-core paths against
     the same steps on the CPU through the plain versions; ``moe`` (config
-    fields) makes each block's MLP a mixture of experts, whose aux loss is
-    held to the same limit and whose share of dropped assignments must be
-    equal on both devices."""
+    fields) makes each block's MLP a mixture of experts: its aux loss is
+    held to the same limit, and before the first step every block's slot of
+    every assignment (so the kept set) must be equal on both devices, with
+    some assignments dropped and some kept."""
     from ray_tpu_torch.models import gpt, inference, training
+    from ray_tpu_torch.models.moe import expert_capacity
 
     cfg = gpt.gpt_nano(ce_chunk=32, **moe)
     label = "MoE gpt_nano" if moe else "gpt_nano"
     keys = ("loss", "grad_norm") + (("moe_aux",) if moe else ())
     tokens = torch.from_numpy(np.random.RandomState(3).randint(0, cfg.vocab_size, (2, 80)))
-    runs, dropped = {}, {}
+    runs, slots, dropped = {}, {}, {}
     for dev in ("cpu", "cuda"):
         opt = training.default_optimizer(1e-2)
         params = {n: p.to(dev) for n, p in
                   inference.init_params(cfg, device="cpu", seed=4).items()}
+        if moe:
+            slots[dev] = [s.cpu() for s in moe_slots(cfg, params, tokens.to(dev))]
         state = training.init_train_state(params, opt)
         step = training.make_train_step(cfg, opt, device=dev)
         metrics, dropped[dev] = [], []
         for _ in range(steps):
             state, m = step(state, tokens)
             metrics.append([float(m[k]) for k in keys])
-            if moe:
-                dropped[dev].append(float(m["moe_dropped"]))
+            dropped[dev].append(float(m["moe_dropped"]))
         runs[dev] = metrics
     worst = float(np.max(np.abs(np.array(runs["cuda"]) / np.array(runs["cpu"]) - 1)))
     print(f"[train] {label} f32 {steps} steps, card vs CPU: ({', '.join(keys)}) "
@@ -448,12 +479,19 @@ def train_small_vs_cpu(steps: int = 3, **moe):
           + (f"; dropped share {dropped['cuda']} vs {dropped['cpu']}" if moe else ""))
     if not worst <= TRAIN_SMALL_RTOL:
         raise SystemExit(f"{label} steps on the card differ from the CPU by {worst}")
-    if dropped["cuda"] != dropped["cpu"] or (moe and not all(d > 0 for d in dropped["cuda"])):
-        raise SystemExit(f"{label}: dropped shares {dropped} differ or drop nothing")
     out = dict(card=runs["cuda"], cpu=runs["cpu"], keys=list(keys), worst_rel_diff=worst,
                rtol=TRAIN_SMALL_RTOL)
     if moe:
-        out.update(config=moe, dropped_card=dropped["cuda"], dropped_cpu=dropped["cpu"])
+        n_slots = cfg.moe_num_experts * expert_capacity(cfg, tokens.numel())
+        kept = [int((s < n_slots).sum()) for s in slots["cpu"]]
+        same = all(torch.equal(a, b) for a, b in zip(slots["cuda"], slots["cpu"]))
+        print(f"[train] {label}: kept assignments per block {kept} of "
+              f"{slots['cpu'][0].numel()}, card's slots equal to the CPU's: {same}")
+        if not same or not all(0 < n < slots["cpu"][0].numel() for n in kept):
+            raise SystemExit(f"{label}: the card kept other assignments than the CPU, or "
+                             f"a block kept none or all (kept {kept})")
+        out.update(config=moe, kept_per_block=kept, slots_equal=same,
+                   dropped_card=dropped["cuda"], dropped_cpu=dropped["cpu"])
     return out
 
 
@@ -578,13 +616,11 @@ def moe_executed_flops(cfg, batch: int, seq: int) -> float:
     per layer), the step runs each expert over its C capacity slots
     (6 * 2 * d * f * E * C, empty slots included; E * C is about
     k * cf * s)."""
-    import math
-
-    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.models import gpt, moe
 
     s = batch * seq
     n_exp = cfg.moe_num_experts
-    cap = max(1, int(math.ceil(cfg.moe_top_k * s / n_exp * cfg.moe_capacity_factor)))
+    cap = moe.expert_capacity(cfg, s)
     per_slot = 6.0 * 2 * cfg.embed_dim * cfg.mlp_dim
     return (gpt.train_step_flops(cfg, batch, seq)
             - cfg.num_layers * per_slot * n_exp * (s - cap))
@@ -892,6 +928,11 @@ def main() -> int:
              "forward": report["forward"], "server": report["server"]}
     by_path = {name: {path: rep["launches"][name] for path, rep in paths.items()}
                for name in COUNTS}
+    # the case of phases 2 and 3 that holds each kernel to its plain version
+    # at the shape each path gives it (the server launches no wgmma kernel)
+    train_case = {"train": "gpt_1b_train_b12", "remat_attn": "gpt_1b_train_b12",
+                  "remat_dots": "gpt_1b_train_b12", "train_moe": "gpt_1b_moe_b8"}
+    fwd_cases, bwd_cases = {**train_case, "forward": "gpt_1b"}, train_case
     whole = "dq, dk and dv together"
     kernels = {"kernels": [
         dict(name="flash_fwd", route="cuda", source=fwd_case["source"],
@@ -903,7 +944,7 @@ def main() -> int:
              design=fwd_case["design"], tiles=fwd_case["tiles"],
              row_err=fwd_case["row_err"], row_err_tol=fwd_case["row_err_tol"],
              shape=fwd_shape, launches_path="forward",
-             launches_by_path=by_path["flash_fwd_wgmma"]),
+             launches_by_path=by_path["flash_fwd_wgmma"], cases_by_path=fwd_cases),
         dict(name="flash_bwd_dq", route="cuda", source=bwd_case["source"],
              replaces="ray_tpu/ops/attention.py:324",
              launches=by_path[f"flash_bwd_dq_{bwd_case['design']}"]["train"],
@@ -912,6 +953,7 @@ def main() -> int:
              bound_by=bwd_case["dq_bound_by"], library_ms=bwd_case["library_ms"],
              design=bwd_case["design"], shape=bwd_shape, launches_path="train",
              launches_by_path=by_path[f"flash_bwd_dq_{bwd_case['design']}"],
+             cases_by_path=bwd_cases,
              row_err=bwd_case["row_err"]["dq"], row_err_tol=bwd_case["row_err_tol"],
              plain_ms_computes=whole, library_ms_computes=whole),
         dict(name="flash_bwd_dkv", route="cuda", source=bwd_case["source"],
@@ -923,6 +965,7 @@ def main() -> int:
              library_ms=bwd_case["library_ms"],
              design=bwd_case["design"], shape=bwd_shape, launches_path="train",
              launches_by_path=by_path[f"flash_bwd_dkv_{bwd_case['design']}"],
+             cases_by_path=bwd_cases,
              row_err=max(bwd_case["row_err"]["dk"], bwd_case["row_err"]["dv"]),
              row_err_tol=bwd_case["row_err_tol"],
              plain_ms_computes=whole, library_ms_computes=whole),

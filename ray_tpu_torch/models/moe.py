@@ -80,14 +80,36 @@ def gather_rows(src: torch.Tensor, index: torch.Tensor, inverse: torch.Tensor
     return _GatherRows.apply(src, index, inverse)
 
 
+def expert_capacity(cfg, tokens: int) -> int:
+    """Slots per expert for ``tokens`` routed tokens:
+    ``max(1, ceil(k * tokens / E * moe_capacity_factor))``, the reference's
+    expression, so both sides round it alike."""
+    return max(1, int(math.ceil(cfg.moe_top_k * tokens / cfg.moe_num_experts
+                                * cfg.moe_capacity_factor)))
+
+
+def route(xs: torch.Tensor, router: torch.Tensor, top_k: int, capacity: int
+          ) -> Tuple[torch.Tensor, ...]:
+    """``(probs [s, E], gate_vals [s, k], gate_idx [s, k], slot, keep)`` of
+    the token rows ``xs`` [s, d]: float32 logits ``xs @ router``, softmax,
+    top ``top_k``, gates renormalised by ``max(sum, 1e-9)``, and each
+    assignment's ``(slot, keep)`` from ``assign_slots``. ``slot`` fixes the
+    kept set and every kept assignment's place in its expert's buffer."""
+    probs = torch.softmax(xs.float() @ router.float(), dim=-1)
+    gate_vals, gate_idx = torch.topk(probs, top_k, dim=-1)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    slot, keep = assign_slots(gate_idx, router.shape[1], capacity)
+    return probs, gate_vals, gate_idx, slot, keep
+
+
 class MoeMlp(nn.Module):
     """``forward(x [b, t, embed]) -> (y [b, t, embed], aux, dropped)``: the
     drop-in for the dense ``Mlp`` when ``cfg.moe_num_experts > 0``.
 
-    Routing in float32: logits ``x @ router``, softmax, top ``moe_top_k``,
-    gates renormalised by ``max(sum, 1e-9)``. Static capacity
-    ``max(1, ceil(k * s / E * moe_capacity_factor))`` slots per expert;
-    assignments past it are dropped (``assign_slots``) and add 0. Experts:
+    Routing in float32 (``route``): logits ``x @ router``, softmax, top
+    ``moe_top_k``, gates renormalised by ``max(sum, 1e-9)``. Static capacity
+    ``expert_capacity`` slots per expert; assignments past it are dropped
+    (``assign_slots``) and add 0. Experts:
     ``gelu(expert_in @ wi) @ wo`` in ``cfg.dtype`` (``torch.bmm``). Each
     token's output is the sum over its k kept rows, each weighted by its gate
     cast to ``cfg.dtype``, accumulated in float32 and rounded once.
@@ -115,15 +137,11 @@ class MoeMlp(nn.Module):
         b, t, d = x.shape
         s = b * t
         xs = x.reshape(s, d).to(dtype)
-        # the reference's expression, so both sides round it alike
-        capacity = max(1, int(math.ceil(k * s / n_exp * cfg.moe_capacity_factor)))
+        capacity = expert_capacity(cfg, s)
         n_slots = n_exp * capacity
 
         with record_function("moe_router"):
-            probs = torch.softmax(xs.float() @ self.router.float(), dim=-1)  # [s, E]
-            gate_vals, gate_idx = torch.topk(probs, k, dim=-1)               # [s, k]
-            gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
-            slot, keep = assign_slots(gate_idx, n_exp, capacity)
+            probs, gate_vals, gate_idx, slot, keep = route(xs, self.router, k, capacity)
 
         with record_function("moe_dispatch"):
             # the assignment that fills each slot (k*s where none does; every

@@ -5,14 +5,15 @@
   ``clip_by_global_norm(grad_clip)`` as optax applies it, then AdamW with
   b1 0.9, b2 0.95, eps 1e-8 and decoupled weight decay.
 * ``make_train_step`` builds ``step(state, tokens) -> (state, metrics)``:
-  the blockwise next-token loss of ``GPT(..., return_hidden=True)``, plus
-  ``moe_aux_weight`` times the MoE aux loss (the blocks' mean) when the
-  config has experts, its gradients, and the optimizer's update. Metrics
-  are ``loss`` (that sum, as in the reference), ``grad_norm`` (the global
-  norm before clipping) and ``step``; with experts also ``moe_aux`` and
-  ``moe_dropped`` (the share of assignments dropped for capacity), the
-  port's own diagnostics. The tensors are 0-d float32 on the device, so a
-  step does not wait for the card.
+  the blockwise next-token loss of ``GPT(..., return_hidden=True)`` plus
+  ``moe_aux_weight`` times the MoE aux loss (the blocks' mean; 0 for a
+  dense config, where the sum is the blockwise loss bit for bit), its
+  gradients, and the optimizer's update. Metrics are ``loss`` (that sum,
+  as in the reference), ``grad_norm`` (the global norm before clipping),
+  ``step``, and the port's own diagnostics ``moe_aux`` and ``moe_dropped``
+  (the share of assignments dropped for capacity; both 0 when dense). The
+  tensors are 0-d float32 on the device, so a step does not wait for the
+  card.
 * ``make_eval_step`` builds ``eval_step(params, tokens) -> loss``, the
   blockwise loss without the aux term, as the reference's.
 
@@ -116,12 +117,13 @@ def init_train_state(params: Params, optimizer: ClippedAdamW) -> TrainState:
 
 def _loss_fn(cfg: GPTConfig, model: GPT
              ) -> Callable[[Params, torch.Tensor], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
-    """``loss_fn(params, tokens) -> (blockwise loss, {"aux", "dropped"})``"""
+    """``loss_fn(params, tokens) -> (train loss, {"ce", "aux", "dropped"})``:
+    the blockwise next-token loss ``ce`` plus ``moe_aux_weight * aux``."""
     def loss_fn(params: Params, tokens: torch.Tensor):
         (hidden, weight, bias), moe = functional_call(
             model, params, (tokens,), {"return_hidden": True, "return_moe": True})
-        return blockwise_next_token_loss(hidden, weight, bias, tokens,
-                                         chunk=cfg.ce_chunk), moe
+        ce = blockwise_next_token_loss(hidden, weight, bias, tokens, chunk=cfg.ce_chunk)
+        return ce + cfg.moe_aux_weight * moe["aux"], dict(moe, ce=ce)
     return loss_fn
 
 
@@ -129,12 +131,11 @@ def make_train_step(cfg: GPTConfig, optimizer: ClippedAdamW, device=None
                     ) -> Callable[[TrainState, torch.Tensor],
                                   Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """``step(state, tokens [b, t]) -> (state, {"loss", "grad_norm",
-    "step"})``, with ``"moe_aux"`` and ``"moe_dropped"`` when the config has
-    experts. ``state.params`` live on ``device`` (default CUDA) and are
-    updated in place; the returned state holds the same tensors."""
+    "step", "moe_aux", "moe_dropped"})``. ``state.params`` live on
+    ``device`` (default CUDA) and are updated in place; the returned state
+    holds the same tensors."""
     dev = resolve_device(device)
     loss_fn = _loss_fn(cfg, GPT(cfg, device="meta"))
-    moe = cfg.moe_num_experts > 0
 
     def step(state: TrainState, tokens: torch.Tensor):
         params = state.params
@@ -143,28 +144,24 @@ def make_train_step(cfg: GPTConfig, optimizer: ClippedAdamW, device=None
             for p in leaves:
                 p.requires_grad_(True)
             loss, stats = loss_fn(params, tokens.to(dev))
-            if moe:
-                loss = loss + cfg.moe_aux_weight * stats["aux"]
             grads = list(torch.autograd.grad(loss, leaves))
         opt_state, grad_norm = optimizer.update(params, grads, state.opt_state)
         new = TrainState(step=state.step + 1, params=params, opt_state=opt_state)
-        metrics = {"loss": loss.detach(), "grad_norm": grad_norm, "step": new.step}
-        if moe:
-            metrics.update(moe_aux=stats["aux"].detach(), moe_dropped=stats["dropped"])
-        return new, metrics
+        return new, {"loss": loss.detach(), "grad_norm": grad_norm, "step": new.step,
+                     "moe_aux": stats["aux"].detach(), "moe_dropped": stats["dropped"]}
 
     return step
 
 
 def make_eval_step(cfg: GPTConfig, device=None
                    ) -> Callable[[Params, torch.Tensor], torch.Tensor]:
-    """``eval_step(params, tokens) -> loss``, the train step's loss without
-    gradients."""
+    """``eval_step(params, tokens) -> loss``: the blockwise loss without
+    gradients and without the aux term, as the reference's."""
     dev = resolve_device(device)
     loss_fn = _loss_fn(cfg, GPT(cfg, device="meta"))
 
     def eval_step(params: Params, tokens: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():
-            return loss_fn(params, tokens.to(dev))[0]
+            return loss_fn(params, tokens.to(dev))[1]["ce"]
 
     return eval_step

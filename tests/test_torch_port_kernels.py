@@ -299,17 +299,12 @@ def test_bwd_wrapper_raises_for_what_the_kernels_do_not_take(card):
 
 
 def _nano_grads(cfg, params, tokens):
-    """The train step's loss (with the weighted aux for MoE) and its
-    gradients, for a fresh copy of ``params``."""
-    from ray_tpu_torch.models import gpt
+    """The train step's loss and its gradients, for a fresh copy of
+    ``params``."""
+    from ray_tpu_torch.models import gpt, training
 
     params = {k: v.clone().requires_grad_() for k, v in params.items()}
-    (hidden, w, b), moe = torch.func.functional_call(
-        gpt.GPT(cfg, device="meta"), params, (tokens,),
-        {"return_hidden": True, "return_moe": True})
-    loss = gpt.blockwise_next_token_loss(hidden, w, b, tokens, chunk=cfg.ce_chunk)
-    if cfg.moe_num_experts:
-        loss = loss + cfg.moe_aux_weight * moe["aux"]
+    loss, _ = training._loss_fn(cfg, gpt.GPT(cfg, device="meta"))(params, tokens)
     return loss, torch.autograd.grad(loss, list(params.values()))
 
 
@@ -339,11 +334,12 @@ def test_remat_policies_on_card_match_nothing(card, policy):
 @pytest.mark.cuda
 def test_moe_layer_on_card_matches_the_cpu(card):
     """MoeMlp in float32 at capacity factor 0.25 (assignments dropped): the
-    card's output, aux, dropped share and gradients against the CPU's, each
-    tensor within 1e-5 of its own largest magnitude (float32 sums in two
-    orders; the router's gradient reaches ~1800 at this loss, where float32
-    against float64 on the CPU differs by 2e-7 of it); the forward runs with
-    no host synchronisation."""
+    card's slot of every assignment (so the kept set and each kept row's
+    place) equal to the CPU's, and its output, aux and gradients against the
+    CPU's, each tensor within 1e-5 of its own largest magnitude (float32
+    sums in two orders; the router's gradient reaches ~1800 at this loss,
+    where float32 against float64 on the CPU differs by 2e-7 of it); the
+    forward runs with no host synchronisation."""
     from ray_tpu_torch.models import gpt, moe
 
     cfg = gpt.GPTConfig(vocab_size=256, num_layers=1, num_heads=2, head_dim=16,
@@ -353,6 +349,7 @@ def test_moe_layer_on_card_matches_the_cpu(card):
     params = {"router": rng.randn(64, 4) * 0.5, "wi": rng.randn(4, 64, 128) * 0.2,
               "wo": rng.randn(4, 128, 64) * 0.2}
     x = rng.randn(2, 96, 64)
+    cap = moe.expert_capacity(cfg, 2 * 96)
     runs = {}
     for dev in ("cpu", card):
         p = {k: torch.tensor(v, dtype=torch.float32, device=dev, requires_grad=True)
@@ -363,13 +360,16 @@ def test_moe_layer_on_card_matches_the_cpu(card):
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
         try:
-            y, aux, dropped = torch.func.functional_call(layer, p, (xt,))
+            y, aux, _ = torch.func.functional_call(layer, p, (xt,))
         finally:
             torch.cuda.set_sync_debug_mode("default")
         grads = torch.autograd.grad((y * y).sum() + aux, [*p.values(), xt])
-        runs[str(dev)] = [t.detach().cpu() for t in (y, aux, dropped, *grads)]
+        slot = moe.route(xt.detach().reshape(-1, 64), p["router"].detach(), cfg.moe_top_k,
+                         cap)[3]
+        runs[str(dev)] = [t.detach().cpu() for t in (slot, y, aux, *grads)]
     cpu, gpu = runs["cpu"], runs[str(card)]
-    assert torch.equal(cpu[2], gpu[2]) and float(cpu[2]) > 0
-    for name, a, b in zip(("y", "aux", "dropped", "router", "wi", "wo", "x"), gpu, cpu):
+    dropped = cpu[0] == 4 * cap
+    assert torch.equal(gpu[0], cpu[0]) and dropped.any() and not dropped.all()
+    for name, a, b in zip(("y", "aux", "router", "wi", "wo", "x"), gpu[1:], cpu[1:]):
         torch.testing.assert_close(a, b, atol=1e-5 * float(b.abs().max()), rtol=0,
                                    msg=lambda m, name=name: f"{name}: {m}")

@@ -174,13 +174,9 @@ def test_optimizer_matches_optax(weight_decay):
 
 
 def _grads(cfg, sd, tokens):
+    """The train step's loss and its gradients, for a fresh copy of ``sd``."""
     params = {k: v.clone().requires_grad_() for k, v in sd.items()}
-    model = gpt.GPT(cfg, device="meta")
-    (hidden, w, b), moe = torch.func.functional_call(
-        model, params, (tokens,), {"return_hidden": True, "return_moe": True})
-    loss = gpt.blockwise_next_token_loss(hidden, w, b, tokens, chunk=cfg.ce_chunk)
-    if cfg.moe_num_experts:
-        loss = loss + cfg.moe_aux_weight * moe["aux"]
+    loss, _ = training._loss_fn(cfg, gpt.GPT(cfg, device="meta"))(params, tokens)
     return loss, torch.autograd.grad(loss, list(params.values()))
 
 
