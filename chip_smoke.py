@@ -52,9 +52,36 @@ Phases (any failure exits non-zero; nothing is caught):
      forward;
   6. server: the in-process LLMServer at gpt_1b; 8 requests (4 share a
      512-token prefix), prefix-cache hits, bitwise cached-vs-uncached
-     logits, engine prefill vs full forward, and no KV block leaked.
-The train phases run before the server's, whose engine turns on
-deterministic algorithms for the whole process. With --profile, one more
+     logits, engine prefill vs full forward, no KV block leaked, and
+     torch's deterministic mode after close() what it was before the
+     server (the engine scopes it to its steps);
+  7a. lse_grad: flash_attention_with_lse (out and lse, both differentiable:
+     the flash forward, then the dQ and dK/dV kernels with delta - dlse) at
+     gpt_1b's heads (b=2, h=16, t=2048, d=128), causal (a ring's step 0) and
+     not (a hop), under random cotangents of both outputs: in bf16 (wgmma)
+     against the plain flash versions on the same inputs, in float32
+     (mma.sync) against autograd through the plain attention_with_lse;
+     every row of dq, dk and dv, and of out, held to
+     ray_tpu_torch/ops/tolerance.py, lse to its absolute limit; times of
+     this path, of autograd through the plain one and of FlashAttention
+     (out only), forward and backward;
+  7b. sharded_train_ws1: phase 4's step through the sharded train step,
+     make_train_step(cfg, opt, mesh=MeshSpec(fsdp=-1).build(),
+     state_shardings_tree=...), on a one-rank NCCL process group (a
+     HashStore, no port): DTensor parameters and moments from
+     init_sharded_state(seed=0); one warm-up and 3 timed steps. The
+     warm-up loss equal to phase 4's to 1e-6 relative, its grad norm to
+     1e-3; per step phase 4's launches, all on wgmma; ms per step beside
+     phase 4's and peak memory;
+  7c. sp_ring_ws1 / sp_ulysses_ws1: the same step on MeshSpec(sp=1) with
+     seq_parallel_impl "ring" and "ulysses", a warm-up and 2 timed steps
+     each: sequence_parallel_attention falls through to the flash kernels,
+     with phase 4's launches per step and first loss.
+The card machine has one GPU and NCCL puts one rank on a device, so phases
+7b-7c run the sharded paths at world size 1: every collective of more than
+one rank (the gathers and reductions over fsdp, tp, ep and the data axes,
+ring's exchange, Ulysses' all-to-all, MoE's count exchange) runs only in
+the CPU tests, over gloo (tests/test_torch_parallel_*.py). With --profile, one more
 dense train step under each policy, one more MoE train step, a forward
 and a wave of 4 requests run under torch.profiler; device time by kernel,
 by operator and by range (the delta pass, the MoE router, dispatch,
@@ -69,9 +96,10 @@ one the main path runs, at gpt_1b's forward shape (b=4) with the forward
 phase's launches, and the backward kernels at the train step's
 shape (b=12) with the train phase's; every entry names its shape and its
 launches on each path (train, remat_attn, remat_dots, train_moe, forward,
-server: the timed steps or calls of each) and the case of phases 2-3 that
-checked it at each path's shape, and the backward kernels' plain and
-library times are those of the whole backward (dq, dk and dv together).
+server, sharded_ws1, sp_ring_ws1, sp_ulysses_ws1: the timed steps or calls
+of each) and the case of phases 2-3 that checked it at each path's shape,
+and the backward kernels' plain and library times are those of the whole
+backward (dq, dk and dv together).
 """
 
 from __future__ import annotations
@@ -79,11 +107,12 @@ from __future__ import annotations
 import os
 
 # cuBLAS reads this when it makes its first handle; the serving engine's
-# deterministic mode needs it
+# deterministic steps need it, and the engine refuses to start without it
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import argparse  # noqa: E402
 import ctypes  # noqa: E402
+import gc  # noqa: E402
 import json  # noqa: E402
 import re  # noqa: E402
 import subprocess  # noqa: E402
@@ -109,6 +138,10 @@ POLICY_GRAD_NORM_RTOL = 1e-3
 # paths round in other places (flash kernel with bf16 P vs f32 softmax, other
 # GEMM shapes) through 16 layers; logits have std ~1 at this init
 ENGINE_VS_FORWARD_ATOL = 0.1
+# the sharded step on one rank vs phase 4's first step: the same forward,
+# but the loss sums the sequence's last position with weight 0 in 512-row
+# chunks over 2048 positions (phase 4: 2047), so the sums differ in order
+SHARDED_LOSS_RTOL = 1e-6
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -495,19 +528,28 @@ def train_small_vs_cpu(steps: int = 3, **moe):
     return out
 
 
-def run_train(cfg, tokens, steps: int, fwd_per_layer: int, label: str, profile: bool):
+def single_device(cfg, opt):
+    """(state, step) of the single-device train step from seed-0 weights."""
+    from ray_tpu_torch.models import inference, training
+
+    state = training.init_train_state(inference.init_params(cfg, device="cuda", seed=0), opt)
+    return state, training.make_train_step(cfg, opt, device="cuda")
+
+
+def run_train(cfg, tokens, steps: int, fwd_per_layer: int, label: str, profile: bool,
+              build=single_device):
     """Train ``cfg`` on the card from fresh seed-0 weights on one repeated
-    batch: one warm-up step, then ``steps`` timed steps. Gates: per step
-    ``fwd_per_layer * num_layers`` forward launches and ``num_layers`` of
-    each backward kernel, all on the wgmma designs; loss and grad norm
-    finite; the last loss below the first. Returns the report; the state is
-    freed before it returns."""
-    from ray_tpu_torch.models import gpt, inference, training
+    batch (``build(cfg, optimizer) -> (state, step)``, by default the
+    single-device step): one warm-up step, then ``steps`` timed steps.
+    Gates: per step ``fwd_per_layer * num_layers`` forward launches and
+    ``num_layers`` of each backward kernel, all on the wgmma designs; loss
+    and grad norm finite; the last loss below the first. Returns the
+    report; the state is freed before it returns."""
+    from ray_tpu_torch.models import gpt, training
 
     batch, seq = tokens.shape
     opt = training.default_optimizer(1e-4)
-    state = training.init_train_state(inference.init_params(cfg, device="cuda", seed=0), opt)
-    step = training.make_train_step(cfg, opt, device="cuda")
+    state, step = build(cfg, opt)
     state, warm = step(state, tokens)  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -867,6 +909,147 @@ def phase_server(cfg, params, fwd, profile: bool):
         srv.close()
 
 
+def phase_lse_grad():
+    """7a: flash_attention_with_lse, forward and backward under random
+    cotangents of both outputs, at gpt_1b's heads (b=2, h=16, t=2048,
+    d=128), causal and not. bf16 (the wgmma kernels) against the plain
+    versions on the same inputs (the forward's out and lse feed both
+    backwards, as in phase 3); float32 (the mma.sync kernels) against
+    autograd through the plain attention_with_lse, which checks that delta
+    - dlse is the gradient. In bf16 autograd is no reference: delta comes
+    from the bf16 out, as in the reference's flash backward, and the
+    first causal rows' dq, which an lse cotangent makes O(1), moves by
+    several percent for that rounding alone (3.8e-2 of the row in the plain
+    algorithm in float32 arithmetic)."""
+    from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.ops.tolerance import BWD_TOL, FWD_LSE_TOL, FWD_ROW_TOL, row_err
+
+    b, h, t, d = 2, 16, 2048, 128
+    scale = 1.0 / d ** 0.5
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        design = attn.BWD_DESIGNS[(d, dtype)].name
+        for causal in (True, False):
+            q, k, v, do = (torch.randn(b, h, t, d, device="cuda", dtype=dtype, generator=gen)
+                           for _ in range(4))
+            dlse = torch.randn(b, h, t, device="cuda", generator=gen)
+
+            def kernel_path():
+                xs = [x.detach().requires_grad_() for x in (q, k, v)]
+                out, lse = attn.flash_attention_with_lse(*xs, causal, scale)
+                grads = torch.autograd.grad((out, lse), xs, (do, dlse))
+                return (out.detach(), lse.detach()) + grads
+
+            def plain_flash(out, lse):
+                ref = attn.flash_attention_fwd_plain(q, k, v, causal=causal, scale=scale)
+                return ref + attn.flash_attention_bwd_plain(
+                    q, k, v, out, lse, do, causal=causal, scale=scale, dlse=dlse)
+
+            def autograd_plain():
+                xs = [x.detach().requires_grad_() for x in (q, k, v)]
+                out, lse = attn.attention_with_lse(*xs, causal=causal, scale=scale)
+                grads = torch.autograd.grad((out, lse), xs, (do, dlse))
+                return (out.detach(), lse.detach()) + grads
+
+            def flash_out_only():
+                xs = [x.detach().requires_grad_() for x in (q, k, v)]
+                out = attn.FlashAttention.apply(*xs, causal, scale, None, None)
+                return torch.autograd.grad(out, xs, do)
+
+            before = _launch_counts()
+            got = kernel_path()
+            launched = dict(zip(COUNTS, (a - c for a, c in zip(_launch_counts(), before))))
+            if dtype == torch.bfloat16:
+                reference, ref_name = (lambda: plain_flash(got[0], got[1])), "plain flash"
+            else:
+                reference, ref_name = autograd_plain, "autograd through attention_with_lse"
+            want = reference()
+            torch.cuda.synchronize()
+            errs = {"out": row_err(got[0], want[0])}
+            errs.update({name: row_err(x, ref) for name, x, ref in
+                         zip(("dq", "dk", "dv"), got[2:], want[2:])})
+            lse_err = float((got[1] - want[1]).abs().max())
+            ok = (errs["out"] <= FWD_ROW_TOL[dtype] and lse_err <= FWD_LSE_TOL[dtype]
+                  and all(errs[n] <= BWD_TOL[dtype] for n in ("dq", "dk", "dv"))
+                  and all(bool(torch.isfinite(x).all()) for x in got))
+            expect = {f"flash_fwd_{attn.FWD_DESIGNS[(d, dtype)].name}": 1,
+                      f"flash_bwd_dq_{design}": 1, f"flash_bwd_dkv_{design}": 1}
+            if any(launched[name] != n for name, n in expect.items()):
+                raise SystemExit(f"lse_grad: launched {launched}, expected {expect}")
+            del got, want
+            ms = cuda_ms(kernel_path, iters=10)
+            flash_ms = cuda_ms(flash_out_only, iters=10)
+            plain_ms = cuda_ms(autograd_plain, iters=3, warmup=1)
+            name = f"lse_grad_{str(dtype)[6:]}_{'causal' if causal else 'full'}"
+            row = dict(case=name, shape=[b, h, t, t, d], causal=causal,
+                       dtype=str(dtype)[6:], design=design, reference=ref_name,
+                       row_err=errs, lse_max_abs_err=lse_err,
+                       row_err_tol={"out": FWD_ROW_TOL[dtype], "grads": BWD_TOL[dtype]},
+                       lse_tol=FWD_LSE_TOL[dtype], ok=ok, ms=ms, plain_ms=plain_ms,
+                       flash_attention_ms=flash_ms)
+            rows.append(row)
+            print(f"[lse_grad] {name:<24} {row['shape']} {design} vs {ref_name}: worst-row "
+                  f"err out {errs['out']:.2e} dq {errs['dq']:.2e} dk {errs['dk']:.2e} dv "
+                  f"{errs['dv']:.2e} (limits {FWD_ROW_TOL[dtype]:.0e} / {BWD_TOL[dtype]:.0e}), "
+                  f"lse {lse_err:.2e} (limit {FWD_LSE_TOL[dtype]:.0e}) "
+                  f"{'ok' if ok else 'FAIL'} | forward + backward: with lse {ms:.4f} ms, "
+                  f"FlashAttention (out only) {flash_ms:.4f} ms, autograd through the plain "
+                  f"attention_with_lse {plain_ms:.3f} ms")
+    bad = [(r["case"], r["row_err"], r["lse_max_abs_err"]) for r in rows if not r["ok"]]
+    if bad:
+        raise SystemExit(f"flash_attention_with_lse disagrees with its reference: {bad}")
+    return rows
+
+
+def phase_sharded_ws1(nothing, steps: int):
+    """7b and 7c: phase 4's step through the sharded train step on a
+    one-rank NCCL group, on MeshSpec(fsdp=-1) and, with ring and Ulysses
+    named, MeshSpec(sp=1)."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import gpt, training
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    out = {}
+    try:
+        for path, spec, impl, n in (("sharded_ws1", MeshSpec(fsdp=-1), "ring", steps),
+                                    ("sp_ring_ws1", MeshSpec(sp=1), "ring", 2),
+                                    ("sp_ulysses_ws1", MeshSpec(sp=1), "ulysses", 2)):
+            mesh = spec.build("cuda")
+
+            def build(cfg, opt):
+                state, shardings = training.init_sharded_state(cfg, mesh, opt, seed=0)
+                return state, training.make_train_step(cfg, opt, mesh=mesh,
+                                                       state_shardings_tree=shardings)
+
+            cfg = gpt.gpt_1b(ce_chunk=512, seq_parallel_impl=impl)
+            tokens = _train_tokens(cfg, nothing["batch"], nothing["seq"])
+            rep = run_train(cfg, tokens, n, 2, f"gpt_1b sharded ({path})", False, build)
+            loss_rel = abs(rep["warmup_loss"] / nothing["warmup_loss"] - 1)
+            grad_rel = abs(rep["warmup_grad_norm"] / nothing["warmup_grad_norm"] - 1)
+            print(f"[sharded] {path}: mesh {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}, "
+                  f"impl '{impl}', backend {dist.get_backend()}: warm-up loss "
+                  f"{rep['warmup_loss']!r} vs phase 4 {nothing['warmup_loss']!r} (rel "
+                  f"{loss_rel:.2e}, limit {SHARDED_LOSS_RTOL}), grad norm rel {grad_rel:.2e} "
+                  f"(limit {POLICY_GRAD_NORM_RTOL}); {rep['ms_per_step']:.1f} ms per step "
+                  f"(phase 4 {nothing['ms_per_step']:.1f}), peak {rep['max_memory_gib']:.2f} "
+                  f"GiB (phase 4 {nothing['max_memory_gib']:.2f})")
+            if not loss_rel <= SHARDED_LOSS_RTOL:
+                raise SystemExit(f"{path}: the first loss differs from phase 4's by {loss_rel}")
+            if not grad_rel <= POLICY_GRAD_NORM_RTOL:
+                raise SystemExit(f"{path}: the first grad norm differs from phase 4's by "
+                                 f"{grad_rel}")
+            rep.update(warmup_loss_rel_diff=loss_rel, warmup_grad_norm_rel_diff=grad_rel,
+                       mesh=dict(zip(mesh.mesh_dim_names, map(int, mesh.mesh.shape))),
+                       seq_parallel_impl=impl, backend=dist.get_backend())
+            out[path] = rep
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write every measurement to this JSON file")
@@ -907,7 +1090,19 @@ def main() -> int:
         report["profile_forward"] = profile_window(
             lambda: (fwd(params, tokens), torch.cuda.synchronize()),
             "one gpt_1b forward, b=4 t=2048")
+    deterministic = torch.are_deterministic_algorithms_enabled()
     report["server"] = phase_server(cfg, params, fwd, args.profile)
+    if torch.are_deterministic_algorithms_enabled() != deterministic:
+        raise SystemExit("the server left torch's deterministic mode changed after close()")
+    report["server"]["deterministic_mode_restored"] = True
+    # the closed server's engine sits in reference cycles (its adapter
+    # loader, the prefix cache's eviction callback) with its KV pool and the
+    # weights: only the cyclic collector frees them
+    del params, fwd
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["lse_grad"] = phase_lse_grad()
+    report.update(phase_sharded_ws1(report["train"], steps=3))
     report["seconds"] = time.monotonic() - t_start
 
     # flash_fwd at gpt_1b's forward shape (b=4) with the forward
@@ -923,15 +1118,18 @@ def main() -> int:
 
     fwd_case, fwd_shape = case(report["kernel_cases"], "gpt_1b")
     bwd_case, bwd_shape = case(report["bwd_kernel_cases"], "gpt_1b_train_b12")
+    sharded = ("sharded_ws1", "sp_ring_ws1", "sp_ulysses_ws1")
     paths = {"train": report["train"], "remat_attn": report["remat_policies"]["attn"],
              "remat_dots": report["remat_policies"]["dots"], "train_moe": report["train_moe"],
-             "forward": report["forward"], "server": report["server"]}
+             "forward": report["forward"], "server": report["server"],
+             **{path: report[path] for path in sharded}}
     by_path = {name: {path: rep["launches"][name] for path, rep in paths.items()}
                for name in COUNTS}
     # the case of phases 2 and 3 that holds each kernel to its plain version
     # at the shape each path gives it (the server launches no wgmma kernel)
     train_case = {"train": "gpt_1b_train_b12", "remat_attn": "gpt_1b_train_b12",
-                  "remat_dots": "gpt_1b_train_b12", "train_moe": "gpt_1b_moe_b8"}
+                  "remat_dots": "gpt_1b_train_b12", "train_moe": "gpt_1b_moe_b8",
+                  **{path: "gpt_1b_train_b12" for path in sharded}}
     fwd_cases, bwd_cases = {**train_case, "forward": "gpt_1b"}, train_case
     whole = "dq, dk and dv together"
     kernels = {"kernels": [

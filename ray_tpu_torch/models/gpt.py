@@ -18,7 +18,19 @@ With ``moe_num_experts > 0`` each block's MLP is ``models.moe.MoeMlp``.
 Parameters are a flat ``state_dict`` (``models.convert`` carries them across
 from the reference's flax tree). Each dense kernel is stored as an
 ``nn.Linear`` weight, ``[out_features, in_features]``; see ``convert`` for
-the axis map.
+the axis map. ``param_logical_axes`` names each parameter's logical axes in
+that layout (the reference's ``with_logical_partitioning`` annotations),
+which ``parallel.sharding.params_shardings`` maps onto a mesh.
+
+On a mesh (``GPT(cfg, mesh=...)``, built by the sharded train step) each
+rank computes on its own tokens (the batch cut over dp and fsdp, the
+sequence over sp, rotary at global positions) with the weights that
+``param_compute_axes`` leaves cut: Megatron-style tensor parallelism over
+heads and mlp (the replicated activations enter the column-parallel
+products through ``comm.copy_to`` and leave the row-parallel ones through
+``comm.reduce_from``, the row-parallel bias added once after the sum), each
+ep rank its own experts, attention over sp by ``ops.ring``. Every other
+sharded axis of a weight is gathered before the forward.
 """
 
 from __future__ import annotations
@@ -41,6 +53,9 @@ from torch.utils.checkpoint import (
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.ops.attention import FLASH_FWD, NEG_INF, dot_product_attention
+from ray_tpu_torch.ops.ring import sequence_parallel_attention
+from ray_tpu_torch.parallel import comm
+from ray_tpu_torch.parallel.mesh import MeshGroups
 
 LN_EPS = 1e-6
 
@@ -72,6 +87,8 @@ class GPTConfig:
     remat_policy: str = "nothing"
     # sequence rows per [b, chunk, vocab] logits block of the blockwise loss
     ce_chunk: int = 256
+    # attention over a sequence cut over sp > 1: "ring" | "ulysses"
+    seq_parallel_impl: str = "ring"
     # mixture-of-experts (0 = dense MLP), models/moe.py
     moe_num_experts: int = 0
     moe_top_k: int = 2
@@ -155,6 +172,54 @@ def _check_remat(cfg: GPTConfig) -> None:
 
 
 # ---------------------------------------------------------------------------
+# logical axes of the parameters
+# ---------------------------------------------------------------------------
+
+
+def _param_table(cfg: GPTConfig) -> Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]]:
+    """{parameter name: (its logical axes, the logical axes it keeps cut
+    while the model computes)}, in the port's layout. q, k and v's out dim is
+    heads * head_dim, head-major, so "heads" cuts it into whole heads (the
+    reference's ("heads", "kv") with kv unsharded)."""
+    ln = ("ln",) if cfg.parallel_residual else ("ln1", "ln2")
+    block = {f"{n}.{p}": (("embed",), ()) for n in ln for p in ("weight", "bias")}
+    for n in "qkv":
+        block[f"attn.{n}.weight"] = (("heads", "embed"), ("heads",))
+    block["attn.o.weight"] = (("embed", "heads"), ("heads",))
+    if cfg.moe_num_experts:
+        from ray_tpu_torch.models.moe import MoeMlp
+
+        block.update({f"mlp.{n}": axes for n, axes in MoeMlp.PARAM_AXES.items()})
+    else:
+        block.update({"mlp.wi.weight": (("mlp", "embed"), ("mlp",)),
+                      "mlp.wi.bias": (("mlp",), ("mlp",)),
+                      "mlp.wo.weight": (("embed", "mlp"), ("mlp",)),
+                      "mlp.wo.bias": (("embed",), ())})
+    table = {"wte.weight": (("vocab", "embed"), ())}
+    for i in range(cfg.num_layers):
+        table.update({f"blocks.{i}.{n}": axes for n, axes in block.items()})
+    table["ln_f.weight"] = table["ln_f.bias"] = (("embed",), ())
+    if not cfg.tie_embeddings:
+        table["lm_head.weight"] = (("vocab", "embed"), ())
+        table["lm_head.bias"] = (("vocab",), ())
+    return table
+
+
+def param_logical_axes(cfg: GPTConfig) -> Dict[str, Tuple[str, ...]]:
+    """Each parameter's logical axes in the port's layout (a Linear weight
+    is [out, in], the transpose of the reference's kernel): the reference's
+    annotations, which ``parallel.sharding.params_shardings`` reads."""
+    return {name: axes for name, (axes, _) in _param_table(cfg).items()}
+
+
+def param_compute_axes(cfg: GPTConfig) -> Dict[str, Tuple[str, ...]]:
+    """The logical axes each parameter keeps cut while the model computes on
+    a mesh: heads and mlp (tensor parallelism), experts (each ep rank its
+    own). The mesh axes of every other logical axis are gathered first."""
+    return {name: keep for name, (_, keep) in _param_table(cfg).items()}
+
+
+# ---------------------------------------------------------------------------
 # shared math
 # ---------------------------------------------------------------------------
 
@@ -210,12 +275,15 @@ def _logits(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
 class Dense(nn.Module):
     """``y = x @ W.T (+ b)`` computed in ``cfg.dtype``; W is stored
     ``[out, in]`` in ``cfg.param_dtype``, the bias is added after the
-    product in ``cfg.dtype``."""
+    product in ``cfg.dtype``. With ``reduce_group`` (a row-parallel layer:
+    each rank holds a block of the in dim) the products are summed over
+    that group before the bias."""
 
     def __init__(self, in_features: int, out_features: int, cfg: GPTConfig,
-                 bias: bool, device=None):
+                 bias: bool, device=None, reduce_group=None):
         super().__init__()
         self.dtype = cfg.dtype
+        self.reduce_group = reduce_group
         self.weight = nn.Parameter(torch.empty(
             out_features, in_features, dtype=cfg.param_dtype, device=device))
         if bias:
@@ -225,7 +293,8 @@ class Dense(nn.Module):
             self.register_parameter("bias", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        y = comm.reduce_from(F.linear(x.to(self.dtype), self.weight.to(self.dtype)),
+                             self.reduce_group)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         return y
@@ -244,43 +313,60 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight, self.bias, self.dtype)
 
 
+def _tp_group(groups: Optional[MeshGroups]):
+    return None if groups is None else groups.group("tp")
+
+
 class Attention(nn.Module):
-    def __init__(self, cfg: GPTConfig, device=None):
+    """Causal self-attention. The head count comes from q's weight, so on a
+    mesh each tp rank runs its own heads; with ``groups`` the attention
+    goes through ``sequence_parallel_attention`` (ring or Ulysses when sp >
+    1, the flash kernels otherwise)."""
+
+    def __init__(self, cfg: GPTConfig, device=None, groups: Optional[MeshGroups] = None):
         super().__init__()
         self.cfg = cfg
+        self.groups = groups
+        tp = _tp_group(groups)
         self.q = Dense(cfg.embed_dim, cfg.qkv_dim, cfg, False, device)
         self.k = Dense(cfg.embed_dim, cfg.qkv_dim, cfg, False, device)
         self.v = Dense(cfg.embed_dim, cfg.qkv_dim, cfg, False, device)
-        self.o = Dense(cfg.qkv_dim, cfg.embed_dim, cfg, False, device)
+        self.o = Dense(cfg.qkv_dim, cfg.embed_dim, cfg, False, device, reduce_group=tp)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         b, t, _ = x.shape
-        shape = (b, t, cfg.num_heads, cfg.head_dim)
+        x = comm.copy_to(x, _tp_group(self.groups))
+        shape = (b, t, -1, cfg.head_dim)
         q = _rotary(self.q(x).view(shape), positions, cfg.rotary_dim)
         k = _rotary(self.k(x).view(shape), positions, cfg.rotary_dim)
         v = self.v(x).view(shape)
         # [b, t, h, d] -> [b, h, t, d] for the flash kernel
         qh, kh, vh = (a.transpose(1, 2).contiguous() for a in (q, k, v))
-        out = dot_product_attention(qh, kh, vh, causal=True)
-        return self.o(out.transpose(1, 2).reshape(b, t, cfg.qkv_dim))
+        if self.groups is None:
+            out = dot_product_attention(qh, kh, vh, causal=True)
+        else:
+            out = sequence_parallel_attention(qh, kh, vh, self.groups.mesh,
+                                              impl=cfg.seq_parallel_impl, causal=True)
+        return self.o(out.transpose(1, 2).reshape(b, t, -1))
 
 
 class Mlp(nn.Module):
-    def __init__(self, cfg: GPTConfig, device=None):
+    def __init__(self, cfg: GPTConfig, device=None, groups: Optional[MeshGroups] = None):
         super().__init__()
+        self.tp = _tp_group(groups)
         self.wi = Dense(cfg.embed_dim, cfg.mlp_dim, cfg, True, device)
-        self.wo = Dense(cfg.mlp_dim, cfg.embed_dim, cfg, True, device)
+        self.wo = Dense(cfg.mlp_dim, cfg.embed_dim, cfg, True, device, reduce_group=self.tp)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.wo(_gelu(self.wi(x)))
+        return self.wo(_gelu(self.wi(comm.copy_to(x, self.tp))))
 
 
 class Block(nn.Module):
     """``forward(x, positions)``: the block's output, or with experts
     ``(output, aux, dropped)`` (``MoeMlp``'s)."""
 
-    def __init__(self, cfg: GPTConfig, device=None):
+    def __init__(self, cfg: GPTConfig, device=None, groups: Optional[MeshGroups] = None):
         super().__init__()
         self.parallel_residual = cfg.parallel_residual
         if cfg.parallel_residual:
@@ -288,14 +374,14 @@ class Block(nn.Module):
         else:
             self.ln1 = LayerNorm(cfg, device)
             self.ln2 = LayerNorm(cfg, device)
-        self.attn = Attention(cfg, device)
+        self.attn = Attention(cfg, device, groups)
         self.moe = cfg.moe_num_experts > 0
         if self.moe:
             from ray_tpu_torch.models.moe import MoeMlp
 
-            self.mlp = MoeMlp(cfg, device)
+            self.mlp = MoeMlp(cfg, device, groups)
         else:
-            self.mlp = Mlp(cfg, device)
+            self.mlp = Mlp(cfg, device, groups)
 
     def _mlp(self, x: torch.Tensor):
         """(the MLP's output, MoeMlp's (aux, dropped) or ())"""
@@ -344,7 +430,11 @@ class GPT(nn.Module):
     ``(output, {"aux", "dropped"})``: the MoE blocks' aux losses summed and
     divided by ``num_layers`` (the reference's division of the sown sum),
     and the mean share of assignments dropped for capacity; both 0 for a
-    dense config.
+    dense config. With ``mesh`` (a ``DeviceMesh`` over ``AXIS_ORDER``; built
+    collectively, on every rank) the model computes one rank's part: tokens
+    and ``positions`` are the rank's block, the parameters its compute
+    views (``param_compute_axes``), and the MoE aux loss and drop share are
+    the rank's shares of the global ones (their sums over the data axes).
 
     While grad is enabled and ``cfg.remat`` is set, each block runs under
     ``torch.utils.checkpoint``: its input is kept, and so is what
@@ -356,14 +446,16 @@ class GPT(nn.Module):
     ``torch.func.functional_call``, and the aux loss is recomputed with the
     rest."""
 
-    def __init__(self, cfg: GPTConfig, device=None):
+    def __init__(self, cfg: GPTConfig, device=None, mesh=None):
         super().__init__()
         _check_remat(cfg)
         device = resolve_device(device)
         self.cfg = cfg
+        self.groups = None if mesh is None else MeshGroups.build(mesh)
         self.wte = nn.Embedding(
             cfg.vocab_size, cfg.embed_dim, dtype=cfg.param_dtype, device=device)
-        self.blocks = nn.ModuleList(Block(cfg, device) for _ in range(cfg.num_layers))
+        self.blocks = nn.ModuleList(
+            Block(cfg, device, self.groups) for _ in range(cfg.num_layers))
         self.ln_f = LayerNorm(cfg, device)
         self.lm_head = None if cfg.tie_embeddings else LMHead(cfg, device)
 
@@ -549,6 +641,31 @@ def _chunk_nll(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tenso
     return ((lse - target_logit) * valid).sum()
 
 
+def blockwise_nll_sum(
+    hidden: torch.Tensor,
+    head_weight: torch.Tensor,
+    head_bias: Optional[torch.Tensor],
+    targets: torch.Tensor,
+    valid: torch.Tensor,
+    chunk: int = 256,
+) -> torch.Tensor:
+    """Sum over positions of ``valid * (logsumexp - target logit)``, float32,
+    for ``hidden`` [b, n, embed] predicting ``targets`` [b, n] (``valid``
+    [b, n] float32), ``chunk`` positions at a time, as
+    ``blockwise_next_token_loss`` computes it."""
+    weight = head_weight.to(hidden.dtype)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, hidden.shape[1], chunk):
+        args = (hidden[:, c0:c0 + chunk], weight, head_bias,
+                targets[:, c0:c0 + chunk], valid[:, c0:c0 + chunk])
+        if torch.is_grad_enabled():
+            total = total + checkpoint(_chunk_nll, *args, use_reentrant=False,
+                                       preserve_rng_state=False)
+        else:
+            total = total + _chunk_nll(*args)
+    return total
+
+
 def blockwise_next_token_loss(
     hidden: torch.Tensor,
     head_weight: torch.Tensor,
@@ -568,23 +685,13 @@ def blockwise_next_token_loss(
     the target logit, and, while grad is enabled, recomputed in the backward
     (``torch.utils.checkpoint``), so only one [b, chunk, vocab] float32
     block lives at a time."""
-    n = hidden.shape[1] - 1
-    xs = hidden[:, :-1]
     targets = tokens[:, 1:].long()
     if mask is None:
         valid = torch.ones(targets.shape, dtype=torch.float32, device=hidden.device)
     else:
         valid = mask[:, 1:].float()
-    weight = head_weight.to(hidden.dtype)
-    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    for c0 in range(0, n, chunk):
-        args = (xs[:, c0:c0 + chunk], weight, head_bias,
-                targets[:, c0:c0 + chunk], valid[:, c0:c0 + chunk])
-        if torch.is_grad_enabled():
-            total = total + checkpoint(_chunk_nll, *args, use_reentrant=False,
-                                       preserve_rng_state=False)
-        else:
-            total = total + _chunk_nll(*args)
+    total = blockwise_nll_sum(hidden[:, :-1], head_weight, head_bias, targets, valid,
+                              chunk)
     return total / valid.sum().clamp_min(1.0)
 
 

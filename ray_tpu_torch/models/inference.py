@@ -4,7 +4,7 @@ train step is in ``models/training.py``)."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Iterator, Tuple
 
 import torch
 from torch.func import functional_call
@@ -28,12 +28,10 @@ def make_forward(cfg: GPTConfig, device=None) -> Callable:
     return forward
 
 
-def init_params(cfg: GPTConfig, device=None, seed: int = 0) -> Dict[str, torch.Tensor]:
-    """A fresh ``state_dict`` in ``cfg.param_dtype`` on ``device``, drawn
-    from a ``torch.Generator`` seeded with ``seed``: normal with std 0.02 for
-    kernels and embeddings, zeros for biases, ones for LayerNorm scales. (The
-    draws differ from the reference's ``jax.random``; carry weights across
-    with ``models.convert`` to compare the two.)"""
+def init_draws(cfg: GPTConfig, device=None, seed: int = 0
+               ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """``(name, tensor)`` for each parameter in turn, as ``init_params``
+    draws them (the sharded init keeps a block of each and drops the rest)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     skeleton = GPT(cfg, device="meta")
@@ -41,7 +39,6 @@ def init_params(cfg: GPTConfig, device=None, seed: int = 0) -> Dict[str, torch.T
         f"{name}.weight" for name, mod in skeleton.named_modules()
         if isinstance(mod, LayerNorm)
     }
-    params: Dict[str, torch.Tensor] = {}
     with torch.no_grad():
         for name, p in skeleton.named_parameters():
             t = torch.empty(p.shape, dtype=cfg.param_dtype, device=dev)
@@ -51,5 +48,13 @@ def init_params(cfg: GPTConfig, device=None, seed: int = 0) -> Dict[str, torch.T
                 t.zero_()
             else:
                 t.normal_(0.0, 0.02, generator=gen)
-            params[name] = t
-    return params
+            yield name, t
+
+
+def init_params(cfg: GPTConfig, device=None, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """A fresh ``state_dict`` in ``cfg.param_dtype`` on ``device``, drawn
+    from a ``torch.Generator`` seeded with ``seed``: normal with std 0.02 for
+    kernels and embeddings, zeros for biases, ones for LayerNorm scales. (The
+    draws differ from the reference's ``jax.random``; carry weights across
+    with ``models.convert`` to compare the two.)"""
+    return dict(init_draws(cfg, device, seed))

@@ -1,5 +1,5 @@
-"""Train and eval steps for the port's GPT on one device (counterpart of
-``ray_tpu/models/training.py`` without a mesh).
+"""Train and eval steps for the port's GPT, on one device or sharded over a
+mesh (counterpart of ``ray_tpu/models/training.py``).
 
 * ``default_optimizer`` is the reference's optax chain written out:
   ``clip_by_global_norm(grad_clip)`` as optax applies it, then AdamW with
@@ -23,18 +23,69 @@ state's tensors (``torch._foreach_*``) with one temporary the size of the
 parameters (the denominator), where a functional update would copy
 parameters and both moments. ``init_params`` stays in
 ``models/inference.py``.
+
+On a mesh (``make_train_step(..., mesh=...)``, every rank calling it):
+
+* ``state_shardings`` gives each parameter's DTensor placements from the
+  rule table (``parallel.sharding``) and the model's logical axes
+  (``gpt.param_logical_axes``); the Adam moments mirror them.
+  ``init_sharded_state`` builds the state as DTensors of those placements,
+  each rank holding its block only: from a seed (each parameter drawn as
+  ``init_params`` draws it, its block kept and the rest dropped, so one
+  parameter at a time is whole) or from a full ``state_dict`` (the tests
+  start from JAX's weights).
+* The step takes the global batch (the same tokens on every rank); each
+  rank trains on its block: rows cut over (dp, fsdp), the sequence over sp,
+  with the next token across each chunk's end as its last target. Each
+  parameter's axes that the model does not keep cut in compute
+  (``gpt.param_compute_axes``: tp over heads and mlp, ep over experts) are
+  all-gathered once per step into a plain tensor, which the model uses;
+  its gradient is summed over the data axes (dp, fsdp, sp), whose ranks
+  hold different tokens, and this rank's block kept. Over tp and ep the
+  model's collectives already give every rank its block's gradient (the
+  replicated parts get equal gradients on every rank). The loss is each
+  rank's share of the global mean (the sum of its targets' losses over
+  the global count), so the sum over the data axes is the reference's loss.
+* The clip's norm is the norm of the whole gradient: each block counts
+  once (a block replicated over some axes counts on the rank at index 0 of
+  each of them), summed over all ranks. The update runs on the local blocks.
+* The flash kernels see plain local tensors only.
+
+With every axis of size 1 (one rank) no collective runs but the norm's
+one-scalar sum, and the step computes what the single-device step does.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 from torch.func import functional_call
 
 from ray_tpu_torch import resolve_device
-from ray_tpu_torch.models.gpt import GPT, GPTConfig, blockwise_next_token_loss
+from ray_tpu_torch.models.gpt import (
+    GPT,
+    GPTConfig,
+    blockwise_next_token_loss,
+    blockwise_nll_sum,
+    param_compute_axes,
+    param_logical_axes,
+)
+from ray_tpu_torch.models.inference import init_draws
+from ray_tpu_torch.parallel import comm
+from ray_tpu_torch.parallel.mesh import AXIS_ORDER, MeshGroups, mesh_device
+from ray_tpu_torch.parallel.sharding import (
+    Rules,
+    local_slices,
+    params_shardings,
+    replicated,
+    rules_dict,
+    spec_axes,
+    spec_of,
+)
 
 Params = Dict[str, torch.Tensor]
 # AdamW's constants in the reference's default_optimizer
@@ -70,13 +121,17 @@ class ClippedAdamW:
 
     @torch.no_grad()
     def update(self, params: Params, grads: List[torch.Tensor],
-               state: AdamWState) -> Tuple[AdamWState, torch.Tensor]:
+               state: AdamWState, norm: Optional[torch.Tensor] = None
+               ) -> Tuple[AdamWState, torch.Tensor]:
         """Update ``params`` (and ``state``'s moments) in place from
         ``grads`` (consumed: clipped in place). Returns the new state and
-        the global norm of the gradients before clipping."""
+        the global norm of the gradients before clipping: ``norm`` where
+        the caller gives it (the sharded step, whose gradients are blocks
+        of the whole), else the norm of ``grads``."""
         ps = list(params.values())
-        norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)).float())
+        if norm is None:
+            norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads)).float())
         clip = torch.where(norm < self.grad_clip, torch.ones_like(norm),
                            self.grad_clip / norm)
         torch._foreach_mul_(grads, clip)
@@ -127,13 +182,27 @@ def _loss_fn(cfg: GPTConfig, model: GPT
     return loss_fn
 
 
-def make_train_step(cfg: GPTConfig, optimizer: ClippedAdamW, device=None
+def make_train_step(cfg: GPTConfig, optimizer: ClippedAdamW, device=None, *,
+                    mesh=None, rules: Optional[Rules] = None,
+                    state_shardings_tree: Optional[TrainState] = None
                     ) -> Callable[[TrainState, torch.Tensor],
                                   Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """``step(state, tokens [b, t]) -> (state, {"loss", "grad_norm",
     "step", "moe_aux", "moe_dropped"})``. ``state.params`` live on
     ``device`` (default CUDA) and are updated in place; the returned state
-    holds the same tensors."""
+    holds the same tensors.
+
+    With ``mesh`` (a ``DeviceMesh`` over ``AXIS_ORDER``; every rank calls
+    this, and then the step, alike) the state is ``init_sharded_state``'s,
+    its DTensors placed as ``state_shardings_tree`` says (default
+    ``state_shardings(mesh, cfg, rules)``; a state placed otherwise raises),
+    ``tokens`` the global batch and the metrics global; ``device`` must be
+    None or the mesh's device type. The sharded step carries ``model``, the
+    rank's module skeleton (on the meta device), whose blocks a caller may
+    hook."""
+    if mesh is not None:
+        return _sharded_train_step(cfg, optimizer, device, mesh, rules,
+                                   state_shardings_tree)
     dev = resolve_device(device)
     loss_fn = _loss_fn(cfg, GPT(cfg, device="meta"))
 
@@ -153,15 +222,242 @@ def make_train_step(cfg: GPTConfig, optimizer: ClippedAdamW, device=None
     return step
 
 
-def make_eval_step(cfg: GPTConfig, device=None
+def make_eval_step(cfg: GPTConfig, device=None, *, mesh=None,
+                   rules: Optional[Rules] = None
                    ) -> Callable[[Params, torch.Tensor], torch.Tensor]:
     """``eval_step(params, tokens) -> loss``: the blockwise loss without
-    gradients and without the aux term, as the reference's."""
+    gradients and without the aux term, as the reference's. With ``mesh``,
+    ``params`` are ``init_sharded_state``'s DTensors, ``tokens`` the global
+    batch, and the loss global (sp > 1 evaluates through ring or Ulysses
+    attention, as training does)."""
+    if mesh is not None:
+        return _sharded_eval_step(cfg, device, mesh, rules)
     dev = resolve_device(device)
     loss_fn = _loss_fn(cfg, GPT(cfg, device="meta"))
 
     def eval_step(params: Params, tokens: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():
             return loss_fn(params, tokens.to(dev))[1]["ce"]
+
+    return eval_step
+
+
+# ---------------------------------------------------------------------------
+# on a mesh
+# ---------------------------------------------------------------------------
+
+
+def state_shardings(mesh, cfg: GPTConfig, rules: Optional[Rules] = None) -> TrainState:
+    """The placements of a sharded ``TrainState``: each parameter's from
+    the rule table, the Adam moments' the same (ZeRO-style: fsdp cuts the
+    moments as it cuts the weights), the step replicated."""
+    params = params_shardings(mesh, param_logical_axes(cfg), rules)
+    return TrainState(step=replicated(mesh), params=params,
+                      opt_state=AdamWState(0, list(params.values()),
+                                           list(params.values())))
+
+
+def _mesh_device(mesh, device) -> torch.device:
+    """The mesh's device; raises where ``device`` names another type."""
+    dev = mesh_device(mesh)
+    if device is not None and resolve_device(device).type != dev.type:
+        raise ValueError(f"device {device} is not the mesh's ({mesh.device_type})")
+    return dev
+
+
+def init_sharded_state(cfg: GPTConfig, mesh, optimizer: ClippedAdamW, seed: int = 0,
+                       rules: Optional[Rules] = None,
+                       params: Optional[Params] = None) -> Tuple[TrainState, TrainState]:
+    """``(state, shardings)``: a step-0 state whose parameters and Adam
+    moments are DTensors placed as ``state_shardings`` says, each rank
+    holding its blocks only, and those placements. The weights are
+    ``init_params(cfg, seed=seed)``'s (each drawn whole in turn, its block
+    kept) or, where given, the full ``params`` (a ``state_dict``, e.g.
+    ``convert.params_from_jax``'s; copied, never updated). Collective only
+    in that every rank calls it alike."""
+    shardings = state_shardings(mesh, cfg, rules)
+    dev = mesh_device(mesh)
+    coord = dict(zip(AXIS_ORDER, mesh.get_coordinate()))
+    source = params.items() if params is not None else init_draws(cfg, dev, seed)
+    out: Params = {}
+    with torch.no_grad():
+        for name, full in source:
+            place = shardings.params[name]
+            block = full[local_slices(full.shape, spec_of(place, full.ndim), mesh, coord)]
+            # a copy: a view would keep the whole tensor alive, and the
+            # step's in-place updates would write into the caller's params
+            local = block.to(device=dev, dtype=cfg.param_dtype,
+                             memory_format=torch.contiguous_format, copy=True)
+            out[name] = DTensor.from_local(
+                local, mesh, place, run_check=False, shape=full.shape,
+                stride=torch.empty(full.shape, device="meta").stride())
+    missing = set(shardings.params) - set(out)
+    if missing:
+        raise ValueError(f"params lack {sorted(missing)}")
+    return init_train_state(out, optimizer), shardings
+
+
+@dataclasses.dataclass(frozen=True)
+class _Plan:
+    """One parameter on the mesh: its placements and the (dim, mesh axis)
+    pairs gathered into the model's view of it, and the mesh axes over
+    which its block is replicated (size > 1)."""
+
+    placements: Tuple[Any, ...]
+    gather: Tuple[Tuple[int, str], ...]
+    replicated: Tuple[str, ...]
+
+
+def _plans(cfg: GPTConfig, groups: MeshGroups, rules: Optional[Rules],
+           shardings: TrainState) -> Dict[str, _Plan]:
+    table = rules_dict(rules)
+    logical = param_logical_axes(cfg)
+    plans = {}
+    for name, keep_names in param_compute_axes(cfg).items():
+        place = shardings.params[name]
+        spec = spec_of(place, len(logical[name]))
+        keep = set()
+        for n in keep_names:
+            keep.update(spec_axes(table.get(n)))
+        gather = []
+        for dim, entry in enumerate(spec):
+            axes = spec_axes(entry)
+            if len(axes) > 1 and set(axes) - keep:
+                raise ValueError(f"{name}: dim {dim} is cut over {axes}; a parameter's "
+                                 f"dim may be gathered over one mesh axis only")
+            gather += [(dim, a) for a in axes if a not in keep]
+        cut = {a for e in spec for a in spec_axes(e)}
+        rep = tuple(a for a in AXIS_ORDER if groups.sizes[a] > 1 and a not in cut)
+        plans[name] = _Plan(tuple(place), tuple(gather), rep)
+    return plans
+
+
+def _view(local: torch.Tensor, plan: _Plan, groups: MeshGroups) -> torch.Tensor:
+    """The model's view of a parameter: its block gathered over ``plan``'s
+    axes (the block itself where there are none)."""
+    for dim, axis in plan.gather:
+        local = comm.all_gather(local, groups.group(axis), dim)
+    return local
+
+
+def _own_block(full: torch.Tensor, plan: _Plan, groups: MeshGroups) -> torch.Tensor:
+    """This rank's block of a tensor shaped like the view: the inverse of
+    ``_view``'s gathers."""
+    idx = [slice(None)] * full.dim()
+    for dim, axis in plan.gather:
+        step = full.shape[dim] // groups.sizes[axis]
+        idx[dim] = slice(groups.coord[axis] * step, (groups.coord[axis] + 1) * step)
+    return full[tuple(idx)]
+
+
+def _global_norm(grads: List[torch.Tensor], plans: List[_Plan],
+                 groups: MeshGroups) -> torch.Tensor:
+    """||g|| over every parameter's whole gradient: each block counts on one
+    rank of those that hold it, and the squares are summed over the world."""
+    mine = [g for g, plan in zip(grads, plans)
+            if all(groups.coord[a] == 0 for a in plan.replicated)]
+    dev = grads[0].device
+    sq = (torch.stack(torch._foreach_norm(mine)).float().square().sum() if mine
+          else torch.zeros((), dtype=torch.float32, device=dev))
+    return comm.all_reduce(sq, dist.group.WORLD).sqrt()
+
+
+def _local_batch(tokens: torch.Tensor, groups: MeshGroups, dev: torch.device):
+    """``(tokens, positions, targets, valid)`` of this rank's block of the
+    global batch [B, T]: rows cut over (dp, fsdp), the sequence over sp;
+    positions are global; each position's target is the next token, across
+    the chunk's end, and the sequence's last position has none (valid 0)."""
+    b_all, t_all = tokens.shape
+    blocks, sp = groups.batch_blocks, groups.sizes["sp"]
+    if b_all % blocks or t_all % sp:
+        raise ValueError(f"batch {tuple(tokens.shape)} does not split into {blocks} "
+                         f"row blocks and {sp} sequence chunks")
+    b, t = b_all // blocks, t_all // sp
+    t0 = groups.coord["sp"] * t
+    rows = tokens[groups.batch_index * b:(groups.batch_index + 1) * b].to(dev).long()
+    nxt = rows[:, t0 + 1:t0 + t + 1]
+    targets = torch.zeros(b, t, dtype=torch.long, device=dev)
+    valid = torch.zeros(b, t, dtype=torch.float32, device=dev)
+    targets[:, :nxt.shape[1]] = nxt
+    valid[:, :nxt.shape[1]] = 1.0
+    positions = (t0 + torch.arange(t, device=dev)).expand(b, t)
+    return rows[:, t0:t0 + t], positions, targets, valid
+
+
+class _ShardedLoss:
+    """The rank's share of the loss and the views it is computed from."""
+
+    def __init__(self, cfg: GPTConfig, mesh, rules: Optional[Rules], shardings):
+        self.cfg = cfg
+        self.model = GPT(cfg, device="meta", mesh=mesh)  # builds the groups
+        self.groups = self.model.groups
+        self.dev = self.groups.device
+        self.shardings = shardings or state_shardings(mesh, cfg, rules)
+        self.plans = _plans(cfg, self.groups, rules, self.shardings)
+
+    def locals(self, params: Params) -> List[torch.Tensor]:
+        for name, p in params.items():
+            if not isinstance(p, DTensor) or tuple(p.placements) != self.plans[name].placements:
+                raise ValueError(f"{name} is not a DTensor placed as {self.plans[name].placements}")
+        return [p.to_local() for p in params.values()]
+
+    def __call__(self, views: Params, tokens: torch.Tensor):
+        """(the rank's share of ce + aux weight * aux, {"ce", "aux",
+        "dropped"}: the rank's shares)."""
+        cfg = self.cfg
+        tok, positions, targets, valid = _local_batch(tokens, self.groups, self.dev)
+        (hidden, weight, bias), moe = functional_call(
+            self.model, views, (tok, positions), {"return_hidden": True, "return_moe": True})
+        n_targets = tokens.shape[0] * (tokens.shape[1] - 1)
+        ce = blockwise_nll_sum(hidden, weight, bias, targets, valid, cfg.ce_chunk) / n_targets
+        return ce + cfg.moe_aux_weight * moe["aux"], dict(moe, ce=ce)
+
+
+def _sharded_train_step(cfg, optimizer, device, mesh, rules, shardings):
+    loss_fn = _ShardedLoss(cfg, mesh, rules, shardings)
+    _mesh_device(mesh, device)
+    g, plans = loss_fn.groups, loss_fn.plans
+
+    def step(state: TrainState, tokens: torch.Tensor):
+        names = list(state.params)
+        blocks = loss_fn.locals(state.params)
+        with torch.no_grad():
+            views = {n: _view(b, plans[n], g).detach().requires_grad_(True)
+                     for n, b in zip(names, blocks)}
+        with torch.enable_grad():
+            loss, stats = loss_fn(views, tokens)
+            grads = torch.autograd.grad(loss, list(views.values()))
+        del views
+        with torch.no_grad():
+            grads = [_own_block(comm.all_reduce(gr, g.data), plans[n], g).contiguous()
+                     for n, gr in zip(names, grads)]
+            norm = _global_norm(grads, [plans[n] for n in names], g)
+            opt = state.opt_state
+            local_opt = AdamWState(opt.count, [m.to_local() for m in opt.mu],
+                                   [v.to_local() for v in opt.nu])
+            local_opt, grad_norm = optimizer.update(dict(zip(names, blocks)), grads,
+                                                    local_opt, norm=norm)
+            new = TrainState(step=state.step + 1, params=state.params,
+                             opt_state=AdamWState(local_opt.count, opt.mu, opt.nu))
+            metrics = {"loss": comm.all_reduce(loss.detach(), g.data),
+                       "grad_norm": grad_norm, "step": new.step,
+                       "moe_aux": comm.all_reduce(stats["aux"].detach(), g.data),
+                       "moe_dropped": comm.all_reduce(stats["dropped"], g.data) / g.data_size}
+        return new, metrics
+
+    step.model = loss_fn.model
+    return step
+
+
+def _sharded_eval_step(cfg, device, mesh, rules):
+    loss_fn = _ShardedLoss(cfg, mesh, rules, None)
+    _mesh_device(mesh, device)
+    g, plans = loss_fn.groups, loss_fn.plans
+
+    def eval_step(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            views = {n: _view(b, plans[n], g)
+                     for n, b in zip(params, loss_fn.locals(params))}
+            return comm.all_reduce(loss_fn(views, tokens)[1]["ce"], g.data)
 
     return eval_step

@@ -34,7 +34,8 @@ a shorter q is the suffix of the kv context (``q_pos = q_idx + t_kv - t_q``).
 * ``flash_fwd_op`` is the forward wrapper as the operator
   ``ray_tpu_torch::flash_fwd`` (``FLASH_FWD``), which the remat policy
   "attn" names; ``FlashAttention`` is the autograd Function over it and the
-  backward wrapper, and
+  backward wrapper; ``flash_attention_with_lse`` returns (out, lse) with a
+  gradient for both (ring attention's block), through the same kernels; and
   ``dot_product_attention`` the public entry, in the [b, h, t, d] layout,
   over the Function; with ``segment_ids`` it takes ``_attention_plain`` on
   any device, as the reference's dispatcher takes its XLA path.
@@ -348,6 +349,7 @@ def flash_attention_bwd_plain(
     *,
     causal: bool,
     scale: float,
+    dlse: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of the flash forward, in the dtypes of q, k and v: the
     arithmetic of the TPU backward kernels (``_flash_bwd_dq_kernel`` and
@@ -356,7 +358,9 @@ def flash_attention_bwd_plain(
     P = exp(S - lse) is recomputed from the forward's lse, with S masked to
     NEG_INF under the causal mask (q the suffix of kv); delta = rowsum(dO * O);
     dP = dO V^T, dS = P * (dP - delta) * scale; dq = dS K, dk = dS^T Q,
-    dv = P^T dO. Where ``causal and t_q > t_kv``, rows whose lse is at most
+    dv = P^T dO. With ``dlse``, the gradient of lse [b, h, t_q], delta is
+    rowsum(dO * O) - dlse: since d lse / dS = P, dS = P * (dP - delta + dlse)
+    (the kernels take it the same way, through their delta input). Where ``causal and t_q > t_kv``, rows whose lse is at most
     NEG_INF / 2 (rows that see no key) get P = 0: they add nothing to dk and
     dv, and their dq is 0, whatever the forward gave them.
 
@@ -370,6 +374,8 @@ def flash_attention_bwd_plain(
     t_q, t_kv = q.shape[-2], k.shape[-2]
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     delta = (dof * o.float()).sum(-1)
+    if dlse is not None:
+        delta = delta - dlse.float()
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
     if causal:
         s = torch.where(_causal_mask(t_q, t_kv, q.device), s, NEG_INF)
@@ -438,13 +444,18 @@ def _launch(name: str, entry: str, tensors, q, t_kv: int, causal: bool,
 
 
 def _check_kernel_inputs(q, k, v, *same_as_q, rows=()) -> None:
-    """Raise ``ValueError`` unless the kernels take these tensors: on CUDA,
-    contiguous, 16-byte aligned; q [b, h, t_q, d] and k, v [b, h, t_kv, d]
+    """Raise ``ValueError`` unless the kernels take these tensors: plain
+    tensors (not DTensors) on CUDA, contiguous, 16-byte aligned; q [b, h, t_q, d] and k, v [b, h, t_kv, d]
     of one dtype (bfloat16 or float32), d in ``HEAD_DIMS``; each of
     ``same_as_q`` (o, do) like q; each of ``rows`` (lse, delta) float32
     [b, h, t_q]."""
     named = [("q", q), ("k", k), ("v", v)] + list(same_as_q) + list(rows)
     for name, t in named:
+        if type(t) is not torch.Tensor:
+            # a DTensor (or another subclass) has no storage of its own: the
+            # kernel would read raw pointers of memory it does not describe
+            raise ValueError(f"{name} is a {type(t).__name__}; the kernel takes a "
+                             f"plain tensor (a DTensor's to_local())")
         if t.device.type != "cuda":
             raise ValueError(f"{name} is on {t.device}, the kernel needs CUDA")
         if not t.is_contiguous():
@@ -612,21 +623,26 @@ def flash_attention_bwd(
     *,
     causal: bool,
     scale: float,
+    dlse: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of the flash forward, given its out ``o``, its ``lse``
-    and the gradient ``do`` of out.
+    """(dq, dk, dv) of the flash forward, given its out ``o``, its ``lse``,
+    the gradient ``do`` of out and, where lse has one too, its gradient
+    ``dlse`` (float32 [b, h, t_q]).
 
     CPU tensors take ``flash_attention_bwd_plain`` and launch nothing. CUDA
     tensors launch the two hand-written Hopper kernels of the design that
     ``BWD_DESIGNS`` names for (head_dim, dtype), dQ then dK/dV, after
-    delta = rowsum(dO * O): the inputs the forward kernel takes, with o and
-    do like q (contiguous) and lse float32 [b, h, t_q]. Anything else
-    raises."""
+    delta = rowsum(dO * O) (minus ``dlse``): the inputs the forward kernel
+    takes, with o and do like q (contiguous) and lse float32 [b, h, t_q].
+    Anything else raises."""
     if all(t.device.type == "cpu" for t in (q, k, v, o, lse, do)):
         return flash_attention_bwd_plain(
-            q, k, v, o, lse, do, causal=causal, scale=scale)
-    _check_kernel_inputs(q, k, v, ("o", o), ("do", do), rows=(("lse", lse),))
+            q, k, v, o, lse, do, causal=causal, scale=scale, dlse=dlse)
+    rows = (("lse", lse),) if dlse is None else (("lse", lse), ("dlse", dlse))
+    _check_kernel_inputs(q, k, v, ("o", o), ("do", do), rows=rows)
     delta = flash_bwd_delta(o, do)
+    if dlse is not None:
+        delta = delta - dlse
     dq = flash_bwd_dq(q, k, v, do, lse, delta, causal=causal, scale=scale)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal, scale=scale)
     return dq, dk, dv
@@ -678,6 +694,41 @@ class FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd(
             q, k, v, out, lse, do.contiguous(), causal=ctx.causal, scale=ctx.scale)
         return dq, dk, dv, None, None, None, None
+
+
+class FlashAttentionWithLse(torch.autograd.Function):
+    """``(out, lse)`` of the flash forward, differentiable in both: the
+    block primitive of ring attention (the reference differentiates its
+    ``attention_with_lse`` in both outputs). The forward is ``flash_fwd_op``;
+    the backward is ``flash_attention_bwd`` with the gradient of lse, which
+    the dQ and dK/dV kernels take through delta (delta - dlse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        out, lse = flash_fwd_op(q, k, v, causal, scale, None, None)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, lse, do.contiguous(), causal=ctx.causal, scale=ctx.scale,
+            dlse=dlse.contiguous())
+        return dq, dk, dv, None, None
+
+
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             causal: bool, scale: Optional[float] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out [b, h, t_q, d] in q's dtype, lse [b, h, t_q] float32) of flash
+    attention, with gradients for both (``FlashAttentionWithLse``): the
+    plain versions on CPU tensors, the Hopper kernels on CUDA tensors. It
+    computes the function of ``attention_with_lse`` (q the suffix of kv
+    under the causal mask) without the [b, h, t_q, t_kv] float32 scores."""
+    scale_val = float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    return FlashAttentionWithLse.apply(q, k, v, causal, scale_val)
 
 
 # ---------------------------------------------------------------------------

@@ -15,14 +15,20 @@ Sequences lease blocks on admission and a :class:`KVLease` frees them
 exactly once on finish, cancel, shed or step poison. Prefill runs as its own
 bucketed extend call, decode as a tc=1 call; every engine step runs at most
 one prefill chunk and one decode step. Full prompt blocks are keyed by a
-chained hash and shared copy-on-write. On CUDA the engine turns on
-``torch.use_deterministic_algorithms``: with equal shapes the extend step
-gives equal bits, so prefix-cached decode is bitwise-equal to uncached
-decode.
+chained hash and shared copy-on-write. On CUDA each engine step runs its
+device work under ``torch.use_deterministic_algorithms`` and gives the
+caller's setting back after it (``deterministic_algorithms``): with equal
+shapes the extend step gives equal bits, so prefix-cached decode is
+bitwise-equal to uncached decode. The setting is process-wide while a step
+runs, so work on another thread meanwhile runs under it too. cuBLAS reads
+``CUBLAS_WORKSPACE_CONFIG`` when it makes its first handle, so a CUDA
+engine refuses to start unless the variable is set (before the process's
+first cuBLAS call, which the engine cannot check).
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import math
 import os
@@ -30,7 +36,7 @@ import queue as queue_mod
 import threading
 import time
 from collections import OrderedDict
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -50,6 +56,20 @@ __all__ = [
 _STREAM_KEY = "_stream"
 _CANCEL_KEY = "_cancel"
 _DEFAULT_MAX_NEW_TOKENS = 16
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(enabled: bool = True) -> Iterator[None]:
+    """``torch.use_deterministic_algorithms(enabled)`` inside the block; the
+    setting before it (and its warn-only flag) is restored after it, also
+    when the block raises."""
+    before = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(enabled)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before, warn_only=warn_only)
 
 
 class NoKVBlocksError(RuntimeError):
@@ -336,10 +356,13 @@ class LLMEngine:
                  max_adapters: int = 4, adapter_loader=None,
                  prefix_caching: bool = True, step_delay_s: float = 0.0):
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            # equal shapes must give equal bits (bitwise prefix caching)
-            os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-            torch.use_deterministic_algorithms(True)
+        if self.device.type == "cuda" and "CUBLAS_WORKSPACE_CONFIG" not in os.environ:
+            # equal shapes must give equal bits (bitwise prefix caching): the
+            # steps' deterministic cuBLAS needs the variable before the first
+            # handle, which setting it here is too late for
+            raise RuntimeError(
+                "set CUBLAS_WORKSPACE_CONFIG (e.g. ':4096:8') before the process's "
+                "first cuBLAS call; the engine's deterministic decode needs it")
         self.cfg = cfg or gpt.gpt_nano()
         self._params = params if params is not None else make_params(
             self.cfg, device=self.device)
@@ -402,7 +425,9 @@ class LLMEngine:
                 time.sleep(self.step_delay_s)
             self._admit(seqs)
             self._sweep_cancelled(seqs)
-            with torch.inference_mode():
+            deterministic = (deterministic_algorithms() if self.device.type == "cuda"
+                             else contextlib.nullcontext())
+            with torch.inference_mode(), deterministic:
                 # each phase ends in a host copy of token ids, so these
                 # wall times include the device work
                 t0 = time.monotonic()

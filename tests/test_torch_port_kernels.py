@@ -373,3 +373,104 @@ def test_moe_layer_on_card_matches_the_cpu(card):
     for name, a, b in zip(("y", "aux", "router", "wi", "wo", "x"), gpu[1:], cpu[1:]):
         torch.testing.assert_close(a, b, atol=1e-5 * float(b.abs().max()), rtol=0,
                                    msg=lambda m, name=name: f"{name}: {m}")
+
+
+LSE_CASES = [
+    (2, 2, 128, 128, 128, True),    # a ring's step 0
+    (2, 2, 128, 128, 128, False),   # a ring's hop
+    (1, 2, 96, 136, 64, True),      # ragged, q the suffix
+    (1, 2, 130, 130, 32, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", LSE_CASES, ids=_ids)
+def test_flash_attention_with_lse_matches_plain_on_card(card, case, dtype):
+    """(out, lse) and the gradients under random cotangents of both: one
+    forward and one of each backward kernel (delta - dlse into the dQ and
+    dK/dV kernels) against the plain forward and backward, with the same
+    dlse, on the same device tensors."""
+    dt = getattr(torch, dtype)
+    b, h, tq, tkv, d, causal = case
+    q, k, v = (t.requires_grad_() for t in _qkv(b, h, tq, tkv, d, device=card, dtype=dt))
+    rng = np.random.RandomState(9)
+    do = torch.from_numpy(rng.randn(b, h, tq, d).astype(np.float32)).to(card, dt)
+    dlse = torch.from_numpy(rng.randn(b, h, tq).astype(np.float32)).to(card)
+    scale = 1.0 / d ** 0.5
+    counters = ("flash_fwd_launches", "flash_bwd_dq_launches", "flash_bwd_dkv_launches")
+    before = [getattr(port, c) for c in counters]
+    out, lse = port.flash_attention_with_lse(q, k, v, causal, scale)
+    got = torch.autograd.grad((out, lse), (q, k, v), (do, dlse))
+    assert [getattr(port, c) for c in counters] == [n + 1 for n in before]
+    ref_o, ref_lse = port.flash_attention_fwd_plain(q.detach(), k.detach(), v.detach(),
+                                                    causal=causal, scale=scale)
+    want = port.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(), out.detach(),
+                                          lse.detach(), do, causal=causal, scale=scale,
+                                          dlse=dlse)
+    torch.cuda.synchronize()
+    assert row_err(out.detach(), ref_o) <= FWD_ROW_TOL[dt]
+    assert float((lse - ref_lse).abs().max()) <= FWD_LSE_TOL[dt]
+    _assert_grads_close(got, want, BWD_TOL[dt])
+
+
+_ENGINE_AFTER_TRAINING = r"""
+import sys
+import numpy as np
+import torch
+from ray_tpu_torch.models import gpt, inference, training
+from ray_tpu_torch.serve import llm
+
+if sys.argv[1:] == ["refuse"]:
+    try:
+        llm.LLMServer(device="cuda")
+    except RuntimeError as e:
+        print("refused:", e)
+        sys.exit(0)
+    sys.exit("the engine started without CUBLAS_WORKSPACE_CONFIG")
+assert not torch.are_deterministic_algorithms_enabled()
+cfg = gpt.gpt_nano()
+opt = training.default_optimizer(1e-2)
+state = training.init_train_state(inference.init_params(cfg, "cuda", seed=0), opt)
+step = training.make_train_step(cfg, opt, device="cuda")
+tokens = torch.randint(0, cfg.vocab_size, (2, 64), device="cuda")
+state, m = step(state, tokens)
+srv = llm.LLMServer(cfg, params={k: p.detach() for k, p in state.params.items()},
+                    device="cuda", num_blocks=64, block_size=16, prefill_chunk=32,
+                    cache_buckets=(64, 128))
+try:
+    p = [int(x) for x in np.random.RandomState(0).randint(0, cfg.vocab_size, 40)]
+    r1 = srv({"prompt": p, "max_new_tokens": 8, "return_logits": True})
+    r2 = srv({"prompt": p, "max_new_tokens": 8, "return_logits": True})
+    assert (r1["prefix_cached_tokens"], r2["prefix_cached_tokens"]) == (0, 32), (
+        r1["prefix_cached_tokens"], r2["prefix_cached_tokens"])
+    assert r1["tokens"] == r2["tokens"] and np.array_equal(r1["logits"], r2["logits"])
+finally:
+    srv.close()
+assert not torch.are_deterministic_algorithms_enabled()
+state, m2 = step(state, tokens)  # training after the server, as before it
+assert np.isfinite(float(m2["loss"]))
+print("ok")
+"""
+
+
+@pytest.mark.cuda
+def test_engine_scopes_deterministic_mode_on_card(card):
+    """A train step, then a server: cached and uncached decode bitwise
+    equal, deterministic mode off again after close() and training goes on;
+    without CUBLAS_WORKSPACE_CONFIG the engine refuses to start. Each in a
+    fresh process (cuBLAS reads the variable at its first handle)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    run = subprocess.run([sys.executable, "-c", _ENGINE_AFTER_TRAINING], cwd=repo, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0 and "ok" in run.stdout, run.stdout + run.stderr
+    env.pop("CUBLAS_WORKSPACE_CONFIG")
+    run = subprocess.run([sys.executable, "-c", _ENGINE_AFTER_TRAINING, "refuse"], cwd=repo,
+                         env=env, capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0 and "refused" in run.stdout, run.stdout + run.stderr

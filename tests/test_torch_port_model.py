@@ -233,7 +233,10 @@ def test_port_imports_no_jax_and_no_ray_tpu():
     code = (
         "import sys, ray_tpu_torch, ray_tpu_torch.serve.llm, "
         "ray_tpu_torch.models.convert, ray_tpu_torch.models.training, "
-        "ray_tpu_torch.models.moe, ray_tpu_torch.ops.attention\n"
+        "ray_tpu_torch.models.moe, ray_tpu_torch.ops.attention, "
+        "ray_tpu_torch.ops.ring, ray_tpu_torch.parallel, ray_tpu_torch.parallel.mesh, "
+        "ray_tpu_torch.parallel.sharding, ray_tpu_torch.parallel.comm, "
+        "ray_tpu_torch.parallel.launch, ray_tpu_torch.parallel.dryrun\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'optax', "
         "'ray_tpu') or m.startswith(('jax.', 'flax.', 'optax.', 'ray_tpu.')))\n"
         "print(bad)\n"
