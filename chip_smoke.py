@@ -58,13 +58,14 @@ Phases (any failure exits non-zero; nothing is caught):
   7a. lse_grad: flash_attention_with_lse (out and lse, both differentiable:
      the flash forward, then the dQ and dK/dV kernels with delta - dlse) at
      gpt_1b's heads (b=2, h=16, t=2048, d=128), causal (a ring's step 0) and
-     not (a hop), under random cotangents of both outputs: in bf16 (wgmma)
-     against the plain flash versions on the same inputs, in float32
-     (mma.sync) against autograd through the plain attention_with_lse;
-     every row of dq, dk and dv, and of out, held to
-     ray_tpu_torch/ops/tolerance.py, lse to its absolute limit; times of
-     this path, of autograd through the plain one and of FlashAttention
-     (out only), forward and backward;
+     not (a hop), under random cotangents of both outputs, in bf16 (wgmma)
+     and float32 (mma.sync): against the plain flash versions on the same
+     inputs, and against autograd through the plain float32
+     attention_with_lse with the rounding of out in delta moved into the
+     lse cotangent (the exact gradient of the kernels' route); every row of
+     dq, dk and dv, and of out, held to ray_tpu_torch/ops/tolerance.py, lse
+     to its absolute limit; times of this path, of autograd through the
+     plain one and of FlashAttention (out only), forward and backward;
   7b. sharded_train_ws1: phase 4's step through the sharded train step,
      make_train_step(cfg, opt, mesh=MeshSpec(fsdp=-1).build(),
      state_shardings_tree=...), on a one-rank NCCL process group (a
@@ -912,15 +913,22 @@ def phase_server(cfg, params, fwd, profile: bool):
 def phase_lse_grad():
     """7a: flash_attention_with_lse, forward and backward under random
     cotangents of both outputs, at gpt_1b's heads (b=2, h=16, t=2048,
-    d=128), causal and not. bf16 (the wgmma kernels) against the plain
-    versions on the same inputs (the forward's out and lse feed both
-    backwards, as in phase 3); float32 (the mma.sync kernels) against
-    autograd through the plain attention_with_lse, which checks that delta
-    - dlse is the gradient. In bf16 autograd is no reference: delta comes
-    from the bf16 out, as in the reference's flash backward, and the
-    first causal rows' dq, which an lse cotangent makes O(1), moves by
-    several percent for that rounding alone (3.8e-2 of the row in the plain
-    algorithm in float32 arithmetic)."""
+    d=128), causal and not, in bf16 (the wgmma kernels) and float32 (the
+    mma.sync kernels). Two gates on every row of dq, dk and dv:
+    - against the plain flash versions on the same inputs (the forward's
+      out and lse feed both backwards, as in phase 3): the kernels'
+      arithmetic;
+    - against autograd through the plain attention_with_lse in float32 on
+      the same inputs, with the lse cotangent dlse + rowsum(dO * (O32 -
+      out)): delta is rowsum(dO * out) with the kernel's out, rounded to
+      the input dtype as in every flash backward (the reference's too), so
+      the kernels compute the exact gradient for that cotangent. This gate
+      sees the delta - dlse route itself: without dlse, or with its sign
+      turned, dq's worst row reads 0.26-2 at a small size, against ~2e-3.
+    The worst rows against autograd under the given cotangents are
+    printed beside those of FlashAttention's out-only backward against
+    autograd: the first causal rows' dq moves by the same rounding of out
+    in delta on both paths (not gated)."""
     from ray_tpu_torch.ops import attention as attn
     from ray_tpu_torch.ops.tolerance import BWD_TOL, FWD_LSE_TOL, FWD_ROW_TOL, row_err
 
@@ -946,57 +954,75 @@ def phase_lse_grad():
                 return ref + attn.flash_attention_bwd_plain(
                     q, k, v, out, lse, do, causal=causal, scale=scale, dlse=dlse)
 
-            def autograd_plain():
-                xs = [x.detach().requires_grad_() for x in (q, k, v)]
-                out, lse = attn.attention_with_lse(*xs, causal=causal, scale=scale)
-                grads = torch.autograd.grad((out, lse), xs, (do, dlse))
-                return (out.detach(), lse.detach()) + grads
+            def autograd_plain(out=None, with_lse=True):
+                """(out, lse, dq, dk, dv) of autograd through the float32
+                attention_with_lse; with ``out``, the lse cotangent takes
+                the rounding of ``out`` in delta."""
+                xs = [x.detach().float().requires_grad_() for x in (q, k, v)]
+                o32, lse = attn.attention_with_lse(*xs, causal=causal, scale=scale)
+                dl = dlse if with_lse else torch.zeros_like(dlse)
+                if out is not None:
+                    dl = dl + (do.float() * (o32.detach() - out.float())).sum(-1)
+                grads = torch.autograd.grad((o32, lse), xs, (do.float(), dl))
+                return (o32.detach(), lse.detach()) + grads
 
             def flash_out_only():
                 xs = [x.detach().requires_grad_() for x in (q, k, v)]
-                out = attn.FlashAttention.apply(*xs, causal, scale, None, None)
+                out = attn.FlashAttention.apply(*xs, causal, scale, None, None)[0]
                 return torch.autograd.grad(out, xs, do)
+
+            def grad_errs(got, want):
+                return {name: row_err(x, ref) for name, x, ref in
+                        zip(("dq", "dk", "dv"), got, want)}
 
             before = _launch_counts()
             got = kernel_path()
             launched = dict(zip(COUNTS, (a - c for a, c in zip(_launch_counts(), before))))
-            if dtype == torch.bfloat16:
-                reference, ref_name = (lambda: plain_flash(got[0], got[1])), "plain flash"
-            else:
-                reference, ref_name = autograd_plain, "autograd through attention_with_lse"
-            want = reference()
-            torch.cuda.synchronize()
-            errs = {"out": row_err(got[0], want[0])}
-            errs.update({name: row_err(x, ref) for name, x, ref in
-                         zip(("dq", "dk", "dv"), got[2:], want[2:])})
-            lse_err = float((got[1] - want[1]).abs().max())
-            ok = (errs["out"] <= FWD_ROW_TOL[dtype] and lse_err <= FWD_LSE_TOL[dtype]
-                  and all(errs[n] <= BWD_TOL[dtype] for n in ("dq", "dk", "dv"))
-                  and all(bool(torch.isfinite(x).all()) for x in got))
             expect = {f"flash_fwd_{attn.FWD_DESIGNS[(d, dtype)].name}": 1,
                       f"flash_bwd_dq_{design}": 1, f"flash_bwd_dkv_{design}": 1}
             if any(launched[name] != n for name, n in expect.items()):
                 raise SystemExit(f"lse_grad: launched {launched}, expected {expect}")
+            want = plain_flash(got[0], got[1])
+            errs = {"out": row_err(got[0], want[0]), **grad_errs(got[2:], want[2:])}
+            lse_err = float((got[1] - want[1]).abs().max())
+            exact_errs = grad_errs(got[2:], autograd_plain(got[0])[2:])
+            raw_errs = grad_errs(got[2:], autograd_plain()[2:])
+            out_only_errs = grad_errs(flash_out_only(), autograd_plain(with_lse=False)[2:])
+            torch.cuda.synchronize()
+            ok = (errs["out"] <= FWD_ROW_TOL[dtype] and lse_err <= FWD_LSE_TOL[dtype]
+                  and all(e[n] <= BWD_TOL[dtype] for e in (errs, exact_errs)
+                          for n in ("dq", "dk", "dv"))
+                  and all(bool(torch.isfinite(x).all()) for x in got))
             del got, want
             ms = cuda_ms(kernel_path, iters=10)
             flash_ms = cuda_ms(flash_out_only, iters=10)
             plain_ms = cuda_ms(autograd_plain, iters=3, warmup=1)
             name = f"lse_grad_{str(dtype)[6:]}_{'causal' if causal else 'full'}"
             row = dict(case=name, shape=[b, h, t, t, d], causal=causal,
-                       dtype=str(dtype)[6:], design=design, reference=ref_name,
-                       row_err=errs, lse_max_abs_err=lse_err,
+                       dtype=str(dtype)[6:], design=design, row_err=errs,
+                       row_err_vs_exact_route=exact_errs,
+                       row_err_vs_autograd_not_gated=raw_errs,
+                       flash_out_only_row_err_vs_autograd_not_gated=out_only_errs,
+                       lse_max_abs_err=lse_err,
                        row_err_tol={"out": FWD_ROW_TOL[dtype], "grads": BWD_TOL[dtype]},
                        lse_tol=FWD_LSE_TOL[dtype], ok=ok, ms=ms, plain_ms=plain_ms,
                        flash_attention_ms=flash_ms)
             rows.append(row)
-            print(f"[lse_grad] {name:<24} {row['shape']} {design} vs {ref_name}: worst-row "
-                  f"err out {errs['out']:.2e} dq {errs['dq']:.2e} dk {errs['dk']:.2e} dv "
-                  f"{errs['dv']:.2e} (limits {FWD_ROW_TOL[dtype]:.0e} / {BWD_TOL[dtype]:.0e}), "
-                  f"lse {lse_err:.2e} (limit {FWD_LSE_TOL[dtype]:.0e}) "
-                  f"{'ok' if ok else 'FAIL'} | forward + backward: with lse {ms:.4f} ms, "
+
+            def fmt(e):
+                return " ".join(f"{n} {e[n]:.2e}" for n in ("dq", "dk", "dv"))
+
+            print(f"[lse_grad] {name:<24} {row['shape']} {design}: worst-row err vs plain "
+                  f"flash out {errs['out']:.2e} {fmt(errs)}, vs autograd (delta's rounding "
+                  f"in the lse cotangent) {fmt(exact_errs)} (limits {FWD_ROW_TOL[dtype]:.0e}"
+                  f" / {BWD_TOL[dtype]:.0e}), lse {lse_err:.2e} (limit "
+                  f"{FWD_LSE_TOL[dtype]:.0e}) {'ok' if ok else 'FAIL'}; not gated: vs "
+                  f"autograd {fmt(raw_errs)}, FlashAttention out only vs autograd "
+                  f"{fmt(out_only_errs)} | forward + backward: with lse {ms:.4f} ms, "
                   f"FlashAttention (out only) {flash_ms:.4f} ms, autograd through the plain "
-                  f"attention_with_lse {plain_ms:.3f} ms")
-    bad = [(r["case"], r["row_err"], r["lse_max_abs_err"]) for r in rows if not r["ok"]]
+                  f"float32 attention_with_lse {plain_ms:.3f} ms")
+    bad = [(r["case"], r["row_err"], r["row_err_vs_exact_route"], r["lse_max_abs_err"])
+           for r in rows if not r["ok"]]
     if bad:
         raise SystemExit(f"flash_attention_with_lse disagrees with its reference: {bad}")
     return rows

@@ -38,7 +38,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -414,8 +414,16 @@ class LMHead(nn.Module):
             torch.empty(cfg.vocab_size, dtype=cfg.param_dtype, device=device))
 
 
+#: ``(parameter name, the tensor the model holds) -> the tensor it computes
+#: with``: on a mesh, a block's shard gathered where the block runs
+ParamView = Callable[[str, torch.Tensor], torch.Tensor]
+
+
 def _run_block(block: Block, params: Dict[str, torch.Tensor], x: torch.Tensor,
-               positions: torch.Tensor):
+               positions: torch.Tensor, param_view: Optional[ParamView] = None,
+               prefix: str = ""):
+    if param_view is not None:
+        params = {n: param_view(prefix + n, p) for n, p in params.items()}
     return functional_call(block, params, (x, positions))
 
 
@@ -435,6 +443,11 @@ class GPT(nn.Module):
     and ``positions`` are the rank's block, the parameters its compute
     views (``param_compute_axes``), and the MoE aux loss and drop share are
     the rank's shares of the global ones (their sums over the data axes).
+    ``param_view`` (``ParamView``), where given, maps each parameter to the
+    tensor computed with, at each use: the sharded step hands the model its
+    shards and gathers a block's parameters inside the block's checkpointed
+    call, so only one block's gathered weights exist at a time (two during
+    the backward's recompute) and the recompute gathers them again.
 
     While grad is enabled and ``cfg.remat`` is set, each block runs under
     ``torch.utils.checkpoint``: its input is kept, and so is what
@@ -461,20 +474,28 @@ class GPT(nn.Module):
 
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
-                return_hidden: bool = False, return_moe: bool = False):
+                return_hidden: bool = False, return_moe: bool = False,
+                param_view: Optional[ParamView] = None):
         cfg = self.cfg
         if positions is None:
             positions = torch.arange(
                 tokens.shape[1], device=tokens.device).expand(tokens.shape)
-        x = F.embedding(tokens, self.wte.weight.to(cfg.dtype))
+
+        def view(name: str, p: torch.Tensor) -> torch.Tensor:
+            return p if param_view is None else param_view(name, p)
+
+        x = F.embedding(tokens, view("wte.weight", self.wte.weight).to(cfg.dtype))
         remat = cfg.remat and torch.is_grad_enabled()
         aux, dropped = [], []
-        for block in self.blocks:
+        for i, block in enumerate(self.blocks):
             if remat:
                 out = checkpoint(_run_block, block, dict(block.named_parameters()),
-                                 x, positions, use_reentrant=False,
-                                 preserve_rng_state=False,
+                                 x, positions, param_view, f"blocks.{i}.",
+                                 use_reentrant=False, preserve_rng_state=False,
                                  context_fn=REMAT_CONTEXTS[cfg.remat_policy])
+            elif param_view is not None:
+                out = _run_block(block, dict(block.named_parameters()), x, positions,
+                                 param_view, f"blocks.{i}.")
             else:
                 out = block(x, positions)
             if block.moe:
@@ -483,11 +504,13 @@ class GPT(nn.Module):
                 dropped.append(block_dropped)
             else:
                 x = out
-        x = self.ln_f(x)
+        x = layer_norm(x, view("ln_f.weight", self.ln_f.weight),
+                       view("ln_f.bias", self.ln_f.bias), cfg.dtype)
         if self.lm_head is None:
-            weight, bias = self.wte.weight, None
+            weight, bias = view("wte.weight", self.wte.weight), None
         else:
-            weight, bias = self.lm_head.weight, self.lm_head.bias
+            weight = view("lm_head.weight", self.lm_head.weight)
+            bias = view("lm_head.bias", self.lm_head.bias)
         out = (x, weight, bias) if return_hidden else _logits(x, weight, bias, cfg.dtype)
         if not return_moe:
             return out

@@ -36,16 +36,22 @@ On a mesh (``make_train_step(..., mesh=...)``, every rank calling it):
   start from JAX's weights).
 * The step takes the global batch (the same tokens on every rank); each
   rank trains on its block: rows cut over (dp, fsdp), the sequence over sp,
-  with the next token across each chunk's end as its last target. Each
-  parameter's axes that the model does not keep cut in compute
-  (``gpt.param_compute_axes``: tp over heads and mlp, ep over experts) are
-  all-gathered once per step into a plain tensor, which the model uses;
-  its gradient is summed over the data axes (dp, fsdp, sp), whose ranks
-  hold different tokens, and this rank's block kept. Over tp and ep the
-  model's collectives already give every rank its block's gradient (the
-  replicated parts get equal gradients on every rank). The loss is each
-  rank's share of the global mean (the sum of its targets' losses over
-  the global count), so the sum over the data axes is the reference's loss.
+  with the next token across each chunk's end as its last target. The
+  model gets the rank's blocks and gathers each parameter over the axes it
+  does not keep cut in compute (``gpt.param_compute_axes``: tp over heads
+  and mlp, ep over experts) where it is used: a block's parameters inside
+  the block's checkpointed call, so with remat on only one block's
+  gathered weights exist at a time and the backward's recompute gathers
+  them again (without remat autograd keeps them to the end of the
+  backward). A gather over fsdp reduce-scatters its gradient in the
+  backward, so gradients are never whole: each is this rank's block,
+  summed over the data axes (dp, fsdp, sp), whose ranks hold different
+  tokens, the rest of them by an all-reduce of the block. Over tp and ep
+  the model's collectives already give every rank its block's gradient
+  (the replicated parts get equal gradients on every rank). The loss is
+  each rank's share of the global mean (the sum of its targets' losses
+  over the global count), so the sum over the data axes is the
+  reference's loss.
 * The clip's norm is the norm of the whole gradient: each block counts
   once (a block replicated over some axes counts on the rank at index 0 of
   each of them), summed over all ranks. The update runs on the local blocks.
@@ -76,7 +82,13 @@ from ray_tpu_torch.models.gpt import (
 )
 from ray_tpu_torch.models.inference import init_draws
 from ray_tpu_torch.parallel import comm
-from ray_tpu_torch.parallel.mesh import AXIS_ORDER, MeshGroups, mesh_device
+from ray_tpu_torch.parallel.mesh import (
+    AXIS_ORDER,
+    DATA_AXES,
+    MeshGroups,
+    mesh_device,
+    subgroup,
+)
 from ray_tpu_torch.parallel.sharding import (
     Rules,
     local_slices,
@@ -299,12 +311,15 @@ def init_sharded_state(cfg: GPTConfig, mesh, optimizer: ClippedAdamW, seed: int 
 
 @dataclasses.dataclass(frozen=True)
 class _Plan:
-    """One parameter on the mesh: its placements and the (dim, mesh axis)
-    pairs gathered into the model's view of it, and the mesh axes over
-    which its block is replicated (size > 1)."""
+    """One parameter on the mesh: its placements; the (dim, mesh axis)
+    pairs gathered into the model's view of it, where the block using it
+    runs; the data axes over which its gradient is summed after the
+    backward (those its gathers do not reduce-scatter); and the mesh axes
+    over which its block is replicated (size > 1)."""
 
     placements: Tuple[Any, ...]
     gather: Tuple[Tuple[int, str], ...]
+    sum_axes: Tuple[str, ...]
     replicated: Tuple[str, ...]
 
 
@@ -326,28 +341,23 @@ def _plans(cfg: GPTConfig, groups: MeshGroups, rules: Optional[Rules],
                 raise ValueError(f"{name}: dim {dim} is cut over {axes}; a parameter's "
                                  f"dim may be gathered over one mesh axis only")
             gather += [(dim, a) for a in axes if a not in keep]
+        gathered = {a for _, a in gather}
+        sum_axes = tuple(a for a in DATA_AXES if groups.sizes[a] > 1 and a not in gathered)
         cut = {a for e in spec for a in spec_axes(e)}
         rep = tuple(a for a in AXIS_ORDER if groups.sizes[a] > 1 and a not in cut)
-        plans[name] = _Plan(tuple(place), tuple(gather), rep)
+        plans[name] = _Plan(tuple(place), tuple(gather), sum_axes, rep)
     return plans
 
 
 def _view(local: torch.Tensor, plan: _Plan, groups: MeshGroups) -> torch.Tensor:
     """The model's view of a parameter: its block gathered over ``plan``'s
-    axes (the block itself where there are none)."""
+    axes (the block itself where there are none). Differentiable: over a
+    data axis the gradient is reduce-scattered (the ranks' partial sums),
+    over any other it is this rank's block (the ranks computed alike)."""
     for dim, axis in plan.gather:
-        local = comm.all_gather(local, groups.group(axis), dim)
+        gather = comm.gather_summed if axis in DATA_AXES else comm.gather_from
+        local = gather(local, groups.group(axis), dim)
     return local
-
-
-def _own_block(full: torch.Tensor, plan: _Plan, groups: MeshGroups) -> torch.Tensor:
-    """This rank's block of a tensor shaped like the view: the inverse of
-    ``_view``'s gathers."""
-    idx = [slice(None)] * full.dim()
-    for dim, axis in plan.gather:
-        step = full.shape[dim] // groups.sizes[axis]
-        idx[dim] = slice(groups.coord[axis] * step, (groups.coord[axis] + 1) * step)
-    return full[tuple(idx)]
 
 
 def _global_norm(grads: List[torch.Tensor], plans: List[_Plan],
@@ -385,7 +395,7 @@ def _local_batch(tokens: torch.Tensor, groups: MeshGroups, dev: torch.device):
 
 
 class _ShardedLoss:
-    """The rank's share of the loss and the views it is computed from."""
+    """The rank's share of the loss, computed from its blocks."""
 
     def __init__(self, cfg: GPTConfig, mesh, rules: Optional[Rules], shardings):
         self.cfg = cfg
@@ -394,6 +404,10 @@ class _ShardedLoss:
         self.dev = self.groups.device
         self.shardings = shardings or state_shardings(mesh, cfg, rules)
         self.plans = _plans(cfg, self.groups, rules, self.shardings)
+        # the group of each set of axes a gradient is summed over; collective,
+        # so every rank creates them in the same order
+        self.sum_groups = {axes: subgroup(mesh, axes) for axes in
+                           sorted({p.sum_axes for p in self.plans.values()})}
 
     def locals(self, params: Params) -> List[torch.Tensor]:
         for name, p in params.items():
@@ -401,13 +415,23 @@ class _ShardedLoss:
                 raise ValueError(f"{name} is not a DTensor placed as {self.plans[name].placements}")
         return [p.to_local() for p in params.values()]
 
-    def __call__(self, views: Params, tokens: torch.Tensor):
+    def view(self, name: str, local: torch.Tensor) -> torch.Tensor:
+        return _view(local, self.plans[name], self.groups)
+
+    def sum_grad(self, name: str, grad: torch.Tensor) -> torch.Tensor:
+        """The gradient of this rank's block: ``grad`` (already summed over
+        the data axes its gathers reduce-scatter) summed over the rest."""
+        return comm.all_reduce(grad, self.sum_groups[self.plans[name].sum_axes])
+
+    def __call__(self, blocks: Params, tokens: torch.Tensor):
         """(the rank's share of ce + aux weight * aux, {"ce", "aux",
-        "dropped"}: the rank's shares)."""
+        "dropped"}: the rank's shares); the model gathers each parameter
+        from ``blocks`` where it uses it (``view``)."""
         cfg = self.cfg
         tok, positions, targets, valid = _local_batch(tokens, self.groups, self.dev)
         (hidden, weight, bias), moe = functional_call(
-            self.model, views, (tok, positions), {"return_hidden": True, "return_moe": True})
+            self.model, blocks, (tok, positions),
+            {"return_hidden": True, "return_moe": True, "param_view": self.view})
         n_targets = tokens.shape[0] * (tokens.shape[1] - 1)
         ce = blockwise_nll_sum(hidden, weight, bias, targets, valid, cfg.ce_chunk) / n_targets
         return ce + cfg.moe_aux_weight * moe["aux"], dict(moe, ce=ce)
@@ -421,16 +445,13 @@ def _sharded_train_step(cfg, optimizer, device, mesh, rules, shardings):
     def step(state: TrainState, tokens: torch.Tensor):
         names = list(state.params)
         blocks = loss_fn.locals(state.params)
-        with torch.no_grad():
-            views = {n: _view(b, plans[n], g).detach().requires_grad_(True)
-                     for n, b in zip(names, blocks)}
+        leaves = {n: b.detach().requires_grad_(True) for n, b in zip(names, blocks)}
         with torch.enable_grad():
-            loss, stats = loss_fn(views, tokens)
-            grads = torch.autograd.grad(loss, list(views.values()))
-        del views
+            loss, stats = loss_fn(leaves, tokens)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        del leaves
         with torch.no_grad():
-            grads = [_own_block(comm.all_reduce(gr, g.data), plans[n], g).contiguous()
-                     for n, gr in zip(names, grads)]
+            grads = [loss_fn.sum_grad(n, gr).contiguous() for n, gr in zip(names, grads)]
             norm = _global_norm(grads, [plans[n] for n in names], g)
             opt = state.opt_state
             local_opt = AdamWState(opt.count, [m.to_local() for m in opt.mu],
@@ -452,12 +473,10 @@ def _sharded_train_step(cfg, optimizer, device, mesh, rules, shardings):
 def _sharded_eval_step(cfg, device, mesh, rules):
     loss_fn = _ShardedLoss(cfg, mesh, rules, None)
     _mesh_device(mesh, device)
-    g, plans = loss_fn.groups, loss_fn.plans
 
     def eval_step(params: Params, tokens: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():
-            views = {n: _view(b, plans[n], g)
-                     for n, b in zip(params, loss_fn.locals(params))}
-            return comm.all_reduce(loss_fn(views, tokens)[1]["ce"], g.data)
+            blocks = dict(zip(params, loss_fn.locals(params)))
+            return comm.all_reduce(loss_fn(blocks, tokens)[1]["ce"], loss_fn.groups.data)
 
     return eval_step

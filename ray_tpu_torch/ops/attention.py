@@ -34,8 +34,8 @@ a shorter q is the suffix of the kv context (``q_pos = q_idx + t_kv - t_q``).
 * ``flash_fwd_op`` is the forward wrapper as the operator
   ``ray_tpu_torch::flash_fwd`` (``FLASH_FWD``), which the remat policy
   "attn" names; ``FlashAttention`` is the autograd Function over it and the
-  backward wrapper; ``flash_attention_with_lse`` returns (out, lse) with a
-  gradient for both (ring attention's block), through the same kernels; and
+  backward wrapper, giving (out, lse) with a gradient for both;
+  ``flash_attention_with_lse`` calls it (ring attention's block); and
   ``dot_product_attention`` the public entry, in the [b, h, t, d] layout,
   over the Function; with ``segment_ids`` it takes ``_attention_plain`` on
   any device, as the reference's dispatcher takes its XLA path.
@@ -671,14 +671,17 @@ FLASH_FWD = torch.ops.ray_tpu_torch.flash_fwd.default
 
 class FlashAttention(torch.autograd.Function):
     """Flash attention with its flash backward: the counterpart of the
-    reference's ``flash_attention`` custom_vjp.
+    reference's ``flash_attention`` custom_vjp, and of its
+    ``attention_with_lse`` differentiated in both outputs.
 
-    ``FlashAttention.apply(q, k, v, causal, scale, block_q, block_k)``, the
-    tiles None for the kernel's own (``fwd_tiles``). The
+    ``FlashAttention.apply(q, k, v, causal, scale, block_q, block_k)`` gives
+    ``(out, lse)``, the tiles None for the kernel's own (``fwd_tiles``). The
     forward is ``flash_fwd_op`` (``flash_attention_fwd``) and saves
     (q, k, v, out, lse); the backward is ``flash_attention_bwd`` on a
-    contiguous copy of the incoming gradient. Both take the plain versions
-    on CPU tensors and the Hopper kernels on CUDA tensors."""
+    contiguous copy of out's gradient and, where lse was used, lse's
+    gradient, which the dQ and dK/dV kernels take through delta
+    (delta - dlse). Both take the plain versions on CPU tensors and the
+    Hopper kernels on CUDA tensors."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float,
@@ -686,49 +689,29 @@ class FlashAttention(torch.autograd.Function):
         out, lse = flash_fwd_op(q, k, v, causal, scale, block_q, block_k)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale = causal, scale
-        return out
-
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(
-            q, k, v, out, lse, do.contiguous(), causal=ctx.causal, scale=ctx.scale)
-        return dq, dk, dv, None, None, None, None
-
-
-class FlashAttentionWithLse(torch.autograd.Function):
-    """``(out, lse)`` of the flash forward, differentiable in both: the
-    block primitive of ring attention (the reference differentiates its
-    ``attention_with_lse`` in both outputs). The forward is ``flash_fwd_op``;
-    the backward is ``flash_attention_bwd`` with the gradient of lse, which
-    the dQ and dK/dV kernels take through delta (delta - dlse)."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float):
-        out, lse = flash_fwd_op(q, k, v, causal, scale, None, None)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.set_materialize_grads(False)
         return out, lse
 
     @staticmethod
     def backward(ctx, do, dlse):
         q, k, v, out, lse = ctx.saved_tensors
+        do = torch.zeros_like(out) if do is None else do.contiguous()
         dq, dk, dv = flash_attention_bwd(
-            q, k, v, out, lse, do.contiguous(), causal=ctx.causal, scale=ctx.scale,
-            dlse=dlse.contiguous())
-        return dq, dk, dv, None, None
+            q, k, v, out, lse, do, causal=ctx.causal, scale=ctx.scale,
+            dlse=None if dlse is None else dlse.contiguous())
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              causal: bool, scale: Optional[float] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out [b, h, t_q, d] in q's dtype, lse [b, h, t_q] float32) of flash
-    attention, with gradients for both (``FlashAttentionWithLse``): the
-    plain versions on CPU tensors, the Hopper kernels on CUDA tensors. It
+    attention, with gradients for both (``FlashAttention``): the plain
+    versions on CPU tensors, the Hopper kernels on CUDA tensors. It
     computes the function of ``attention_with_lse`` (q the suffix of kv
     under the causal mask) without the [b, h, t_q, t_kv] float32 scores."""
     scale_val = float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    return FlashAttentionWithLse.apply(q, k, v, causal, scale_val)
+    return FlashAttention.apply(q, k, v, causal, scale_val, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -762,4 +745,4 @@ def dot_product_attention(
         return _attention_plain(
             q, k, v, causal=causal, scale=scale_val, segment_ids=segment_ids
         )
-    return FlashAttention.apply(q, k, v, causal, scale_val, block_q, block_k)
+    return FlashAttention.apply(q, k, v, causal, scale_val, block_q, block_k)[0]

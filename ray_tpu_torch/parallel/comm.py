@@ -14,13 +14,16 @@ tensors) gets the same gradient on every rank of it:
 * ``gather_from``: all-gather along a dim forward, this rank's block of the
   gradient backward, for a result that a replicated computation reads
   whole (the local experts' outputs before the combine);
+* ``gather_summed``: all-gather along a dim forward, reduce-scatter (sum)
+  of the gradient backward, where the group's ranks compute on different
+  data (a parameter's fsdp shards, gathered where a block uses them);
 * ``ppermute``: each rank sends to the rank ``shift`` places on and
   receives from the one ``shift`` places back; the gradient goes the other
   way (the reference's ``lax.ppermute``);
 * ``all_to_all``: equal blocks of dim 0, block j to rank j; its own inverse,
   so the gradient takes the same exchange.
 
-``all_gather`` and ``all_reduce`` carry no gradient.
+``all_gather``, ``all_reduce`` and ``reduce_scatter`` carry no gradient.
 """
 
 from __future__ import annotations
@@ -50,6 +53,20 @@ def all_reduce(x: torch.Tensor, group: Group) -> torch.Tensor:
     out = x.clone()
     dist.all_reduce(out, group=group)
     return out
+
+
+# torch renamed reduce_scatter_tensor; either takes (output, input, op, group)
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+
+
+def reduce_scatter(x: torch.Tensor, group: Group, dim: int = 0) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum over the group."""
+    if group is None:
+        return x
+    x = x.movedim(dim, 0).contiguous()
+    out = x.new_empty((x.shape[0] // dist.get_world_size(group), *x.shape[1:]))
+    _reduce_scatter(out, x, group=group)
+    return out.movedim(0, dim).contiguous()
 
 
 def _block(x: torch.Tensor, group: dist.ProcessGroup, dim: int) -> torch.Tensor:
@@ -87,6 +104,17 @@ class _GatherFrom(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return _block(grad, ctx.group, ctx.dim), None, None
+
+
+class _GatherSummed(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter(grad, ctx.group, ctx.dim), None, None
 
 
 def _permute(x: torch.Tensor, group: dist.ProcessGroup, shift: int) -> torch.Tensor:
@@ -139,6 +167,10 @@ def reduce_from(x: torch.Tensor, group: Group) -> torch.Tensor:
 
 def gather_from(x: torch.Tensor, group: Group, dim: int = 0) -> torch.Tensor:
     return x if group is None else _GatherFrom.apply(x, group, dim)
+
+
+def gather_summed(x: torch.Tensor, group: Group, dim: int = 0) -> torch.Tensor:
+    return x if group is None else _GatherSummed.apply(x, group, dim)
 
 
 def ppermute(x: torch.Tensor, group: Group, shift: int = 1) -> torch.Tensor:

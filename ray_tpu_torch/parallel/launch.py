@@ -6,8 +6,8 @@ virtual_mesh.py``: shape multi-rank logic on one host).
 start method), joins them in one process group that rendezvouses through a
 ``FileStore`` in a fresh temporary directory (no network port, so runs in
 parallel do not collide), calls ``fn(rank, world_size)`` on each and
-returns their results in rank order. gloo on the CPU; NCCL with
-``device="cuda"``, one card per rank. A worker's exception is raised again
+returns their results in rank order. NCCL on CUDA, one card per rank (the
+default, as for every entry point of the port); gloo with ``device="cpu"``. A worker's exception is raised again
 in the caller with its traceback; the join has its own time limit.
 
 ``fn`` and its result are pickled: a function at a module's top level (or a
@@ -27,6 +27,8 @@ from typing import Any, Callable, List, Optional
 
 import torch
 import torch.distributed as dist
+
+from ray_tpu_torch import DeviceLike, resolve_device
 
 
 class WorkerError(RuntimeError):
@@ -55,14 +57,17 @@ def _worker(rank: int, world_size: int, backend: str, device: str,
 
 
 def spawn(fn: Callable[[int, int], Any], world_size: int, *, backend: Optional[str] = None,
-          device: str = "cpu", timeout: float = 120.0) -> List[Any]:
+          device: DeviceLike = None, timeout: float = 120.0) -> List[Any]:
     """``[fn(0, world_size), ..., fn(world_size - 1, world_size)]``, each
-    on its own process of one process group. ``backend`` defaults to gloo on
-    the CPU and NCCL on CUDA. Raises ``WorkerError`` with the first failing
-    rank's traceback, and ``TimeoutError`` when the ranks have not all
-    returned within ``timeout`` seconds; either way every process is ended."""
+    on its own process of one process group. ``device`` defaults to CUDA
+    (rank r on card r; raises where there is no card), ``backend`` to NCCL
+    on CUDA and gloo on the CPU. Raises ``WorkerError`` with the first
+    failing rank's traceback, and ``TimeoutError`` when the ranks have not
+    all returned within ``timeout`` seconds; either way every process is
+    ended."""
+    device = resolve_device(device).type
     if device not in ("cpu", "cuda"):
-        raise ValueError(f"device must be 'cpu' or 'cuda', got {device!r}")
+        raise ValueError(f"device must be the CPU or CUDA, got {device!r}")
     if device == "cuda" and torch.cuda.device_count() < world_size:
         raise RuntimeError(f"{world_size} ranks need {world_size} cards, "
                            f"{torch.cuda.device_count()} present")

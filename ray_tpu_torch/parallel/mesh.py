@@ -164,6 +164,10 @@ def subgroup(mesh: DeviceMesh, axes: Sequence[str]) -> Optional[dist.ProcessGrou
     return mine
 
 
+#: the axes over which ranks hold different tokens
+DATA_AXES = ("dp", "fsdp", "sp")
+
+
 @dataclasses.dataclass
 class MeshGroups:
     """This rank's place in a mesh and the groups the sharded model uses.
@@ -185,7 +189,7 @@ class MeshGroups:
             raise ValueError(f"the mesh's dims must be {AXIS_ORDER}, got "
                              f"{mesh.mesh_dim_names}")
         coord = dict(zip(AXIS_ORDER, mesh.get_coordinate()))
-        return cls(mesh, mesh_sizes(mesh), coord, subgroup(mesh, ("dp", "fsdp", "sp")))
+        return cls(mesh, mesh_sizes(mesh), coord, subgroup(mesh, DATA_AXES))
 
     def group(self, axis: str) -> Optional[dist.ProcessGroup]:
         return self.mesh.get_group(axis) if self.sizes[axis] > 1 else None

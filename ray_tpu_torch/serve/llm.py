@@ -19,8 +19,10 @@ chained hash and shared copy-on-write. On CUDA each engine step runs its
 device work under ``torch.use_deterministic_algorithms`` and gives the
 caller's setting back after it (``deterministic_algorithms``): with equal
 shapes the extend step gives equal bits, so prefix-cached decode is
-bitwise-equal to uncached decode. The setting is process-wide while a step
-runs, so work on another thread meanwhile runs under it too. cuBLAS reads
+bitwise-equal to uncached decode. The setting is process-wide: the steps
+of every engine in the process share one count, so it is the caller's
+again once no step runs, and work on another thread meanwhile runs under
+it too. cuBLAS reads
 ``CUBLAS_WORKSPACE_CONFIG`` when it makes its first handle, so a CUDA
 engine refuses to start unless the variable is set (before the process's
 first cuBLAS call, which the engine cannot check).
@@ -58,18 +60,37 @@ _CANCEL_KEY = "_cancel"
 _DEFAULT_MAX_NEW_TOKENS = 16
 
 
+# the open ``deterministic_algorithms`` blocks of every thread, and the
+# setting (enabled, warn_only) that the first of them found
+_deterministic_lock = threading.Lock()
+_deterministic_users = 0
+_deterministic_before = (False, False)
+
+
 @contextlib.contextmanager
-def deterministic_algorithms(enabled: bool = True) -> Iterator[None]:
-    """``torch.use_deterministic_algorithms(enabled)`` inside the block; the
-    setting before it (and its warn-only flag) is restored after it, also
-    when the block raises."""
-    before = torch.are_deterministic_algorithms_enabled()
-    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
-    torch.use_deterministic_algorithms(enabled)
+def deterministic_algorithms() -> Iterator[None]:
+    """``torch.use_deterministic_algorithms(True)`` inside the block. The
+    setting is process-wide, so the blocks of all threads share one count
+    under a lock: the first to open saves the setting (and its warn-only
+    flag) and turns the mode on, the last to close restores it, also when a
+    block raises. Two engines stepping on two threads thus never restore the
+    setting under each other's step, and it is the caller's again once no
+    block is open. Work on other threads meanwhile runs under the mode."""
+    global _deterministic_users, _deterministic_before
+    with _deterministic_lock:
+        if _deterministic_users == 0:
+            _deterministic_before = (torch.are_deterministic_algorithms_enabled(),
+                                     torch.is_deterministic_algorithms_warn_only_enabled())
+            torch.use_deterministic_algorithms(True)
+        _deterministic_users += 1
     try:
         yield
     finally:
-        torch.use_deterministic_algorithms(before, warn_only=warn_only)
+        with _deterministic_lock:
+            _deterministic_users -= 1
+            if _deterministic_users == 0:
+                enabled, warn_only = _deterministic_before
+                torch.use_deterministic_algorithms(enabled, warn_only=warn_only)
 
 
 class NoKVBlocksError(RuntimeError):

@@ -226,7 +226,7 @@ def test_device_mesh_and_dtensor_blocks_on_8_ranks():
         tree = jax.tree_util.tree_map(np.asarray, tree)
         full.append({k: v.numpy() for k, v in convert.params_from_jax(
             tree, gpt.gpt_nano(**kw), device="cpu").items()})
-    res = launch.spawn(functools.partial(_mesh_worker, full_params=full), 8, timeout=240)
+    res = launch.spawn(functools.partial(_mesh_worker, full_params=full), 8, device="cpu", timeout=240)
     for rank, r in enumerate(res):
         assert r["names"] == AXIS_ORDER
         assert np.array_equal(r["layout"].ravel(), np.arange(8))

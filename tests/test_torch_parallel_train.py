@@ -24,6 +24,7 @@ binds. Everything is float32. Tolerances:
 """
 
 import contextlib
+import dataclasses
 import functools
 from concurrent.futures import ThreadPoolExecutor
 
@@ -146,7 +147,7 @@ def test_dp2_fsdp2_tp2_steps_match_jax():
     _, ev, metrics, final, _, res = _jax_run(
         jgpt.gpt_nano(), spec, tokens, meanwhile=lambda init: launch.spawn(functools.partial(
             _train_worker, spec_kw=spec, cfg_kw={}, params=_port_params(init, pcfg),
-            tokens=tokens), 8, timeout=240))
+            tokens=tokens), 8, device="cpu", timeout=240))
     for r in res[1:]:
         assert r["metrics"] == res[0]["metrics"]  # every rank reports the global metrics
     _check_against_jax(res[0], ev, metrics, final, pcfg)
@@ -170,7 +171,7 @@ def sp2_runs():
     ring = _jax_run(jgpt.gpt_nano(seq_parallel_impl="ring"), dict(sp=2), tokens,
                     meanwhile=lambda init: launch.spawn(functools.partial(
                         _sp2_worker, params=_port_params(init, pcfg), tokens=tokens),
-                        2, timeout=240))
+                        2, device="cpu", timeout=240))
     ulysses = _jax_run(jgpt.gpt_nano(seq_parallel_impl="ulysses"), dict(sp=2), tokens)
     port = ring[-1][0]
     return {impl: (port[impl], *ref[1:4], pcfg)
@@ -248,7 +249,7 @@ def test_moe_dp2_ep2_tp2_matches_jax_with_drops():
     init, ev, metrics, final, mesh, res = _jax_run(
         jcfg, spec, tokens, meanwhile=lambda init: launch.spawn(functools.partial(
             _train_worker, spec_kw=spec, cfg_kw=MOE, params=_port_params(init, pcfg),
-            tokens=tokens, slots=True), 8, timeout=240))
+            tokens=tokens, slots=True), 8, device="cpu", timeout=240))
     want_slots = _jax_slots(jcfg, init, tokens, mesh)
     n_slots = pcfg.moe_num_experts * moe.expert_capacity(pcfg, tokens.size)
     for r in res:
@@ -266,7 +267,7 @@ def test_one_rank_step_is_the_single_device_step():
     params = {k: v.numpy() for k, v in inference.init_params(cfg, "cpu", seed=4).items()}
     tokens = _tokens(2, 48, cfg.vocab_size, seed=5)
     (got,) = launch.spawn(functools.partial(
-        _train_worker, spec_kw=dict(fsdp=-1), cfg_kw=MOE, params=params, tokens=tokens), 1)
+        _train_worker, spec_kw=dict(fsdp=-1), cfg_kw=MOE, params=params, tokens=tokens), 1, device="cpu")
     opt = training.default_optimizer(LR, grad_clip=CLIP)
     state = training.init_train_state({k: torch.from_numpy(v.copy()) for k, v in params.items()},
                                       opt)
@@ -278,6 +279,79 @@ def test_one_rank_step_is_the_single_device_step():
     for name, p in state.params.items():
         np.testing.assert_allclose(got["params"][name], p.detach().numpy(), rtol=1e-5,
                                    atol=1e-6, err_msg=name)
+
+
+def _memory_worker(rank, world, specs, tokens):
+    """Per mesh of ``specs``, this rank's parameter and gradient bytes in
+    one step: its parameter blocks, the most bytes of gathered parameter
+    views alive at once (each counted until autograd frees it) and the
+    gradients the backward returns; and the bytes of the whole embedding
+    and of one whole block."""
+    import weakref
+
+    cfg = dataclasses.replace(gpt.gpt_nano(), num_layers=4)
+    opt = training.default_optimizer(LR)
+    live = {"now": 0, "peak": 0}
+    grad_bytes = []
+    view, grad = training._view, torch.autograd.grad
+
+    def free(n):
+        live["now"] -= n
+
+    def counted_view(local, plan, groups):
+        out = view(local, plan, groups)
+        if out is not local:
+            n = out.numel() * out.element_size()
+            live["now"] += n
+            live["peak"] = max(live["peak"], live["now"])
+            weakref.finalize(out, free, n)
+        return out
+
+    def counted_grad(outputs, inputs, *a, **kw):
+        grads = grad(outputs, inputs, *a, **kw)
+        grad_bytes.append(sum(g.numel() * g.element_size() for g in grads))
+        return grads
+
+    training._view, torch.autograd.grad = counted_view, counted_grad
+    try:
+        out = {}
+        for spec in specs:
+            mesh = MeshSpec(**spec).build("cpu")
+            state, shardings = training.init_sharded_state(cfg, mesh, opt, seed=0)
+            step = training.make_train_step(cfg, opt, mesh=mesh, state_shardings_tree=shardings)
+            live["peak"] = live["now"]
+            grad_bytes.clear()
+            state, _ = step(state, torch.from_numpy(tokens))
+            out[tuple(spec.items())] = {
+                "params": sum(p.to_local().numel() * 4 for p in state.params.values()),
+                "gathered_peak": live["peak"], "grads": sum(grad_bytes)}
+        whole = inference.init_params(cfg, "cpu", seed=0)
+        out["wte"] = whole["wte.weight"].numel() * 4
+        out["block"] = sum(p.numel() * 4 for n, p in whole.items() if n.startswith("blocks.0."))
+        return out
+    finally:
+        training._view, torch.autograd.grad = view, grad
+
+
+def test_fsdp_cuts_each_ranks_parameter_and_gradient_bytes():
+    """On 4 ranks, dp 4, then dp 2 x fsdp 2, then fsdp 4: a rank's
+    parameter bytes (its blocks and the gathered views alive at once) plus
+    its gradient bytes fall as fsdp grows. Gradients are this rank's blocks
+    (half and a quarter of dp 4's, less the few parameters without an
+    embed dim, which fsdp does not cut), and no more than two blocks and the
+    embedding are whole at once (a block's weights are gathered where it
+    runs, and again in the backward's recompute)."""
+    specs = (dict(dp=4), dict(dp=2, fsdp=2), dict(fsdp=4))
+    res = launch.spawn(functools.partial(_memory_worker, specs=specs,
+                                         tokens=_tokens(4, 32, 256)), 4, device="cpu")
+    for r in res:
+        dp4, fsdp2, fsdp4 = (r[tuple(s.items())] for s in specs)
+        assert dp4["gathered_peak"] == 0
+        for m, share in ((fsdp2, 0.5), (fsdp4, 0.25)):
+            assert m["grads"] <= (share + 0.02) * dp4["grads"]
+            assert 0 < m["gathered_peak"] <= 2 * r["block"] + r["wte"]
+        totals = [m["params"] + m["gathered_peak"] + m["grads"] for m in (dp4, fsdp2, fsdp4)]
+        assert totals[2] < totals[1] < 0.8 * totals[0], totals
 
 
 # ---------------------------------------------------------------------------
@@ -312,9 +386,9 @@ def _sum_of_ranks(rank, world):
 
 
 def test_spawn_returns_in_rank_order_and_raises_a_rank_failure():
-    assert launch.spawn(_sum_of_ranks, 3) == [3.0, 3.0, 3.0]
+    assert launch.spawn(_sum_of_ranks, 3, device="cpu") == [3.0, 3.0, 3.0]
     with pytest.raises(launch.WorkerError, match="planted failure"):
-        launch.spawn(_fail_on_rank_one, 2)
+        launch.spawn(_fail_on_rank_one, 2, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -333,6 +407,47 @@ def test_deterministic_algorithms_restores_the_callers_setting(before):
         with contextlib.suppress(KeyError), llm.deterministic_algorithms():
             raise KeyError("inside")
         assert torch.are_deterministic_algorithms_enabled() is before
+    finally:
+        torch.use_deterministic_algorithms(prior)
+
+
+@pytest.mark.parametrize("before", [False, True], ids=["off", "on"])
+def test_deterministic_algorithms_interleaved_on_two_threads(before):
+    """Two engines' steps on two threads, interleaved as the fault had them:
+    A opens, B opens, A closes while B is still inside, B closes. The mode
+    stays on until B closes and is the caller's again after it."""
+    import threading
+
+    prior = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(before)
+    a_in, b_in, a_out, b_may_close = (threading.Event() for _ in range(4))
+    seen = {}
+
+    def engine_a():
+        with llm.deterministic_algorithms():
+            a_in.set()
+            b_in.wait(10)
+        a_out.set()
+
+    def engine_b():
+        a_in.wait(10)
+        with llm.deterministic_algorithms():
+            b_in.set()
+            a_out.wait(10)
+            seen["inside_b_after_a"] = torch.are_deterministic_algorithms_enabled()
+            b_may_close.wait(10)
+
+    try:
+        threads = [threading.Thread(target=f) for f in (engine_a, engine_b)]
+        for t in threads:
+            t.start()
+        a_out.wait(10)
+        b_may_close.set()
+        for t in threads:
+            t.join(10)
+        assert seen["inside_b_after_a"] is True
+        assert torch.are_deterministic_algorithms_enabled() is before
+        assert llm._deterministic_users == 0
     finally:
         torch.use_deterministic_algorithms(prior)
 

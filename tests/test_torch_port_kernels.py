@@ -448,6 +448,24 @@ try:
 finally:
     srv.close()
 assert not torch.are_deterministic_algorithms_enabled()
+# two servers in one process, each stepping on its own batcher thread while
+# the other steps (one request at a time each, so the shapes are r1's):
+# every answer equal to the first server's, the mode off again once both
+# are closed
+from concurrent.futures import ThreadPoolExecutor
+params = {k: p.detach() for k, p in state.params.items()}
+pair = [llm.LLMServer(cfg, params=params, device="cuda", num_blocks=64, block_size=16,
+                      prefill_chunk=32, cache_buckets=(64, 128)) for _ in range(2)]
+try:
+    req = {"prompt": p, "max_new_tokens": 8, "return_logits": True}
+    with ThreadPoolExecutor(2) as ex:
+        outs = sum(ex.map(lambda srv: [srv(dict(req)) for _ in range(3)], pair), [])
+    for r in outs:
+        assert r["tokens"] == r1["tokens"] and np.array_equal(r["logits"], r1["logits"])
+finally:
+    for s in pair:
+        s.close()
+assert not torch.are_deterministic_algorithms_enabled()
 state, m2 = step(state, tokens)  # training after the server, as before it
 assert np.isfinite(float(m2["loss"]))
 print("ok")
@@ -457,7 +475,9 @@ print("ok")
 @pytest.mark.cuda
 def test_engine_scopes_deterministic_mode_on_card(card):
     """A train step, then a server: cached and uncached decode bitwise
-    equal, deterministic mode off again after close() and training goes on;
+    equal, deterministic mode off again after close(); then two servers
+    answering at once on their own threads, their decodes bitwise equal to
+    the first's and the mode off after both close; training goes on;
     without CUBLAS_WORKSPACE_CONFIG the engine refuses to start. Each in a
     fresh process (cuBLAS reads the variable at its first handle)."""
     import os
