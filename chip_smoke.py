@@ -7,8 +7,9 @@ Phases (any failure exits non-zero; nothing is caught):
   1. build: compile ray_tpu_torch/ops/csrc/flash_fwd_wgmma.cu, flash_fwd.cu,
      flash_bwd_wgmma.cu and flash_bwd.cu with nvcc, in parallel, and print
      their register, shared-memory and spill reports; the wgmma forward and
-     both wgmma backward kernels at head_dim 128 (the main path) must not
-     spill;
+     both wgmma backward kernels at head_dim 128 and 256 (the train paths':
+     dQ, dK/dV and, at 256, the split dK/dV kernel) must not spill; the
+     wgmma kernels' dynamic shared memory per CTA by head_dim;
   2. kernel vs plain: the flash forward kernel against its plain PyTorch
      version on the same device tensors, per case (among them the shape of
      each train path and of the forward: gpt_1b at b=12, b=8 and b=4):
@@ -19,7 +20,8 @@ Phases (any failure exits non-zero; nothing is caught):
   3. backward kernels vs plain: the dQ and dK/dV kernels of the design
      BWD_DESIGNS names (wgmma or mma_sync; each case names it and must launch
      it) against flash_attention_bwd_plain, per case (the train paths'
-     shapes among them): each row of dq, dk, dv held to its own norm
+     shapes among them, and gpt_j_6b's head_dim 256: its train shape, b=2,
+     non-causal, q the suffix, ragged): each row of dq, dk, dv held to its own norm
      (ray_tpu_torch/ops/tolerance.py), max abs error, each kernel's time and
      bound, the plain time and the library time (torch.autograd.grad
      through scaled_dot_product_attention);
@@ -47,6 +49,14 @@ Phases (any failure exits non-zero; nothing is caught):
      one warm-up and 3 timed steps; the gates of phase 4; ms per step,
      tokens/s, MFU by train_step_flops and by the work the experts execute,
      peak memory, the aux loss and the share of assignments dropped;
+  4e. train_gpt_j: gpt_j_6b at full width and depth (28 layers, d_model
+     4096, 16 heads x 256, mlp 16384, vocab 50400) with bf16 parameters and
+     Adam moments, b=1, t=2048, ce_chunk 256, remat "nothing", lr 1e-4 (the
+     reference's _aot_gpt_j_6b step, one card's share of its batch): one
+     warm-up and 3 timed steps; the gates of phase 4 (56 forward launches
+     and 28 of each backward kernel a step, all wgmma, so the head_dim-256
+     backward design), parameters and moments still bf16; ms per step,
+     tokens/s, MFU, peak memory;
   5. forward: gpt_1b in bf16 (random weights from a seeded torch.Generator),
      b=4, t=2048; the wgmma forward kernel must launch num_layers times per
      forward;
@@ -54,12 +64,13 @@ Phases (any failure exits non-zero; nothing is caught):
      512-token prefix), prefix-cache hits, bitwise cached-vs-uncached
      logits, engine prefill vs full forward, no KV block leaked, and
      torch's deterministic mode after close() what it was before the
-     server (the engine scopes it to its steps);
+     server (the engine scopes it to its steps); the closed server's pool
+     and weights go by reference count (7b's peak reads phase 4's);
   7a. lse_grad: flash_attention_with_lse (out and lse, both differentiable:
      the flash forward, then the dQ and dK/dV kernels with delta - dlse) at
-     gpt_1b's heads (b=2, h=16, t=2048, d=128), causal (a ring's step 0) and
-     not (a hop), under random cotangents of both outputs, in bf16 (wgmma)
-     and float32 (mma.sync): against the plain flash versions on the same
+     gpt_1b's heads (b=2, h=16, t=2048, d=128) in bf16 (wgmma) and float32
+     (mma.sync) and gpt_j_6b's (d=256) in bf16, causal (a ring's step 0)
+     and not (a hop), under random cotangents of both outputs: against the plain flash versions on the same
      inputs, and against autograd through the plain float32
      attention_with_lse with the rounding of out in delta moved into the
      lse cotangent (the exact gradient of the kernels' route); every row of
@@ -92,15 +103,17 @@ experts and combine) and the idle share are printed (and written to
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero without a card.
 Each forward case names the design (FWD_DESIGNS: wgmma or mma_sync) and the
-tiles that ran it; each backward case names its design (BWD_DESIGNS). In the kernels line, flash_fwd is the wgmma design, the
-one the main path runs, at gpt_1b's forward shape (b=4) with the forward
-phase's launches, and the backward kernels at the train step's
-shape (b=12) with the train phase's; every entry names its shape and its
-launches on each path (train, remat_attn, remat_dots, train_moe, forward,
-server, sharded_ws1, sp_ring_ws1, sp_ulysses_ws1: the timed steps or calls
-of each) and the case of phases 2-3 that checked it at each path's shape,
-and the backward kernels' plain and library times are those of the whole
-backward (dq, dk and dv together).
+tiles that ran it; each backward case names its design (BWD_DESIGNS). In
+the kernels line, flash_fwd is the wgmma design, the one the main path
+runs, at gpt_1b's forward shape (b=4) with the forward phase's launches,
+and the backward kernels at the train step's shape (b=12) with the train
+phase's; every entry names its shape and its launches on each path (train,
+remat_attn, remat_dots, train_moe, train_gpt_j, forward, server,
+sharded_ws1, sp_ring_ws1, sp_ulysses_ws1: the timed steps or calls of each)
+and the case of phases 2-3 that checked it at each path's shape, and
+carries the head_dim-256 case's (d256_gpt_j, train_gpt_j's shape) numbers
+under "d256"; the backward kernels' plain and library times are those of
+the whole backward (dq, dk and dv together).
 """
 
 from __future__ import annotations
@@ -113,7 +126,6 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import argparse  # noqa: E402
 import ctypes  # noqa: E402
-import gc  # noqa: E402
 import json  # noqa: E402
 import re  # noqa: E402
 import subprocess  # noqa: E402
@@ -143,6 +155,9 @@ ENGINE_VS_FORWARD_ATOL = 0.1
 # but the loss sums the sequence's last position with weight 0 in 512-row
 # chunks over 2048 positions (phase 4: 2047), so the sums differ in order
 SHARDED_LOSS_RTOL = 1e-6
+# the sharded step at world size 1 holds what phase 4's step holds: the same
+# tensors, plus DTensor views that share their storage
+SHARDED_PEAK_GIB = 0.1
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -215,16 +230,19 @@ def phase_build():
                 print(f"[build]   {line.strip()}")
         out[name] = {"seconds": seconds, "library": lib.name,
                      "spills": _spills_by_kernel(report)}
-    # the main path's kernels at head_dim 128: the wgmma forward and both
-    # wgmma backward kernels
-    for source, kernels in (("flash_fwd_wgmma", ("flash_fwd_wgmma_kernel",)),
-                            ("flash_bwd_wgmma", ("flash_bwd_dq_wgmma_kernel",
-                                                 "flash_bwd_dkv_wgmma_kernel"))):
-        for kernel in kernels:
-            main = {k: v for k, v in out[source]["spills"].items()
-                    if kernel in k and "ILi128E" in k}
-            if not main or any(main.values()):
-                raise SystemExit(f"{kernel} at head_dim 128 spills: {main}")
+    # the train paths' kernels: the wgmma forward and both wgmma backward
+    # kernels at head_dim 128 (gpt_1b) and 256 (gpt_j_6b: dK/dV is the split
+    # kernel there)
+    for source, kernel, d in (("flash_fwd_wgmma", "flash_fwd_wgmma_kernel", 128),
+                              ("flash_fwd_wgmma", "flash_fwd_wgmma_kernel", 256),
+                              ("flash_bwd_wgmma", "flash_bwd_dq_wgmma_kernel", 128),
+                              ("flash_bwd_wgmma", "flash_bwd_dkv_wgmma_kernel", 128),
+                              ("flash_bwd_wgmma", "flash_bwd_dq_wgmma_kernel", 256),
+                              ("flash_bwd_wgmma", "flash_bwd_dkv_wgmma_split_kernel", 256)):
+        main = {k: v for k, v in out[source]["spills"].items()
+                if f"{kernel}ILi{d}E" in k}
+        if not main or any(main.values()):
+            raise SystemExit(f"{kernel} at head_dim {d} spills: {main}")
     # dynamic shared memory, which the compiler's report does not show
     fwd_lib = ctypes.CDLL(str(built["flash_fwd_wgmma"][0]))
     fwd_lib.ray_tpu_flash_fwd_wgmma_smem_bytes.argtypes = [ctypes.c_int]
@@ -234,10 +252,13 @@ def phase_build():
     out["flash_fwd_wgmma"]["smem_bytes"] = smem
     bwd_lib = ctypes.CDLL(str(built["flash_bwd_wgmma"][0]))
     bwd_lib.ray_tpu_flash_bwd_wgmma_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    smem = {kernel: {d: bwd_lib.ray_tpu_flash_bwd_wgmma_smem_bytes(d, dkv) for d in (64, 128)}
+    smem = {kernel: {d: bwd_lib.ray_tpu_flash_bwd_wgmma_smem_bytes(d, dkv)
+                     for d in (64, 128, 256)}
             for kernel, dkv in (("dq", 0), ("dkv", 1))}
     print(f"[build] flash_bwd_wgmma dynamic shared memory per CTA by kernel and head_dim: "
-          f"{smem} bytes")
+          f"{smem} bytes (of 232448)")
+    if any(n > 232448 for by_d in smem.values() for n in by_d.values()):
+        raise SystemExit(f"a wgmma backward kernel asks for more than 232448 bytes: {smem}")
     out["flash_bwd_wgmma"]["smem_bytes"] = smem
     return out
 
@@ -342,6 +363,10 @@ BWD_CASES = [
     ("gpt_1b", 4, 16, 2048, 2048, 128, True, torch.bfloat16),
     ("d64_gpt_125m", 4, 12, 2048, 2048, 64, True, torch.bfloat16),
     ("d256_gpt_j", 1, 16, 2048, 2048, 256, True, torch.bfloat16),
+    ("d256_b2", 2, 16, 2048, 2048, 256, True, torch.bfloat16),
+    ("d256_noncausal", 1, 16, 2048, 2048, 256, False, torch.bfloat16),
+    ("d256_suffix_tq256_tkv2048", 1, 16, 256, 2048, 256, True, torch.bfloat16),
+    ("d256_ragged_tq200_tkv264", 2, 16, 200, 264, 256, True, torch.bfloat16),
     ("suffix_tq256_tkv2048", 4, 16, 256, 2048, 128, True, torch.bfloat16),
     ("ragged_tq200_tkv264", 2, 16, 200, 264, 128, True, torch.bfloat16),
     ("ragged_tkv72_full", 4, 16, 64, 72, 128, False, torch.bfloat16),
@@ -369,7 +394,7 @@ def phase_bwd_kernels_vs_plain():
                        for t in (t_q, t_kv, t_kv, t_q))
         scale = 1.0 / d ** 0.5
         design = attn.BWD_DESIGNS[(d, dtype)]
-        if dtype == torch.bfloat16 and d in (64, 128) and design.name != "wgmma":
+        if dtype == torch.bfloat16 and d in (64, 128, 256) and design.name != "wgmma":
             raise SystemExit(f"BWD_DESIGNS sends bf16 head_dim {d} to {design.name}")
         out, lse = attn.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
         before = _launch_counts()
@@ -417,7 +442,8 @@ def phase_bwd_kernels_vs_plain():
                    row_err=row_errs, row_err_tol=tol, ok=ok, dq_ms=dq_ms, dkv_ms=dkv_ms,
                    delta_ms=delta_ms,
                    plain_ms=plain_ms, library_ms=library_ms, dq_bound_ms=dq_bound,
-                   dq_bound_by=dq_by, dkv_bound_ms=dkv_bound, dkv_bound_by=dkv_by)
+                   dq_bound_by=dq_by, dkv_bound_ms=dkv_bound, dkv_bound_by=dkv_by,
+                   dq_bound_share=dq_bound / dq_ms, dkv_bound_share=dkv_bound / dkv_ms)
         rows.append(row)
         print(f"[bwd] {name:<22} {str(row['shape']):<28} {design.name:<8} worst-row err dq "
               f"{row_errs['dq']:.2e} dk {row_errs['dk']:.2e} dv {row_errs['dv']:.2e} "
@@ -544,8 +570,10 @@ def run_train(cfg, tokens, steps: int, fwd_per_layer: int, label: str, profile: 
     single-device step): one warm-up step, then ``steps`` timed steps.
     Gates: per step ``fwd_per_layer * num_layers`` forward launches and
     ``num_layers`` of each backward kernel, all on the wgmma designs; loss
-    and grad norm finite; the last loss below the first. Returns the
-    report; the state is freed before it returns."""
+    and grad norm finite; the last loss below the first; parameters and
+    Adam moments still in ``cfg.param_dtype`` (optax's adamw keeps the
+    moments in the parameters' dtype). Returns the report; the state is
+    freed before it returns."""
     from ray_tpu_torch.models import gpt, training
 
     batch, seq = tokens.shape
@@ -578,6 +606,11 @@ def run_train(cfg, tokens, steps: int, fwd_per_layer: int, label: str, profile: 
         raise SystemExit(f"{label}: train step gave loss {losses}, grad norm {norms}")
     if not losses[-1] < losses[0]:
         raise SystemExit(f"{label}: loss did not fall over {steps} steps: {losses}")
+    state_dtypes = {str(t.dtype) for t in (*state.params.values(), *state.opt_state.mu,
+                                           *state.opt_state.nu)}
+    if state_dtypes != {str(cfg.param_dtype)}:
+        raise SystemExit(f"{label}: parameters and moments in {state_dtypes}, expected "
+                         f"{cfg.param_dtype}")
     ms = seconds / steps * 1e3
     flops = gpt.train_step_flops(cfg, batch, seq)
     report = dict(
@@ -588,7 +621,7 @@ def run_train(cfg, tokens, steps: int, fwd_per_layer: int, label: str, profile: 
         warmup_loss=float(warm["loss"]), warmup_grad_norm=float(warm["grad_norm"]),
         losses=losses, grad_norms=norms,
         launches_per_step=dict(zip(COUNTS, want)),
-        launches=dict(zip(COUNTS, launches)),
+        launches=dict(zip(COUNTS, launches)), state_dtype=str(cfg.param_dtype),
         max_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     if cfg.moe_num_experts:
         report.update(moe_aux=[float(m["moe_aux"]) for m in metrics],
@@ -685,6 +718,23 @@ def phase_train_moe(batch: int, seq: int, steps: int, profile: bool):
           f"by the executed expert work ({executed / 1e12:.1f} TFLOP per step); aux "
           f"{[round(x, 4) for x in rep['moe_aux']]}, share of assignments dropped "
           f"{[round(x, 4) for x in rep['moe_dropped']]}")
+    return rep
+
+
+def phase_train_gpt_j(batch: int, seq: int, steps: int, profile: bool):
+    """4e: gpt_j_6b as the reference's _aot_gpt_j_6b trains it (bf16
+    compute, parameters and moments; ce_chunk 256, remat "nothing",
+    default_optimizer(1e-4)) at full width and depth on one card: its
+    attention runs the head_dim-256 kernels."""
+    from ray_tpu_torch.models import gpt
+
+    cfg = gpt.gpt_j_6b(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    rep = run_train(cfg, _train_tokens(cfg, batch, seq), steps, 2,
+                    "gpt_j_6b bf16 parameters and moments", profile)
+    rep.update(num_params=cfg.num_params(), num_layers=cfg.num_layers,
+               head_dim=cfg.head_dim, embed_dim=cfg.embed_dim)
+    print(f"[gpt_j] {cfg.num_params() / 1e9:.3f} B parameters, {cfg.num_layers} layers, "
+          f"head_dim {cfg.head_dim}; state {rep['state_dtype']}")
     return rep
 
 
@@ -913,8 +963,9 @@ def phase_server(cfg, params, fwd, profile: bool):
 def phase_lse_grad():
     """7a: flash_attention_with_lse, forward and backward under random
     cotangents of both outputs, at gpt_1b's heads (b=2, h=16, t=2048,
-    d=128), causal and not, in bf16 (the wgmma kernels) and float32 (the
-    mma.sync kernels). Two gates on every row of dq, dk and dv:
+    d=128) in bf16 (the wgmma kernels) and float32 (the mma.sync kernels)
+    and at gpt_j_6b's (d=256) in bf16 (the wgmma split dK/dV kernel),
+    causal and not. Two gates on every row of dq, dk and dv:
     - against the plain flash versions on the same inputs (the forward's
       out and lse feed both backwards, as in phase 3): the kernels'
       arithmetic;
@@ -932,11 +983,11 @@ def phase_lse_grad():
     from ray_tpu_torch.ops import attention as attn
     from ray_tpu_torch.ops.tolerance import BWD_TOL, FWD_LSE_TOL, FWD_ROW_TOL, row_err
 
-    b, h, t, d = 2, 16, 2048, 128
-    scale = 1.0 / d ** 0.5
+    b, h, t = 2, 16, 2048
     gen = torch.Generator(device="cuda").manual_seed(7)
     rows = []
-    for dtype in (torch.bfloat16, torch.float32):
+    for d, dtype in ((128, torch.bfloat16), (128, torch.float32), (256, torch.bfloat16)):
+        scale = 1.0 / d ** 0.5
         design = attn.BWD_DESIGNS[(d, dtype)].name
         for causal in (True, False):
             q, k, v, do = (torch.randn(b, h, t, d, device="cuda", dtype=dtype, generator=gen)
@@ -997,7 +1048,7 @@ def phase_lse_grad():
             ms = cuda_ms(kernel_path, iters=10)
             flash_ms = cuda_ms(flash_out_only, iters=10)
             plain_ms = cuda_ms(autograd_plain, iters=3, warmup=1)
-            name = f"lse_grad_{str(dtype)[6:]}_{'causal' if causal else 'full'}"
+            name = f"lse_grad_d{d}_{str(dtype)[6:]}_{'causal' if causal else 'full'}"
             row = dict(case=name, shape=[b, h, t, t, d], causal=causal,
                        dtype=str(dtype)[6:], design=design, row_err=errs,
                        row_err_vs_exact_route=exact_errs,
@@ -1067,6 +1118,12 @@ def phase_sharded_ws1(nothing, steps: int):
             if not grad_rel <= POLICY_GRAD_NORM_RTOL:
                 raise SystemExit(f"{path}: the first grad norm differs from phase 4's by "
                                  f"{grad_rel}")
+            mem_diff = rep["max_memory_gib"] - nothing["max_memory_gib"]
+            if path == "sharded_ws1" and not abs(mem_diff) <= SHARDED_PEAK_GIB:
+                # what the closed server (phase 6) or another phase left behind
+                # would show here
+                raise SystemExit(f"{path}: peak memory {rep['max_memory_gib']:.2f} GiB, phase "
+                                 f"4's {nothing['max_memory_gib']:.2f}")
             rep.update(warmup_loss_rel_diff=loss_rel, warmup_grad_norm_rel_diff=grad_rel,
                        mesh=dict(zip(mesh.mesh_dim_names, map(int, mesh.mesh.shape))),
                        seq_parallel_impl=impl, backend=dist.get_backend())
@@ -1107,6 +1164,7 @@ def main() -> int:
     report["moe_small_vs_cpu"] = train_small_vs_cpu(
         moe_num_experts=4, moe_top_k=2, moe_capacity_factor=0.25)
     report["train_moe"] = phase_train_moe(batch=8, seq=2048, steps=3, profile=args.profile)
+    report["train_gpt_j"] = phase_train_gpt_j(batch=1, seq=2048, steps=3, profile=args.profile)
 
     cfg = gpt.gpt_1b(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
     params = init_params(cfg, device="cuda", seed=0)
@@ -1121,11 +1179,9 @@ def main() -> int:
     if torch.are_deterministic_algorithms_enabled() != deterministic:
         raise SystemExit("the server left torch's deterministic mode changed after close()")
     report["server"]["deterministic_mode_restored"] = True
-    # the closed server's engine sits in reference cycles (its adapter
-    # loader, the prefix cache's eviction callback) with its KV pool and the
-    # weights: only the cyclic collector frees them
+    # the closed server's pool went with it; the weights go here, by
+    # reference count (7b's peak memory shows it)
     del params, fwd
-    gc.collect()
     torch.cuda.empty_cache()
     report["lse_grad"] = phase_lse_grad()
     report.update(phase_sharded_ws1(report["train"], steps=3))
@@ -1144,9 +1200,12 @@ def main() -> int:
 
     fwd_case, fwd_shape = case(report["kernel_cases"], "gpt_1b")
     bwd_case, bwd_shape = case(report["bwd_kernel_cases"], "gpt_1b_train_b12")
+    fwd_d256, fwd_d256_shape = case(report["kernel_cases"], "d256_gpt_j")
+    bwd_d256, bwd_d256_shape = case(report["bwd_kernel_cases"], "d256_gpt_j")
     sharded = ("sharded_ws1", "sp_ring_ws1", "sp_ulysses_ws1")
     paths = {"train": report["train"], "remat_attn": report["remat_policies"]["attn"],
              "remat_dots": report["remat_policies"]["dots"], "train_moe": report["train_moe"],
+             "train_gpt_j": report["train_gpt_j"],
              "forward": report["forward"], "server": report["server"],
              **{path: report[path] for path in sharded}}
     by_path = {name: {path: rep["launches"][name] for path, rep in paths.items()}
@@ -1155,7 +1214,25 @@ def main() -> int:
     # at the shape each path gives it (the server launches no wgmma kernel)
     train_case = {"train": "gpt_1b_train_b12", "remat_attn": "gpt_1b_train_b12",
                   "remat_dots": "gpt_1b_train_b12", "train_moe": "gpt_1b_moe_b8",
+                  "train_gpt_j": "d256_gpt_j",
                   **{path: "gpt_1b_train_b12" for path in sharded}}
+    # the head_dim-256 case (train_gpt_j's shape) beside each entry's own
+    d256 = {
+        "flash_fwd": dict(shape=fwd_d256_shape, ms=fwd_d256["ms"],
+                          bound_ms=fwd_d256["bound_ms"], bound_share=fwd_d256["bound_share"],
+                          plain_ms=fwd_d256["plain_ms"], library_ms=fwd_d256["library_ms"],
+                          max_abs_err=fwd_d256["max_abs_err"], row_err=fwd_d256["row_err"],
+                          design=fwd_d256["design"], tiles=fwd_d256["tiles"]),
+        **{f"flash_bwd_{k}": dict(shape=bwd_d256_shape, ms=bwd_d256[f"{k}_ms"],
+                                  bound_ms=bwd_d256[f"{k}_bound_ms"],
+                                  bound_share=bwd_d256[f"{k}_bound_share"],
+                                  plain_ms=bwd_d256["plain_ms"],
+                                  library_ms=bwd_d256["library_ms"],
+                                  row_err=(bwd_d256["row_err"]["dq"] if k == "dq" else
+                                           max(bwd_d256["row_err"]["dk"],
+                                               bwd_d256["row_err"]["dv"])),
+                                  design=bwd_d256["design"])
+           for k in ("dq", "dkv")}}
     fwd_cases, bwd_cases = {**train_case, "forward": "gpt_1b"}, train_case
     whole = "dq, dk and dv together"
     kernels = {"kernels": [
@@ -1168,7 +1245,8 @@ def main() -> int:
              design=fwd_case["design"], tiles=fwd_case["tiles"],
              row_err=fwd_case["row_err"], row_err_tol=fwd_case["row_err_tol"],
              shape=fwd_shape, launches_path="forward",
-             launches_by_path=by_path["flash_fwd_wgmma"], cases_by_path=fwd_cases),
+             launches_by_path=by_path["flash_fwd_wgmma"], cases_by_path=fwd_cases,
+             d256=d256["flash_fwd"]),
         dict(name="flash_bwd_dq", route="cuda", source=bwd_case["source"],
              replaces="ray_tpu/ops/attention.py:324",
              launches=by_path[f"flash_bwd_dq_{bwd_case['design']}"]["train"],
@@ -1179,7 +1257,7 @@ def main() -> int:
              launches_by_path=by_path[f"flash_bwd_dq_{bwd_case['design']}"],
              cases_by_path=bwd_cases,
              row_err=bwd_case["row_err"]["dq"], row_err_tol=bwd_case["row_err_tol"],
-             plain_ms_computes=whole, library_ms_computes=whole),
+             plain_ms_computes=whole, library_ms_computes=whole, d256=d256["flash_bwd_dq"]),
         dict(name="flash_bwd_dkv", route="cuda", source=bwd_case["source"],
              replaces="ray_tpu/ops/attention.py:394",
              launches=by_path[f"flash_bwd_dkv_{bwd_case['design']}"]["train"],
@@ -1192,7 +1270,7 @@ def main() -> int:
              cases_by_path=bwd_cases,
              row_err=max(bwd_case["row_err"]["dk"], bwd_case["row_err"]["dv"]),
              row_err_tol=bwd_case["row_err_tol"],
-             plain_ms_computes=whole, library_ms_computes=whole),
+             plain_ms_computes=whole, library_ms_computes=whole, d256=d256["flash_bwd_dkv"]),
     ]}
     report.update(kernels)
     if args.out:

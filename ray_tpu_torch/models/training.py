@@ -158,8 +158,17 @@ class ClippedAdamW:
         torch._foreach_div_(denom, bc2 ** 0.5)
         torch._foreach_add_(denom, EPS)
         if self.weight_decay:
-            torch._foreach_mul_(ps, 1.0 - self.learning_rate * self.weight_decay)
-        torch._foreach_addcdiv_(ps, state.mu, denom, value=-self.learning_rate / bc1)
+            # the whole update, mu_hat / denom + weight_decay * p, in the
+            # temporary and then one add, so the parameters round once as
+            # optax's apply_updates rounds them (in bf16 a decay multiply of
+            # its own rounds away)
+            torch._foreach_reciprocal_(denom)
+            torch._foreach_mul_(denom, state.mu)
+            torch._foreach_div_(denom, bc1)
+            torch._foreach_add_(denom, ps, alpha=self.weight_decay)
+            torch._foreach_add_(ps, denom, alpha=-self.learning_rate)
+        else:
+            torch._foreach_addcdiv_(ps, state.mu, denom, value=-self.learning_rate / bc1)
         return AdamWState(count, state.mu, state.nu), norm
 
 

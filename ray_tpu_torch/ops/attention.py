@@ -25,8 +25,8 @@ a shorter q is the suffix of the kv context (``q_pos = q_idx + t_kv - t_q``).
   ``flash_attention_bwd`` launches the dQ and dK/dV kernels
   (``flash_bwd_dq``, ``flash_bwd_dkv``) of the design that the dispatch
   table ``BWD_DESIGNS`` names: ``csrc/flash_bwd_wgmma.cu`` (TMA, wgmma,
-  warp-specialised; bf16 at head_dim 64 and 128) or ``csrc/flash_bwd.cu``
-  (mma.sync; head_dim 16, 32, 256 and float32), counted in
+  warp-specialised; bf16 at head_dim 64, 128 and 256) or ``csrc/flash_bwd.cu``
+  (mma.sync; head_dim 16, 32 and float32), counted in
   ``flash_bwd_dq_launches`` and ``flash_bwd_dkv_launches`` and in the
   design's ``flash_bwd_{dq,dkv}_{wgmma,mma_sync}_launches``. On CPU tensors
   the wrappers take the plain versions and count nothing. On a CUDA tensor
@@ -110,13 +110,12 @@ _BWD_WGMMA = BwdDesign("wgmma", "flash_bwd_wgmma", "ray_tpu_flash_bwd_dq_wgmma",
                        "ray_tpu_flash_bwd_dkv_wgmma")
 
 #: the backward's dispatch table, keyed on (head_dim, dtype): the kernels each
-#: input launches on the card. At head_dim 256 the wgmma design's dK and dV
-#: accumulators would not fit in a consumer thread's registers.
+#: input launches on the card. At head_dim 256 the wgmma design's dK/dV
+#: kernel splits dV and dK between its warpgroups (``flash_bwd_wgmma.cu``).
 BWD_DESIGNS = {
     **{(d, torch.float32): _BWD_MMA_SYNC for d in HEAD_DIMS},
-    **{(d, torch.bfloat16): _BWD_MMA_SYNC for d in (16, 32, 256)},
-    (64, torch.bfloat16): _BWD_WGMMA,
-    (128, torch.bfloat16): _BWD_WGMMA,
+    **{(d, torch.bfloat16): _BWD_MMA_SYNC for d in (16, 32)},
+    **{(d, torch.bfloat16): _BWD_WGMMA for d in (64, 128, 256)},
 }
 
 #: launches of each kernel, counted where it is launched; a launch counts in

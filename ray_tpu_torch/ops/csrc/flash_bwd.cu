@@ -1,7 +1,7 @@
 // Flash-attention backward on mma.sync (sm_90a), hand-written CUDA C++: the
 // design the dispatch table in ops/attention.py (BWD_DESIGNS) sends bf16 at
-// head_dim 16, 32 and 256 and every float32 input to; bf16 at 64 and 128
-// runs csrc/flash_bwd_wgmma.cu.
+// head_dim 16 and 32 and every float32 input to; bf16 at 64, 128 and 256
+// runs csrc/flash_bwd_wgmma.cu, and this file builds no bf16 kernel at 256.
 //
 // Replaces the two TPU kernels of ray_tpu/ops/attention.py launched by
 // _flash_attention_tpu_bwd there:
@@ -41,10 +41,7 @@
 // computes S^T = K Q^T and dP^T = V dO^T directly, so that P^T and dS^T come
 // out in the accumulator layout, which is the A-operand layout of
 // dV += P^T dO and dK += dS^T Q (the forward's trick for P V). P and dS are
-// rounded to bf16 before they feed an mma. At d = 256 two warps share each
-// 16-row group and each keeps the accumulators of half of d, so that dK and
-// dV (2 x 16 x 256 floats a warp) fit in registers; they both compute S and
-// dP. Tiles sit in shared memory with rows padded by 16 bytes. There is no
+// rounded to bf16 before they feed an mma. Tiles sit in shared memory with rows padded by 16 bytes. There is no
 // cp.async pipelining, ldmatrix or wgmma/TMA. float32 inputs take a
 // CUDA-core path with the same tiles (one thread per row), which exists for
 // tests and is not tuned.
@@ -57,7 +54,8 @@
 // q/dout/dq are [bh, t_q, d], k/v/dk/dv [bh, t_kv, d], contiguous; lse and
 // delta [bh, t_q] float32; dtype 0 = bf16, 1 = float32. Each launches one
 // kernel on `stream`, allocates nothing, and returns cudaGetLastError()
-// after the launch (or kUnsupported for a head_dim/dtype it does not take).
+// after the launch (or kUnsupported for a head_dim/dtype it does not take:
+// bf16 at 256 among them).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,7 +66,8 @@ namespace {
 
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
-constexpr int kThreadsF32 = 64;  // one thread per row
+constexpr int kThreadsBf16 = 128;  // four warps, one 16-row group each
+constexpr int kThreadsF32 = 64;    // one thread per row
 constexpr float kNegInf = -1e30f;
 constexpr int kUnsupported = 100000;
 
@@ -87,16 +86,6 @@ struct Params {
   int causal;
   int guard;  // causal && t_q > t_kv: the empty-row guard is on
   float scale;
-};
-
-// Warps of the bf16 kernels: 4 row groups of 16, times kSplit warps that
-// share a row group and split d for the accumulators.
-template <int D>
-struct Tiling {
-  static constexpr int kSplit = D > 128 ? 2 : 1;
-  static constexpr int kThreads = 128 * kSplit;
-  static constexpr int kCols = D / kSplit;  // accumulator columns a warp owns
-  static constexpr int kStride = D + 8;     // shared row stride, bf16 elements
 };
 
 // kv tiles a q tile runs in the dQ pass: the causal skip as a loop bound.
@@ -195,13 +184,11 @@ __device__ __forceinline__ void gemm_rows_nt(float (*acc)[4],
   }
 }
 
-// out[kCols/8][4] += X B for a warp: X [16 x 64] is in the accumulator
-// layout of gemm_rows_nt (rounded to bf16 here), B is 64 shared rows
-// [64, D], of which columns [c0, c0 + kCols) are used.
-template <int D, int kCols>
+// out[D/8][4] += X B for a warp: X [16 x 64] is in the accumulator layout
+// of gemm_rows_nt (rounded to bf16 here), B is 64 shared rows [64, D].
+template <int D>
 __device__ __forceinline__ void gemm_acc_nn(float (*out)[4], float (*x)[4],
-                                            const uint16_t* B, int c0, int g,
-                                            int tig) {
+                                            const uint16_t* B, int g, int tig) {
   constexpr int S = D + 8;
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
@@ -209,9 +196,9 @@ __device__ __forceinline__ void gemm_acc_nn(float (*out)[4], float (*x)[4],
     const uint32_t a1 = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
     const uint32_t a2 = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
     const uint32_t a3 = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-    const uint16_t* b = B + (kk * 16 + tig * 2) * S + c0 + g;
+    const uint16_t* b = B + (kk * 16 + tig * 2) * S + g;
 #pragma unroll
-    for (int dt = 0; dt < kCols / 8; ++dt) {
+    for (int dt = 0; dt < D / 8; ++dt) {
       const uint16_t* bp = b + dt * 8;
       mma_bf16_16816(out[dt], a0, a1, a2, a3, ld_col_pair(bp, S),
                      ld_col_pair(bp + 8 * S, S));
@@ -220,18 +207,18 @@ __device__ __forceinline__ void gemm_acc_nn(float (*out)[4], float (*x)[4],
 }
 
 // Writes a warp's accumulator rows (row, row + 8 of a tile at global row
-// row0) as bf16, columns [c0, c0 + kCols), rows past `rows` dropped.
-template <int D, int kCols>
+// row0) as bf16, rows past `rows` dropped.
+template <int D>
 __device__ __forceinline__ void store_rows_bf16(uint16_t* dst, float (*acc)[4],
                                                 int row0, int row, int rows,
-                                                int c0, int tig) {
+                                                int tig) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = row0 + row + i * 8;
     if (r < rows) {
-      uint16_t* out = dst + (size_t)r * D + c0 + tig * 2;
+      uint16_t* out = dst + (size_t)r * D + tig * 2;
 #pragma unroll
-      for (int dt = 0; dt < kCols / 8; ++dt) {
+      for (int dt = 0; dt < D / 8; ++dt) {
         *reinterpret_cast<uint32_t*>(out + dt * 8) =
             pack_bf16(acc[dt][2 * i], acc[dt][2 * i + 1]);
       }
@@ -240,10 +227,9 @@ __device__ __forceinline__ void store_rows_bf16(uint16_t* dst, float (*acc)[4],
 }
 
 template <int D>
-__global__ void __launch_bounds__(Tiling<D>::kThreads)
+__global__ void __launch_bounds__(kThreadsBf16)
     flash_bwd_dq_bf16_kernel(const Params p) {
-  using T = Tiling<D>;
-  constexpr int S = T::kStride;
+  constexpr int S = D + 8;  // shared row stride, bf16 elements
   extern __shared__ __align__(16) uint16_t smem[];
   uint16_t* Qs = smem;
   uint16_t* dOs = Qs + kBlockQ * S;
@@ -254,8 +240,7 @@ __global__ void __launch_bounds__(Tiling<D>::kThreads)
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2;   // mma group: row within the 8-row half
   const int tig = lane & 3;  // thread in group: column pair
-  const int r_lo = (warp % 4) * 16 + g;  // tile rows owned: r_lo, r_lo + 8
-  const int c0 = (warp / 4) * T::kCols;  // first dQ column owned
+  const int r_lo = warp * 16 + g;  // tile rows owned: r_lo, r_lo + 8
   const int q0 = blockIdx.x * kBlockQ;
   const size_t bh = blockIdx.y;
   const uint16_t* q = static_cast<const uint16_t*>(p.q) + bh * p.t_q * D;
@@ -265,8 +250,8 @@ __global__ void __launch_bounds__(Tiling<D>::kThreads)
   uint16_t* dq = static_cast<uint16_t*>(p.dq) + bh * p.t_q * D;
   const int off = p.t_kv - p.t_q;
 
-  load_tile_bf16<D, T::kThreads>(Qs, q, q0, p.t_q);
-  load_tile_bf16<D, T::kThreads>(dOs, dout, q0, p.t_q);
+  load_tile_bf16<D, kThreadsBf16>(Qs, q, q0, p.t_q);
+  load_tile_bf16<D, kThreadsBf16>(dOs, dout, q0, p.t_q);
   float lse_r[2], delta_r[2];
   bool dead[2];
 #pragma unroll
@@ -278,9 +263,9 @@ __global__ void __launch_bounds__(Tiling<D>::kThreads)
     dead[i] = !live || sees_no_key(p, lse_r[i]);
   }
 
-  float acc[T::kCols / 8][4];
+  float acc[D / 8][4];
 #pragma unroll
-  for (int dt = 0; dt < T::kCols / 8; ++dt) {
+  for (int dt = 0; dt < D / 8; ++dt) {
     acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
   }
 
@@ -288,8 +273,8 @@ __global__ void __launch_bounds__(Tiling<D>::kThreads)
   for (int kt = 0; kt < n_run; ++kt) {
     const int k0 = kt * kBlockK;
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile_bf16<D, T::kThreads>(Ks, k, k0, p.t_kv);
-    load_tile_bf16<D, T::kThreads>(Vs, v, k0, p.t_kv);
+    load_tile_bf16<D, kThreadsBf16>(Ks, k, k0, p.t_kv);
+    load_tile_bf16<D, kThreadsBf16>(Vs, v, k0, p.t_kv);
     __syncthreads();
 
     // P = exp(scale * Q K^T - lse); element e of n-tile nt sits at row
@@ -319,16 +304,15 @@ __global__ void __launch_bounds__(Tiling<D>::kThreads)
       }
     }
     // dQ += dS K
-    gemm_acc_nn<D, T::kCols>(acc, ds, Ks, c0, g, tig);
+    gemm_acc_nn<D>(acc, ds, Ks, g, tig);
   }
-  store_rows_bf16<D, T::kCols>(dq, acc, q0, r_lo, p.t_q, c0, tig);
+  store_rows_bf16<D>(dq, acc, q0, r_lo, p.t_q, tig);
 }
 
 template <int D>
-__global__ void __launch_bounds__(Tiling<D>::kThreads)
+__global__ void __launch_bounds__(kThreadsBf16)
     flash_bwd_dkv_bf16_kernel(const Params p) {
-  using T = Tiling<D>;
-  constexpr int S = T::kStride;
+  constexpr int S = D + 8;  // shared row stride, bf16 elements
   extern __shared__ __align__(16) uint16_t smem[];
   uint16_t* Ks = smem;
   uint16_t* Vs = Ks + kBlockK * S;
@@ -342,8 +326,7 @@ __global__ void __launch_bounds__(Tiling<D>::kThreads)
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2;
   const int tig = lane & 3;
-  const int r_lo = (warp % 4) * 16 + g;  // kv rows owned: r_lo, r_lo + 8
-  const int c0 = (warp / 4) * T::kCols;  // first dK/dV column owned
+  const int r_lo = warp * 16 + g;  // kv rows owned: r_lo, r_lo + 8
   const int k0 = blockIdx.x * kBlockK;
   const size_t bh = blockIdx.y;
   const uint16_t* q = static_cast<const uint16_t*>(p.q) + bh * p.t_q * D;
@@ -354,13 +337,13 @@ __global__ void __launch_bounds__(Tiling<D>::kThreads)
   uint16_t* dv = static_cast<uint16_t*>(p.dv) + bh * p.t_kv * D;
   const int off = p.t_kv - p.t_q;
 
-  load_tile_bf16<D, T::kThreads>(Ks, k, k0, p.t_kv);
-  load_tile_bf16<D, T::kThreads>(Vs, v, k0, p.t_kv);
+  load_tile_bf16<D, kThreadsBf16>(Ks, k, k0, p.t_kv);
+  load_tile_bf16<D, kThreadsBf16>(Vs, v, k0, p.t_kv);
 
-  float dk_acc[T::kCols / 8][4];
-  float dv_acc[T::kCols / 8][4];
+  float dk_acc[D / 8][4];
+  float dv_acc[D / 8][4];
 #pragma unroll
-  for (int dt = 0; dt < T::kCols / 8; ++dt) {
+  for (int dt = 0; dt < D / 8; ++dt) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[dt][e] = dv_acc[dt][e] = 0.f;
   }
@@ -369,9 +352,9 @@ __global__ void __launch_bounds__(Tiling<D>::kThreads)
   for (int qt = dkv_first_q_tile(p, k0); qt < n_q; ++qt) {
     const int q0 = qt * kBlockQ;
     __syncthreads();  // every warp is done with the previous Q/dO tile
-    load_tile_bf16<D, T::kThreads>(Qs, q, q0, p.t_q);
-    load_tile_bf16<D, T::kThreads>(dOs, dout, q0, p.t_q);
-    for (int i = threadIdx.x; i < kBlockQ; i += T::kThreads) {
+    load_tile_bf16<D, kThreadsBf16>(Qs, q, q0, p.t_q);
+    load_tile_bf16<D, kThreadsBf16>(dOs, dout, q0, p.t_q);
+    for (int i = threadIdx.x; i < kBlockQ; i += kThreadsBf16) {
       const int row = q0 + i;
       const bool live = row < p.t_q;
       const float l = live ? p.lse[bh * p.t_q + row] : 0.f;
@@ -398,7 +381,7 @@ __global__ void __launch_bounds__(Tiling<D>::kThreads)
       }
     }
     // dV += P^T dO
-    gemm_acc_nn<D, T::kCols>(dv_acc, s, dOs, c0, g, tig);
+    gemm_acc_nn<D>(dv_acc, s, dOs, g, tig);
     // dS^T = P^T * (V dO^T - delta) * scale
     float ds[8][4];
     gemm_rows_nt<D>(ds, Vs, r_lo, dOs, g, tig);
@@ -411,10 +394,10 @@ __global__ void __launch_bounds__(Tiling<D>::kThreads)
       }
     }
     // dK += dS^T Q
-    gemm_acc_nn<D, T::kCols>(dk_acc, ds, Qs, c0, g, tig);
+    gemm_acc_nn<D>(dk_acc, ds, Qs, g, tig);
   }
-  store_rows_bf16<D, T::kCols>(dk, dk_acc, k0, r_lo, p.t_kv, c0, tig);
-  store_rows_bf16<D, T::kCols>(dv, dv_acc, k0, r_lo, p.t_kv, c0, tig);
+  store_rows_bf16<D>(dk, dk_acc, k0, r_lo, p.t_kv, tig);
+  store_rows_bf16<D>(dv, dv_acc, k0, r_lo, p.t_kv, tig);
 }
 
 // float32 on the CUDA cores: one thread per q row, K and V tiles in shared
@@ -568,13 +551,17 @@ constexpr size_t kRowStats = kBlockQ * (2 * sizeof(float) + sizeof(bool));
 template <int D>
 int launch_d(bool dkv, int dtype, dim3 grid, cudaStream_t st, const Params& p) {
   if (dtype == 0) {
-    const size_t smem = 4 * 64 * (D + 8) * sizeof(uint16_t);
-    if (dkv) {
-      return launch(flash_bwd_dkv_bf16_kernel<D>, grid, Tiling<D>::kThreads,
-                    smem + kRowStats, st, p);
+    if constexpr (D == 256) {
+      return kUnsupported;  // bf16 at 256 runs flash_bwd_wgmma.cu
+    } else {
+      const size_t smem = 4 * 64 * (D + 8) * sizeof(uint16_t);
+      if (dkv) {
+        return launch(flash_bwd_dkv_bf16_kernel<D>, grid, kThreadsBf16,
+                      smem + kRowStats, st, p);
+      }
+      return launch(flash_bwd_dq_bf16_kernel<D>, grid, kThreadsBf16, smem, st,
+                    p);
     }
-    return launch(flash_bwd_dq_bf16_kernel<D>, grid, Tiling<D>::kThreads, smem,
-                  st, p);
   }
   const size_t smem = 2 * 64 * D * sizeof(float);
   if (dkv) {

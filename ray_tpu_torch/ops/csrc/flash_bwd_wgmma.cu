@@ -2,13 +2,13 @@
 // ring, every product on wgmma, warp-specialised. Hand-written CUDA C++.
 //
 // Replaces the two TPU kernels of ray_tpu/ops/attention.py launched by
-// _flash_attention_tpu_bwd, for bf16 at head_dim 64 and 128:
-//   * _flash_bwd_dkv_kernel -> flash_bwd_dkv_wgmma_kernel (dK and dV);
+// _flash_attention_tpu_bwd, for bf16 at head_dim 64, 128 and 256:
+//   * _flash_bwd_dkv_kernel -> flash_bwd_dkv_wgmma_kernel (dK and dV at 64
+//     and 128) and flash_bwd_dkv_wgmma_split_kernel (at 256);
 //   * _flash_bwd_dq_kernel  -> flash_bwd_dq_wgmma_kernel (dQ).
-// csrc/flash_bwd.cu (mma.sync) keeps head_dim 16, 32 and 256 and float32, as
-// the dispatch table in ops/attention.py (BWD_DESIGNS) says: at 256 the dK
-// and dV accumulators alone would take 256 floats a consumer thread. Both
-// kernels recompute P = exp(scale * Q K^T - lse) from the forward's row lse,
+// csrc/flash_bwd.cu (mma.sync) keeps head_dim 16 and 32 and float32, as the
+// dispatch table in ops/attention.py (BWD_DESIGNS) says. All three kernels
+// recompute P = exp(scale * Q K^T - lse) from the forward's row lse,
 // then dP = dO V^T and dS = P * (dP - delta) * scale with delta =
 // rowsum(dO * O) (computed by the caller, as the reference computes it
 // outside its kernels), and accumulate dV = P^T dO, dK = dS^T Q, dQ = dS K.
@@ -59,6 +59,25 @@
 //       P = exp2(S * scale * log2 e - lse * log2 e), dS in registers, bf16;
 //       dQ += dS K, A from registers, K read MN-major.
 //     The kv loop ends at the last kv tile the CTA's last row sees.
+//   * dK/dV at head_dim 256 (the split kernel): a [64 x 256] float32
+//     accumulator takes 128 registers a consumer thread, so dK and dV of
+//     the same rows (256) would not fit in 240. A CTA owns 64 kv rows and
+//     its two consumer warpgroups split the work by output, not by rows:
+//     warpgroup 0 computes S^T = K Q^T, P^T and dV += P^T dO; warpgroup 1
+//     dP^T = V dO^T, dS^T = P^T * (dP^T - delta) * scale and dK += dS^T Q.
+//     P^T crosses in float32 through one [64 x 64] shared tile (16 KiB;
+//     both warpgroups hold a 64 x 64 accumulator in the same layout, so
+//     each thread reads the slots its twin wrote) under two named
+//     barriers, full and empty, so neither recomputes the other's product
+//     (8 * d a pair, as at 64 and 128) and only warpgroup 0 applies the
+//     masks. Shared memory: K and V (64 rows, 64 KiB), two stages of Q and
+//     dO (128 KiB), the P^T tile and the stages' lse and delta. Its
+//     epilogue writes dV through K's buffer and dK through V's: the tile
+//     that only the writing warpgroup read.
+//   * dQ at head_dim 256: the same kernel with kv tiles of 48 rows, since Q
+//     and dO (128 rows, 128 KiB) leave 96 KiB for two stages of K and V; a
+//     consumer thread holds dQ (128 floats), S and dP (24 each) and dS in
+//     bf16 (12). S and dP are m64n48 products.
 //   * Within a warpgroup, the products of tile j + 1 are issued right behind
 //     the accumulating products of tile j, so the tensor cores have work
 //     queued while the warpgroup waits: S and dP behind dQ; S^T behind dV
@@ -85,7 +104,7 @@
 //                                   bh, t_q, t_kv, d, dtype, causal, scale, stream)
 //   int ray_tpu_flash_bwd_wgmma_smem_bytes(d, dkv)  (dynamic shared memory per CTA)
 // q/dout/dq are [bh, t_q, d], k/v/dk/dv [bh, t_kv, d], contiguous bf16 (dtype
-// 0), 16-byte aligned; lse and delta [bh, t_q] float32. Each launches one
+// 0), d 64, 128 or 256, 16-byte aligned; lse and delta [bh, t_q] float32. Each launches one
 // kernel on `stream`, allocates nothing, and returns cudaGetLastError() after
 // the launch, kUnsupported for what it does not take, or kTensorMapFailed.
 
@@ -99,6 +118,8 @@ constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 constexpr int kConsumerWarps = 8;
 constexpr int kEpilogueBar = 1;  // named barriers 1, 2: each consumer warpgroup's epilogue
+constexpr int kPFullBar = 3;     // the split kernel's P^T tile: written
+constexpr int kPEmptyBar = 4;    // and read
 constexpr int kBlockQ = 64;      // q rows per streamed tile of the dK/dV kernel
 constexpr int kRowStatBytes = 2 * kBlockQ * 4;  // a stage's lse and delta
 
@@ -111,13 +132,19 @@ constexpr int kRowStatBytes = 2 * kBlockQ * 4;  // a stage's lse and delta
 constexpr int kDkvStages = 2;
 constexpr int kDqBlockK = 128;
 constexpr int kDqStages = 2;
+// head_dim 256: the kv rows of a dK/dV CTA and its ring depth (a stage of
+// Q and dO is 64 KiB), the dQ kernel's kv rows per tile
+constexpr int kSplitRows = 64;
+constexpr int kSplitStages = 2;
+constexpr int kDqBlockK256 = 48;
 
 // shared memory, in bytes from a 1024-aligned base (the swizzle's period)
 template <int D>
 struct DkvSmem {
-  static constexpr int kStages = kDkvStages;
+  static constexpr int kStages = D == 256 ? kSplitStages : kDkvStages;
+  static constexpr int kKVRows = D == 256 ? kSplitRows : kTileRows;  // the CTA's kv rows
   static constexpr int kBoxes = D / 64;             // 64-column boxes per row
-  static constexpr int kKVBox = kTileRows * 128;    // one box of K or V (and dK, dV)
+  static constexpr int kKVBox = kKVRows * 128;      // one box of K or V (and dK, dV)
   static constexpr int kQBox = kBlockQ * 128;       // one box of a Q or dO tile
   static constexpr int kKVBytes = kBoxes * kKVBox;
   static constexpr int kQBytes = kBoxes * kQBox;
@@ -126,7 +153,9 @@ struct DkvSmem {
   static constexpr int kQ = kV + kKVBytes;                 // kStages Q tiles
   static constexpr int kDO = kQ + kStages * kQBytes;       // kStages dO tiles
   static constexpr int kRows = kDO + kStages * kQBytes;    // kStages lse, delta
-  static constexpr int kBar = kRows + kStages * kRowStatBytes;  // barriers, 8 bytes
+  static constexpr int kP = kRows + kStages * kRowStatBytes;  // the split kernel's P^T
+  static constexpr int kPBytes = D == 256 ? kSplitRows * kBlockQ * 4 : 0;
+  static constexpr int kBar = kP + kPBytes;  // barriers, 8 bytes
   // each: K and V full, then kStages full and kStages empty
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages);
   static constexpr int kAlloc = kBytes + 1024;  // room to align
@@ -135,7 +164,7 @@ struct DkvSmem {
 
 template <int D>
 struct DqSmem {
-  static constexpr int kBN = kDqBlockK;
+  static constexpr int kBN = D == 256 ? kDqBlockK256 : kDqBlockK;
   static constexpr int kStages = kDqStages;
   static constexpr int kBoxes = D / 64;
   static constexpr int kQBox = kTileRows * 128;     // one box of Q or dO (and dQ)
@@ -157,7 +186,7 @@ struct Params {
   const float* lse;
   const float* delta;
   int bh;        // batch * heads
-  int n_tiles;   // the CTA's own 128-row tiles per head (kv for dK/dV, q for dQ)
+  int n_tiles;   // the CTA's own tiles per head (kv for dK/dV, q for dQ)
   int group;     // heads per launch group
   int t_q;
   int t_kv;
@@ -236,6 +265,95 @@ __device__ __forceinline__ void dkv_grads(const float* s, const float* dp, uint3
   }
 }
 
+// The dK/dV kernels' start: the CTA's head, first kv row, first q tile and
+// count of q tiles, and the barriers initialised. Under the causal mask the
+// first kv tiles see the most q tiles: tile 0 of each head runs first.
+template <int D>
+__device__ __forceinline__ void dkv_start(const Params& p, uint32_t base, int* bh, int* k0,
+                                          int* first, int* n_run) {
+  using S = DkvSmem<D>;
+  int tile;
+  launch_slot(p, bh, &tile);
+  *k0 = tile * S::kKVRows;
+  *first = dkv_first_q_tile(p, *k0);
+  *n_run = (p.t_q + kBlockQ - 1) / kBlockQ - *first;
+  const uint32_t bar_kv = base + S::kBar;
+  const uint32_t bar_full = bar_kv + 8;
+  const uint32_t bar_empty = bar_full + 8 * S::kStages;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < S::kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1 + 32);  // thread 0's TMA and warp 1's row stats
+      mbar_init(bar_empty + 8 * s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The dK/dV kernels' producer warpgroup: thread 0 loads the CTA's K and V
+// once and keeps the ring of Q and dO tiles full, warp 1 writes each
+// stage's lse and delta; the paths never meet.
+template <int D>
+__device__ __forceinline__ void dkv_producer(const Params& p, const CUtensorMap* tm_q,
+                                             const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+                                             const CUtensorMap* tm_do, uint32_t base,
+                                             uint8_t* gbase, int bh, int k0, int first,
+                                             int n_run) {
+  using S = DkvSmem<D>;
+  constexpr int kStages = S::kStages;
+  const uint32_t bar_kv = base + S::kBar;
+  const uint32_t bar_full = bar_kv + 8;  // + 8 * stage, likewise below
+  const uint32_t bar_empty = bar_full + 8 * kStages;
+  if (threadIdx.x == 0 && n_run > 0) {
+    mbar_arrive_expect_tx(bar_kv, 2 * S::kKVBytes);
+#pragma unroll
+    for (int c = 0; c < S::kBoxes; ++c) {
+      tma_load_3d(base + S::kK + c * S::kKVBox, tm_k, bar_kv, c * 64, k0, bh);
+      tma_load_3d(base + S::kV + c * S::kKVBox, tm_v, bar_kv, c * 64, k0, bh);
+    }
+#pragma unroll 1
+    for (int j = 0; j < n_run; ++j) {
+      const int stage = j % kStages;
+      const int round = j / kStages;
+      // a stage is free once both warpgroups' dV and dK of its last tile
+      // have completed
+      if (round > 0) mbar_wait_or_trap(bar_empty + 8 * stage, (round - 1) & 1);
+      const int q0 = (first + j) * kBlockQ;
+      const uint32_t full = bar_full + 8 * stage;
+      mbar_arrive_expect_tx(full, 2 * S::kQBytes);
+#pragma unroll
+      for (int c = 0; c < S::kBoxes; ++c) {
+        tma_load_3d(base + S::kQ + stage * S::kQBytes + c * S::kQBox, tm_q, full, c * 64, q0,
+                    bh);
+        tma_load_3d(base + S::kDO + stage * S::kQBytes + c * S::kQBox, tm_do, full, c * 64,
+                    q0, bh);
+      }
+    }
+    // the consumers' last release of each stage: a stalled pipeline traps here
+#pragma unroll 1
+    for (int j = max(0, n_run - kStages); j < n_run; ++j) {
+      mbar_wait_or_trap(bar_empty + 8 * (j % kStages), (j / kStages) & 1);
+    }
+  } else if (threadIdx.x / 32 == 1) {
+    const int lane = threadIdx.x % 32;
+#pragma unroll 1
+    for (int j = 0; j < n_run; ++j) {
+      const int stage = j % kStages;
+      const int round = j / kStages;
+      if (round > 0) mbar_wait_or_trap(bar_empty + 8 * stage, (round - 1) & 1);
+      const int q0 = (first + j) * kBlockQ;
+      float* rows = reinterpret_cast<float*>(gbase + S::kRows + stage * kRowStatBytes);
+#pragma unroll
+      for (int h = 0; h < kBlockQ / 32; ++h) {
+        const int r = lane + 32 * h;
+        row_stats(p, bh, q0 + r, &rows[r], &rows[kBlockQ + r]);
+      }
+      mbar_arrive(bar_full + 8 * stage);
+    }
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -253,75 +371,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t bar_full = bar_kv + 8;  // + 8 * stage, likewise below
   const uint32_t bar_empty = bar_full + 8 * kStages;
 
-  // under the causal mask the first kv tiles see the most q tiles: tile 0
-  // of each head first
-  int bh, tile;
-  launch_slot(p, &bh, &tile);
-  const int k0 = tile * kTileRows;
-  const int first = dkv_first_q_tile(p, k0);
-  const int n_run = (p.t_q + kBlockQ - 1) / kBlockQ - first;
-
-  if (threadIdx.x == 0) {
-    mbar_init(bar_kv, 1);
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(bar_full + 8 * s, 1 + 32);  // thread 0's TMA and warp 1's row stats
-      mbar_init(bar_empty + 8 * s, kConsumerWarps);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  static_assert(S::kKVRows == kTileRows, "head_dim 256 runs the split kernel");
+  int bh, k0, first, n_run;
+  dkv_start<D>(p, base, &bh, &k0, &first, &n_run);
 
   if (threadIdx.x < 128) {
-    // ---- producer: thread 0 keeps the ring full, warp 1 writes each stage's
-    // lse and delta; the paths never meet
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    if (threadIdx.x == 0 && n_run > 0) {
-      mbar_arrive_expect_tx(bar_kv, 2 * S::kKVBytes);
-#pragma unroll
-      for (int c = 0; c < S::kBoxes; ++c) {
-        tma_load_3d(base + S::kK + c * S::kKVBox, &tm_k, bar_kv, c * 64, k0, bh);
-        tma_load_3d(base + S::kV + c * S::kKVBox, &tm_v, bar_kv, c * 64, k0, bh);
-      }
-#pragma unroll 1
-      for (int j = 0; j < n_run; ++j) {
-        const int stage = j % kStages;
-        const int round = j / kStages;
-        // a stage is free once both warpgroups' dV and dK of its last tile
-        // have completed
-        if (round > 0) mbar_wait_or_trap(bar_empty + 8 * stage, (round - 1) & 1);
-        const int q0 = (first + j) * kBlockQ;
-        const uint32_t full = bar_full + 8 * stage;
-        mbar_arrive_expect_tx(full, 2 * S::kQBytes);
-#pragma unroll
-        for (int c = 0; c < S::kBoxes; ++c) {
-          tma_load_3d(base + S::kQ + stage * S::kQBytes + c * S::kQBox, &tm_q, full, c * 64,
-                      q0, bh);
-          tma_load_3d(base + S::kDO + stage * S::kQBytes + c * S::kQBox, &tm_do, full, c * 64,
-                      q0, bh);
-        }
-      }
-      // the consumers' last release of each stage: a stalled pipeline traps here
-#pragma unroll 1
-      for (int j = max(0, n_run - kStages); j < n_run; ++j) {
-        mbar_wait_or_trap(bar_empty + 8 * (j % kStages), (j / kStages) & 1);
-      }
-    } else if (threadIdx.x / 32 == 1) {
-      const int lane = threadIdx.x % 32;
-#pragma unroll 1
-      for (int j = 0; j < n_run; ++j) {
-        const int stage = j % kStages;
-        const int round = j / kStages;
-        if (round > 0) mbar_wait_or_trap(bar_empty + 8 * stage, (round - 1) & 1);
-        const int q0 = (first + j) * kBlockQ;
-        float* rows = reinterpret_cast<float*>(gbase + S::kRows + stage * kRowStatBytes);
-#pragma unroll
-        for (int h = 0; h < kBlockQ / 32; ++h) {
-          const int r = lane + 32 * h;
-          row_stats(p, bh, q0 + r, &rows[r], &rows[kBlockQ + r]);
-        }
-        mbar_arrive(bar_full + 8 * stage);
-      }
-    }
+    dkv_producer<D>(p, &tm_q, &tm_k, &tm_v, &tm_do, base, gbase, bh, k0, first, n_run);
   } else {
     // ---- consumers: warpgroup cw owns kv rows [k0 + 64 cw, k0 + 64 cw + 64)
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
@@ -424,6 +480,178 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int c = 0; c < S::kBoxes; ++c) {
         tma_store_3d(&tm_dk, k_rows + c * S::kKVBox, c * 64, k_wg, bh);
         tma_store_3d(&tm_dv, v_rows + c * S::kKVBox, c * 64, k_wg, bh);
+      }
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    }
+  }
+}
+
+// P^T of one [64 kv x 64 q] tile from S^T (s), in place in s (float32) and
+// in bf16 in the A-operand layout (pa); the layout, masks and `rows` as in
+// dkv_grads.
+__device__ __forceinline__ void dkv_probs(float* s, uint32_t* pa, const float* rows,
+                                          const Params& p, int q0, int kv0, int tq,
+                                          bool masked) {
+#pragma unroll
+  for (int i = 0; i < kBlockQ / 2; i += 2) {
+    const int c = 8 * (i >> 2) + 2 * tq;  // columns c, c + 1
+    const int kv = kv0 + 8 * ((i >> 1) & 1);
+    const float2 lse2 = *reinterpret_cast<const float2*>(rows + c);
+    float p0 = fast_exp2(fmaf(s[i], p.scale_log2, -lse2.x));
+    float p1 = fast_exp2(fmaf(s[i + 1], p.scale_log2, -lse2.y));
+    if (masked) {
+      const bool out = kv >= p.t_kv;
+      if (out || (p.causal && q0 + c + p.off < kv)) p0 = 0.f;
+      if (out || (p.causal && q0 + c + 1 + p.off < kv)) p1 = 0.f;
+    }
+    s[i] = p0;
+    s[i + 1] = p1;
+    pa[i / 2] = pack_bf16(p0, p1);
+  }
+}
+
+// dS^T of the tile from dP^T (dp) and P^T, which the other warpgroup wrote
+// as float4 (elements i .. i + 3 of its thread wtid at ptile[(i / 4) * 128 +
+// wtid]), in bf16 in the A-operand layout (dsa). Elements i, i + 1 and i + 2,
+// i + 3 (i % 4 == 0) share their q columns, so their delta.
+__device__ __forceinline__ void dkv_dscores(const float* dp, uint32_t* dsa, const float4* ptile,
+                                            const float* rows, const Params& p, int wtid,
+                                            int tq) {
+#pragma unroll
+  for (int i = 0; i < kBlockQ / 2; i += 4) {
+    const float4 pr = ptile[(i / 4) * 128 + wtid];
+    const float2 dl = *reinterpret_cast<const float2*>(rows + kBlockQ + 8 * (i >> 2) + 2 * tq);
+    dsa[i / 2] = pack_bf16(pr.x * (dp[i] - dl.x) * p.scale, pr.y * (dp[i + 1] - dl.y) * p.scale);
+    dsa[i / 2 + 1] =
+        pack_bf16(pr.z * (dp[i + 2] - dl.x) * p.scale, pr.w * (dp[i + 3] - dl.y) * p.scale);
+  }
+}
+
+// dK and dV at head_dim 256: warpgroup 0 accumulates dV, warpgroup 1 dK,
+// over the CTA's 64 kv rows (the header's design).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_wgmma_split_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                     const __grid_constant__ CUtensorMap tm_k,
+                                     const __grid_constant__ CUtensorMap tm_v,
+                                     const __grid_constant__ CUtensorMap tm_do,
+                                     const __grid_constant__ CUtensorMap tm_dk,
+                                     const __grid_constant__ CUtensorMap tm_dv,
+                                     const Params p) {
+  using S = DkvSmem<D>;
+  constexpr int kStages = S::kStages;
+  static_assert(S::kKVRows == 64, "one 64-row warpgroup tile per output");
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t bar_kv = base + S::kBar;
+  const uint32_t bar_full = bar_kv + 8;  // + 8 * stage, likewise below
+  const uint32_t bar_empty = bar_full + 8 * kStages;
+
+  int bh, k0, first, n_run;
+  dkv_start<D>(p, base, &bh, &k0, &first, &n_run);
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    dkv_producer<D>(p, &tm_q, &tm_k, &tm_v, &tm_do, base, gbase, bh, k0, first, n_run);
+  } else {
+    // ---- consumers: warpgroup 0 takes S^T = K Q^T, P^T, dV += P^T dO;
+    // warpgroup 1 dP^T = V dO^T, dS^T, dK += dS^T Q; both over all 64 rows
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int cw = threadIdx.x / 128 - 1;
+    const int wtid = threadIdx.x % 128;
+    const int warp = wtid / 32;
+    const int lane = threadIdx.x % 32;
+    const int g = lane >> 2;  // row within the warp's 8-row half
+    const int tq = lane & 3;  // column pair within an 8-column group
+    const int kv0 = k0 + 16 * warp + g;  // kv rows kv0 and kv0 + 8
+    // the warpgroup's resident operand (K or V), the stage's tile it is
+    // multiplied with (Q or dO) and the one its accumulator takes (dO or Q)
+    const uint32_t a_rows = base + (cw == 0 ? S::kK : S::kV);
+    const uint32_t b_tiles = base + (cw == 0 ? S::kQ : S::kDO);
+    const uint32_t c_tiles = base + (cw == 0 ? S::kDO : S::kQ);
+    float4* const ptile = reinterpret_cast<float4*>(gbase + S::kP);
+
+    float acc[D / 2];  // dV (warpgroup 0) or dK (warpgroup 1)
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    if (n_run > 0) {
+      float x[kBlockQ / 2];      // S^T, then P^T (warpgroup 0); dP^T (1)
+      uint32_t xa[kBlockQ / 4];  // P^T or dS^T in bf16, the A operand
+      // x = A B^T of tile j
+      auto issue_x = [&](int j) {
+        fence_regs<kBlockQ / 2>(x);
+        wgmma_fence();
+        issue_nt<D, kBlockQ, kSplitRows>(x, a_rows, b_tiles + (j % kStages) * S::kQBytes);
+        wgmma_commit();
+      };
+      // P^T or dS^T of tile j in bf16 (P^T handed over through ptile), then
+      // the accumulator's product of it issued
+      auto accumulate = [&](int j) {
+        const int q0 = (first + j) * kBlockQ;
+        const float* rows =
+            reinterpret_cast<const float*>(gbase + S::kRows + (j % kStages) * kRowStatBytes);
+        if (cw == 0) {
+          const bool masked = (p.causal && q0 + p.off < k0 + 63) || k0 + 64 > p.t_kv;
+          dkv_probs(x, xa, rows, p, q0, kv0, tq, masked);
+          if (j > 0) named_sync(kPEmptyBar);  // warpgroup 1 has read P^T of tile j - 1
+#pragma unroll
+          for (int i = 0; i < kBlockQ / 2; i += 4) {
+            ptile[(i / 4) * 128 + wtid] = make_float4(x[i], x[i + 1], x[i + 2], x[i + 3]);
+          }
+          named_arrive(kPFullBar);
+        } else {
+          named_sync(kPFullBar);
+          dkv_dscores(x, xa, ptile, rows, p, wtid, tq);
+          if (j + 1 < n_run) named_arrive(kPEmptyBar);
+        }
+        fence_regs<kBlockQ / 4>(xa);
+        fence_regs<D / 2>(acc);
+        wgmma_fence();
+        issue_nn<D, kBlockQ>(acc, xa, c_tiles + (j % kStages) * S::kQBytes);
+        wgmma_commit();
+      };
+      auto release = [&](int j) {
+        fence_regs<D / 2>(acc);
+        fence_regs<kBlockQ / 4>(xa);
+        if (lane == 0) mbar_arrive(bar_empty + 8 * (j % kStages));
+      };
+
+      mbar_wait(bar_kv, 0);
+      mbar_wait(bar_full, 0);
+      issue_x(0);
+      wgmma_wait<0>();
+      fence_regs<kBlockQ / 2>(x);
+      // x of tile j + 1 is queued behind the accumulator's product of tile j
+#pragma unroll 1
+      for (int j = 0; j + 1 < n_run; ++j) {
+        accumulate(j);
+        mbar_wait(bar_full + 8 * ((j + 1) % kStages), ((j + 1) / kStages) & 1);
+        issue_x(j + 1);
+        wgmma_wait<1>();  // dV or dK of tile j
+        release(j);
+        wgmma_wait<0>();  // x of tile j + 1
+        fence_regs<kBlockQ / 2>(x);
+      }
+      accumulate(n_run - 1);
+      wgmma_wait<0>();
+      release(n_run - 1);
+    }
+
+    // ---- epilogue: dV through K's buffer, dK through V's: each warpgroup
+    // writes the tile that only it read, once its last products completed
+    // (or which was never loaded, when no q tile sees these keys)
+    const float one[2] = {1.f, 1.f};
+    write_rows_bf16<D>(gbase + (a_rows - base), S::kKVBox, acc, one, warp, g, tq);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(kEpilogueBar + cw) : "memory");
+    if (wtid == 0) {
+      const CUtensorMap* out = cw == 0 ? &tm_dv : &tm_dk;
+#pragma unroll
+      for (int c = 0; c < S::kBoxes; ++c) {
+        tma_store_3d(out, a_rows + c * S::kKVBox, c * 64, k0, bh);
       }
       asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
       asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
@@ -660,14 +888,20 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, vo
   CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dk, tm_dv;
   if (make_map(&tm_q, q, D, p.t_q, p.bh, kBlockQ) ||
       make_map(&tm_do, dout, D, p.t_q, p.bh, kBlockQ) ||
-      make_map(&tm_k, k, D, p.t_kv, p.bh, kTileRows) ||
-      make_map(&tm_v, v, D, p.t_kv, p.bh, kTileRows) ||
+      make_map(&tm_k, k, D, p.t_kv, p.bh, S::kKVRows) ||
+      make_map(&tm_v, v, D, p.t_kv, p.bh, S::kKVRows) ||
       make_map(&tm_dk, dk, D, p.t_kv, p.bh, 64) || make_map(&tm_dv, dv, D, p.t_kv, p.bh, 64)) {
     return kTensorMapFailed;
   }
-  p.n_tiles = (p.t_kv + kTileRows - 1) / kTileRows;
+  p.n_tiles = (p.t_kv + S::kKVRows - 1) / S::kKVRows;
   p.group = l2_group(4ll * p.t_q * D, p.bh);  // Q and dO of one head, bf16
-  auto kernel = flash_bwd_dkv_wgmma_kernel<D>;
+  auto kernel = [] {
+    if constexpr (D == 256) {
+      return flash_bwd_dkv_wgmma_split_kernel<D>;
+    } else {
+      return flash_bwd_dkv_wgmma_kernel<D>;
+    }
+  }();
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kAlloc);
   if (err != cudaSuccess) return (int)err;
@@ -701,8 +935,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, voi
 bool make_params(Params* p, const void* lse, const void* delta, int bh, int t_q, int t_kv,
                  int d, int dtype, int causal, float scale) {
   const long long rows = t_q > t_kv ? t_q : t_kv;
-  if (bh <= 0 || t_q <= 0 || t_kv <= 0 || dtype != 0 || (d != 64 && d != 128) ||
-      (long long)bh * ((rows + kTileRows - 1) / kTileRows) > 0x7fffffffll) {
+  if (bh <= 0 || t_q <= 0 || t_kv <= 0 || dtype != 0 || (d != 64 && d != 128 && d != 256) ||
+      (long long)bh * ((rows + kSplitRows - 1) / kSplitRows) > 0x7fffffffll) {
     return false;
   }
   p->lse = static_cast<const float*>(lse);
@@ -730,8 +964,11 @@ extern "C" int ray_tpu_flash_bwd_dkv_wgmma(const void* q, const void* k, const v
     return kUnsupported;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return d == 64 ? launch_dkv<64>(q, k, v, dout, dk, dv, p, st)
-                 : launch_dkv<128>(q, k, v, dout, dk, dv, p, st);
+  switch (d) {
+    case 64: return launch_dkv<64>(q, k, v, dout, dk, dv, p, st);
+    case 128: return launch_dkv<128>(q, k, v, dout, dk, dv, p, st);
+  }
+  return launch_dkv<256>(q, k, v, dout, dk, dv, p, st);
 }
 
 extern "C" int ray_tpu_flash_bwd_dq_wgmma(const void* q, const void* k, const void* v,
@@ -744,14 +981,18 @@ extern "C" int ray_tpu_flash_bwd_dq_wgmma(const void* q, const void* k, const vo
     return kUnsupported;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return d == 64 ? launch_dq<64>(q, k, v, dout, dq, p, st)
-                 : launch_dq<128>(q, k, v, dout, dq, p, st);
+  switch (d) {
+    case 64: return launch_dq<64>(q, k, v, dout, dq, p, st);
+    case 128: return launch_dq<128>(q, k, v, dout, dq, p, st);
+  }
+  return launch_dq<256>(q, k, v, dout, dq, p, st);
 }
 
 extern "C" int ray_tpu_flash_bwd_wgmma_smem_bytes(int d, int dkv) {
   switch (d) {
     case 64: return dkv ? DkvSmem<64>::kAlloc : DqSmem<64>::kAlloc;
     case 128: return dkv ? DkvSmem<128>::kAlloc : DqSmem<128>::kAlloc;
+    case 256: return dkv ? DkvSmem<256>::kAlloc : DqSmem<256>::kAlloc;
   }
   return 0;
 }

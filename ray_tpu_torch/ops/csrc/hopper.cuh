@@ -143,7 +143,9 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// named barrier `id` over the two consumer warpgroups (256 threads)
+// named barrier `id` over the two consumer warpgroups (256 threads): one
+// side's bar.arrive releases what it wrote to shared memory to the other
+// side's bar.sync
 __device__ __forceinline__ void named_sync(int id) {
   asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
 }
@@ -171,6 +173,19 @@ __device__ __forceinline__ void fence_regs(uint32_t* r) {
 // D[64 x N] (+)= A[64 x 16] B[16 x N], A and B K-major in shared memory
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<48>(float* d, uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "%24, %25, p, 1, 1, 0, 0;\n}\n"
+      : F8(0), F8(8), F8(16)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da, uint64_t db,

@@ -8,7 +8,10 @@ piece of text replaced (``flash_fwd_variants.build_variant``):
 * ``as built``: the sources unchanged;
 * ``dQ kv tile 64``: the dQ kernel's K/V tiles of 64 rows instead of 128
   (fewer registers, twice the barrier rounds);
-* ``dK/dV 3 stages``: a third stage of Q and dO in the dK/dV kernel's ring.
+* ``dK/dV 3 stages``: a third stage of Q and dO in the dK/dV kernel's ring;
+* ``L2 group 32 MiB``: launch groups of heads whose streamed tiles fill
+  32 MiB of L2 instead of 16 (at gpt_j_6b's b=1 every head in one group, so
+  the heaviest tiles of all heads run first).
 
 It prints each variant's spills from the compiler's report, checks each
 kernel against the plain backward (worst-row error, ``ops/tolerance.py``),
@@ -37,15 +40,18 @@ VARIANTS = {
     "as built": [],
     "dQ kv tile 64": [("constexpr int kDqBlockK = 128;", "constexpr int kDqBlockK = 64;")],
     "dK/dV 3 stages": [("constexpr int kDkvStages = 2;", "constexpr int kDkvStages = 3;")],
+    "L2 group 32 MiB": [("constexpr long long kL2GroupBytes = 16ll << 20;",
+                         "constexpr long long kL2GroupBytes = 32ll << 20;")],
 }
-# b, h, t_q, t_kv, d, causal: gpt_1b's train step (b=12), b=4, non-causal
+# b, h, t_q, t_kv, d, causal: gpt_1b's train step (b=12), b=4, non-causal;
+# gpt_j_6b's (b=1, head_dim 256)
 SHAPES = [(12, 16, 2048, 2048, 128, True), (4, 16, 2048, 2048, 128, True),
-          (4, 16, 2048, 2048, 128, False)]
+          (4, 16, 2048, 2048, 128, False), (1, 16, 2048, 2048, 256, True)]
 
 
 def _build_variant(name: str):
-    """(dQ function, dK/dV function, spill bytes of each kernel at head_dim
-    128) of one variant."""
+    """(dQ function, dK/dV function, spill bytes of each kernel by head_dim)
+    of one variant."""
     lib, by_kernel = build_variant(SOURCE, name, VARIANTS[name])
     fns = []
     for entry, n_ptr in (("ray_tpu_flash_bwd_dq_wgmma", 7), ("ray_tpu_flash_bwd_dkv_wgmma", 8)):
@@ -54,8 +60,9 @@ def _build_variant(name: str):
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fns.append(fn)
-    spills = {kernel: sum(v for k, v in by_kernel.items() if kernel in k and "ILi128E" in k)
-              for kernel in ("dq_wgmma", "dkv_wgmma")}
+    spills = {f"{kernel} d={d}": sum(v for k, v in by_kernel.items()
+                                     if kernel in k and f"ILi{d}E" in k)
+              for kernel in ("dq_wgmma", "dkv_wgmma") for d in (64, 128, 256)}
     return fns[0], fns[1], spills
 
 
@@ -80,7 +87,7 @@ def main() -> int:
     with ThreadPoolExecutor(len(VARIANTS)) as pool:  # one nvcc per variant
         built = dict(zip(VARIANTS, pool.map(_build_variant, VARIANTS)))
     for name, (_, _, spills) in built.items():
-        print(f"[variant] {name:<16} spill bytes at head_dim 128 {spills}")
+        print(f"[variant] {name:<20} spill bytes {spills}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for b, h, t_q, t_kv, d, causal in SHAPES:

@@ -37,8 +37,9 @@ import os
 import queue as queue_mod
 import threading
 import time
+import weakref
 from collections import OrderedDict
-from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
+from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -133,18 +134,21 @@ class KVBlockPool:
         self._free: List[int] = list(range(self.num_blocks))
         self._ref: Dict[int, int] = {}
         self._lock = threading.RLock()
-        self._evict_cb: Optional[Callable[[int], None]] = None
+        self._evict_cb: Optional[weakref.WeakMethod] = None
         self.freed_total = 0
 
-    def set_evict_cb(self, cb: Callable[[int], None]) -> None:
+    def set_evict_cb(self, cb: weakref.WeakMethod) -> None:
         """Hook called (under the pool lock) with the shortfall when an
-        allocation would fail: the prefix cache drops idle entries here."""
+        allocation would fail: the prefix cache drops idle entries here.
+        ``cb`` is a ``weakref.WeakMethod``; once its object is gone the
+        hook does nothing."""
         self._evict_cb = cb
 
     def allocate(self, n: int) -> List[int]:
         with self._lock:
-            if len(self._free) < n and self._evict_cb is not None:
-                self._evict_cb(n - len(self._free))
+            evict = self._evict_cb() if self._evict_cb is not None else None
+            if len(self._free) < n and evict is not None:
+                evict(n - len(self._free))
             if len(self._free) < n:
                 raise NoKVBlocksError(
                     f"need {n} KV blocks, {len(self._free)} free "
@@ -257,7 +261,9 @@ class PrefixCache:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
-        pool.set_evict_cb(self._evict_for)
+        # a weak method: the pool's hook must not keep the cache (and so
+        # the pool itself) alive in a reference cycle
+        pool.set_evict_cb(weakref.WeakMethod(self._evict_for))
 
     def match(self, hashes: Sequence[bytes]) -> List[int]:
         """Block ids of the longest cached prefix chain, increfed for the
@@ -351,6 +357,13 @@ def _fetch_lora(model_id: str):
 # ---------------------------------------------------------------------------
 
 
+def _adapter_to_device(adapter, device):
+    a, bmat, scale = adapter
+    def dev(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+    return dev(a), dev(bmat), float(scale)
+
+
 class _SeqState:
     __slots__ = (
         "prompt", "max_new", "eos", "model_id", "adapter", "lease", "blocks",
@@ -402,9 +415,11 @@ class LLMEngine:
         self.prefix: Optional[PrefixCache] = (
             PrefixCache(self.pool) if prefix_caching else None
         )
-        loader = adapter_loader or _fetch_lora
+        loader, dev = adapter_loader or _fetch_lora, self.device
+        # the loader holds the device, not the engine: a closed server's
+        # engine, pool and weights then go by reference count
         self._mux = _MultiplexWrapper(
-            lambda mid: self._adapter_to_device(loader(mid)), int(max_adapters))
+            lambda mid: _adapter_to_device(loader(mid), dev), int(max_adapters))
         #: fault injection: stretch every engine step
         self.step_delay_s = float(step_delay_s)
         self.steps = 0
@@ -412,12 +427,6 @@ class LLMEngine:
         self.prefill_tokens = 0
         self.prefill_seconds = 0.0
         self.decode_seconds = 0.0
-
-    def _adapter_to_device(self, adapter):
-        a, bmat, scale = adapter
-        def dev(x):
-            return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
-        return dev(a), dev(bmat), float(scale)
 
     # -- public stats ------------------------------------------------------
 

@@ -32,6 +32,15 @@ CASES = [
     (1, 2, 160, 64, 64, True),      # t_q > t_kv at head_dim 64 (the wgmma backward)
     (2, 2, 384, 384, 128, False),   # three full q tiles of 128, non-causal
 ]
+# head_dim 256 for the backward (the wgmma split dK/dV kernel and the dQ
+# kernel's 48-row kv tiles; CASES has the ragged 200 x 264): b=2 causal,
+# non-causal with a ragged q tile, q the suffix, rows that see no key
+BWD_D256_CASES = [
+    (2, 2, 256, 256, 256, True),
+    (1, 2, 192, 192, 256, False),
+    (1, 2, 64, 320, 256, True),
+    (1, 1, 160, 64, 256, True),
+]
 # the tolerances and why: ray_tpu_torch/ops/tolerance.py
 
 
@@ -137,8 +146,8 @@ def test_kernel_wrapper_refuses_tensors_off_cpu_and_cuda():
 def test_bwd_designs_cover_every_head_dim_and_dtype():
     """The backward's dispatch table names a design for every head_dim the
     kernels take in both dtypes, each from a source the port builds, with
-    entry points that source binds; bf16 at head_dim 64 and 128 (gpt_125m's
-    and gpt_1b's) runs the wgmma kernels."""
+    entry points that source binds; bf16 at head_dim 64, 128 and 256
+    (gpt_125m's, gpt_1b's and gpt_j_6b's) runs the wgmma kernels."""
     keys = {(d, dt) for d in port.HEAD_DIMS for dt in (torch.bfloat16, torch.float32)}
     assert set(port.BWD_DESIGNS) == keys
     for design in port.BWD_DESIGNS.values():
@@ -146,7 +155,7 @@ def test_bwd_designs_cover_every_head_dim_and_dtype():
         assert (port._build.CSRC_DIR / f"{design.source}.cu").exists()
         assert {design.dq_entry, design.dkv_entry} <= set(entries)
     assert {d for (d, dt), design in port.BWD_DESIGNS.items()
-            if design.name == "wgmma"} == {64, 128}
+            if design.name == "wgmma"} == {64, 128, 256}
     assert all(dt == torch.bfloat16 for (_, dt), design in port.BWD_DESIGNS.items()
                if design.name == "wgmma")
 
@@ -239,7 +248,7 @@ def test_segment_ids_on_card_match_the_cpu(card):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("case", CASES, ids=_ids)
+@pytest.mark.parametrize("case", CASES + BWD_D256_CASES, ids=_ids)
 def test_flash_bwd_kernels_match_plain_on_card(card, case, dtype):
     """dq, dk, dv of the dQ and dK/dV kernels against the plain backward on
     the same device tensors, rows that see no key included."""

@@ -9,8 +9,10 @@ summation orders); cached-vs-uncached logits on one server must be bitwise
 equal.
 """
 
+import gc
 import threading
 import time
+import weakref
 
 import jax
 import numpy as np
@@ -264,6 +266,32 @@ def test_ttft_reported_and_concurrent_batching(port_server):
     for r in out:
         assert r["ttft_s"] is not None and 0 < r["ttft_s"] < 60
         assert len(r["tokens"]) == 8
+
+
+def test_closed_server_frees_its_engine_and_pool_without_the_collector(port_params):
+    """A served and closed LLMServer, with prefix caching and an adapter
+    loader, frees its engine and KV pool by reference count: no reference
+    cycle keeps them (and, at full size, GiBs of device memory) until the
+    cyclic collector runs."""
+    threads = set(threading.enumerate())
+    srv = llm.LLMServer(CFG, params=port_params, device="cpu", prefix_caching=True,
+                        adapter_loader=lambda mid: _ADAPTERS[mid], **SETTINGS)
+    prompt = _prompt(12, 40)
+    for model_id in (None, "lora:a", None):
+        r = srv({"prompt": prompt, "max_new_tokens": 3, "model_id": model_id})
+    assert r["prefix_cached_tokens"] > 0
+    assert "lora:a" in srv.kv_stats()["adapters_resident"]
+    engine, pool = weakref.ref(srv._engine), weakref.ref(srv._engine.pool)
+    gc.disable()
+    try:
+        srv.close()
+        for t in set(threading.enumerate()) - threads:  # the scheduler thread
+            t.join(timeout=30)
+        del srv, r
+        assert engine() is None, "the closed server's engine is still referenced"
+        assert pool() is None, "the closed server's KV pool is still referenced"
+    finally:
+        gc.enable()
 
 
 def test_kv_exhaustion_sheds_without_leak(port_params):

@@ -5,8 +5,15 @@ Inputs come from numpy seeds; weights from the JAX init, carried across
 with ``params_from_jax``. Everything runs in float32. Tolerances:
 - losses and their gradients: atol 1e-5, rtol 1e-5 (other summation
   orders);
-- optimizer against optax: atol 1e-6, rtol 1e-5 over 4 steps (the same
-  arithmetic in another order of operations);
+- optimizer against optax: atol 1e-6, rtol 1e-5 over 4 steps in float32
+  (the same arithmetic in another order of operations); in bfloat16
+  (parameters, gradients and both moments, as optax keeps the moments in
+  the parameters' dtype) each parameter within two bf16 ulps (rtol 2^-6)
+  and the global norm within one (rtol 2^-8): optax rounds every bf16
+  operation (its norm and bias corrections included), the port's foreach
+  ops compute in float32 and round once each;
+- a gpt_j-shaped model (head_dim 256) trained 3 steps: loss and grad norm
+  within rtol 1e-4, as gpt_nano's;
 - gpt_nano train step, 5 steps at lr 1e-2: loss and grad norm within
   rtol 1e-4 (the port's attention is the tiled flash algorithm, the JAX CPU
   path the full softmax; the optimizer feeds each step's rounding into the
@@ -31,7 +38,8 @@ from ray_tpu_torch.models import convert, gpt, inference, training
 from ray_tpu_torch.ops import attention
 
 LOSS_TOL = dict(atol=1e-5, rtol=1e-5)
-OPT_TOL = dict(atol=1e-6, rtol=1e-5)
+OPT_TOL = {"float32": dict(atol=1e-6, rtol=1e-5), "bfloat16": dict(atol=0.0, rtol=2 ** -6)}
+OPT_NORM_RTOL = {"float32": 1e-6, "bfloat16": 2 ** -8}
 STEP_RTOL = 1e-4
 
 
@@ -135,10 +143,13 @@ def test_train_step_flops_matches_jax():
 # ---------------------------------------------------------------------------
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("weight_decay", [0.0, 0.1])
-def test_optimizer_matches_optax(weight_decay):
+def test_optimizer_matches_optax(weight_decay, dtype):
     """Four steps on the same numpy gradients; global norms of 3.0, 0.5,
-    2.0 and 0.25, so the clip acts on steps 1 and 3 only."""
+    2.0 and 0.25, so the clip acts on steps 1 and 3 only. Parameters,
+    gradients and moments in ``dtype`` on both sides; the moments stay
+    in it."""
     rng = np.random.RandomState(5)
     shapes = {"a": (4, 6), "b": (6,), "c": (3, 2, 5)}
     params = {k: rng.randn(*s).astype(np.float32) for k, s in shapes.items()}
@@ -148,23 +159,29 @@ def test_optimizer_matches_optax(weight_decay):
         total = np.sqrt(sum(float((x.astype(np.float64) ** 2).sum()) for x in g.values()))
         grads.append({k: (x * (norm / total)).astype(np.float32) for k, x in g.items()})
 
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     tx = jtr.default_optimizer(1e-2, weight_decay=weight_decay)
-    jparams = {k: jnp.asarray(v) for k, v in params.items()}
+    jparams = {k: jnp.asarray(v, jdt) for k, v in params.items()}
     jstate = tx.init(jparams)
     opt = training.default_optimizer(1e-2, weight_decay=weight_decay)
-    tparams = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    tparams = {k: torch.from_numpy(v.copy()).to(tdt) for k, v in params.items()}
     tstate = opt.init(tparams)
     for g in grads:
-        jg = {k: jnp.asarray(v) for k, v in g.items()}
+        jg = {k: jnp.asarray(v, jdt) for k, v in g.items()}
         updates, jstate = tx.update(jg, jstate, jparams)
         jparams = optax.apply_updates(jparams, updates)
         tstate, norm = opt.update(
-            tparams, [torch.from_numpy(g[k].copy()) for k in tparams], tstate)
+            tparams, [torch.from_numpy(g[k].copy()).to(tdt) for k in tparams], tstate)
         np.testing.assert_allclose(float(norm), float(optax.global_norm(jg)),
-                                   rtol=1e-6)
+                                   rtol=OPT_NORM_RTOL[dtype])
         for k in params:
-            np.testing.assert_allclose(tparams[k].numpy(), np.asarray(jparams[k]),
-                                       err_msg=k, **OPT_TOL)
+            assert tparams[k].dtype == tdt and jparams[k].dtype == jdt
+            np.testing.assert_allclose(tparams[k].float().numpy(),
+                                       np.asarray(jparams[k], np.float32),
+                                       err_msg=k, **OPT_TOL[dtype])
+    adam = jstate[1][0]  # the chain's adamw: (ScaleByAdamState, ...)
+    assert {m.dtype for m in tstate.mu + tstate.nu} == {tdt}
+    assert {m.dtype for m in jax.tree_util.tree_leaves((adam.mu, adam.nu))} == {jnp.dtype(jdt)}
     assert tstate.count == 4
 
 
@@ -328,6 +345,39 @@ def test_gpt_nano_train_step_tracks_jax():
     np.testing.assert_allclose(back["lm_head"]["kernel"],
                                np.asarray(jstate.params["lm_head"]["kernel"]),
                                atol=1e-4, rtol=1e-3)
+
+
+def test_gpt_j_shaped_train_step_tracks_jax():
+    """gpt_j_6b's shape cut narrow (2 layers, 2 heads of head_dim 256, embed
+    512, mlp 1024, vocab 512, rotary 64, parallel residual) in float32:
+    three steps on one batch of t=64 from JAX's weights, against JAX's
+    make_train_step. The port's attention runs the flash algorithm at
+    head_dim 256 (the plain versions of the kernels that the card runs)."""
+    shape = dict(vocab_size=512, num_layers=2, num_heads=2, head_dim=256, embed_dim=512,
+                 mlp_dim=1024, max_seq_len=64, rotary_dim=64)
+    jcfg = jgpt.GPTConfig(dtype=jnp.float32, **shape)
+    variables = jgpt.GPT(jcfg).init(jax.random.PRNGKey(3), jnp.zeros((1, 8), jnp.int32))
+    tree = jax.tree_util.tree_map(np.asarray, jgpt.unboxed_params(variables))
+    tokens = _tokens(2, 64, 512, seed=11)
+    tx = jtr.default_optimizer(1e-2)
+    jstate = jtr.TrainState(step=jnp.zeros((), jnp.int32),
+                            params=jax.tree_util.tree_map(jnp.asarray, tree),
+                            opt_state=tx.init(tree))
+    jstep = jtr.make_train_step(jcfg, tx, donate=False)
+    cfg = gpt.GPTConfig(dtype=torch.float32, **shape)
+    opt = training.default_optimizer(1e-2)
+    state = training.init_train_state(
+        convert.params_from_jax(tree, cfg, device="cpu"), opt)
+    step = training.make_train_step(cfg, opt, device="cpu")
+    losses = []
+    for _ in range(3):
+        jstate, jm = jstep(jstate, jnp.asarray(tokens))
+        state, m = step(state, torch.from_numpy(tokens))
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=STEP_RTOL)
+        np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]),
+                                   rtol=STEP_RTOL)
+        losses.append(float(m["loss"]))
+    assert losses[-1] < losses[0]
 
 
 def test_eval_step_matches_jax():
