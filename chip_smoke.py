@@ -12,7 +12,8 @@ Phases (any failure exits non-zero; nothing is caught):
      wgmma kernels' dynamic shared memory per CTA by head_dim;
   2. kernel vs plain: the flash forward kernel against its plain PyTorch
      version on the same device tensors, per case (among them the shape of
-     each train path and of the forward: gpt_1b at b=12, b=8 and b=4):
+     each train path and of the forward: gpt_1b at b=12, b=8, b=4 and the
+     pipelined step's microbatch, b=3):
      each row of out held to its own norm and lse to an absolute limit
      (ray_tpu_torch/ops/tolerance.py), max abs error, kernel / plain /
      library (scaled_dot_product_attention, a yardstick the port never
@@ -20,7 +21,8 @@ Phases (any failure exits non-zero; nothing is caught):
   3. backward kernels vs plain: the dQ and dK/dV kernels of the design
      BWD_DESIGNS names (wgmma or mma_sync; each case names it and must launch
      it) against flash_attention_bwd_plain, per case (the train paths'
-     shapes among them, and gpt_j_6b's head_dim 256: its train shape, b=2,
+     shapes among them, the pipelined step's b=3, and gpt_j_6b's head_dim
+     256: its train shape, b=2,
      non-causal, q the suffix, ragged): each row of dq, dk, dv held to its own norm
      (ray_tpu_torch/ops/tolerance.py), max abs error, each kernel's time and
      bound, the plain time and the library time (torch.autograd.grad
@@ -88,17 +90,29 @@ Phases (any failure exits non-zero; nothing is caught):
   7c. sp_ring_ws1 / sp_ulysses_ws1: the same step on MeshSpec(sp=1) with
      seq_parallel_impl "ring" and "ulysses", a warm-up and 2 timed steps
      each: sequence_parallel_attention falls through to the flash kernels,
-     with phase 4's launches per step and first loss.
+     with phase 4's launches per step and first loss;
+  7d. pp_small_ws1 / pp_train_ws1, on the same group: the pipelined step
+     (make_pp_train_step at MeshSpec(pp=1), state in the stacked layout
+     under pp_rules, the GPipe tick schedule over one stage): (a) float32
+     gpt_nano, 2 microbatches, against the dense step on the card, first
+     loss within 1e-5; (b) phase 4's gpt_1b cell with 4 microbatches of 3
+     rows, a warm-up and 3 timed steps: run_train's gates with 128 forward
+     launches and 64 of each backward kernel a step (2 * num_layers * M and
+     num_layers * M, all wgmma), the warm-up loss within PP_LOSS_RTOL of
+     phase 4's (the reference's final norm computes in bf16), the peak
+     within phase 4's + 1 GiB; ms per step, tokens/s and MFU beside phase
+     4's.
 The card machine has one GPU and NCCL puts one rank on a device, so phases
-7b-7c run the sharded paths at world size 1: every collective of more than
-one rank (the gathers and reductions over fsdp, tp, ep and the data axes,
-ring's exchange, Ulysses' all-to-all, MoE's count exchange) runs only in
-the CPU tests, over gloo (tests/test_torch_parallel_*.py). With --profile, one more
-dense train step under each policy, one more MoE train step, a forward
-and a wave of 4 requests run under torch.profiler; device time by kernel,
-by operator and by range (the delta pass, the MoE router, dispatch,
-experts and combine) and the idle share are printed (and written to
---out).
+7b-7d run the sharded and pipelined paths at world size 1: every
+collective of more than one rank (the gathers and reductions over fsdp,
+tp, ep and the data axes, ring's exchange, Ulysses' all-to-all, MoE's
+count exchange, the pipeline's hops over pp) runs only in the CPU tests,
+over gloo (tests/test_torch_parallel_*.py). With --profile, one more dense
+train step under each policy, one more MoE train step, one more pipelined
+step (7d), a forward and a wave of 4 requests run under torch.profiler;
+device time by kernel, by operator and by range (the delta pass, the MoE
+router, dispatch, experts and combine) and the idle share are printed
+(and written to --out).
 
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero without a card.
@@ -109,7 +123,8 @@ runs, at gpt_1b's forward shape (b=4) with the forward phase's launches,
 and the backward kernels at the train step's shape (b=12) with the train
 phase's; every entry names its shape and its launches on each path (train,
 remat_attn, remat_dots, train_moe, train_gpt_j, forward, server,
-sharded_ws1, sp_ring_ws1, sp_ulysses_ws1: the timed steps or calls of each)
+sharded_ws1, sp_ring_ws1, sp_ulysses_ws1, pp_train_ws1: the timed steps or
+calls of each)
 and the case of phases 2-3 that checked it at each path's shape, and
 carries the head_dim-256 case's (d256_gpt_j, train_gpt_j's shape) numbers
 under "d256"; the backward kernels' plain and library times are those of
@@ -158,6 +173,24 @@ SHARDED_LOSS_RTOL = 1e-6
 # the sharded step at world size 1 holds what phase 4's step holds: the same
 # tensors, plus DTensor views that share their storage
 SHARDED_PEAK_GIB = 0.1
+# 7d: the pipelined step's microbatches (b=12 -> 4 of 3 rows, as the
+# reference's default num_microbatches)
+PP_MICROBATCHES = 4
+# 7d(a): float32 gpt_nano, the pipelined step at pp 1 vs the dense step on
+# the card: the same layers on the same rows, a microbatch at a time, and
+# the reference's two-pass final norm, which in float32 differs from the
+# model's LayerNorm by rounding only
+PP_SMALL_LOSS_RTOL = 1e-5
+# 7d(b): gpt_1b's first pipelined loss vs phase 4's; the only difference in
+# values is the reference's final norm, whose statistics are bf16 there: the
+# first run on an H100 read 2.45e-5, and the limit is four times that
+PP_LOSS_RTOL = 1e-4
+# 7d(b)'s peak over phase 4's: the stacked output ([12, 2048, 2048] bf16,
+# 96 MiB) and its masked copy, the embedding kept for the ticks' selects
+# (96 MiB), and each tick's selected input (24 MiB); the layers' kept inputs
+# are phase 4's (16 x 4 ticks x 24 MiB = 16 x 96 MiB), and a recomputed
+# layer is a quarter of phase 4's
+PP_PEAK_GIB = 1.0
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -288,6 +321,7 @@ def phase_kernel_vs_plain():
         ("gpt_1b_train_b12", 12, 16, 2048, 2048, 128, True, torch.bfloat16),
         ("gpt_1b_moe_b8", 8, 16, 2048, 2048, 128, True, torch.bfloat16),
         ("gpt_1b", 4, 16, 2048, 2048, 128, True, torch.bfloat16),
+        ("gpt_1b_pp_mb3", 3, 16, 2048, 2048, 128, True, torch.bfloat16),
         ("d64_gpt_125m", 4, 12, 2048, 2048, 64, True, torch.bfloat16),
         ("d256_gpt_j", 1, 16, 2048, 2048, 256, True, torch.bfloat16),
         ("suffix_tq256_tkv2048", 4, 16, 256, 2048, 128, True, torch.bfloat16),
@@ -361,6 +395,7 @@ BWD_CASES = [
     ("gpt_1b_train_b12", 12, 16, 2048, 2048, 128, True, torch.bfloat16),
     ("gpt_1b_moe_b8", 8, 16, 2048, 2048, 128, True, torch.bfloat16),
     ("gpt_1b", 4, 16, 2048, 2048, 128, True, torch.bfloat16),
+    ("gpt_1b_pp_mb3", 3, 16, 2048, 2048, 128, True, torch.bfloat16),
     ("d64_gpt_125m", 4, 12, 2048, 2048, 64, True, torch.bfloat16),
     ("d256_gpt_j", 1, 16, 2048, 2048, 256, True, torch.bfloat16),
     ("d256_b2", 2, 16, 2048, 2048, 256, True, torch.bfloat16),
@@ -564,12 +599,14 @@ def single_device(cfg, opt):
 
 
 def run_train(cfg, tokens, steps: int, fwd_per_layer: int, label: str, profile: bool,
-              build=single_device):
+              build=single_device, microbatches: int = 1):
     """Train ``cfg`` on the card from fresh seed-0 weights on one repeated
     batch (``build(cfg, optimizer) -> (state, step)``, by default the
     single-device step): one warm-up step, then ``steps`` timed steps.
-    Gates: per step ``fwd_per_layer * num_layers`` forward launches and
-    ``num_layers`` of each backward kernel, all on the wgmma designs; loss
+    Gates: per step ``fwd_per_layer * num_layers * microbatches`` forward
+    launches and ``num_layers * microbatches`` of each backward kernel (the
+    pipelined step runs every layer once per microbatch), all on the wgmma
+    designs; loss
     and grad norm finite; the last loss below the first; parameters and
     Adam moments still in ``cfg.param_dtype`` (optax's adamw keeps the
     moments in the parameters' dtype). Returns the report; the state is
@@ -595,8 +632,9 @@ def run_train(cfg, tokens, steps: int, fwd_per_layer: int, label: str, profile: 
     launches = _launch_counts()
     losses = [float(m["loss"]) for m in metrics]
     norms = [float(m["grad_norm"]) for m in metrics]
-    expected = {"flash_fwd": fwd_per_layer * cfg.num_layers, "flash_bwd_dq": cfg.num_layers,
-                "flash_bwd_dkv": cfg.num_layers}
+    per_layer = cfg.num_layers * microbatches
+    expected = {"flash_fwd": fwd_per_layer * per_layer, "flash_bwd_dq": per_layer,
+                "flash_bwd_dkv": per_layer}
     expected.update({f"{name}_wgmma": n for name, n in expected.items()})
     want = [expected.get(name, 0) for name in COUNTS]
     if any(c != want for c in per_step):
@@ -615,6 +653,7 @@ def run_train(cfg, tokens, steps: int, fwd_per_layer: int, label: str, profile: 
     flops = gpt.train_step_flops(cfg, batch, seq)
     report = dict(
         batch=batch, seq=seq, steps=steps, ce_chunk=cfg.ce_chunk, learning_rate=1e-4,
+        microbatches=microbatches,
         remat_policy=cfg.remat_policy,
         ms_per_step=ms, tokens_per_s=batch * seq * steps / seconds,
         mfu=flops / (ms / 1e3) / PEAK_FLOPS[torch.bfloat16], train_step_flops=flops,
@@ -1079,7 +1118,7 @@ def phase_lse_grad():
     return rows
 
 
-def phase_sharded_ws1(nothing, steps: int):
+def phase_sharded_ws1(nothing, steps: int, profile: bool):
     """7b and 7c: phase 4's step through the sharded train step on a
     one-rank NCCL group, on MeshSpec(fsdp=-1) and, with ring and Ulysses
     named, MeshSpec(sp=1)."""
@@ -1128,17 +1167,100 @@ def phase_sharded_ws1(nothing, steps: int):
                        mesh=dict(zip(mesh.mesh_dim_names, map(int, mesh.mesh.shape))),
                        seq_parallel_impl=impl, backend=dist.get_backend())
             out[path] = rep
+        out["pp_small_ws1"] = pp_small_vs_dense()
+        out["pp_train_ws1"] = phase_pp_train_ws1(nothing, steps, profile)
     finally:
         dist.destroy_process_group()
     return out
+
+
+def pp_small_vs_dense():
+    """7d(a): a float32 gpt_nano pipelined step (``make_pp_train_step`` at
+    MeshSpec(pp=1), 2 microbatches) against the dense single-device step,
+    both on the card from the same weights and tokens: first loss within
+    PP_SMALL_LOSS_RTOL."""
+    from ray_tpu_torch.models import gpt, inference, training
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.parallel.sharding import pp_rules
+
+    cfg = gpt.gpt_nano(ce_chunk=32)
+    tokens = torch.from_numpy(
+        np.random.RandomState(3).randint(0, cfg.vocab_size, (4, 80))).to("cuda")
+    opt = training.default_optimizer(1e-2)
+    state = training.init_train_state(inference.init_params(cfg, device="cuda", seed=4), opt)
+    _, dense = training.make_train_step(cfg, opt, device="cuda")(state, tokens)
+    mesh = MeshSpec(pp=1).build("cuda")
+    pp_state, shardings = training.init_sharded_state(cfg, mesh, opt, seed=4, rules=pp_rules(),
+                                                      stacked=True)
+    step = training.make_pp_train_step(cfg, opt, mesh, num_microbatches=2,
+                                       state_shardings_tree=shardings)
+    _, pp = step(pp_state, tokens)
+    dense_loss, pp_loss = float(dense["loss"]), float(pp["loss"])
+    rel = abs(pp_loss / dense_loss - 1)
+    print(f"[pp] gpt_nano f32, pp 1, 2 microbatches vs the dense step on the card: loss "
+          f"{pp_loss!r} vs {dense_loss!r} (rel {rel:.2e}, limit {PP_SMALL_LOSS_RTOL}), grad "
+          f"norm {float(pp['grad_norm'])!r} vs {float(dense['grad_norm'])!r}")
+    if not rel <= PP_SMALL_LOSS_RTOL:
+        raise SystemExit(f"pp_small_ws1: the pipelined gpt_nano loss differs from the dense "
+                         f"step's by {rel}")
+    return dict(loss=pp_loss, dense_loss=dense_loss, rel_diff=rel, rtol=PP_SMALL_LOSS_RTOL,
+                grad_norm=float(pp["grad_norm"]), dense_grad_norm=float(dense["grad_norm"]))
+
+
+def phase_pp_train_ws1(nothing, steps: int, profile: bool):
+    """7d(b): phase 4's cell through the pipelined step
+    (``make_pp_train_step`` at MeshSpec(pp=1), PP_MICROBATCHES
+    microbatches, state from ``init_sharded_state(seed=0, rules=pp_rules(),
+    stacked=True)``): run_train's gates with 2 * num_layers * M forward
+    launches and num_layers * M of each backward kernel a step, the warm-up
+    loss within PP_LOSS_RTOL of phase 4's, the peak within PP_PEAK_GIB of
+    phase 4's."""
+    from ray_tpu_torch.models import gpt, training
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.parallel.sharding import pp_rules
+
+    mesh = MeshSpec(pp=1).build("cuda")
+    rules = pp_rules()
+
+    def build(cfg, opt):
+        state, shardings = training.init_sharded_state(cfg, mesh, opt, seed=0, rules=rules,
+                                                       stacked=True)
+        return state, training.make_pp_train_step(
+            cfg, opt, mesh, num_microbatches=PP_MICROBATCHES, rules=rules,
+            state_shardings_tree=shardings)
+
+    cfg = gpt.gpt_1b(ce_chunk=512)
+    tokens = _train_tokens(cfg, nothing["batch"], nothing["seq"])
+    rep = run_train(cfg, tokens, steps, 2, "gpt_1b pipelined (pp_train_ws1)", profile, build,
+                    microbatches=PP_MICROBATCHES)
+    loss_rel = abs(rep["warmup_loss"] / nothing["warmup_loss"] - 1)
+    grad_rel = abs(rep["warmup_grad_norm"] / nothing["warmup_grad_norm"] - 1)
+    mem_over = rep["max_memory_gib"] - nothing["max_memory_gib"]
+    print(f"[pp] pp_train_ws1: pp 1, {PP_MICROBATCHES} microbatches of "
+          f"{nothing['batch'] // PP_MICROBATCHES}: warm-up loss {rep['warmup_loss']!r} vs phase 4 "
+          f"{nothing['warmup_loss']!r} (rel {loss_rel:.2e}, limit {PP_LOSS_RTOL}), grad norm "
+          f"rel {grad_rel:.2e}; {rep['ms_per_step']:.1f} ms per step (phase 4 "
+          f"{nothing['ms_per_step']:.1f}), {rep['tokens_per_s']:.0f} tokens/s (phase 4 "
+          f"{nothing['tokens_per_s']:.0f}), MFU {100 * rep['mfu']:.1f}% (phase 4 "
+          f"{100 * nothing['mfu']:.1f}%), peak {rep['max_memory_gib']:.2f} GiB (phase 4 "
+          f"{nothing['max_memory_gib']:.2f}, limit +{PP_PEAK_GIB})")
+    if not loss_rel <= PP_LOSS_RTOL:
+        raise SystemExit(f"pp_train_ws1: the first loss differs from phase 4's by {loss_rel}")
+    if not mem_over <= PP_PEAK_GIB:
+        raise SystemExit(f"pp_train_ws1: peak memory {rep['max_memory_gib']:.2f} GiB, phase 4's "
+                         f"{nothing['max_memory_gib']:.2f} + {PP_PEAK_GIB}")
+    rep.update(warmup_loss_rel_diff=loss_rel, warmup_loss_rtol=PP_LOSS_RTOL,
+               warmup_grad_norm_rel_diff=grad_rel, peak_over_phase4_gib=mem_over,
+               mesh=dict(zip(mesh.mesh_dim_names, map(int, mesh.mesh.shape))))
+    return rep
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write every measurement to this JSON file")
     ap.add_argument("--profile", action="store_true",
-                    help="profile a gpt_1b train step, a forward and a server wave "
-                         "by kernel")
+                    help="profile a gpt_1b train step (dense, MoE, pipelined), a forward "
+                         "and a server wave by kernel")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a card",
@@ -1184,7 +1306,7 @@ def main() -> int:
     del params, fwd
     torch.cuda.empty_cache()
     report["lse_grad"] = phase_lse_grad()
-    report.update(phase_sharded_ws1(report["train"], steps=3))
+    report.update(phase_sharded_ws1(report["train"], steps=3, profile=args.profile))
     report["seconds"] = time.monotonic() - t_start
 
     # flash_fwd at gpt_1b's forward shape (b=4) with the forward
@@ -1207,7 +1329,8 @@ def main() -> int:
              "remat_dots": report["remat_policies"]["dots"], "train_moe": report["train_moe"],
              "train_gpt_j": report["train_gpt_j"],
              "forward": report["forward"], "server": report["server"],
-             **{path: report[path] for path in sharded}}
+             **{path: report[path] for path in sharded},
+             "pp_train_ws1": report["pp_train_ws1"]}
     by_path = {name: {path: rep["launches"][name] for path, rep in paths.items()}
                for name in COUNTS}
     # the case of phases 2 and 3 that holds each kernel to its plain version
@@ -1215,7 +1338,8 @@ def main() -> int:
     train_case = {"train": "gpt_1b_train_b12", "remat_attn": "gpt_1b_train_b12",
                   "remat_dots": "gpt_1b_train_b12", "train_moe": "gpt_1b_moe_b8",
                   "train_gpt_j": "d256_gpt_j",
-                  **{path: "gpt_1b_train_b12" for path in sharded}}
+                  **{path: "gpt_1b_train_b12" for path in sharded},
+                  "pp_train_ws1": "gpt_1b_pp_mb3"}
     # the head_dim-256 case (train_gpt_j's shape) beside each entry's own
     d256 = {
         "flash_fwd": dict(shape=fwd_d256_shape, ms=fwd_d256["ms"],

@@ -176,11 +176,19 @@ def _check_remat(cfg: GPTConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _param_table(cfg: GPTConfig) -> Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]]:
+#: the prefix of the stacked layout's layer leaves (``stack_layers``)
+STACKED_PREFIX = "blocks.layers."
+
+
+def _param_table(cfg: GPTConfig, stacked: bool = False
+                 ) -> Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]]:
     """{parameter name: (its logical axes, the logical axes it keeps cut
     while the model computes)}, in the port's layout. q, k and v's out dim is
     heads * head_dim, head-major, so "heads" cuts it into whole heads (the
-    reference's ("heads", "kv") with kv unsharded)."""
+    reference's ("heads", "kv") with kv unsharded). ``stacked`` gives the
+    pipeline's layout (``stack_layers``): each layer leaf once, under
+    ``blocks.layers.``, with a leading "layers" axis that each stage keeps
+    cut."""
     ln = ("ln",) if cfg.parallel_residual else ("ln1", "ln2")
     block = {f"{n}.{p}": (("embed",), ()) for n in ln for p in ("weight", "bias")}
     for n in "qkv":
@@ -196,8 +204,12 @@ def _param_table(cfg: GPTConfig) -> Dict[str, Tuple[Tuple[str, ...], Tuple[str, 
                       "mlp.wo.weight": (("embed", "mlp"), ("mlp",)),
                       "mlp.wo.bias": (("embed",), ())})
     table = {"wte.weight": (("vocab", "embed"), ())}
-    for i in range(cfg.num_layers):
-        table.update({f"blocks.{i}.{n}": axes for n, axes in block.items()})
+    if stacked:
+        table.update({STACKED_PREFIX + n: (("layers", *axes), ("layers", *keep))
+                      for n, (axes, keep) in block.items()})
+    else:
+        for i in range(cfg.num_layers):
+            table.update({f"blocks.{i}.{n}": axes for n, axes in block.items()})
     table["ln_f.weight"] = table["ln_f.bias"] = (("embed",), ())
     if not cfg.tie_embeddings:
         table["lm_head.weight"] = (("vocab", "embed"), ())
@@ -205,18 +217,49 @@ def _param_table(cfg: GPTConfig) -> Dict[str, Tuple[Tuple[str, ...], Tuple[str, 
     return table
 
 
-def param_logical_axes(cfg: GPTConfig) -> Dict[str, Tuple[str, ...]]:
+def param_logical_axes(cfg: GPTConfig, stacked: bool = False) -> Dict[str, Tuple[str, ...]]:
     """Each parameter's logical axes in the port's layout (a Linear weight
     is [out, in], the transpose of the reference's kernel): the reference's
-    annotations, which ``parallel.sharding.params_shardings`` reads."""
-    return {name: axes for name, (axes, _) in _param_table(cfg).items()}
+    annotations, which ``parallel.sharding.params_shardings`` reads;
+    ``stacked``: in ``stack_layers``' layout."""
+    return {name: axes for name, (axes, _) in _param_table(cfg, stacked).items()}
 
 
-def param_compute_axes(cfg: GPTConfig) -> Dict[str, Tuple[str, ...]]:
+def param_compute_axes(cfg: GPTConfig, stacked: bool = False) -> Dict[str, Tuple[str, ...]]:
     """The logical axes each parameter keeps cut while the model computes on
     a mesh: heads and mlp (tensor parallelism), experts (each ep rank its
-    own). The mesh axes of every other logical axis are gathered first."""
-    return {name: keep for name, (_, keep) in _param_table(cfg).items()}
+    own), and in the stacked layout the layers (each pp stage its own). The
+    mesh axes of every other logical axis are gathered first."""
+    return {name: keep for name, (_, keep) in _param_table(cfg, stacked).items()}
+
+
+def stack_layers(params: Dict[str, torch.Tensor], cfg: GPTConfig) -> Dict[str, torch.Tensor]:
+    """The pipeline's layout of a ``state_dict``: each per-layer leaf
+    ``blocks.{i}.<leaf>`` stacked over the layers into ``blocks.layers.<leaf>``
+    [num_layers, ...] (the reference's ``scan_layers`` tree); the other
+    parameters as they are."""
+    out = {}
+    for name, p in params.items():
+        if name.startswith("blocks.0."):
+            leaf = name[len("blocks.0."):]
+            out[STACKED_PREFIX + leaf] = torch.stack(
+                [params[f"blocks.{i}.{leaf}"] for i in range(cfg.num_layers)])
+        elif not name.startswith("blocks."):
+            out[name] = p
+    return out
+
+
+def unstack_layers(params: Dict[str, torch.Tensor], cfg: GPTConfig) -> Dict[str, torch.Tensor]:
+    """``stack_layers`` undone: each ``blocks.layers.<leaf>`` cut into
+    ``blocks.{i}.<leaf>`` (views)."""
+    out = {}
+    for name, p in params.items():
+        if name.startswith(STACKED_PREFIX):
+            leaf = name[len(STACKED_PREFIX):]
+            out.update({f"blocks.{i}.{leaf}": p[i] for i in range(cfg.num_layers)})
+        else:
+            out[name] = p
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -59,6 +59,13 @@ On a mesh (``make_train_step(..., mesh=...)``, every rank calling it):
 
 With every axis of size 1 (one rank) no collective runs but the norm's
 one-scalar sum, and the step computes what the single-device step does.
+
+``make_pp_train_step`` is the pipelined step over ``pp`` (counterpart of
+``ray_tpu/parallel/pipeline.py``'s): its state is in the stacked layout
+(``init_sharded_state(..., stacked=True)``, ``gpt.stack_layers``), each
+stage's layers run through ``parallel.pipeline.pipeline_apply``, and the
+rest is the sharded step's machinery (the plans, the gathers, the gradient
+sums, the norm and the update).
 """
 
 from __future__ import annotations
@@ -68,17 +75,22 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 from torch.func import functional_call
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.models.gpt import (
     GPT,
+    LN_EPS,
+    STACKED_PREFIX,
+    Block,
     GPTConfig,
     blockwise_next_token_loss,
     blockwise_nll_sum,
     param_compute_axes,
     param_logical_axes,
+    stack_layers,
 )
 from ray_tpu_torch.models.inference import init_draws
 from ray_tpu_torch.parallel import comm
@@ -89,10 +101,12 @@ from ray_tpu_torch.parallel.mesh import (
     mesh_device,
     subgroup,
 )
+from ray_tpu_torch.parallel.pipeline import pipeline_apply, stage_split
 from ray_tpu_torch.parallel.sharding import (
     Rules,
     local_slices,
     params_shardings,
+    pp_rules,
     replicated,
     rules_dict,
     spec_axes,
@@ -268,11 +282,15 @@ def make_eval_step(cfg: GPTConfig, device=None, *, mesh=None,
 # ---------------------------------------------------------------------------
 
 
-def state_shardings(mesh, cfg: GPTConfig, rules: Optional[Rules] = None) -> TrainState:
+def state_shardings(mesh, cfg: GPTConfig, rules: Optional[Rules] = None,
+                    stacked: bool = False) -> TrainState:
     """The placements of a sharded ``TrainState``: each parameter's from
     the rule table, the Adam moments' the same (ZeRO-style: fsdp cuts the
-    moments as it cuts the weights), the step replicated."""
-    params = params_shardings(mesh, param_logical_axes(cfg), rules)
+    moments as it cuts the weights), the step replicated. ``stacked``: the
+    pipelined step's layout (``gpt.stack_layers``), whose layer leaves have
+    a leading "layers" axis (cut over pp under ``sharding.pp_rules``).
+    ``mesh`` may be a ``DeviceMesh`` or {axis: size}."""
+    params = params_shardings(mesh, param_logical_axes(cfg, stacked), rules)
     return TrainState(step=replicated(mesh), params=params,
                       opt_state=AdamWState(0, list(params.values()),
                                            list(params.values())))
@@ -288,18 +306,23 @@ def _mesh_device(mesh, device) -> torch.device:
 
 def init_sharded_state(cfg: GPTConfig, mesh, optimizer: ClippedAdamW, seed: int = 0,
                        rules: Optional[Rules] = None,
-                       params: Optional[Params] = None) -> Tuple[TrainState, TrainState]:
+                       params: Optional[Params] = None,
+                       stacked: bool = False) -> Tuple[TrainState, TrainState]:
     """``(state, shardings)``: a step-0 state whose parameters and Adam
     moments are DTensors placed as ``state_shardings`` says, each rank
     holding its blocks only, and those placements. The weights are
     ``init_params(cfg, seed=seed)``'s (each drawn whole in turn, its block
-    kept) or, where given, the full ``params`` (a ``state_dict``, e.g.
-    ``convert.params_from_jax``'s; copied, never updated). Collective only
-    in that every rank calls it alike."""
-    shardings = state_shardings(mesh, cfg, rules)
+    kept) or, where given, the full ``params`` (a per-layer ``state_dict``,
+    e.g. ``convert.params_from_jax``'s; copied, never updated). ``stacked``
+    places them in the pipelined step's layout (``gpt.stack_layers``; the
+    weights are whole until stacked). Collective only in that every rank
+    calls it alike."""
+    shardings = state_shardings(mesh, cfg, rules, stacked)
     dev = mesh_device(mesh)
     coord = dict(zip(AXIS_ORDER, mesh.get_coordinate()))
     source = params.items() if params is not None else init_draws(cfg, dev, seed)
+    if stacked:
+        source = stack_layers(dict(source), cfg).items()
     out: Params = {}
     with torch.no_grad():
         for name, full in source:
@@ -333,11 +356,11 @@ class _Plan:
 
 
 def _plans(cfg: GPTConfig, groups: MeshGroups, rules: Optional[Rules],
-           shardings: TrainState) -> Dict[str, _Plan]:
+           shardings: TrainState, stacked: bool = False) -> Dict[str, _Plan]:
     table = rules_dict(rules)
-    logical = param_logical_axes(cfg)
+    logical = param_logical_axes(cfg, stacked)
     plans = {}
-    for name, keep_names in param_compute_axes(cfg).items():
+    for name, keep_names in param_compute_axes(cfg, stacked).items():
         place = shardings.params[name]
         spec = spec_of(place, len(logical[name]))
         keep = set()
@@ -403,16 +426,17 @@ def _local_batch(tokens: torch.Tensor, groups: MeshGroups, dev: torch.device):
     return rows[:, t0:t0 + t], positions, targets, valid
 
 
-class _ShardedLoss:
-    """The rank's share of the loss, computed from its blocks."""
+class _ShardedParams:
+    """A sharded state's parameters on this rank: each one's plan, its
+    view, the sum of its gradient, and the update from the gradients."""
 
-    def __init__(self, cfg: GPTConfig, mesh, rules: Optional[Rules], shardings):
+    def __init__(self, cfg: GPTConfig, mesh, groups: MeshGroups, rules: Optional[Rules],
+                 shardings, stacked: bool = False):
         self.cfg = cfg
-        self.model = GPT(cfg, device="meta", mesh=mesh)  # builds the groups
-        self.groups = self.model.groups
-        self.dev = self.groups.device
-        self.shardings = shardings or state_shardings(mesh, cfg, rules)
-        self.plans = _plans(cfg, self.groups, rules, self.shardings)
+        self.groups = groups
+        self.dev = groups.device
+        self.shardings = shardings or state_shardings(mesh, cfg, rules, stacked)
+        self.plans = _plans(cfg, groups, rules, self.shardings, stacked)
         # the group of each set of axes a gradient is summed over; collective,
         # so every rank creates them in the same order
         self.sum_groups = {axes: subgroup(mesh, axes) for axes in
@@ -432,6 +456,31 @@ class _ShardedLoss:
         the data axes its gathers reduce-scatter) summed over the rest."""
         return comm.all_reduce(grad, self.sum_groups[self.plans[name].sum_axes])
 
+    @torch.no_grad()
+    def update(self, optimizer: ClippedAdamW, state: TrainState, blocks: List[torch.Tensor],
+               grads) -> Tuple[TrainState, torch.Tensor]:
+        """The optimizer's step on the local ``blocks`` of ``state.params``
+        (in place) from the backward's ``grads``; (new state, the whole
+        gradient's norm before clipping)."""
+        names = list(state.params)
+        grads = [self.sum_grad(n, gr).contiguous() for n, gr in zip(names, grads)]
+        norm = _global_norm(grads, [self.plans[n] for n in names], self.groups)
+        opt = state.opt_state
+        local_opt = AdamWState(opt.count, [m.to_local() for m in opt.mu],
+                               [v.to_local() for v in opt.nu])
+        local_opt, grad_norm = optimizer.update(dict(zip(names, blocks)), grads, local_opt,
+                                                norm=norm)
+        return TrainState(step=state.step + 1, params=state.params,
+                          opt_state=AdamWState(local_opt.count, opt.mu, opt.nu)), grad_norm
+
+
+class _ShardedLoss(_ShardedParams):
+    """The rank's share of the loss, computed from its blocks."""
+
+    def __init__(self, cfg: GPTConfig, mesh, rules: Optional[Rules], shardings):
+        self.model = GPT(cfg, device="meta", mesh=mesh)  # builds the groups
+        super().__init__(cfg, mesh, self.model.groups, rules, shardings)
+
     def __call__(self, blocks: Params, tokens: torch.Tensor):
         """(the rank's share of ce + aux weight * aux, {"ce", "aux",
         "dropped"}: the rank's shares); the model gathers each parameter
@@ -449,7 +498,7 @@ class _ShardedLoss:
 def _sharded_train_step(cfg, optimizer, device, mesh, rules, shardings):
     loss_fn = _ShardedLoss(cfg, mesh, rules, shardings)
     _mesh_device(mesh, device)
-    g, plans = loss_fn.groups, loss_fn.plans
+    g = loss_fn.groups
 
     def step(state: TrainState, tokens: torch.Tensor):
         names = list(state.params)
@@ -459,16 +508,8 @@ def _sharded_train_step(cfg, optimizer, device, mesh, rules, shardings):
             loss, stats = loss_fn(leaves, tokens)
             grads = torch.autograd.grad(loss, list(leaves.values()))
         del leaves
+        new, grad_norm = loss_fn.update(optimizer, state, blocks, grads)
         with torch.no_grad():
-            grads = [loss_fn.sum_grad(n, gr).contiguous() for n, gr in zip(names, grads)]
-            norm = _global_norm(grads, [plans[n] for n in names], g)
-            opt = state.opt_state
-            local_opt = AdamWState(opt.count, [m.to_local() for m in opt.mu],
-                                   [v.to_local() for v in opt.nu])
-            local_opt, grad_norm = optimizer.update(dict(zip(names, blocks)), grads,
-                                                    local_opt, norm=norm)
-            new = TrainState(step=state.step + 1, params=state.params,
-                             opt_state=AdamWState(local_opt.count, opt.mu, opt.nu))
             metrics = {"loss": comm.all_reduce(loss.detach(), g.data),
                        "grad_norm": grad_norm, "step": new.step,
                        "moe_aux": comm.all_reduce(stats["aux"].detach(), g.data),
@@ -489,3 +530,137 @@ def _sharded_eval_step(cfg, device, mesh, rules):
             return comm.all_reduce(loss_fn(blocks, tokens)[1]["ce"], loss_fn.groups.data)
 
     return eval_step
+
+
+# ---------------------------------------------------------------------------
+# pipelined over pp
+# ---------------------------------------------------------------------------
+
+
+class _PipelinedLoss(_ShardedParams):
+    """The rank's share of the pipelined step's loss, from its blocks in the
+    stacked layout: the layers of its stage, the replicated leaves."""
+
+    def __init__(self, cfg: GPTConfig, mesh, num_microbatches: int, rules: Optional[Rules],
+                 shardings):
+        groups = MeshGroups.build(mesh)
+        stages = groups.sizes["pp"]
+        if cfg.tie_embeddings:
+            raise ValueError("the pipelined step needs an untied lm_head (the reference's "
+                             "reads params['lm_head'])")
+        if stages > 1 and (groups.sizes["sp"] > 1 or groups.sizes["ep"] > 1):
+            raise NotImplementedError("pp > 1 with sp > 1 or ep > 1: the reference never "
+                                      "runs them under pp")
+        if cfg.num_layers % stages:
+            raise ValueError(f"num_layers={cfg.num_layers} not divisible by pp={stages}")
+        super().__init__(cfg, mesh, groups, rules, shardings, stacked=True)
+        self.num_microbatches = num_microbatches
+        self.block = Block(cfg, device="meta", groups=groups)
+        # a stacked leaf's plan for one of its layers: the layer axis indexed
+        # away, so each gathered dim one lower
+        self.layer_plans = {
+            name[len(STACKED_PREFIX):]: dataclasses.replace(
+                plan, gather=tuple((dim - 1, axis) for dim, axis in plan.gather))
+            for name, plan in self.plans.items() if name.startswith(STACKED_PREFIX)}
+
+    def _layer(self, layer: Params, xp):
+        """One block on (x, positions): its fsdp shards gathered here, inside
+        the layer's checkpointed call, as the sharded step gathers a block's."""
+        x, positions = xp
+        views = {n: _view(p, self.layer_plans[n], self.groups) for n, p in layer.items()}
+        out = functional_call(self.block, views, (x, positions))
+        return (out[0] if self.block.moe else out), positions
+
+    def __call__(self, blocks: Params, tokens: torch.Tensor) -> torch.Tensor:
+        cfg, g, m = self.cfg, self.groups, self.num_microbatches
+        b_all, t_all = tokens.shape
+        if b_all % (m * g.batch_blocks):
+            raise ValueError(f"batch {b_all} does not split into {m} microbatches over "
+                             f"{g.batch_blocks} data ranks")
+        # microbatch i is global rows [i * b_all / m, (i + 1) * b_all / m),
+        # spread over the data ranks (the reference's [M, mb] reshape with mb
+        # cut over dp and fsdp): order the rows so that each rank's block is
+        # its share of every microbatch, microbatch-major
+        rows = tokens.reshape(m, g.batch_blocks, -1, t_all).transpose(0, 1).reshape(b_all, t_all)
+        tok, positions, targets, valid = _local_batch(rows, g, self.dev)
+        b, t = tok.shape
+        x = F.embedding(tok, self.view("wte.weight", blocks["wte.weight"]).to(cfg.dtype))
+        stage = {name[len(STACKED_PREFIX):]: stage_split(p, 1) for name, p in blocks.items()
+                 if name.startswith(STACKED_PREFIX)}
+        y, _ = pipeline_apply(g, self._layer, stage,
+                              (x.view(m, b // m, t, -1), positions.reshape(m, b // m, t)),
+                              remat=cfg.remat)
+        y = y.reshape(b, t, -1)
+        # the reference's own final norm (pipeline.py:254-258): in the blocks'
+        # dtype, with a two-pass variance, not the model's float32 LayerNorm
+        mean = y.mean(-1, keepdim=True)
+        var = ((y - mean) ** 2).mean(-1, keepdim=True)
+        y = (y - mean) * torch.rsqrt(var + LN_EPS)
+        y = (y * self.view("ln_f.weight", blocks["ln_f.weight"]).to(y.dtype)
+             + self.view("ln_f.bias", blocks["ln_f.bias"]).to(y.dtype))
+        nll = blockwise_nll_sum(y, self.view("lm_head.weight", blocks["lm_head.weight"]),
+                                self.view("lm_head.bias", blocks["lm_head.bias"]),
+                                targets, valid, cfg.ce_chunk)
+        return nll / (b_all * (t_all - 1))
+
+
+def make_pp_train_step(cfg: GPTConfig, optimizer: ClippedAdamW, mesh, *,
+                       num_microbatches: int = 4, rules: Optional[Rules] = None,
+                       state_shardings_tree: Optional[TrainState] = None
+                       ) -> Callable[[TrainState, torch.Tensor],
+                                     Tuple[TrainState, Dict[str, torch.Tensor]]]:
+    """The pipelined GPT train step (counterpart of
+    ``ray_tpu/parallel/pipeline.py:192`` ``make_pp_train_step``):
+    ``step(state, tokens [b, t]) -> (state, {"loss", "grad_norm", "step"})``.
+
+    Every rank of ``mesh`` (a ``DeviceMesh`` over ``AXIS_ORDER``) calls it,
+    and then the step, alike. The state is ``init_sharded_state(...,
+    rules=rules, stacked=True)``'s, placed as ``state_shardings_tree`` says
+    (default ``state_shardings(mesh, cfg, rules, stacked=True)``), ``rules``
+    defaulting to ``sharding.pp_rules()``: each layer leaf cut over pp
+    along its layer axis, so a pp rank holds only its L/S layers'
+    parameters, gradients and moments, and fsdp and tp cut the rest as in
+    the sharded step. ``tokens`` is the global batch, the metrics global.
+
+    What it computes is the reference's step: the embedding
+    ``wte.astype(cfg.dtype)[tokens]`` (``:237``), replicated over pp; the
+    batch cut into ``num_microbatches`` microbatches of b / M rows, each
+    microbatch's rows spread over dp and fsdp (``:244-245``); the blocks
+    through ``parallel.pipeline.pipeline_apply``, each layer under
+    ``torch.utils.checkpoint`` where ``cfg.remat`` is set (every layer
+    recomputed whole, whatever ``cfg.remat_policy`` says, as the reference's
+    ``jax.checkpoint``); the reference's own final norm in the blocks'
+    dtype (``:254-258``; a two-pass variance, eps 1e-6: not the model's
+    float32 LayerNorm, so in bf16 the loss is not the sharded step's bit for
+    bit); the blockwise cross-entropy over ``cfg.ce_chunk`` (``:260-262``);
+    then the optimizer. The loss is the cross-entropy alone: the
+    reference's pp step drops its blocks' MoE aux term, and so does this one.
+
+    Where the gradients lie: each layer leaf's on its own stage; ``wte``'s
+    on every pp rank alike (the embedding enters the pipeline through
+    ``comm.copy_to``, whose backward sums stage 0's gradient over pp);
+    ``ln_f``'s and ``lm_head``'s on every pp rank alike, since each computes
+    the head on the replicated output, so they are not summed over pp.
+    The clip's norm counts each block once (``_global_norm``).
+
+    Raises ``ValueError`` for a tied embedding (the reference reads
+    ``lm_head``) and where num_layers does not divide by pp, and
+    ``NotImplementedError`` for pp > 1 with sp > 1 or ep > 1, which the
+    reference never runs. A batch that does not split into M microbatches
+    over the data ranks raises at the step."""
+    loss_fn = _PipelinedLoss(cfg, mesh, num_microbatches,
+                             pp_rules() if rules is None else rules, state_shardings_tree)
+    g = loss_fn.groups
+
+    def step(state: TrainState, tokens: torch.Tensor):
+        blocks = loss_fn.locals(state.params)
+        leaves = {n: b.detach().requires_grad_(True) for n, b in zip(state.params, blocks)}
+        with torch.enable_grad():
+            loss = loss_fn(leaves, tokens)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        del leaves
+        new, grad_norm = loss_fn.update(optimizer, state, blocks, grads)
+        return new, {"loss": comm.all_reduce(loss.detach(), g.data), "grad_norm": grad_norm,
+                     "step": new.step}
+
+    return step

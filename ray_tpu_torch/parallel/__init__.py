@@ -1,6 +1,6 @@
-"""Parallelism for the port: device meshes, sharding rules, collectives and
-local process groups (counterpart of ``ray_tpu/parallel``; the pipeline is
-not ported yet)."""
+"""Parallelism for the port: device meshes, sharding rules, collectives,
+the GPipe pipeline over ``pp`` and local process groups (counterpart of
+``ray_tpu/parallel``)."""
 
 from ray_tpu_torch.parallel.mesh import (
     AXIS_ORDER,

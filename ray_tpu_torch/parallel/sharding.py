@@ -56,7 +56,8 @@ def rules_dict(rules: Optional[Rules] = None) -> Dict[str, Any]:
 
 def pp_rules(rules: Optional[Rules] = None) -> Rules:
     """Rule table for pipeline-parallel training: the layer axis maps onto
-    ``pp`` (no path of the port uses it yet)."""
+    ``pp``, so the pipelined step's stacked layer leaves
+    (``models.training.make_pp_train_step``) are cut over the stages."""
     table = rules_dict(rules)
     table["layers"] = "pp"
     return tuple(table.items())

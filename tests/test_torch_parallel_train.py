@@ -362,6 +362,7 @@ def test_fsdp_cuts_each_ranks_parameter_and_gradient_bytes():
 def test_dryrun_on_4_cpu_ranks():
     res = dryrun.dryrun(4, device="cpu", timeout=240)
     assert res["dp_fsdp_tp_sp"]["mesh"] == {"sp": 2, "tp": 2}
+    assert res["pp"]["mesh"] == {"pp": 2, "tp": 2}
     assert res["ep"]["mesh"] == {"dp": 2, "ep": 2}
     assert res["multislice"]["mesh"] == {"dp": 2, "fsdp": 2}
     assert all(r["loss"] > 0 and np.isfinite(r["loss"]) and r["step"] == 1

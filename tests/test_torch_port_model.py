@@ -236,7 +236,8 @@ def test_port_imports_no_jax_and_no_ray_tpu():
         "ray_tpu_torch.models.moe, ray_tpu_torch.ops.attention, "
         "ray_tpu_torch.ops.ring, ray_tpu_torch.parallel, ray_tpu_torch.parallel.mesh, "
         "ray_tpu_torch.parallel.sharding, ray_tpu_torch.parallel.comm, "
-        "ray_tpu_torch.parallel.launch, ray_tpu_torch.parallel.dryrun\n"
+        "ray_tpu_torch.parallel.launch, ray_tpu_torch.parallel.dryrun, "
+        "ray_tpu_torch.parallel.pipeline\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'optax', "
         "'ray_tpu') or m.startswith(('jax.', 'flax.', 'optax.', 'ray_tpu.')))\n"
         "print(bad)\n"
