@@ -67,7 +67,20 @@ Phases (any failure exits non-zero; nothing is caught):
      logits, engine prefill vs full forward, no KV block leaked, and
      torch's deterministic mode after close() what it was before the
      server (the engine scopes it to its steps); the closed server's pool
-     and weights go by reference count (7b's peak reads phase 4's);
+     and weights go by reference count (7b's peak reads phase 4's); the
+     engine reports to a recording metrics sink (runtime.RecordingMetrics
+     through RuntimeHooks): over the 8 requests 8 ray_tpu_llm_ttft_seconds
+     observations, ray_tpu_llm_prefill_tokens_total equal to the engine's
+     own count, ray_tpu_llm_prefix_cache_hits_total equal to kv_stats()'s,
+     and ray_tpu_llm_kv_blocks_in_use last set to 0;
+  8a. device_plane: phase 5's gpt_1b bf16 parameters (1.01 B, 2.03 GB)
+     through the port's tensor reducer (_private/device_plane.py) into a
+     stand-in object store (its own serialize scope, lazy buffers and one
+     host arena), rebuilt on the card: every tensor bitwise equal and the
+     sink counting exactly the tensors' bytes in each direction, for a
+     pageable arena, the plane registering each region for its copy, and
+     the arena registered once; device->host and host->device GB/s beside
+     the PCIe link's rate (nvidia-smi), and the metadata's size a tensor;
   7a. lse_grad: flash_attention_with_lse (out and lse, both differentiable:
      the flash forward, then the dQ and dK/dV kernels with delta - dlse) at
      gpt_1b's heads (b=2, h=16, t=2048, d=128) in bf16 (wgmma) and float32
@@ -101,7 +114,20 @@ Phases (any failure exits non-zero; nothing is caught):
      num_layers * M, all wgmma), the warm-up loss within PP_LOSS_RTOL of
      phase 4's (the reference's final norm computes in bf16), the peak
      within phase 4's + 1 GiB; ms per step, tokens/s and MFU beside phase
-     4's.
+     4's;
+  8b. train_loop, on the same group: phase 4's cell through
+     train.loop.gpt_train_loop (the body of a runtime trainer's loop, with
+     a stand-in session), fed by iter_device_batches from seeded numpy
+     batches that differ each step: a warm-up and steps 1-4, the state
+     gathered after step 2 (gather_state, the loop's checkpoint), restored
+     into a fresh state (restore_sharded_state) and held to the tree bit
+     for bit, then the loop resumed from the checkpoint for steps 3-4.
+     Phase 4's launches a step, all wgmma; the resumed steps' loss and
+     grad norm bitwise equal to the unbroken run's; ms per step (step 1,
+     report to report: a step is reported once the next is queued) and
+     over steps 3-4 (the first launched from an idle card after the
+     checkpoint) beside phase 4's, and with --profile the device busy time
+     and idle share over steps 3-4 beside phase 4's.
 The card machine has one GPU and NCCL puts one rank on a device, so phases
 7b-7d run the sharded and pipelined paths at world size 1: every
 collective of more than one rank (the gathers and reductions over fsdp,
@@ -124,7 +150,8 @@ and the backward kernels at the train step's shape (b=12) with the train
 phase's; every entry names its shape and its launches on each path (train,
 remat_attn, remat_dots, train_moe, train_gpt_j, forward, server,
 sharded_ws1, sp_ring_ws1, sp_ulysses_ws1, pp_train_ws1: the timed steps or
-calls of each)
+calls of each; train_loop: all of 8b's steps, warm-ups and resumed run
+included)
 and the case of phases 2-3 that checked it at each path's shape, and
 carries the head_dim-256 case's (d256_gpt_j, train_gpt_j's shape) numbers
 under "d256"; the backward kernels' plain and library times are those of
@@ -815,13 +842,19 @@ def phase_forward(cfg, params, batch: int, seq: int, n_forward: int):
 def profile_window(fn, label: str):
     """Device time by kernel over one call of ``fn`` (which must end in a
     synchronize), the device's busy time and its idle share of the wall."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         fn()
         wall_ms = (time.monotonic() - t0) * 1e3
+    return profile_report(prof, wall_ms, label)
+
+
+def profile_report(prof, wall_ms: float, label: str):
+    """The breakdown of ``profile_window`` from a stopped profiler that
+    covered ``wall_ms`` of wall time."""
+    from torch.autograd import DeviceType
     # the port's record_function ranges also show as device events: they are
     # spans over kernels, not kernels, and are read apart below
     kernels = [e for e in prof.key_averages()
@@ -868,6 +901,12 @@ def profile_window(fn, label: str):
                 flash_bwd_delta=ranges.get("flash_bwd_delta"))
 
 
+#: the serving engine's metrics (the reference's names), by the sink's table
+SERVER_METRICS = (("observations", "ray_tpu_llm_ttft_seconds"),
+                  ("counters", "ray_tpu_llm_prefill_tokens_total"),
+                  ("counters", "ray_tpu_llm_prefix_cache_hits_total"),
+                  ("gauges", "ray_tpu_llm_kv_blocks_in_use"))
+
 RANGES = ("flash_bwd_delta", "moe_router", "moe_dispatch", "moe_experts", "moe_combine")
 
 
@@ -885,14 +924,23 @@ def _kernel_group(name: str) -> str:
 
 
 def phase_server(cfg, params, fwd, profile: bool):
+    from ray_tpu_torch.runtime import RecordingMetrics, RuntimeHooks
     from ray_tpu_torch.serve import llm
 
+    sink = RecordingMetrics()
     srv = llm.LLMServer(
         cfg, params=params, device="cuda", num_blocks=1024, block_size=16,
         prefill_chunk=256, prefill_lanes=4, lane_buckets=(1, 2, 4, 8),
         prefill_token_buckets=(64, 128, 256),
         cache_buckets=(256, 512, 1024, 2048), max_adapters=2,
+        hooks=RuntimeHooks(metrics=sink), deployment="smoke",
     )
+    tags = {"deployment": "smoke"}
+
+    def metric(kind, name):
+        # a copy: the sink appends to its lists of observations in place
+        value = getattr(sink, kind).get(sink.key(name, tags), 0.0)
+        return list(value) if kind == "observations" else value
     rng = np.random.RandomState(2)
 
     def prompt(n):
@@ -925,11 +973,13 @@ def phase_server(cfg, params, fwd, profile: bool):
             return results
 
         stats0 = srv.kv_stats()
+        sink0 = {name: metric(kind, name) for kind, name in SERVER_METRICS}
         t0 = time.monotonic()
         # the first shared-prefix request fills the prefix cache
         results = [srv(payloads[0])] + concurrently(payloads[1:])
         seconds = time.monotonic() - t0
         stats1 = srv.kv_stats()
+        sink1 = {name: metric(kind, name) for kind, name in SERVER_METRICS}
         if any(r is None or len(r["tokens"]) != 32 for r in results):
             raise SystemExit("not every request finished with 32 tokens")
         hits = stats1["prefix_hits"] - stats0["prefix_hits"]
@@ -969,6 +1019,23 @@ def phase_server(cfg, params, fwd, profile: bool):
         in_use = srv.kv_stats()["kv_blocks_in_use"]
         if in_use != 0:
             raise SystemExit(f"{in_use} KV blocks leaked")
+        # the engine's metrics through the hooks' sink, over the 8 requests
+        ttft_obs = len(sink1["ray_tpu_llm_ttft_seconds"]) - len(sink0["ray_tpu_llm_ttft_seconds"])
+        prefill_sink = (sink1["ray_tpu_llm_prefill_tokens_total"]
+                        - sink0["ray_tpu_llm_prefill_tokens_total"])
+        hits_sink = (sink1["ray_tpu_llm_prefix_cache_hits_total"]
+                     - sink0["ray_tpu_llm_prefix_cache_hits_total"])
+        gauge_last = metric("gauges", "ray_tpu_llm_kv_blocks_in_use")
+        sink_report = dict(
+            ttft_observations=ttft_obs,
+            prefill_tokens_total=prefill_sink,
+            engine_prefill_tokens=stats1["prefill_tokens"] - stats0["prefill_tokens"],
+            prefix_cache_hits_total=hits_sink, kv_stats_prefix_hits=hits,
+            kv_blocks_in_use_last=gauge_last)
+        print(f"[server] metrics sink over the 8 requests: {sink_report}")
+        if (ttft_obs != len(payloads) or prefill_sink != sink_report["engine_prefill_tokens"]
+                or hits_sink != hits or gauge_last != 0):
+            raise SystemExit(f"the server's metrics disagree with the engine: {sink_report}")
         st = {k: stats1[k] - stats0[k]
               for k in ("prefill_seconds", "decode_seconds", "steps")}
         out = dict(
@@ -982,7 +1049,7 @@ def phase_server(cfg, params, fwd, profile: bool):
             engine_vs_forward_atol=ENGINE_VS_FORWARD_ATOL,
             kv_blocks_in_use_after=in_use, launches=server_launches,
             prefill_seconds=st["prefill_seconds"], decode_seconds=st["decode_seconds"],
-            steps=st["steps"],
+            steps=st["steps"], metrics_sink=sink_report,
         )
         print(f"[server] {len(payloads)} requests, {prompt_tokens} prompt + {gen_tokens} "
               f"generated tokens in {seconds:.2f} s: {out['tokens_per_s']:.1f} tokens/s, "
@@ -1118,6 +1185,315 @@ def phase_lse_grad():
     return rows
 
 
+class _Lazy:
+    """Stand-in for the object store's lazy buffer: ``nbytes`` and the
+    write into the destination."""
+
+    def __init__(self, nbytes, write):
+        self.nbytes, self.write = nbytes, write
+
+
+class _Arena:
+    """Stand-in for the object store's serialize scope and its reserved
+    region: lazy buffers collected while ``active``, then written into one
+    host arena (64-byte aligned slices) and read back by index
+    (``_arena_view``, while the arena is ``current``)."""
+
+    current = None
+
+    def __init__(self):
+        self.active, self.buffers, self.views, self.host = False, [], [], None
+
+    def scope_active(self):
+        return self.active
+
+    def append(self, buf):
+        self.buffers.append(buf)
+        return len(self.buffers) - 1
+
+    def allocate(self):
+        offsets, total = [], 0
+        for b in self.buffers:
+            offsets.append(total)
+            total += (b.nbytes + 63) // 64 * 64
+        self.host = torch.empty(total, dtype=torch.uint8)
+        self.views = [memoryview(self.host[o:o + b.nbytes].numpy())
+                      for o, b in zip(offsets, self.buffers)]
+
+
+
+def _arena_view(index):
+    """The stand-in's get_indexed_buffer: a module-level function, pickled
+    by reference as the runtime's is."""
+    return _Arena.current.views[index]
+
+
+def pcie_bound_gbps():
+    """The link's rate a direction: generation and width from nvidia-smi,
+    else from the kernel's PCI sysfs entry of the card (nvidia-smi may read
+    them as N/A in a container), else the H100 SXM5 data sheet's
+    PCIe gen 5 x16. 128b/130b coding from gen 3 on."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=pcie.link.gen.current,pcie.link.width.current,pci.bus_id",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True).stdout
+    gen, width, bus = (x.strip() for x in out.strip().splitlines()[0].split(","))
+    per_lane = {"1": 2.5, "2": 5.0, "3": 8.0, "4": 16.0, "5": 32.0}
+    if gen in per_lane and width.isdigit():
+        source, gts, lanes = "nvidia-smi", per_lane[gen], int(width)
+    else:
+        dev = os.path.join("/sys/bus/pci/devices", bus.lower()[-12:])
+        try:
+            with open(os.path.join(dev, "current_link_speed")) as f:
+                gts = float(f.read().split()[0])
+            with open(os.path.join(dev, "current_link_width")) as f:
+                lanes = int(f.read().strip())
+            source = "sysfs"
+        except (OSError, ValueError):
+            source, gts, lanes = "H100 SXM5 data sheet (PCIe gen 5 x16)", 32.0, 16
+    return dict(source=source, gt_per_s=gts, width=lanes,
+                gbps=gts * lanes * (128 / 130 if gts >= 8 else 0.8) / 8)
+
+
+def phase_device_plane(params):
+    """8a: gpt_1b's bf16 parameters through the port's reducer
+    (``_private.device_plane``) into a stand-in object store: inside the
+    stand-in serialize scope every tensor becomes a lazy buffer, the lazy
+    writers fill one host arena (the device->host copies), and the pickle
+    rebuilds every tensor on the card from its arena slice (host->device).
+    Three destinations, each a full round trip: pageable, the plane
+    registering each host region for its copy (pin=True), and the arena
+    registered once up front (the pinned bound). Gates: every tensor bitwise
+    equal, the sink counting exactly the tensors' bytes in each direction."""
+    import pickle
+
+    from ray_tpu_torch._private import device_plane
+    from ray_tpu_torch.runtime import RecordingMetrics, RuntimeHooks
+
+    nbytes = sum(t.numel() * t.element_size() for t in params.values())
+    out = dict(tensors=len(params), bytes=nbytes,
+               params=sum(t.numel() for t in params.values()))
+    runs = {}
+    for mode in ("pageable", "register_per_copy", "arena_registered"):
+        arena, sink = _Arena(), RecordingMetrics()
+        hooks = RuntimeHooks(metrics=sink, serialize_scope_active=arena.scope_active,
+                             append_oob_buffer=arena.append, lazy_buffer=_Lazy,
+                             get_indexed_buffer=_arena_view)
+
+        class Pickler(pickle.Pickler):
+            dispatch_table = {}
+
+        device_plane.install(Pickler.dispatch_table, hooks, pin=mode == "register_per_copy")
+        try:
+            import io
+
+            f = io.BytesIO()
+            arena.active = True
+            Pickler(f, protocol=5).dump(params)
+            arena.active = False
+            meta = f.getvalue()
+            arena.allocate()
+            rt = torch.cuda.cudart()
+            if mode == "arena_registered":
+                rt.cudaHostRegister(arena.host.data_ptr(), arena.host.numel(), 0)
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for b, v in zip(arena.buffers, arena.views):
+                    b.write(v)
+                d2h = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                _Arena.current = arena
+                back = pickle.loads(meta)
+                torch.cuda.synchronize()
+                h2d = time.perf_counter() - t0
+            finally:
+                if mode == "arena_registered":
+                    rt.cudaHostUnregister(arena.host.data_ptr())
+        finally:
+            # the hooks hold the arena, whose lazy buffers hold the plane
+            # (their writers) and the parameters: a cycle the collector
+            # would have to find (7b's peak reads what is left)
+            _Arena.current, arena.buffers, arena.views = None, [], []
+            device_plane.uninstall(Pickler.dispatch_table)
+        same = all(back[n].device.type == "cuda" and back[n].dtype == t.dtype
+                   and torch.equal(back[n], t) for n, t in params.items())
+        counted = {d: sink.counters.get(sink.key("ray_tpu_device_transfer_bytes_total",
+                                                 {"direction": d}), 0.0)
+                   for d in ("device_to_host", "host_to_device")}
+        runs[mode] = dict(d2h_s=d2h, h2d_s=h2d, d2h_gbps=nbytes / d2h / 1e9,
+                          h2d_gbps=nbytes / h2d / 1e9, bitwise=same, counted_bytes=counted,
+                          meta_bytes=len(meta), meta_bytes_per_tensor=len(meta) / len(params))
+        del back, arena
+        if not same:
+            raise SystemExit(f"device_plane ({mode}): a rebuilt tensor differs")
+        if counted != {"device_to_host": nbytes, "host_to_device": nbytes}:
+            raise SystemExit(f"device_plane ({mode}): the sink counted {counted}, the tensors "
+                             f"hold {nbytes} bytes")
+    link = pcie_bound_gbps()
+    out.update(runs=runs, link=link)
+    for mode, r in runs.items():
+        print(f"[device_plane] {mode}: {out['tensors']} tensors, {nbytes / 1e9:.3f} GB: "
+              f"device->host {r['d2h_gbps']:.2f} GB/s, host->device {r['h2d_gbps']:.2f} GB/s "
+              f"(link {link['gt_per_s']:g} GT/s x{link['width']} from {link['source']}: "
+              f"{link['gbps']:.1f} GB/s a direction); bitwise {r['bitwise']}; sink bytes "
+              f"{r['counted_bytes']}; metadata {r['meta_bytes']} B, "
+              f"{r['meta_bytes_per_tensor']:.0f} B a tensor")
+    torch.cuda.empty_cache()
+    return out
+
+
+class _LoopSession:
+    """Stand-in for a trainer's session (ray_tpu.train's surface): reports
+    kept with the time at each; an optional checkpoint to resume from;
+    ``profile`` = (a, b) runs the profiler from step a's report to step
+    b's (the loop reports a step once the next is queued, and a checkpoint's
+    step at once, so from step 2's report to step 4's the window holds
+    steps 3 and 4 whole: their batches' waits, launches and device work)."""
+
+    class Checkpoint:
+        def __init__(self, data):
+            self.data = data
+
+        @classmethod
+        def from_dict(cls, data):
+            return cls(dict(data))
+
+        def to_dict(self):
+            return dict(self.data)
+
+    def __init__(self, checkpoint=None, profile=None):
+        self.checkpoint, self.reports, self.checkpoints = checkpoint, [], {}
+        self.window, self.prof, self.profile = profile, None, None
+
+    def report(self, metrics, checkpoint=None):
+        now = time.monotonic()
+        self.reports.append(dict(metrics, at=now))
+        if checkpoint is not None:
+            self.checkpoints[metrics["step"]] = checkpoint
+        if self.prof is not None and metrics["step"] == self.window[1]:
+            self.prof.stop()
+            self.profile = profile_report(
+                self.prof, (now - self.prof_t0) * 1e3,
+                f"gpt_train_loop steps {self.window[0] + 1}-{self.window[1]}")
+            self.profile["steps"] = self.window[1] - self.window[0]
+            self.prof = None
+        if self.window is not None and metrics["step"] == self.window[0]:
+            from torch.profiler import ProfilerActivity, profile
+
+            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self.prof.start()
+            self.prof_t0 = time.monotonic()
+
+    def get_checkpoint(self):
+        return self.checkpoint
+
+    def get_world_rank(self):
+        return 0
+
+    def get_world_size(self):
+        return 1
+
+
+def phase_train_loop(nothing, profile: bool):
+    """8b: phase 4's cell (gpt_1b, bf16 compute, float32 master weights and
+    moments, b=12, t=2048, ce_chunk 512, remat "nothing") through
+    ``train.loop.gpt_train_loop`` on the one-rank NCCL group, fed by
+    ``iter_device_batches`` from seeded numpy batches that differ each step:
+    a warm-up (step 0) and steps 1-4, the state gathered after step 2
+    (``gather_state``, the loop's checkpoint); then ``restore_sharded_state``
+    of that tree into a fresh state, held bitwise to the tree; then the loop
+    resumed from the checkpoint for steps 3-4. Gates: phase 4's launches per
+    step, on wgmma; the restored state bitwise equal to the gathered one;
+    the resumed steps' losses and grad norms bitwise equal to the unbroken
+    run's."""
+    from ray_tpu_torch.models import training
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.train.loop import gpt_train_loop, model_config
+
+    config = dict(model="gpt_1b", model_overrides={"ce_chunk": 512}, batch=nothing["batch"],
+                  seq=nothing["seq"], steps=5, lr=1e-4, data_seed=11,
+                  checkpoint_every=3, device="cuda")
+    want = dict(zip(COUNTS, (nothing["launches_per_step"][name] for name in COUNTS)))
+    _reset_launch_counts()
+    first = _LoopSession(profile=(2, 4) if profile else None)
+    gpt_train_loop(config, session=first)
+    first_counts = _launch_counts()
+    tree = first.checkpoints[2].to_dict()["state"]
+    # the restored state, leaf by leaf against the gathered tree
+    cfg = model_config({"model_overrides": config["model_overrides"], "model": "gpt_1b"})
+    mesh = MeshSpec(dp=-1).build("cuda")  # the loop's
+    restored, _ = training.restore_sharded_state(tree, cfg, mesh,
+                                                 training.default_optimizer(1e-4))
+    leaves = [(tree["params"], restored.params.values()),
+              (tree["mu"], restored.opt_state.mu), (tree["nu"], restored.opt_state.nu)]
+    bitwise_state = (restored.step == tree["step"] == 3
+                     and restored.opt_state.count == tree["count"]
+                     and all(torch.equal(t.to_local(), torch.from_numpy(host[n]).to("cuda"))
+                             for host, ts in leaves for n, t in zip(host, ts)))
+    del restored, leaves
+    torch.cuda.empty_cache()
+    second = _LoopSession(checkpoint=first.checkpoints[2])
+    gpt_train_loop(config, session=second)
+    launches = dict(zip(COUNTS, _launch_counts()))
+    run = first.reports
+    # per step over each run (a report comes once the next step is queued,
+    # so counts at reports are not a step's); the gather and the restores
+    # launch no flash kernel
+    per_step = [{n: c / len(r) for n, c in counts.items()} for r, counts in (
+        (run, dict(zip(COUNTS, first_counts))),
+        (second.reports, {n: launches[n] - c for n, c in zip(COUNTS, first_counts)}))]
+    if any(p != want for p in per_step):
+        raise SystemExit(f"train_loop: launches per step {per_step}, expected {want}")
+    unbroken = [(r["loss"], r["grad_norm"]) for r in run[3:]]
+    resumed = [(r["loss"], r["grad_norm"]) for r in second.reports]
+    losses = [r["loss"] for r in run]
+    # a step is reported once the next is queued, so from step 0's report to
+    # step 1's the card ran step 1 with step 2 queued behind it: the steady
+    # step. Later intervals mix steps: the host's launches of step 4 wait
+    # for room in the launch queue, which holds step 3's report back; steps
+    # 3-4 together start from an idle card after the checkpoint's gather
+    ms = run[1]["step_ms"]
+    after_checkpoint = (run[4]["at"] - run[2]["at"]) * 1e3 / 2
+    out = dict(batch=config["batch"], seq=config["seq"], steps=4, warmup_steps=1,
+               losses=losses, grad_norms=[r["grad_norm"] for r in run],
+               resumed=resumed, unbroken_3_4=unbroken, ms_per_step=ms,
+               phase4_ms_per_step=nothing["ms_per_step"],
+               step_ms=[r["step_ms"] for r in run], ms_per_step_after_checkpoint=after_checkpoint,
+               ms_per_step_note="step 1: from step 0's report to step 1's; after "
+                                "checkpoint: steps 3-4, from step 2's report to step 4's",
+               bitwise_restored_state=bitwise_state, resumed_bitwise=resumed == unbroken,
+               launches_per_step=want, launches=launches,
+               launches_by_run=dict(unbroken_5_steps=dict(zip(COUNTS, first_counts)),
+                                    resumed_2_steps={n: launches[n] - c for n, c in
+                                                     zip(COUNTS, first_counts)}),
+               checkpoint_bytes=int(sum(a.nbytes for part in ("params", "mu", "nu")
+                                        for a in tree[part].values())))
+    if first.profile is not None:
+        out["profile"] = first.profile
+    print(f"[train_loop] gpt_train_loop, gpt_1b b={config['batch']} t={config['seq']}: losses "
+          f"{[round(x, 4) for x in losses]}, {ms:.1f} ms per step (step 1; phase 4 "
+          f"{nothing['ms_per_step']:.1f}), {after_checkpoint:.1f} over steps 3-4 after the "
+          f"checkpoint; checkpoint after step 2: "
+          f"{out['checkpoint_bytes'] / 1e9:.2f} GB gathered, restored bitwise {bitwise_state}; "
+          f"resumed steps 3-4 {resumed} vs unbroken {unbroken}: bitwise "
+          f"{out['resumed_bitwise']}" + (
+              f"; idle share over steps 3-4 {first.profile['idle_share']:.3f} (phase 4 "
+              f"{nothing['profile']['idle_share']:.3f})" if first.profile else ""))
+    if not all(np.isfinite(losses)):
+        raise SystemExit(f"train_loop: losses {losses}")
+    if not bitwise_state:
+        raise SystemExit("train_loop: the restored state differs from the gathered one")
+    # the restored state is the gathered one bit for bit and the batches are
+    # the same seeded ones, so steps 3-4 give the same bits: the step is
+    # deterministic on the card (the same kernels and GEMM shapes, no
+    # atomics in the flash backward, CUBLAS_WORKSPACE_CONFIG set)
+    if resumed != unbroken:
+        raise SystemExit(f"train_loop: resumed steps {resumed} differ from the unbroken "
+                         f"run's {unbroken}")
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_sharded_ws1(nothing, steps: int, profile: bool):
     """7b and 7c: phase 4's step through the sharded train step on a
     one-rank NCCL group, on MeshSpec(fsdp=-1) and, with ring and Ulysses
@@ -1169,6 +1545,7 @@ def phase_sharded_ws1(nothing, steps: int, profile: bool):
             out[path] = rep
         out["pp_small_ws1"] = pp_small_vs_dense()
         out["pp_train_ws1"] = phase_pp_train_ws1(nothing, steps, profile)
+        out["train_loop"] = phase_train_loop(nothing, profile)
     finally:
         dist.destroy_process_group()
     return out
@@ -1301,6 +1678,7 @@ def main() -> int:
     if torch.are_deterministic_algorithms_enabled() != deterministic:
         raise SystemExit("the server left torch's deterministic mode changed after close()")
     report["server"]["deterministic_mode_restored"] = True
+    report["device_plane"] = phase_device_plane(params)
     # the closed server's pool went with it; the weights go here, by
     # reference count (7b's peak memory shows it)
     del params, fwd
@@ -1330,7 +1708,7 @@ def main() -> int:
              "train_gpt_j": report["train_gpt_j"],
              "forward": report["forward"], "server": report["server"],
              **{path: report[path] for path in sharded},
-             "pp_train_ws1": report["pp_train_ws1"]}
+             "pp_train_ws1": report["pp_train_ws1"], "train_loop": report["train_loop"]}
     by_path = {name: {path: rep["launches"][name] for path, rep in paths.items()}
                for name in COUNTS}
     # the case of phases 2 and 3 that holds each kernel to its plain version
@@ -1339,7 +1717,7 @@ def main() -> int:
                   "remat_dots": "gpt_1b_train_b12", "train_moe": "gpt_1b_moe_b8",
                   "train_gpt_j": "d256_gpt_j",
                   **{path: "gpt_1b_train_b12" for path in sharded},
-                  "pp_train_ws1": "gpt_1b_pp_mb3"}
+                  "pp_train_ws1": "gpt_1b_pp_mb3", "train_loop": "gpt_1b_train_b12"}
     # the head_dim-256 case (train_gpt_j's shape) beside each entry's own
     d256 = {
         "flash_fwd": dict(shape=fwd_d256_shape, ms=fwd_d256["ms"],

@@ -60,6 +60,13 @@ On a mesh (``make_train_step(..., mesh=...)``, every rank calling it):
 With every axis of size 1 (one rank) no collective runs but the norm's
 one-scalar sum, and the step computes what the single-device step does.
 
+A feeder may give a step this rank's ``LocalBatch`` (``local_batch``,
+the cut the step makes of a global batch) in place of the global batch, so
+that each rank uploads only its block (``train.session.iter_device_batches``).
+``gather_state`` makes a sharded state one whole host tree of numpy arrays
+on every rank (a checkpoint), and ``restore_sharded_state`` cuts such a tree
+back into a rank's blocks on any mesh and layout.
+
 ``make_pp_train_step`` is the pipelined step over ``pp`` (counterpart of
 ``ray_tpu/parallel/pipeline.py``'s): its state is in the stacked layout
 (``init_sharded_state(..., stacked=True)``, ``gpt.stack_layers``), each
@@ -73,6 +80,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
@@ -99,6 +107,7 @@ from ray_tpu_torch.parallel.mesh import (
     DATA_AXES,
     MeshGroups,
     mesh_device,
+    mesh_sizes,
     subgroup,
 )
 from ray_tpu_torch.parallel.pipeline import pipeline_apply, stage_split
@@ -319,26 +328,105 @@ def init_sharded_state(cfg: GPTConfig, mesh, optimizer: ClippedAdamW, seed: int 
     calls it alike."""
     shardings = state_shardings(mesh, cfg, rules, stacked)
     dev = mesh_device(mesh)
-    coord = dict(zip(AXIS_ORDER, mesh.get_coordinate()))
     source = params.items() if params is not None else init_draws(cfg, dev, seed)
     if stacked:
         source = stack_layers(dict(source), cfg).items()
-    out: Params = {}
-    with torch.no_grad():
-        for name, full in source:
-            place = shardings.params[name]
-            block = full[local_slices(full.shape, spec_of(place, full.ndim), mesh, coord)]
-            # a copy: a view would keep the whole tensor alive, and the
-            # step's in-place updates would write into the caller's params
-            local = block.to(device=dev, dtype=cfg.param_dtype,
-                             memory_format=torch.contiguous_format, copy=True)
-            out[name] = DTensor.from_local(
-                local, mesh, place, run_check=False, shape=full.shape,
-                stride=torch.empty(full.shape, device="meta").stride())
-    missing = set(shardings.params) - set(out)
-    if missing:
-        raise ValueError(f"params lack {sorted(missing)}")
+    out = {name: _place(full, shardings.params[name], mesh, cfg.param_dtype)
+           for name, full in source}
+    _check_names(shardings.params, out, "params")
     return init_train_state(out, optimizer), shardings
+
+
+def _place(full: torch.Tensor, place, mesh, dtype: torch.dtype) -> DTensor:
+    """This rank's block of the whole tensor ``full``, as a DTensor placed
+    ``place`` on ``mesh`` (a copy on the mesh's device, in ``dtype``)."""
+    coord = dict(zip(AXIS_ORDER, mesh.get_coordinate()))
+    with torch.no_grad():
+        block = full[local_slices(full.shape, spec_of(place, full.ndim), mesh, coord)]
+        # a copy: a view would keep the whole tensor alive, and the step's
+        # in-place updates would write into the caller's tensors
+        local = block.to(device=mesh_device(mesh), dtype=dtype,
+                         memory_format=torch.contiguous_format, copy=True)
+        return DTensor.from_local(local, mesh, place, run_check=False, shape=full.shape,
+                                  stride=torch.empty(full.shape, device="meta").stride())
+
+
+def _check_names(want, got, what: str) -> None:
+    missing = set(want) - set(got)
+    if missing:
+        raise ValueError(f"{what} lack {sorted(missing)}")
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A copy of a whole tensor as numpy (the state's tensors are updated
+    in place after); bf16, which numpy lacks, as its raw bits (uint16; the
+    tree's "dtype" names the type)."""
+    t = t.detach().to("cpu", memory_format=torch.contiguous_format, copy=True)
+    return (t.view(torch.uint16) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _from_host(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.view(torch.bfloat16) if dtype == torch.bfloat16 else t
+
+
+def gather_state(state: TrainState, mesh=None) -> Dict[str, Any]:
+    """The whole state as a host tree of numpy arrays, on every rank:
+    ``{"step", "count", "dtype", "params", "mu", "nu"}``, the last three
+    {name: array} in the state's layout (stacked where the state is),
+    ``dtype`` the parameters' and moments' (bf16 leaves are their raw bits,
+    uint16). A sharded state's blocks are gathered over ``mesh``
+    (collective: every rank calls it alike); a single-device state's
+    tensors are copied to the host. The counterpart of the reference's
+    ``multihost_utils.process_allgather(x, tiled=True)`` of a checkpoint;
+    ``restore_sharded_state`` cuts it back."""
+    names = list(state.params)
+
+    def whole(t):
+        if isinstance(t, DTensor):
+            if mesh is not None and t.device_mesh != mesh:
+                raise ValueError("the state does not live on the given mesh")
+            t = t.full_tensor()
+        return _to_host(t)
+
+    dtypes = {t.dtype for t in state.params.values()}
+    if len(dtypes) != 1:
+        raise ValueError(f"the state's parameters mix dtypes {sorted(map(str, dtypes))}")
+    opt = state.opt_state
+    return {"step": int(state.step), "count": int(opt.count),
+            "dtype": str(dtypes.pop()).removeprefix("torch."),
+            "params": {n: whole(t) for n, t in state.params.items()},
+            "mu": {n: whole(t) for n, t in zip(names, opt.mu)},
+            "nu": {n: whole(t) for n, t in zip(names, opt.nu)}}
+
+
+def restore_sharded_state(host_tree: Dict[str, Any], cfg: GPTConfig, mesh,
+                          optimizer: ClippedAdamW, *, rules: Optional[Rules] = None,
+                          stacked: bool = False) -> Tuple[TrainState, TrainState]:
+    """``(state, shardings)`` from ``gather_state``'s tree: each rank's
+    blocks of the parameters and both moments cut from the whole arrays and
+    placed as ``state_shardings(mesh, cfg, rules, stacked)`` says, the step
+    and the optimizer's count as saved. The mesh may differ from the one
+    the state was gathered on; the blocks are then the new mesh's. The
+    counterpart of ``jax.device_put(host_params, shardings.params)``.
+    ``optimizer`` is the step's, as for ``init_sharded_state``; it keeps
+    no state of its own (the moments are the tree's)."""
+    shardings = state_shardings(mesh, cfg, rules, stacked)
+    dtype = getattr(torch, host_tree["dtype"])
+    if dtype != cfg.param_dtype:
+        raise ValueError(f"the tree holds {dtype}, the config wants {cfg.param_dtype}")
+
+    def place(part: str) -> Params:
+        tree = host_tree[part]
+        _check_names(shardings.params, tree, part)
+        return {n: _place(_from_host(tree[n], dtype), p, mesh, dtype)
+                for n, p in shardings.params.items()}
+
+    params, mu, nu = place("params"), place("mu"), place("nu")
+    state = TrainState(step=int(host_tree["step"]), params=params,
+                       opt_state=AdamWState(int(host_tree["count"]), list(mu.values()),
+                                            list(nu.values())))
+    return state, shardings
 
 
 @dataclasses.dataclass(frozen=True)
@@ -404,26 +492,81 @@ def _global_norm(grads: List[torch.Tensor], plans: List[_Plan],
     return comm.all_reduce(sq, dist.group.WORLD).sqrt()
 
 
-def _local_batch(tokens: torch.Tensor, groups: MeshGroups, dev: torch.device):
-    """``(tokens, positions, targets, valid)`` of this rank's block of the
-    global batch [B, T]: rows cut over (dp, fsdp), the sequence over sp;
-    positions are global; each position's target is the next token, across
-    the chunk's end, and the sequence's last position has none (valid 0)."""
+@dataclasses.dataclass
+class LocalBatch:
+    """One rank's block of a global token batch [B, T], as the sharded
+    steps cut it (``local_batch``): ``tokens`` [b, t] (its rows and its
+    sequence chunk), ``targets`` [b, t] (each position's next token, across
+    the chunk's end), ``valid`` [b, t] (0 at the sequence's last position,
+    which has no target), ``t0`` the chunk's first position,
+    ``global_shape`` (B, T), and the microbatch count the rows were ordered
+    for (the pipelined step's). A step given one skips its own cut, so a
+    feeder can upload a rank's block only."""
+
+    tokens: torch.Tensor
+    targets: torch.Tensor
+    valid: torch.Tensor
+    t0: int
+    global_shape: Tuple[int, int]
+    num_microbatches: int = 1
+
+    def to(self, device) -> "LocalBatch":
+        return LocalBatch(*(t.to(device) for t in self.tensors()), self.t0, self.global_shape,
+                          self.num_microbatches)
+
+    def tensors(self) -> List[torch.Tensor]:
+        return [self.tokens, self.targets, self.valid]
+
+
+def _cut(tokens: torch.Tensor, sizes, coord, num_microbatches: int) -> LocalBatch:
     b_all, t_all = tokens.shape
-    blocks, sp = groups.batch_blocks, groups.sizes["sp"]
-    if b_all % blocks or t_all % sp:
-        raise ValueError(f"batch {tuple(tokens.shape)} does not split into {blocks} "
-                         f"row blocks and {sp} sequence chunks")
+    blocks = sizes["dp"] * sizes["fsdp"]
+    index = coord["dp"] * sizes["fsdp"] + coord["fsdp"]
+    sp = sizes["sp"]
+    if b_all % (blocks * num_microbatches) or t_all % sp:
+        raise ValueError(f"batch {tuple(tokens.shape)} does not split into {num_microbatches} "
+                         f"microbatches over {blocks} row blocks and {sp} sequence chunks")
+    if num_microbatches > 1:
+        # microbatch i is global rows [i * B / M, (i + 1) * B / M), spread
+        # over the data ranks (the reference's [M, mb] reshape with mb cut
+        # over dp and fsdp): order the rows so that each rank's block is its
+        # share of every microbatch, microbatch-major
+        tokens = (tokens.reshape(num_microbatches, blocks, -1, t_all).transpose(0, 1)
+                  .reshape(b_all, t_all))
     b, t = b_all // blocks, t_all // sp
-    t0 = groups.coord["sp"] * t
-    rows = tokens[groups.batch_index * b:(groups.batch_index + 1) * b].to(dev).long()
+    t0 = coord["sp"] * t
+    rows = tokens[index * b:(index + 1) * b].long()
     nxt = rows[:, t0 + 1:t0 + t + 1]
-    targets = torch.zeros(b, t, dtype=torch.long, device=dev)
-    valid = torch.zeros(b, t, dtype=torch.float32, device=dev)
+    targets = torch.zeros(b, t, dtype=torch.long, device=rows.device)
+    valid = torch.zeros(b, t, dtype=torch.float32, device=rows.device)
     targets[:, :nxt.shape[1]] = nxt
     valid[:, :nxt.shape[1]] = 1.0
-    positions = (t0 + torch.arange(t, device=dev)).expand(b, t)
-    return rows[:, t0:t0 + t], positions, targets, valid
+    return LocalBatch(rows[:, t0:t0 + t], targets, valid, t0, (b_all, t_all), num_microbatches)
+
+
+def local_batch(tokens: torch.Tensor, mesh, num_microbatches: int = 1) -> LocalBatch:
+    """This rank's ``LocalBatch`` of the global batch ``tokens`` [B, T] on
+    ``mesh`` (a ``DeviceMesh`` over ``AXIS_ORDER``), on ``tokens``' device:
+    rows cut over (dp, fsdp), the sequence over sp, and, with
+    ``num_microbatches`` M > 1, the rows first ordered as the pipelined step
+    with M microbatches orders them. No collective."""
+    return _cut(tokens, mesh_sizes(mesh), dict(zip(AXIS_ORDER, mesh.get_coordinate())),
+                num_microbatches)
+
+
+def _local_batch(tokens, groups: MeshGroups, dev: torch.device, num_microbatches: int = 1):
+    """``(LocalBatch on dev, positions)`` of this rank's block of the global
+    batch [B, T] (or of the ``LocalBatch`` a feeder cut already); positions
+    are global."""
+    if isinstance(tokens, LocalBatch):
+        if tokens.num_microbatches != num_microbatches:
+            raise ValueError(f"the batch was cut for {tokens.num_microbatches} microbatches, "
+                             f"the step runs {num_microbatches}")
+        lb = tokens.to(dev)
+    else:
+        lb = _cut(tokens.to(dev), groups.sizes, groups.coord, num_microbatches)
+    b, t = lb.tokens.shape
+    return lb, (lb.t0 + torch.arange(t, device=dev)).expand(b, t)
 
 
 class _ShardedParams:
@@ -486,12 +629,13 @@ class _ShardedLoss(_ShardedParams):
         "dropped"}: the rank's shares); the model gathers each parameter
         from ``blocks`` where it uses it (``view``)."""
         cfg = self.cfg
-        tok, positions, targets, valid = _local_batch(tokens, self.groups, self.dev)
+        lb, positions = _local_batch(tokens, self.groups, self.dev)
         (hidden, weight, bias), moe = functional_call(
-            self.model, blocks, (tok, positions),
+            self.model, blocks, (lb.tokens, positions),
             {"return_hidden": True, "return_moe": True, "param_view": self.view})
-        n_targets = tokens.shape[0] * (tokens.shape[1] - 1)
-        ce = blockwise_nll_sum(hidden, weight, bias, targets, valid, cfg.ce_chunk) / n_targets
+        b_all, t_all = lb.global_shape
+        ce = (blockwise_nll_sum(hidden, weight, bias, lb.targets, lb.valid, cfg.ce_chunk)
+              / (b_all * (t_all - 1)))
         return ce + cfg.moe_aux_weight * moe["aux"], dict(moe, ce=ce)
 
 
@@ -571,20 +715,13 @@ class _PipelinedLoss(_ShardedParams):
         out = functional_call(self.block, views, (x, positions))
         return (out[0] if self.block.moe else out), positions
 
-    def __call__(self, blocks: Params, tokens: torch.Tensor) -> torch.Tensor:
+    def __call__(self, blocks: Params, tokens) -> torch.Tensor:
         cfg, g, m = self.cfg, self.groups, self.num_microbatches
-        b_all, t_all = tokens.shape
-        if b_all % (m * g.batch_blocks):
-            raise ValueError(f"batch {b_all} does not split into {m} microbatches over "
-                             f"{g.batch_blocks} data ranks")
-        # microbatch i is global rows [i * b_all / m, (i + 1) * b_all / m),
-        # spread over the data ranks (the reference's [M, mb] reshape with mb
-        # cut over dp and fsdp): order the rows so that each rank's block is
-        # its share of every microbatch, microbatch-major
-        rows = tokens.reshape(m, g.batch_blocks, -1, t_all).transpose(0, 1).reshape(b_all, t_all)
-        tok, positions, targets, valid = _local_batch(rows, g, self.dev)
-        b, t = tok.shape
-        x = F.embedding(tok, self.view("wte.weight", blocks["wte.weight"]).to(cfg.dtype))
+        # each rank's block is its share of every microbatch (_cut)
+        lb, positions = _local_batch(tokens, g, self.dev, m)
+        b_all, t_all = lb.global_shape
+        b, t = lb.tokens.shape
+        x = F.embedding(lb.tokens, self.view("wte.weight", blocks["wte.weight"]).to(cfg.dtype))
         stage = {name[len(STACKED_PREFIX):]: stage_split(p, 1) for name, p in blocks.items()
                  if name.startswith(STACKED_PREFIX)}
         y, _ = pipeline_apply(g, self._layer, stage,
@@ -600,7 +737,7 @@ class _PipelinedLoss(_ShardedParams):
              + self.view("ln_f.bias", blocks["ln_f.bias"]).to(y.dtype))
         nll = blockwise_nll_sum(y, self.view("lm_head.weight", blocks["lm_head.weight"]),
                                 self.view("lm_head.bias", blocks["lm_head.bias"]),
-                                targets, valid, cfg.ce_chunk)
+                                lb.targets, lb.valid, cfg.ce_chunk)
         return nll / (b_all * (t_all - 1))
 
 

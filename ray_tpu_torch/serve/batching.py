@@ -87,12 +87,22 @@ class _Sequence:
 
 class _ContinuousBatcher:
     """Iteration-level scheduler: admits queued requests into the active
-    set between calls of the step fn."""
+    set between calls of the step fn.
+
+    With ``hooks`` whose ``caller_cancelled`` is set (a runtime's way to say
+    that the request the calling thread serves was cancelled, e.g. its
+    client hung up), a blocked caller polls it every ``poll_interval_s`` and
+    raises ``hooks.cancelled_error``; the scheduler then drops the sequence
+    and runs its release hook."""
+
+    #: how often a blocked caller re-checks for cancellation
+    poll_interval_s = 0.02
 
     def __init__(self, step_fn, max_batch_size, batch_wait_timeout_s,
-                 name="fn"):
+                 name="fn", hooks=None):
         self.step_fn = step_fn
         self.name = name
+        self.hooks = hooks
         self.max_batch_size = max_batch_size
         self.timeout = batch_wait_timeout_s
         self.queue: List[_Sequence] = []
@@ -109,11 +119,17 @@ class _ContinuousBatcher:
                 raise RuntimeError(f"batcher for {self.name!r} is shut down")
             self.queue.append(seq)
             self.cv.notify_all()
+        cancelled = getattr(self.hooks, "caller_cancelled", None)
         try:
-            seq._event.wait()
+            if cancelled is None:
+                seq._event.wait()
+            while not seq._event.wait(self.poll_interval_s):
+                if cancelled():
+                    raise self.hooks.cancelled_error(self.name)
         except BaseException:
-            # the caller is abandoning the sequence (interrupt): flag it so
-            # the scheduler drops it and runs its release hook
+            # the caller is abandoning the sequence (cancelled above, or an
+            # interrupt): flag it so the scheduler drops it and runs its
+            # release hook
             seq.cancelled = True
             with self.cv:
                 self.cv.notify_all()
@@ -251,7 +267,8 @@ def continuous_batch(*, max_batch_size: int = 8,
     """Decorator for iteration-level (continuous) batching of a method: the
     wrapped ``fn(self, sequences)`` is a step function; callers invoke the
     wrapper with one item and block until their sequence finishes. Each
-    instance gets its own batcher."""
+    instance gets its own batcher, which polls the instance's ``hooks``
+    (a ``RuntimeHooks``, where it has one) for cancelled callers."""
 
     def deco(fn):
         holder: dict = {}
@@ -264,6 +281,7 @@ def continuous_batch(*, max_batch_size: int = 8,
                 lambda: _ContinuousBatcher(
                     _bound_call(fn, owner), max_batch_size,
                     batch_wait_timeout_s, name=fn.__name__,
+                    hooks=getattr(owner, "hooks", None),
                 ),
             )
             return b.submit(item)

@@ -26,6 +26,22 @@ it too. cuBLAS reads
 ``CUBLAS_WORKSPACE_CONFIG`` when it makes its first handle, so a CUDA
 engine refuses to start unless the variable is set (before the process's
 first cuBLAS call, which the engine cannot check).
+
+Inside a runtime, the engine takes a ``RuntimeHooks`` (``hooks=``) and a
+``deployment`` name. Through ``hooks.metrics`` it reports the reference's
+four metrics, with its names, its ``deployment`` tag and at its points of
+emission: the gauge ``ray_tpu_llm_kv_blocks_in_use`` after every
+allocation, free and copy-on-write of the pool, the counters
+``ray_tpu_llm_prefix_cache_hits_total`` (blocks matched) and
+``ray_tpu_llm_prefill_tokens_total`` (prompt tokens run through prefill),
+and the histogram ``ray_tpu_llm_ttft_seconds`` at each first token. A shed
+request raises ``hooks.backpressure_error`` and a cancelled one
+``hooks.cancelled_error``, the runtime's classes where the hooks name them
+(its front end answers the first with 503 and Retry-After); a server's
+blocked callers poll ``hooks.caller_cancelled``; adapters come from
+``hooks.fetch_adapter`` (a runtime's model registry) where it is set, else
+from this process's ``register_lora``. Without hooks the engine reports
+nothing and raises the port's own errors.
 """
 
 from __future__ import annotations
@@ -47,8 +63,8 @@ import torch
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.models import gpt
 from ray_tpu_torch.models.inference import init_params
+from ray_tpu_torch.runtime import NullMetrics, RuntimeHooks
 from ray_tpu_torch.serve import batching
-from ray_tpu_torch.serve.errors import BackPressureError, TaskCancelledError
 from ray_tpu_torch.serve.multiplex import _MultiplexWrapper
 
 __all__ = [
@@ -116,11 +132,15 @@ class KVBlockPool:
     ``k_data``/``v_data`` are ``[num_blocks, layers, block_size, heads,
     head_dim]`` in ``cfg.dtype``. A sequence owns an ordered list of block
     ids whose concatenation is its cache. One more block, past the end and
-    never handed out, stays zero: gathers point unused slots at it."""
+    never handed out, stays zero: gathers point unused slots at it.
+    ``metrics`` gets ``ray_tpu_llm_kv_blocks_in_use{deployment}`` after
+    every allocation, free and copy-on-write."""
 
     def __init__(self, cfg, *, num_blocks: int = 128, block_size: int = 16,
-                 device=None):
+                 device=None, deployment: str = "llm", metrics=None):
         self.cfg = cfg
+        self.deployment = deployment
+        self.metrics = metrics or NullMetrics()
         self.device = resolve_device(device)
         self.num_blocks = int(num_blocks)
         self.block_size = int(block_size)
@@ -157,6 +177,7 @@ class KVBlockPool:
             out = [self._free.pop() for _ in range(n)]
             for b in out:
                 self._ref[b] = 1
+            self._gauge_locked()
             return out
 
     def incref(self, blocks: Sequence[int]) -> None:
@@ -168,6 +189,7 @@ class KVBlockPool:
         with self._lock:
             for b in blocks:
                 self._decref_locked(b)
+            self._gauge_locked()
 
     def _decref_locked(self, b: int) -> None:
         r = self._ref.get(b)
@@ -201,7 +223,13 @@ class KVBlockPool:
             self.v_data[new] = self.v_data[b]
             self._decref_locked(b)
             blocks[idx] = new
+            self._gauge_locked()
             return new
+
+    def _gauge_locked(self) -> None:
+        self.metrics.set_gauge("ray_tpu_llm_kv_blocks_in_use",
+                               self.num_blocks - len(self._free),
+                               {"deployment": self.deployment})
 
 
 class KVLease:
@@ -253,7 +281,8 @@ def chain_hashes(prompt: Sequence[int], block_size: int) -> List[bytes]:
 class PrefixCache:
     """hash -> block id, LRU-ordered. The cache holds its own reference on
     every cached block; entries whose block is otherwise idle are evicted
-    when the pool runs dry."""
+    when the pool runs dry. Hits go to the pool's metrics as
+    ``ray_tpu_llm_prefix_cache_hits_total{deployment}``."""
 
     def __init__(self, pool: KVBlockPool):
         self.pool = pool
@@ -279,6 +308,8 @@ class PrefixCache:
             if out:
                 self.pool.incref(out)
                 self.hits += len(out)
+                self.pool.metrics.inc("ray_tpu_llm_prefix_cache_hits_total", len(out),
+                                      {"deployment": self.pool.deployment})
             self.misses += len(hashes) - len(out)
             return out
 
@@ -312,6 +343,7 @@ class PrefixCache:
             for b in self._map.values():
                 self.pool._decref_locked(b)
             self._map.clear()
+            self.pool._gauge_locked()
 
     def __len__(self) -> int:
         with self.pool._lock:
@@ -344,12 +376,21 @@ def register_lora(model_id: str, adapter: Dict[str, Any]) -> None:
         _LORA[model_id] = adapter
 
 
-def _fetch_lora(model_id: str):
+def _registered_lora(model_id: str):
     with _LORA_LOCK:
         a = _LORA.get(model_id)
     if a is None:
         raise KeyError(f"model {model_id!r} is not registered")
-    return a["A"], a["B"], float(a.get("scale", 1.0))
+    return a
+
+
+def _lora_loader(fetch):
+    """``model_id -> (A, B, scale)`` over ``fetch(model_id) -> {"A", "B",
+    "scale"}`` (a registry's adapter dict)."""
+    def load(model_id: str):
+        a = fetch(model_id)
+        return a["A"], a["B"], float(a.get("scale", 1.0))
+    return load
 
 
 # ---------------------------------------------------------------------------
@@ -379,9 +420,12 @@ class LLMEngine:
     sequences (leasing KV blocks or shedding), runs at most one bucketed
     prefill chunk and one tc=1 decode over every decoding lane, and
     finishes or streams tokens. Every shape reaching the extend step is
-    drawn from the configured buckets."""
+    drawn from the configured buckets. ``hooks`` and ``deployment``: see
+    the module; ``adapter_loader`` (``model_id -> (A, B, scale)``), where
+    given, takes the place of the hooks' or this process's registry."""
 
-    def __init__(self, cfg=None, params=None, *, device=None,
+    def __init__(self, cfg=None, params=None, *, device=None, hooks=None,
+                 deployment: str = "llm",
                  num_blocks: int = 128, block_size: int = 16,
                  prefill_chunk: int = 32, prefill_lanes: int = 4,
                  lane_buckets: Sequence[int] = (1, 2, 4, 8, 16),
@@ -397,6 +441,8 @@ class LLMEngine:
             raise RuntimeError(
                 "set CUBLAS_WORKSPACE_CONFIG (e.g. ':4096:8') before the process's "
                 "first cuBLAS call; the engine's deterministic decode needs it")
+        self.hooks = hooks or RuntimeHooks()
+        self.deployment = deployment
         self.cfg = cfg or gpt.gpt_nano()
         self._params = params if params is not None else make_params(
             self.cfg, device=self.device)
@@ -410,12 +456,13 @@ class LLMEngine:
         self.max_context = min(self.cfg.max_seq_len, self.cache_buckets[-1])
         self.pool = KVBlockPool(
             self.cfg, num_blocks=num_blocks, block_size=block_size,
-            device=self.device,
+            device=self.device, deployment=deployment, metrics=self.hooks.metrics,
         )
         self.prefix: Optional[PrefixCache] = (
             PrefixCache(self.pool) if prefix_caching else None
         )
-        loader, dev = adapter_loader or _fetch_lora, self.device
+        loader = adapter_loader or _lora_loader(self.hooks.fetch_adapter or _registered_lora)
+        dev = self.device
         # the loader holds the device, not the engine: a closed server's
         # engine, pool and weights then go by reference count
         self._mux = _MultiplexWrapper(
@@ -527,7 +574,7 @@ class LLMEngine:
                 lease.add(self.pool.allocate(need))
             except NoKVBlocksError as e:
                 lease.release()
-                s.fail(BackPressureError(str(e), retry_after_s=0.05))
+                s.fail(self.hooks.backpressure_error(str(e), retry_after_s=0.05))
                 continue
             st.pos = len(cached) * bs       # prompt tokens already cached
             st.length = st.pos              # tokens resident in the cache
@@ -547,7 +594,7 @@ class LLMEngine:
             if (isinstance(st, _SeqState) and not s.done
                     and st.cancel_ev is not None and st.cancel_ev.is_set()):
                 st.lease.release()
-                s.fail(TaskCancelledError(f"llm:{id(self):x}"))
+                s.fail(self.hooks.cancelled_error(f"llm:{self.deployment}"))
 
     def _live(self, seqs) -> List[Any]:
         return [
@@ -576,6 +623,8 @@ class LLMEngine:
             st.pos += c
             st.length += c
             self.prefill_tokens += c
+            self.hooks.metrics.inc("ray_tpu_llm_prefill_tokens_total", c,
+                                   {"deployment": self.deployment})
             if st.pos >= len(st.prompt):
                 if self.prefix is not None:
                     # cache every full prompt block (first writer wins)
@@ -604,7 +653,7 @@ class LLMEngine:
                         st.blocks, st.length // self.block_size)
                 except NoKVBlocksError as e:
                     st.lease.release()
-                    s.fail(BackPressureError(str(e), retry_after_s=0.05))
+                    s.fail(self.hooks.backpressure_error(str(e), retry_after_s=0.05))
                     continue
                 states.append((s, st))
             if not states:
@@ -708,6 +757,8 @@ class LLMEngine:
                 st.logits.append(host[i].copy())
             if st.ttft_s is None:
                 st.ttft_s = now - s.enqueued_at
+                self.hooks.metrics.observe("ray_tpu_llm_ttft_seconds", st.ttft_s,
+                                           {"deployment": self.deployment})
             if st.stream_q is not None:
                 st.stream_q.put(("tok", tok))
             if len(st.out) >= st.max_new or (st.eos is not None
@@ -745,10 +796,17 @@ class LLMServer:
     Results carry ``tokens``, ``ttft_s``, ``prefix_cached_tokens``,
     ``prefill_tokens`` and ``model_id`` (and ``logits`` when asked for).
     Call ``close()`` (or ``batching.shutdown_batchers(server)``) to stop the
-    scheduler thread."""
+    scheduler thread.
+
+    Behind a runtime's serve plane, deploy the class itself with ``hooks``
+    and ``deployment`` among its arguments
+    (``serve.deployment(LLMServer, name=n).bind(cfg, params, "cuda",
+    hooks=hooks, deployment=n, ...)``): the hooks pickle by reference."""
 
     def __init__(self, cfg=None, params=None, device=None, **engine_kwargs):
         self._engine = LLMEngine(cfg, params, device=device, **engine_kwargs)
+        #: the batcher polls these for cancelled callers
+        self.hooks = self._engine.hooks
 
     @batching.continuous_batch(max_batch_size=16, batch_wait_timeout_s=0.001)
     def generate(self, seqs):

@@ -237,7 +237,9 @@ def test_port_imports_no_jax_and_no_ray_tpu():
         "ray_tpu_torch.ops.ring, ray_tpu_torch.parallel, ray_tpu_torch.parallel.mesh, "
         "ray_tpu_torch.parallel.sharding, ray_tpu_torch.parallel.comm, "
         "ray_tpu_torch.parallel.launch, ray_tpu_torch.parallel.dryrun, "
-        "ray_tpu_torch.parallel.pipeline\n"
+        "ray_tpu_torch.parallel.pipeline, ray_tpu_torch._private.device_plane, "
+        "ray_tpu_torch.util.collective, ray_tpu_torch.train.session, "
+        "ray_tpu_torch.train.loop, ray_tpu_torch.data, ray_tpu_torch.runtime\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'optax', "
         "'ray_tpu') or m.startswith(('jax.', 'flax.', 'optax.', 'ray_tpu.')))\n"
         "print(bad)\n"
