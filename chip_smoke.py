@@ -1632,6 +1632,211 @@ def phase_pp_train_ws1(nothing, steps: int, profile: bool):
     return rep
 
 
+# 9a: an RL learner's update on the card vs the same update on the CPU, float32
+# (4c's gpt_nano limits): parameters and metrics within rtol 1e-4 and atol
+# 1e-6. The absolute floor is for a metric that is zero up to rounding: APPO's
+# policy loss on a fresh batch is the mean of normalised advantages times a
+# ratio of 1 (3.7e-9 on the CPU, and 121% away on the first card run)
+RL_RTOL, RL_ATOL = 1e-4, 1e-6
+# 9b: the catalog's policies on the card vs the CPU (float32, TF32 off)
+RL_CATALOG_ATOL = 1e-5
+# 9c / 9d: the reference's learning tests (tests/test_rl.py:84-107, :257-277)
+RL_PPO_RETURN, RL_PPO_ITERATIONS = 120.0, 30
+RL_IMPALA_RETURN, RL_IMPALA_CALLS = 80.0, 40
+# phase 9's device; a rehearsal on the CPU sets it to "cpu"
+RL_CARD = "cuda"
+
+
+def rl_learners_card_vs_cpu():
+    """9a: PPO's full update (6 epochs of 4 minibatches of 128 over a
+    512-row batch), and one update of PG, A2C, IMPALA and APPO, each from
+    the same seeded state dict on the card and on the CPU, over the same
+    batch from a CPU rollout at seed 0 (``sample(128)`` of 4 envs, and
+    ``sample_trajectory(32)`` for the V-trace learners)."""
+    from ray_tpu_torch.rl import (A2CLearner, APPOLearner, ImpalaLearner, PGLearner,
+                                  PPOLearner, RolloutWorker)
+
+    worker = RolloutWorker("CartPole-v1", num_envs=4, seed=0, device="cpu")
+    flat, trajectory = worker.sample(128), worker.sample_trajectory(32)
+    cases = {"ppo": (PPOLearner, flat, dict(minibatch_size=128, num_epochs=6, seed=0)),
+             "pg": (PGLearner, flat, {}), "a2c": (A2CLearner, flat, {}),
+             "impala": (ImpalaLearner, trajectory, {}), "appo": (APPOLearner, trajectory, {})}
+    out, bad = {}, []
+    for name, (cls, batch, kw) in cases.items():
+        state = cls(4, 2, seed=0, device="cpu").get_weights()
+        runs = {}
+        for dev in ("cpu", RL_CARD):
+            learner = cls(4, 2, seed=0, device=dev)
+            learner.set_weights(state)
+            metrics = learner.update(batch, **kw)
+            runs[dev] = (metrics, learner.get_weights(), learner.opt_state.count)
+        (m_cpu, w_cpu, steps), (m_card, w_card, card_steps) = runs["cpu"], runs[RL_CARD]
+        param_err = max(float((w_card[k] - w_cpu[k]).abs().max()) for k in w_cpu)
+        params_ok = all(torch.allclose(w_card[k], w_cpu[k], rtol=RL_RTOL, atol=RL_ATOL)
+                        for k in w_cpu)
+        # each metric's distance over its limit (at most 1 passes)
+        metric_share = {k: abs(m_card[k] - m_cpu[k]) / (RL_ATOL + RL_RTOL * abs(m_cpu[k]))
+                        for k in m_cpu}
+        worst = max(metric_share, key=metric_share.get)
+        out[name] = dict(rows=len(batch) if name in ("ppo", "pg", "a2c") else
+                         int(np.prod(batch["actions"].shape)), optimizer_steps=steps,
+                         max_abs_param_err=param_err, params_ok=params_ok,
+                         metric_share_of_limit=metric_share, card=m_card, cpu=m_cpu)
+        print(f"[rl] 9a {name}: {steps} optimizer steps, card vs CPU: parameters max abs "
+              f"{param_err:.2e} (rtol {RL_RTOL}, atol {RL_ATOL}: {params_ok}); metrics within "
+              f"the same limits, the nearest {worst} {m_card[worst]:.9g} vs {m_cpu[worst]:.9g} "
+              f"({metric_share[worst]:.3f} of its limit)")
+        if not params_ok or metric_share[worst] > 1 or card_steps != steps:
+            bad.append(name)
+    if bad:
+        raise SystemExit(f"rl: the card's update differs from the CPU's for {bad}")
+    return out
+
+
+def rl_catalog_card_vs_cpu():
+    """9b: ``CatalogPolicy`` at the default widths (hidden (64, 64), cell 64,
+    attention dim 64 with 2 heads) on the card vs the CPU, the same weights
+    and inputs: the MLP under each activation, the LSTM over 3 steps
+    threading its carry, attention over a 5-step window; 256 rows."""
+    from ray_tpu_torch.rl import get_model
+
+    rng = np.random.default_rng(0)
+    cases = {f"mlp_{act}": {"fcnet_activation": act} for act in ("tanh", "relu", "gelu", "silu")}
+    cases.update(lstm={"use_lstm": True}, attention={"use_attention": True})
+    out, bad = {}, []
+    for name, cfg in cases.items():
+        shape = (256, 5, 4) if name == "attention" else (256, 4)
+        steps = 3 if name == "lstm" else 1
+        xs = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)) for _ in range(steps)]
+        outs = {}
+        for dev in ("cpu", RL_CARD):
+            policy = get_model(2, cfg, observation_size=4, seed=0, device=dev)
+            carry = policy.encoder.initial_carry(256) if name == "lstm" else None
+            got = []
+            with torch.no_grad():
+                for x in xs:
+                    y = policy(x.to(dev), carry) if carry is not None else policy(x.to(dev))
+                    if carry is not None:
+                        *y, carry = y
+                        y = [*y, *carry]
+                    got += [t.cpu() for t in y]
+            outs[dev] = got
+        err = max(float((a - b).abs().max()) for a, b in zip(outs[RL_CARD], outs["cpu"]))
+        out[name] = dict(max_abs_err=err, steps=steps)
+        if not err <= RL_CATALOG_ATOL:
+            bad.append(name)
+    print(f"[rl] 9b catalog card vs CPU, max abs err (atol {RL_CATALOG_ATOL}): "
+          + ", ".join(f"{k} {v['max_abs_err']:.2e}" for k, v in out.items()))
+    if bad:
+        raise SystemExit(f"rl: the catalog's policies differ on the card for {bad}")
+    return out
+
+
+def rl_ppo_learns(profile: bool):
+    """9c: the reference's PPO learning test on the card (learner and
+    rollouts): 2 workers x 4 envs, fragment 128, lr 1e-3, 8 epochs,
+    minibatch 256, seed 0; best mean return >= RL_PPO_RETURN within
+    RL_PPO_ITERATIONS. Each iteration's wall time, the learner update's
+    (synchronized), env steps/s and optimizer steps; with ``profile`` the
+    second iteration's update under torch.profiler."""
+    from ray_tpu_torch.rl import PPOConfig
+
+    algo = PPOConfig(num_rollout_workers=2, num_envs_per_worker=4, rollout_fragment_length=128,
+                     lr=1e-3, num_epochs=8, minibatch_size=256, seed=0, device=RL_CARD,
+                     rollout_device=RL_CARD).build()
+    learner = algo.learners.local
+    update, timed = algo.learners.update, []
+
+    def timed_update(batch, **kw):
+        window = profile and len(timed) == 1
+        prof = None
+        if window:
+            from torch.profiler import ProfilerActivity
+            prof = torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                                      ProfilerActivity.CUDA])
+            prof.start()
+        torch.cuda.synchronize()
+        t0, count = time.perf_counter(), learner.opt_state.count
+        metrics = update(batch, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        timed.append(dict(update_ms=ms, optimizer_steps=learner.opt_state.count - count))
+        if prof is not None:
+            prof.stop()
+            timed[-1]["profile"] = profile_report(prof, ms, "9c: one PPO learner update")
+        return metrics
+
+    algo.learners.update = timed_update
+    rows, best = [], 0.0
+    try:
+        for i in range(RL_PPO_ITERATIONS):
+            r = algo.train()
+            row = dict(timed[-1], iteration=i + 1, wall_s=r["time_this_iter_s"],
+                       env_steps=r["env_steps_this_iter"],
+                       env_steps_per_s=r["env_steps_this_iter"] / r["time_this_iter_s"],
+                       episode_return_mean=r["episode_return_mean"])
+            row["outside_update_share"] = 1 - row["update_ms"] / 1e3 / row["wall_s"]
+            rows.append(row)
+            print(f"[rl] 9c ppo iteration {i + 1}: {row['wall_s']:.3f} s, learner update "
+                  f"{row['update_ms']:.1f} ms ({row['optimizer_steps']} optimizer steps), "
+                  f"{row['env_steps_per_s']:.0f} env steps/s, return "
+                  f"{row['episode_return_mean']:.1f}")
+            if np.isfinite(r["episode_return_mean"]):
+                best = max(best, r["episode_return_mean"])
+            if best >= RL_PPO_RETURN:
+                break
+    finally:
+        algo.stop()
+    if best < RL_PPO_RETURN:
+        raise SystemExit(f"rl: PPO on the card reached {best} within {len(rows)} iterations "
+                         f"(needs {RL_PPO_RETURN})")
+    return dict(best_return=best, iterations=len(rows), rows=rows)
+
+
+def rl_impala_learns():
+    """9d: the reference's IMPALA learning test on the card: 2 workers x 4
+    envs, fragment 32, lr 1e-3, seed 0, ``train(num_updates=8)`` until the
+    best mean return reaches RL_IMPALA_RETURN within RL_IMPALA_CALLS."""
+    from ray_tpu_torch.rl import ImpalaConfig
+
+    algo = ImpalaConfig(num_rollout_workers=2, num_envs_per_worker=4, rollout_fragment_length=32,
+                        lr=1e-3, seed=0, device=RL_CARD, rollout_device=RL_CARD).build()
+    rows, best = [], 0.0
+    try:
+        for i in range(RL_IMPALA_CALLS):
+            r = algo.train(num_updates=8)
+            rows.append(dict(call=i + 1, wall_s=r["time_this_iter_s"],
+                             episode_return_mean=r["episode_return_mean"]))
+            if np.isfinite(r["episode_return_mean"]):
+                best = max(best, r["episode_return_mean"])
+            if best >= RL_IMPALA_RETURN:
+                break
+    finally:
+        algo.stop()
+    wall = sum(row["wall_s"] for row in rows)
+    print(f"[rl] 9d impala: best return {best:.1f} after {len(rows)} calls of 8 updates, "
+          f"{wall / len(rows) * 1e3:.1f} ms a call")
+    if best < RL_IMPALA_RETURN:
+        raise SystemExit(f"rl: IMPALA on the card reached {best} within {len(rows)} calls "
+                         f"(needs {RL_IMPALA_RETURN})")
+    return dict(best_return=best, calls=len(rows), ms_per_call=wall / len(rows) * 1e3,
+                rows=rows)
+
+
+def phase_rl(profile: bool):
+    """9: the on-policy RL stack (ray_tpu_torch.rl) on the card with the
+    default in-process hooks: 9a-9d. The launch counts are set to 0 before
+    and read after: RL runs no flash kernel."""
+    _reset_launch_counts()
+    t0 = time.monotonic()
+    out = dict(learners=rl_learners_card_vs_cpu(), catalog=rl_catalog_card_vs_cpu(),
+               ppo=rl_ppo_learns(profile), impala=rl_impala_learns())
+    out["launches"] = dict(zip(COUNTS, _launch_counts()))
+    out["seconds"] = time.monotonic() - t0
+    print(f"[rl] phase 9 in {out['seconds']:.1f} s; flash launches {out['launches']}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write every measurement to this JSON file")
@@ -1685,6 +1890,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["lse_grad"] = phase_lse_grad()
     report.update(phase_sharded_ws1(report["train"], steps=3, profile=args.profile))
+    report["rl"] = phase_rl(args.profile)
     report["seconds"] = time.monotonic() - t_start
 
     # flash_fwd at gpt_1b's forward shape (b=4) with the forward
@@ -1708,7 +1914,8 @@ def main() -> int:
              "train_gpt_j": report["train_gpt_j"],
              "forward": report["forward"], "server": report["server"],
              **{path: report[path] for path in sharded},
-             "pp_train_ws1": report["pp_train_ws1"], "train_loop": report["train_loop"]}
+             "pp_train_ws1": report["pp_train_ws1"], "train_loop": report["train_loop"],
+             "rl": report["rl"]}
     by_path = {name: {path: rep["launches"][name] for path, rep in paths.items()}
                for name in COUNTS}
     # the case of phases 2 and 3 that holds each kernel to its plain version

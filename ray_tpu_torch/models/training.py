@@ -137,7 +137,10 @@ class AdamWState:
 @dataclasses.dataclass(frozen=True)
 class ClippedAdamW:
     """optax ``chain(clip_by_global_norm(grad_clip), adamw(learning_rate,
-    b1=B1, b2=B2, eps=EPS, weight_decay=weight_decay))``.
+    b1=b1, b2=b2, eps=eps, weight_decay=weight_decay))``; the moments'
+    constants default to the reference's ``default_optimizer`` (B1, B2,
+    EPS), and with ``weight_decay`` 0 it is ``adam``'s chain (the RL
+    learners pass b2 0.999).
 
     With g the gradients, n = ||g|| over all of them: g <- g * (grad_clip /
     n) where n >= grad_clip (optax's rule, no epsilon); then
@@ -148,6 +151,9 @@ class ClippedAdamW:
     learning_rate: float = 1e-4
     weight_decay: float = 0.0
     grad_clip: float = 1.0
+    b1: float = B1
+    b2: float = B2
+    eps: float = EPS
 
     def init(self, params: Params) -> AdamWState:
         with torch.no_grad():
@@ -171,15 +177,15 @@ class ClippedAdamW:
                            self.grad_clip / norm)
         torch._foreach_mul_(grads, clip)
         count = state.count + 1
-        torch._foreach_lerp_(state.mu, grads, 1.0 - B1)
-        torch._foreach_mul_(state.nu, B2)
-        torch._foreach_addcmul_(state.nu, grads, grads, value=1.0 - B2)
-        bc1 = 1.0 - B1 ** count
-        bc2 = 1.0 - B2 ** count
+        torch._foreach_lerp_(state.mu, grads, 1.0 - self.b1)
+        torch._foreach_mul_(state.nu, self.b2)
+        torch._foreach_addcmul_(state.nu, grads, grads, value=1.0 - self.b2)
+        bc1 = 1.0 - self.b1 ** count
+        bc2 = 1.0 - self.b2 ** count
         # sqrt(nu_hat) + eps = sqrt(nu) / sqrt(bc2) + eps, the one temporary
         denom = torch._foreach_sqrt(state.nu)
         torch._foreach_div_(denom, bc2 ** 0.5)
-        torch._foreach_add_(denom, EPS)
+        torch._foreach_add_(denom, self.eps)
         if self.weight_decay:
             # the whole update, mu_hat / denom + weight_decay * p, in the
             # temporary and then one add, so the parameters round once as

@@ -4,9 +4,11 @@ The port imports neither ``jax`` nor ``ray_tpu``. Where it meets a
 runtime (the object plane, the serve plane's metrics and errors, a model
 registry), it calls what a :class:`RuntimeHooks` hands it; the caller fills
 one with its runtime's functions and passes it to the device plane
-(``_private.device_plane.install``), the serving engine (``serve.llm``) and
-the train loop (``train.loop``). The default does nothing the caller did not
-ask for: no metrics, no out-of-band buffers, the port's own error classes.
+(``_private.device_plane.install``), the serving engine (``serve.llm``),
+the train loop (``train.loop``) and the RL algorithms (``rl``). The default
+does nothing the caller did not ask for: no metrics, no out-of-band
+buffers, the port's own error classes, actors that run in the caller's
+process and no collective.
 
 A hooks object is pickled by reference to the functions and classes it
 holds, so one built from a runtime's module-level functions can travel to
@@ -16,11 +18,12 @@ another process of that runtime (a serve replica's constructor arguments).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from ray_tpu_torch.serve.errors import BackPressureError, TaskCancelledError
 
-__all__ = ["NullMetrics", "RecordingMetrics", "RuntimeHooks"]
+__all__ = ["LocalRef", "NullMetrics", "RecordingMetrics", "RuntimeHooks", "local_get",
+           "local_kill", "local_remote", "local_wait"]
 
 Tags = Optional[Dict[str, str]]
 
@@ -63,6 +66,68 @@ class RecordingMetrics:
         self.observations.setdefault(self.key(name, tags), []).append(float(value))
 
 
+class LocalRef:
+    """The result of a method called through ``local_remote``: already
+    computed."""
+
+    __slots__ = ("value",)
+
+    def __init__(self, value: Any):
+        self.value = value
+
+
+class _LocalMethod:
+    def __init__(self, method: Callable):
+        self._method = method
+
+    def remote(self, *args, **kwargs) -> LocalRef:
+        return LocalRef(self._method(*args, **kwargs))
+
+
+class _LocalHandle:
+    """An instance behind the actor surface: ``handle.m.remote(...)`` calls
+    ``m`` at once."""
+
+    def __init__(self, instance: Any):
+        self._instance = instance
+
+    def __getattr__(self, name: str) -> _LocalMethod:
+        return _LocalMethod(getattr(self._instance, name))
+
+
+class _LocalActorClass:
+    def __init__(self, cls: type):
+        self._cls = cls
+
+    def remote(self, *args, **kwargs) -> _LocalHandle:
+        return _LocalHandle(self._cls(*args, **kwargs))
+
+
+def local_remote(cls: type) -> _LocalActorClass:
+    """The default ``remote``: ``local_remote(cls).remote(*args)`` builds
+    ``cls(*args)`` in this process, and each ``handle.method.remote(...)``
+    runs the method there and then (its exception raises at the call)."""
+    return _LocalActorClass(cls)
+
+
+def local_get(refs: Any, timeout: Optional[float] = None) -> Any:
+    """The default ``get``: a ``LocalRef``'s value, or a list's values."""
+    if isinstance(refs, list):
+        return [r.value for r in refs]
+    return refs.value
+
+
+def local_wait(refs: List[LocalRef], num_returns: int = 1, timeout: Optional[float] = None
+               ) -> Tuple[List[LocalRef], List[LocalRef]]:
+    """The default ``wait``: every local ref is ready, so the first
+    ``num_returns`` in order."""
+    return list(refs[:num_returns]), list(refs[num_returns:])
+
+
+def local_kill(handle: Any) -> None:
+    """The default ``kill``: a local actor goes with its last reference."""
+
+
 @dataclasses.dataclass(frozen=True)
 class RuntimeHooks:
     """What the port calls where it meets a runtime.
@@ -83,6 +148,16 @@ class RuntimeHooks:
     * ``backpressure_error`` and ``cancelled_error``: the classes raised for
       a shed request (``(message, retry_after_s=...)``) and a cancelled one
       (``(task_desc)``), so the runtime's front end recognises them.
+    * Actors, in the shape of ray's API: ``remote(cls)`` gives a factory
+      whose ``.remote(*args)`` starts the actor and gives a handle whose
+      methods have ``.remote(*args) -> ref``; ``get(refs, timeout=)``;
+      ``wait(refs, num_returns=, timeout=) -> (ready, not_ready)``;
+      ``kill(handle)``. The default runs every actor in the caller's
+      process, each call at once.
+    * A host collective for actors: ``init_collective_group(world, rank,
+      group_name=)`` and ``allreduce(array, group_name=) -> array`` (a sum
+      over numpy arrays). None by default: actors that run one after another
+      in one process cannot meet in a collective.
     """
 
     metrics: Any = dataclasses.field(default_factory=NullMetrics)
@@ -94,6 +169,12 @@ class RuntimeHooks:
     caller_cancelled: Optional[Callable[[], bool]] = None
     backpressure_error: type = BackPressureError
     cancelled_error: type = TaskCancelledError
+    remote: Callable[[type], Any] = local_remote
+    get: Callable[..., Any] = local_get
+    wait: Callable[..., Any] = local_wait
+    kill: Callable[[Any], None] = local_kill
+    init_collective_group: Optional[Callable[..., Any]] = None
+    allreduce: Optional[Callable[..., Any]] = None
 
     def in_serialize_scope(self) -> bool:
         """True inside the runtime's serialize call (where out-of-band

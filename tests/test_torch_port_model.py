@@ -239,7 +239,13 @@ def test_port_imports_no_jax_and_no_ray_tpu():
         "ray_tpu_torch.parallel.launch, ray_tpu_torch.parallel.dryrun, "
         "ray_tpu_torch.parallel.pipeline, ray_tpu_torch._private.device_plane, "
         "ray_tpu_torch.util.collective, ray_tpu_torch.train.session, "
-        "ray_tpu_torch.train.loop, ray_tpu_torch.data, ray_tpu_torch.runtime\n"
+        "ray_tpu_torch.train.loop, ray_tpu_torch.data, ray_tpu_torch.runtime, "
+        "ray_tpu_torch.rl, ray_tpu_torch.rl.a2c, ray_tpu_torch.rl.algorithm, "
+        "ray_tpu_torch.rl.appo, ray_tpu_torch.rl.catalog, ray_tpu_torch.rl.connectors, "
+        "ray_tpu_torch.rl.convert, ray_tpu_torch.rl.env, ray_tpu_torch.rl.impala, "
+        "ray_tpu_torch.rl.learner, ray_tpu_torch.rl.multi_agent, ray_tpu_torch.rl.pg, "
+        "ray_tpu_torch.rl.rl_module, ray_tpu_torch.rl.rollout_worker, "
+        "ray_tpu_torch.rl.sample_batch\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'optax', "
         "'ray_tpu') or m.startswith(('jax.', 'flax.', 'optax.', 'ray_tpu.')))\n"
         "print(bad)\n"
