@@ -128,6 +128,26 @@ Phases (any failure exits non-zero; nothing is caught):
      over steps 3-4 (the first launched from an idle card after the
      checkpoint) beside phase 4's, and with --profile the device busy time
      and idle share over steps 3-4 beside phase 4's.
+  9. rl, the RL stack (ray_tpu_torch.rl) with the default in-process hooks
+     (every actor in this process), learners and the workers' forwards on
+     the card, envs, replay and GAE on the host; no flash kernel may
+     launch: 9a each on-policy learner's update (PPO's 24 optimizer steps)
+     card vs CPU, parameters and metrics within rtol 1e-4 and atol 1e-6;
+     9b the catalog's policies card vs CPU within 1e-5; 9c PPO and 9d
+     IMPALA learn CartPole at the reference's gates (>= 120 within 30
+     iterations, >= 80 within 40 calls); 9e each off-policy learner's
+     update card vs CPU over three updates from the reference's initial
+     weights, the same batches and the same rl.prng noise (DQN with
+     prioritized weights, Rainbow with 51 atoms, Ape-X's worker TD error,
+     SAC with the auto-tuned temperature, TD3 with a skipped actor step,
+     DDPG, CQL, MARWIL and BC, the last three reading their data through an
+     in-memory dataset hook), within 9a's limits (an element whose
+     gradient was at the rounding floor, |g| < 1e-6, within 2 * lr a step);
+     9f DQN learns CartPole at the reference's gate (>= 100 within 60
+     iterations), the update's ms and, with --profile, its idle share; 9g
+     Ape-X for 2 iterations, the policy server over 20 external episodes
+     (updates > 0, transitions > 300, learner on the card), ES for 2
+     iterations and SAC on Pendulum past its warm-up.
 The card machine has one GPU and NCCL puts one rank on a device, so phases
 7b-7d run the sharded and pipelined paths at world size 1: every
 collective of more than one rank (the gathers and reductions over fsdp,
@@ -1823,17 +1843,378 @@ def rl_impala_learns():
                 rows=rows)
 
 
+# 9f: the reference's DQN learning test (tests/test_rl.py:231-256)
+RL_DQN_RETURN, RL_DQN_ITERATIONS = 100.0, 60
+# a gradient below this at some step is at the rounding floor: Adam's first
+# update there is lr * g / (|g| + 1e-8), which the last bits decide, so such
+# an element is held to 2 * lr a step (the CPU tests' rule)
+RL_GRAD_FLOOR = 1e-6
+
+
+def _record_steps(opts):
+    """Wrap each ``AdamParams`` of ``opts`` (name -> it) so that it records
+    every step's gradients before taking it."""
+    grads = {name: [] for name in opts}
+    for name, opt in opts.items():
+        def recorded(g, step=opt.step, log=grads[name]):
+            log.append([t.detach().to("cpu", copy=True) for t in g])
+            step(g)
+        opt.step = recorded
+    return grads
+
+
+def _state_share(card, cpu, grads, lr_steps):
+    """Every parameter (and target) of ``card`` against ``cpu`` (name ->
+    module each): the worst share of the limit (rtol RL_RTOL, atol
+    RL_ATOL; a rounding-floor element's limit 2 * lr a step), and the max
+    abs difference. ``grads``: the CPU run's recorded gradients by
+    optimizer; ``lr_steps``: name -> (optimizer, lr * steps)."""
+    worst, max_err = 0.0, 0.0
+    for name, c_mod in cpu.items():
+        opt, slack = lr_steps[name]
+        g_mod = card[name]
+        floor = {}
+        if grads.get(opt):
+            pnames = [n for n, _ in c_mod.named_parameters()]
+            for i, pname in enumerate(pnames):
+                floor[pname] = torch.stack([g[i].abs() for g in grads[opt]]).amin(0) < RL_GRAD_FLOOR
+        c_state, g_state = c_mod.state_dict(), g_mod.state_dict()
+        for k, c in c_state.items():
+            diff = (g_state[k].detach().cpu() - c).abs()
+            limit = RL_ATOL + RL_RTOL * c.abs()
+            if k in floor:
+                limit = torch.where(floor[k], torch.full_like(limit, 2 * slack), limit)
+            max_err = max(max_err, float(diff.max()))
+            worst = max(worst, float((diff / limit).max()))
+    return worst, max_err
+
+
+def _metric_share(card_rows, cpu_rows):
+    worst = 0.0
+    for m_card, m_cpu in zip(card_rows, cpu_rows):
+        for k, v in m_cpu.items():
+            worst = max(worst, abs(m_card[k] - v) / (RL_ATOL + RL_RTOL * abs(v)))
+    return worst
+
+
+def _memory_dataset(batch):
+    """Hooks whose dataset read gives ``batch`` from memory: no file and no
+    pyarrow on the card's machine."""
+    from ray_tpu_torch.rl import offline
+    from ray_tpu_torch.runtime import RuntimeHooks
+
+    cols = offline._flatten(batch)
+    return RuntimeHooks(read_dataset=lambda path, batch_size=4096: iter([cols]))
+
+
+def rl_offpolicy_card_vs_cpu():
+    """9e: each off-policy learner's update, card against CPU: the same
+    reference-drawn weights (seed 0), the same batches and the same
+    ``rl.prng`` noise for three consecutive updates; parameters, targets
+    and metrics within RL_RTOL / RL_ATOL (rounding-floor elements within
+    2 * lr a step). DQN (double-Q, prioritized weights), Rainbow (dueling,
+    noisy, 3-step, C51 with 51 atoms), Ape-X's worker TD error, SAC with
+    the auto-tuned temperature, TD3 (an actor step, a skipped one, an
+    actor step), DDPG, CQL, MARWIL (beta 1) and BC (beta 0); CQL and MARWIL
+    read their data through an in-memory dataset hook."""
+    from ray_tpu_torch.rl import (ApexRolloutWorker, BCConfig, CQLConfig, DDPGConfig,
+                                  DQNLearner, DQNRolloutWorker, MARWILConfig,
+                                  PrioritizedReplayBuffer, RolloutWorker, SACConfig,
+                                  SACRolloutWorker, SampleBatch, TD3Config, prng)
+    from ray_tpu_torch.rl.learner import to_device
+
+    out, bad = {}, []
+
+    def report(name, share, max_err, metric_share, extra=""):
+        out[name] = dict(state_share_of_limit=share, max_abs_param_err=max_err,
+                         metric_share_of_limit=metric_share)
+        print(f"[rl] 9e {name}: card vs CPU over 3 updates: parameters max abs {max_err:.2e} "
+              f"({share:.3f} of the limit), metrics {metric_share:.3f} of the limit{extra}")
+        if not (share <= 1 and metric_share <= 1):
+            bad.append(name)
+
+    # DQN and Rainbow: minibatches drawn once on the host from prioritized
+    # replay over a CPU worker's transitions
+    for name, knobs in (("dqn", {}), ("rainbow", dict(dueling=True, noisy=True, n_step=3,
+                                                     num_atoms=51))):
+        worker = DQNRolloutWorker("CartPole-v1", num_envs=4, seed=0, device="cpu", **knobs)
+        buf = PrioritizedReplayBuffer(4096, alpha=0.6, seed=0)
+        buf.add(worker.sample(64, 0.5))
+        batches = [buf.sample(64, beta=0.4) for _ in range(3)]
+        runs = {}
+        for dev in ("cpu", RL_CARD):
+            learner = DQNLearner(4, 2, seed=0, device=dev, **knobs)
+            grads = _record_steps({"opt": learner.opt})
+            rows = [learner.update(mb) for mb in batches]
+            runs[dev] = (learner, grads, [dict(loss=l, td_max=float(np.abs(td).max()))
+                                          for l, td in rows], [td for _, td in rows])
+        (c, g, m_cpu, td_cpu), (d, _, m_card, td_card) = runs["cpu"], runs[RL_CARD]
+        share, err = _state_share({"net": d.net, "target": d.target_net},
+                                  {"net": c.net, "target": c.target_net}, g,
+                                  {"net": ("opt", 1e-3 * 3), "target": ("opt", 1e-3 * 3)})
+        td_share = max(float(np.max(np.abs(a - b) / (RL_ATOL + RL_RTOL * np.abs(b))))
+                       for a, b in zip(td_card, td_cpu))
+        report(name, share, err, max(_metric_share(m_card, m_cpu), td_share))
+
+    # Ape-X: the worker's initial priorities over one batch, same weights
+    tds = {}
+    batch = None
+    for dev in ("cpu", RL_CARD):
+        w = ApexRolloutWorker("CartPole-v1", num_envs=4, seed=0, n_step=3, device=dev)
+        batch = batch if batch is not None else w.sample(32, 0.5)
+        tds[dev] = w.td_error(batch)
+    share = float(np.max(np.abs(tds[RL_CARD] - tds["cpu"])
+                         / (RL_ATOL + RL_RTOL * np.abs(tds["cpu"]))))
+    report("apex_td_error", 0.0, float(np.abs(tds[RL_CARD] - tds["cpu"]).max()), share)
+
+    # SAC, TD3, DDPG: three updates on replayed Pendulum transitions
+    pendulum = SACRolloutWorker("Pendulum-v1", num_envs=4, seed=0, device="cpu")
+    cont = [pendulum.sample(64, True) for _ in range(3)]
+    keys = prng.split(prng.PRNGKey(7), 3)
+    for name, make in (("sac", lambda dev: SACConfig(device=dev, rollout_device=dev,
+                                                     num_envs_per_worker=1).build()),
+                       ("td3", lambda dev: TD3Config(device=dev, rollout_device=dev,
+                                                     num_envs_per_worker=1).build()),
+                       ("ddpg", lambda dev: DDPGConfig(device=dev, rollout_device=dev,
+                                                       num_envs_per_worker=1).build()),
+                       ("cql", lambda dev: CQLConfig(
+                           device=dev, batch_size=256,
+                           hooks=_memory_dataset(SampleBatch.concat(cont))).build())):
+        runs = {}
+        for dev in ("cpu", RL_CARD):
+            algo = make(dev)
+            opts = {k: getattr(algo, k) for k in ("q_opt", "pi_opt", "a_opt")
+                    if hasattr(algo, k)}
+            grads = _record_steps(opts)
+            rows = []
+            for i, (b, k) in enumerate(zip(cont, keys)):
+                tb = to_device(b, algo.device)
+                m = algo.update(tb, k, i) if name in ("td3", "ddpg") else algo.update(tb, k)
+                rows.append({kk: float(v) for kk, v in m.items()})
+            runs[dev] = (algo, grads, rows)
+            if hasattr(algo, "stop"):
+                algo.stop()
+        (c, g, m_cpu), (d, _, m_card) = runs["cpu"], runs[RL_CARD]
+        mods = {"policy": ("pi_opt", 3e-4 * 3), "qnet": ("q_opt", 3e-4 * 3),
+                "q_target": ("q_opt", 3e-4 * 3)}
+        if name in ("td3", "ddpg"):
+            mods["pi_target"] = ("pi_opt", 3e-4 * 3)
+        if name == "sac":
+            mods["temperature"] = ("a_opt", 3e-4 * 3)
+        share, err = _state_share({k: getattr(d, k) for k in mods},
+                                  {k: getattr(c, k) for k in mods}, g, mods)
+        extra = ""
+        if name == "td3":
+            extra = f"; actor steps {len(g['pi_opt'])} of 3"
+            if len(g["pi_opt"]) != 2:
+                bad.append("td3 skipped step")
+        report(name, share, err, _metric_share(m_card, m_cpu), extra)
+
+    # MARWIL and BC: one epoch over 768 logged CartPole rows (3 steps)
+    logged = RolloutWorker("CartPole-v1", num_envs=4, seed=0, device="cpu").sample(192)
+    for name, cfg in (("marwil", MARWILConfig), ("bc", BCConfig)):
+        runs = {}
+        for dev in ("cpu", RL_CARD):
+            algo = cfg(input_path="memory", batch_size=256, device=dev,
+                       hooks=_memory_dataset(logged)).build()
+            grads = _record_steps({"opt": algo.opt})
+            m = algo.train(epochs=1)
+            runs[dev] = (algo, grads, [{k: m[k] for k in ("total_loss", "policy_loss",
+                                                          "vf_loss")}])
+        (c, g, m_cpu), (d, _, m_card) = runs["cpu"], runs[RL_CARD]
+        share, err = _state_share({"net": d.net}, {"net": c.net}, g,
+                                  {"net": ("opt", 1e-3 * 3)})
+        report(name, share, err, _metric_share(m_card, m_cpu),
+               f"; {len(g['opt'])} optimizer steps")
+    if bad:
+        raise SystemExit(f"rl: the card's off-policy updates differ from the CPU's for {bad}")
+    return out
+
+
+def rl_dqn_learns(profile: bool):
+    """9f: the reference's DQN learning test on the card (learner and the
+    worker's forwards): 1 worker x 4 envs, fragment 64, learning starts
+    256, epsilon over 3000 steps, 16 updates an iteration, target every
+    100, seed 0; best mean return >= RL_DQN_RETURN within
+    RL_DQN_ITERATIONS. Each iteration's wall time, its updates' time
+    (synchronized) and env steps/s; with ``profile`` one iteration's 16
+    updates under torch.profiler."""
+    from ray_tpu_torch.rl import DQNConfig
+
+    algo = DQNConfig(num_rollout_workers=1, num_envs_per_worker=4, rollout_fragment_length=64,
+                     learning_starts=256, epsilon_decay_steps=3000, updates_per_iteration=16,
+                     target_update_interval=100, seed=0, device=RL_CARD,
+                     rollout_device=RL_CARD).build()
+    learner = algo.learner
+    update, update_ms = learner.update, []
+    # with profile: one iteration's 16 updates (and the host's replay work
+    # between them) under torch.profiler, from the first to the last
+    win = dict(armed=False, prof=None, t0=0.0, n=0, report=None)
+
+    def timed(batch):
+        if win["armed"] and win["prof"] is None:
+            from torch.profiler import ProfilerActivity
+            win["prof"] = torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                                             ProfilerActivity.CUDA])
+            win["prof"].start()
+            win["t0"] = time.perf_counter()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = update(batch)
+        torch.cuda.synchronize()
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+        if win["prof"] is not None and win["report"] is None:
+            win["n"] += 1
+            if win["n"] == algo.config.updates_per_iteration:
+                wall = (time.perf_counter() - win["t0"]) * 1e3
+                win["prof"].stop()
+                win["report"] = profile_report(win["prof"], wall, "9f: 16 DQN learner updates")
+        return result
+
+    learner.update = timed
+    rows, best = [], 0.0
+    try:
+        for i in range(RL_DQN_ITERATIONS):
+            n_before = len(update_ms)
+            win["armed"] = profile and algo._updates >= 32
+            r = algo.train()
+            ms = update_ms[n_before:]
+            row = dict(iteration=i + 1, wall_s=r["time_this_iter_s"], updates=len(ms),
+                       update_ms=ms, env_steps=256,
+                       env_steps_per_s=256 / r["time_this_iter_s"],
+                       episode_return_mean=r["episode_return_mean"])
+            rows.append(row)
+            if np.isfinite(r["episode_return_mean"]):
+                best = max(best, r["episode_return_mean"])
+            if best >= RL_DQN_RETURN:
+                break
+    finally:
+        algo.stop()
+    prof_report = win["report"]
+    per_update = [ms for row in rows for ms in row["update_ms"]]
+    steady = sorted(per_update[16:]) or sorted(per_update)
+    med = steady[len(steady) // 2] if steady else float("nan")
+    print(f"[rl] 9f dqn: best return {best:.1f} after {len(rows)} iterations; an update "
+          f"{med:.2f} ms (median, synchronized), {min(steady) if steady else 0:.2f}-"
+          f"{max(steady) if steady else 0:.2f}; an iteration "
+          f"{np.median([r['wall_s'] for r in rows]) * 1e3:.1f} ms, "
+          f"{np.median([r['env_steps_per_s'] for r in rows]):.0f} env steps/s"
+          + (f"; updates' idle share {prof_report['idle_share']:.3f}" if prof_report else ""))
+    if best < RL_DQN_RETURN:
+        raise SystemExit(f"rl: DQN on the card reached {best} within {len(rows)} iterations "
+                         f"(needs {RL_DQN_RETURN})")
+    return dict(best_return=best, iterations=len(rows), update_ms_median=med, rows=rows,
+                profile=prof_report)
+
+
+def rl_offpolicy_mechanics():
+    """9g: Ape-X (2 rollout workers, 2 replay shards, 8 updates an
+    iteration) for 2 iterations; the
+    policy server (learner on the card) over 20 external CartPole episodes
+    through the in-process transport; ES for 2 iterations; SAC on Pendulum
+    for 2 iterations past its warm-up."""
+    from ray_tpu_torch.rl import (ApexDQNConfig, ESConfig, PolicyClient, PolicyServer,
+                                  SACConfig, make_env)
+
+    out, t0 = {}, time.monotonic()
+    # in-process actors sample each call at once: one call in flight a
+    # worker, 8 updates an iteration
+    apex = ApexDQNConfig(num_rollout_workers=2, num_envs_per_worker=4, num_replay_shards=2,
+                         rollout_fragment_length=16, max_inflight_per_worker=1,
+                         updates_per_iteration=8, train_batch_size=32, seed=0,
+                         device=RL_CARD, rollout_device=RL_CARD).build()
+    try:
+        rows = [apex.train() for _ in range(2)]
+        on_card = next(apex.learner.net.parameters()).device.type
+    finally:
+        apex.stop()
+    last = rows[-1]
+    out["apex"] = dict(num_updates=last["num_updates"], env_steps=last["env_steps_total"],
+                       shard_sizes=last["replay_shard_sizes"], mean_loss=last["mean_loss"],
+                       worker_failures=last["worker_failures"], learner_device=on_card,
+                       ms_per_iteration=[r["time_this_iter_s"] * 1e3 for r in rows])
+    ok = (last["num_updates"] == 16 and last["worker_failures"] == 0
+          and all(s > 0 for s in last["replay_shard_sizes"])
+          and np.isfinite(last["mean_loss"]) and on_card == torch.device(RL_CARD).type)
+
+    probe = make_env("CartPole-v1")
+    server = PolicyServer(probe.observation_size, probe.num_actions, lr=1e-3,
+                          learning_starts=300, train_every=8, epsilon_decay_steps=2500, seed=0,
+                          device=RL_CARD)
+    client = PolicyClient(server.address, timeout=30.0)
+    env = make_env("CartPole-v1")
+    t_server = time.monotonic()
+    learner_device = server.device.type
+    try:
+        returns = []
+        for ep in range(20):
+            episode_id = client.start_episode()
+            obs, _ = env.reset(seed=ep)
+            done = False
+            while not done:
+                action = client.get_action(episode_id, obs)
+                obs, reward, term, trunc, _ = env.step(action)
+                client.log_returns(episode_id, reward)
+                done = term or trunc
+            returns.append(client.end_episode(episode_id, obs)["episode_return"])
+        stats = client.get_stats()
+    finally:
+        client.close()
+        server.stop()
+    out["policy_server"] = dict(stats, returns=returns, learner_device=learner_device,
+                                seconds=time.monotonic() - t_server)
+    ok &= (stats["updates"] > 0 and stats["transitions"] > 300
+           and learner_device == torch.device(RL_CARD).type)
+
+    es = ESConfig(num_workers=4, population=12, sigma=0.1, lr=0.1, hidden=(32, 32), seed=0,
+                  device=RL_CARD).build()
+    try:
+        es_rows = [es.train() for _ in range(2)]
+    finally:
+        es.stop()
+    out["es"] = [dict(fitness_mean=r["episode_return_mean"], grad_norm=r["grad_norm"],
+                      ms=r["time_this_iter_s"] * 1e3) for r in es_rows]
+    ok &= all(np.isfinite(r["episode_return_mean"]) and np.isfinite(r["grad_norm"])
+              for r in es_rows)
+
+    sac = SACConfig(env="Pendulum-v1", warmup_steps=128, batch_size=64,
+                    updates_per_iteration=4, rollout_fragment_length=32, num_envs_per_worker=4,
+                    seed=0, device=RL_CARD, rollout_device=RL_CARD).build()
+    try:
+        sac_rows = [sac.train() for _ in range(3)]  # the warm-up, then 2 with updates
+    finally:
+        sac.stop()
+    out["sac"] = [{k: v for k, v in r.items() if isinstance(v, (int, float))}
+                  for r in sac_rows]
+    ok &= all(np.isfinite(r["q_loss"]) and np.isfinite(r["pi_loss"]) and r["alpha"] > 0
+              for r in sac_rows[1:])
+    out["seconds"] = time.monotonic() - t0
+    print(f"[rl] 9g apex: {last['num_updates']} updates, shards {last['replay_shard_sizes']}, "
+          f"{np.mean(out['apex']['ms_per_iteration']):.1f} ms an iteration; policy server: "
+          f"{stats['transitions']} transitions, {stats['updates']} updates on "
+          f"{learner_device} in {out['policy_server']['seconds']:.2f} s; es fitness "
+          f"{[round(r['fitness_mean'], 1) for r in out['es']]}; sac q_loss "
+          f"{[round(r['q_loss'], 3) for r in out['sac'][1:]]}; {out['seconds']:.1f} s")
+    if not ok:
+        raise SystemExit(f"rl: an off-policy mechanics check failed: {out}")
+    return out
+
+
 def phase_rl(profile: bool):
-    """9: the on-policy RL stack (ray_tpu_torch.rl) on the card with the
-    default in-process hooks: 9a-9d. The launch counts are set to 0 before
-    and read after: RL runs no flash kernel."""
+    """9: the RL stack (ray_tpu_torch.rl) on the card with the default
+    in-process hooks: 9a-9d on-policy, 9e-9g off-policy. The launch counts
+    are set to 0 before and read after: RL runs no flash kernel."""
     _reset_launch_counts()
     t0 = time.monotonic()
     out = dict(learners=rl_learners_card_vs_cpu(), catalog=rl_catalog_card_vs_cpu(),
-               ppo=rl_ppo_learns(profile), impala=rl_impala_learns())
+               ppo=rl_ppo_learns(profile), impala=rl_impala_learns(),
+               offpolicy=rl_offpolicy_card_vs_cpu(), dqn=rl_dqn_learns(profile),
+               mechanics=rl_offpolicy_mechanics())
     out["launches"] = dict(zip(COUNTS, _launch_counts()))
     out["seconds"] = time.monotonic() - t0
     print(f"[rl] phase 9 in {out['seconds']:.1f} s; flash launches {out['launches']}")
+    if any(out["launches"].values()):
+        raise SystemExit(f"rl: phase 9 launched flash kernels: {out['launches']}")
     return out
 
 

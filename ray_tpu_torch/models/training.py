@@ -143,14 +143,15 @@ class ClippedAdamW:
     learners pass b2 0.999).
 
     With g the gradients, n = ||g|| over all of them: g <- g * (grad_clip /
-    n) where n >= grad_clip (optax's rule, no epsilon); then
+    n) where n >= grad_clip (optax's rule, no epsilon), and no clip at all
+    where ``grad_clip`` is None (optax's ``adam`` alone); then
     mu <- b1 mu + (1 - b1) g, nu <- b2 nu + (1 - b2) g^2, count += 1, and
     p <- p - lr * (mu_hat / (sqrt(nu_hat) + eps) + weight_decay * p) with
     mu_hat = mu / (1 - b1^count), nu_hat = nu / (1 - b2^count)."""
 
     learning_rate: float = 1e-4
     weight_decay: float = 0.0
-    grad_clip: float = 1.0
+    grad_clip: Optional[float] = 1.0
     b1: float = B1
     b2: float = B2
     eps: float = EPS
@@ -168,14 +169,15 @@ class ClippedAdamW:
         ``grads`` (consumed: clipped in place). Returns the new state and
         the global norm of the gradients before clipping: ``norm`` where
         the caller gives it (the sharded step, whose gradients are blocks
-        of the whole), else the norm of ``grads``."""
+        of the whole), else the norm of ``grads`` (None without a clip)."""
         ps = list(params.values())
-        if norm is None:
-            norm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(grads)).float())
-        clip = torch.where(norm < self.grad_clip, torch.ones_like(norm),
-                           self.grad_clip / norm)
-        torch._foreach_mul_(grads, clip)
+        if self.grad_clip is not None:
+            if norm is None:
+                norm = torch.linalg.vector_norm(
+                    torch.stack(torch._foreach_norm(grads)).float())
+            clip = torch.where(norm < self.grad_clip, torch.ones_like(norm),
+                               self.grad_clip / norm)
+            torch._foreach_mul_(grads, clip)
         count = state.count + 1
         torch._foreach_lerp_(state.mu, grads, 1.0 - self.b1)
         torch._foreach_mul_(state.nu, self.b2)

@@ -29,7 +29,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ray_tpu_torch import DeviceLike, resolve_device
-from ray_tpu_torch.rl.rl_module import flax_init_
+from ray_tpu_torch.rl import prng
+from ray_tpu_torch.rl.rl_module import drawn
 
 __all__ = ["AttentionEncoder", "CatalogPolicy", "LSTMCell", "LSTMEncoder", "MLPEncoder",
            "ModelConfig", "get_model"]
@@ -41,6 +42,8 @@ _ACTIVATIONS = {
     "silu": F.silu,
 }
 
+#: the LSTM's gates in flax's order
+GATES = ("i", "f", "g", "o")
 #: flax nn.LayerNorm's epsilon
 LN_EPS = 1e-6
 
@@ -87,14 +90,19 @@ class LSTMCell(nn.Module):
         self.ih = nn.Linear(in_features, 4 * cell_size, bias=False)
         self.hh = nn.Linear(cell_size, 4 * cell_size)
 
-    def init_recurrent_(self, generator: torch.Generator) -> None:
-        """flax's ``orthogonal()`` for each hidden kernel, gate by gate."""
+    def flax_init_(self, key, path) -> None:
+        """flax's ``OptimizedLSTMCell`` at ``path``: each input kernel
+        ``i{gate}`` lecun-normal, each hidden kernel ``h{gate}`` orthogonal,
+        each its own scope's first draw; the hidden biases zero."""
         n = self.cell_size
-        with torch.no_grad():
-            for k in range(4):
-                q = torch.empty(n, n)
-                nn.init.orthogonal_(q, generator=generator)
-                self.hh.weight[k * n:(k + 1) * n].copy_(q)
+        for k, gate in enumerate(GATES):
+            rows = slice(k * n, (k + 1) * n)
+            ii = prng.lecun_normal(prng.param_key(key, (*path, f"i{gate}"), 1),
+                                   (self.ih.in_features, n))
+            hh = prng.orthogonal(prng.param_key(key, (*path, f"h{gate}"), 1), (n, n))
+            self.ih.weight[rows] = torch.from_numpy(ii.T).to(self.ih.weight)
+            self.hh.weight[rows] = torch.from_numpy(hh.T).to(self.hh.weight)
+        self.hh.bias.zero_()
 
     def forward(self, carry: Tuple[torch.Tensor, torch.Tensor], x: torch.Tensor):
         c, h = carry
@@ -210,11 +218,11 @@ def get_model(num_actions: int, config: Optional[ModelConfig] = None, *,
               observation_size: int, seed: int = 0,
               device: DeviceLike = None) -> CatalogPolicy:
     """The ModelCatalog.get_model_v2 analogue: config dict/dataclass in, a
-    policy out, initialised as flax initialises it (from ``seed``, on the
-    CPU) and moved to ``device``. Unlike flax, torch needs the input width
-    up front: ``observation_size``."""
+    policy out on ``device``, with what the reference's policy of the same
+    config gets from ``init(jax.random.PRNGKey(seed), ...)``. Unlike flax,
+    torch needs the input width up front: ``observation_size``."""
     if isinstance(config, dict):
         config = ModelConfig(**config)
     dev = resolve_device(device)
     policy = CatalogPolicy(observation_size, num_actions, config or ModelConfig())
-    return flax_init_(policy, seed).to(dev)
+    return drawn(policy, seed, dev)

@@ -1,9 +1,10 @@
 """Weights carried between the reference's RL networks and the port's.
 
 ``params_to_state_dict(tree)`` takes a flax parameter tree as numpy arrays
-(what ``jax.device_get`` gives) of ``DiscretePolicyModule`` or of
-``CatalogPolicy`` under any encoder, and gives the state dict of the
-port's module of the same name; ``state_dict_to_params`` goes back, so a
+(what ``jax.device_get`` gives) of ``DiscretePolicyModule``, of
+``CatalogPolicy`` under any encoder, of ``QNetwork`` under every knob, of
+``GaussianPolicy``, ``TwinQ`` or ``DeterministicPolicy``, and gives the
+state dict of the port's module of the same name; ``state_dict_to_params`` goes back, so a
 port learner's weights can be held to the reference's leaf by leaf.
 
 The layouts:
@@ -15,7 +16,9 @@ The layouts:
 - the LSTM's ``ii/if/ig/io`` kernels stack (in that order) into
   ``lstm.ih.weight``, ``hi/hf/hg/ho`` into ``lstm.hh.weight`` and their
   biases into ``lstm.hh.bias``;
-- a LayerNorm's ``scale`` is its ``weight``.
+- a LayerNorm's ``scale`` is its ``weight``;
+- ``NoisyDense``'s ``w_mu``, ``b_mu``, ``w_sigma`` and ``b_sigma`` keep
+  flax's names and layout (``[in, out]`` weights).
 
 The values are copied exactly, in float32 as they come.
 """
@@ -30,6 +33,7 @@ import torch
 __all__ = ["params_to_state_dict", "state_dict_to_params"]
 
 GATES = ("i", "f", "g", "o")
+NOISY = ("w_mu", "b_mu", "w_sigma", "b_sigma")
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -70,6 +74,8 @@ def params_to_state_dict(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         module, leaf = path.rsplit(".", 1)
         if leaf == "scale":
             out[f"{module}.weight"] = value
+        elif leaf in NOISY:
+            out[path] = value
         elif leaf == "bias":
             out[path] = value.reshape(-1)
         elif leaf == "kernel" and value.ndim == 3 and module.endswith(".out"):

@@ -65,10 +65,54 @@ def host_metrics(metrics: Tensors) -> Dict[str, float]:
     return dict(zip(metrics, values))
 
 
-def to_device(batch: SampleBatch, device: torch.device) -> Tensors:
+def to_device(batch, device: torch.device) -> Tensors:
     """The batch's columns as tensors on ``device`` (copies: a batch that
-    came through an object store may be read-only views of it)."""
-    return {k: torch.tensor(v, device=device) for k, v in batch.items()}
+    came through an object store may be read-only views of it), float64
+    columns as float32, as ``jnp.asarray`` gives them to the reference's
+    jitted updates (32-bit JAX)."""
+    out = {}
+    for k, v in batch.items():
+        v = np.asarray(v)
+        out[k] = torch.tensor(v.astype(np.float32) if v.dtype == np.float64 else v,
+                              device=device)
+    return out
+
+
+def host_draws_to(device: torch.device, *draws: np.ndarray) -> List[torch.Tensor]:
+    """Arrays drawn on the host (the reference's noise, from ``rl.prng``),
+    each as a tensor of its shape on ``device``, in one copy."""
+    flat = torch.from_numpy(np.concatenate([d.reshape(-1) for d in draws])).to(device)
+    return [t.view(d.shape) for t, d in zip(flat.split([d.size for d in draws]), draws)]
+
+
+class AdamParams:
+    """A network's parameters on its device with their optimizer state:
+    optax's ``adam(lr)`` (b2 0.999), behind ``clip_by_global_norm`` when
+    ``grad_clip`` is given."""
+
+    def __init__(self, net: torch.nn.Module, lr: float, grad_clip: Optional[float] = None):
+        self.net = net
+        self.params = dict(net.named_parameters())
+        self.optimizer = ClippedAdamW(learning_rate=lr, grad_clip=grad_clip, b1=ADAM_B1,
+                                      b2=ADAM_B2, eps=ADAM_EPS)
+        self.opt_state = self.optimizer.init(self.params)
+
+    def grads(self, loss: torch.Tensor) -> Grads:
+        """The gradients of ``loss``; a parameter it does not reach gets
+        zeros (jax.grad's)."""
+        params = list(self.params.values())
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+
+    def step(self, grads: Grads) -> None:
+        self.opt_state, _ = self.optimizer.update(self.params, grads, self.opt_state)
+
+
+@torch.no_grad()
+def polyak_(target: torch.nn.Module, online: torch.nn.Module, tau: float) -> None:
+    """target <- (1 - tau) * target + tau * online, leaf by leaf."""
+    for t, o in zip(target.parameters(), online.parameters()):
+        t.copy_((1 - tau) * t + tau * o)
 
 
 class PolicyLearner:
@@ -82,10 +126,12 @@ class PolicyLearner:
                  device: DeviceLike):
         self.device = resolve_device(device)
         self.net = make_policy(observation_size, num_actions, hidden, seed, self.device)
-        self.params = dict(self.net.named_parameters())
-        self.optimizer = ClippedAdamW(learning_rate=lr, grad_clip=grad_clip, b1=ADAM_B1,
-                                      b2=ADAM_B2, eps=ADAM_EPS)
-        self.opt_state = self.optimizer.init(self.params)
+        self.opt = AdamParams(self.net, lr, grad_clip)
+        self.params = self.opt.params
+
+    @property
+    def opt_state(self):
+        return self.opt.opt_state
 
     def loss(self, batch: Tensors) -> Tuple[torch.Tensor, Tensors]:
         raise NotImplementedError
@@ -94,15 +140,12 @@ class PolicyLearner:
         """The gradients of ``loss(batch, *loss_args)`` and its metrics with
         ``total_loss``."""
         total, metrics = self.loss(batch, *loss_args)
-        params = list(self.params.values())
         # a parameter the loss does not reach (PG's value head) gets a zero
         # gradient, as jax.grad gives it, and Adam leaves it where it is
-        grads = torch.autograd.grad(total, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
-        return grads, {**metrics, "total_loss": total.detach()}
+        return self.opt.grads(total), {**metrics, "total_loss": total.detach()}
 
     def apply_step(self, grads: Grads) -> None:
-        self.opt_state, _ = self.optimizer.update(self.params, grads, self.opt_state)
+        self.opt.step(grads)
 
     def update(self, batch: SampleBatch) -> Dict[str, float]:
         """One optimizer step over the whole batch."""

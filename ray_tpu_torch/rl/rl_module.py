@@ -6,15 +6,15 @@ exposing forward_inference / forward_train. Here it is one ``nn.Module``
 with policy logits + value head on a device; its weights are a state dict
 that travels to rollout workers (on the host, as ``get_weights`` gives it).
 
-The layers start as flax's do, not as ``nn.Linear``'s: kernels from
-``lecun_normal`` (a normal truncated at two standard deviations, scaled to
-variance 1 / fan_in), biases zero. The draws come from a ``torch.Generator``
-on the CPU, so a seed gives the same weights on every device.
+The layers start as the reference's do: ``flax_init`` fills a network
+with exactly what flax's ``init(jax.random.PRNGKey(seed), ...)`` gives the
+reference's module of the same structure (``rl.prng`` computes JAX's and
+flax's random streams in numpy), so a seed gives the reference's weights
+on every device.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -22,43 +22,50 @@ import torch
 from torch import nn
 
 from ray_tpu_torch import DeviceLike, resolve_device
+from ray_tpu_torch.rl import prng
 
-__all__ = ["DiscretePolicyModule", "RLModule", "flax_init_", "lecun_normal_"]
-
-#: the standard deviation of a unit normal truncated to [-2, 2], by which
-#: flax's variance_scaling divides so that the truncated draw keeps its
-#: variance
-TRUNC_STD = 0.87962566103423978
+__all__ = ["DiscretePolicyModule", "RLModule", "drawn", "flax_init"]
 
 
-def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-    """flax's ``lecun_normal`` in place on a ``[out, in]`` weight: a unit
-    normal truncated to [-2, 2], times sqrt(1 / in) / TRUNC_STD."""
+def _dense_init_(linear: nn.Linear, key: np.ndarray, path: Tuple[str, ...]) -> None:
+    """flax's Dense at ``path``: the ``[in, out]`` kernel from lecun_normal
+    (the scope's first draw), the bias zero (its second)."""
+    kernel = prng.lecun_normal(prng.param_key(key, path, 1), (linear.in_features,
+                                                               linear.out_features))
+    linear.weight.copy_(torch.from_numpy(kernel.T))
+    if linear.bias is not None:
+        linear.bias.zero_()
+
+
+def _init_scope_(module: nn.Module, key: np.ndarray, path: Tuple[str, ...]) -> None:
+    if hasattr(module, "flax_init_"):
+        module.flax_init_(key, path)
+        return
+    if isinstance(module, nn.Linear):
+        _dense_init_(module, key, path)
+    elif isinstance(module, nn.LayerNorm):
+        module.weight.fill_(1.0)
+        module.bias.zero_()
+    for name, child in module.named_children():
+        _init_scope_(child, key, (*path, name))
+
+
+def flax_init(module: nn.Module, key: np.ndarray) -> nn.Module:
+    """Fill ``module`` (on any device) with what flax's ``init(key, ...)``
+    gives the reference's module whose submodules carry the same names: a
+    ``nn.Linear`` is a Dense (lecun-normal kernel, zero bias), a
+    ``nn.LayerNorm`` ones and zeros, and a module with
+    ``flax_init_(key, path)`` (the LSTM cell, ``NoisyDense``) draws its own.
+    ``key`` is a ``rl.prng`` key (``prng.PRNGKey(seed)``)."""
     with torch.no_grad():
-        nn.init.trunc_normal_(weight, 0.0, 1.0, -2.0, 2.0, generator=generator)
-        return weight.mul_(math.sqrt(1.0 / weight.shape[1]) / TRUNC_STD)
-
-
-def flax_init_(module: nn.Module, seed: int) -> nn.Module:
-    """Every ``nn.Linear`` of ``module`` (in the order of ``modules()``)
-    from ``lecun_normal_`` with a zero bias, every ``nn.LayerNorm`` to
-    ones and zeros, then each module's own ``init_recurrent_(generator)``
-    (the LSTM's orthogonal hidden kernels). Draws from one CPU generator
-    seeded with ``seed``; ``module`` must be on the CPU."""
-    gen = torch.Generator().manual_seed(seed)
-    with torch.no_grad():
-        for m in module.modules():
-            if isinstance(m, nn.Linear):
-                lecun_normal_(m.weight, gen)
-                if m.bias is not None:
-                    m.bias.zero_()
-            elif isinstance(m, nn.LayerNorm):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
-        for m in module.modules():
-            if hasattr(m, "init_recurrent_"):
-                m.init_recurrent_(gen)
+        _init_scope_(module, np.asarray(key, np.uint32), ())
     return module
+
+
+def drawn(module: nn.Module, seed: int, device: DeviceLike) -> nn.Module:
+    """``module`` with the reference's ``init(jax.random.PRNGKey(seed),
+    ...)`` weights, moved to ``device``."""
+    return flax_init(module, prng.PRNGKey(seed)).to(device)
 
 
 class DiscretePolicyModule(nn.Module):
@@ -84,10 +91,9 @@ class DiscretePolicyModule(nn.Module):
 
 def make_policy(observation_size: int, num_actions: int, hidden: Sequence[int],
                 seed: int, device: torch.device) -> DiscretePolicyModule:
-    """A ``DiscretePolicyModule`` drawn from ``seed`` on the CPU, moved to
-    ``device``."""
-    net = DiscretePolicyModule(observation_size, num_actions, hidden)
-    return flax_init_(net, seed).to(device)
+    """A ``DiscretePolicyModule`` on ``device`` with the reference's
+    weights for ``seed`` (``init(jax.random.PRNGKey(seed), ...)``)."""
+    return drawn(DiscretePolicyModule(observation_size, num_actions, hidden), seed, device)
 
 
 def host_state_dict(module: nn.Module):

@@ -18,12 +18,16 @@ another process of that runtime (a serve replica's constructor arguments).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Tuple
+import itertools
+import os
+import threading
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 from ray_tpu_torch.serve.errors import BackPressureError, TaskCancelledError
 
-__all__ = ["LocalRef", "NullMetrics", "RecordingMetrics", "RuntimeHooks", "local_get",
-           "local_kill", "local_remote", "local_wait"]
+__all__ = ["LocalRef", "LocalRpcClient", "LocalRpcServer", "NullMetrics", "RecordingMetrics",
+           "RuntimeHooks", "local_get", "local_kill", "local_remote", "local_wait",
+           "parquet_read_columns", "parquet_write_columns"]
 
 Tags = Optional[Dict[str, str]]
 
@@ -128,6 +132,86 @@ def local_kill(handle: Any) -> None:
     """The default ``kill``: a local actor goes with its last reference."""
 
 
+def parquet_write_columns(columns: Dict[str, Any], path: str) -> List[str]:
+    """The default dataset write: the columns (equal-length 1-d arrays) as
+    one parquet file ``part-00000.parquet`` in the directory ``path``, the
+    layout of a one-block dataset of the reference's runtime. Needs
+    pyarrow."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    os.makedirs(path, exist_ok=True)
+    out = os.path.join(path, "part-00000.parquet")
+    pq.write_table(pa.table({k: pa.array(v) for k, v in columns.items()}), out)
+    return [out]
+
+
+def parquet_read_columns(path: str, batch_size: int = 4096) -> Iterator[Dict[str, Any]]:
+    """The default dataset read: the parquet files of the directory ``path``
+    (names not starting with "." or "_", in sorted order) or the file
+    ``path``, as dicts of numpy columns of up to ``batch_size`` rows. Needs
+    pyarrow."""
+    import pyarrow.parquet as pq
+
+    files = ([os.path.join(path, f) for f in sorted(os.listdir(path))
+              if not f.startswith((".", "_"))] if os.path.isdir(path) else [path])
+    for name in files:
+        for batch in pq.ParquetFile(name).iter_batches(batch_size=batch_size):
+            yield {field.name: column.to_numpy(zero_copy_only=False)
+                   for field, column in zip(batch.schema, batch.columns)}
+
+
+class LocalRpcServer:
+    """The default RPC server: handlers registered under a name prefix and
+    called directly, on the caller's thread, by a ``LocalRpcClient`` of its
+    address. Nothing crosses a socket; the address names the server in
+    this process."""
+
+    _servers: Dict[Tuple[str, int], "LocalRpcServer"] = {}
+    _ids = itertools.count(1)
+    _lock = threading.Lock()
+
+    def __init__(self, name: str, host: str = "local", port: int = 0):
+        self.name = name
+        self.handlers: Dict[str, Callable[[Any, Any], Any]] = {}
+        with self._lock:
+            self.address = ("local", next(self._ids))
+            self._servers[self.address] = self
+
+    def register_all(self, obj: Any, prefix: str = "") -> None:
+        """Register every ``rpc_<verb>`` method of ``obj`` as
+        ``<prefix><verb>``."""
+        for attr in dir(obj):
+            if attr.startswith("rpc_"):
+                self.handlers[prefix + attr[len("rpc_"):]] = getattr(obj, attr)
+
+    def stop(self) -> None:
+        with self._lock:
+            self._servers.pop(self.address, None)
+
+    @classmethod
+    def lookup(cls, address) -> "LocalRpcServer":
+        with cls._lock:
+            server = cls._servers.get(tuple(address))
+        if server is None:
+            raise ConnectionError(f"no server at {address!r} in this process")
+        return server
+
+
+class LocalRpcClient:
+    """The default RPC client: ``call(method, payload)`` runs the handler of
+    the ``LocalRpcServer`` at ``address`` on this thread (``conn`` None)."""
+
+    def __init__(self, address):
+        self.address = tuple(address)
+
+    def call(self, method: str, payload: Any = None, timeout: Optional[float] = None) -> Any:
+        return LocalRpcServer.lookup(self.address).handlers[method](None, payload)
+
+    def close(self) -> None:
+        pass
+
+
 @dataclasses.dataclass(frozen=True)
 class RuntimeHooks:
     """What the port calls where it meets a runtime.
@@ -158,6 +242,17 @@ class RuntimeHooks:
       group_name=)`` and ``allreduce(array, group_name=) -> array`` (a sum
       over numpy arrays). None by default: actors that run one after another
       in one process cannot meet in a collective.
+    * Offline datasets: ``write_dataset(columns, path) -> [files]`` writes
+      equal-length 1-d numpy columns as a dataset at ``path``;
+      ``read_dataset(path, batch_size) -> iterator of column dicts`` reads
+      one back. The default is parquet through pyarrow
+      (``parquet_write_columns`` / ``parquet_read_columns``).
+    * RPC, in the shape of a runtime's control-plane RPC: ``rpc_server(name,
+      host=, port=)`` gives a server with ``register_all(obj, prefix=)``
+      (each ``rpc_<verb>(conn, payload)`` method of ``obj`` served as
+      ``<prefix><verb>``), ``address`` and ``stop()``; ``rpc_client(address)``
+      a client with ``call(method, payload, timeout=)`` and ``close()``. The
+      default serves in this process, each call on the caller's thread.
     """
 
     metrics: Any = dataclasses.field(default_factory=NullMetrics)
@@ -175,6 +270,10 @@ class RuntimeHooks:
     kill: Callable[[Any], None] = local_kill
     init_collective_group: Optional[Callable[..., Any]] = None
     allreduce: Optional[Callable[..., Any]] = None
+    write_dataset: Callable[[Dict[str, Any], str], List[str]] = parquet_write_columns
+    read_dataset: Callable[..., Iterator[Dict[str, Any]]] = parquet_read_columns
+    rpc_server: Callable[..., Any] = LocalRpcServer
+    rpc_client: Callable[[Any], Any] = LocalRpcClient
 
     def in_serialize_scope(self) -> bool:
         """True inside the runtime's serialize call (where out-of-band

@@ -245,7 +245,11 @@ def test_port_imports_no_jax_and_no_ray_tpu():
         "ray_tpu_torch.rl.convert, ray_tpu_torch.rl.env, ray_tpu_torch.rl.impala, "
         "ray_tpu_torch.rl.learner, ray_tpu_torch.rl.multi_agent, ray_tpu_torch.rl.pg, "
         "ray_tpu_torch.rl.rl_module, ray_tpu_torch.rl.rollout_worker, "
-        "ray_tpu_torch.rl.sample_batch\n"
+        "ray_tpu_torch.rl.sample_batch, ray_tpu_torch.rl.prng, "
+        "ray_tpu_torch.rl.replay_buffers, ray_tpu_torch.rl.dqn, ray_tpu_torch.rl.apex, "
+        "ray_tpu_torch.rl.offline, ray_tpu_torch.rl.bc, ray_tpu_torch.rl.sac, "
+        "ray_tpu_torch.rl.cql, ray_tpu_torch.rl.td3, ray_tpu_torch.rl.es, "
+        "ray_tpu_torch.rl.policy_server\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'optax', "
         "'ray_tpu') or m.startswith(('jax.', 'flax.', 'optax.', 'ray_tpu.')))\n"
         "print(bad)\n"

@@ -11,13 +11,22 @@ this process, the learners and the workers' policies on the CPU.
 - multi-agent PPO: the last mean return above the first over 10
   iterations, both policies trained (test_rl_breadth.py:103);
 - PPO: >= 120 within 30 (test_rl.py:84; the reference's is marked slow at
-  ~14 s, the port's takes a few seconds here).
+  ~14 s, the port's takes a few seconds here);
+- DQN: >= 100 within 60 (test_rl.py:231, tier-1 as the reference's);
+- APPO: >= 80 within 40 calls of ``train(num_updates=8)``
+  (test_rl_breadth.py:188, slow-marked as the reference's). The port draws
+  the reference's initial weights (``rl.prng``), with which it reaches the
+  gate at seed 0.
 """
 
 import numpy as np
 
+import pytest
+
 from ray_tpu_torch.rl import (
     A2CConfig,
+    APPOConfig,
+    DQNConfig,
     ImpalaConfig,
     MultiAgentPPOConfig,
     PGConfig,
@@ -67,6 +76,22 @@ def test_ppo_learns_cartpole():
                      lr=1e-3, num_epochs=8, minibatch_size=256, seed=0, **CPU).build()
     best = _best_within(algo, 30, 120.0)
     assert best >= 120.0, f"PPO failed to learn CartPole: best {best}"
+
+
+def test_dqn_learns_cartpole():
+    algo = DQNConfig(num_rollout_workers=1, num_envs_per_worker=4, rollout_fragment_length=64,
+                     learning_starts=256, epsilon_decay_steps=3000, updates_per_iteration=16,
+                     target_update_interval=100, seed=0, **CPU).build()
+    best = _best_within(algo, 60, 100.0)
+    assert best >= 100.0, f"DQN failed to learn CartPole: best return {best}"
+
+
+@pytest.mark.slow  # as the reference's
+def test_appo_learns_cartpole():
+    algo = APPOConfig(num_rollout_workers=2, num_envs_per_worker=4, rollout_fragment_length=32,
+                      lr=1e-3, seed=0, **CPU).build()
+    best = _best_within(algo, 40, 80.0, num_updates=8)
+    assert best >= 80.0, f"APPO failed to learn CartPole: best {best}"
 
 
 def test_multi_agent_ppo_trains():

@@ -20,7 +20,7 @@ import torch
 
 from ray_tpu.rl import catalog as ref_catalog
 from ray_tpu.rl import rl_module as ref_rl_module
-from ray_tpu_torch.rl import catalog, convert, rl_module
+from ray_tpu_torch.rl import catalog, convert, prng, rl_module
 
 ATOL = 1e-5
 OBS = 4
@@ -123,7 +123,7 @@ def test_conversion_round_trip_is_exact(kind):
 
 def test_discrete_policy_round_trip_is_exact():
     port = rl_module.DiscretePolicyModule(OBS, 2, (64, 64))
-    rl_module.flax_init_(port, 0)
+    rl_module.flax_init(port, prng.PRNGKey(0))
     back = convert.params_to_state_dict(convert.state_dict_to_params(port.state_dict()))
     assert all(torch.equal(back[k], v) for k, v in port.state_dict().items())
 
@@ -150,7 +150,7 @@ def test_init_is_flax_lecun_normal_with_zero_biases(kind):
         s = w.detach() * w.shape[1] ** 0.5
         if w.numel() >= 1024:
             assert abs(float(s.std()) - 1.0) < 0.1, (name, float(s.std()))
-        assert float(s.abs().max()) <= 2.0 / rl_module.TRUNC_STD + 1e-5, name
+        assert float(s.abs().max()) <= 2.0 / prng.TRUNC_STD + 1e-5, name
         scaled.append(s.reshape(-1))
     assert abs(float(torch.cat(scaled).std()) - 1.0) < 0.1
     for name, p in module.named_parameters():

@@ -1,16 +1,15 @@
 """The port's RL algorithms under ray_tpu's actors, on the CPU.
 
 ``scripts/port_rl_smoke.py``'s ``rl_hooks()`` gives the port ray_tpu's
-``remote``/``get``/``wait``/``kill`` and its host collective; here they are
-wrapped so that a ``get`` or ``wait`` without a timeout fails the test.
+``remote``/``get``/``wait``/``kill`` and its host collective; its
+``timed_rl_hooks()``, used here, fails a ``get`` or ``wait`` without a
+timeout.
 PPO runs 2 iterations with 2 rollout-worker actors; IMPALA a call of 4
 updates over pipelined actor fragments; a ``LearnerGroup`` of 2 learner
 actors holds identical weights after two updates (the reference's
 tests/test_rl.py:109). The default hooks, which run actors in the
 caller's process, are checked without a runtime.
 """
-
-import dataclasses
 
 import numpy as np
 import torch
@@ -20,23 +19,9 @@ from ray_tpu.api import ActorHandle
 from ray_tpu_torch.rl import ImpalaConfig, LearnerGroup, PPOConfig, SampleBatch
 from ray_tpu_torch.runtime import LocalRef, RuntimeHooks
 
-from scripts.port_rl_smoke import rl_hooks
+from scripts.port_rl_smoke import timed_rl_hooks as _hooks
 
 CPU = dict(device="cpu", rollout_device="cpu")
-
-
-def _timed_get(refs, timeout=None):
-    assert timeout is not None, "a get without a timeout"
-    return ray_tpu.get(refs, timeout=timeout)
-
-
-def _timed_wait(refs, num_returns=1, timeout=None):
-    assert timeout is not None, "a wait without a timeout"
-    return ray_tpu.wait(refs, num_returns=num_returns, timeout=timeout)
-
-
-def _hooks() -> RuntimeHooks:
-    return dataclasses.replace(rl_hooks(), get=_timed_get, wait=_timed_wait)
 
 
 def _finite(result, keys=("total_loss", "policy_loss", "vf_loss", "entropy")):

@@ -49,8 +49,9 @@ def _rank_class():
             from ray_tpu.util import collective as col
 
             def host(x):
-                # copied at once: on the CPU a restored jax.Array may alias
-                # the received buffer, which a later collective can reuse
+                # copied at once: on the CPU a result (a restored jax.Array,
+                # a numpy array from the store) may alias the received
+                # buffer, which a later collective can reuse
                 return np.array(x, copy=True)
             from ray_tpu_torch.util import collective as tc
 
@@ -59,22 +60,22 @@ def _rank_class():
             g = self.group
             out = {}
             if op == "allreduce":
-                out["np"] = col.allreduce(v.copy(), g)
+                out["np"] = host(col.allreduce(v.copy(), g))
                 out["jax"] = host(col.allreduce(jnp.asarray(v), g))
                 t = tc.allreduce(col.allreduce, torch.from_numpy(v.copy()), g)
                 b = tc.allreduce(col.allreduce, torch.from_numpy(v.copy()).bfloat16(), g)
             elif op == "reducescatter":
-                out["np"] = col.reducescatter(v.copy(), g)
+                out["np"] = host(col.reducescatter(v.copy(), g))
                 out["jax"] = host(col.reducescatter(jnp.asarray(v), g))
                 t = tc.reducescatter(col.reducescatter, torch.from_numpy(v.copy()), g)
                 b = tc.reducescatter(col.reducescatter, torch.from_numpy(v.copy()).bfloat16(), g)
             elif op == "allgather":
-                out["np"] = np.stack(col.allgather(v.copy(), g))
+                out["np"] = np.stack([host(p) for p in col.allgather(v.copy(), g)])
                 out["jax"] = np.stack([host(p) for p in col.allgather(jnp.asarray(v), g)])
                 t = torch.stack(tc.allgather(col.allgather, torch.from_numpy(v.copy()), g))
                 b = torch.stack(tc.allgather(col.allgather, torch.from_numpy(v.copy()).bfloat16(), g))
             elif op == "broadcast":
-                out["np"] = col.broadcast(v.copy(), src_rank=1, group_name=g)
+                out["np"] = host(col.broadcast(v.copy(), src_rank=1, group_name=g))
                 out["jax"] = host(col.broadcast(jnp.asarray(v), src_rank=1, group_name=g))
                 t = tc.broadcast(col.broadcast, torch.from_numpy(v.copy()), src_rank=1, group_name=g)
                 b = tc.broadcast(col.broadcast, torch.from_numpy(v.copy()).bfloat16(), src_rank=1,
@@ -86,7 +87,7 @@ def _rank_class():
                     tc.send(col.send, torch.from_numpy(v.copy()), 1, g)
                     tc.send(col.send, torch.from_numpy(v.copy()).bfloat16(), 1, g)
                     return None
-                out["np"] = np.asarray(col.recv(0, g))
+                out["np"] = host(col.recv(0, g))
                 out["jax"] = out["np"]
                 t = tc.recv(col.recv, torch.zeros(n), 0, g)
                 b = tc.recv(col.recv, like, 0, g)
