@@ -5,11 +5,13 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. build: compile ray_tpu_torch/ops/csrc/flash_fwd_wgmma.cu, flash_fwd.cu,
-     flash_bwd_wgmma.cu and flash_bwd.cu with nvcc, in parallel, and print
-     their register, shared-memory and spill reports; the wgmma forward and
-     both wgmma backward kernels at head_dim 128 and 256 (the train paths':
-     dQ, dK/dV and, at 256, the split dK/dV kernel) must not spill; the
-     wgmma kernels' dynamic shared memory per CTA by head_dim;
+     flash_bwd_wgmma.cu, flash_bwd.cu and flash_bwd_f32.cu with nvcc, in
+     parallel, and print their register, shared-memory and spill reports;
+     the wgmma forward and both wgmma backward kernels at head_dim 128 and
+     256 (the train paths': dQ, dK/dV and, at 256, the split dK/dV kernel)
+     and the float32 backward's dQ and dK/dV kernels (3xTF32) at 64, 128
+     and 256 must not spill; the wgmma and float32 backward kernels'
+     dynamic shared memory per CTA by head_dim, at most 232448 bytes;
   2. kernel vs plain: the flash forward kernel against its plain PyTorch
      version on the same device tensors, per case (among them the shape of
      each train path and of the forward: gpt_1b at b=12, b=8, b=4 and the
@@ -19,11 +21,13 @@ Phases (any failure exits non-zero; nothing is caught):
      library (scaled_dot_product_attention, a yardstick the port never
      calls) times and the bound;
   3. backward kernels vs plain: the dQ and dK/dV kernels of the design
-     BWD_DESIGNS names (wgmma or mma_sync; each case names it and must launch
-     it) against flash_attention_bwd_plain, per case (the train paths'
-     shapes among them, the pipelined step's b=3, and gpt_j_6b's head_dim
-     256: its train shape, b=2,
-     non-causal, q the suffix, ragged): each row of dq, dk, dv held to its own norm
+     BWD_DESIGNS names (wgmma, mma_sync or, for float32, tf32x3; each case
+     names it and must launch it) against flash_attention_bwd_plain, per
+     case (the train paths' shapes among them, the pipelined step's b=3,
+     gpt_j_6b's head_dim 256: its train shape, b=2, non-causal, q the
+     suffix, ragged; and in float32 train_f32's shape, head_dims 16 to 256,
+     ragged, non-causal and rows that see no key): each row of dq, dk, dv
+     held to its own norm
      (ray_tpu_torch/ops/tolerance.py), max abs error, each kernel's time and
      bound, the plain time and the library time (torch.autograd.grad
      through scaled_dot_product_attention);
@@ -59,6 +63,14 @@ Phases (any failure exits non-zero; nothing is caught):
      and 28 of each backward kernel a step, all wgmma, so the head_dim-256
      backward design), parameters and moments still bf16; ms per step,
      tokens/s, MFU, peak memory;
+  4f. train_f32: gpt_1b in float32 (parameters, compute, Adam moments) at
+     full width and depth, b=4, t=2048, ce_chunk 512, remat "nothing": one
+     warm-up and 2 timed steps; the gates of phase 4 with 32 forward
+     launches a step on mma_sync and 16 of each backward kernel on tf32x3
+     (the 3xTF32 design; none on the CUDA-core kernels), parameters and
+     moments still float32; ms per step, tokens/s, peak memory and, with
+     --profile, the flash group's device time. cuBLAS runs with TF32 off, so
+     the step's GEMMs are float32 on the CUDA cores;
   5. forward: gpt_1b in bf16 (random weights from a seeded torch.Generator),
      b=4, t=2048; the wgmma forward kernel must launch num_layers times per
      forward;
@@ -84,7 +96,7 @@ Phases (any failure exits non-zero; nothing is caught):
   7a. lse_grad: flash_attention_with_lse (out and lse, both differentiable:
      the flash forward, then the dQ and dK/dV kernels with delta - dlse) at
      gpt_1b's heads (b=2, h=16, t=2048, d=128) in bf16 (wgmma) and float32
-     (mma.sync) and gpt_j_6b's (d=256) in bf16, causal (a ring's step 0)
+     (tf32x3) and gpt_j_6b's (d=256) in bf16, causal (a ring's step 0)
      and not (a hop), under random cotangents of both outputs: against the plain flash versions on the same
      inputs, and against autograd through the plain float32
      attention_with_lse with the rounding of out in delta moved into the
@@ -174,8 +186,12 @@ calls of each; train_loop: all of 8b's steps, warm-ups and resumed run
 included)
 and the case of phases 2-3 that checked it at each path's shape, and
 carries the head_dim-256 case's (d256_gpt_j, train_gpt_j's shape) numbers
-under "d256"; the backward kernels' plain and library times are those of
-the whole backward (dq, dk and dv together).
+under "d256" and the float32 case's (gpt_1b_f32_b4, train_f32's shape, on
+the float32 designs with train_f32's launches) under "f32", which also
+stand as entries of their own (flash_fwd_f32, flash_bwd_dq_f32,
+flash_bwd_dkv_f32: the kernels of train_f32's path); the backward kernels'
+plain and library times are those of the whole backward (dq, dk and dv
+together).
 """
 
 from __future__ import annotations
@@ -199,8 +215,12 @@ from concurrent.futures import ThreadPoolExecutor  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# NVIDIA H100 SXM data sheet, dense: bf16 tensor cores, fp32 CUDA cores, HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# NVIDIA H100 SXM data sheet, dense, and HBM3. bf16: the tensor cores' 989
+# TFLOP/s. float32: a third of the dense TF32 rate (494.7 / 3), the fastest
+# way the card does float32 work at float32 accuracy (3xTF32: three TF32
+# products for each float32 one); the CUDA cores' 67 TFLOP/s would put a
+# tensor-core kernel above 100% of its bound
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 494.7e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 # gpt_nano float32 steps on the card vs the CPU: summation order through two
 # layers, the loss and three optimizer updates (dense and MoE)
@@ -296,7 +316,7 @@ def phase_build():
         return _build.build(name), time.monotonic() - t0
 
     t0 = time.monotonic()
-    names = ("flash_fwd_wgmma", "flash_fwd", "flash_bwd_wgmma", "flash_bwd")
+    names = ("flash_fwd_wgmma", "flash_fwd", "flash_bwd_wgmma", "flash_bwd", "flash_bwd_f32")
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
         built = dict(zip(names, pool.map(timed, names)))
     out = {"seconds": time.monotonic() - t0}
@@ -312,13 +332,16 @@ def phase_build():
                      "spills": _spills_by_kernel(report)}
     # the train paths' kernels: the wgmma forward and both wgmma backward
     # kernels at head_dim 128 (gpt_1b) and 256 (gpt_j_6b: dK/dV is the split
-    # kernel there)
+    # kernel there), and the float32 backward's (3xTF32) at 64, 128 and 256
+    f32 = [("flash_bwd_f32", f"flash_bwd_{kernel}_f32x3_kernel", d)
+           for kernel in ("dq", "dkv") for d in (64, 128, 256)]
     for source, kernel, d in (("flash_fwd_wgmma", "flash_fwd_wgmma_kernel", 128),
                               ("flash_fwd_wgmma", "flash_fwd_wgmma_kernel", 256),
                               ("flash_bwd_wgmma", "flash_bwd_dq_wgmma_kernel", 128),
                               ("flash_bwd_wgmma", "flash_bwd_dkv_wgmma_kernel", 128),
                               ("flash_bwd_wgmma", "flash_bwd_dq_wgmma_kernel", 256),
-                              ("flash_bwd_wgmma", "flash_bwd_dkv_wgmma_split_kernel", 256)):
+                              ("flash_bwd_wgmma", "flash_bwd_dkv_wgmma_split_kernel", 256),
+                              *f32):
         main = {k: v for k, v in out[source]["spills"].items()
                 if f"{kernel}ILi{d}E" in k}
         if not main or any(main.values()):
@@ -340,6 +363,16 @@ def phase_build():
     if any(n > 232448 for by_d in smem.values() for n in by_d.values()):
         raise SystemExit(f"a wgmma backward kernel asks for more than 232448 bytes: {smem}")
     out["flash_bwd_wgmma"]["smem_bytes"] = smem
+    f32_lib = ctypes.CDLL(str(built["flash_bwd_f32"][0]))
+    f32_lib.ray_tpu_flash_bwd_f32_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    smem = {kernel: {d: f32_lib.ray_tpu_flash_bwd_f32_smem_bytes(d, dkv)
+                     for d in (16, 32, 64, 128, 256)}
+            for kernel, dkv in (("dq", 0), ("dkv", 1))}
+    print(f"[build] flash_bwd_f32 dynamic shared memory per CTA by kernel and head_dim: "
+          f"{smem} bytes (of 232448)")
+    if any(not 0 < n <= 232448 for by_d in smem.values() for n in by_d.values()):
+        raise SystemExit(f"a float32 backward kernel asks for more than 232448 bytes: {smem}")
+    out["flash_bwd_f32"]["smem_bytes"] = smem
     return out
 
 
@@ -379,6 +412,7 @@ def phase_kernel_vs_plain():
         ("d16_tiny", 2, 4, 24, 40, 16, True, torch.bfloat16),
         ("d32_tiny_cfg", 2, 8, 256, 256, 32, True, torch.bfloat16),
         ("f32_cuda_cores", 1, 4, 200, 264, 64, True, torch.float32),
+        *F32_CASES,
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
@@ -437,6 +471,22 @@ def phase_kernel_vs_plain():
     return rows
 
 
+# float32, in both phases: train_f32's shape (gpt_1b at b=4), gpt_125m's and
+# gpt_j_6b's heads, ragged tiles (at 128 and at 256, where dK/dV cuts d
+# between warps), rows that see no key, non-causal, and the head_dims of
+# gpt_nano (16) and the reference's tiny flagship (32)
+F32_CASES = [
+    ("gpt_1b_f32_b4", 4, 16, 2048, 2048, 128, True, torch.float32),
+    ("d64_f32", 4, 12, 2048, 2048, 64, True, torch.float32),
+    ("d256_f32", 1, 16, 2048, 2048, 256, True, torch.float32),
+    ("d256_ragged_f32", 2, 16, 200, 264, 256, True, torch.float32),
+    ("ragged_f32", 2, 16, 200, 264, 128, True, torch.float32),
+    ("tq_gt_tkv_f32", 1, 2, 160, 64, 128, True, torch.float32),
+    ("noncausal_t384_f32", 2, 16, 384, 384, 128, False, torch.float32),
+    ("d16_f32_tiny", 2, 4, 24, 40, 16, True, torch.float32),
+    ("d32_f32_tiny_cfg", 2, 8, 256, 256, 32, True, torch.float32),
+]
+
 BWD_CASES = [
     # name, b, h, t_q, t_kv, d, causal, dtype
     ("gpt_1b_train_b12", 12, 16, 2048, 2048, 128, True, torch.bfloat16),
@@ -459,7 +509,8 @@ BWD_CASES = [
     ("noncausal_t384", 2, 16, 384, 384, 128, False, torch.bfloat16),
     ("d16_tiny", 2, 4, 24, 40, 16, True, torch.bfloat16),
     ("d32_tiny_cfg", 2, 8, 256, 256, 32, True, torch.bfloat16),
-    ("f32_cuda_cores", 1, 4, 200, 264, 64, True, torch.float32),
+    ("f32_ragged_d64", 1, 4, 200, 264, 64, True, torch.float32),
+    *F32_CASES,
 ]
 
 
@@ -478,6 +529,8 @@ def phase_bwd_kernels_vs_plain():
         design = attn.BWD_DESIGNS[(d, dtype)]
         if dtype == torch.bfloat16 and d in (64, 128, 256) and design.name != "wgmma":
             raise SystemExit(f"BWD_DESIGNS sends bf16 head_dim {d} to {design.name}")
+        if dtype == torch.float32 and design.name != "tf32x3":
+            raise SystemExit(f"BWD_DESIGNS sends float32 head_dim {d} to {design.name}")
         out, lse = attn.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
         before = _launch_counts()
         got = attn.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, scale=scale)
@@ -543,11 +596,13 @@ def phase_bwd_kernels_vs_plain():
 
 
 # the launch counts read around each path: every launch of each kernel, and
-# each kernel's by design (the wgmma kernels are the main path's; mma_sync
-# takes the other head_dims and float32)
+# each kernel's by design (the wgmma kernels are the bf16 paths'; mma_sync
+# takes bf16 at head_dim 16 and 32 and the float32 forward; tf32x3 the
+# float32 backward)
 KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-COUNTS = KERNEL_NAMES + tuple(f"{kernel}_{design}" for kernel in KERNEL_NAMES
-                              for design in ("wgmma", "mma_sync"))
+COUNTS = KERNEL_NAMES + tuple(
+    f"{kernel}_{design}" for kernel in KERNEL_NAMES
+    for design in ("wgmma", "mma_sync") + (("tf32x3",) if kernel != "flash_fwd" else ()))
 
 
 def _launch_counts():
@@ -586,7 +641,7 @@ def moe_slots(cfg, params, tokens):
 
 
 def train_small_vs_cpu(steps: int = 3, **moe):
-    """Float32 gpt_nano steps through the kernels' CUDA-core paths against
+    """Float32 gpt_nano steps through the float32 kernels against
     the same steps on the CPU through the plain versions; ``moe`` (config
     fields) makes each block's MLP a mixture of experts: its aux loss is
     held to the same limit, and before the first step every block's slot of
@@ -646,14 +701,14 @@ def single_device(cfg, opt):
 
 
 def run_train(cfg, tokens, steps: int, fwd_per_layer: int, label: str, profile: bool,
-              build=single_device, microbatches: int = 1):
+              build=single_device, microbatches: int = 1, designs=("wgmma", "wgmma")):
     """Train ``cfg`` on the card from fresh seed-0 weights on one repeated
     batch (``build(cfg, optimizer) -> (state, step)``, by default the
     single-device step): one warm-up step, then ``steps`` timed steps.
     Gates: per step ``fwd_per_layer * num_layers * microbatches`` forward
     launches and ``num_layers * microbatches`` of each backward kernel (the
-    pipelined step runs every layer once per microbatch), all on the wgmma
-    designs; loss
+    pipelined step runs every layer once per microbatch), all on the
+    forward's and the backward's ``designs``; loss
     and grad norm finite; the last loss below the first; parameters and
     Adam moments still in ``cfg.param_dtype`` (optax's adamw keeps the
     moments in the parameters' dtype). Returns the report; the state is
@@ -682,7 +737,9 @@ def run_train(cfg, tokens, steps: int, fwd_per_layer: int, label: str, profile: 
     per_layer = cfg.num_layers * microbatches
     expected = {"flash_fwd": fwd_per_layer * per_layer, "flash_bwd_dq": per_layer,
                 "flash_bwd_dkv": per_layer}
-    expected.update({f"{name}_wgmma": n for name, n in expected.items()})
+    fwd_design, bwd_design = designs
+    expected.update({f"{name}_{fwd_design if name == 'flash_fwd' else bwd_design}": n
+                     for name, n in expected.items()})
     want = [expected.get(name, 0) for name in COUNTS]
     if any(c != want for c in per_step):
         raise SystemExit(f"{label}: launches per step {dict(zip(COUNTS, zip(*per_step)))}, "
@@ -723,6 +780,7 @@ def run_train(cfg, tokens, steps: int, fwd_per_layer: int, label: str, profile: 
         report["profile"] = profile_window(
             lambda: (step(state, tokens), torch.cuda.synchronize()),
             f"one {label} train step, b={batch} t={seq}")
+    report["designs"] = dict(zip(("flash_fwd", "flash_bwd"), designs))
     del state, step, metrics
     torch.cuda.empty_cache()
     return report
@@ -821,6 +879,26 @@ def phase_train_gpt_j(batch: int, seq: int, steps: int, profile: bool):
                head_dim=cfg.head_dim, embed_dim=cfg.embed_dim)
     print(f"[gpt_j] {cfg.num_params() / 1e9:.3f} B parameters, {cfg.num_layers} layers, "
           f"head_dim {cfg.head_dim}; state {rep['state_dtype']}")
+    return rep
+
+
+def phase_train_f32(batch: int, seq: int, steps: int, profile: bool):
+    """4f: gpt_1b in float32 (parameters, compute and Adam moments; ce_chunk
+    512, remat "nothing") at full width and depth: its attention runs the
+    float32 designs, the forward on mma_sync and the backward on the 3xTF32
+    kernels (tf32x3)."""
+    from ray_tpu_torch.models import gpt
+
+    cfg = gpt.gpt_1b(dtype=torch.float32, ce_chunk=512)
+    rep = run_train(cfg, _train_tokens(cfg, batch, seq), steps, 2,
+                    "gpt_1b float32 (GEMMs on the CUDA cores)", profile,
+                    designs=("mma_sync", "tf32x3"))
+    rep.update(dtype=str(cfg.dtype), num_params=cfg.num_params())
+    flash = rep.get("profile", {}).get("groups_ms", {}).get("flash kernels")
+    print(f"[train_f32] {cfg.num_params() / 1e9:.3f} B parameters, compute {cfg.dtype}, "
+          f"state {rep['state_dtype']}; {rep['ms_per_step']:.1f} ms per step, "
+          f"{rep['tokens_per_s']:.0f} tokens/s, peak {rep['max_memory_gib']:.2f} GiB"
+          + ("" if flash is None else f"; flash kernels {flash:.1f} ms of device time a step"))
     return rep
 
 
@@ -1089,9 +1167,9 @@ def phase_server(cfg, params, fwd, profile: bool):
 def phase_lse_grad():
     """7a: flash_attention_with_lse, forward and backward under random
     cotangents of both outputs, at gpt_1b's heads (b=2, h=16, t=2048,
-    d=128) in bf16 (the wgmma kernels) and float32 (the mma.sync kernels)
-    and at gpt_j_6b's (d=256) in bf16 (the wgmma split dK/dV kernel),
-    causal and not. Two gates on every row of dq, dk and dv:
+    d=128) in bf16 (the wgmma kernels) and float32 (mma_sync forward, tf32x3
+    backward) and at gpt_j_6b's (d=256) in bf16 (the wgmma split dK/dV
+    kernel), causal and not. Two gates on every row of dq, dk and dv:
     - against the plain flash versions on the same inputs (the forward's
       out and lse feed both backwards, as in phase 3): the kernels'
       arithmetic;
@@ -2250,6 +2328,7 @@ def main() -> int:
         moe_num_experts=4, moe_top_k=2, moe_capacity_factor=0.25)
     report["train_moe"] = phase_train_moe(batch=8, seq=2048, steps=3, profile=args.profile)
     report["train_gpt_j"] = phase_train_gpt_j(batch=1, seq=2048, steps=3, profile=args.profile)
+    report["train_f32"] = phase_train_f32(batch=4, seq=2048, steps=2, profile=args.profile)
 
     cfg = gpt.gpt_1b(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
     params = init_params(cfg, device="cuda", seed=0)
@@ -2292,7 +2371,7 @@ def main() -> int:
     sharded = ("sharded_ws1", "sp_ring_ws1", "sp_ulysses_ws1")
     paths = {"train": report["train"], "remat_attn": report["remat_policies"]["attn"],
              "remat_dots": report["remat_policies"]["dots"], "train_moe": report["train_moe"],
-             "train_gpt_j": report["train_gpt_j"],
+             "train_gpt_j": report["train_gpt_j"], "train_f32": report["train_f32"],
              "forward": report["forward"], "server": report["server"],
              **{path: report[path] for path in sharded},
              "pp_train_ws1": report["pp_train_ws1"], "train_loop": report["train_loop"],
@@ -2303,7 +2382,7 @@ def main() -> int:
     # at the shape each path gives it (the server launches no wgmma kernel)
     train_case = {"train": "gpt_1b_train_b12", "remat_attn": "gpt_1b_train_b12",
                   "remat_dots": "gpt_1b_train_b12", "train_moe": "gpt_1b_moe_b8",
-                  "train_gpt_j": "d256_gpt_j",
+                  "train_gpt_j": "d256_gpt_j", "train_f32": "gpt_1b_f32_b4",
                   **{path: "gpt_1b_train_b12" for path in sharded},
                   "pp_train_ws1": "gpt_1b_pp_mb3", "train_loop": "gpt_1b_train_b12"}
     # the head_dim-256 case (train_gpt_j's shape) beside each entry's own
@@ -2323,8 +2402,43 @@ def main() -> int:
                                                bwd_d256["row_err"]["dv"])),
                                   design=bwd_d256["design"])
            for k in ("dq", "dkv")}}
-    fwd_cases, bwd_cases = {**train_case, "forward": "gpt_1b"}, train_case
     whole = "dq, dk and dv together"
+    # the float32 case (train_f32's shape) on the float32 designs, with
+    # train_f32's launches (its 2 timed steps): under "f32" in each entry
+    # and, as the kernels of train_f32's path, entries of their own
+    fwd_f32, fwd_f32_shape = case(report["kernel_cases"], "gpt_1b_f32_b4")
+    bwd_f32, bwd_f32_shape = case(report["bwd_kernel_cases"], "gpt_1b_f32_b4")
+    f32 = {
+        "flash_fwd": dict(name="flash_fwd_f32", route="cuda", source=fwd_f32["source"],
+                          replaces="ray_tpu/ops/attention.py:167",
+                          launches=by_path[f"flash_fwd_{fwd_f32['design']}"]["train_f32"],
+                          max_abs_err=fwd_f32["max_abs_err"], ms=fwd_f32["ms"],
+                          plain_ms=fwd_f32["plain_ms"], bound_ms=fwd_f32["bound_ms"],
+                          bound_by=fwd_f32["bound_by"], library_ms=fwd_f32["library_ms"],
+                          bound_share=fwd_f32["bound_share"], design=fwd_f32["design"],
+                          row_err=fwd_f32["row_err"], shape=fwd_f32_shape,
+                          launches_path="train_f32"),
+        **{f"flash_bwd_{k}": dict(name=f"flash_bwd_{k}_f32", route="cuda",
+                                  source=bwd_f32["source"],
+                                  replaces=f"ray_tpu/ops/attention.py:{line}",
+                                  launches=by_path[f"flash_bwd_{k}_{bwd_f32['design']}"]
+                                  ["train_f32"],
+                                  max_abs_err=(bwd_f32["max_abs_err"]["dq"] if k == "dq" else
+                                               max(bwd_f32["max_abs_err"]["dk"],
+                                                   bwd_f32["max_abs_err"]["dv"])),
+                                  ms=bwd_f32[f"{k}_ms"], plain_ms=bwd_f32["plain_ms"],
+                                  bound_ms=bwd_f32[f"{k}_bound_ms"],
+                                  bound_by=bwd_f32[f"{k}_bound_by"],
+                                  library_ms=bwd_f32["library_ms"],
+                                  bound_share=bwd_f32[f"{k}_bound_share"],
+                                  design=bwd_f32["design"],
+                                  row_err=(bwd_f32["row_err"]["dq"] if k == "dq" else
+                                           max(bwd_f32["row_err"]["dk"],
+                                               bwd_f32["row_err"]["dv"])),
+                                  shape=bwd_f32_shape, launches_path="train_f32",
+                                  plain_ms_computes=whole, library_ms_computes=whole)
+           for k, line in (("dq", 324), ("dkv", 394))}}
+    fwd_cases, bwd_cases = {**train_case, "forward": "gpt_1b"}, train_case
     kernels = {"kernels": [
         dict(name="flash_fwd", route="cuda", source=fwd_case["source"],
              replaces="ray_tpu/ops/attention.py:167",
@@ -2336,7 +2450,7 @@ def main() -> int:
              row_err=fwd_case["row_err"], row_err_tol=fwd_case["row_err_tol"],
              shape=fwd_shape, launches_path="forward",
              launches_by_path=by_path["flash_fwd_wgmma"], cases_by_path=fwd_cases,
-             d256=d256["flash_fwd"]),
+             d256=d256["flash_fwd"], f32=f32["flash_fwd"]),
         dict(name="flash_bwd_dq", route="cuda", source=bwd_case["source"],
              replaces="ray_tpu/ops/attention.py:324",
              launches=by_path[f"flash_bwd_dq_{bwd_case['design']}"]["train"],
@@ -2347,7 +2461,8 @@ def main() -> int:
              launches_by_path=by_path[f"flash_bwd_dq_{bwd_case['design']}"],
              cases_by_path=bwd_cases,
              row_err=bwd_case["row_err"]["dq"], row_err_tol=bwd_case["row_err_tol"],
-             plain_ms_computes=whole, library_ms_computes=whole, d256=d256["flash_bwd_dq"]),
+             plain_ms_computes=whole, library_ms_computes=whole, d256=d256["flash_bwd_dq"],
+             f32=f32["flash_bwd_dq"]),
         dict(name="flash_bwd_dkv", route="cuda", source=bwd_case["source"],
              replaces="ray_tpu/ops/attention.py:394",
              launches=by_path[f"flash_bwd_dkv_{bwd_case['design']}"]["train"],
@@ -2360,7 +2475,9 @@ def main() -> int:
              cases_by_path=bwd_cases,
              row_err=max(bwd_case["row_err"]["dk"], bwd_case["row_err"]["dv"]),
              row_err_tol=bwd_case["row_err_tol"],
-             plain_ms_computes=whole, library_ms_computes=whole, d256=d256["flash_bwd_dkv"]),
+             plain_ms_computes=whole, library_ms_computes=whole, d256=d256["flash_bwd_dkv"],
+             f32=f32["flash_bwd_dkv"]),
+        *f32.values(),
     ]}
     report.update(kernels)
     if args.out:

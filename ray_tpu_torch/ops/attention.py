@@ -25,12 +25,13 @@ a shorter q is the suffix of the kv context (``q_pos = q_idx + t_kv - t_q``).
   ``flash_attention_bwd`` launches the dQ and dK/dV kernels
   (``flash_bwd_dq``, ``flash_bwd_dkv``) of the design that the dispatch
   table ``BWD_DESIGNS`` names: ``csrc/flash_bwd_wgmma.cu`` (TMA, wgmma,
-  warp-specialised; bf16 at head_dim 64, 128 and 256) or ``csrc/flash_bwd.cu``
-  (mma.sync; head_dim 16, 32 and float32), counted in
+  warp-specialised; bf16 at head_dim 64, 128 and 256), ``csrc/flash_bwd.cu``
+  (mma.sync; bf16 at head_dim 16 and 32) or ``csrc/flash_bwd_f32.cu``
+  (3xTF32 on mma.sync; float32 at every head_dim), counted in
   ``flash_bwd_dq_launches`` and ``flash_bwd_dkv_launches`` and in the
-  design's ``flash_bwd_{dq,dkv}_{wgmma,mma_sync}_launches``. On CPU tensors
-  the wrappers take the plain versions and count nothing. On a CUDA tensor
-  they launch or raise: they never fall back quietly.
+  design's ``flash_bwd_{dq,dkv}_{wgmma,mma_sync,tf32x3}_launches``. On CPU
+  tensors the wrappers take the plain versions and count nothing. On a CUDA
+  tensor they launch or raise: they never fall back quietly.
 * ``flash_fwd_op`` is the forward wrapper as the operator
   ``ray_tpu_torch::flash_fwd`` (``FLASH_FWD``), which the remat policy
   "attn" names; ``FlashAttention`` is the autograd Function over it and the
@@ -108,12 +109,17 @@ _BWD_MMA_SYNC = BwdDesign("mma_sync", "flash_bwd", "ray_tpu_flash_bwd_dq",
                           "ray_tpu_flash_bwd_dkv")
 _BWD_WGMMA = BwdDesign("wgmma", "flash_bwd_wgmma", "ray_tpu_flash_bwd_dq_wgmma",
                        "ray_tpu_flash_bwd_dkv_wgmma")
+_BWD_TF32X3 = BwdDesign("tf32x3", "flash_bwd_f32", "ray_tpu_flash_bwd_dq_f32",
+                        "ray_tpu_flash_bwd_dkv_f32")
 
 #: the backward's dispatch table, keyed on (head_dim, dtype): the kernels each
 #: input launches on the card. At head_dim 256 the wgmma design's dK/dV
-#: kernel splits dV and dK between its warpgroups (``flash_bwd_wgmma.cu``).
+#: kernel splits dV and dK between its warpgroups (``flash_bwd_wgmma.cu``);
+#: float32 runs 3xTF32 on the tensor cores (``flash_bwd_f32.cu``). The
+#: float32 kernels of ``flash_bwd.cu`` (CUDA cores) are on no path:
+#: ``ops/flash_bwd_f32_variants.py`` times them beside these.
 BWD_DESIGNS = {
-    **{(d, torch.float32): _BWD_MMA_SYNC for d in HEAD_DIMS},
+    **{(d, torch.float32): _BWD_TF32X3 for d in HEAD_DIMS},
     **{(d, torch.bfloat16): _BWD_MMA_SYNC for d in (16, 32)},
     **{(d, torch.bfloat16): _BWD_WGMMA for d in (64, 128, 256)},
 }
@@ -127,9 +133,11 @@ flash_fwd_mma_sync_launches = 0
 flash_bwd_dq_launches = 0
 flash_bwd_dq_wgmma_launches = 0
 flash_bwd_dq_mma_sync_launches = 0
+flash_bwd_dq_tf32x3_launches = 0
 flash_bwd_dkv_launches = 0
 flash_bwd_dkv_wgmma_launches = 0
 flash_bwd_dkv_mma_sync_launches = 0
+flash_bwd_dkv_tf32x3_launches = 0
 
 
 def fwd_tiles(head_dim: int, dtype: torch.dtype) -> Tuple[int, int]:
@@ -405,6 +413,8 @@ _SOURCES = {
                   "ray_tpu_flash_bwd_error_string"),
     "flash_bwd_wgmma": ({"ray_tpu_flash_bwd_dq_wgmma": 7, "ray_tpu_flash_bwd_dkv_wgmma": 8},
                         "ray_tpu_flash_bwd_wgmma_error_string"),
+    "flash_bwd_f32": ({"ray_tpu_flash_bwd_dq_f32": 7, "ray_tpu_flash_bwd_dkv_f32": 8},
+                      "ray_tpu_flash_bwd_f32_error_string"),
 }
 _C_TAIL = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
 
@@ -575,21 +585,24 @@ def _bwd_design(q, k, v, do, lse, delta) -> BwdDesign:
     return BWD_DESIGNS[(q.shape[-1], q.dtype)]
 
 
+def _count_design(kernel: str, design: BwdDesign) -> None:
+    """One more launch in ``<kernel>_<design>_launches``."""
+    name = f"{kernel}_{design.name}_launches"
+    globals()[name] += 1
+
+
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float
                  ) -> torch.Tensor:
     """dq from the dQ kernel of the design ``BWD_DESIGNS`` names (CUDA
     tensors only), counted in ``flash_bwd_dq_launches`` and the design's
     ``flash_bwd_dq_<design>_launches``."""
-    global flash_bwd_dq_launches, flash_bwd_dq_wgmma_launches, flash_bwd_dq_mma_sync_launches
+    global flash_bwd_dq_launches
     design = _bwd_design(q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
     _launch(design.source, design.dq_entry, (q, k, v, do, lse, delta, dq), q,
             k.shape[2], causal, scale)
     flash_bwd_dq_launches += 1
-    if design.name == "wgmma":
-        flash_bwd_dq_wgmma_launches += 1
-    else:
-        flash_bwd_dq_mma_sync_launches += 1
+    _count_design("flash_bwd_dq", design)
     return dq
 
 
@@ -598,17 +611,14 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float
     """(dk, dv) from the dK/dV kernel of the design ``BWD_DESIGNS`` names
     (CUDA tensors only), counted in ``flash_bwd_dkv_launches`` and the
     design's ``flash_bwd_dkv_<design>_launches``."""
-    global flash_bwd_dkv_launches, flash_bwd_dkv_wgmma_launches, flash_bwd_dkv_mma_sync_launches
+    global flash_bwd_dkv_launches
     design = _bwd_design(q, k, v, do, lse, delta)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _launch(design.source, design.dkv_entry, (q, k, v, do, lse, delta, dk, dv),
             q, k.shape[2], causal, scale)
     flash_bwd_dkv_launches += 1
-    if design.name == "wgmma":
-        flash_bwd_dkv_wgmma_launches += 1
-    else:
-        flash_bwd_dkv_mma_sync_launches += 1
+    _count_design("flash_bwd_dkv", design)
     return dk, dv
 
 

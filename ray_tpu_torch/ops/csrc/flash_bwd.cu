@@ -1,7 +1,10 @@
 // Flash-attention backward on mma.sync (sm_90a), hand-written CUDA C++: the
 // design the dispatch table in ops/attention.py (BWD_DESIGNS) sends bf16 at
-// head_dim 16 and 32 and every float32 input to; bf16 at 64, 128 and 256
-// runs csrc/flash_bwd_wgmma.cu, and this file builds no bf16 kernel at 256.
+// head_dim 16 and 32 to; bf16 at 64, 128 and 256 runs
+// csrc/flash_bwd_wgmma.cu, and this file builds no bf16 kernel at 256.
+// float32 runs csrc/flash_bwd_f32.cu (3xTF32 on the tensor cores); this
+// file's float32 kernels (CUDA cores) are on no path, and only
+// ops/flash_bwd_f32_variants.py launches them, to time them beside it.
 //
 // Replaces the two TPU kernels of ray_tpu/ops/attention.py launched by
 // _flash_attention_tpu_bwd there:
@@ -42,9 +45,9 @@
 // out in the accumulator layout, which is the A-operand layout of
 // dV += P^T dO and dK += dS^T Q (the forward's trick for P V). P and dS are
 // rounded to bf16 before they feed an mma. Tiles sit in shared memory with rows padded by 16 bytes. There is no
-// cp.async pipelining, ldmatrix or wgmma/TMA. float32 inputs take a
-// CUDA-core path with the same tiles (one thread per row), which exists for
-// tests and is not tuned.
+// cp.async pipelining, ldmatrix or wgmma/TMA. The float32 kernels here take
+// a CUDA-core path with the same tiles (one thread per row); they are not
+// tuned and spill.
 //
 // C interface (bound with ctypes by ray_tpu_torch/ops/attention.py):
 //   int ray_tpu_flash_bwd_dq(q, k, v, dout, lse, delta, dq,

@@ -233,7 +233,8 @@ def test_port_imports_no_jax_and_no_ray_tpu():
     code = (
         "import sys, ray_tpu_torch, ray_tpu_torch.serve.llm, "
         "ray_tpu_torch.models.convert, ray_tpu_torch.models.training, "
-        "ray_tpu_torch.models.moe, ray_tpu_torch.ops.attention, "
+        "ray_tpu_torch.models.moe, ray_tpu_torch.ops.attention, ray_tpu_torch.ops.tf32, "
+        "ray_tpu_torch.ops.flash_bwd_f32_variants, "
         "ray_tpu_torch.ops.ring, ray_tpu_torch.parallel, ray_tpu_torch.parallel.mesh, "
         "ray_tpu_torch.parallel.sharding, ray_tpu_torch.parallel.comm, "
         "ray_tpu_torch.parallel.launch, ray_tpu_torch.parallel.dryrun, "
