@@ -5,17 +5,19 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. build: compile ray_tpu_torch/ops/csrc/flash_fwd_wgmma.cu, flash_fwd.cu,
-     flash_bwd_wgmma.cu, flash_bwd.cu and flash_bwd_f32.cu with nvcc, in
-     parallel, and print their register, shared-memory and spill reports;
-     the wgmma forward and both wgmma backward kernels at head_dim 128 and
-     256 (the train paths': dQ, dK/dV and, at 256, the split dK/dV kernel)
-     and the float32 backward's dQ and dK/dV kernels (3xTF32) at 64, 128
-     and 256 must not spill; the wgmma and float32 backward kernels'
+     flash_fwd_f32.cu, flash_bwd_wgmma.cu, flash_bwd.cu and flash_bwd_f32.cu
+     with nvcc, in parallel, and print their register, shared-memory and
+     spill reports; the wgmma forward and both wgmma backward kernels at
+     head_dim 128 and 256 (the train paths': dQ, dK/dV and, at 256, the
+     split dK/dV kernel) and the float32 forward (3xTF32) and the float32
+     backward's dQ and dK/dV kernels (3xTF32) at 64, 128 and 256 must not
+     spill; the wgmma backward's and the float32 forward's and backward's
      dynamic shared memory per CTA by head_dim, at most 232448 bytes;
   2. kernel vs plain: the flash forward kernel against its plain PyTorch
      version on the same device tensors, per case (among them the shape of
      each train path and of the forward: gpt_1b at b=12, b=8, b=4 and the
-     pipelined step's microbatch, b=3):
+     pipelined step's microbatch, b=3; every float32 case on the tf32x3
+     design, one launch of it a case):
      each row of out held to its own norm and lse to an absolute limit
      (ray_tpu_torch/ops/tolerance.py), max abs error, kernel / plain /
      library (scaled_dot_product_attention, a yardstick the port never
@@ -66,8 +68,8 @@ Phases (any failure exits non-zero; nothing is caught):
   4f. train_f32: gpt_1b in float32 (parameters, compute, Adam moments) at
      full width and depth, b=4, t=2048, ce_chunk 512, remat "nothing": one
      warm-up and 2 timed steps; the gates of phase 4 with 32 forward
-     launches a step on mma_sync and 16 of each backward kernel on tf32x3
-     (the 3xTF32 design; none on the CUDA-core kernels), parameters and
+     launches a step and 16 of each backward kernel, all on tf32x3 (the
+     3xTF32 designs; none on mma_sync or the CUDA-core kernels), parameters and
      moments still float32; ms per step, tokens/s, peak memory and, with
      --profile, the flash group's device time. cuBLAS runs with TF32 off, so
      the step's GEMMs are float32 on the CUDA cores;
@@ -174,7 +176,7 @@ router, dispatch, experts and combine) and the idle share are printed
 
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero without a card.
-Each forward case names the design (FWD_DESIGNS: wgmma or mma_sync) and the
+Each forward case names the design (FWD_DESIGNS: wgmma, mma_sync or tf32x3) and the
 tiles that ran it; each backward case names its design (BWD_DESIGNS). In
 the kernels line, flash_fwd is the wgmma design, the one the main path
 runs, at gpt_1b's forward shape (b=4) with the forward phase's launches,
@@ -316,7 +318,8 @@ def phase_build():
         return _build.build(name), time.monotonic() - t0
 
     t0 = time.monotonic()
-    names = ("flash_fwd_wgmma", "flash_fwd", "flash_bwd_wgmma", "flash_bwd", "flash_bwd_f32")
+    names = ("flash_fwd_wgmma", "flash_fwd", "flash_fwd_f32", "flash_bwd_wgmma", "flash_bwd",
+             "flash_bwd_f32")
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
         built = dict(zip(names, pool.map(timed, names)))
     out = {"seconds": time.monotonic() - t0}
@@ -332,9 +335,12 @@ def phase_build():
                      "spills": _spills_by_kernel(report)}
     # the train paths' kernels: the wgmma forward and both wgmma backward
     # kernels at head_dim 128 (gpt_1b) and 256 (gpt_j_6b: dK/dV is the split
-    # kernel there), and the float32 backward's (3xTF32) at 64, 128 and 256
-    f32 = [("flash_bwd_f32", f"flash_bwd_{kernel}_f32x3_kernel", d)
-           for kernel in ("dq", "dkv") for d in (64, 128, 256)]
+    # kernel there), and the float32 forward's and backward's (3xTF32) at
+    # 64, 128 and 256
+    f32 = [(source, kernel, d) for source, kernel in (
+        ("flash_fwd_f32", "flash_fwd_f32x3_kernel"),
+        ("flash_bwd_f32", "flash_bwd_dq_f32x3_kernel"),
+        ("flash_bwd_f32", "flash_bwd_dkv_f32x3_kernel")) for d in (64, 128, 256)]
     for source, kernel, d in (("flash_fwd_wgmma", "flash_fwd_wgmma_kernel", 128),
                               ("flash_fwd_wgmma", "flash_fwd_wgmma_kernel", 256),
                               ("flash_bwd_wgmma", "flash_bwd_dq_wgmma_kernel", 128),
@@ -373,6 +379,14 @@ def phase_build():
     if any(not 0 < n <= 232448 for by_d in smem.values() for n in by_d.values()):
         raise SystemExit(f"a float32 backward kernel asks for more than 232448 bytes: {smem}")
     out["flash_bwd_f32"]["smem_bytes"] = smem
+    fwd_f32_lib = ctypes.CDLL(str(built["flash_fwd_f32"][0]))
+    fwd_f32_lib.ray_tpu_flash_fwd_f32_smem_bytes.argtypes = [ctypes.c_int]
+    smem = {d: fwd_f32_lib.ray_tpu_flash_fwd_f32_smem_bytes(d) for d in (16, 32, 64, 128, 256)}
+    print(f"[build] flash_fwd_f32 dynamic shared memory per CTA by head_dim: {smem} bytes "
+          f"(of 232448)")
+    if any(not 0 < n <= 232448 for n in smem.values()):
+        raise SystemExit(f"the float32 forward kernel asks for more than 232448 bytes: {smem}")
+    out["flash_fwd_f32"]["smem_bytes"] = smem
     return out
 
 
@@ -411,7 +425,7 @@ def phase_kernel_vs_plain():
         ("tq_gt_tkv_empty_rows", 1, 2, 160, 64, 128, True, torch.bfloat16),
         ("d16_tiny", 2, 4, 24, 40, 16, True, torch.bfloat16),
         ("d32_tiny_cfg", 2, 8, 256, 256, 32, True, torch.bfloat16),
-        ("f32_cuda_cores", 1, 4, 200, 264, 64, True, torch.float32),
+        ("f32_ragged_d64", 1, 4, 200, 264, 64, True, torch.float32),
         *F32_CASES,
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -422,7 +436,15 @@ def phase_kernel_vs_plain():
         v = torch.randn(b, h, t_kv, d, device="cuda", dtype=dtype, generator=gen)
         scale = 1.0 / d ** 0.5
         design = attn.FWD_DESIGNS[(d, dtype)]
+        if dtype == torch.float32 and design.name != "tf32x3":
+            raise SystemExit(f"FWD_DESIGNS sends float32 head_dim {d} to {design.name}")
+        before = _launch_counts()
         out, lse = attn.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+        launched = dict(zip(COUNTS, (a - b for a, b in zip(_launch_counts(), before))))
+        if {n: c for n, c in launched.items() if c} != {"flash_fwd": 1,
+                                                        f"flash_fwd_{design.name}": 1}:
+            raise SystemExit(f"case {name}: the forward launched {launched}, expected one "
+                             f"launch on the {design.name} design")
         ref_out, ref_lse = attn.flash_attention_fwd_plain(q, k, v, causal=causal, scale=scale)
         torch.cuda.synchronize()
         err = float((out.float() - ref_out.float()).abs().max())
@@ -472,8 +494,8 @@ def phase_kernel_vs_plain():
 
 
 # float32, in both phases: train_f32's shape (gpt_1b at b=4), gpt_125m's and
-# gpt_j_6b's heads, ragged tiles (at 128 and at 256, where dK/dV cuts d
-# between warps), rows that see no key, non-causal, and the head_dims of
+# gpt_j_6b's heads, ragged tiles (at 128 and at 256, where the forward and
+# dK/dV cut d between warps), rows that see no key, non-causal, and the head_dims of
 # gpt_nano (16) and the reference's tiny flagship (32)
 F32_CASES = [
     ("gpt_1b_f32_b4", 4, 16, 2048, 2048, 128, True, torch.float32),
@@ -597,12 +619,11 @@ def phase_bwd_kernels_vs_plain():
 
 # the launch counts read around each path: every launch of each kernel, and
 # each kernel's by design (the wgmma kernels are the bf16 paths'; mma_sync
-# takes bf16 at head_dim 16 and 32 and the float32 forward; tf32x3 the
-# float32 backward)
+# takes bf16 at head_dim 16 and 32; tf32x3 float32)
 KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 COUNTS = KERNEL_NAMES + tuple(
     f"{kernel}_{design}" for kernel in KERNEL_NAMES
-    for design in ("wgmma", "mma_sync") + (("tf32x3",) if kernel != "flash_fwd" else ()))
+    for design in ("wgmma", "mma_sync", "tf32x3"))
 
 
 def _launch_counts():
@@ -885,14 +906,14 @@ def phase_train_gpt_j(batch: int, seq: int, steps: int, profile: bool):
 def phase_train_f32(batch: int, seq: int, steps: int, profile: bool):
     """4f: gpt_1b in float32 (parameters, compute and Adam moments; ce_chunk
     512, remat "nothing") at full width and depth: its attention runs the
-    float32 designs, the forward on mma_sync and the backward on the 3xTF32
-    kernels (tf32x3)."""
+    float32 designs, the forward and the backward on the 3xTF32 kernels
+    (tf32x3)."""
     from ray_tpu_torch.models import gpt
 
     cfg = gpt.gpt_1b(dtype=torch.float32, ce_chunk=512)
     rep = run_train(cfg, _train_tokens(cfg, batch, seq), steps, 2,
                     "gpt_1b float32 (GEMMs on the CUDA cores)", profile,
-                    designs=("mma_sync", "tf32x3"))
+                    designs=("tf32x3", "tf32x3"))
     rep.update(dtype=str(cfg.dtype), num_params=cfg.num_params())
     flash = rep.get("profile", {}).get("groups_ms", {}).get("flash kernels")
     print(f"[train_f32] {cfg.num_params() / 1e9:.3f} B parameters, compute {cfg.dtype}, "
@@ -1167,7 +1188,7 @@ def phase_server(cfg, params, fwd, profile: bool):
 def phase_lse_grad():
     """7a: flash_attention_with_lse, forward and backward under random
     cotangents of both outputs, at gpt_1b's heads (b=2, h=16, t=2048,
-    d=128) in bf16 (the wgmma kernels) and float32 (mma_sync forward, tf32x3
+    d=128) in bf16 (the wgmma kernels) and float32 (tf32x3 forward and
     backward) and at gpt_j_6b's (d=256) in bf16 (the wgmma split dK/dV
     kernel), causal and not. Two gates on every row of dq, dk and dv:
     - against the plain flash versions on the same inputs (the forward's

@@ -18,10 +18,11 @@ a shorter q is the suffix of the kv context (``q_pos = q_idx + t_kv - t_q``).
 * ``flash_attention_fwd``, the forward kernel's wrapper, launches on CUDA
   tensors the hand-written Hopper kernel that the dispatch table
   ``FWD_DESIGNS`` names for (head_dim, dtype): ``csrc/flash_fwd_wgmma.cu``
-  (TMA, wgmma, warp-specialised; bf16 at head_dim 64, 128, 256) or
-  ``csrc/flash_fwd.cu`` (mma.sync; head_dim 16, 32 and float32). It counts
-  every launch in ``flash_fwd_launches`` and each design's in
-  ``flash_fwd_wgmma_launches`` or ``flash_fwd_mma_sync_launches``;
+  (TMA, wgmma, warp-specialised; bf16 at head_dim 64, 128, 256),
+  ``csrc/flash_fwd.cu`` (mma.sync; bf16 at head_dim 16, 32) or
+  ``csrc/flash_fwd_f32.cu`` (3xTF32 on mma.sync; float32 at every head_dim).
+  It counts every launch in ``flash_fwd_launches`` and each design's in
+  ``flash_fwd_{wgmma,mma_sync,tf32x3}_launches``;
   ``flash_attention_bwd`` launches the dQ and dK/dV kernels
   (``flash_bwd_dq``, ``flash_bwd_dkv``) of the design that the dispatch
   table ``BWD_DESIGNS`` names: ``csrc/flash_bwd_wgmma.cu`` (TMA, wgmma,
@@ -73,6 +74,7 @@ class FwdDesign:
 
 
 _MMA_SYNC = FwdDesign("mma_sync", "flash_fwd", "ray_tpu_flash_fwd", 64, 64)
+_TF32X3 = FwdDesign("tf32x3", "flash_fwd_f32", "ray_tpu_flash_fwd_f32", 64, 64)
 
 
 def _wgmma(block_k: int) -> FwdDesign:
@@ -80,10 +82,13 @@ def _wgmma(block_k: int) -> FwdDesign:
 
 
 #: the forward's dispatch table, keyed on (head_dim, dtype): the kernel each
-#: input launches on the card and the tiles the plain version repeats. Both
-#: designs are hand-written kernels; a launch that the kernel refuses raises.
+#: input launches on the card and the tiles the plain version repeats. Every
+#: design is a hand-written kernel; a launch that the kernel refuses raises.
+#: float32 runs 3xTF32 on the tensor cores (``flash_fwd_f32.cu``); the
+#: float32 kernel of ``flash_fwd.cu`` (CUDA cores) is on no path:
+#: ``ops/flash_fwd_f32_variants.py`` times it beside this one.
 FWD_DESIGNS = {
-    **{(d, torch.float32): _MMA_SYNC for d in HEAD_DIMS},
+    **{(d, torch.float32): _TF32X3 for d in HEAD_DIMS},
     (16, torch.bfloat16): _MMA_SYNC,
     (32, torch.bfloat16): _MMA_SYNC,
     (64, torch.bfloat16): _wgmma(128),
@@ -130,6 +135,7 @@ BWD_DESIGNS = {
 flash_fwd_launches = 0
 flash_fwd_wgmma_launches = 0
 flash_fwd_mma_sync_launches = 0
+flash_fwd_tf32x3_launches = 0
 flash_bwd_dq_launches = 0
 flash_bwd_dq_wgmma_launches = 0
 flash_bwd_dq_mma_sync_launches = 0
@@ -298,6 +304,25 @@ def flash_attention_fwd_plain(
     count of processed columns, and its lse is about NEG_INF. Only tiles that
     are skipped wholly contribute nothing; a row of a q tile that processes
     nothing gets 0 and NEG_INF (denominator 1 where l == 0)."""
+    return _flash_fwd_tiled(q, k, v, causal=causal, scale=scale, block_q=block_q,
+                            block_k=block_k)
+
+
+def _qk(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bhqd,bhkd->bhqk", q, k)
+
+
+def _pv(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bhqk,bhkd->bhqd", p, v)
+
+
+def _flash_fwd_tiled(q, k, v, *, causal: bool, scale: float, block_q: Optional[int] = None,
+                     block_k: Optional[int] = None, qk=_qk, pv=_pv
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention_fwd_plain``'s algorithm with its two products
+    given: ``qk(q, k)`` for each tile's scores Q K^T and ``pv(p, v)`` for
+    P V, both over float32 [b, h, rows, d] tiles (by default float32
+    einsums; ``ops/tf32.py`` passes 3xTF32 products)."""
     b, h, t_q, d = q.shape
     t_kv = k.shape[-2]
     tiles = fwd_tiles(d, q.dtype)
@@ -322,7 +347,7 @@ def flash_attention_fwd_plain(
     for ki in range(nk):
         ks = kf[:, :, ki * bk:(ki + 1) * bk]
         vs = vf[:, :, ki * bk:(ki + 1) * bk]
-        s = torch.einsum("bhqd,bhkd->bhqk", qf, ks) * scale
+        s = qk(qf, ks) * scale
         k_pos = ki * bk + torch.arange(bk, device=q.device)
         if causal:
             s = torch.where(q_pos[:, None] >= k_pos[None, :], s, NEG_INF)
@@ -332,7 +357,7 @@ def flash_attention_fwd_plain(
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new[..., None])
         l_new = alpha * l + p.sum(dim=-1)
-        acc_new = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vs)
+        acc_new = acc * alpha[..., None] + pv(p, vs)
         if causal:
             run = tile_last >= ki * bk  # [rows]: the row's q tile runs ki
             m = torch.where(run, m_new, m)
@@ -409,6 +434,7 @@ _SOURCES = {
     "flash_fwd": ({"ray_tpu_flash_fwd": 5}, "ray_tpu_cuda_error_string"),
     "flash_fwd_wgmma": ({"ray_tpu_flash_fwd_wgmma": 5},
                         "ray_tpu_flash_fwd_wgmma_error_string"),
+    "flash_fwd_f32": ({"ray_tpu_flash_fwd_f32": 5}, "ray_tpu_flash_fwd_f32_error_string"),
     "flash_bwd": ({"ray_tpu_flash_bwd_dq": 7, "ray_tpu_flash_bwd_dkv": 8},
                   "ray_tpu_flash_bwd_error_string"),
     "flash_bwd_wgmma": ({"ray_tpu_flash_bwd_dq_wgmma": 7, "ray_tpu_flash_bwd_dkv_wgmma": 8},
@@ -506,15 +532,21 @@ def _check_tiles(design: FwdDesign, head_dim: int, block_q, block_k) -> None:
             f"{design.block_q}x{design.block_k}, got {asked[0]}x{asked[1]}")
 
 
+# the designs whose built kernel reports the tiles it computes with
+_TILES_ENTRIES = {"wgmma": "ray_tpu_flash_fwd_wgmma_tiles",
+                  "tf32x3": "ray_tpu_flash_fwd_f32_tiles"}
+
+
 def _check_design(design: FwdDesign, head_dim: int, scale: float) -> None:
-    """Raise ``ValueError`` unless the design takes this scale, and
-    ``RuntimeError`` unless the built wgmma kernel computes with the
-    table's tiles at this head_dim."""
-    if design.name != "wgmma":
+    """Raise ``ValueError`` unless the design takes this scale (the wgmma
+    kernel takes a positive one only), and ``RuntimeError`` unless the built
+    wgmma or tf32x3 kernel computes with the table's tiles at this
+    head_dim."""
+    if design.name not in _TILES_ENTRIES:
         return
-    if not scale > 0:
+    if design.name == "wgmma" and not scale > 0:
         raise ValueError(f"the wgmma flash kernel takes a positive scale, got {scale}")
-    tiles_fn = _kernel_lib(design.source).ray_tpu_flash_fwd_wgmma_tiles
+    tiles_fn = getattr(_kernel_lib(design.source), _TILES_ENTRIES[design.name])
     tiles_fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
                          ctypes.POINTER(ctypes.c_int)]
     tiles_fn.restype = ctypes.c_int
@@ -544,11 +576,11 @@ def flash_attention_fwd(
     ``block_k``, by default the card kernel's tiles) and launch nothing.
     CUDA tensors launch the hand-written Hopper kernel that ``FWD_DESIGNS``
     names for (head_dim, dtype): contiguous q [b, h, t_q, d] and k, v
-    [b, h, t_kv, d] of one dtype (bfloat16 on the tensor cores, float32 on
-    the CUDA cores), d in ``HEAD_DIMS``, the design's tiles (``block_q`` and
+    [b, h, t_kv, d] of one dtype (bfloat16, or float32 in 3xTF32, both on
+    the tensor cores), d in ``HEAD_DIMS``, the design's tiles (``block_q`` and
     ``block_k`` left at None or equal to them) and, for the wgmma design, a
     positive scale. Anything else raises."""
-    global flash_fwd_launches, flash_fwd_wgmma_launches, flash_fwd_mma_sync_launches
+    global flash_fwd_launches
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_fwd_plain(
             q, k, v, causal=causal, scale=scale, block_q=block_q, block_k=block_k)
@@ -563,10 +595,7 @@ def flash_attention_fwd(
     _launch(design.source, design.entry, (q, k, v, out, lse), q, k.shape[2],
             causal, scale)
     flash_fwd_launches += 1
-    if design.name == "wgmma":
-        flash_fwd_wgmma_launches += 1
-    else:
-        flash_fwd_mma_sync_launches += 1
+    _count_design("flash_fwd", design)
     return out, lse
 
 
@@ -585,7 +614,7 @@ def _bwd_design(q, k, v, do, lse, delta) -> BwdDesign:
     return BWD_DESIGNS[(q.shape[-1], q.dtype)]
 
 
-def _count_design(kernel: str, design: BwdDesign) -> None:
+def _count_design(kernel: str, design: FwdDesign | BwdDesign) -> None:
     """One more launch in ``<kernel>_<design>_launches``."""
     name = f"{kernel}_{design.name}_launches"
     globals()[name] += 1

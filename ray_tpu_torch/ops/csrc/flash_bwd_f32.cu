@@ -27,12 +27,13 @@
 //
 // Arithmetic: every product is 3xTF32 on mma.sync.m16n8k8 (tf32 in, f32
 // accumulate). Each operand x is split into big = cvt.rna.tf32(x) and
-// small = cvt.rna.tf32(x - big), so big + small is x to 2^-22 of |x| (split
-// below); a product adds small*big', big*small' and big*big' and drops
-// small*small' (at most 2^-22 of |x x'|). One TF32 product keeps 11 bits
-// and would miss the float32 gate (1e-4 of each row's norm), so float32
-// asks for three. How the sums are chained is in mma3_add. ops/tf32.py
-// repeats the operand rounding on the CPU.
+// small = cvt.rna.tf32(x - big), so big + small is x to 2^-22 of |x|; a
+// product adds small*big', big*small' and big*big' and drops small*small'
+// (at most 2^-22 of |x x'|). One TF32 product keeps 11 bits and would miss
+// the float32 gate (1e-4 of each row's norm), so float32 asks for three.
+// The split and the chained sums (split, mma3_add) are in csrc/tf32x3.cuh,
+// which the float32 forward shares. ops/tf32.py repeats the operand
+// rounding on the CPU.
 //
 // What bounds it on an H100: at long t the operations, 6 * d per visible
 // (q, k) pair for dQ (S, dP, dQ) and 8 * d for dK/dV (S, dP, dV, dK), at a
@@ -90,6 +91,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -195,124 +198,6 @@ __device__ __forceinline__ bool sees_no_key(const Params& p, float lse) {
   return p.guard && !(lse > kNegInf * 0.5f);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-// 16 bytes global -> shared, zero-filled when !valid (src is then not read)
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// every copy this thread issued has landed
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// named barrier `id` over the `threads` threads of a group of warps
-__device__ __forceinline__ void group_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// Rows [row0, row0 + kRows) of a [rows, D] float32 matrix into a shared
-// tile with row stride D + 4, by cp.async; rows past the end are zero.
-template <int D, int kRows, int kThreads>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int row0, int rows) {
-  constexpr int kChunks = D / 4;
-#pragma unroll 4
-  for (int c = threadIdx.x; c < kRows * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 4;
-    const bool ok = row0 + r < rows;
-    cp_async16(dst + r * (D + 4) + col, src + (size_t)(ok ? row0 + r : 0) * D + col, ok);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// 3xTF32 on mma.sync.m16n8k8
-// ---------------------------------------------------------------------------
-
-// x = big + small for the tensor cores, which read a tf32 operand's top 19
-// bits and ignore its low 13. big is x rounded to the nearest tf32, ties
-// away from zero, and small is x - big (exact in float32) rounded so too:
-// cvt.rna.tf32.f32 of each, for every input but NaN, in integer operations
-// ((bits + 0x1000) with the low 13 bits cleared; small's are left for the
-// cores to ignore). ptxas lowers cvt.rna to four operations with a NaN test
-// (the variant "cvt.rna split" of flash_bwd_f32_variants). A NaN input
-// may come out as zero here, but the forward's lse and the caller's delta
-// carry it: a NaN in q, k, v or dO makes a NaN in every gradient row it
-// reaches.
-__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
-}
-
-struct FragA {
-  uint32_t big[4];
-  uint32_t small[4];
-};
-
-struct FragB {
-  uint32_t big[2];
-  uint32_t small[2];
-};
-
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c = a b + 0: a sum in fresh registers
-__device__ __forceinline__ void mma_tf32_fresh(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
-}
-
-// c += a b in 3xTF32: the two small terms first, then big * big
-__device__ __forceinline__ void mma3(float* c, const FragA& a, const FragB& b) {
-  mma_tf32(c, a.small, b.big);
-  mma_tf32(c, a.big, b.small);
-  mma_tf32(c, a.big, b.big);
-}
-
-// The tensor cores round the sum inside an mma toward zero, relative to the
-// largest of its terms and the accumulator, so a long chain of mma into one
-// accumulator drifts toward zero: dP summed over gpt_1b's 128 columns of d
-// in one chain (48 mma) put 2.3e-4 of a row's norm into the first causal
-// rows of dQ on an H100 (their dS is dP - delta, which cancels), against the
-// 1e-4 gate. So S and dP (reductions over d) take each 8-column step's
-// three products in fresh registers and add them in float32 (round to
-// nearest); the long reductions over the streamed axis (dQ over kv, dK and
-// dV over q) chain kChunkRows rows (12 mma) before the float32 add.
-__device__ __forceinline__ void mma3_add(float* c, const FragA& a, const FragB& b) {
-  float t[4];
-  mma_tf32_fresh(t, a.small, b.big);
-  mma_tf32(t, a.big, b.small);
-  mma_tf32(t, a.big, b.big);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) c[e] += t[e];
-}
-
-constexpr int kChunkRows = 32;
-
 // A fragment (rows g, g + 8; k columns k0 + tig, k0 + tig + 4) of the
 // warp's 16 float32 shared rows at `x` (row stride S), split here.
 template <int S>
@@ -342,16 +227,6 @@ __device__ __forceinline__ void load_b_nn(FragB& f, const float* y, int k0, int 
   const float* p = y + (k0 + 2 * tig) * S + n0 + g;
   split(p[0], f.big[0], f.small[0]);
   split(p[S], f.big[1], f.small[1]);
-}
-
-// A fragment from an accumulator n-tile (rows g, g + 8; columns 2 tig,
-// 2 tig + 1) with the permuted k index: slot tig is column 2 tig, slot
-// tig + 4 column 2 tig + 1.
-__device__ __forceinline__ void acc_to_a(FragA& f, const float* x) {
-  split(x[0], f.big[0], f.small[0]);
-  split(x[2], f.big[1], f.small[1]);
-  split(x[1], f.big[2], f.small[2]);
-  split(x[3], f.big[3], f.small[3]);
 }
 
 // acc[kNT][4] = X Y^T for a warp, summed over kK columns: X its 16 shared
@@ -430,29 +305,6 @@ __device__ __forceinline__ void store_rows(float* dst, const float (*acc)[4], in
         *reinterpret_cast<float2*>(out + nt * 8) = make_float2(acc[nt][2 * i], acc[nt][2 * i + 1]);
       }
     }
-  }
-}
-
-// A warp's accumulator tile (kNT n-tiles) to a hand-over tile of its group
-// and back, in the registers' layout (a float4 a lane; buf is the lane's
-// first).
-template <int kNT>
-__device__ __forceinline__ void hand_over(float4* buf, const float (*x)[4]) {
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt) {
-    buf[nt * 32] = make_float4(x[nt][0], x[nt][1], x[nt][2], x[nt][3]);
-  }
-}
-
-template <int kNT>
-__device__ __forceinline__ void take_over(float (*x)[4], const float4* buf) {
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt) {
-    const float4 v = buf[nt * 32];
-    x[nt][0] = v.x;
-    x[nt][1] = v.y;
-    x[nt][2] = v.z;
-    x[nt][3] = v.w;
   }
 }
 

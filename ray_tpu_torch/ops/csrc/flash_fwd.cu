@@ -1,7 +1,8 @@
 // Flash-attention forward on mma.sync (sm_90a), hand-written CUDA C++: the
 // design the dispatch table in ops/attention.py (FWD_DESIGNS) sends bf16 at
-// head_dim 16 and 32 and every float32 input to; bf16 at 64, 128 and 256
-// runs csrc/flash_fwd_wgmma.cu.
+// head_dim 16 and 32 to; bf16 at 64, 128 and 256 runs
+// csrc/flash_fwd_wgmma.cu and float32 csrc/flash_fwd_f32.cu (3xTF32 on the
+// tensor cores).
 //
 // Replaces the TPU kernel ray_tpu/ops/attention.py:_flash_fwd_kernel
 // (launched by _flash_attention_tpu) there. It computes what that kernel computes:
@@ -30,17 +31,18 @@
 // m16n8k16 (bf16 in, f32 accumulate); the running max m, the denominator l
 // and the O accumulator stay in registers in float32. Q, K and V tiles sit
 // in shared memory, rows padded by 16 bytes so that fragment loads hit
-// distinct banks. float32 inputs take a CUDA-core path with the same tiles
-// (one thread per q row), which exists for tests and is not tuned.
+// distinct banks. The float32 kernel here (CUDA cores, one thread per q
+// row, the same tiles) is on no path: only ops/flash_fwd_f32_variants.py
+// launches it, to time it beside the 3xTF32 design that replaced it.
 //
 // C interface (bound with ctypes by ray_tpu_torch/ops/attention.py):
 //   int ray_tpu_flash_fwd(q, k, v, o, lse, bh, t_q, t_kv, d, dtype, causal,
 //                         scale, stream)
 // q/o are [bh, t_q, d], k/v [bh, t_kv, d], contiguous, lse [bh, t_q] f32;
-// dtype 0 = bf16 (head_dim 16, 32), 1 = float32 (16 to 256). The kernel
-// launches on `stream`, allocates nothing, and the function returns
-// cudaGetLastError() after the launch (or kUnsupported for a head_dim/dtype
-// it does not take).
+// dtype 0 = bf16 (head_dim 16, 32), 1 = float32 (16 to 256; on no path).
+// The kernel launches on `stream`, allocates nothing, and the function
+// returns cudaGetLastError() after the launch (or kUnsupported for a
+// head_dim/dtype it does not take).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

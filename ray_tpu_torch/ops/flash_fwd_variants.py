@@ -2,8 +2,8 @@
 
     python -m ray_tpu_torch.ops.flash_fwd_variants [--out results.json]
 
-Each variant is ``csrc/flash_fwd_wgmma.cu`` and the header it includes
-(``csrc/hopper.cuh``) with one piece of text replaced, built with the port's
+Each variant is ``csrc/flash_fwd_wgmma.cu`` and the headers beside it
+(``csrc/*.cuh``) with one piece of text replaced, built with the port's
 nvcc flags under ``build/ray_tpu_torch/variants/<variant>/``:
 
 * ``as built``: the source unchanged;
@@ -40,7 +40,6 @@ from ray_tpu_torch.ops import attention as attn
 from ray_tpu_torch.ops.tolerance import FWD_ROW_TOL, row_err
 
 SOURCE = _build.CSRC_DIR / "flash_fwd_wgmma.cu"
-HEADER = _build.CSRC_DIR / "hopper.cuh"
 OUT_DIR = _build.BUILD_DIR / "variants"
 _GROUP = "constexpr long long kL2GroupBytes = 16ll << 20;"
 _WAIT = ("  while (!mbar_try_wait(bar, parity)) {\n  }\n}")
@@ -63,13 +62,15 @@ SHAPES = [(4, 16, 2048, 2048, 128, True), (12, 16, 2048, 2048, 128, True),
 
 
 def build_variant(source, name: str, edits):
-    """(library, {kernel name: spill bytes}) of ``source`` and ``hopper.cuh``
-    with ``edits`` applied, each edit's text found once in one of the two."""
-    files = {f.name: f.read_text() for f in (source, HEADER)}
+    """(library, {kernel name: spill bytes}) of ``source`` and the headers of
+    ``csrc/`` with ``edits`` applied, each edit's text found once in one of
+    those files."""
+    files = {f.name: f.read_text()
+             for f in (source, *sorted(_build.CSRC_DIR.glob("*.cuh")))}
     for old, new in edits:
         holders = [f for f, text in files.items() if old in text]
         if len(holders) != 1 or files[holders[0]].count(old) != 1:
-            raise SystemExit(f"{source.name} and hopper.cuh no longer hold {old!r} once")
+            raise SystemExit(f"{source.name} and the headers no longer hold {old!r} once")
         files[holders[0]] = files[holders[0]].replace(old, new)
     out = OUT_DIR / source.stem / re.sub(r"\W+", "_", name)
     out.mkdir(parents=True, exist_ok=True)

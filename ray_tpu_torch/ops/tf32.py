@@ -1,8 +1,9 @@
-"""The float32 flash backward's TF32 arithmetic, repeated on the CPU.
+"""The float32 flash kernels' TF32 arithmetic, repeated on the CPU.
 
-``csrc/flash_bwd_f32.cu`` forms every float32 product on the tensor cores
-as 3xTF32: each operand x is split into big = cvt.rna.tf32.f32(x) and
-small = cvt.rna.tf32.f32(x - big), and a product x y is taken as
+``csrc/flash_bwd_f32.cu`` and ``csrc/flash_fwd_f32.cu`` form every float32
+product on the tensor cores as 3xTF32: each operand x is split into
+big = cvt.rna.tf32.f32(x) and small = cvt.rna.tf32.f32(x - big), and a
+product x y is taken as
 small_x big_y + big_x small_y + big_x big_y (small_x small_y, at most 2^-22
 of |x y|, is dropped). The functions here do the same to torch tensors, so
 that a test can hold the kernels' numerics to the reference on a machine
@@ -18,7 +19,10 @@ without a card:
   summed in float32 by ``torch.matmul`` (the tensor cores sum in another
   order, which the card's run measures, not this);
 * ``flash_bwd_3xtf32``: ``flash_attention_bwd_plain``'s arithmetic with
-  every product (S, dP, dQ, dK, dV) through ``mm_3xtf32``.
+  every product (S, dP, dQ, dK, dV) through ``mm_3xtf32``;
+* ``flash_fwd_3xtf32``: ``flash_attention_fwd_plain``'s algorithm at the
+  float32 design's tiles (64 x 64) with S and P V through ``mm_3xtf32``,
+  the numerics of ``csrc/flash_fwd_f32.cu``.
 
 Only the tests call it; no path of the port does.
 """
@@ -29,7 +33,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ray_tpu_torch.ops.attention import NEG_INF, _causal_mask
+from ray_tpu_torch.ops.attention import NEG_INF, _causal_mask, _flash_fwd_tiled
 
 _HALF_ULP = 0x1000  # half of a tf32 ulp, in float32 bits
 _KEEP = 0xFFFFE000  # sign, exponent and the top 10 mantissa bits
@@ -92,3 +96,21 @@ def flash_bwd_3xtf32(
     dk = mm_3xtf32(ds.transpose(-1, -2), qf)
     dv = mm_3xtf32(p.transpose(-1, -2), dof)
     return dq, dk, dv
+
+
+def flash_fwd_3xtf32(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    scale: float,
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) in float32 as ``flash_attention_fwd_plain`` computes them
+    (the same tiles, skips, masks and rows that see no key; by default the
+    tiles ``FWD_DESIGNS`` names), with S = Q K^T and P V in 3xTF32."""
+    return _flash_fwd_tiled(
+        q.float(), k.float(), v.float(), causal=causal, scale=scale, block_q=block_q,
+        block_k=block_k, qk=lambda x, y: mm_3xtf32(x, y.transpose(-1, -2)), pv=mm_3xtf32)

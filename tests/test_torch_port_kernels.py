@@ -197,6 +197,23 @@ def test_flash_kernel_matches_plain_on_card(card, case, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", port.HEAD_DIMS)
+def test_float32_forward_launches_the_tf32x3_kernel_on_card(card, d):
+    """float32 at every head_dim goes through the 3xTF32 kernel: one launch
+    on its counter and none on mma_sync's, causal with t_q > t_kv and
+    ragged tiles, every row within the float32 limits of the plain forward."""
+    q, k, v = _qkv(1, 2, 136, 72, d, device=card, dtype=torch.float32)
+    counters = ("flash_fwd_launches", "flash_fwd_tf32x3_launches",
+                "flash_fwd_mma_sync_launches", "flash_fwd_wgmma_launches")
+    before = [getattr(port, c) for c in counters]
+    out = port.dot_product_attention(q, k, v, causal=True)
+    assert [getattr(port, c) - b for c, b in zip(counters, before)] == [1, 1, 0, 0]
+    plain, _ = port.flash_attention_fwd_plain(q, k, v, causal=True, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert row_err(out, plain) <= FWD_ROW_TOL[torch.float32]
+
+
+@pytest.mark.cuda
 def test_dispatcher_launches_the_kernel_on_card(card):
     q, k, v = _qkv(2, 4, 80, 80, 64, device=card, dtype=torch.bfloat16)
     before = port.flash_fwd_launches
