@@ -4,35 +4,44 @@
     python3 chip_smoke.py [--out results.json] [--profile]
 
 Phases (any failure exits non-zero; nothing is caught):
-  1. build: compile ray_tpu_torch/ops/csrc/flash_fwd_wgmma.cu, flash_fwd.cu,
-     flash_fwd_f32.cu, flash_bwd_wgmma.cu, flash_bwd.cu and flash_bwd_f32.cu
-     with nvcc, in parallel, and print their register, shared-memory and
-     spill reports; the wgmma forward and both wgmma backward kernels at
-     head_dim 128 and 256 (the train paths': dQ, dK/dV and, at 256, the
-     split dK/dV kernel) and the float32 forward (3xTF32) and the float32
-     backward's dQ and dK/dV kernels (3xTF32) at 64, 128 and 256 must not
-     spill; the wgmma backward's and the float32 forward's and backward's
-     dynamic shared memory per CTA by head_dim, at most 232448 bytes;
+  1. build: compile ray_tpu_torch/ops/csrc/flash_fwd_wgmma.cu,
+     flash_fwd_persistent.cu, flash_fwd.cu, flash_fwd_f32.cu,
+     flash_bwd_wgmma.cu, flash_bwd.cu and flash_bwd_f32.cu with nvcc, in
+     parallel, and print their register, shared-memory and spill reports;
+     the wgmma forward and both wgmma backward kernels at head_dim 128 and
+     256 (the train paths': dQ, dK/dV and, at 256, the split dK/dV kernel),
+     the persistent forward at 16 and 32 and the float32 forward (3xTF32)
+     and the float32 backward's dQ and dK/dV kernels (3xTF32) at 64, 128
+     and 256 must not spill; the wgmma backward's, the persistent forward's
+     and the float32 forward's and backward's dynamic shared memory per CTA
+     by head_dim, at most 232448 bytes, and the persistent forward's CTAs
+     resident per SM, at least one;
   2. kernel vs plain: the flash forward kernel against its plain PyTorch
      version on the same device tensors, per case (among them the shape of
      each train path and of the forward: gpt_1b at b=12, b=8, b=4 and the
      pipelined step's microbatch, b=3; every float32 case on the tf32x3
-     design, one launch of it a case):
+     design and every bf16 head_dim-16/32 case on the persistent design,
+     one launch of it a case: gpt_nano's working case at 4g's b=512, the
+     tiny flagship's at b=256, and, checked only (CHECK_ONLY), long t,
+     ragged, q the suffix, rows that see no key, ragged non-causal):
      each row of out held to its own norm and lse to an absolute limit
-     (ray_tpu_torch/ops/tolerance.py), max abs error, kernel / plain /
-     library (scaled_dot_product_attention, a yardstick the port never
-     calls) times and the bound;
+     (ray_tpu_torch/ops/tolerance.py), max abs error, the kernel's device
+     time (torch.profiler's kernel durations over the calls that cuda_ms
+     times, beside cuda_ms) / plain / library (scaled_dot_product_attention,
+     a yardstick the port never calls, device time and cuda_ms), the bound
+     and the ex2 floor (one exponential per visible pair at 16 a clock an
+     SM);
   3. backward kernels vs plain: the dQ and dK/dV kernels of the design
      BWD_DESIGNS names (wgmma, mma_sync or, for float32, tf32x3; each case
      names it and must launch it) against flash_attention_bwd_plain, per
      case (the train paths' shapes among them, the pipelined step's b=3,
      gpt_j_6b's head_dim 256: its train shape, b=2, non-causal, q the
-     suffix, ragged; and in float32 train_f32's shape, head_dims 16 to 256,
-     ragged, non-causal and rows that see no key): each row of dq, dk, dv
-     held to its own norm
-     (ray_tpu_torch/ops/tolerance.py), max abs error, each kernel's time and
-     bound, the plain time and the library time (torch.autograd.grad
-     through scaled_dot_product_attention);
+     suffix, ragged; phase 2's head_dim-16/32 cases; and in float32
+     train_f32's shape, head_dims 16 to 256, ragged, non-causal and rows
+     that see no key): each row of dq, dk, dv held to its own norm
+     (ray_tpu_torch/ops/tolerance.py), max abs error, each kernel's device
+     time and cuda_ms, bound and ex2 floor, the plain time and the library
+     time (torch.autograd.grad through scaled_dot_product_attention);
   4. train: three float32 gpt_nano steps on the card held to the same steps
      on the CPU; then gpt_1b (bf16 compute, float32 master weights and Adam
      moments, remat "nothing"), b=12, t=2048, ce_chunk 512, lr 1e-4: one
@@ -69,10 +78,17 @@ Phases (any failure exits non-zero; nothing is caught):
      full width and depth, b=4, t=2048, ce_chunk 512, remat "nothing": one
      warm-up and 2 timed steps; the gates of phase 4 with 32 forward
      launches a step and 16 of each backward kernel, all on tf32x3 (the
-     3xTF32 designs; none on mma_sync or the CUDA-core kernels), parameters and
-     moments still float32; ms per step, tokens/s, peak memory and, with
-     --profile, the flash group's device time. cuBLAS runs with TF32 off, so
-     the step's GEMMs are float32 on the CUDA cores;
+     3xTF32 designs; none on the bf16 designs or the CUDA-core kernels),
+     parameters and moments still float32; ms per step, tokens/s, peak
+     memory and, with --profile, the flash group's device time. cuBLAS runs
+     with TF32 off, so the step's GEMMs are float32 on the CUDA cores;
+  4g. train_nano_bf16: gpt_nano (2 layers, 4 heads x 16) in bf16 compute
+     with float32 master weights and moments, remat "nothing", b=512,
+     t=128: one warm-up and 3 timed steps; the gates of phase 4 with 4
+     forward launches a step on the persistent design and 2 of each
+     backward kernel on mma_sync, the warm-up loss within 2e-2 of the same
+     step on the CPU in float32 from the same weights; ms per step and,
+     from one more step under torch.profiler, the idle share;
   5. forward: gpt_1b in bf16 (random weights from a seeded torch.Generator),
      b=4, t=2048; the wgmma forward kernel must launch num_layers times per
      forward;
@@ -176,7 +192,7 @@ router, dispatch, experts and combine) and the idle share are printed
 
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero without a card.
-Each forward case names the design (FWD_DESIGNS: wgmma, mma_sync or tf32x3) and the
+Each forward case names the design (FWD_DESIGNS: wgmma, persistent or tf32x3) and the
 tiles that ran it; each backward case names its design (BWD_DESIGNS). In
 the kernels line, flash_fwd is the wgmma design, the one the main path
 runs, at gpt_1b's forward shape (b=4) with the forward phase's launches,
@@ -191,9 +207,13 @@ carries the head_dim-256 case's (d256_gpt_j, train_gpt_j's shape) numbers
 under "d256" and the float32 case's (gpt_1b_f32_b4, train_f32's shape, on
 the float32 designs with train_f32's launches) under "f32", which also
 stand as entries of their own (flash_fwd_f32, flash_bwd_dq_f32,
-flash_bwd_dkv_f32: the kernels of train_f32's path); the backward kernels'
-plain and library times are those of the whole backward (dq, dk and dv
-together).
+flash_bwd_dkv_f32: the kernels of train_f32's path), and 4g's kernels
+stand as flash_fwd_persistent, flash_bwd_dq_mma_sync and
+flash_bwd_dkv_mma_sync at gpt_nano's working case with 4g's launches, the
+tiny flagship's case under "d32"; the backward kernels' plain and library
+times are those of the whole backward (dq, dk and dv together). In the
+kernels line ms and library_ms are device times (torch.profiler),
+event_ms the time between events.
 """
 
 from __future__ import annotations
@@ -206,6 +226,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import argparse  # noqa: E402
 import ctypes  # noqa: E402
+import dataclasses  # noqa: E402
 import json  # noqa: E402
 import re  # noqa: E402
 import subprocess  # noqa: E402
@@ -260,21 +281,80 @@ PP_LOSS_RTOL = 1e-4
 # are phase 4's (16 x 4 ticks x 24 MiB = 16 x 96 MiB), and a recomputed
 # layer is a quarter of phase 4's
 PP_PEAK_GIB = 1.0
+# 4g: gpt_nano's first bf16 loss on the card vs the float32 step on the CPU
+# from the same weights: bf16 rounds every activation and P (2^-9 relative
+# each) through 2 layers (the two steps on the CPU at b=64 read 3.4e-6
+# apart); at these random weights the loss is ~ln(256) whatever attention
+# gives, so phases 2-3 hold the kernels themselves
+NANO_BF16_LOSS_RTOL = 2e-2
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    return timed(fn, iters, warmup)[0]
+
+
+def timed(fn, iters: int, warmup: int = 2, kernel: str | None = None):
+    """(ms, device_ms): ``cuda_ms`` of ``fn`` (CUDA events around ``iters``
+    back-to-back calls, which at a small shape time the host's launches)
+    and, with ``kernel``, the mean device time per call of the kernels whose
+    names hold ``kernel`` ("" for every kernel), from torch.profiler's
+    kernel durations over the same calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    for _ in range(3):
+        prof = profile(activities=[ProfilerActivity.CUDA]) if kernel is not None else None
+        if prof is not None:
+            prof.__enter__()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        if prof is None:
+            return start.elapsed_time(end) / iters, None
+        prof.__exit__(None, None, None)
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                  and kernel in e.key and e.key not in RANGES]
+        # some windows lose kernel records: a named kernel launches once a
+        # call, so its mean is over the records that arrived; every kernel
+        # of a call ("") needs a window that holds a whole number a call
+        calls = sum(e.count for e in events)
+        device_us = sum(e.self_device_time_total for e in events)
+        if kernel and calls >= iters // 2:
+            return start.elapsed_time(end) / iters, device_us / calls / 1e3
+        if not kernel and calls > 0 and calls % iters == 0:
+            return start.elapsed_time(end) / iters, device_us / 1e3 / iters
+    raise SystemExit(f"torch.profiler recorded {calls} kernels matching {kernel!r} over "
+                     f"{iters} calls, three times")
+
+
+def ex2_floor_ms(b, h, t_q, t_kv, causal):
+    """One exponential per visible (q, k) pair at the card's special-function
+    rate: 16 ``ex2`` results a clock on each SM at the SMs' highest clock
+    (``nvidia-smi`` clocks.max.sm), a floor that the bound leaves out."""
+    off = t_kv - t_q
+    pairs = (int(np.clip(np.arange(t_q) + off + 1, 0, t_kv).sum()) if causal
+             else t_q * t_kv)
+    return b * h * pairs / EX2_PER_S * 1e3
+
+
+def ex2_rate() -> float:
+    """``ex2`` results a second: SMs x 16 a clock x the highest SM clock."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count * 16 * mhz * 1e6
+
+
+# set by main() from the card (ex2_rate)
+EX2_PER_S = float("nan")
 
 
 def attention_bound(b, h, t_q, t_kv, d, causal, dtype):
@@ -318,8 +398,8 @@ def phase_build():
         return _build.build(name), time.monotonic() - t0
 
     t0 = time.monotonic()
-    names = ("flash_fwd_wgmma", "flash_fwd", "flash_fwd_f32", "flash_bwd_wgmma", "flash_bwd",
-             "flash_bwd_f32")
+    names = ("flash_fwd_wgmma", "flash_fwd_persistent", "flash_fwd", "flash_fwd_f32",
+             "flash_bwd_wgmma", "flash_bwd", "flash_bwd_f32")
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
         built = dict(zip(names, pool.map(timed, names)))
     out = {"seconds": time.monotonic() - t0}
@@ -335,8 +415,8 @@ def phase_build():
                      "spills": _spills_by_kernel(report)}
     # the train paths' kernels: the wgmma forward and both wgmma backward
     # kernels at head_dim 128 (gpt_1b) and 256 (gpt_j_6b: dK/dV is the split
-    # kernel there), and the float32 forward's and backward's (3xTF32) at
-    # 64, 128 and 256
+    # kernel there), the persistent forward at 16 (gpt_nano) and 32, and the
+    # float32 forward's and backward's (3xTF32) at 64, 128 and 256
     f32 = [(source, kernel, d) for source, kernel in (
         ("flash_fwd_f32", "flash_fwd_f32x3_kernel"),
         ("flash_bwd_f32", "flash_bwd_dq_f32x3_kernel"),
@@ -347,6 +427,8 @@ def phase_build():
                               ("flash_bwd_wgmma", "flash_bwd_dkv_wgmma_kernel", 128),
                               ("flash_bwd_wgmma", "flash_bwd_dq_wgmma_kernel", 256),
                               ("flash_bwd_wgmma", "flash_bwd_dkv_wgmma_split_kernel", 256),
+                              ("flash_fwd_persistent", "flash_fwd_persistent_kernel", 16),
+                              ("flash_fwd_persistent", "flash_fwd_persistent_kernel", 32),
                               *f32):
         main = {k: v for k, v in out[source]["spills"].items()
                 if f"{kernel}ILi{d}E" in k}
@@ -359,6 +441,17 @@ def phase_build():
     print(f"[build] flash_fwd_wgmma dynamic shared memory per CTA by head_dim: {smem} "
           f"bytes (of 232448)")
     out["flash_fwd_wgmma"]["smem_bytes"] = smem
+    small_lib = ctypes.CDLL(str(built["flash_fwd_persistent"][0]))
+    for fn in ("smem_bytes", "ctas_per_sm"):
+        getattr(small_lib, f"ray_tpu_flash_fwd_persistent_{fn}").argtypes = [ctypes.c_int]
+    smem = {d: small_lib.ray_tpu_flash_fwd_persistent_smem_bytes(d) for d in (16, 32)}
+    ctas = {d: small_lib.ray_tpu_flash_fwd_persistent_ctas_per_sm(d) for d in (16, 32)}
+    print(f"[build] flash_fwd_persistent dynamic shared memory per CTA by head_dim: {smem} "
+          f"bytes (of 232448); CTAs resident per SM {ctas}")
+    if any(not 0 < n <= 232448 for n in smem.values()) or any(n < 1 for n in ctas.values()):
+        raise SystemExit(f"the persistent forward asks for {smem} bytes of shared memory, "
+                         f"{ctas} CTAs an SM")
+    out["flash_fwd_persistent"].update(smem_bytes=smem, ctas_per_sm=ctas)
     bwd_lib = ctypes.CDLL(str(built["flash_bwd_wgmma"][0]))
     bwd_lib.ray_tpu_flash_bwd_wgmma_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     smem = {kernel: {d: bwd_lib.ray_tpu_flash_bwd_wgmma_smem_bytes(d, dkv)
@@ -423,8 +516,7 @@ def phase_kernel_vs_plain():
         ("ragged_t2056_causal", 1, 16, 2056, 2056, 128, True, torch.bfloat16),
         ("noncausal", 4, 16, 2048, 2048, 128, False, torch.bfloat16),
         ("tq_gt_tkv_empty_rows", 1, 2, 160, 64, 128, True, torch.bfloat16),
-        ("d16_tiny", 2, 4, 24, 40, 16, True, torch.bfloat16),
-        ("d32_tiny_cfg", 2, 8, 256, 256, 32, True, torch.bfloat16),
+        *SMALL_D_CASES,
         ("f32_ragged_d64", 1, 4, 200, 264, 64, True, torch.float32),
         *F32_CASES,
     ]
@@ -438,6 +530,8 @@ def phase_kernel_vs_plain():
         design = attn.FWD_DESIGNS[(d, dtype)]
         if dtype == torch.float32 and design.name != "tf32x3":
             raise SystemExit(f"FWD_DESIGNS sends float32 head_dim {d} to {design.name}")
+        if dtype == torch.bfloat16 and d in (16, 32) and design.name != "persistent":
+            raise SystemExit(f"FWD_DESIGNS sends bf16 head_dim {d} to {design.name}")
         before = _launch_counts()
         out, lse = attn.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
         launched = dict(zip(COUNTS, (a - b for a, b in zip(_launch_counts(), before))))
@@ -453,9 +547,24 @@ def phase_kernel_vs_plain():
         out_tol, lse_tol = FWD_ROW_TOL[dtype], FWD_LSE_TOL[dtype]
         ok = (out_row_err <= out_tol and lse_err <= lse_tol
               and bool(torch.isfinite(out).all()))
+        row = dict(case=name, shape=[b, h, t_q, t_kv, d], causal=causal,
+                   dtype=str(dtype).replace("torch.", ""), design=design.name,
+                   source=f"ray_tpu_torch/ops/csrc/{design.source}.cu",
+                   tiles=[design.block_q, design.block_k], max_abs_err=err,
+                   row_err=out_row_err, row_err_tol=out_tol,
+                   lse_max_abs_err=lse_err, lse_tol=lse_tol, ok=ok)
+        rows.append(row)
+        verdict = (f"[kernel] {name:<22} {str(row['shape']):<28} {design.name} "
+                   f"{design.block_q}x{design.block_k} worst-row err "
+                   f"{out_row_err:.2e} (limit {out_tol:.0e}), max abs err {err:.2e}, lse "
+                   f"{lse_err:.2e} (limit {lse_tol:.0e}) {'ok' if ok else 'FAIL'}")
+        if name in CHECK_ONLY:
+            print(verdict)
+            continue
         big = b * h * t_q * t_kv >= 2 ** 26
-        ms = cuda_ms(lambda: attn.flash_attention_fwd(q, k, v, causal=causal, scale=scale),
-                     iters=20 if big else 50)
+        ms, device_ms = timed(
+            lambda: attn.flash_attention_fwd(q, k, v, causal=causal, scale=scale),
+            iters=20 if big else 50, kernel="flash_fwd")
         plain_ms = cuda_ms(
             lambda: attn.flash_attention_fwd_plain(q, k, v, causal=causal, scale=scale),
             iters=3, warmup=1)
@@ -465,26 +574,17 @@ def phase_kernel_vs_plain():
             lib_fn = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)  # noqa: E731
         else:
             lib_fn = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, scale=scale)  # noqa: E731
-        library_ms = cuda_ms(lib_fn, iters=20 if big else 50)
+        library_ms, library_device_ms = timed(lib_fn, iters=20 if big else 50, kernel="")
         bound_ms, bound_by, flops, nbytes = attention_bound(b, h, t_q, t_kv, d, causal, dtype)
-        row = dict(case=name, shape=[b, h, t_q, t_kv, d], causal=causal,
-                   dtype=str(dtype).replace("torch.", ""), design=design.name,
-                   source=f"ray_tpu_torch/ops/csrc/{design.source}.cu",
-                   tiles=[design.block_q, design.block_k], max_abs_err=err,
-                   row_err=out_row_err, row_err_tol=out_tol,
-                   lse_max_abs_err=lse_err, lse_tol=lse_tol, ok=ok,
-                   ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, tflops=flops / ms / 1e9,
-                   bound_share=bound_ms / ms)
-        rows.append(row)
-        print(f"[kernel] {name:<22} {str(row['shape']):<28} {design.name} "
-              f"{design.block_q}x{design.block_k} worst-row err "
-              f"{out_row_err:.2e} (limit {out_tol:.0e}), max abs err {err:.2e}, lse "
-              f"{lse_err:.2e} (limit {lse_tol:.0e}) {'ok' if ok else 'FAIL'} | "
-              f"kernel {ms:.4f} ms "
-              f"({row['tflops']:.1f} TFLOP/s, {100 * row['bound_share']:.1f}% of bound) "
-              f"plain {plain_ms:.3f} ms library {library_ms:.4f} ms "
-              f"bound {bound_ms:.4f} ms ({bound_by})")
+        row.update(ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms,
+                   library_device_ms=library_device_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, ex2_floor_ms=ex2_floor_ms(b, h, t_q, t_kv, causal),
+                   tflops=flops / device_ms / 1e9, bound_share=bound_ms / device_ms)
+        print(f"{verdict} | kernel {device_ms:.4f} ms on the device, {ms:.4f} between "
+              f"events ({row['tflops']:.1f} TFLOP/s, {100 * row['bound_share']:.1f}% of "
+              f"bound) plain {plain_ms:.3f} ms library {library_device_ms:.4f} ms on the "
+              f"device, {library_ms:.4f} between events | bound {bound_ms:.4f} ms "
+              f"({bound_by}), ex2 floor {row['ex2_floor_ms']:.4f} ms")
     bad = [(r["case"], r["row_err"], r["lse_max_abs_err"]) for r in rows if not r["ok"]]
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version (case, worst-row "
@@ -492,6 +592,28 @@ def phase_kernel_vs_plain():
                          f"{FWD_LSE_TOL}): {bad}")
     return rows
 
+
+# bf16 at head_dim 16 and 32, in both phases: gpt_nano's heads (4 x 16,
+# t=128) at 4g's batch of 512 and the tiny flagship's (8 x 32, t=256,
+# __graft_entry__.py) at b=256, 65536 tokens a launch each, where the kernels
+# do work; then, checked and not timed (CHECK_ONLY), long t (many kv tiles
+# and the causal skip), ragged q and kv, q the suffix of kv, rows that see no
+# key and a ragged non-causal pair; and the earlier small cases, timed
+SMALL_D_CASES = [
+    ("d16_nano_b512", 512, 4, 128, 128, 16, True, torch.bfloat16),
+    ("d32_tiny_cfg_b256", 256, 8, 256, 256, 32, True, torch.bfloat16),
+    *[(f"d{d}_{name}", b, h, t_q, t_kv, d, causal, torch.bfloat16)
+      for d, h in ((16, 4), (32, 8))
+      for name, b, t_q, t_kv, causal in (
+          ("t2048", 1, 2048, 2048, True),
+          ("ragged_tq200_tkv264", 2, 200, 264, True),
+          ("suffix_tq64_tkv256", 2, 64, 256, True),
+          ("tq_gt_tkv", 1, 160, 64, True),
+          ("noncausal_tq200_tkv264", 2, 200, 264, False))],
+    ("d16_tiny", 2, 4, 24, 40, 16, True, torch.bfloat16),
+    ("d32_tiny_cfg", 2, 8, 256, 256, 32, True, torch.bfloat16),
+]
+CHECK_ONLY = {name for name, *_ in SMALL_D_CASES[2:-2]}
 
 # float32, in both phases: train_f32's shape (gpt_1b at b=4), gpt_125m's and
 # gpt_j_6b's heads, ragged tiles (at 128 and at 256, where the forward and
@@ -529,8 +651,7 @@ BWD_CASES = [
     ("tq_gt_tkv_empty_rows", 1, 2, 160, 64, 128, True, torch.bfloat16),
     ("tq_gt_tkv_d64", 1, 2, 160, 64, 64, True, torch.bfloat16),
     ("noncausal_t384", 2, 16, 384, 384, 128, False, torch.bfloat16),
-    ("d16_tiny", 2, 4, 24, 40, 16, True, torch.bfloat16),
-    ("d32_tiny_cfg", 2, 8, 256, 256, 32, True, torch.bfloat16),
+    *SMALL_D_CASES,
     ("f32_ragged_d64", 1, 4, 200, 264, 64, True, torch.float32),
     *F32_CASES,
 ]
@@ -571,14 +692,29 @@ def phase_bwd_kernels_vs_plain():
         tol = BWD_TOL[dtype]
         ok = all(e <= tol for e in row_errs.values()) and all(
             bool(torch.isfinite(x).all()) for x in got)
+        row = dict(case=name, shape=[b, h, t_q, t_kv, d], causal=causal,
+                   dtype=str(dtype).replace("torch.", ""), design=design.name,
+                   source=f"ray_tpu_torch/ops/csrc/{design.source}.cu", max_abs_err=errs,
+                   row_err=row_errs, row_err_tol=tol, ok=ok)
+        rows.append(row)
+        verdict = (f"[bwd] {name:<22} {str(row['shape']):<28} {design.name:<8} worst-row err "
+                   f"dq {row_errs['dq']:.2e} dk {row_errs['dk']:.2e} dv {row_errs['dv']:.2e} "
+                   f"(limit {tol:.0e}), max abs err {errs['dq']:.2e} {errs['dk']:.2e} "
+                   f"{errs['dv']:.2e} {'ok' if ok else 'FAIL'}")
+        if name in CHECK_ONLY:
+            print(verdict)
+            del got, want
+            continue
         big = b * h * t_q * t_kv >= 2 ** 26
         iters = 10 if big else 50
         delta = attn.flash_bwd_delta(out, do)
         delta_ms = cuda_ms(lambda: attn.flash_bwd_delta(out, do), iters=iters)
-        dq_ms = cuda_ms(lambda: attn.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal,
-                                                  scale=scale), iters=iters)
-        dkv_ms = cuda_ms(lambda: attn.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal,
-                                                    scale=scale), iters=iters)
+        dq_ms, dq_device_ms = timed(
+            lambda: attn.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal, scale=scale),
+            iters=iters, kernel="flash_bwd_dq")
+        dkv_ms, dkv_device_ms = timed(
+            lambda: attn.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal, scale=scale),
+            iters=iters, kernel="flash_bwd_dkv")
         plain_ms = cuda_ms(lambda: attn.flash_attention_bwd_plain(
             q, k, v, out, lse, do, causal=causal, scale=scale), iters=3, warmup=1)
         # the library's backward: autograd through a retained SDPA output
@@ -589,26 +725,25 @@ def phase_bwd_kernels_vs_plain():
         else:
             lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
                                                      scale=scale)
-        library_ms = cuda_ms(lambda: torch.autograd.grad(
-            lib_out, (ql, kl, vl), do, retain_graph=True), iters=iters)
+        library_ms, library_device_ms = timed(lambda: torch.autograd.grad(
+            lib_out, (ql, kl, vl), do, retain_graph=True), iters=iters, kernel="")
         dq_bound, dq_by = bwd_bound(b, h, t_q, t_kv, d, causal, dtype, 3)
         dkv_bound, dkv_by = bwd_bound(b, h, t_q, t_kv, d, causal, dtype, 4)
-        row = dict(case=name, shape=[b, h, t_q, t_kv, d], causal=causal,
-                   dtype=str(dtype).replace("torch.", ""), design=design.name,
-                   source=f"ray_tpu_torch/ops/csrc/{design.source}.cu", max_abs_err=errs,
-                   row_err=row_errs, row_err_tol=tol, ok=ok, dq_ms=dq_ms, dkv_ms=dkv_ms,
-                   delta_ms=delta_ms,
-                   plain_ms=plain_ms, library_ms=library_ms, dq_bound_ms=dq_bound,
+        # dQ and dK/dV each take one exponential per visible pair (P again)
+        ex2_ms = ex2_floor_ms(b, h, t_q, t_kv, causal)
+        row.update(dq_ms=dq_ms, dkv_ms=dkv_ms, dq_device_ms=dq_device_ms,
+                   dkv_device_ms=dkv_device_ms, delta_ms=delta_ms,
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   library_device_ms=library_device_ms, dq_bound_ms=dq_bound,
                    dq_bound_by=dq_by, dkv_bound_ms=dkv_bound, dkv_bound_by=dkv_by,
-                   dq_bound_share=dq_bound / dq_ms, dkv_bound_share=dkv_bound / dkv_ms)
-        rows.append(row)
-        print(f"[bwd] {name:<22} {str(row['shape']):<28} {design.name:<8} worst-row err dq "
-              f"{row_errs['dq']:.2e} dk {row_errs['dk']:.2e} dv {row_errs['dv']:.2e} "
-              f"(limit {tol:.0e}), max abs err {errs['dq']:.2e} {errs['dk']:.2e} "
-              f"{errs['dv']:.2e} {'ok' if ok else 'FAIL'} | "
-              f"dQ {dq_ms:.4f} ms (bound {dq_bound:.4f}, {dq_by}) dK/dV {dkv_ms:.4f} ms "
-              f"(bound {dkv_bound:.4f}, {dkv_by}) delta {delta_ms:.4f} ms plain "
-              f"{plain_ms:.3f} ms library {library_ms:.4f} ms")
+                   ex2_floor_ms=ex2_ms, dq_bound_share=dq_bound / dq_device_ms,
+                   dkv_bound_share=dkv_bound / dkv_device_ms)
+        print(f"{verdict} | dQ {dq_device_ms:.4f} ms on the device, {dq_ms:.4f} between "
+              f"events (bound {dq_bound:.4f}, {dq_by}) dK/dV {dkv_device_ms:.4f} ms on the "
+              f"device, {dkv_ms:.4f} between events (bound {dkv_bound:.4f}, {dkv_by}), ex2 "
+              f"floor {ex2_ms:.4f} ms each; delta {delta_ms:.4f} ms plain {plain_ms:.3f} ms "
+              f"library {library_device_ms:.4f} ms on the device, {library_ms:.4f} between "
+              f"events")
         del got, want, lib_out
     bad = [(r["case"], r["row_err"]) for r in rows if not r["ok"]]
     if bad:
@@ -618,12 +753,15 @@ def phase_bwd_kernels_vs_plain():
 
 
 # the launch counts read around each path: every launch of each kernel, and
-# each kernel's by design (the wgmma kernels are the bf16 paths'; mma_sync
-# takes bf16 at head_dim 16 and 32; tf32x3 float32)
+# each kernel's by design (the wgmma kernels are the bf16 paths' at head_dim
+# 64 and up; at 16 and 32 the forward is persistent's, the backward
+# mma_sync's; tf32x3 float32)
 KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+DESIGNS = {"flash_fwd": ("wgmma", "persistent", "tf32x3"),
+           "flash_bwd_dq": ("wgmma", "mma_sync", "tf32x3"),
+           "flash_bwd_dkv": ("wgmma", "mma_sync", "tf32x3")}
 COUNTS = KERNEL_NAMES + tuple(
-    f"{kernel}_{design}" for kernel in KERNEL_NAMES
-    for design in ("wgmma", "mma_sync", "tf32x3"))
+    f"{kernel}_{design}" for kernel in KERNEL_NAMES for design in DESIGNS[kernel])
 
 
 def _launch_counts():
@@ -920,6 +1058,44 @@ def phase_train_f32(batch: int, seq: int, steps: int, profile: bool):
           f"state {rep['state_dtype']}; {rep['ms_per_step']:.1f} ms per step, "
           f"{rep['tokens_per_s']:.0f} tokens/s, peak {rep['max_memory_gib']:.2f} GiB"
           + ("" if flash is None else f"; flash kernels {flash:.1f} ms of device time a step"))
+    return rep
+
+
+def phase_train_nano_bf16(batch: int, seq: int, steps: int):
+    """4g: gpt_nano in bf16 compute (float32 master weights and Adam
+    moments, remat "nothing"), b=512, t=128: its attention runs the bf16
+    head_dim-16 kernels, the forward on the persistent design (2 *
+    num_layers = 4 launches a step) and dQ and dK/dV on mma_sync (2 each).
+    run_train's gates, with one more step under torch.profiler for the idle
+    share; the warm-up step's loss within NANO_BF16_LOSS_RTOL of the same
+    step on the CPU in float32 from the same weights and batch."""
+    from ray_tpu_torch.models import gpt, inference, training
+
+    # gpt_nano sets dtype itself (float32, as the reference's does)
+    cfg = dataclasses.replace(gpt.gpt_nano(), dtype=torch.bfloat16)
+    params0 = inference.init_params(cfg, device="cpu", seed=0)
+
+    def build(cfg_, opt):
+        state = training.init_train_state({n: p.to("cuda") for n, p in params0.items()}, opt)
+        return state, training.make_train_step(cfg_, opt, device="cuda")
+
+    tokens = _train_tokens(cfg, batch, seq)
+    rep = run_train(cfg, tokens, steps, 2, "gpt_nano bf16 compute / f32 master", True,
+                    build=build, designs=("persistent", "mma_sync"))
+    opt = training.default_optimizer(1e-4)
+    cpu_state = training.init_train_state({n: p.clone() for n, p in params0.items()}, opt)
+    cpu_step = training.make_train_step(gpt.gpt_nano(), opt, device="cpu")
+    _, cpu_metrics = cpu_step(cpu_state, tokens.cpu())
+    cpu_loss = float(cpu_metrics["loss"])
+    rel = abs(rep["warmup_loss"] / cpu_loss - 1)
+    rep.update(cpu_f32_warmup_loss=cpu_loss, warmup_loss_rel_diff=rel,
+               loss_rtol=NANO_BF16_LOSS_RTOL, idle_share=rep["profile"]["idle_share"])
+    print(f"[train_nano_bf16] warm-up loss {rep['warmup_loss']!r} on the card (bf16) vs "
+          f"{cpu_loss!r} on the CPU (float32), rel {rel:.2e} (limit {NANO_BF16_LOSS_RTOL}); "
+          f"{rep['ms_per_step']:.2f} ms per step, idle share {rep['idle_share']:.3f}")
+    if not rel <= NANO_BF16_LOSS_RTOL:
+        raise SystemExit(f"train_nano_bf16: the first loss differs from the CPU's float32 "
+                         f"step by {rel}")
     return rep
 
 
@@ -2338,7 +2514,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     t_start = time.monotonic()
-    report = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
+    global EX2_PER_S
+    EX2_PER_S = ex2_rate()
+    report = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
+              "ex2_per_s": EX2_PER_S}
     report["build"] = phase_build()
     report["kernel_cases"] = phase_kernel_vs_plain()
     report["bwd_kernel_cases"] = phase_bwd_kernels_vs_plain()
@@ -2350,6 +2529,7 @@ def main() -> int:
     report["train_moe"] = phase_train_moe(batch=8, seq=2048, steps=3, profile=args.profile)
     report["train_gpt_j"] = phase_train_gpt_j(batch=1, seq=2048, steps=3, profile=args.profile)
     report["train_f32"] = phase_train_f32(batch=4, seq=2048, steps=2, profile=args.profile)
+    report["train_nano_bf16"] = phase_train_nano_bf16(batch=512, seq=128, steps=3)
 
     cfg = gpt.gpt_1b(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
     params = init_params(cfg, device="cuda", seed=0)
@@ -2379,6 +2559,8 @@ def main() -> int:
     # with the train phase's. Each entry names its case's shape and carries
     # the launches of every path. The backward kernels' plain and library
     # times are of the whole backward: both compute dq, dk and dv together.
+    # ms and library_ms are device times (torch.profiler over the calls that
+    # cuda_ms times), event_ms the time between events
     def case(rows, name):
         row = next(r for r in rows if r["case"] == name)
         b, h, t_q, t_kv, d = row["shape"]
@@ -2393,6 +2575,7 @@ def main() -> int:
     paths = {"train": report["train"], "remat_attn": report["remat_policies"]["attn"],
              "remat_dots": report["remat_policies"]["dots"], "train_moe": report["train_moe"],
              "train_gpt_j": report["train_gpt_j"], "train_f32": report["train_f32"],
+             "train_nano_bf16": report["train_nano_bf16"],
              "forward": report["forward"], "server": report["server"],
              **{path: report[path] for path in sharded},
              "pp_train_ws1": report["pp_train_ws1"], "train_loop": report["train_loop"],
@@ -2408,16 +2591,16 @@ def main() -> int:
                   "pp_train_ws1": "gpt_1b_pp_mb3", "train_loop": "gpt_1b_train_b12"}
     # the head_dim-256 case (train_gpt_j's shape) beside each entry's own
     d256 = {
-        "flash_fwd": dict(shape=fwd_d256_shape, ms=fwd_d256["ms"],
+        "flash_fwd": dict(shape=fwd_d256_shape, ms=fwd_d256["device_ms"], event_ms=fwd_d256["ms"],
                           bound_ms=fwd_d256["bound_ms"], bound_share=fwd_d256["bound_share"],
-                          plain_ms=fwd_d256["plain_ms"], library_ms=fwd_d256["library_ms"],
+                          plain_ms=fwd_d256["plain_ms"], library_ms=fwd_d256["library_device_ms"],
                           max_abs_err=fwd_d256["max_abs_err"], row_err=fwd_d256["row_err"],
                           design=fwd_d256["design"], tiles=fwd_d256["tiles"]),
-        **{f"flash_bwd_{k}": dict(shape=bwd_d256_shape, ms=bwd_d256[f"{k}_ms"],
+        **{f"flash_bwd_{k}": dict(shape=bwd_d256_shape, ms=bwd_d256[f"{k}_device_ms"], event_ms=bwd_d256[f"{k}_ms"],
                                   bound_ms=bwd_d256[f"{k}_bound_ms"],
                                   bound_share=bwd_d256[f"{k}_bound_share"],
                                   plain_ms=bwd_d256["plain_ms"],
-                                  library_ms=bwd_d256["library_ms"],
+                                  library_ms=bwd_d256["library_device_ms"],
                                   row_err=(bwd_d256["row_err"]["dq"] if k == "dq" else
                                            max(bwd_d256["row_err"]["dk"],
                                                bwd_d256["row_err"]["dv"])),
@@ -2433,9 +2616,9 @@ def main() -> int:
         "flash_fwd": dict(name="flash_fwd_f32", route="cuda", source=fwd_f32["source"],
                           replaces="ray_tpu/ops/attention.py:167",
                           launches=by_path[f"flash_fwd_{fwd_f32['design']}"]["train_f32"],
-                          max_abs_err=fwd_f32["max_abs_err"], ms=fwd_f32["ms"],
+                          max_abs_err=fwd_f32["max_abs_err"], ms=fwd_f32["device_ms"], event_ms=fwd_f32["ms"],
                           plain_ms=fwd_f32["plain_ms"], bound_ms=fwd_f32["bound_ms"],
-                          bound_by=fwd_f32["bound_by"], library_ms=fwd_f32["library_ms"],
+                          bound_by=fwd_f32["bound_by"], library_ms=fwd_f32["library_device_ms"],
                           bound_share=fwd_f32["bound_share"], design=fwd_f32["design"],
                           row_err=fwd_f32["row_err"], shape=fwd_f32_shape,
                           launches_path="train_f32"),
@@ -2447,10 +2630,10 @@ def main() -> int:
                                   max_abs_err=(bwd_f32["max_abs_err"]["dq"] if k == "dq" else
                                                max(bwd_f32["max_abs_err"]["dk"],
                                                    bwd_f32["max_abs_err"]["dv"])),
-                                  ms=bwd_f32[f"{k}_ms"], plain_ms=bwd_f32["plain_ms"],
+                                  ms=bwd_f32[f"{k}_device_ms"], event_ms=bwd_f32[f"{k}_ms"], plain_ms=bwd_f32["plain_ms"],
                                   bound_ms=bwd_f32[f"{k}_bound_ms"],
                                   bound_by=bwd_f32[f"{k}_bound_by"],
-                                  library_ms=bwd_f32["library_ms"],
+                                  library_ms=bwd_f32["library_device_ms"],
                                   bound_share=bwd_f32[f"{k}_bound_share"],
                                   design=bwd_f32["design"],
                                   row_err=(bwd_f32["row_err"]["dq"] if k == "dq" else
@@ -2460,13 +2643,46 @@ def main() -> int:
                                   plain_ms_computes=whole, library_ms_computes=whole)
            for k, line in (("dq", 324), ("dkv", 394))}}
     fwd_cases, bwd_cases = {**train_case, "forward": "gpt_1b"}, train_case
+    # 4g's kernels (bf16 at head_dim 16): the persistent forward and the
+    # mma_sync backward pair at gpt_nano's working case, with 4g's launches
+    # (its 3 timed steps), and the tiny flagship's head_dim-32 case under
+    # "d32"
+    def small_d(rows, name, kernel, line):
+        row, shape = case(rows, name)
+        if kernel == "flash_fwd":
+            err, ms, event_ms = row["max_abs_err"], row["device_ms"], row["ms"]
+            bound_ms, bound_by = row["bound_ms"], row["bound_by"]
+        else:
+            k = kernel.removeprefix("flash_bwd_")
+            err = (row["max_abs_err"]["dq"] if k == "dq" else
+                   max(row["max_abs_err"]["dk"], row["max_abs_err"]["dv"]))
+            ms, event_ms = row[f"{k}_device_ms"], row[f"{k}_ms"]
+            bound_ms, bound_by = row[f"{k}_bound_ms"], row[f"{k}_bound_by"]
+        entry = dict(name=f"{kernel}_{row['design']}", route="cuda", source=row["source"],
+                     replaces=f"ray_tpu/ops/attention.py:{line}",
+                     launches=by_path[f"{kernel}_{row['design']}"]["train_nano_bf16"],
+                     max_abs_err=err, ms=ms, plain_ms=row["plain_ms"], bound_ms=bound_ms,
+                     bound_by=bound_by, library_ms=row["library_device_ms"],
+                     event_ms=event_ms, library_event_ms=row["library_ms"],
+                     ex2_floor_ms=row["ex2_floor_ms"], design=row["design"], shape=shape,
+                     launches_path="train_nano_bf16")
+        if kernel != "flash_fwd":
+            entry.update(plain_ms_computes=whole, library_ms_computes=whole)
+        return entry
+
+    nano = [dict(small_d(rows, "d16_nano_b512", kernel, line),
+                 d32=small_d(rows, "d32_tiny_cfg_b256", kernel, line))
+            for rows, kernel, line in (
+                (report["kernel_cases"], "flash_fwd", 167),
+                (report["bwd_kernel_cases"], "flash_bwd_dq", 324),
+                (report["bwd_kernel_cases"], "flash_bwd_dkv", 394))]
     kernels = {"kernels": [
         dict(name="flash_fwd", route="cuda", source=fwd_case["source"],
              replaces="ray_tpu/ops/attention.py:167",
              launches=by_path["flash_fwd_wgmma"]["forward"],
-             max_abs_err=fwd_case["max_abs_err"], ms=fwd_case["ms"],
+             max_abs_err=fwd_case["max_abs_err"], ms=fwd_case["device_ms"], event_ms=fwd_case["ms"],
              plain_ms=fwd_case["plain_ms"], bound_ms=fwd_case["bound_ms"],
-             bound_by=fwd_case["bound_by"], library_ms=fwd_case["library_ms"],
+             bound_by=fwd_case["bound_by"], library_ms=fwd_case["library_device_ms"],
              design=fwd_case["design"], tiles=fwd_case["tiles"],
              row_err=fwd_case["row_err"], row_err_tol=fwd_case["row_err_tol"],
              shape=fwd_shape, launches_path="forward",
@@ -2475,9 +2691,9 @@ def main() -> int:
         dict(name="flash_bwd_dq", route="cuda", source=bwd_case["source"],
              replaces="ray_tpu/ops/attention.py:324",
              launches=by_path[f"flash_bwd_dq_{bwd_case['design']}"]["train"],
-             max_abs_err=bwd_case["max_abs_err"]["dq"], ms=bwd_case["dq_ms"],
+             max_abs_err=bwd_case["max_abs_err"]["dq"], ms=bwd_case["dq_device_ms"], event_ms=bwd_case["dq_ms"],
              plain_ms=bwd_case["plain_ms"], bound_ms=bwd_case["dq_bound_ms"],
-             bound_by=bwd_case["dq_bound_by"], library_ms=bwd_case["library_ms"],
+             bound_by=bwd_case["dq_bound_by"], library_ms=bwd_case["library_device_ms"],
              design=bwd_case["design"], shape=bwd_shape, launches_path="train",
              launches_by_path=by_path[f"flash_bwd_dq_{bwd_case['design']}"],
              cases_by_path=bwd_cases,
@@ -2488,9 +2704,9 @@ def main() -> int:
              replaces="ray_tpu/ops/attention.py:394",
              launches=by_path[f"flash_bwd_dkv_{bwd_case['design']}"]["train"],
              max_abs_err=max(bwd_case["max_abs_err"]["dk"], bwd_case["max_abs_err"]["dv"]),
-             ms=bwd_case["dkv_ms"], plain_ms=bwd_case["plain_ms"],
+             ms=bwd_case["dkv_device_ms"], event_ms=bwd_case["dkv_ms"], plain_ms=bwd_case["plain_ms"],
              bound_ms=bwd_case["dkv_bound_ms"], bound_by=bwd_case["dkv_bound_by"],
-             library_ms=bwd_case["library_ms"],
+             library_ms=bwd_case["library_device_ms"],
              design=bwd_case["design"], shape=bwd_shape, launches_path="train",
              launches_by_path=by_path[f"flash_bwd_dkv_{bwd_case['design']}"],
              cases_by_path=bwd_cases,
@@ -2499,6 +2715,7 @@ def main() -> int:
              plain_ms_computes=whole, library_ms_computes=whole, d256=d256["flash_bwd_dkv"],
              f32=f32["flash_bwd_dkv"]),
         *f32.values(),
+        *nano,
     ]}
     report.update(kernels)
     if args.out:

@@ -19,10 +19,12 @@ a shorter q is the suffix of the kv context (``q_pos = q_idx + t_kv - t_q``).
   tensors the hand-written Hopper kernel that the dispatch table
   ``FWD_DESIGNS`` names for (head_dim, dtype): ``csrc/flash_fwd_wgmma.cu``
   (TMA, wgmma, warp-specialised; bf16 at head_dim 64, 128, 256),
-  ``csrc/flash_fwd.cu`` (mma.sync; bf16 at head_dim 16, 32) or
-  ``csrc/flash_fwd_f32.cu`` (3xTF32 on mma.sync; float32 at every head_dim).
+  ``csrc/flash_fwd_persistent.cu`` (a persistent grid of several CTAs an
+  SM, a TMA ring; bf16 at head_dim 16, 32) or ``csrc/flash_fwd_f32.cu``
+  (3xTF32 on mma.sync; float32 at every head_dim); ``csrc/flash_fwd.cu``
+  (mma.sync), bf16 16/32's kernel before, is on no path.
   It counts every launch in ``flash_fwd_launches`` and each design's in
-  ``flash_fwd_{wgmma,mma_sync,tf32x3}_launches``;
+  ``flash_fwd_{wgmma,persistent,tf32x3}_launches``;
   ``flash_attention_bwd`` launches the dQ and dK/dV kernels
   (``flash_bwd_dq``, ``flash_bwd_dkv``) of the design that the dispatch
   table ``BWD_DESIGNS`` names: ``csrc/flash_bwd_wgmma.cu`` (TMA, wgmma,
@@ -73,7 +75,8 @@ class FwdDesign:
     block_k: int
 
 
-_MMA_SYNC = FwdDesign("mma_sync", "flash_fwd", "ray_tpu_flash_fwd", 64, 64)
+_PERSISTENT = FwdDesign("persistent", "flash_fwd_persistent",
+                        "ray_tpu_flash_fwd_persistent", 64, 64)
 _TF32X3 = FwdDesign("tf32x3", "flash_fwd_f32", "ray_tpu_flash_fwd_f32", 64, 64)
 
 
@@ -84,13 +87,15 @@ def _wgmma(block_k: int) -> FwdDesign:
 #: the forward's dispatch table, keyed on (head_dim, dtype): the kernel each
 #: input launches on the card and the tiles the plain version repeats. Every
 #: design is a hand-written kernel; a launch that the kernel refuses raises.
-#: float32 runs 3xTF32 on the tensor cores (``flash_fwd_f32.cu``); the
-#: float32 kernel of ``flash_fwd.cu`` (CUDA cores) is on no path:
-#: ``ops/flash_fwd_f32_variants.py`` times it beside this one.
+#: float32 runs 3xTF32 on the tensor cores (``flash_fwd_f32.cu``). Neither
+#: kernel of ``flash_fwd.cu`` is on a path: its float32 one (CUDA cores)
+#: ``ops/flash_fwd_f32_variants.py`` times beside ``flash_fwd_f32.cu``, its
+#: bf16 one (mma.sync) ``ops/flash_fwd_variants.py --small-d`` beside
+#: ``flash_fwd_persistent.cu``.
 FWD_DESIGNS = {
     **{(d, torch.float32): _TF32X3 for d in HEAD_DIMS},
-    (16, torch.bfloat16): _MMA_SYNC,
-    (32, torch.bfloat16): _MMA_SYNC,
+    (16, torch.bfloat16): _PERSISTENT,
+    (32, torch.bfloat16): _PERSISTENT,
     (64, torch.bfloat16): _wgmma(128),
     (128, torch.bfloat16): _wgmma(128),
     (256, torch.bfloat16): _wgmma(80),
@@ -134,7 +139,7 @@ BWD_DESIGNS = {
 #: design's count
 flash_fwd_launches = 0
 flash_fwd_wgmma_launches = 0
-flash_fwd_mma_sync_launches = 0
+flash_fwd_persistent_launches = 0
 flash_fwd_tf32x3_launches = 0
 flash_bwd_dq_launches = 0
 flash_bwd_dq_wgmma_launches = 0
@@ -150,10 +155,9 @@ def fwd_tiles(head_dim: int, dtype: torch.dtype) -> Tuple[int, int]:
     """(block_q, block_k) of the forward kernel that ``FWD_DESIGNS`` names
     for this head_dim and dtype: the one source of the tiles, read by the
     wrapper, the CPU path and the plain version. A (head_dim, dtype) that no
-    kernel takes, which only the CPU path runs, gets the mma_sync design's
-    64 x 64."""
-    design = FWD_DESIGNS.get((head_dim, dtype), _MMA_SYNC)
-    return design.block_q, design.block_k
+    kernel takes, which only the CPU path runs, gets 64 x 64."""
+    design = FWD_DESIGNS.get((head_dim, dtype))
+    return (64, 64) if design is None else (design.block_q, design.block_k)
 
 
 # ---------------------------------------------------------------------------
@@ -434,6 +438,8 @@ _SOURCES = {
     "flash_fwd": ({"ray_tpu_flash_fwd": 5}, "ray_tpu_cuda_error_string"),
     "flash_fwd_wgmma": ({"ray_tpu_flash_fwd_wgmma": 5},
                         "ray_tpu_flash_fwd_wgmma_error_string"),
+    "flash_fwd_persistent": ({"ray_tpu_flash_fwd_persistent": 5},
+                             "ray_tpu_flash_fwd_persistent_error_string"),
     "flash_fwd_f32": ({"ray_tpu_flash_fwd_f32": 5}, "ray_tpu_flash_fwd_f32_error_string"),
     "flash_bwd": ({"ray_tpu_flash_bwd_dq": 7, "ray_tpu_flash_bwd_dkv": 8},
                   "ray_tpu_flash_bwd_error_string"),
@@ -532,20 +538,24 @@ def _check_tiles(design: FwdDesign, head_dim: int, block_q, block_k) -> None:
             f"{design.block_q}x{design.block_k}, got {asked[0]}x{asked[1]}")
 
 
-# the designs whose built kernel reports the tiles it computes with
+# each design's entry point that reports the tiles its built kernel
+# computes with
 _TILES_ENTRIES = {"wgmma": "ray_tpu_flash_fwd_wgmma_tiles",
+                  "persistent": "ray_tpu_flash_fwd_persistent_tiles",
                   "tf32x3": "ray_tpu_flash_fwd_f32_tiles"}
+# the designs that take the row max of the raw scores and fold the scale
+# into exp2 after it, so take a positive scale only
+_POSITIVE_SCALE = ("wgmma", "persistent")
 
 
 def _check_design(design: FwdDesign, head_dim: int, scale: float) -> None:
     """Raise ``ValueError`` unless the design takes this scale (the wgmma
-    kernel takes a positive one only), and ``RuntimeError`` unless the built
-    wgmma or tf32x3 kernel computes with the table's tiles at this
+    and persistent kernels take a positive one only), and ``RuntimeError``
+    unless the built kernel computes with the table's tiles at this
     head_dim."""
-    if design.name not in _TILES_ENTRIES:
-        return
-    if design.name == "wgmma" and not scale > 0:
-        raise ValueError(f"the wgmma flash kernel takes a positive scale, got {scale}")
+    if design.name in _POSITIVE_SCALE and not scale > 0:
+        raise ValueError(f"the {design.name} flash kernel takes a positive scale, "
+                         f"got {scale}")
     tiles_fn = getattr(_kernel_lib(design.source), _TILES_ENTRIES[design.name])
     tiles_fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
                          ctypes.POINTER(ctypes.c_int)]
@@ -578,8 +588,8 @@ def flash_attention_fwd(
     names for (head_dim, dtype): contiguous q [b, h, t_q, d] and k, v
     [b, h, t_kv, d] of one dtype (bfloat16, or float32 in 3xTF32, both on
     the tensor cores), d in ``HEAD_DIMS``, the design's tiles (``block_q`` and
-    ``block_k`` left at None or equal to them) and, for the wgmma design, a
-    positive scale. Anything else raises."""
+    ``block_k`` left at None or equal to them) and, in bf16 (the wgmma and
+    persistent designs), a positive scale. Anything else raises."""
     global flash_fwd_launches
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_fwd_plain(

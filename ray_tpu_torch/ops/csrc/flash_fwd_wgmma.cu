@@ -3,8 +3,9 @@
 //
 // Replaces the TPU kernel ray_tpu/ops/attention.py:_flash_fwd_kernel
 // (launched by _flash_attention_tpu) for bf16 at head_dim 64, 128 and 256;
-// csrc/flash_fwd.cu (mma.sync) keeps head_dim 16 and 32 and float32, as the
-// dispatch table in ops/attention.py (FWD_DESIGNS) says. It computes what
+// csrc/flash_fwd_persistent.cu takes bf16 at head_dim 16 and 32 and
+// csrc/flash_fwd_f32.cu float32, as the dispatch table in ops/attention.py
+// (FWD_DESIGNS) says. It computes what
 // the TPU kernel computes, O = softmax(scale * Q K^T) V and the row
 // logsumexp, with the same conventions:
 //   * NEG_INF = -1e30 is a finite mask value, not -inf;

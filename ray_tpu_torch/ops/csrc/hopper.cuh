@@ -1,15 +1,21 @@
-// Hopper (sm_90a) pieces shared by the port's wgmma flash kernels
-// (flash_fwd_wgmma.cu, flash_bwd_wgmma.cu): mbarriers, 3-D TMA loads and
-// stores, 128-byte-swizzled wgmma descriptors, wgmma with A from shared
-// memory or from registers, named barriers, and the tensor map every tile
-// of those kernels uses.
+// Hopper (sm_90a) pieces shared by the port's TMA flash kernels
+// (flash_fwd_wgmma.cu, flash_bwd_wgmma.cu, flash_fwd_persistent.cu):
+// mbarriers, 3-D TMA loads and stores, swizzled wgmma descriptors, wgmma
+// with A from shared memory or from registers, named barriers, and the
+// tensor maps of their tiles.
 //
-// Every tile is a row-major [rows, d] bf16 array cut into 64-column boxes of
-// 128-byte rows that TMA swizzles with the 128-byte pattern; a box holds all
-// the tile's rows, so box c of a tile of R rows starts at c * R * 128 bytes.
-// A tile stored so is a K-major wgmma operand when d is the product's depth
-// (Q, K of S = Q K^T) and an MN-major one, read through the descriptor's
-// transpose bit, when its rows are the depth (V of O += P V).
+// At head_dim 64 and up, every tile is a row-major [rows, d] bf16 array cut
+// into 64-column boxes of 128-byte rows that TMA swizzles with the 128-byte
+// pattern; a box holds all the tile's rows, so box c of a tile of R rows
+// starts at c * R * 128 bytes. A tile stored so is a K-major wgmma operand
+// when d is the product's depth (Q, K of S = Q K^T) and an MN-major one,
+// read through the descriptor's transpose bit, when its rows are the depth
+// (V of O += P V). At head_dim 16 and 32 a row is 32 or 64 bytes, one box
+// spans it, and TMA swizzles it with the pattern of that span (narrow
+// tiles, below): 16-byte chunk c of row r sits at chunk c ^ ((r >> 2) & 1)
+// (32 bytes) or c ^ ((r >> 1) & 3) (64 bytes), which the XOR of address
+// bits [4, 4 + n) with bits [7, 7 + n) gives on a tile that starts on a
+// multiple of 8 rows' bytes.
 //
 // Everything here is in an anonymous namespace: each source that includes
 // it is its own library.
@@ -132,6 +138,28 @@ __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr, uint32_t box_byt
   return sw128_desc(addr, box_bytes, 1024);
 }
 
+// wgmma shared-memory descriptor of a narrow tile (kRowBytes = 32 or 64
+// bytes a row, swizzled with the pattern of that span; layout 3 or 2), K-
+// or MN-major alike: 8-row groups 8 * kRowBytes apart. The leading offset is
+// unused: along the contiguous dimension one swizzle atom spans the operand
+// (K-major: 16 of d at a time; MN-major: N = d). It holds the same value as
+// the stride, so either reading of the two fields finds 8-row groups there.
+template <int kRowBytes>
+__device__ __forceinline__ uint64_t narrow_desc(uint32_t addr) {
+  static_assert(kRowBytes == 32 || kRowBytes == 64, "narrow tiles have 32- or 64-byte rows");
+  constexpr uint64_t kGroup = (8 * kRowBytes) >> 4;
+  constexpr uint64_t kLayout = kRowBytes == 32 ? 3 : 2;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (kGroup << 16) | (kGroup << 32) |
+         (kLayout << 62);
+}
+
+// byte offset of 16-byte chunk `chunk` of row `row` in a narrow tile
+template <int kRowBytes>
+__device__ __forceinline__ uint32_t narrow_offset(int row, int chunk) {
+  const int swz = kRowBytes == 32 ? (row >> 2) & 1 : (row >> 1) & 3;
+  return static_cast<uint32_t>(row * kRowBytes + ((chunk ^ swz) << 4));
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -236,6 +264,28 @@ __device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t da, uint64_t db
 // set)
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : F8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : F8(0), F8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64_t db) {
@@ -344,16 +394,19 @@ __device__ __forceinline__ void write_rows_bf16(uint8_t* rows, int box_bytes, co
 // host side
 // ---------------------------------------------------------------------------
 
-// A 3-D tensor map [d, rows, bh] of bf16 with 64-column boxes of box_rows
-// rows, 128-byte swizzle; reads past `rows` fill zeros, writes are clipped.
-int make_map(CUtensorMap* map, const void* ptr, int d, int rows, int bh, int box_rows) {
+// A 3-D tensor map [d, rows, bh] of bf16 with boxes of box_cols columns by
+// box_rows rows, by default 64 columns with the 128-byte swizzle (a narrow
+// tile: box_cols = d = 16 or 32 with the 32- or 64-byte swizzle); reads past
+// `rows` fill zeros, writes are clipped.
+int make_map(CUtensorMap* map, const void* ptr, int d, int rows, int bh, int box_rows,
+             int box_cols = 64, CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)bh};
   cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)rows * d * 2};
-  cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
   cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = cuTensorMapEncodeTiled(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
-      box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kTensorMapFailed;
 }

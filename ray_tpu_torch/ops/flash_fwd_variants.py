@@ -1,6 +1,6 @@
-"""Variants of the wgmma flash forward, built and timed on the card.
+"""Variants of the bf16 flash forwards, built and timed on the card.
 
-    python -m ray_tpu_torch.ops.flash_fwd_variants [--out results.json]
+    python -m ray_tpu_torch.ops.flash_fwd_variants [--small-d] [--out results.json]
 
 Each variant is ``csrc/flash_fwd_wgmma.cu`` and the headers beside it
 (``csrc/*.cuh``) with one piece of text replaced, built with the port's
@@ -16,11 +16,44 @@ nvcc flags under ``build/ray_tpu_torch/variants/<variant>/``:
 * ``consumer waits trap``: the consumers' barrier waits end the kernel
   after a time limit, as the producer's do.
 
+With ``--small-d`` the variants are of ``csrc/flash_fwd_persistent.cu``,
+the design of bf16 at head_dim 16 and 32 (``SMALL_D_VARIANTS``), timed
+beside the mma.sync kernel of ``csrc/flash_fwd.cu`` that it replaced
+(``mma.sync before``) at gpt_nano's and the tiny flagship's working shapes
+and at long t (``SMALL_D_SHAPES``):
+
+* ``as built``: the source unchanged;
+* ``other route``: at each head_dim the tensor-core route the source does
+  not take there (kWgmma flipped: mma.sync fed by ldmatrix where it runs
+  wgmma, or the reverse), at that route's CTAs an SM
+  (``OTHER_ROUTE_BLOCKS``);
+* ``four stages``: a K/V ring of 4 stages instead of 2;
+* ``no piece skip``: every 8-column piece of every masked tile computed,
+  those wholly above a warp's rows too;
+* ``heaviest first overall``: the L2 budget raised past every head, so the
+  heaviest q tiles of all heads run first;
+* ``one CTA an SM fewer``, ``one CTA an SM more``: each head_dim's
+  register budget set for one CTA an SM fewer or more;
+* probes, wrong by design (the check marks them WRONG): ``probe:
+  copies only`` (the consumers release each K/V stage as it lands and do
+  no math; Q, K and V are read and O and lse written as before), ``probe:
+  no K/V copies`` (the math on whatever the ring holds, no K or V read)
+  and ``probe: no epilogue`` (no O or lse written, nor the row sums'
+  reduction), which say what the copies, the math and the epilogue cost;
+  ``probe: P truncated by PRMT`` (P packed to bf16 by a byte permute, not
+  a conversion) and ``probe: half the exponentials`` (every other one a
+  multiply), which say what the conversions and the ex2 pipe cost.
+
 It prints each variant's spills from the compiler's report, checks each
-against the plain version (worst-row error, ``ops/tolerance.py``), and times
-them in turns (the variants in order, then in reverse; the lesser of the
-two) beside ``scaled_dot_product_attention`` at the shapes of ``SHAPES``.
-It needs a card and ``nvcc``; nothing else of the port calls it.
+against the plain version (worst-row error, ``ops/tolerance.py``), and,
+after half a second of the first variant to settle the clocks, times them
+in five turns (in order, in reverse, twice, then in order; the least of the
+five) beside
+``scaled_dot_product_attention`` at the shapes of ``SHAPES``.
+With ``--small-d`` each time is the kernels' device time per call from
+torch.profiler, since at these shapes the host's launches take about as
+long as the kernel. It needs a card and ``nvcc``; nothing else of the port
+calls it.
 """
 
 from __future__ import annotations
@@ -30,6 +63,7 @@ import ctypes
 import json
 import re
 import subprocess
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
@@ -59,6 +93,48 @@ VARIANTS = {
 SHAPES = [(4, 16, 2048, 2048, 128, True), (12, 16, 2048, 2048, 128, True),
           (4, 16, 2048, 2048, 128, False), (4, 12, 2048, 2048, 64, True),
           (1, 16, 2048, 2048, 256, True)]
+
+SMALL_D_SOURCE = _build.CSRC_DIR / "flash_fwd_persistent.cu"
+# each head_dim's line of the source's Config: its route and its CTAs an SM
+_CONFIG = re.compile(r"template <> struct Config<(\d+)> \{ static constexpr bool kWgmma = "
+                     r"(true|false); static constexpr int kMinBlocks = (\d+); \};")
+SMALL_D_VARIANTS = {
+    "as built": [],
+    "other route": None,  # kWgmma flipped at each head_dim
+    "four stages": [("constexpr int kStages = 2;", "constexpr int kStages = 4;")],
+    "no piece skip": [("if (!maybe_empty) live = ", "if (false) live = ")],
+    "heaviest first overall": [(_GROUP, "constexpr long long kL2GroupBytes = 1ll << 62;")],
+    "one CTA an SM fewer": None,  # each head_dim's kMinBlocks less one
+    "one CTA an SM more": None,  # and one more
+    # probes, wrong by design: what the copies alone cost, the math alone,
+    # and the epilogue
+    "probe: copies only": [("      mbar_wait(bar_kv_full + 8 * s, (c / kStages) & 1);\n",
+                            "      mbar_wait(bar_kv_full + 8 * s, (c / kStages) & 1);\n"
+                            "      if (true) {\n        __syncwarp();\n"
+                            "        if (lane == 0) mbar_arrive(bar_kv_empty + 8 * s);\n"
+                            "        continue;\n      }\n")],
+    "probe: no K/V copies": [
+        ("mbar_arrive_expect_tx(bar_kv_full + 8 * s, 2 * S::kTile);",
+         "mbar_arrive_expect_tx(bar_kv_full + 8 * s, 0);"),
+        ("""          tma_load_3d(base + S::kK + s * S::kTile, &tm_k, bar_kv_full + 8 * s, 0,
+                      j * kBlockN, bh);
+          tma_load_3d(base + S::kV + s * S::kTile, &tm_v, bar_kv_full + 8 * s, 0,
+                      j * kBlockN, bh);
+""", "")],
+    "probe: no epilogue": [("      if (row < p.t_q) {", "      if (row < 0) {")],
+    "probe: P truncated by PRMT": [
+        ("pa[i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);",
+         "pa[i] = __byte_perm(__float_as_uint(sc[8 * kk + 2 * i]), "
+         "__float_as_uint(sc[8 * kk + 2 * i + 1]), 0x7632);")],
+    "probe: half the exponentials": [
+        ("const float pe = fast_exp2(fmaf(s[i], p.scale_log2, -m[(i >> 1) & 1]));",
+         "const float pe = (i & 1) ? fmaf(s[i], p.scale_log2, -m[(i >> 1) & 1]) * 0.5f "
+         ": fast_exp2(fmaf(s[i], p.scale_log2, -m[(i >> 1) & 1]));")],
+}
+# gpt_nano's working case (4g: b=512, 4 x 16, t=128), the tiny flagship's
+# (b=256, 8 x 32, t=256), and long t at both head_dims
+SMALL_D_SHAPES = [(512, 4, 128, 128, 16, True), (256, 8, 256, 256, 32, True),
+                  (16, 4, 2048, 2048, 16, True), (8, 8, 2048, 2048, 32, True)]
 
 
 def build_variant(source, name: str, edits):
@@ -93,15 +169,53 @@ def build_variant(source, name: str, edits):
     return ctypes.CDLL(str(lib)), spills
 
 
-def _build_variant(name: str):
-    """(launch function, spill bytes by head_dim) of one variant."""
-    lib, by_kernel = build_variant(SOURCE, name, VARIANTS[name])
-    spills = {int(re.search(r"ILi(\d+)E", k).group(1)): v for k, v in by_kernel.items()}
-    fn = lib.ray_tpu_flash_fwd_wgmma
+def _bind(fn):
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float,
                                                                  ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn, spills
+    return fn
+
+
+# the CTAs an SM each route runs at, by head_dim, where the other route is
+# the variant: the most that do not spill
+OTHER_ROUTE_BLOCKS = {True: {16: 4, 32: 3}, False: {16: 3, 32: 3}}
+
+
+def _small_d_edits(name: str):
+    """The edits of a small-d variant; ``other route`` and ``one CTA an SM
+    fewer`` / ``more`` rewrite each head_dim's Config line."""
+    if SMALL_D_VARIANTS[name] is not None:
+        return SMALL_D_VARIANTS[name]
+    edits = []
+    for m in _CONFIG.finditer(SMALL_D_SOURCE.read_text()):
+        d, route, blocks = m.group(1), m.group(2) == "true", int(m.group(3))
+        if name == "other route":
+            # the wgmma route's register budget: its S tile takes 32
+            # registers a thread, the mma.sync route's half tiles 16
+            route, blocks = not route, OTHER_ROUTE_BLOCKS[not route][int(d)]
+        else:
+            blocks += 1 if name == "one CTA an SM more" else -1
+        edits.append((m.group(0), f"template <> struct Config<{d}> {{ static constexpr bool "
+                                  f"kWgmma = {str(route).lower()}; static constexpr int "
+                                  f"kMinBlocks = {blocks}; }};"))
+    return edits
+
+
+def _routes() -> dict:
+    """{head_dim: "wgmma" or "mma.sync"} as the source has it."""
+    return {int(m.group(1)): "wgmma" if m.group(2) == "true" else "mma.sync"
+            for m in _CONFIG.finditer(SMALL_D_SOURCE.read_text())}
+
+
+def _build_variant(name: str, small_d: bool = False):
+    """(launch function, spill bytes by head_dim) of one variant."""
+    source, edits = ((SMALL_D_SOURCE, _small_d_edits(name)) if small_d
+                     else (SOURCE, VARIANTS[name]))
+    lib, by_kernel = build_variant(source, name, edits)
+    spills = {int(re.search(r"ILi(\d+)E", k).group(1)): v for k, v in by_kernel.items()
+              if re.search(r"ILi(\d+)E", k)}
+    entry = "ray_tpu_flash_fwd_persistent" if small_d else "ray_tpu_flash_fwd_wgmma"
+    return _bind(getattr(lib, entry)), spills
 
 
 def _run(fn, q, k, v, causal, scale):
@@ -129,9 +243,39 @@ def ms(fn, iters: int = 30) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 30, per_call: int | None = 1) -> float:
+    """Mean device time per call of the kernels ``fn`` launches, from
+    torch.profiler over ``iters`` back-to-back calls after a warm-up. Some
+    windows lose kernel records: with ``per_call`` (kernels a call) the mean
+    is taken over the kernels recorded; without, a window is taken again
+    until it holds a whole number of kernels a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        kernels = sum(e.count for e in events)
+        device_us = sum(e.self_device_time_total for e in events)
+        if per_call and kernels >= iters // 2:
+            return device_us / kernels * per_call / 1e3
+        if kernels and kernels % iters == 0:
+            return device_us / 1e3 / iters
+    raise SystemExit(f"torch.profiler recorded {kernels} kernels over {iters} calls, "
+                     f"three times")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write the results to this JSON file")
+    ap.add_argument("--small-d", action="store_true",
+                    help="the head_dim 16/32 design's variants beside the mma.sync kernel")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("flash_fwd_variants needs a card")
@@ -139,13 +283,21 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
     print(smi)
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:  # one nvcc per variant
-        built = dict(zip(VARIANTS, pool.map(_build_variant, VARIANTS)))
+    variants, shapes, timer = ((SMALL_D_VARIANTS, SMALL_D_SHAPES, device_ms) if args.small_d
+                               else (VARIANTS, SHAPES, ms))
+    with ThreadPoolExecutor(len(variants)) as pool:  # one nvcc per variant
+        built = dict(zip(variants, pool.map(lambda n: _build_variant(n, args.small_d),
+                                            variants)))
+    if args.small_d:
+        print(f"[variant] as built: routes by head_dim {_routes()}")
+        # the kernel this design replaced, from the port's own build
+        built["mma.sync before"] = (_bind(attn._kernel_lib("flash_fwd").ray_tpu_flash_fwd),
+                                    {})
     for name, (_, spills) in built.items():
         print(f"[variant] {name:<24} spill bytes by head_dim {spills}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for b, h, t_q, t_kv, d, causal in SHAPES:
+    for b, h, t_q, t_kv, d, causal in shapes:
         q, k, v = (torch.randn(b, h, t, d, device="cuda", dtype=torch.bfloat16,
                                generator=gen) for t in (t_q, t_kv, t_kv))
         scale = d ** -0.5
@@ -153,11 +305,18 @@ def main() -> int:
         errs = {name: row_err(_run(fn, q, k, v, causal, scale), ref)
                 for name, (fn, _) in built.items()}
         times = {name: [] for name in built}
-        for name in list(built) + list(built)[::-1]:
+        # the card's clocks settle under load before the first turn
+        warm = built["as built"][0]
+        t_end = time.monotonic() + 0.5
+        while time.monotonic() < t_end:
+            _run(warm, q, k, v, causal, scale)
+        torch.cuda.synchronize()
+        for name in (list(built) + list(built)[::-1]) * 2 + list(built):
             fn = built[name][0]
-            times[name].append(ms(lambda: _run(fn, q, k, v, causal, scale)))
-        sdpa = ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
-                                                          scale=scale))
+            times[name].append(timer(lambda: _run(fn, q, k, v, causal, scale)))
+        sdpa_fn = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,  # noqa: E731
+                                                         scale=scale)
+        sdpa = device_ms(sdpa_fn, per_call=None) if args.small_d else ms(sdpa_fn)
         row = dict(shape=[b, h, t_q, t_kv, d], causal=causal, sdpa_ms=sdpa,
                    ms={n: min(t) for n, t in times.items()}, row_err=errs,
                    ok={n: e <= FWD_ROW_TOL[torch.bfloat16] for n, e in errs.items()})
@@ -169,7 +328,8 @@ def main() -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=smi, spills={n: s for n, (_, s) in built.items()},
-                           shapes=rows), f, indent=1)
+                           times="device time (torch.profiler)" if args.small_d
+                           else "CUDA events", shapes=rows), f, indent=1)
     return 0
 
 

@@ -200,17 +200,49 @@ def test_flash_kernel_matches_plain_on_card(card, case, dtype):
 @pytest.mark.parametrize("d", port.HEAD_DIMS)
 def test_float32_forward_launches_the_tf32x3_kernel_on_card(card, d):
     """float32 at every head_dim goes through the 3xTF32 kernel: one launch
-    on its counter and none on mma_sync's, causal with t_q > t_kv and
+    on its counter and none on the bf16 designs', causal with t_q > t_kv and
     ragged tiles, every row within the float32 limits of the plain forward."""
     q, k, v = _qkv(1, 2, 136, 72, d, device=card, dtype=torch.float32)
     counters = ("flash_fwd_launches", "flash_fwd_tf32x3_launches",
-                "flash_fwd_mma_sync_launches", "flash_fwd_wgmma_launches")
+                "flash_fwd_persistent_launches", "flash_fwd_wgmma_launches")
     before = [getattr(port, c) for c in counters]
     out = port.dot_product_attention(q, k, v, causal=True)
     assert [getattr(port, c) - b for c, b in zip(counters, before)] == [1, 1, 0, 0]
     plain, _ = port.flash_attention_fwd_plain(q, k, v, causal=True, scale=d ** -0.5)
     torch.cuda.synchronize()
     assert row_err(out, plain) <= FWD_ROW_TOL[torch.float32]
+
+
+# bf16 at head_dim 16 and 32 (the persistent design): gpt_nano's t=128 at a
+# batch of 8, long t, ragged q and kv (causal and not), q the suffix of kv,
+# rows that see no key
+SMALL_D_CASES = [
+    (8, 4, 128, 128, 16, True),
+    (1, 4, 2048, 2048, 16, True),
+    (2, 8, 200, 264, 32, True),
+    (2, 4, 200, 264, 16, False),
+    (2, 8, 64, 256, 32, True),
+    (1, 8, 160, 64, 32, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SMALL_D_CASES, ids=_ids)
+def test_small_d_forward_launches_the_persistent_kernel_on_card(card, case):
+    """bf16 at head_dim 16 and 32 goes through the persistent kernel: one
+    launch on its counter, every row of out and lse within the bf16 limits
+    of the plain forward at the same tiles."""
+    b, h, tq, tkv, d, causal = case
+    q, k, v = _qkv(b, h, tq, tkv, d, device=card, dtype=torch.bfloat16)
+    counters = ("flash_fwd_launches", "flash_fwd_persistent_launches",
+                "flash_fwd_wgmma_launches", "flash_fwd_tf32x3_launches")
+    before = [getattr(port, c) for c in counters]
+    o, lse = port.flash_attention_fwd(q, k, v, causal=causal, scale=d ** -0.5)
+    assert [getattr(port, c) - n for c, n in zip(counters, before)] == [1, 1, 0, 0]
+    ref_o, ref_lse = port.flash_attention_fwd_plain(q, k, v, causal=causal, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert row_err(o, ref_o) <= FWD_ROW_TOL[torch.bfloat16]
+    torch.testing.assert_close(lse, ref_lse, atol=FWD_LSE_TOL[torch.bfloat16], rtol=1e-6)
 
 
 @pytest.mark.cuda
@@ -230,6 +262,9 @@ def test_dispatcher_raises_for_what_the_kernel_does_not_take(card):
         port.dot_product_attention(q, k, v, block_q=64, block_k=64)
     with pytest.raises(ValueError, match="positive scale"):
         port.dot_product_attention(q, k, v, scale=-0.125)
+    with pytest.raises(ValueError, match="positive scale"):
+        port.dot_product_attention(*_qkv(1, 2, 64, 64, 16, device=card,
+                                         dtype=torch.bfloat16), scale=-0.25)
     # inputs that require grad go through the FlashAttention Function
     out = port.dot_product_attention(q.clone().requires_grad_(), k, v)
     assert "FlashAttention" in type(out.grad_fn).__name__
