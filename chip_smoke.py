@@ -6,16 +6,17 @@
 Phases (any failure exits non-zero; nothing is caught):
   1. build: compile ray_tpu_torch/ops/csrc/flash_fwd_wgmma.cu,
      flash_fwd_persistent.cu, flash_fwd.cu, flash_fwd_f32.cu,
-     flash_bwd_wgmma.cu, flash_bwd.cu and flash_bwd_f32.cu with nvcc, in
-     parallel, and print their register, shared-memory and spill reports;
-     the wgmma forward and both wgmma backward kernels at head_dim 128 and
-     256 (the train paths': dQ, dK/dV and, at 256, the split dK/dV kernel),
-     the persistent forward at 16 and 32 and the float32 forward (3xTF32)
-     and the float32 backward's dQ and dK/dV kernels (3xTF32) at 64, 128
-     and 256 must not spill; the wgmma backward's, the persistent forward's
-     and the float32 forward's and backward's dynamic shared memory per CTA
-     by head_dim, at most 232448 bytes, and the persistent forward's CTAs
-     resident per SM, at least one;
+     flash_bwd_wgmma.cu, flash_bwd_persistent.cu, flash_bwd.cu and
+     flash_bwd_f32.cu with nvcc, in parallel, and print their register,
+     shared-memory and spill reports; the wgmma forward and both wgmma
+     backward kernels at head_dim 128 and 256 (the train paths': dQ, dK/dV
+     and, at 256, the split dK/dV kernel), the persistent forward and the
+     persistent dQ and dK/dV kernels at 16 and 32 and the float32 forward
+     (3xTF32) and the float32 backward's dQ and dK/dV kernels (3xTF32) at
+     64, 128 and 256 must not spill; the wgmma backward's, the persistent
+     forward's and backward's and the float32 forward's and backward's
+     dynamic shared memory per CTA by head_dim, at most 232448 bytes, and
+     the persistent kernels' CTAs resident per SM, at least one;
   2. kernel vs plain: the flash forward kernel against its plain PyTorch
      version on the same device tensors, per case (among them the shape of
      each train path and of the forward: gpt_1b at b=12, b=8, b=4 and the
@@ -32,8 +33,8 @@ Phases (any failure exits non-zero; nothing is caught):
      and the ex2 floor (one exponential per visible pair at 16 a clock an
      SM);
   3. backward kernels vs plain: the dQ and dK/dV kernels of the design
-     BWD_DESIGNS names (wgmma, mma_sync or, for float32, tf32x3; each case
-     names it and must launch it) against flash_attention_bwd_plain, per
+     BWD_DESIGNS names (wgmma, persistent for bf16 at head_dim 16 and 32,
+     or, for float32, tf32x3; each case names it and must launch it) against flash_attention_bwd_plain, per
      case (the train paths' shapes among them, the pipelined step's b=3,
      gpt_j_6b's head_dim 256: its train shape, b=2, non-causal, q the
      suffix, ragged; phase 2's head_dim-16/32 cases; and in float32
@@ -86,7 +87,7 @@ Phases (any failure exits non-zero; nothing is caught):
      with float32 master weights and moments, remat "nothing", b=512,
      t=128: one warm-up and 3 timed steps; the gates of phase 4 with 4
      forward launches a step on the persistent design and 2 of each
-     backward kernel on mma_sync, the warm-up loss within 2e-2 of the same
+     backward kernel on persistent, the warm-up loss within 2e-2 of the same
      step on the CPU in float32 from the same weights; ms per step and,
      from one more step under torch.profiler, the idle share;
   5. forward: gpt_1b in bf16 (random weights from a seeded torch.Generator),
@@ -208,8 +209,8 @@ under "d256" and the float32 case's (gpt_1b_f32_b4, train_f32's shape, on
 the float32 designs with train_f32's launches) under "f32", which also
 stand as entries of their own (flash_fwd_f32, flash_bwd_dq_f32,
 flash_bwd_dkv_f32: the kernels of train_f32's path), and 4g's kernels
-stand as flash_fwd_persistent, flash_bwd_dq_mma_sync and
-flash_bwd_dkv_mma_sync at gpt_nano's working case with 4g's launches, the
+stand as flash_fwd_persistent, flash_bwd_dq_persistent and
+flash_bwd_dkv_persistent at gpt_nano's working case with 4g's launches, the
 tiny flagship's case under "d32"; the backward kernels' plain and library
 times are those of the whole backward (dq, dk and dv together). In the
 kernels line ms and library_ms are device times (torch.profiler),
@@ -399,7 +400,7 @@ def phase_build():
 
     t0 = time.monotonic()
     names = ("flash_fwd_wgmma", "flash_fwd_persistent", "flash_fwd", "flash_fwd_f32",
-             "flash_bwd_wgmma", "flash_bwd", "flash_bwd_f32")
+             "flash_bwd_wgmma", "flash_bwd_persistent", "flash_bwd", "flash_bwd_f32")
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
         built = dict(zip(names, pool.map(timed, names)))
     out = {"seconds": time.monotonic() - t0}
@@ -415,8 +416,9 @@ def phase_build():
                      "spills": _spills_by_kernel(report)}
     # the train paths' kernels: the wgmma forward and both wgmma backward
     # kernels at head_dim 128 (gpt_1b) and 256 (gpt_j_6b: dK/dV is the split
-    # kernel there), the persistent forward at 16 (gpt_nano) and 32, and the
-    # float32 forward's and backward's (3xTF32) at 64, 128 and 256
+    # kernel there), the persistent forward, dQ and dK/dV at 16 (gpt_nano)
+    # and 32, and the float32 forward's and backward's (3xTF32) at 64, 128
+    # and 256
     f32 = [(source, kernel, d) for source, kernel in (
         ("flash_fwd_f32", "flash_fwd_f32x3_kernel"),
         ("flash_bwd_f32", "flash_bwd_dq_f32x3_kernel"),
@@ -427,8 +429,11 @@ def phase_build():
                               ("flash_bwd_wgmma", "flash_bwd_dkv_wgmma_kernel", 128),
                               ("flash_bwd_wgmma", "flash_bwd_dq_wgmma_kernel", 256),
                               ("flash_bwd_wgmma", "flash_bwd_dkv_wgmma_split_kernel", 256),
-                              ("flash_fwd_persistent", "flash_fwd_persistent_kernel", 16),
-                              ("flash_fwd_persistent", "flash_fwd_persistent_kernel", 32),
+                              *[(source, kernel, d) for source, kernel in (
+                                  ("flash_fwd_persistent", "flash_fwd_persistent_kernel"),
+                                  ("flash_bwd_persistent", "flash_bwd_dq_persistent_kernel"),
+                                  ("flash_bwd_persistent", "flash_bwd_dkv_persistent_kernel"))
+                                for d in (16, 32)],
                               *f32):
         main = {k: v for k, v in out[source]["spills"].items()
                 if f"{kernel}ILi{d}E" in k}
@@ -452,6 +457,21 @@ def phase_build():
         raise SystemExit(f"the persistent forward asks for {smem} bytes of shared memory, "
                          f"{ctas} CTAs an SM")
     out["flash_fwd_persistent"].update(smem_bytes=smem, ctas_per_sm=ctas)
+    small_bwd = ctypes.CDLL(str(built["flash_bwd_persistent"][0]))
+    for fn in ("smem_bytes", "ctas_per_sm"):
+        getattr(small_bwd, f"ray_tpu_flash_bwd_persistent_{fn}").argtypes = [ctypes.c_int,
+                                                                              ctypes.c_int]
+    smem = {kernel: {d: small_bwd.ray_tpu_flash_bwd_persistent_smem_bytes(d, dkv)
+                     for d in (16, 32)} for kernel, dkv in (("dq", 0), ("dkv", 1))}
+    ctas = {kernel: {d: small_bwd.ray_tpu_flash_bwd_persistent_ctas_per_sm(d, dkv)
+                     for d in (16, 32)} for kernel, dkv in (("dq", 0), ("dkv", 1))}
+    print(f"[build] flash_bwd_persistent dynamic shared memory per CTA by kernel and "
+          f"head_dim: {smem} bytes (of 232448); CTAs resident per SM {ctas}")
+    if (any(not 0 < n <= 232448 for by_d in smem.values() for n in by_d.values())
+            or any(n < 1 for by_d in ctas.values() for n in by_d.values())):
+        raise SystemExit(f"the persistent backward asks for {smem} bytes of shared memory, "
+                         f"{ctas} CTAs an SM")
+    out["flash_bwd_persistent"].update(smem_bytes=smem, ctas_per_sm=ctas)
     bwd_lib = ctypes.CDLL(str(built["flash_bwd_wgmma"][0]))
     bwd_lib.ray_tpu_flash_bwd_wgmma_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     smem = {kernel: {d: bwd_lib.ray_tpu_flash_bwd_wgmma_smem_bytes(d, dkv)
@@ -672,6 +692,8 @@ def phase_bwd_kernels_vs_plain():
         design = attn.BWD_DESIGNS[(d, dtype)]
         if dtype == torch.bfloat16 and d in (64, 128, 256) and design.name != "wgmma":
             raise SystemExit(f"BWD_DESIGNS sends bf16 head_dim {d} to {design.name}")
+        if dtype == torch.bfloat16 and d in (16, 32) and design.name != "persistent":
+            raise SystemExit(f"BWD_DESIGNS sends bf16 head_dim {d} to {design.name}")
         if dtype == torch.float32 and design.name != "tf32x3":
             raise SystemExit(f"BWD_DESIGNS sends float32 head_dim {d} to {design.name}")
         out, lse = attn.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
@@ -754,12 +776,12 @@ def phase_bwd_kernels_vs_plain():
 
 # the launch counts read around each path: every launch of each kernel, and
 # each kernel's by design (the wgmma kernels are the bf16 paths' at head_dim
-# 64 and up; at 16 and 32 the forward is persistent's, the backward
-# mma_sync's; tf32x3 float32)
+# 64 and up; at 16 and 32 the forward and the backward are persistent's;
+# tf32x3 float32)
 KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 DESIGNS = {"flash_fwd": ("wgmma", "persistent", "tf32x3"),
-           "flash_bwd_dq": ("wgmma", "mma_sync", "tf32x3"),
-           "flash_bwd_dkv": ("wgmma", "mma_sync", "tf32x3")}
+           "flash_bwd_dq": ("wgmma", "persistent", "tf32x3"),
+           "flash_bwd_dkv": ("wgmma", "persistent", "tf32x3")}
 COUNTS = KERNEL_NAMES + tuple(
     f"{kernel}_{design}" for kernel in KERNEL_NAMES for design in DESIGNS[kernel])
 
@@ -1065,7 +1087,8 @@ def phase_train_nano_bf16(batch: int, seq: int, steps: int):
     """4g: gpt_nano in bf16 compute (float32 master weights and Adam
     moments, remat "nothing"), b=512, t=128: its attention runs the bf16
     head_dim-16 kernels, the forward on the persistent design (2 *
-    num_layers = 4 launches a step) and dQ and dK/dV on mma_sync (2 each).
+    num_layers = 4 launches a step) and dQ and dK/dV on persistent (2
+    each).
     run_train's gates, with one more step under torch.profiler for the idle
     share; the warm-up step's loss within NANO_BF16_LOSS_RTOL of the same
     step on the CPU in float32 from the same weights and batch."""
@@ -1081,7 +1104,7 @@ def phase_train_nano_bf16(batch: int, seq: int, steps: int):
 
     tokens = _train_tokens(cfg, batch, seq)
     rep = run_train(cfg, tokens, steps, 2, "gpt_nano bf16 compute / f32 master", True,
-                    build=build, designs=("persistent", "mma_sync"))
+                    build=build, designs=("persistent", "persistent"))
     opt = training.default_optimizer(1e-4)
     cpu_state = training.init_train_state({n: p.clone() for n, p in params0.items()}, opt)
     cpu_step = training.make_train_step(gpt.gpt_nano(), opt, device="cpu")
@@ -2644,7 +2667,7 @@ def main() -> int:
            for k, line in (("dq", 324), ("dkv", 394))}}
     fwd_cases, bwd_cases = {**train_case, "forward": "gpt_1b"}, train_case
     # 4g's kernels (bf16 at head_dim 16): the persistent forward and the
-    # mma_sync backward pair at gpt_nano's working case, with 4g's launches
+    # persistent backward pair at gpt_nano's working case, with 4g's launches
     # (its 3 timed steps), and the tiny flagship's head_dim-32 case under
     # "d32"
     def small_d(rows, name, kernel, line):

@@ -28,11 +28,13 @@ a shorter q is the suffix of the kv context (``q_pos = q_idx + t_kv - t_q``).
   ``flash_attention_bwd`` launches the dQ and dK/dV kernels
   (``flash_bwd_dq``, ``flash_bwd_dkv``) of the design that the dispatch
   table ``BWD_DESIGNS`` names: ``csrc/flash_bwd_wgmma.cu`` (TMA, wgmma,
-  warp-specialised; bf16 at head_dim 64, 128 and 256), ``csrc/flash_bwd.cu``
-  (mma.sync; bf16 at head_dim 16 and 32) or ``csrc/flash_bwd_f32.cu``
-  (3xTF32 on mma.sync; float32 at every head_dim), counted in
+  warp-specialised; bf16 at head_dim 64, 128 and 256),
+  ``csrc/flash_bwd_persistent.cu`` (a persistent grid of several CTAs an
+  SM, a TMA ring; bf16 at head_dim 16 and 32) or ``csrc/flash_bwd_f32.cu``
+  (3xTF32 on mma.sync; float32 at every head_dim); ``csrc/flash_bwd.cu``
+  (mma.sync), bf16 16/32's kernels before, is on no path. Launches count in
   ``flash_bwd_dq_launches`` and ``flash_bwd_dkv_launches`` and in the
-  design's ``flash_bwd_{dq,dkv}_{wgmma,mma_sync,tf32x3}_launches``. On CPU
+  design's ``flash_bwd_{dq,dkv}_{wgmma,persistent,tf32x3}_launches``. On CPU
   tensors the wrappers take the plain versions and count nothing. On a CUDA
   tensor they launch or raise: they never fall back quietly.
 * ``flash_fwd_op`` is the forward wrapper as the operator
@@ -115,8 +117,9 @@ class BwdDesign:
     dkv_entry: str
 
 
-_BWD_MMA_SYNC = BwdDesign("mma_sync", "flash_bwd", "ray_tpu_flash_bwd_dq",
-                          "ray_tpu_flash_bwd_dkv")
+_BWD_PERSISTENT = BwdDesign("persistent", "flash_bwd_persistent",
+                            "ray_tpu_flash_bwd_dq_persistent",
+                            "ray_tpu_flash_bwd_dkv_persistent")
 _BWD_WGMMA = BwdDesign("wgmma", "flash_bwd_wgmma", "ray_tpu_flash_bwd_dq_wgmma",
                        "ray_tpu_flash_bwd_dkv_wgmma")
 _BWD_TF32X3 = BwdDesign("tf32x3", "flash_bwd_f32", "ray_tpu_flash_bwd_dq_f32",
@@ -125,12 +128,14 @@ _BWD_TF32X3 = BwdDesign("tf32x3", "flash_bwd_f32", "ray_tpu_flash_bwd_dq_f32",
 #: the backward's dispatch table, keyed on (head_dim, dtype): the kernels each
 #: input launches on the card. At head_dim 256 the wgmma design's dK/dV
 #: kernel splits dV and dK between its warpgroups (``flash_bwd_wgmma.cu``);
-#: float32 runs 3xTF32 on the tensor cores (``flash_bwd_f32.cu``). The
-#: float32 kernels of ``flash_bwd.cu`` (CUDA cores) are on no path:
-#: ``ops/flash_bwd_f32_variants.py`` times them beside these.
+#: bf16 at 16 and 32 runs ``flash_bwd_persistent.cu``; float32 runs 3xTF32
+#: on the tensor cores (``flash_bwd_f32.cu``). No kernel of ``flash_bwd.cu``
+#: is on a path: ``ops/flash_bwd_f32_variants.py`` times its float32 ones
+#: (CUDA cores) beside ``flash_bwd_f32.cu``, ``ops/flash_bwd_variants.py
+#: --small-d`` its bf16 ones (mma.sync) beside ``flash_bwd_persistent.cu``.
 BWD_DESIGNS = {
     **{(d, torch.float32): _BWD_TF32X3 for d in HEAD_DIMS},
-    **{(d, torch.bfloat16): _BWD_MMA_SYNC for d in (16, 32)},
+    **{(d, torch.bfloat16): _BWD_PERSISTENT for d in (16, 32)},
     **{(d, torch.bfloat16): _BWD_WGMMA for d in (64, 128, 256)},
 }
 
@@ -143,11 +148,11 @@ flash_fwd_persistent_launches = 0
 flash_fwd_tf32x3_launches = 0
 flash_bwd_dq_launches = 0
 flash_bwd_dq_wgmma_launches = 0
-flash_bwd_dq_mma_sync_launches = 0
+flash_bwd_dq_persistent_launches = 0
 flash_bwd_dq_tf32x3_launches = 0
 flash_bwd_dkv_launches = 0
 flash_bwd_dkv_wgmma_launches = 0
-flash_bwd_dkv_mma_sync_launches = 0
+flash_bwd_dkv_persistent_launches = 0
 flash_bwd_dkv_tf32x3_launches = 0
 
 
@@ -445,6 +450,9 @@ _SOURCES = {
                   "ray_tpu_flash_bwd_error_string"),
     "flash_bwd_wgmma": ({"ray_tpu_flash_bwd_dq_wgmma": 7, "ray_tpu_flash_bwd_dkv_wgmma": 8},
                         "ray_tpu_flash_bwd_wgmma_error_string"),
+    "flash_bwd_persistent": ({"ray_tpu_flash_bwd_dq_persistent": 7,
+                              "ray_tpu_flash_bwd_dkv_persistent": 8},
+                             "ray_tpu_flash_bwd_persistent_error_string"),
     "flash_bwd_f32": ({"ray_tpu_flash_bwd_dq_f32": 7, "ray_tpu_flash_bwd_dkv_f32": 8},
                       "ray_tpu_flash_bwd_f32_error_string"),
 }

@@ -1,10 +1,12 @@
-// Flash-attention backward on mma.sync (sm_90a), hand-written CUDA C++: the
-// design the dispatch table in ops/attention.py (BWD_DESIGNS) sends bf16 at
-// head_dim 16 and 32 to; bf16 at 64, 128 and 256 runs
-// csrc/flash_bwd_wgmma.cu, and this file builds no bf16 kernel at 256.
-// float32 runs csrc/flash_bwd_f32.cu (3xTF32 on the tensor cores); this
-// file's float32 kernels (CUDA cores) are on no path, and only
-// ops/flash_bwd_f32_variants.py launches them, to time them beside it.
+// Flash-attention backward on mma.sync (sm_90a), hand-written CUDA C++. No
+// kernel of this file is on a path: the dispatch table in ops/attention.py
+// (BWD_DESIGNS) sends bf16 at head_dim 16 and 32 to
+// csrc/flash_bwd_persistent.cu, bf16 at 64, 128 and 256 to
+// csrc/flash_bwd_wgmma.cu (this file builds no bf16 kernel at 256), and
+// float32 to csrc/flash_bwd_f32.cu (3xTF32 on the tensor cores). Only the
+// variants scripts launch these kernels, to time them beside their
+// successors: ops/flash_bwd_variants.py --small-d the bf16 ones (mma.sync),
+// ops/flash_bwd_f32_variants.py the float32 ones (CUDA cores).
 //
 // Replaces the two TPU kernels of ray_tpu/ops/attention.py launched by
 // _flash_attention_tpu_bwd there:

@@ -63,11 +63,12 @@
 //     the diagonal tile is 3/8 of its work: 9% of the kernel at t=128).
 //   * Tensor cores, two routes over the same tiles (Config<D>::kWgmma):
 //     mma.sync m16n8k16 with K and V fragments from ldmatrix (.trans for V)
-//     on the swizzled tiles, each warp on its own, so a warp that skips
-//     pieces skips their products too; or wgmma (S = Q K^T m64n64k16 with
-//     Q from registers and K from shared memory; O += P V m64nDk16 with P
-//     from registers and V read MN-major through the descriptor's transpose
-//     bit), where the warpgroup's four warps meet at each product. The
+//     on the swizzled tiles (hopper.cuh: narrow_nt, narrow_nn_step), each
+//     warp on its own, so a warp that skips pieces skips their products
+//     too; or wgmma (S = Q K^T m64n64k16 with Q from registers and K from
+//     shared memory; O += P V m64nDk16 with P from registers and V read
+//     MN-major through the descriptor's transpose bit), where the
+//     warpgroup's four warps meet at each product. The
 //     m64 wgmma A operand in registers, the mma.sync A fragment and both
 //     accumulators lay a warp's 16 rows out alike, so the Q fragments, the
 //     softmax and the epilogue are shared. mma.sync is the faster at 32
@@ -161,27 +162,6 @@ __device__ __forceinline__ int kv_tiles_to_run(const Params& p, int q0) {
   const int last = q0 + p.bq_eff - 1 + p.off;
   if (last < 0) return 0;
   return min(n_kv, last / kBlockN + 1);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // S[64 x 64] (+)= A[64 x 16] B^T: A in registers (the warp's mma.sync A
@@ -282,49 +262,21 @@ __device__ __forceinline__ void tile_math(float* sc, float* o, float* m, float* 
                                           uint32_t (*qa)[4], uint32_t k_tile,
                                           uint32_t v_tile, const Params& p, int k0,
                                           const int* lim, int lane) {
-  constexpr int kRow = 2 * D;
   const int tq = lane & 3;
-  if constexpr (!Config<D>::kWgmma) {
-    // n-tiles 2 np and 2 np + 1: K rows 16 np .. 16 np + 15; lane l reads
-    // row 16 np + l % 8 + 8 (l / 16), 8 columns from 16 kk + 8 ((l / 8) % 2)
-#pragma unroll
-    for (int np = 0; np < kPieces / 2; ++np) {
-      float* c0 = sc + 8 * np;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) c0[i] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t b[4];
-        ldmatrix_x4(b, k_tile + narrow_offset<kRow>(16 * np + (lane & 7) + ((lane >> 4) << 3),
-                                                    2 * kk + ((lane >> 3) & 1)));
-        mma_16816(c0, qa[kk], b[0], b[1]);
-        mma_16816(c0 + 4, qa[kk], b[2], b[3]);
-      }
-    }
-  }
+  if constexpr (!Config<D>::kWgmma) narrow_nt<D, kPieces / 2>(sc, qa, k_tile, 0, lane);
   float alpha[2];
   softmax_tile<kMasked, kPieces>(sc, m, l, alpha, p, k0, lim, tq);
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
   if constexpr (!Config<D>::kWgmma) {
     // k-step kk: P's columns 16 kk .. 16 kk + 15 in bf16 (the accumulator's
-    // own order is the A fragment's), V rows 16 kk .. 16 kk + 15, n-tiles
-    // 2 dp and 2 dp + 1 of d; lane l reads row 16 kk + l % 8 + 8 ((l / 8) %
-    // 2), 8 columns from 16 dp + 8 (l / 16), transposed
+    // own order is the A fragment's) times V rows 16 kk .. 16 kk + 15
 #pragma unroll
     for (int kk = 0; kk < kPieces / 2; ++kk) {
       uint32_t pa[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) pa[i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(
-            b, v_tile + narrow_offset<kRow>(16 * kk + (lane & 7) + (((lane >> 3) & 1) << 3),
-                                            2 * dp + (lane >> 4)));
-        mma_16816(o + 8 * dp, pa, b[0], b[1]);
-        mma_16816(o + 8 * dp + 4, pa, b[2], b[3]);
-      }
+      narrow_nn_step<D>(o, pa, v_tile, kk, lane);
     }
   }
 }
@@ -430,12 +382,7 @@ __global__ void __launch_bounds__(kThreads, Config<D>::kMinBlocks)
     uint32_t qa[D / 16][4];           // this warp's Q fragments, k-step kk
 
     mbar_wait(bar_q_full + 8 * qb, (n >> 1) & 1);
-    // lane l reads row l % 16 of the warp's rows, 8 columns from 16 kk + 8 (l / 16)
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      ldmatrix_x4(qa[kk], q_tile + narrow_offset<kRow>(16 * warp + (lane & 15),
-                                                       2 * kk + (lane >> 4)));
-    }
+    narrow_a_frags<D>(qa, q_tile, 16 * warp, lane);
     __syncwarp();
     if (lane == 0) mbar_arrive(bar_q_empty + 8 * qb);
 

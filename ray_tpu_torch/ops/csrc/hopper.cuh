@@ -1,8 +1,9 @@
 // Hopper (sm_90a) pieces shared by the port's TMA flash kernels
-// (flash_fwd_wgmma.cu, flash_bwd_wgmma.cu, flash_fwd_persistent.cu):
-// mbarriers, 3-D TMA loads and stores, swizzled wgmma descriptors, wgmma
-// with A from shared memory or from registers, named barriers, and the
-// tensor maps of their tiles.
+// (flash_fwd_wgmma.cu, flash_bwd_wgmma.cu, flash_fwd_persistent.cu,
+// flash_bwd_persistent.cu): mbarriers, 3-D TMA loads and stores, swizzled
+// wgmma descriptors, wgmma with A from shared memory or from registers,
+// named barriers, a warp's mma.sync products on narrow tiles through
+// ldmatrix, and the tensor maps of their tiles.
 //
 // At head_dim 64 and up, every tile is a row-major [rows, d] bf16 array cut
 // into 64-column boxes of 128-byte rows that TMA swizzles with the 128-byte
@@ -115,6 +116,39 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t sr
       "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
       ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// the bulk stores (tma_store_3d) this thread committed: all read out of
+// shared memory (kRead) or all done
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <bool kRead>
+__device__ __forceinline__ void bulk_wait_all() {
+  if constexpr (kRead) {
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  } else {
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+}
+
+// this thread's writes to shared memory, made visible to the async proxy
+// (a TMA store that reads them)
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 4 bytes from global to shared memory without holding the thread: src_bytes
+// of them read (4 or 0), the rest zero; cp_async_arrive then arrives on an
+// mbarrier when this thread's copies have landed (its expected count holds
+// that arrival)
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
 
 // wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
@@ -326,6 +360,89 @@ __device__ __forceinline__ float fast_exp2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---------------------------------------------------------------------------
+// one warp's products on narrow tiles (head_dim 16 and 32): mma.sync
+// m16n8k16 (bf16 in, float32 sums) fed by ldmatrix from the swizzled tiles
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The A fragments of rows row0 .. row0 + 15 of a narrow [*, D] tile, k-step
+// kk (columns 16 kk .. 16 kk + 15) in a[kk]: lane l reads row row0 + l % 16,
+// 8 columns from 16 kk + 8 (l / 16)
+template <int D>
+__device__ __forceinline__ void narrow_a_frags(uint32_t (*a)[4], uint32_t tile, int row0,
+                                               int lane) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    ldmatrix_x4(a[kk], tile + narrow_offset<2 * D>(row0 + (lane & 15), 2 * kk + (lane >> 4)));
+  }
+}
+
+// acc = A B^T over kNp pairs of 8-column pieces of a warp's 16 x 64 scores,
+// the pairs from np0 on: piece 2 (np0 + j) + h (h = 0, 1) lands at
+// acc[8 j + 4 h .. 8 j + 4 h + 3], element i of the pieces at acc[i]. A is
+// the warp's D / 16 fragments, B rows of a narrow [64, D] tile, each piece
+// 8 of them. n-tiles 2 np and 2 np + 1 take B rows 16 np .. 16 np + 15;
+// lane l reads row 16 np + l % 8 + 8 (l / 16), 8 columns from 16 kk + 8
+// ((l / 8) % 2)
+template <int D, int kNp>
+__device__ __forceinline__ void narrow_nt(float* acc, const uint32_t (*a)[4], uint32_t tile,
+                                          int np0, int lane) {
+#pragma unroll
+  for (int j = 0; j < kNp; ++j) {
+    const int np = np0 + j;
+    float* c0 = acc + 8 * j;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) c0[i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t b[4];
+      ldmatrix_x4(b, tile + narrow_offset<2 * D>(16 * np + (lane & 7) + ((lane >> 4) << 3),
+                                                 2 * kk + ((lane >> 3) & 1)));
+      mma_16816(c0, a[kk], b[0], b[1]);
+      mma_16816(c0 + 4, a[kk], b[2], b[3]);
+    }
+  }
+}
+
+// acc[16 x D] += A B for one k-step: A the A fragment of 16 columns (the
+// k-step kk of a 16 x 64 operand), B rows 16 kk .. 16 kk + 15 of a narrow
+// [64, D] tile, read transposed (n-tiles 2 dp and 2 dp + 1 of d); lane l
+// reads row 16 kk + l % 8 + 8 ((l / 8) % 2), 8 columns from 16 dp + 8 (l / 16)
+template <int D>
+__device__ __forceinline__ void narrow_nn_step(float* acc, const uint32_t* a, uint32_t tile,
+                                               int kk, int lane) {
+#pragma unroll
+  for (int dp = 0; dp < D / 16; ++dp) {
+    uint32_t b[4];
+    ldmatrix_x4_trans(b, tile + narrow_offset<2 * D>(16 * kk + (lane & 7) +
+                                                         (((lane >> 3) & 1) << 3),
+                                                     2 * dp + (lane >> 4)));
+    mma_16816(acc + 8 * dp, a, b[0], b[1]);
+    mma_16816(acc + 8 * dp + 4, a, b[2], b[3]);
+  }
 }
 
 // ---------------------------------------------------------------------------

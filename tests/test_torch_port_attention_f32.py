@@ -39,14 +39,14 @@ def _as_bits(x):
 
 def test_bwd_designs_send_float32_to_the_tensor_core_design():
     """Every float32 head_dim runs the 3xTF32 kernels; the bf16 rows are the
-    wgmma design at 64/128/256 and mma_sync at 16/32, as before."""
+    wgmma design at 64/128/256 and the persistent one at 16/32."""
     for d in port.HEAD_DIMS:
         design = port.BWD_DESIGNS[(d, torch.float32)]
         assert (design.name, design.source) == ("tf32x3", "flash_bwd_f32")
         assert (design.dq_entry, design.dkv_entry) == ("ray_tpu_flash_bwd_dq_f32",
                                                        "ray_tpu_flash_bwd_dkv_f32")
         assert (port._build.CSRC_DIR / "flash_bwd_f32.cu").exists()
-        want = "wgmma" if d in (64, 128, 256) else "mma_sync"
+        want = "wgmma" if d in (64, 128, 256) else "persistent"
         assert port.BWD_DESIGNS[(d, torch.bfloat16)].name == want
     assert set(port._SOURCES["flash_bwd_f32"][0]) == {"ray_tpu_flash_bwd_dq_f32",
                                                       "ray_tpu_flash_bwd_dkv_f32"}

@@ -147,17 +147,19 @@ def test_bwd_designs_cover_every_head_dim_and_dtype():
     """The backward's dispatch table names a design for every head_dim the
     kernels take in both dtypes, each from a source the port builds, with
     entry points that source binds; bf16 at head_dim 64, 128 and 256
-    (gpt_125m's, gpt_1b's and gpt_j_6b's) runs the wgmma kernels."""
+    (gpt_125m's, gpt_1b's and gpt_j_6b's) runs the wgmma kernels, bf16 at 16
+    and 32 (gpt_nano's and the tiny flagship's) the persistent ones."""
     keys = {(d, dt) for d in port.HEAD_DIMS for dt in (torch.bfloat16, torch.float32)}
     assert set(port.BWD_DESIGNS) == keys
     for design in port.BWD_DESIGNS.values():
         entries, _ = port._SOURCES[design.source]
         assert (port._build.CSRC_DIR / f"{design.source}.cu").exists()
         assert {design.dq_entry, design.dkv_entry} <= set(entries)
-    assert {d for (d, dt), design in port.BWD_DESIGNS.items()
-            if design.name == "wgmma"} == {64, 128, 256}
-    assert all(dt == torch.bfloat16 for (_, dt), design in port.BWD_DESIGNS.items()
-               if design.name == "wgmma")
+    for name, head_dims in (("wgmma", {64, 128, 256}), ("persistent", {16, 32})):
+        assert {d for (d, dt), design in port.BWD_DESIGNS.items()
+                if design.name == name} == head_dims
+        assert all(dt == torch.bfloat16 for (_, dt), design in port.BWD_DESIGNS.items()
+                   if design.name == name)
 
 
 def test_bwd_wrapper_takes_the_plain_version_on_cpu():
@@ -317,6 +319,28 @@ def test_flash_bwd_kernels_match_plain_on_card(card, case, dtype):
                                           scale=scale)
     torch.cuda.synchronize()
     _assert_grads_close(got, want, BWD_TOL[dt])
+    again = port.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SMALL_D_CASES, ids=_ids)
+def test_small_d_backward_launches_the_persistent_kernels_on_card(card, case):
+    """bf16 at head_dim 16 and 32 goes through the persistent dQ and dK/dV
+    kernels: one launch of each on their counters and none on the other
+    designs', every row of dq, dk and dv within the bf16 limit of the plain
+    backward, and the same bits from a second run."""
+    b, h, tq, tkv, d, causal = case
+    q, k, v, o, lse, do, scale = _bwd_inputs(b, h, tq, tkv, d, causal, card, torch.bfloat16)
+    counters = [f"flash_bwd_{kernel}{suffix}_launches" for kernel in ("dq", "dkv")
+                for suffix in ("", "_persistent", "_wgmma", "_tf32x3")]
+    before = [getattr(port, c) for c in counters]
+    got = port.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
+    assert [getattr(port, c) - n for c, n in zip(counters, before)] == [1, 1, 0, 0] * 2
+    want = port.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+    _assert_grads_close(got, want, BWD_TOL[torch.bfloat16])
     again = port.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
 
