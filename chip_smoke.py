@@ -5,8 +5,9 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. build: compile ray_tpu_torch/ops/csrc/flash_fwd_wgmma.cu,
-     flash_fwd_persistent.cu, flash_fwd.cu, flash_fwd_f32.cu,
-     flash_bwd_wgmma.cu, flash_bwd_persistent.cu, flash_bwd.cu and
+     flash_fwd_d64.cu, flash_fwd_persistent.cu, flash_fwd.cu,
+     flash_fwd_f32.cu, flash_bwd_wgmma.cu, flash_bwd_d64.cu,
+     flash_bwd_persistent.cu, flash_bwd.cu and
      flash_bwd_f32.cu with nvcc, in parallel, and print their register,
      shared-memory and spill reports; the wgmma forward and both wgmma
      backward kernels at head_dim 128 and 256 (the train paths': dQ, dK/dV
@@ -16,15 +17,18 @@ Phases (any failure exits non-zero; nothing is caught):
      64, 128 and 256 must not spill; the wgmma backward's, the persistent
      forward's and backward's and the float32 forward's and backward's
      dynamic shared memory per CTA by head_dim, at most 232448 bytes, and
-     the persistent kernels' CTAs resident per SM, at least one;
+     the persistent kernels' CTAs resident per SM, at least one; the d64
+     forward and dK/dV (bf16 at head_dim 64) must not spill, and their
+     shared memory and CTAs an SM are printed and gated the same way;
   2. kernel vs plain: the flash forward kernel against its plain PyTorch
      version on the same device tensors, per case (among them the shape of
      each train path and of the forward: gpt_1b at b=12, b=8, b=4 and the
      pipelined step's microbatch, b=3; every float32 case on the tf32x3
-     design and every bf16 head_dim-16/32 case on the persistent design,
-     one launch of it a case: gpt_nano's working case at 4g's b=512, the
-     tiny flagship's at b=256, and, checked only (CHECK_ONLY), long t,
-     ragged, q the suffix, rows that see no key, ragged non-causal):
+     design, every bf16 head_dim-16/32 case on the persistent design and
+     every bf16 head_dim-64 case on d64, one launch of it a case:
+     gpt_nano's working case at 4g's b=512, the tiny flagship's at b=256,
+     gpt_125m's at b=4 and 4h's b=16, and, checked only (CHECK_ONLY), long
+     t, ragged, q the suffix, rows that see no key, ragged non-causal):
      each row of out held to its own norm and lse to an absolute limit
      (ray_tpu_torch/ops/tolerance.py), max abs error, the kernel's device
      time (torch.profiler's kernel durations over the calls that cuda_ms
@@ -33,8 +37,9 @@ Phases (any failure exits non-zero; nothing is caught):
      and the ex2 floor (one exponential per visible pair at 16 a clock an
      SM);
   3. backward kernels vs plain: the dQ and dK/dV kernels of the design
-     BWD_DESIGNS names (wgmma, persistent for bf16 at head_dim 16 and 32,
-     or, for float32, tf32x3; each case names it and must launch it) against flash_attention_bwd_plain, per
+     BWD_DESIGNS names (wgmma; at bf16 head_dim 64 wgmma's dQ and d64's
+     dK/dV; persistent for bf16 at head_dim 16 and 32, or, for float32,
+     tf32x3; each case names them and must launch them) against flash_attention_bwd_plain, per
      case (the train paths' shapes among them, the pipelined step's b=3,
      gpt_j_6b's head_dim 256: its train shape, b=2, non-causal, q the
      suffix, ragged; phase 2's head_dim-16/32 cases; and in float32
@@ -43,6 +48,14 @@ Phases (any failure exits non-zero; nothing is caught):
      (ray_tpu_torch/ops/tolerance.py), max abs error, each kernel's device
      time and cuda_ms, bound and ex2 floor, the plain time and the library
      time (torch.autograd.grad through scaled_dot_product_attention);
+  3b. plain_design: dot_product_attention with a backward through the
+     dispatch tables' plain design (inputs no kernel takes, where the
+     reference takes its XLA route: head_dim 48 in bf16, 16 in float16),
+     and through the kernels at head_dim 64 in float16 and in bf16 at a
+     negative scale; out and dq, dk, dv held to the CPU's row by row, and
+     the counters of the case's designs risen by exactly one forward and
+     one of each backward launch a case; every other phase gates plain
+     launches at 0;
   4. train: three float32 gpt_nano steps on the card held to the same steps
      on the CPU; then gpt_1b (bf16 compute, float32 master weights and Adam
      moments, remat "nothing"), b=12, t=2048, ce_chunk 512, lr 1e-4: one
@@ -90,6 +103,19 @@ Phases (any failure exits non-zero; nothing is caught):
      backward kernel on persistent, the warm-up loss within 2e-2 of the same
      step on the CPU in float32 from the same weights; ms per step and,
      from one more step under torch.profiler, the idle share;
+  4h. train_125m: gpt_125m (12 layers, 12 heads x 64, d_model 768, vocab
+     50304) at full width and depth in bf16 compute with float32 master
+     weights and moments, remat "nothing", at bench.py's 125m cell (b=16,
+     t=2048, ce_chunk 256): one warm-up and 3 timed steps; the gates of
+     phase 4 with 24 forward launches a step on d64, 12 dQ on wgmma and 12
+     dK/dV on d64, none on plain; the warm-up loss within LOSS_125M_RTOL of
+     the same step in float32 on the card from the same weights and batch
+     (the tf32x3 kernels, 24 / 12 / 12 launches), and the q, k and v
+     projections' gradients of a bf16 forward and backward within
+     ATTN_GRAD_125M_RTOL of the float32 one's, with two controls (dK and dV
+     swapped, dq zeroed) that must fail that limit; ms per step, tokens/s,
+     MFU against 989 TFLOP/s and, from one more step under torch.profiler,
+     the idle share;
   5. forward: gpt_1b in bf16 (random weights from a seeded torch.Generator),
      b=4, t=2048; the wgmma forward kernel must launch num_layers times per
      forward;
@@ -211,7 +237,10 @@ stand as entries of their own (flash_fwd_f32, flash_bwd_dq_f32,
 flash_bwd_dkv_f32: the kernels of train_f32's path), and 4g's kernels
 stand as flash_fwd_persistent, flash_bwd_dq_persistent and
 flash_bwd_dkv_persistent at gpt_nano's working case with 4g's launches, the
-tiny flagship's case under "d32"; the backward kernels' plain and library
+tiny flagship's case under "d32"; 4h's kernels stand as flash_fwd_d64 and
+flash_bwd_dkv_d64 at gpt_125m's b=16 case with 4h's launches, the b=4 case
+under "b4", and wgmma's dQ at those cases under flash_bwd_dq's "d64"; the
+backward kernels' plain and library
 times are those of the whole backward (dq, dk and dv together). In the
 kernels line ms and library_ms are device times (torch.profiler),
 event_ms the time between events.
@@ -244,7 +273,7 @@ import torch  # noqa: E402
 # way the card does float32 work at float32 accuracy (3xTF32: three TF32
 # products for each float32 one); the CUDA cores' 67 TFLOP/s would put a
 # tensor-core kernel above 100% of its bound
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 494.7e12 / 3}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 494.7e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 # gpt_nano float32 steps on the card vs the CPU: summation order through two
 # layers, the loss and three optimizer updates (dense and MoE)
@@ -323,15 +352,21 @@ def timed(fn, iters: int, warmup: int = 2, kernel: str | None = None):
         prof.__exit__(None, None, None)
         events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
                   and kernel in e.key and e.key not in RANGES]
-        # some windows lose kernel records: a named kernel launches once a
-        # call, so its mean is over the records that arrived; every kernel
-        # of a call ("") needs a window that holds a whole number a call
+        # some windows lose kernel records, so each kernel's mean is over the
+        # records that arrived: a named kernel launches once a call, and
+        # every kernel of a call ("") counts its mean as often as it
+        # launches a call (its records over the calls, rounded), and one that
+        # launches less than every other call its total over the calls
         calls = sum(e.count for e in events)
-        device_us = sum(e.self_device_time_total for e in events)
-        if kernel and calls >= iters // 2:
+        if calls < iters // 2:
+            continue
+        if kernel:
+            device_us = sum(e.self_device_time_total for e in events)
             return start.elapsed_time(end) / iters, device_us / calls / 1e3
-        if not kernel and calls > 0 and calls % iters == 0:
-            return start.elapsed_time(end) / iters, device_us / 1e3 / iters
+        device_us = sum(e.self_device_time_total / e.count * round(e.count / iters)
+                        if round(e.count / iters) else e.self_device_time_total / iters
+                        for e in events if e.count)
+        return start.elapsed_time(end) / iters, device_us / 1e3
     raise SystemExit(f"torch.profiler recorded {calls} kernels matching {kernel!r} over "
                      f"{iters} calls, three times")
 
@@ -399,8 +434,9 @@ def phase_build():
         return _build.build(name), time.monotonic() - t0
 
     t0 = time.monotonic()
-    names = ("flash_fwd_wgmma", "flash_fwd_persistent", "flash_fwd", "flash_fwd_f32",
-             "flash_bwd_wgmma", "flash_bwd_persistent", "flash_bwd", "flash_bwd_f32")
+    names = ("flash_fwd_wgmma", "flash_fwd_d64", "flash_fwd_persistent", "flash_fwd",
+             "flash_fwd_f32", "flash_bwd_wgmma", "flash_bwd_d64", "flash_bwd_persistent",
+             "flash_bwd", "flash_bwd_f32")
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
         built = dict(zip(names, pool.map(timed, names)))
     out = {"seconds": time.monotonic() - t0}
@@ -414,9 +450,10 @@ def phase_build():
                 print(f"[build]   {line.strip()}")
         out[name] = {"seconds": seconds, "library": lib.name,
                      "spills": _spills_by_kernel(report)}
-    # the train paths' kernels: the wgmma forward and both wgmma backward
+    # the train paths' kernels (each in bf16 and float16: the mangled names
+    # differ after the head_dim): the wgmma forward and both wgmma backward
     # kernels at head_dim 128 (gpt_1b) and 256 (gpt_j_6b: dK/dV is the split
-    # kernel there), the persistent forward, dQ and dK/dV at 16 (gpt_nano)
+    # kernel there), wgmma's dQ at 64 (gpt_125m), the persistent forward, dQ and dK/dV at 16 (gpt_nano)
     # and 32, and the float32 forward's and backward's (3xTF32) at 64, 128
     # and 256
     f32 = [(source, kernel, d) for source, kernel in (
@@ -425,6 +462,7 @@ def phase_build():
         ("flash_bwd_f32", "flash_bwd_dkv_f32x3_kernel")) for d in (64, 128, 256)]
     for source, kernel, d in (("flash_fwd_wgmma", "flash_fwd_wgmma_kernel", 128),
                               ("flash_fwd_wgmma", "flash_fwd_wgmma_kernel", 256),
+                              ("flash_bwd_wgmma", "flash_bwd_dq_wgmma_kernel", 64),
                               ("flash_bwd_wgmma", "flash_bwd_dq_wgmma_kernel", 128),
                               ("flash_bwd_wgmma", "flash_bwd_dkv_wgmma_kernel", 128),
                               ("flash_bwd_wgmma", "flash_bwd_dq_wgmma_kernel", 256),
@@ -439,6 +477,22 @@ def phase_build():
                 if f"{kernel}ILi{d}E" in k}
         if not main or any(main.values()):
             raise SystemExit(f"{kernel} at head_dim {d} spills: {main}")
+    # the head_dim-64 designs (gpt_125m's): one kernel each, no template
+    for source, kernel in (("flash_fwd_d64", "flash_fwd_d64_kernel"),
+                           ("flash_bwd_d64", "flash_bwd_dkv_d64_kernel")):
+        main = {k: v for k, v in out[source]["spills"].items() if kernel in k}
+        if not main or any(main.values()):
+            raise SystemExit(f"{kernel} spills: {main}")
+        lib = ctypes.CDLL(str(built[source][0]))
+        for fn in ("smem_bytes", "ctas_per_sm"):
+            getattr(lib, f"ray_tpu_{source}_{fn}").argtypes = [ctypes.c_int]
+        smem = getattr(lib, f"ray_tpu_{source}_smem_bytes")(64)
+        ctas = getattr(lib, f"ray_tpu_{source}_ctas_per_sm")(64)
+        print(f"[build] {kernel} at head_dim 64: {smem} bytes of dynamic shared memory per "
+              f"CTA (of 232448), {ctas} CTAs resident per SM, spill bytes {main}")
+        if not 0 < smem <= 232448 or ctas < 1:
+            raise SystemExit(f"{kernel} asks for {smem} bytes of shared memory, {ctas} CTAs an SM")
+        out[source].update(smem_bytes={64: smem}, ctas_per_sm={64: ctas})
     # dynamic shared memory, which the compiler's report does not show
     fwd_lib = ctypes.CDLL(str(built["flash_fwd_wgmma"][0]))
     fwd_lib.ray_tpu_flash_fwd_wgmma_smem_bytes.argtypes = [ctypes.c_int]
@@ -529,7 +583,7 @@ def phase_kernel_vs_plain():
         ("gpt_1b_moe_b8", 8, 16, 2048, 2048, 128, True, torch.bfloat16),
         ("gpt_1b", 4, 16, 2048, 2048, 128, True, torch.bfloat16),
         ("gpt_1b_pp_mb3", 3, 16, 2048, 2048, 128, True, torch.bfloat16),
-        ("d64_gpt_125m", 4, 12, 2048, 2048, 64, True, torch.bfloat16),
+        *D64_CASES,
         ("d256_gpt_j", 1, 16, 2048, 2048, 256, True, torch.bfloat16),
         ("suffix_tq256_tkv2048", 4, 16, 256, 2048, 128, True, torch.bfloat16),
         ("ragged_tkv72_full", 4, 16, 64, 72, 128, False, torch.bfloat16),
@@ -539,6 +593,7 @@ def phase_kernel_vs_plain():
         *SMALL_D_CASES,
         ("f32_ragged_d64", 1, 4, 200, 264, 64, True, torch.float32),
         *F32_CASES,
+        *F16_CASES,
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
@@ -548,10 +603,11 @@ def phase_kernel_vs_plain():
         v = torch.randn(b, h, t_kv, d, device="cuda", dtype=dtype, generator=gen)
         scale = 1.0 / d ** 0.5
         design = attn.FWD_DESIGNS[(d, dtype)]
-        if dtype == torch.float32 and design.name != "tf32x3":
-            raise SystemExit(f"FWD_DESIGNS sends float32 head_dim {d} to {design.name}")
-        if dtype == torch.bfloat16 and d in (16, 32) and design.name != "persistent":
-            raise SystemExit(f"FWD_DESIGNS sends bf16 head_dim {d} to {design.name}")
+        want = ("tf32x3" if dtype == torch.float32 else
+                {16: "persistent", 32: "persistent", 64: "d64"}.get(d, "wgmma"))
+        if design.name != want:
+            raise SystemExit(f"FWD_DESIGNS sends {dtype} head_dim {d} to {design.name}, "
+                             f"expected {want}")
         before = _launch_counts()
         out, lse = attn.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
         launched = dict(zip(COUNTS, (a - b for a, b in zip(_launch_counts(), before))))
@@ -633,7 +689,34 @@ SMALL_D_CASES = [
     ("d16_tiny", 2, 4, 24, 40, 16, True, torch.bfloat16),
     ("d32_tiny_cfg", 2, 8, 256, 256, 32, True, torch.bfloat16),
 ]
-CHECK_ONLY = {name for name, *_ in SMALL_D_CASES[2:-2]}
+# bf16 at head_dim 64, in both phases: gpt_125m's heads (12 x 64, t=2048,
+# causal) at b=4 and at 4h's (and bench.py's) b=16, timed; then, checked
+# only, ragged q and kv, q the suffix of kv, rows that see no key and a
+# ragged non-causal pair (ragged ends inside the d64 forward's 128-row items
+# and the dK/dV kernel's 128-row Q tiles)
+D64_CASES = [
+    ("d64_gpt_125m", 4, 12, 2048, 2048, 64, True, torch.bfloat16),
+    ("d64_gpt_125m_b16", 16, 12, 2048, 2048, 64, True, torch.bfloat16),
+    ("d64_ragged_tq200_tkv264", 2, 12, 200, 264, 64, True, torch.bfloat16),
+    ("d64_suffix_tq320_tkv2048", 1, 12, 320, 2048, 64, True, torch.bfloat16),
+    ("tq_gt_tkv_d64", 1, 2, 160, 64, 64, True, torch.bfloat16),
+    ("d64_tq_gt_tkv_t520", 1, 4, 520, 200, 64, True, torch.bfloat16),
+    ("d64_noncausal_tq200_tkv264", 2, 4, 200, 264, 64, False, torch.bfloat16),
+]
+# float16 at head_dim 64, 128 and 256 (the bf16 kernels' float16 builds), in
+# both phases, checked only, last (so every earlier case keeps the inputs
+# the seeded stream gave it before): gpt_125m's heads at b=4, ragged, rows
+# that see no key, non-causal
+F16_CASES = [
+    ("f16_d64_gpt_125m", 4, 12, 2048, 2048, 64, True, torch.float16),
+    ("f16_d64_ragged_tq200_tkv264", 2, 12, 200, 264, 64, True, torch.float16),
+    ("f16_d64_tq_gt_tkv", 1, 2, 160, 64, 64, True, torch.float16),
+    ("f16_d128_ragged_tq200_tkv264", 2, 16, 200, 264, 128, True, torch.float16),
+    ("f16_d128_noncausal_t384", 2, 16, 384, 384, 128, False, torch.float16),
+    ("f16_d256_ragged_tq200_tkv264", 2, 16, 200, 264, 256, True, torch.float16),
+]
+CHECK_ONLY = ({name for name, *_ in SMALL_D_CASES[2:-2]}
+              | {name for name, *_ in D64_CASES[2:]} | {name for name, *_ in F16_CASES})
 
 # float32, in both phases: train_f32's shape (gpt_1b at b=4), gpt_125m's and
 # gpt_j_6b's heads, ragged tiles (at 128 and at 256, where the forward and
@@ -657,7 +740,7 @@ BWD_CASES = [
     ("gpt_1b_moe_b8", 8, 16, 2048, 2048, 128, True, torch.bfloat16),
     ("gpt_1b", 4, 16, 2048, 2048, 128, True, torch.bfloat16),
     ("gpt_1b_pp_mb3", 3, 16, 2048, 2048, 128, True, torch.bfloat16),
-    ("d64_gpt_125m", 4, 12, 2048, 2048, 64, True, torch.bfloat16),
+    *D64_CASES,
     ("d256_gpt_j", 1, 16, 2048, 2048, 256, True, torch.bfloat16),
     ("d256_b2", 2, 16, 2048, 2048, 256, True, torch.bfloat16),
     ("d256_noncausal", 1, 16, 2048, 2048, 256, False, torch.bfloat16),
@@ -669,11 +752,11 @@ BWD_CASES = [
     ("ragged_t2056_causal", 1, 16, 2056, 2056, 128, True, torch.bfloat16),
     ("noncausal", 4, 16, 2048, 2048, 128, False, torch.bfloat16),
     ("tq_gt_tkv_empty_rows", 1, 2, 160, 64, 128, True, torch.bfloat16),
-    ("tq_gt_tkv_d64", 1, 2, 160, 64, 64, True, torch.bfloat16),
     ("noncausal_t384", 2, 16, 384, 384, 128, False, torch.bfloat16),
     *SMALL_D_CASES,
     ("f32_ragged_d64", 1, 4, 200, 264, 64, True, torch.float32),
     *F32_CASES,
+    *F16_CASES,
 ]
 
 
@@ -690,20 +773,24 @@ def phase_bwd_kernels_vs_plain():
                        for t in (t_q, t_kv, t_kv, t_q))
         scale = 1.0 / d ** 0.5
         design = attn.BWD_DESIGNS[(d, dtype)]
-        if dtype == torch.bfloat16 and d in (64, 128, 256) and design.name != "wgmma":
-            raise SystemExit(f"BWD_DESIGNS sends bf16 head_dim {d} to {design.name}")
-        if dtype == torch.bfloat16 and d in (16, 32) and design.name != "persistent":
-            raise SystemExit(f"BWD_DESIGNS sends bf16 head_dim {d} to {design.name}")
-        if dtype == torch.float32 and design.name != "tf32x3":
-            raise SystemExit(f"BWD_DESIGNS sends float32 head_dim {d} to {design.name}")
+        names = {"dq": design.dq.name, "dkv": design.dkv.name}
+        want = ({"dq": "tf32x3", "dkv": "tf32x3"} if dtype == torch.float32 else
+                {16: {"dq": "persistent", "dkv": "persistent"},
+                 32: {"dq": "persistent", "dkv": "persistent"},
+                 64: {"dq": "wgmma", "dkv": "d64"}}.get(d, {"dq": "wgmma", "dkv": "wgmma"}))
+        if names != want:
+            raise SystemExit(f"BWD_DESIGNS sends {dtype} head_dim {d} to {names}, "
+                             f"expected {want}")
         out, lse = attn.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
         before = _launch_counts()
         got = attn.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, scale=scale)
         launched = dict(zip(COUNTS, (a - b for a, b in zip(_launch_counts(), before))))
-        if any(launched[f"flash_bwd_{kernel}{suffix}"] != 1 for kernel in ("dq", "dkv")
-               for suffix in ("", f"_{design.name}")):
-            raise SystemExit(f"case {name}: the backward launched {launched}, expected one "
-                             f"dQ and one dK/dV launch on the {design.name} design")
+        expected = {name: n for kernel in ("dq", "dkv")
+                    for name, n in ((f"flash_bwd_{kernel}", 1),
+                                    (f"flash_bwd_{kernel}_{names[kernel]}", 1))}
+        if {n: c for n, c in launched.items() if c} != expected:
+            raise SystemExit(f"case {name}: the backward launched {launched}, expected "
+                             f"{expected}")
         want = attn.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal,
                                               scale=scale)
         torch.cuda.synchronize()
@@ -715,11 +802,15 @@ def phase_bwd_kernels_vs_plain():
         ok = all(e <= tol for e in row_errs.values()) and all(
             bool(torch.isfinite(x).all()) for x in got)
         row = dict(case=name, shape=[b, h, t_q, t_kv, d], causal=causal,
-                   dtype=str(dtype).replace("torch.", ""), design=design.name,
-                   source=f"ray_tpu_torch/ops/csrc/{design.source}.cu", max_abs_err=errs,
+                   dtype=str(dtype).replace("torch.", ""),
+                   design=names["dq"] if names["dq"] == names["dkv"] else
+                   f"{names['dq']}/{names['dkv']}", designs=names,
+                   sources={kn: f"ray_tpu_torch/ops/csrc/{getattr(design, kn).source}.cu"
+                            for kn in ("dq", "dkv")},
+                   source=f"ray_tpu_torch/ops/csrc/{design.dq.source}.cu", max_abs_err=errs,
                    row_err=row_errs, row_err_tol=tol, ok=ok)
         rows.append(row)
-        verdict = (f"[bwd] {name:<22} {str(row['shape']):<28} {design.name:<8} worst-row err "
+        verdict = (f"[bwd] {name:<22} {str(row['shape']):<28} {row['design']:<9} worst-row err "
                    f"dq {row_errs['dq']:.2e} dk {row_errs['dk']:.2e} dv {row_errs['dv']:.2e} "
                    f"(limit {tol:.0e}), max abs err {errs['dq']:.2e} {errs['dk']:.2e} "
                    f"{errs['dv']:.2e} {'ok' if ok else 'FAIL'}")
@@ -776,12 +867,14 @@ def phase_bwd_kernels_vs_plain():
 
 # the launch counts read around each path: every launch of each kernel, and
 # each kernel's by design (the wgmma kernels are the bf16 paths' at head_dim
-# 64 and up; at 16 and 32 the forward and the backward are persistent's;
-# tf32x3 float32)
+# 128 and 256, and dQ's at 64; d64 the forward's and dK/dV's at 64; at 16
+# and 32 the forward and the backward are persistent's; tf32x3 float32;
+# plain every input that no kernel takes, which only the plain_design phase
+# may launch)
 KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-DESIGNS = {"flash_fwd": ("wgmma", "persistent", "tf32x3"),
-           "flash_bwd_dq": ("wgmma", "persistent", "tf32x3"),
-           "flash_bwd_dkv": ("wgmma", "persistent", "tf32x3")}
+DESIGNS = {"flash_fwd": ("wgmma", "d64", "persistent", "tf32x3", "plain"),
+           "flash_bwd_dq": ("wgmma", "persistent", "tf32x3", "plain"),
+           "flash_bwd_dkv": ("wgmma", "d64", "persistent", "tf32x3", "plain")}
 COUNTS = KERNEL_NAMES + tuple(
     f"{kernel}_{design}" for kernel in KERNEL_NAMES for design in DESIGNS[kernel])
 
@@ -882,14 +975,15 @@ def single_device(cfg, opt):
 
 
 def run_train(cfg, tokens, steps: int, fwd_per_layer: int, label: str, profile: bool,
-              build=single_device, microbatches: int = 1, designs=("wgmma", "wgmma")):
+              build=single_device, microbatches: int = 1,
+              designs=("wgmma", "wgmma", "wgmma")):
     """Train ``cfg`` on the card from fresh seed-0 weights on one repeated
     batch (``build(cfg, optimizer) -> (state, step)``, by default the
     single-device step): one warm-up step, then ``steps`` timed steps.
     Gates: per step ``fwd_per_layer * num_layers * microbatches`` forward
     launches and ``num_layers * microbatches`` of each backward kernel (the
     pipelined step runs every layer once per microbatch), all on the
-    forward's and the backward's ``designs``; loss
+    forward's, dQ's and dK/dV's ``designs`` (none on plain); loss
     and grad norm finite; the last loss below the first; parameters and
     Adam moments still in ``cfg.param_dtype`` (optax's adamw keeps the
     moments in the parameters' dtype). Returns the report; the state is
@@ -918,9 +1012,8 @@ def run_train(cfg, tokens, steps: int, fwd_per_layer: int, label: str, profile: 
     per_layer = cfg.num_layers * microbatches
     expected = {"flash_fwd": fwd_per_layer * per_layer, "flash_bwd_dq": per_layer,
                 "flash_bwd_dkv": per_layer}
-    fwd_design, bwd_design = designs
-    expected.update({f"{name}_{fwd_design if name == 'flash_fwd' else bwd_design}": n
-                     for name, n in expected.items()})
+    expected.update({f"{name}_{design}": n
+                     for (name, n), design in zip(list(expected.items()), designs)})
     want = [expected.get(name, 0) for name in COUNTS]
     if any(c != want for c in per_step):
         raise SystemExit(f"{label}: launches per step {dict(zip(COUNTS, zip(*per_step)))}, "
@@ -961,7 +1054,7 @@ def run_train(cfg, tokens, steps: int, fwd_per_layer: int, label: str, profile: 
         report["profile"] = profile_window(
             lambda: (step(state, tokens), torch.cuda.synchronize()),
             f"one {label} train step, b={batch} t={seq}")
-    report["designs"] = dict(zip(("flash_fwd", "flash_bwd"), designs))
+    report["designs"] = dict(zip(KERNEL_NAMES, designs))
     del state, step, metrics
     torch.cuda.empty_cache()
     return report
@@ -1073,7 +1166,7 @@ def phase_train_f32(batch: int, seq: int, steps: int, profile: bool):
     cfg = gpt.gpt_1b(dtype=torch.float32, ce_chunk=512)
     rep = run_train(cfg, _train_tokens(cfg, batch, seq), steps, 2,
                     "gpt_1b float32 (GEMMs on the CUDA cores)", profile,
-                    designs=("tf32x3", "tf32x3"))
+                    designs=("tf32x3",) * 3)
     rep.update(dtype=str(cfg.dtype), num_params=cfg.num_params())
     flash = rep.get("profile", {}).get("groups_ms", {}).get("flash kernels")
     print(f"[train_f32] {cfg.num_params() / 1e9:.3f} B parameters, compute {cfg.dtype}, "
@@ -1104,7 +1197,7 @@ def phase_train_nano_bf16(batch: int, seq: int, steps: int):
 
     tokens = _train_tokens(cfg, batch, seq)
     rep = run_train(cfg, tokens, steps, 2, "gpt_nano bf16 compute / f32 master", True,
-                    build=build, designs=("persistent", "persistent"))
+                    build=build, designs=("persistent",) * 3)
     opt = training.default_optimizer(1e-4)
     cpu_state = training.init_train_state({n: p.clone() for n, p in params0.items()}, opt)
     cpu_step = training.make_train_step(gpt.gpt_nano(), opt, device="cpu")
@@ -1120,6 +1213,189 @@ def phase_train_nano_bf16(batch: int, seq: int, steps: int):
         raise SystemExit(f"train_nano_bf16: the first loss differs from the CPU's float32 "
                          f"step by {rel}")
     return rep
+
+
+# 4h: gpt_125m's warm-up loss and attention gradients in bf16 compute on the
+# card vs the same step in float32 on the card from the same weights and
+# batch (the float32 step runs the tf32x3 kernels, so the check does not
+# lean on the d64 designs). The loss: bf16 rounds every activation, P and
+# the GEMMs' inputs (2^-9 relative each, random in sign) through 12 layers,
+# and the loss averages 32768 tokens' terms of ~ln(50304); at these random
+# weights it is ~ln(vocab) whatever attention gives, so the loss alone
+# cannot see a wrong kernel. The gradients of the q, k and v projections
+# (x^T dq, x^T dk, x^T dv over the 12 layers, each kind's norm of the
+# difference over the float32 step's norm) are what dQ and dK/dV move: on an
+# H100 they read 1.6e-2 (q, k) and 8.8e-3 (v), bf16 rounding alone, and a
+# wrong kernel moves them by order 1: dK and dV swapped reads 1.0, a zeroed
+# dq 1.0 (the controls, computed from the same gradients, must fail the
+# limit, which sits three times above the readings).
+LOSS_125M_RTOL = 5e-3
+ATTN_GRAD_125M_RTOL = 5e-2
+
+
+def _attn_grads(cfg, params0, tokens):
+    """(loss, {"q", "k", "v": the gradients of that projection's weight in
+    every layer, flattened and joined, float32}, launches by counter) of one
+    forward and backward of ``cfg`` on the card from ``params0``."""
+    from ray_tpu_torch.models import gpt, training
+
+    params = {n: p.to("cuda") for n, p in params0.items()}
+    names = [n for n in params if re.fullmatch(r"blocks\.\d+\.attn\.[qkv]\.weight", n)]
+    for n in names:
+        params[n].requires_grad_(True)
+    loss_fn = training._loss_fn(cfg, gpt.GPT(cfg, device="meta"))
+    before = _launch_counts()
+    with torch.enable_grad():
+        loss, _ = loss_fn(params, tokens)
+        grads = torch.autograd.grad(loss, [params[n] for n in names])
+    torch.cuda.synchronize()
+    launched = dict(zip(COUNTS, (a - b for a, b in zip(_launch_counts(), before))))
+    by_kind = {kind: torch.cat([g.float().flatten() for n, g in zip(names, grads)
+                                if n.endswith(f".{kind}.weight")]) for kind in "qkv"}
+    return float(loss.detach()), by_kind, {n: c for n, c in launched.items() if c}
+
+
+def phase_train_125m(batch: int, seq: int, steps: int):
+    """4h: gpt_125m (12 layers, 12 heads x 64, d_model 768, vocab 50304) at
+    full width and depth in bf16 compute with float32 master weights and
+    moments, remat "nothing", at bench.py's 125m cell (b=16, t=2048,
+    ce_chunk 256): its attention runs the bf16 head_dim-64 kernels, the
+    forward on the d64 design (2 * num_layers = 24 launches a step), dQ on
+    wgmma and dK/dV on d64 (12 each), none on plain. run_train's gates, with
+    one more step under torch.profiler for the idle share; the warm-up
+    step's loss within LOSS_125M_RTOL of the same step in float32 on the card
+    from the same weights and batch, and the gradients of the q, k and v
+    projections of a bf16 forward and backward within ATTN_GRAD_125M_RTOL of
+    the float32 one's, where the controls (dK and dV swapped, dq zeroed)
+    fail it."""
+    from ray_tpu_torch.models import gpt, inference, training
+
+    cfg = gpt.gpt_125m()  # bf16 compute, float32 parameters and moments
+    params0 = inference.init_params(cfg, device="cpu", seed=0)
+
+    def build(cfg_, opt):
+        state = training.init_train_state({n: p.to("cuda") for n, p in params0.items()}, opt)
+        return state, training.make_train_step(cfg_, opt, device="cuda")
+
+    tokens = _train_tokens(cfg, batch, seq)
+    rep = run_train(cfg, tokens, steps, 2, "gpt_125m bf16 compute / f32 master", True,
+                    build=build, designs=("d64", "wgmma", "d64"))
+    layers = cfg.num_layers
+    want = {"bf16": {"flash_fwd": 2 * layers, "flash_fwd_d64": 2 * layers,
+                     "flash_bwd_dq": layers, "flash_bwd_dq_wgmma": layers,
+                     "flash_bwd_dkv": layers, "flash_bwd_dkv_d64": layers},
+            "float32": {"flash_fwd": 2 * layers, "flash_fwd_tf32x3": 2 * layers,
+                        **{f"flash_bwd_{k}{s}": layers for k in ("dq", "dkv")
+                           for s in ("", "_tf32x3")}}}
+    grads, losses = {}, {}
+    for name, cfg_ in (("bf16", cfg), ("float32", gpt.gpt_125m(dtype=torch.float32))):
+        losses[name], grads[name], launched = _attn_grads(cfg_, params0, tokens)
+        if launched != want[name]:
+            raise SystemExit(f"train_125m: the {name} gradient pass launched {launched}, "
+                             f"expected {want[name]}")
+        torch.cuda.empty_cache()
+    g16, g32 = grads["bf16"], grads["float32"]
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+    grad_err = {kind: rel(g16[kind], g32[kind]) for kind in "qkv"}
+    controls = {"dk and dv swapped": min(rel(g16["k"], g32["v"]), rel(g16["v"], g32["k"])),
+                "dq zeroed": rel(torch.zeros_like(g32["q"]), g32["q"])}
+    f32_loss = losses["float32"]
+    rel_loss = abs(rep["warmup_loss"] / f32_loss - 1)
+    flops = rep["train_step_flops"]
+    rep.update(num_params=cfg.num_params(), f32_warmup_loss=f32_loss,
+               warmup_loss_rel_diff=rel_loss, loss_rtol=LOSS_125M_RTOL,
+               bf16_grad_pass_loss=losses["bf16"], attn_grad_rel_err=grad_err,
+               attn_grad_rtol=ATTN_GRAD_125M_RTOL, attn_grad_controls=controls,
+               idle_share=rep["profile"]["idle_share"])
+    print(f"[train_125m] {cfg.num_params() / 1e6:.1f} M parameters, {cfg.num_layers} layers, "
+          f"{cfg.num_heads} heads x {cfg.head_dim}; warm-up loss {rep['warmup_loss']!r} (bf16) "
+          f"vs {f32_loss!r} (float32 on the card), rel {rel_loss:.2e} (limit {LOSS_125M_RTOL}); "
+          f"q/k/v projection gradients vs float32 rel "
+          f"{', '.join(f'{k} {v:.3e}' for k, v in grad_err.items())} (limit "
+          f"{ATTN_GRAD_125M_RTOL}; controls "
+          f"{', '.join(f'{k} {v:.3f}' for k, v in controls.items())}); "
+          f"{rep['ms_per_step']:.1f} ms per step, {rep['tokens_per_s']:.0f} tokens/s, MFU "
+          f"{100 * rep['mfu']:.1f}% of 989 TFLOP/s ({flops / 1e12:.2f} TFLOP a step), idle "
+          f"share {rep['idle_share']:.3f}")
+    if not rel_loss <= LOSS_125M_RTOL:
+        raise SystemExit(f"train_125m: the first loss differs from the float32 step by "
+                         f"{rel_loss}")
+    if not all(e <= ATTN_GRAD_125M_RTOL for e in grad_err.values()):
+        raise SystemExit(f"train_125m: the attention projections' gradients differ from the "
+                         f"float32 step's by {grad_err}")
+    if not all(c > ATTN_GRAD_125M_RTOL for c in controls.values()):
+        raise SystemExit(f"train_125m: a control passes the gradient limit: {controls}")
+    return rep
+
+
+def phase_plain_design():
+    """3b: what the reference computes beyond the kernels' first inputs, on
+    the card, once each, causal, through dot_product_attention with a
+    backward: the plain design at head_dim 48 in bf16 and 16 in float16 (the
+    reference's XLA route), and the kernels at head_dim 64 in float16 and in
+    bf16 at a negative scale (the forward's sign handed to q). Out and dq,
+    dk, dv held to the CPU's (ops/tolerance.py's limits for the dtype, row
+    by row): the plain design's to the same function on the CPU, the
+    kernels' to their plain backward on the CPU from the card's out (the
+    backward reads out through delta, where a row with few keys cancels, so
+    the forward kernel's rounding of P moves such a row's dq by more than
+    the backward's own), and the
+    counters of the case's designs risen by exactly one forward and one
+    launch of each backward kernel, none of any other design."""
+    from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.ops.tolerance import BWD_TOL, FWD_ROW_TOL, row_err
+
+    rows = []
+    gen = torch.Generator().manual_seed(9)
+    d64 = ("d64", "wgmma", "d64")
+    for name, shape, dtype, scale, designs in (
+            ("plain_d48_bf16", (2, 12, 256, 256, 48), torch.bfloat16, None, ("plain",) * 3),
+            ("plain_d16_f16", (2, 12, 256, 256, 16), torch.float16, None, ("plain",) * 3),
+            ("kernels_d64_f16", (2, 12, 256, 256, 64), torch.float16, None, d64),
+            ("kernels_d64_scale_neg", (2, 12, 256, 256, 64), torch.bfloat16, -0.125, d64)):
+        b, h, t_q, t_kv, d = shape
+        cpu = [torch.randn(b, h, t, d, generator=gen).to(dtype).requires_grad_()
+               for t in (t_q, t_kv, t_kv)]
+        g = torch.randn(b, h, t_q, d, generator=gen).to(dtype)
+        dev = [x.detach().cuda().requires_grad_() for x in cpu]
+        before = _launch_counts()
+        out = attn.dot_product_attention(*dev, causal=True, scale=scale)
+        out.backward(g.cuda())
+        torch.cuda.synchronize()
+        launched = dict(zip(COUNTS, (a - c for a, c in zip(_launch_counts(), before))))
+        want = {n: 1 for n in ("flash_fwd", f"flash_fwd_{designs[0]}", "flash_bwd_dq",
+                               f"flash_bwd_dq_{designs[1]}", "flash_bwd_dkv",
+                               f"flash_bwd_dkv_{designs[2]}")}
+        out_cpu = attn.dot_product_attention(*cpu, causal=True, scale=scale)
+        out_cpu.backward(g)
+        ref_grads = [x.grad for x in cpu]
+        if designs != ("plain",) * 3:
+            qkv = [x.detach() for x in cpu]
+            s = d ** -0.5 if scale is None else scale
+            _, lse = attn.flash_attention_fwd_plain(*qkv, causal=True, scale=s)
+            ref_grads = attn.flash_attention_bwd_plain(*qkv, out.detach().cpu(), lse, g,
+                                                       causal=True, scale=s)
+        errs = {"out": row_err(out.detach().cpu(), out_cpu.detach()),
+                **{n: row_err(x.grad.cpu(), y) for n, x, y in zip(("dq", "dk", "dv"),
+                                                                  dev, ref_grads)}}
+        ok = (errs["out"] <= FWD_ROW_TOL[dtype]
+              and all(errs[n] <= BWD_TOL[dtype] for n in ("dq", "dk", "dv"))
+              and {n: c for n, c in launched.items() if c} == want)
+        print(f"[plain] {name} {list(shape)} {str(dtype).replace('torch.', '')} scale "
+              f"{scale}, designs {'/'.join(designs)}: worst-row "
+              f"err vs the CPU {', '.join(f'{k} {v:.2e}' for k, v in errs.items())} (limits "
+              f"{FWD_ROW_TOL[dtype]:.0e} / {BWD_TOL[dtype]:.0e}); launched "
+              f"{ {n: c for n, c in launched.items() if c} } {'ok' if ok else 'FAIL'}")
+        rows.append(dict(case=name, shape=list(shape), dtype=str(dtype), scale=scale,
+                         designs=list(designs), row_err=errs,
+                         launches={n: c for n, c in launched.items() if c}, ok=ok))
+        if not ok:
+            raise SystemExit(f"3b: {name} disagrees with the CPU or launched "
+                             f"{launched}, expected {want}")
+    return rows
 
 
 def phase_forward(cfg, params, batch: int, seq: int, n_forward: int):
@@ -1140,7 +1416,7 @@ def phase_forward(cfg, params, batch: int, seq: int, n_forward: int):
     counts = dict(zip(COUNTS, _launch_counts()))
     launches = counts["flash_fwd"]
     want = n_forward * cfg.num_layers
-    if launches != want or counts["flash_fwd_wgmma"] != want:
+    if launches != want or counts["flash_fwd_wgmma"] != want or counts["flash_fwd_plain"]:
         raise SystemExit(f"flash forward launched {counts}, expected {want}, all on "
                          f"the wgmma design")
     if tuple(logits.shape) != (batch, seq, cfg.vocab_size) or logits.dtype != torch.float32:
@@ -1412,7 +1688,7 @@ def phase_lse_grad():
     rows = []
     for d, dtype in ((128, torch.bfloat16), (128, torch.float32), (256, torch.bfloat16)):
         scale = 1.0 / d ** 0.5
-        design = attn.BWD_DESIGNS[(d, dtype)].name
+        design = attn.BWD_DESIGNS[(d, dtype)]
         for causal in (True, False):
             q, k, v, do = (torch.randn(b, h, t, d, device="cuda", dtype=dtype, generator=gen)
                            for _ in range(4))
@@ -1454,7 +1730,8 @@ def phase_lse_grad():
             got = kernel_path()
             launched = dict(zip(COUNTS, (a - c for a, c in zip(_launch_counts(), before))))
             expect = {f"flash_fwd_{attn.FWD_DESIGNS[(d, dtype)].name}": 1,
-                      f"flash_bwd_dq_{design}": 1, f"flash_bwd_dkv_{design}": 1}
+                      f"flash_bwd_dq_{design.dq.name}": 1,
+                      f"flash_bwd_dkv_{design.dkv.name}": 1}
             if any(launched[name] != n for name, n in expect.items()):
                 raise SystemExit(f"lse_grad: launched {launched}, expected {expect}")
             want = plain_flash(got[0], got[1])
@@ -1474,7 +1751,8 @@ def phase_lse_grad():
             plain_ms = cuda_ms(autograd_plain, iters=3, warmup=1)
             name = f"lse_grad_d{d}_{str(dtype)[6:]}_{'causal' if causal else 'full'}"
             row = dict(case=name, shape=[b, h, t, t, d], causal=causal,
-                       dtype=str(dtype)[6:], design=design, row_err=errs,
+                       dtype=str(dtype)[6:],
+                       design={"dq": design.dq.name, "dkv": design.dkv.name}, row_err=errs,
                        row_err_vs_exact_route=exact_errs,
                        row_err_vs_autograd_not_gated=raw_errs,
                        flash_out_only_row_err_vs_autograd_not_gated=out_only_errs,
@@ -1487,7 +1765,7 @@ def phase_lse_grad():
             def fmt(e):
                 return " ".join(f"{n} {e[n]:.2e}" for n in ("dq", "dk", "dv"))
 
-            print(f"[lse_grad] {name:<24} {row['shape']} {design}: worst-row err vs plain "
+            print(f"[lse_grad] {name:<24} {row['shape']} {row['design']}: worst-row err vs plain "
                   f"flash out {errs['out']:.2e} {fmt(errs)}, vs autograd (delta's rounding "
                   f"in the lse cotangent) {fmt(exact_errs)} (limits {FWD_ROW_TOL[dtype]:.0e}"
                   f" / {BWD_TOL[dtype]:.0e}), lse {lse_err:.2e} (limit "
@@ -2544,6 +2822,7 @@ def main() -> int:
     report["build"] = phase_build()
     report["kernel_cases"] = phase_kernel_vs_plain()
     report["bwd_kernel_cases"] = phase_bwd_kernels_vs_plain()
+    report["plain_design"] = phase_plain_design()
     report["train"] = phase_train(batch=12, seq=2048, steps=5, profile=args.profile)
     report["remat_policies"] = phase_remat_policies(report["train"], steps=2,
                                                     profile=args.profile)
@@ -2553,6 +2832,7 @@ def main() -> int:
     report["train_gpt_j"] = phase_train_gpt_j(batch=1, seq=2048, steps=3, profile=args.profile)
     report["train_f32"] = phase_train_f32(batch=4, seq=2048, steps=2, profile=args.profile)
     report["train_nano_bf16"] = phase_train_nano_bf16(batch=512, seq=128, steps=3)
+    report["train_125m"] = phase_train_125m(batch=16, seq=2048, steps=3)
 
     cfg = gpt.gpt_1b(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
     params = init_params(cfg, device="cuda", seed=0)
@@ -2598,13 +2878,18 @@ def main() -> int:
     paths = {"train": report["train"], "remat_attn": report["remat_policies"]["attn"],
              "remat_dots": report["remat_policies"]["dots"], "train_moe": report["train_moe"],
              "train_gpt_j": report["train_gpt_j"], "train_f32": report["train_f32"],
-             "train_nano_bf16": report["train_nano_bf16"],
+             "train_nano_bf16": report["train_nano_bf16"], "train_125m": report["train_125m"],
              "forward": report["forward"], "server": report["server"],
              **{path: report[path] for path in sharded},
              "pp_train_ws1": report["pp_train_ws1"], "train_loop": report["train_loop"],
              "rl": report["rl"]}
     by_path = {name: {path: rep["launches"][name] for path, rep in paths.items()}
                for name in COUNTS}
+    # only the plain_design phase may take the plain design
+    plain = {f"{kernel}_plain": {path: n for path, n in by_path[f"{kernel}_plain"].items() if n}
+             for kernel in KERNEL_NAMES}
+    if any(plain.values()):
+        raise SystemExit(f"a path took the plain design: {plain}")
     # the case of phases 2 and 3 that holds each kernel to its plain version
     # at the shape each path gives it (the server launches no wgmma kernel)
     train_case = {"train": "gpt_1b_train_b12", "remat_attn": "gpt_1b_train_b12",
@@ -2670,25 +2955,27 @@ def main() -> int:
     # persistent backward pair at gpt_nano's working case, with 4g's launches
     # (its 3 timed steps), and the tiny flagship's head_dim-32 case under
     # "d32"
-    def small_d(rows, name, kernel, line):
+    def small_d(rows, name, kernel, line, path="train_nano_bf16"):
         row, shape = case(rows, name)
         if kernel == "flash_fwd":
             err, ms, event_ms = row["max_abs_err"], row["device_ms"], row["ms"]
             bound_ms, bound_by = row["bound_ms"], row["bound_by"]
+            design, source = row["design"], row["source"]
         else:
             k = kernel.removeprefix("flash_bwd_")
             err = (row["max_abs_err"]["dq"] if k == "dq" else
                    max(row["max_abs_err"]["dk"], row["max_abs_err"]["dv"]))
             ms, event_ms = row[f"{k}_device_ms"], row[f"{k}_ms"]
             bound_ms, bound_by = row[f"{k}_bound_ms"], row[f"{k}_bound_by"]
-        entry = dict(name=f"{kernel}_{row['design']}", route="cuda", source=row["source"],
+            design, source = row["designs"][k], row["sources"][k]
+        entry = dict(name=f"{kernel}_{design}", route="cuda", source=source,
                      replaces=f"ray_tpu/ops/attention.py:{line}",
-                     launches=by_path[f"{kernel}_{row['design']}"]["train_nano_bf16"],
+                     launches=by_path[f"{kernel}_{design}"][path],
                      max_abs_err=err, ms=ms, plain_ms=row["plain_ms"], bound_ms=bound_ms,
                      bound_by=bound_by, library_ms=row["library_device_ms"],
                      event_ms=event_ms, library_event_ms=row["library_ms"],
-                     ex2_floor_ms=row["ex2_floor_ms"], design=row["design"], shape=shape,
-                     launches_path="train_nano_bf16")
+                     ex2_floor_ms=row["ex2_floor_ms"], design=design, shape=shape,
+                     launches_path=path)
         if kernel != "flash_fwd":
             entry.update(plain_ms_computes=whole, library_ms_computes=whole)
         return entry
@@ -2699,6 +2986,17 @@ def main() -> int:
                 (report["kernel_cases"], "flash_fwd", 167),
                 (report["bwd_kernel_cases"], "flash_bwd_dq", 324),
                 (report["bwd_kernel_cases"], "flash_bwd_dkv", 394))]
+    # 4h's kernels (bf16 at head_dim 64): the d64 forward and dK/dV at 4h's
+    # case (b=16) with 4h's launches, b=4 under "b4"; the wgmma dQ at the
+    # same cases as the flash_bwd_dq entry's "d64"
+    d64 = [dict(small_d(rows, "d64_gpt_125m_b16", kernel, line, "train_125m"),
+                b4=small_d(rows, "d64_gpt_125m", kernel, line, "train_125m"))
+           for rows, kernel, line in ((report["kernel_cases"], "flash_fwd", 167),
+                                      (report["bwd_kernel_cases"], "flash_bwd_dkv", 394))]
+    dq_d64 = dict(small_d(report["bwd_kernel_cases"], "d64_gpt_125m_b16", "flash_bwd_dq", 324,
+                          "train_125m"),
+                  b4=small_d(report["bwd_kernel_cases"], "d64_gpt_125m", "flash_bwd_dq", 324,
+                             "train_125m"))
     kernels = {"kernels": [
         dict(name="flash_fwd", route="cuda", source=fwd_case["source"],
              replaces="ray_tpu/ops/attention.py:167",
@@ -2722,7 +3020,7 @@ def main() -> int:
              cases_by_path=bwd_cases,
              row_err=bwd_case["row_err"]["dq"], row_err_tol=bwd_case["row_err_tol"],
              plain_ms_computes=whole, library_ms_computes=whole, d256=d256["flash_bwd_dq"],
-             f32=f32["flash_bwd_dq"]),
+             f32=f32["flash_bwd_dq"], d64=dq_d64),
         dict(name="flash_bwd_dkv", route="cuda", source=bwd_case["source"],
              replaces="ray_tpu/ops/attention.py:394",
              launches=by_path[f"flash_bwd_dkv_{bwd_case['design']}"]["train"],
@@ -2739,6 +3037,7 @@ def main() -> int:
              f32=f32["flash_bwd_dkv"]),
         *f32.values(),
         *nano,
+        *d64,
     ]}
     report.update(kernels)
     if args.out:

@@ -18,25 +18,48 @@ a shorter q is the suffix of the kv context (``q_pos = q_idx + t_kv - t_q``).
 * ``flash_attention_fwd``, the forward kernel's wrapper, launches on CUDA
   tensors the hand-written Hopper kernel that the dispatch table
   ``FWD_DESIGNS`` names for (head_dim, dtype): ``csrc/flash_fwd_wgmma.cu``
-  (TMA, wgmma, warp-specialised; bf16 at head_dim 64, 128, 256),
+  (TMA, wgmma, warp-specialised; bf16 and float16 at head_dim 128, 256),
+  ``csrc/flash_fwd_d64.cu`` (the same machinery in a persistent grid whose
+  CTAs take (q tile, head) items from the launch's own counter; bf16 and
+  float16 at 64),
   ``csrc/flash_fwd_persistent.cu`` (a persistent grid of several CTAs an
   SM, a TMA ring; bf16 at head_dim 16, 32) or ``csrc/flash_fwd_f32.cu``
   (3xTF32 on mma.sync; float32 at every head_dim); ``csrc/flash_fwd.cu``
   (mma.sync), bf16 16/32's kernel before, is on no path.
-  It counts every launch in ``flash_fwd_launches`` and each design's in
-  ``flash_fwd_{wgmma,persistent,tf32x3}_launches``;
   ``flash_attention_bwd`` launches the dQ and dK/dV kernels
-  (``flash_bwd_dq``, ``flash_bwd_dkv``) of the design that the dispatch
-  table ``BWD_DESIGNS`` names: ``csrc/flash_bwd_wgmma.cu`` (TMA, wgmma,
-  warp-specialised; bf16 at head_dim 64, 128 and 256),
+  (``flash_bwd_dq``, ``flash_bwd_dkv``) that the dispatch table
+  ``BWD_DESIGNS`` names: ``csrc/flash_bwd_wgmma.cu`` (TMA, wgmma,
+  warp-specialised; bf16 and float16 at head_dim 64 (dQ only), 128 and
+  256), ``csrc/flash_bwd_d64.cu`` (dK/dV at bf16 and float16 64: 128-row Q
+  and dO tiles),
   ``csrc/flash_bwd_persistent.cu`` (a persistent grid of several CTAs an
   SM, a TMA ring; bf16 at head_dim 16 and 32) or ``csrc/flash_bwd_f32.cu``
   (3xTF32 on mma.sync; float32 at every head_dim); ``csrc/flash_bwd.cu``
-  (mma.sync), bf16 16/32's kernels before, is on no path. Launches count in
-  ``flash_bwd_dq_launches`` and ``flash_bwd_dkv_launches`` and in the
-  design's ``flash_bwd_{dq,dkv}_{wgmma,persistent,tf32x3}_launches``. On CPU
-  tensors the wrappers take the plain versions and count nothing. On a CUDA
-  tensor they launch or raise: they never fall back quietly.
+  (mma.sync), bf16 16/32's kernels before, is on no path.
+* Every (head_dim, dtype) that no hand-written design takes (the head_dims
+  outside ``HEAD_DIMS``, float16 at 16 and 32) goes to both tables' ``plain``
+  design: the reference's own route for the input, ``plain_attention_with_lse``
+  and its gradient ``plain_attention_bwd``. On CUDA tensors it computes
+  only where that route is the reference's ``_attention_xla``
+  (``_attention_plain``: head_dims that are neither 64 nor a multiple of
+  128, or lengths that are not multiples of 8); where the reference takes
+  its Pallas kernel and the port has none yet (head_dim 384, 512, ...) it
+  raises. On CPU tensors it computes either route
+  (``flash_attention_fwd_plain`` at the reference's tiles on the kernel
+  route).
+* The wgmma, d64 and persistent forward kernels take the row max of the
+  raw scores and fold the scale in after it, so they take a positive scale;
+  the wrapper gives them any other as the same scores, exactly: -q and
+  -scale for a negative one, zeros and 1 for 0 (``_positive_scale``). The
+  backward kernels take any scale.
+* Launches count in ``flash_fwd_launches``, ``flash_bwd_dq_launches`` and
+  ``flash_bwd_dkv_launches`` and in the design's
+  ``flash_fwd_<design>_launches`` and ``flash_bwd_{dq,dkv}_<design>_launches``
+  (``plain`` included: its computation on a CUDA tensor counts as its
+  launch). On CPU tensors the wrappers take the plain versions and count
+  nothing. On a CUDA tensor they launch or raise: the ``plain`` design is a
+  table row with its counters, and runs on the card only where the
+  reference runs no kernel either.
 * ``flash_fwd_op`` is the forward wrapper as the operator
   ``ray_tpu_torch::flash_fwd`` (``FLASH_FWD``), which the remat policy
   "attn" names; ``FlashAttention`` is the autograd Function over it and the
@@ -60,26 +83,73 @@ from torch.utils.checkpoint import checkpoint
 from ray_tpu_torch.ops import _build
 
 NEG_INF = -1e30
+#: the head_dims of the hand-written designs
 HEAD_DIMS = (16, 32, 64, 128, 256)
-_DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+_DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
+#: the reference's default flash tiles (``ray_tpu/ops/attention.py``'s
+#: ``dot_product_attention``: block_q = block_k = 512), which the plain
+#: design repeats where the reference takes its kernel
+REF_BLOCK = 512
 
 
 @dataclasses.dataclass(frozen=True)
 class FwdDesign:
-    """One hand-written flash forward kernel: its name, its source
-    ``csrc/<source>.cu`` and entry point, and its tiles (q rows and kv rows
-    per tile), which are the semantics of rows that see no key."""
+    """One flash forward design: its name, its source ``csrc/<source>.cu``
+    and entry point, its tiles (q rows and kv rows per tile), which are the
+    semantics of rows that see no key, and whether its entry takes an int32
+    item counter of its own after lse (``schedule``). Each launcher states
+    the grid it takes and refuses a larger one. The ``plain`` design
+    launches no kernel: no source."""
 
     name: str
-    source: str
-    entry: str
+    source: Optional[str]
+    entry: Optional[str]
     block_q: int
     block_k: int
+    schedule: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdKernel:
+    """One flash backward kernel: the design whose counter it carries, its
+    source ``csrc/<source>.cu`` and its entry point; the ``plain`` design's
+    has neither."""
+
+    name: str
+    source: Optional[str]
+    entry: Optional[str]
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdDesign:
+    """The dQ and dK/dV kernels of one (head_dim, dtype). The backward's
+    result does not depend on tiles (``flash_attention_bwd_plain``), so the
+    design names none."""
+
+    dq: BwdKernel
+    dkv: BwdKernel
+
+
+class DesignTable(dict):
+    """A dispatch table keyed on (head_dim, dtype): the hand-written design
+    of each key it holds, and its ``plain`` design for every other key
+    (``table[key]`` gives it; iteration and ``in`` see the held keys only)."""
+
+    def __init__(self, rows, plain):
+        super().__init__(rows)
+        self.plain = plain
+
+    def __missing__(self, key):
+        return self.plain
 
 
 _PERSISTENT = FwdDesign("persistent", "flash_fwd_persistent",
                         "ray_tpu_flash_fwd_persistent", 64, 64)
 _TF32X3 = FwdDesign("tf32x3", "flash_fwd_f32", "ray_tpu_flash_fwd_f32", 64, 64)
+_D64 = FwdDesign("d64", "flash_fwd_d64", "ray_tpu_flash_fwd_d64", 128, 128, schedule=True)
+#: no kernel: the reference's own route for the input (``plain_attention_with_lse``),
+#: at the reference's tiles where it takes its kernel
+_PLAIN = FwdDesign("plain", None, None, REF_BLOCK, REF_BLOCK)
 
 
 def _wgmma(block_k: int) -> FwdDesign:
@@ -88,81 +158,110 @@ def _wgmma(block_k: int) -> FwdDesign:
 
 #: the forward's dispatch table, keyed on (head_dim, dtype): the kernel each
 #: input launches on the card and the tiles the plain version repeats. Every
-#: design is a hand-written kernel; a launch that the kernel refuses raises.
-#: float32 runs 3xTF32 on the tensor cores (``flash_fwd_f32.cu``). Neither
-#: kernel of ``flash_fwd.cu`` is on a path: its float32 one (CUDA cores)
-#: ``ops/flash_fwd_f32_variants.py`` times beside ``flash_fwd_f32.cu``, its
-#: bf16 one (mma.sync) ``ops/flash_fwd_variants.py --small-d`` beside
-#: ``flash_fwd_persistent.cu``.
-FWD_DESIGNS = {
+#: design but ``plain`` is a hand-written kernel; a launch that the kernel
+#: refuses raises. float32 runs 3xTF32 on the tensor cores (``flash_fwd_f32.cu``),
+#: bf16 and float16 at head_dim 64 ``flash_fwd_d64.cu`` (a persistent grid;
+#: the wgmma kernel it took over from is timed beside it by
+#: ``ops/flash_fwd_variants.py --d64``), at 128 and 256 ``flash_fwd_wgmma.cu``.
+#: Every other key, the head_dims outside ``HEAD_DIMS`` and float16 at 16
+#: and 32 among them, takes ``plain``. Neither kernel of ``flash_fwd.cu`` is on a path:
+#: its float32 one (CUDA cores) ``ops/flash_fwd_f32_variants.py`` times
+#: beside ``flash_fwd_f32.cu``, its bf16 one (mma.sync)
+#: ``ops/flash_fwd_variants.py --small-d`` beside ``flash_fwd_persistent.cu``.
+FWD_DESIGNS = DesignTable({
     **{(d, torch.float32): _TF32X3 for d in HEAD_DIMS},
     (16, torch.bfloat16): _PERSISTENT,
     (32, torch.bfloat16): _PERSISTENT,
-    (64, torch.bfloat16): _wgmma(128),
-    (128, torch.bfloat16): _wgmma(128),
-    (256, torch.bfloat16): _wgmma(80),
-}
+    **{(64, dt): _D64 for dt in (torch.bfloat16, torch.float16)},
+    **{(128, dt): _wgmma(128) for dt in (torch.bfloat16, torch.float16)},
+    **{(256, dt): _wgmma(80) for dt in (torch.bfloat16, torch.float16)},
+}, _PLAIN)
 
-
-@dataclasses.dataclass(frozen=True)
-class BwdDesign:
-    """One pair of hand-written flash backward kernels: its name, its
-    source ``csrc/<source>.cu`` and the entry points of its dQ and dK/dV
-    kernels. The backward's result does not depend on its tiles
-    (``flash_attention_bwd_plain``), so the design names none."""
-
-    name: str
-    source: str
-    dq_entry: str
-    dkv_entry: str
-
-
-_BWD_PERSISTENT = BwdDesign("persistent", "flash_bwd_persistent",
-                            "ray_tpu_flash_bwd_dq_persistent",
-                            "ray_tpu_flash_bwd_dkv_persistent")
-_BWD_WGMMA = BwdDesign("wgmma", "flash_bwd_wgmma", "ray_tpu_flash_bwd_dq_wgmma",
-                       "ray_tpu_flash_bwd_dkv_wgmma")
-_BWD_TF32X3 = BwdDesign("tf32x3", "flash_bwd_f32", "ray_tpu_flash_bwd_dq_f32",
-                        "ray_tpu_flash_bwd_dkv_f32")
+_BWD_PERSISTENT = BwdDesign(
+    BwdKernel("persistent", "flash_bwd_persistent", "ray_tpu_flash_bwd_dq_persistent"),
+    BwdKernel("persistent", "flash_bwd_persistent", "ray_tpu_flash_bwd_dkv_persistent"))
+_DQ_WGMMA = BwdKernel("wgmma", "flash_bwd_wgmma", "ray_tpu_flash_bwd_dq_wgmma")
+_BWD_WGMMA = BwdDesign(_DQ_WGMMA,
+                       BwdKernel("wgmma", "flash_bwd_wgmma", "ray_tpu_flash_bwd_dkv_wgmma"))
+_BWD_D64 = BwdDesign(_DQ_WGMMA, BwdKernel("d64", "flash_bwd_d64", "ray_tpu_flash_bwd_dkv_d64"))
+_BWD_TF32X3 = BwdDesign(BwdKernel("tf32x3", "flash_bwd_f32", "ray_tpu_flash_bwd_dq_f32"),
+                        BwdKernel("tf32x3", "flash_bwd_f32", "ray_tpu_flash_bwd_dkv_f32"))
+_BWD_PLAIN = BwdDesign(BwdKernel("plain", None, None), BwdKernel("plain", None, None))
 
 #: the backward's dispatch table, keyed on (head_dim, dtype): the kernels each
-#: input launches on the card. At head_dim 256 the wgmma design's dK/dV
-#: kernel splits dV and dK between its warpgroups (``flash_bwd_wgmma.cu``);
-#: bf16 at 16 and 32 runs ``flash_bwd_persistent.cu``; float32 runs 3xTF32
-#: on the tensor cores (``flash_bwd_f32.cu``). No kernel of ``flash_bwd.cu``
-#: is on a path: ``ops/flash_bwd_f32_variants.py`` times its float32 ones
-#: (CUDA cores) beside ``flash_bwd_f32.cu``, ``ops/flash_bwd_variants.py
-#: --small-d`` its bf16 ones (mma.sync) beside ``flash_bwd_persistent.cu``.
-BWD_DESIGNS = {
+#: input launches on the card. bf16 and float16 at 128 and 256 run
+#: ``flash_bwd_wgmma.cu`` (at 256 its dK/dV kernel splits dV and dK between
+#: its warpgroups); at 64 wgmma's dQ and ``flash_bwd_d64.cu``'s dK/dV
+#: (128-row Q and dO tiles; the wgmma dK/dV it took over from is timed
+#: beside it by ``ops/flash_bwd_variants.py --d64``); bf16 at 16 and 32 runs
+#: ``flash_bwd_persistent.cu``; float32 runs 3xTF32 on the tensor cores
+#: (``flash_bwd_f32.cu``). Every other key takes ``plain``: the gradient of
+#: the reference's own route. No kernel of ``flash_bwd.cu`` is on a path:
+#: ``ops/flash_bwd_f32_variants.py`` times its float32 ones (CUDA cores)
+#: beside ``flash_bwd_f32.cu``, ``ops/flash_bwd_variants.py --small-d`` its
+#: bf16 ones (mma.sync) beside ``flash_bwd_persistent.cu``.
+BWD_DESIGNS = DesignTable({
     **{(d, torch.float32): _BWD_TF32X3 for d in HEAD_DIMS},
     **{(d, torch.bfloat16): _BWD_PERSISTENT for d in (16, 32)},
-    **{(d, torch.bfloat16): _BWD_WGMMA for d in (64, 128, 256)},
-}
+    **{(64, dt): _BWD_D64 for dt in (torch.bfloat16, torch.float16)},
+    **{(d, dt): _BWD_WGMMA for d in (128, 256) for dt in (torch.bfloat16, torch.float16)},
+}, _BWD_PLAIN)
 
 #: launches of each kernel, counted where it is launched; a launch counts in
 #: its kernel's total (flash_fwd, flash_bwd_dq, flash_bwd_dkv) and in its
-#: design's count
+#: design's count (the plain design's "launch" is its computation on a CUDA
+#: tensor)
 flash_fwd_launches = 0
 flash_fwd_wgmma_launches = 0
+flash_fwd_d64_launches = 0
 flash_fwd_persistent_launches = 0
 flash_fwd_tf32x3_launches = 0
+flash_fwd_plain_launches = 0
 flash_bwd_dq_launches = 0
 flash_bwd_dq_wgmma_launches = 0
 flash_bwd_dq_persistent_launches = 0
 flash_bwd_dq_tf32x3_launches = 0
+flash_bwd_dq_plain_launches = 0
 flash_bwd_dkv_launches = 0
 flash_bwd_dkv_wgmma_launches = 0
+flash_bwd_dkv_d64_launches = 0
 flash_bwd_dkv_persistent_launches = 0
 flash_bwd_dkv_tf32x3_launches = 0
+flash_bwd_dkv_plain_launches = 0
 
 
 def fwd_tiles(head_dim: int, dtype: torch.dtype) -> Tuple[int, int]:
-    """(block_q, block_k) of the forward kernel that ``FWD_DESIGNS`` names
+    """(block_q, block_k) of the forward design that ``FWD_DESIGNS`` names
     for this head_dim and dtype: the one source of the tiles, read by the
     wrapper, the CPU path and the plain version. A (head_dim, dtype) that no
-    kernel takes, which only the CPU path runs, gets 64 x 64."""
-    design = FWD_DESIGNS.get((head_dim, dtype))
-    return (64, 64) if design is None else (design.block_q, design.block_k)
+    kernel takes gets the plain design's, the reference's 512 x 512."""
+    design = FWD_DESIGNS[(head_dim, dtype)]
+    return design.block_q, design.block_k
+
+
+# the forward designs that take the row max of the raw scores and fold the
+# scale into exp2 after it, so take a positive scale (``_positive_scale``)
+_POSITIVE_SCALE = ("wgmma", "persistent", "d64")
+
+
+def _positive_scale(q: torch.Tensor, scale: float) -> Tuple[torch.Tensor, float]:
+    """(q', scale') with scale' > 0 and scale' * q' K^T = scale * q K^T
+    exactly, for the forward kernels that take a positive scale: (-q, -scale)
+    for a negative scale, (zeros, 1) for 0 (a NaN scale stays, and the
+    kernel refuses it)."""
+    if scale > 0 or scale != scale:
+        return q, scale
+    if scale == 0:
+        return torch.zeros_like(q), 1.0
+    return torch.neg(q), -scale
+
+
+def reference_takes_kernel(head_dim: int, t_q: int, t_kv: int) -> bool:
+    """Whether the reference's dispatcher, on its accelerator, sends these
+    inputs to its Pallas kernel (head_dim a multiple of 128 or 64, both
+    lengths multiples of 8; ``ray_tpu/ops/attention.py:575-581``) rather
+    than to ``_attention_xla``."""
+    return (head_dim % 128 == 0 or head_dim == 64) and t_q % 8 == 0 and t_kv % 8 == 0
 
 
 # ---------------------------------------------------------------------------
@@ -173,6 +272,20 @@ def fwd_tiles(head_dim: int, dtype: torch.dtype) -> Tuple[int, int]:
 def _causal_mask(t_q: int, t_kv: int, device) -> torch.Tensor:
     q_pos = torch.arange(t_q, device=device)[:, None] + (t_kv - t_q)
     return q_pos >= torch.arange(t_kv, device=device)[None, :]
+
+
+def _plain_scores(q, k, causal: bool, scale: float, segment_ids=None) -> torch.Tensor:
+    """The float32 scores scale * Q K^T [b, h, t_q, t_kv], masked to NEG_INF
+    under the causal mask (q the suffix of kv) and across segments."""
+    t_q, t_kv = q.shape[-2], k.shape[-2]
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    mask = _causal_mask(t_q, t_kv, q.device)[None, None] if causal else None
+    if segment_ids is not None:
+        seg = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
+        mask = seg if mask is None else (mask & seg)
+    if mask is not None:
+        logits = torch.where(mask, logits, NEG_INF)
+    return logits
 
 
 def _attention_plain(
@@ -187,18 +300,53 @@ def _attention_plain(
     """Softmax attention over the whole [t_q, t_kv] score matrix (the
     reference's ``_attention_xla``). Scores are float32; a row that sees no
     key gets uniform weights, as the reference's softmax gives it."""
-    t_q, d = q.shape[-2:]
-    t_kv = k.shape[-2]
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    mask = _causal_mask(t_q, t_kv, q.device)[None, None] if causal else None
-    if segment_ids is not None:
-        seg = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
-        mask = seg if mask is None else (mask & seg)
-    if mask is not None:
-        logits = torch.where(mask, logits, NEG_INF)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    logits = _plain_scores(q, k, causal, scale, segment_ids)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+
+
+def plain_attention_with_lse(q, k, v, *, causal: bool, scale: float,
+                             block_q: Optional[int] = None,
+                             block_k: Optional[int] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out in q's dtype, lse [b, h, t_q] float32) of the plain design: the
+    reference's own route for these inputs, in plain PyTorch on the tensors'
+    device. Where the reference takes its kernel (``reference_takes_kernel``)
+    it is ``flash_attention_fwd_plain`` at the reference's tiles
+    (``block_q``/``block_k``, by default ``REF_BLOCK``); elsewhere it is
+    ``_attention_plain`` (the reference's ``_attention_xla``), with lse the
+    logsumexp of its masked scores."""
+    d, t_q, t_kv = q.shape[-1], q.shape[-2], k.shape[-2]
+    if reference_takes_kernel(d, t_q, t_kv):
+        return _flash_fwd_tiled(
+            q, k, v, causal=causal, scale=scale,
+            block_q=REF_BLOCK if block_q is None else block_q,
+            block_k=REF_BLOCK if block_k is None else block_k)
+    logits = _plain_scores(q, k, causal, scale)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, v)
+    return out, torch.logsumexp(logits, dim=-1)
+
+
+def plain_attention_bwd(q, k, v, o, lse, do, *, causal: bool, scale: float,
+                        dlse: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``plain_attention_with_lse`` under the cotangents
+    ``do`` of out and ``dlse`` of lse: ``flash_attention_bwd_plain`` where
+    the reference takes its kernel, else autograd through the recomputed
+    ``_attention_plain`` route (the gradient the reference's autodiff takes
+    through ``_attention_xla``)."""
+    if reference_takes_kernel(q.shape[-1], q.shape[-2], k.shape[-2]):
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, scale=scale,
+                                         dlse=dlse)
+    with torch.enable_grad():
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        out, lse_g = plain_attention_with_lse(qg, kg, vg, causal=causal, scale=scale)
+        outs, grads = (out,), (do,)
+        if dlse is not None:
+            outs, grads = (out, lse_g), (do, dlse)
+        return torch.autograd.grad(outs, (qg, kg, vg), grads)
 
 
 def attention_with_lse(
@@ -438,11 +586,13 @@ def flash_attention_bwd_plain(
 
 # each source's entry points, with their count of leading pointers, and its
 # error-string function; every entry point then takes bh, t_q, t_kv, d,
-# dtype, causal, scale and the stream
+# dtype, causal, scale and the stream (the d64 forward's sixth pointer is its
+# item counter)
 _SOURCES = {
     "flash_fwd": ({"ray_tpu_flash_fwd": 5}, "ray_tpu_cuda_error_string"),
     "flash_fwd_wgmma": ({"ray_tpu_flash_fwd_wgmma": 5},
                         "ray_tpu_flash_fwd_wgmma_error_string"),
+    "flash_fwd_d64": ({"ray_tpu_flash_fwd_d64": 6}, "ray_tpu_flash_fwd_d64_error_string"),
     "flash_fwd_persistent": ({"ray_tpu_flash_fwd_persistent": 5},
                              "ray_tpu_flash_fwd_persistent_error_string"),
     "flash_fwd_f32": ({"ray_tpu_flash_fwd_f32": 5}, "ray_tpu_flash_fwd_f32_error_string"),
@@ -450,6 +600,7 @@ _SOURCES = {
                   "ray_tpu_flash_bwd_error_string"),
     "flash_bwd_wgmma": ({"ray_tpu_flash_bwd_dq_wgmma": 7, "ray_tpu_flash_bwd_dkv_wgmma": 8},
                         "ray_tpu_flash_bwd_wgmma_error_string"),
+    "flash_bwd_d64": ({"ray_tpu_flash_bwd_dkv_d64": 8}, "ray_tpu_flash_bwd_d64_error_string"),
     "flash_bwd_persistent": ({"ray_tpu_flash_bwd_dq_persistent": 7,
                               "ray_tpu_flash_bwd_dkv_persistent": 8},
                              "ray_tpu_flash_bwd_persistent_error_string"),
@@ -495,9 +646,10 @@ def _launch(name: str, entry: str, tensors, q, t_kv: int, causal: bool,
 def _check_kernel_inputs(q, k, v, *same_as_q, rows=()) -> None:
     """Raise ``ValueError`` unless the kernels take these tensors: plain
     tensors (not DTensors) on CUDA, contiguous, 16-byte aligned; q [b, h, t_q, d] and k, v [b, h, t_kv, d]
-    of one dtype (bfloat16 or float32), d in ``HEAD_DIMS``; each of
+    of one dtype (bfloat16, float32 or float16), t_q and t_kv not 0; each of
     ``same_as_q`` (o, do) like q; each of ``rows`` (lse, delta) float32
-    [b, h, t_q]."""
+    [b, h, t_q]. The head_dim is the dispatch table's to take or leave, and
+    the grid each launcher's."""
     named = [("q", q), ("k", k), ("v", v)] + list(same_as_q) + list(rows)
     for name, t in named:
         if type(t) is not torch.Tensor:
@@ -529,9 +681,7 @@ def _check_kernel_inputs(q, k, v, *same_as_q, rows=()) -> None:
     for name, t in rows:
         if t.dtype != torch.float32 or t.shape != (b, h, t_q):
             raise ValueError(f"{name} must be float32 [b, h, t_q] = {(b, h, t_q)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
-    if t_q == 0 or t_kv == 0 or b * h > 65535:
+    if t_q == 0 or t_kv == 0:
         raise ValueError(f"unsupported shape q {tuple(q.shape)} k {tuple(k.shape)}")
 
 
@@ -549,21 +699,14 @@ def _check_tiles(design: FwdDesign, head_dim: int, block_q, block_k) -> None:
 # each design's entry point that reports the tiles its built kernel
 # computes with
 _TILES_ENTRIES = {"wgmma": "ray_tpu_flash_fwd_wgmma_tiles",
+                  "d64": "ray_tpu_flash_fwd_d64_tiles",
                   "persistent": "ray_tpu_flash_fwd_persistent_tiles",
                   "tf32x3": "ray_tpu_flash_fwd_f32_tiles"}
-# the designs that take the row max of the raw scores and fold the scale
-# into exp2 after it, so take a positive scale only
-_POSITIVE_SCALE = ("wgmma", "persistent")
 
 
-def _check_design(design: FwdDesign, head_dim: int, scale: float) -> None:
-    """Raise ``ValueError`` unless the design takes this scale (the wgmma
-    and persistent kernels take a positive one only), and ``RuntimeError``
-    unless the built kernel computes with the table's tiles at this
-    head_dim."""
-    if design.name in _POSITIVE_SCALE and not scale > 0:
-        raise ValueError(f"the {design.name} flash kernel takes a positive scale, "
-                         f"got {scale}")
+def _check_design(design: FwdDesign, head_dim: int) -> None:
+    """Raise ``RuntimeError`` unless the built kernel computes with the
+    table's tiles at this head_dim."""
     tiles_fn = getattr(_kernel_lib(design.source), _TILES_ENTRIES[design.name])
     tiles_fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
                          ctypes.POINTER(ctypes.c_int)]
@@ -577,6 +720,30 @@ def _check_design(design: FwdDesign, head_dim: int, scale: float) -> None:
             f"{design.block_q}x{design.block_k}")
 
 
+def _on_cpu(*tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def _check_plain_inputs(q, k, v, *more) -> None:
+    """Raise ``ValueError`` unless the plain design takes these tensors: q,
+    k, v and ``more`` on one device, q [b, h, t_q, d] and k, v [b, h, t_kv,
+    d] of one floating dtype, and, on the card, inputs that the reference
+    sends to ``_attention_xla`` (where it takes its Pallas kernel, the port
+    has no kernel for them yet, and the plain version does not stand in for
+    one on the card)."""
+    if len({t.device for t in (q, k, v, *more)}) != 1:
+        raise ValueError("q, k, v and the rest must lie on one device")
+    if q.dim() != 4 or not q.is_floating_point() or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must be [b, h, t, d] of one floating dtype; got "
+                         f"{q.dtype} {k.dtype} {v.dtype}")
+    b, h, t_q, d = q.shape
+    if k.shape != (b, h, k.shape[2], d) or v.shape != k.shape:
+        raise ValueError(f"shape mismatch: q {q.shape} k {k.shape} v {v.shape}")
+    if not _on_cpu(q) and reference_takes_kernel(d, t_q, k.shape[2]):
+        raise ValueError(f"no Hopper kernel takes head_dim {d} in {q.dtype} yet; the "
+                         f"reference runs its Pallas kernel there (ROADMAP, Queue 2)")
+
+
 def flash_attention_fwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -588,32 +755,47 @@ def flash_attention_fwd(
     block_k: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, lse) of the flash forward: [b, h, t_q, d] in q's dtype and
-    [b, h, t_q] float32.
+    [b, h, t_q] float32, through the design ``FWD_DESIGNS`` names.
 
-    CPU tensors take ``flash_attention_fwd_plain`` (at ``block_q`` x
-    ``block_k``, by default the card kernel's tiles) and launch nothing.
-    CUDA tensors launch the hand-written Hopper kernel that ``FWD_DESIGNS``
-    names for (head_dim, dtype): contiguous q [b, h, t_q, d] and k, v
-    [b, h, t_kv, d] of one dtype (bfloat16, or float32 in 3xTF32, both on
-    the tensor cores), d in ``HEAD_DIMS``, the design's tiles (``block_q`` and
-    ``block_k`` left at None or equal to them) and, in bf16 (the wgmma and
-    persistent designs), a positive scale. Anything else raises."""
+    The ``plain`` design (every (head_dim, dtype) without a hand-written
+    kernel) computes ``plain_attention_with_lse``, at ``block_q`` x
+    ``block_k`` where it takes the flash route, on the CPU or, where the
+    reference's route is ``_attention_xla``, on the card, where it counts in
+    ``flash_fwd_plain_launches`` (``_check_plain_inputs``). Otherwise CPU
+    tensors take ``flash_attention_fwd_plain`` (at ``block_q`` x ``block_k``,
+    by default the card kernel's tiles) and launch nothing, and CUDA tensors
+    launch the design's hand-written Hopper kernel: contiguous q
+    [b, h, t_q, d] and k, v [b, h, t_kv, d] of one dtype, the design's tiles
+    (``block_q`` and ``block_k`` left at None or equal to them), any scale
+    (``_positive_scale``) and a grid that the launcher takes. Anything else
+    raises."""
     global flash_fwd_launches
-    if all(t.device.type == "cpu" for t in (q, k, v)):
+    d = q.shape[-1]
+    design = FWD_DESIGNS[(d, q.dtype)]
+    on_cpu = _on_cpu(q, k, v)
+    if design is _PLAIN:
+        _check_plain_inputs(q, k, v)
+        out, lse = plain_attention_with_lse(q, k, v, causal=causal, scale=scale,
+                                            block_q=block_q, block_k=block_k)
+        if not on_cpu:
+            flash_fwd_launches += 1
+            _count_design("flash_fwd", design.name)
+        return out, lse
+    if on_cpu:
         return flash_attention_fwd_plain(
             q, k, v, causal=causal, scale=scale, block_q=block_q, block_k=block_k)
-    d = q.shape[-1]
-    design = FWD_DESIGNS.get((d, q.dtype))
-    if design is not None:
-        _check_tiles(design, d, block_q, block_k)
-    _check_kernel_inputs(q, k, v)  # raises for a (d, dtype) not in the table
-    _check_design(design, d, scale)
+    _check_tiles(design, d, block_q, block_k)
+    _check_kernel_inputs(q, k, v)
+    _check_design(design, d)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    _launch(design.source, design.entry, (q, k, v, out, lse), q, k.shape[2],
-            causal, scale)
+    q_k, scale_k = _positive_scale(q, scale) if design.name in _POSITIVE_SCALE else (q, scale)
+    tensors = (q_k, k, v, out, lse)
+    if design.schedule:
+        tensors += (torch.empty(1, dtype=torch.int32, device=q.device),)
+    _launch(design.source, design.entry, tensors, q, k.shape[2], causal, scale_k)
     flash_fwd_launches += 1
-    _count_design("flash_fwd", design)
+    _count_design("flash_fwd", design.name)
     return out, lse
 
 
@@ -625,31 +807,36 @@ def flash_bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
         return (do.float() * o.float()).sum(-1)
 
 
-def _bwd_design(q, k, v, do, lse, delta) -> BwdDesign:
-    """The ``BWD_DESIGNS`` entry for these inputs, after the checks every
-    backward kernel needs; raises for inputs that no kernel takes."""
+def _bwd_kernel(kernel: str, q, k, v, do, lse, delta) -> BwdKernel:
+    """The ``kernel`` ("dq" or "dkv") of the ``BWD_DESIGNS`` design for these
+    inputs, after the checks every backward kernel needs; raises for inputs
+    that no kernel takes."""
     _check_kernel_inputs(q, k, v, ("do", do), rows=(("lse", lse), ("delta", delta)))
-    return BWD_DESIGNS[(q.shape[-1], q.dtype)]
+    chosen = getattr(BWD_DESIGNS[(q.shape[-1], q.dtype)], kernel)
+    if chosen.source is None:
+        raise ValueError(f"no {kernel} kernel takes head_dim {q.shape[-1]} {q.dtype}: the "
+                         f"plain design computes it (flash_attention_bwd)")
+    return chosen
 
 
-def _count_design(kernel: str, design: FwdDesign | BwdDesign) -> None:
+def _count_design(kernel: str, design: str) -> None:
     """One more launch in ``<kernel>_<design>_launches``."""
-    name = f"{kernel}_{design.name}_launches"
+    name = f"{kernel}_{design}_launches"
     globals()[name] += 1
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float
                  ) -> torch.Tensor:
     """dq from the dQ kernel of the design ``BWD_DESIGNS`` names (CUDA
-    tensors only), counted in ``flash_bwd_dq_launches`` and the design's
+    tensors only), counted in ``flash_bwd_dq_launches`` and the kernel's
     ``flash_bwd_dq_<design>_launches``."""
     global flash_bwd_dq_launches
-    design = _bwd_design(q, k, v, do, lse, delta)
+    kernel = _bwd_kernel("dq", q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
-    _launch(design.source, design.dq_entry, (q, k, v, do, lse, delta, dq), q,
+    _launch(kernel.source, kernel.entry, (q, k, v, do, lse, delta, dq), q,
             k.shape[2], causal, scale)
     flash_bwd_dq_launches += 1
-    _count_design("flash_bwd_dq", design)
+    _count_design("flash_bwd_dq", kernel.name)
     return dq
 
 
@@ -657,15 +844,15 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) from the dK/dV kernel of the design ``BWD_DESIGNS`` names
     (CUDA tensors only), counted in ``flash_bwd_dkv_launches`` and the
-    design's ``flash_bwd_dkv_<design>_launches``."""
+    kernel's ``flash_bwd_dkv_<design>_launches``."""
     global flash_bwd_dkv_launches
-    design = _bwd_design(q, k, v, do, lse, delta)
+    kernel = _bwd_kernel("dkv", q, k, v, do, lse, delta)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch(design.source, design.dkv_entry, (q, k, v, do, lse, delta, dk, dv),
+    _launch(kernel.source, kernel.entry, (q, k, v, do, lse, delta, dk, dv),
             q, k.shape[2], causal, scale)
     flash_bwd_dkv_launches += 1
-    _count_design("flash_bwd_dkv", design)
+    _count_design("flash_bwd_dkv", kernel.name)
     return dk, dv
 
 
@@ -683,15 +870,31 @@ def flash_attention_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of the flash forward, given its out ``o``, its ``lse``,
     the gradient ``do`` of out and, where lse has one too, its gradient
-    ``dlse`` (float32 [b, h, t_q]).
+    ``dlse`` (float32 [b, h, t_q]), through the design ``BWD_DESIGNS`` names.
 
-    CPU tensors take ``flash_attention_bwd_plain`` and launch nothing. CUDA
-    tensors launch the two hand-written Hopper kernels of the design that
-    ``BWD_DESIGNS`` names for (head_dim, dtype), dQ then dK/dV, after
-    delta = rowsum(dO * O) (minus ``dlse``): the inputs the forward kernel
-    takes, with o and do like q (contiguous) and lse float32 [b, h, t_q].
-    Anything else raises."""
-    if all(t.device.type == "cpu" for t in (q, k, v, o, lse, do)):
+    The ``plain`` design (wherever the forward takes it) computes
+    ``plain_attention_bwd`` where the forward's plain design computes, and
+    counts one dQ and one dK/dV launch of ``plain`` on CUDA tensors.
+    Otherwise CPU tensors take
+    ``flash_attention_bwd_plain`` and launch nothing, and CUDA tensors
+    launch the design's two hand-written Hopper kernels, dQ then dK/dV,
+    after delta = rowsum(dO * O) (minus ``dlse``): the inputs the forward
+    kernel takes, with o and do like q (contiguous) and lse float32
+    [b, h, t_q]. Anything else raises."""
+    global flash_bwd_dq_launches, flash_bwd_dkv_launches
+    design = BWD_DESIGNS[(q.shape[-1], q.dtype)]
+    on_cpu = _on_cpu(q, k, v, o, lse, do)
+    if design is _BWD_PLAIN:
+        _check_plain_inputs(q, k, v, o, lse, do)
+        grads = plain_attention_bwd(q, k, v, o, lse, do, causal=causal, scale=scale,
+                                    dlse=dlse)
+        if not on_cpu:
+            flash_bwd_dq_launches += 1
+            flash_bwd_dkv_launches += 1
+            _count_design("flash_bwd_dq", design.dq.name)
+            _count_design("flash_bwd_dkv", design.dkv.name)
+        return grads
+    if on_cpu:
         return flash_attention_bwd_plain(
             q, k, v, o, lse, do, causal=causal, scale=scale, dlse=dlse)
     rows = (("lse", lse),) if dlse is None else (("lse", lse), ("dlse", dlse))
@@ -791,7 +994,10 @@ def dot_product_attention(
     Goes through ``FlashAttention``: the plain versions on CPU tensors, the
     hand-written forward and backward kernels on CUDA tensors, at the
     kernel's tiles unless ``block_q``/``block_k`` say otherwise (the CPU
-    path takes any; the card's kernel raises for other tiles). With
+    path takes any; the card's kernel raises for other tiles), at any
+    scale; every input that no kernel takes (another head_dim, float16 at 16
+    and 32) through the counted ``plain`` design, the reference's own route
+    (on the card only where that route is ``_attention_xla``). With
     ``segment_ids`` it computes ``_attention_plain`` on the tensors' device,
     differentiable through autograd and launching no flash kernel: the
     reference's dispatcher takes its XLA path there, since no kernel has a

@@ -572,31 +572,51 @@ __global__ void __launch_bounds__(DkvTiles<D>::kM * 4 * kDkvHalves<D>)
 // host side
 // ---------------------------------------------------------------------------
 
-template <typename Kernel>
-int launch(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t stream,
+// b * h on grid.y, at most 65535 heads a launch: more heads launch in
+// chunks of the grid's tiles (grid.x) by kMaxGridY heads, each with its
+// tensors moved on to its first head (a 1-D grid of tiles and heads held bh
+// in a register, which the float32 forward's kernel had none to spare for)
+constexpr int kMaxGridY = 65535;
+
+template <int D, typename Kernel>
+int launch(Kernel kernel, int tiles, int bh, int threads, size_t smem, cudaStream_t stream,
            const Params& p) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, threads, smem, stream>>>(p);
-  return (int)cudaGetLastError();
+  const size_t q_head = (size_t)p.t_q * D, kv_head = (size_t)p.t_kv * D;
+  for (int h0 = 0; h0 < bh; h0 += kMaxGridY) {
+    Params c = p;
+    c.q += h0 * q_head;
+    c.k += h0 * kv_head;
+    c.v += h0 * kv_head;
+    c.dout += h0 * q_head;
+    c.lse += (size_t)h0 * p.t_q;
+    c.delta += (size_t)h0 * p.t_q;
+    if (c.dq != nullptr) c.dq += h0 * q_head;
+    if (c.dk != nullptr) c.dk += h0 * kv_head;
+    if (c.dv != nullptr) c.dv += h0 * kv_head;
+    kernel<<<dim3(tiles, min(kMaxGridY, bh - h0)), threads, smem, stream>>>(c);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 template <int D>
 int launch_d(bool dkv, int bh, cudaStream_t st, const Params& p) {
   if (dkv) {
     constexpr int kM = DkvTiles<D>::kM;
-    const dim3 grid((p.t_kv + kM - 1) / kM, bh);
-    return launch(flash_bwd_dkv_f32x3_kernel<D>, grid, kM * 4 * kDkvHalves<D>,
-                  dkv_smem_bytes<D>(), st, p);
+    return launch<D>(flash_bwd_dkv_f32x3_kernel<D>, (p.t_kv + kM - 1) / kM, bh,
+                     kM * 4 * kDkvHalves<D>, dkv_smem_bytes<D>(), st, p);
   }
   constexpr int kM = DqTiles<D>::kM;
-  const dim3 grid((p.t_q + kM - 1) / kM, bh);
-  return launch(flash_bwd_dq_f32x3_kernel<D>, grid, kM * 2, dq_smem_bytes<D>(), st, p);
+  return launch<D>(flash_bwd_dq_f32x3_kernel<D>, (p.t_q + kM - 1) / kM, bh, kM * 2,
+                   dq_smem_bytes<D>(), st, p);
 }
 
 int dispatch(bool dkv, const Params& p, int bh, int d, int dtype, void* stream) {
-  if (bh <= 0 || bh > 65535 || p.t_q <= 0 || p.t_kv <= 0 || dtype != 1) return kUnsupported;
+  if (bh <= 0 || p.t_q <= 0 || p.t_kv <= 0 || dtype != 1) return kUnsupported;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 16: return launch_d<16>(dkv, bh, st, p);

@@ -1,13 +1,18 @@
 // Flash-attention backward for Hopper (sm_90a): TMA loads into an mbarrier
 // ring, every product on wgmma, warp-specialised. Hand-written CUDA C++.
+// Its inputs are bf16 or float16 (the kernels' T; the comments say bf16
+// for either).
 //
 // Replaces the two TPU kernels of ray_tpu/ops/attention.py launched by
-// _flash_attention_tpu_bwd, for bf16 at head_dim 64, 128 and 256:
+// _flash_attention_tpu_bwd, for bf16 and float16 at head_dim 64, 128 and 256
+// (at 64 dK/dV is csrc/flash_bwd_d64.cu's, and this one the variants
+// script's "before"):
 //   * _flash_bwd_dkv_kernel -> flash_bwd_dkv_wgmma_kernel (dK and dV at 64
 //     and 128) and flash_bwd_dkv_wgmma_split_kernel (at 256);
 //   * _flash_bwd_dq_kernel  -> flash_bwd_dq_wgmma_kernel (dQ).
-// csrc/flash_bwd.cu (mma.sync) keeps head_dim 16 and 32 and float32, as the
-// dispatch table in ops/attention.py (BWD_DESIGNS) says. All three kernels
+// csrc/flash_bwd_persistent.cu takes bf16 at head_dim 16 and 32 and
+// csrc/flash_bwd_f32.cu float32, as the dispatch table in ops/attention.py
+// (BWD_DESIGNS) says. All three kernels
 // recompute P = exp(scale * Q K^T - lse) from the forward's row lse,
 // then dP = dO V^T and dS = P * (dP - delta) * scale with delta =
 // rowsum(dO * O) (computed by the caller, as the reference computes it
@@ -104,7 +109,7 @@
 //                                   bh, t_q, t_kv, d, dtype, causal, scale, stream)
 //   int ray_tpu_flash_bwd_wgmma_smem_bytes(d, dkv)  (dynamic shared memory per CTA)
 // q/dout/dq are [bh, t_q, d], k/v/dk/dv [bh, t_kv, d], contiguous bf16 (dtype
-// 0), d 64, 128 or 256, 16-byte aligned; lse and delta [bh, t_q] float32. Each launches one
+// 0) or float16 (dtype 2), d 64, 128 or 256, 16-byte aligned; lse and delta [bh, t_q] float32. Each launches one
 // kernel on `stream`, allocates nothing, and returns cudaGetLastError() after
 // the launch, kUnsupported for what it does not take, or kTensorMapFailed.
 
@@ -244,6 +249,7 @@ __device__ __forceinline__ int dkv_first_q_tile(const Params& p, int k0) {
 // & 1) and q column q0 + c, c = 8 * (i >> 2) + 2 * tq + (i & 1); `rows`
 // holds the tile's lse (log2 units) at [c] and delta at [64 + c]. Masks
 // (causal, past t_kv) only where `masked`.
+template <typename T>
 __device__ __forceinline__ void dkv_grads(const float* s, const float* dp, uint32_t* pa,
                                           uint32_t* dsa, const float* rows, const Params& p,
                                           int q0, int kv0, int tq, bool masked) {
@@ -260,8 +266,8 @@ __device__ __forceinline__ void dkv_grads(const float* s, const float* dp, uint3
       if (out || (p.causal && q0 + c + p.off < kv)) p0 = 0.f;
       if (out || (p.causal && q0 + c + 1 + p.off < kv)) p1 = 0.f;
     }
-    pa[i / 2] = pack_bf16(p0, p1);
-    dsa[i / 2] = pack_bf16(p0 * (dp[i] - dl.x) * p.scale, p1 * (dp[i + 1] - dl.y) * p.scale);
+    pa[i / 2] = pack2<T>(p0, p1);
+    dsa[i / 2] = pack2<T>(p0 * (dp[i] - dl.x) * p.scale, p1 * (dp[i + 1] - dl.y) * p.scale);
   }
 }
 
@@ -354,7 +360,7 @@ __device__ __forceinline__ void dkv_producer(const Params& p, const CUtensorMap*
   }
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                                const __grid_constant__ CUtensorMap tm_k,
@@ -408,7 +414,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int stage = j % kStages;
         const int q0 = (first + j) * kBlockQ;
         const bool masked = (p.causal && q0 + p.off < k_wg + 63) || k_wg + 64 > p.t_kv;
-        dkv_grads(s, dp, pa, dsa,
+        dkv_grads<T>(s, dp, pa, dsa,
                   reinterpret_cast<const float*>(gbase + S::kRows + stage * kRowStatBytes), p,
                   q0, kv0, tq, masked);
         fence_regs<kBlockQ / 4>(pa);
@@ -416,8 +422,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         fence_regs<D / 2>(dv);
         fence_regs<D / 2>(dk);
         wgmma_fence();
-        issue_nn<D, kBlockQ>(dv, pa, do_tile(stage));
-        issue_nn<D, kBlockQ>(dk, dsa, q_tile(stage));
+        issue_nn<D, kBlockQ, T>(dv, pa, do_tile(stage));
+        issue_nn<D, kBlockQ, T>(dk, dsa, q_tile(stage));
         wgmma_commit();
       };
       auto release = [&](int j) {
@@ -433,8 +439,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs<kBlockQ / 2>(s);
       fence_regs<kBlockQ / 2>(dp);
       wgmma_fence();
-      issue_nt<D, kBlockQ>(s, k_rows, q_tile(0));
-      issue_nt<D, kBlockQ>(dp, v_rows, do_tile(0));
+      issue_nt<D, kBlockQ, T>(s, k_rows, q_tile(0));
+      issue_nt<D, kBlockQ, T>(dp, v_rows, do_tile(0));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs<kBlockQ / 2>(s);
@@ -450,13 +456,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_wait(bar_full + 8 * next, ((j + 1) / kStages) & 1);
         fence_regs<kBlockQ / 2>(s);
         wgmma_fence();
-        issue_nt<D, kBlockQ>(s, k_rows, q_tile(next));
+        issue_nt<D, kBlockQ, T>(s, k_rows, q_tile(next));
         wgmma_commit();
         wgmma_wait<1>();  // dV and dK of tile j
         release(j);
         fence_regs<kBlockQ / 2>(dp);
         wgmma_fence();
-        issue_nt<D, kBlockQ>(dp, v_rows, do_tile(next));
+        issue_nt<D, kBlockQ, T>(dp, v_rows, do_tile(next));
         wgmma_commit();
         wgmma_wait<0>();  // S^T and dP^T of tile j + 1
         fence_regs<kBlockQ / 2>(s);
@@ -471,8 +477,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     // buffers, which its last products have finished reading (or which were
     // never loaded, when no q tile sees these keys)
     const float one[2] = {1.f, 1.f};
-    write_rows_bf16<D>(gbase + S::kK + cw * 64 * 128, S::kKVBox, dk, one, warp, g, tq);
-    write_rows_bf16<D>(gbase + S::kV + cw * 64 * 128, S::kKVBox, dv, one, warp, g, tq);
+    write_rows<D, T>(gbase + S::kK + cw * 64 * 128, S::kKVBox, dk, one, warp, g, tq);
+    write_rows<D, T>(gbase + S::kV + cw * 64 * 128, S::kKVBox, dv, one, warp, g, tq);
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("bar.sync %0, 128;\n" ::"r"(kEpilogueBar + cw) : "memory");
     if (wtid == 0) {
@@ -490,6 +496,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 // P^T of one [64 kv x 64 q] tile from S^T (s), in place in s (float32) and
 // in bf16 in the A-operand layout (pa); the layout, masks and `rows` as in
 // dkv_grads.
+template <typename T>
 __device__ __forceinline__ void dkv_probs(float* s, uint32_t* pa, const float* rows,
                                           const Params& p, int q0, int kv0, int tq,
                                           bool masked) {
@@ -507,7 +514,7 @@ __device__ __forceinline__ void dkv_probs(float* s, uint32_t* pa, const float* r
     }
     s[i] = p0;
     s[i + 1] = p1;
-    pa[i / 2] = pack_bf16(p0, p1);
+    pa[i / 2] = pack2<T>(p0, p1);
   }
 }
 
@@ -515,6 +522,7 @@ __device__ __forceinline__ void dkv_probs(float* s, uint32_t* pa, const float* r
 // as float4 (elements i .. i + 3 of its thread wtid at ptile[(i / 4) * 128 +
 // wtid]), in bf16 in the A-operand layout (dsa). Elements i, i + 1 and i + 2,
 // i + 3 (i % 4 == 0) share their q columns, so their delta.
+template <typename T>
 __device__ __forceinline__ void dkv_dscores(const float* dp, uint32_t* dsa, const float4* ptile,
                                             const float* rows, const Params& p, int wtid,
                                             int tq) {
@@ -522,15 +530,15 @@ __device__ __forceinline__ void dkv_dscores(const float* dp, uint32_t* dsa, cons
   for (int i = 0; i < kBlockQ / 2; i += 4) {
     const float4 pr = ptile[(i / 4) * 128 + wtid];
     const float2 dl = *reinterpret_cast<const float2*>(rows + kBlockQ + 8 * (i >> 2) + 2 * tq);
-    dsa[i / 2] = pack_bf16(pr.x * (dp[i] - dl.x) * p.scale, pr.y * (dp[i + 1] - dl.y) * p.scale);
+    dsa[i / 2] = pack2<T>(pr.x * (dp[i] - dl.x) * p.scale, pr.y * (dp[i + 1] - dl.y) * p.scale);
     dsa[i / 2 + 1] =
-        pack_bf16(pr.z * (dp[i + 2] - dl.x) * p.scale, pr.w * (dp[i + 3] - dl.y) * p.scale);
+        pack2<T>(pr.z * (dp[i + 2] - dl.x) * p.scale, pr.w * (dp[i + 3] - dl.y) * p.scale);
   }
 }
 
 // dK and dV at head_dim 256: warpgroup 0 accumulates dV, warpgroup 1 dK,
 // over the CTA's 64 kv rows (the header's design).
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_wgmma_split_kernel(const __grid_constant__ CUtensorMap tm_q,
                                      const __grid_constant__ CUtensorMap tm_k,
@@ -584,7 +592,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       auto issue_x = [&](int j) {
         fence_regs<kBlockQ / 2>(x);
         wgmma_fence();
-        issue_nt<D, kBlockQ, kSplitRows>(x, a_rows, b_tiles + (j % kStages) * S::kQBytes);
+        issue_nt<D, kBlockQ, T, kSplitRows>(x, a_rows, b_tiles + (j % kStages) * S::kQBytes);
         wgmma_commit();
       };
       // P^T or dS^T of tile j in bf16 (P^T handed over through ptile), then
@@ -595,7 +603,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             reinterpret_cast<const float*>(gbase + S::kRows + (j % kStages) * kRowStatBytes);
         if (cw == 0) {
           const bool masked = (p.causal && q0 + p.off < k0 + 63) || k0 + 64 > p.t_kv;
-          dkv_probs(x, xa, rows, p, q0, kv0, tq, masked);
+          dkv_probs<T>(x, xa, rows, p, q0, kv0, tq, masked);
           if (j > 0) named_sync(kPEmptyBar);  // warpgroup 1 has read P^T of tile j - 1
 #pragma unroll
           for (int i = 0; i < kBlockQ / 2; i += 4) {
@@ -604,13 +612,13 @@ __global__ void __launch_bounds__(kThreads, 1)
           named_arrive(kPFullBar);
         } else {
           named_sync(kPFullBar);
-          dkv_dscores(x, xa, ptile, rows, p, wtid, tq);
+          dkv_dscores<T>(x, xa, ptile, rows, p, wtid, tq);
           if (j + 1 < n_run) named_arrive(kPEmptyBar);
         }
         fence_regs<kBlockQ / 4>(xa);
         fence_regs<D / 2>(acc);
         wgmma_fence();
-        issue_nn<D, kBlockQ>(acc, xa, c_tiles + (j % kStages) * S::kQBytes);
+        issue_nn<D, kBlockQ, T>(acc, xa, c_tiles + (j % kStages) * S::kQBytes);
         wgmma_commit();
       };
       auto release = [&](int j) {
@@ -644,7 +652,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // writes the tile that only it read, once its last products completed
     // (or which was never loaded, when no q tile sees these keys)
     const float one[2] = {1.f, 1.f};
-    write_rows_bf16<D>(gbase + (a_rows - base), S::kKVBox, acc, one, warp, g, tq);
+    write_rows<D, T>(gbase + (a_rows - base), S::kKVBox, acc, one, warp, g, tq);
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("bar.sync %0, 128;\n" ::"r"(kEpilogueBar + cw) : "memory");
     if (wtid == 0) {
@@ -678,7 +686,7 @@ __device__ __forceinline__ int dq_kv_tiles(const Params& p, int q0) {
 // delta. Element i sits at q row row0 + 8 * r, r = (i >> 1) & 1, and kv
 // column k0 + 8 * (i >> 2) + 2 * tq + (i & 1). Masks (causal, past t_kv)
 // only where `masked`.
-template <int BN>
+template <int BN, typename T>
 __device__ __forceinline__ void dq_grads(const float* s, const float* dp, uint32_t* dsa,
                                          const float* lse2, const float* dl, const Params& p,
                                          int k0, int row0, int tq, bool masked) {
@@ -693,11 +701,11 @@ __device__ __forceinline__ void dq_grads(const float* s, const float* dp, uint32
       if (col >= p.t_kv || (p.causal && row + p.off < col)) p0 = 0.f;
       if (col + 1 >= p.t_kv || (p.causal && row + p.off < col + 1)) p1 = 0.f;
     }
-    dsa[i / 2] = pack_bf16(p0 * (dp[i] - dl[r]) * p.scale, p1 * (dp[i + 1] - dl[r]) * p.scale);
+    dsa[i / 2] = pack2<T>(p0 * (dp[i] - dl[r]) * p.scale, p1 * (dp[i + 1] - dl[r]) * p.scale);
   }
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                               const __grid_constant__ CUtensorMap tm_k,
@@ -808,11 +816,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       uint32_t dsa[BN / 4];  // dS in bf16, the A operand of dQ += dS K
       // dS of tile j in bf16, then dQ += dS K of it issued
       auto accumulate = [&](int j) {
-        dq_grads<BN>(s, dp, dsa, lse2, dl, p, j * BN, row0, tq, masked(j * BN));
+        dq_grads<BN, T>(s, dp, dsa, lse2, dl, p, j * BN, row0, tq, masked(j * BN));
         fence_regs<BN / 4>(dsa);
         fence_regs<D / 2>(dq);
         wgmma_fence();
-        issue_nn<D, BN>(dq, dsa, k_tile(j % kStages));
+        issue_nn<D, BN, T>(dq, dsa, k_tile(j % kStages));
         wgmma_commit();
       };
       auto release_k = [&](int j) {
@@ -829,8 +837,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         fence_regs<BN / 2>(s);
         fence_regs<BN / 2>(dp);
         wgmma_fence();
-        issue_nt<D, BN>(s, q_rows, k_tile(stage));
-        issue_nt<D, BN>(dp, do_rows, v_tile(stage));
+        issue_nt<D, BN, T>(s, q_rows, k_tile(stage));
+        issue_nt<D, BN, T>(dp, do_rows, v_tile(stage));
         wgmma_commit();
       };
       auto release_v = [&](int j) {
@@ -862,7 +870,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // its last S has finished reading (or which was never loaded, when the
     // q tile sees no key)
     const float one[2] = {1.f, 1.f};
-    write_rows_bf16<D>(smem_raw + (q_rows - smem_u32(smem_raw)), S::kQBox, dq, one, warp, g,
+    write_rows<D, T>(smem_raw + (q_rows - smem_u32(smem_raw)), S::kQBox, dq, one, warp, g,
                        tq);
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("bar.sync %0, 128;\n" ::"r"(kEpilogueBar + cw) : "memory");
@@ -881,25 +889,25 @@ __global__ void __launch_bounds__(kThreads, 1)
 // host side
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int D, typename T>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, void* dk,
                void* dv, Params p, cudaStream_t stream) {
   using S = DkvSmem<D>;
   CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dk, tm_dv;
-  if (make_map(&tm_q, q, D, p.t_q, p.bh, kBlockQ) ||
-      make_map(&tm_do, dout, D, p.t_q, p.bh, kBlockQ) ||
-      make_map(&tm_k, k, D, p.t_kv, p.bh, S::kKVRows) ||
-      make_map(&tm_v, v, D, p.t_kv, p.bh, S::kKVRows) ||
-      make_map(&tm_dk, dk, D, p.t_kv, p.bh, 64) || make_map(&tm_dv, dv, D, p.t_kv, p.bh, 64)) {
+  if (make_map<T>(&tm_q, q, D, p.t_q, p.bh, kBlockQ) ||
+      make_map<T>(&tm_do, dout, D, p.t_q, p.bh, kBlockQ) ||
+      make_map<T>(&tm_k, k, D, p.t_kv, p.bh, S::kKVRows) ||
+      make_map<T>(&tm_v, v, D, p.t_kv, p.bh, S::kKVRows) ||
+      make_map<T>(&tm_dk, dk, D, p.t_kv, p.bh, 64) || make_map<T>(&tm_dv, dv, D, p.t_kv, p.bh, 64)) {
     return kTensorMapFailed;
   }
   p.n_tiles = (p.t_kv + S::kKVRows - 1) / S::kKVRows;
-  p.group = l2_group(4ll * p.t_q * D, p.bh);  // Q and dO of one head, bf16
+  p.group = l2_group(4ll * p.t_q * D, p.bh);  // Q and dO of one head, 2 bytes an element
   auto kernel = [] {
     if constexpr (D == 256) {
-      return flash_bwd_dkv_wgmma_split_kernel<D>;
+      return flash_bwd_dkv_wgmma_split_kernel<D, T>;
     } else {
-      return flash_bwd_dkv_wgmma_kernel<D>;
+      return flash_bwd_dkv_wgmma_kernel<D, T>;
     }
   }();
   const cudaError_t err =
@@ -910,20 +918,20 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, vo
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, void* dq,
               Params p, cudaStream_t stream) {
   using S = DqSmem<D>;
   CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dq;
-  if (make_map(&tm_q, q, D, p.t_q, p.bh, kTileRows) ||
-      make_map(&tm_do, dout, D, p.t_q, p.bh, kTileRows) ||
-      make_map(&tm_k, k, D, p.t_kv, p.bh, S::kBN) ||
-      make_map(&tm_v, v, D, p.t_kv, p.bh, S::kBN) || make_map(&tm_dq, dq, D, p.t_q, p.bh, 64)) {
+  if (make_map<T>(&tm_q, q, D, p.t_q, p.bh, kTileRows) ||
+      make_map<T>(&tm_do, dout, D, p.t_q, p.bh, kTileRows) ||
+      make_map<T>(&tm_k, k, D, p.t_kv, p.bh, S::kBN) ||
+      make_map<T>(&tm_v, v, D, p.t_kv, p.bh, S::kBN) || make_map<T>(&tm_dq, dq, D, p.t_q, p.bh, 64)) {
     return kTensorMapFailed;
   }
   p.n_tiles = (p.t_q + kTileRows - 1) / kTileRows;
-  p.group = l2_group(4ll * p.t_kv * D, p.bh);  // K and V of one head, bf16
-  auto kernel = flash_bwd_dq_wgmma_kernel<D>;
+  p.group = l2_group(4ll * p.t_kv * D, p.bh);  // K and V of one head, 2 bytes an element
+  auto kernel = flash_bwd_dq_wgmma_kernel<D, T>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kAlloc);
   if (err != cudaSuccess) return (int)err;
@@ -935,7 +943,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, voi
 bool make_params(Params* p, const void* lse, const void* delta, int bh, int t_q, int t_kv,
                  int d, int dtype, int causal, float scale) {
   const long long rows = t_q > t_kv ? t_q : t_kv;
-  if (bh <= 0 || t_q <= 0 || t_kv <= 0 || dtype != 0 || (d != 64 && d != 128 && d != 256) ||
+  if (bh <= 0 || t_q <= 0 || t_kv <= 0 || (dtype != 0 && dtype != 2) ||
+      (d != 64 && d != 128 && d != 256) ||
       (long long)bh * ((rows + kSplitRows - 1) / kSplitRows) > 0x7fffffffll) {
     return false;
   }
@@ -964,11 +973,18 @@ extern "C" int ray_tpu_flash_bwd_dkv_wgmma(const void* q, const void* k, const v
     return kUnsupported;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 64: return launch_dkv<64>(q, k, v, dout, dk, dv, p, st);
-    case 128: return launch_dkv<128>(q, k, v, dout, dk, dv, p, st);
+  if (dtype == 2) {
+    switch (d) {
+      case 64: return launch_dkv<64, __half>(q, k, v, dout, dk, dv, p, st);
+      case 128: return launch_dkv<128, __half>(q, k, v, dout, dk, dv, p, st);
+    }
+    return launch_dkv<256, __half>(q, k, v, dout, dk, dv, p, st);
   }
-  return launch_dkv<256>(q, k, v, dout, dk, dv, p, st);
+  switch (d) {
+    case 64: return launch_dkv<64, __nv_bfloat16>(q, k, v, dout, dk, dv, p, st);
+    case 128: return launch_dkv<128, __nv_bfloat16>(q, k, v, dout, dk, dv, p, st);
+  }
+  return launch_dkv<256, __nv_bfloat16>(q, k, v, dout, dk, dv, p, st);
 }
 
 extern "C" int ray_tpu_flash_bwd_dq_wgmma(const void* q, const void* k, const void* v,
@@ -981,11 +997,18 @@ extern "C" int ray_tpu_flash_bwd_dq_wgmma(const void* q, const void* k, const vo
     return kUnsupported;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 64: return launch_dq<64>(q, k, v, dout, dq, p, st);
-    case 128: return launch_dq<128>(q, k, v, dout, dq, p, st);
+  if (dtype == 2) {
+    switch (d) {
+      case 64: return launch_dq<64, __half>(q, k, v, dout, dq, p, st);
+      case 128: return launch_dq<128, __half>(q, k, v, dout, dq, p, st);
+    }
+    return launch_dq<256, __half>(q, k, v, dout, dq, p, st);
   }
-  return launch_dq<256>(q, k, v, dout, dq, p, st);
+  switch (d) {
+    case 64: return launch_dq<64, __nv_bfloat16>(q, k, v, dout, dq, p, st);
+    case 128: return launch_dq<128, __nv_bfloat16>(q, k, v, dout, dq, p, st);
+  }
+  return launch_dq<256, __nv_bfloat16>(q, k, v, dout, dq, p, st);
 }
 
 extern "C" int ray_tpu_flash_bwd_wgmma_smem_bytes(int d, int dkv) {

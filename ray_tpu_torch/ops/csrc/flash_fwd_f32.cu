@@ -90,6 +90,7 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr int kUnsupported = 100000;
 constexpr int kBlockQ = 64;
+constexpr int kMaxGridY = 65535;  // the most heads a launch's grid.y holds
 constexpr int kBlockK = 64;
 
 // kP kv rows a piece of the ring, kStages pieces, d cut into kHalves (two
@@ -474,9 +475,23 @@ int launch_d(int bh, cudaStream_t stream, const Params& p) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.t_q + kBlockQ - 1) / kBlockQ, bh);
-  kernel<<<grid, FwdTiles<D>::kThreads, smem, stream>>>(p);
-  return (int)cudaGetLastError();
+  // b * h on grid.y, at most 65535 heads a launch: more heads launch in
+  // chunks, each with its tensors moved on to its first head (a 1-D grid of
+  // tiles and heads held bh in a register and spilled at head_dim 128)
+  const size_t q_head = (size_t)p.t_q * D, kv_head = (size_t)p.t_kv * D;
+  for (int h0 = 0; h0 < bh; h0 += kMaxGridY) {
+    Params c = p;
+    c.q += h0 * q_head;
+    c.k += h0 * kv_head;
+    c.v += h0 * kv_head;
+    c.o += h0 * q_head;
+    c.lse += (size_t)h0 * p.t_q;
+    const dim3 grid((p.t_q + kBlockQ - 1) / kBlockQ, min(kMaxGridY, bh - h0));
+    kernel<<<grid, FwdTiles<D>::kThreads, smem, stream>>>(c);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -484,7 +499,7 @@ int launch_d(int bh, cudaStream_t stream, const Params& p) {
 extern "C" int ray_tpu_flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
                                      void* lse, int bh, int t_q, int t_kv, int d, int dtype,
                                      int causal, float scale, void* stream) {
-  if (bh <= 0 || bh > 65535 || t_q <= 0 || t_kv <= 0 || dtype != 1) return kUnsupported;
+  if (bh <= 0 || t_q <= 0 || t_kv <= 0 || dtype != 1) return kUnsupported;
   Params p = {};
   p.q = static_cast<const float*>(q);
   p.k = static_cast<const float*>(k);

@@ -1,11 +1,14 @@
 // Flash-attention forward for Hopper (sm_90a): TMA loads into an mbarrier
 // ring, both products on wgmma, warp-specialised. Hand-written CUDA C++.
+// Its inputs are bf16 or float16 (the kernel's T; the comments say bf16 for
+// either).
 //
 // Replaces the TPU kernel ray_tpu/ops/attention.py:_flash_fwd_kernel
-// (launched by _flash_attention_tpu) for bf16 at head_dim 64, 128 and 256;
-// csrc/flash_fwd_persistent.cu takes bf16 at head_dim 16 and 32 and
-// csrc/flash_fwd_f32.cu float32, as the dispatch table in ops/attention.py
-// (FWD_DESIGNS) says. It computes what
+// (launched by _flash_attention_tpu) for bf16 and float16 at head_dim 128 and
+// 256 (and at 64, where csrc/flash_fwd_d64.cu took over and this one is the
+// variants script's "before"); csrc/flash_fwd_persistent.cu takes bf16 at
+// head_dim 16 and 32 and csrc/flash_fwd_f32.cu float32, as the dispatch
+// table in ops/attention.py (FWD_DESIGNS) says. It computes what
 // the TPU kernel computes, O = softmax(scale * Q K^T) V and the row
 // logsumexp, with the same conventions:
 //   * NEG_INF = -1e30 is a finite mask value, not -inf;
@@ -39,8 +42,9 @@
 //     rows. S = Q K^T runs on wgmma with both operands in shared memory (Q
 //     and K stored [row, d] are K-major). The online softmax runs in
 //     registers with exp2 (scale * log2 e folded into one FMA; masks only on
-//     tiles that cross the diagonal or the ragged end). P is rounded to bf16
-//     in registers, in the A-operand layout, and O += P V runs on wgmma with
+//     tiles that cross the diagonal or the ragged end; online_softmax in
+//     hopper.cuh, shared with flash_fwd_d64.cu). P is rounded to the inputs'
+//     type in registers, in the A-operand layout, and O += P V runs on wgmma with
 //     A from registers and V read from shared memory through the
 //     descriptor's transpose bit (V stored [kv, d] is MN-major), so V is
 //     never transposed.
@@ -71,8 +75,9 @@
 //                               causal, scale, stream)
 //   int ray_tpu_flash_fwd_wgmma_tiles(d, &block_q, &block_k)
 //   int ray_tpu_flash_fwd_wgmma_smem_bytes(d)  (dynamic shared memory per CTA)
-// q/o are [bh, t_q, d], k/v [bh, t_kv, d], contiguous bf16 (dtype 0), 16-byte
-// aligned; lse [bh, t_q] f32; scale > 0. The kernel launches on `stream`,
+// q/o are [bh, t_q, d], k/v [bh, t_kv, d], contiguous bf16 (dtype 0) or
+// float16 (dtype 2), 16-byte aligned; lse [bh, t_q] f32; scale > 0 (the
+// wrapper hands a non-positive scale's sign to q: flash_attention_fwd). The kernel launches on `stream`,
 // allocates nothing, and the function returns cudaGetLastError() after the
 // launch, kUnsupported for what it does not take, or kTensorMapFailed.
 // cuTensorMapEncodeTiled is the driver API's: the library links -lcuda.
@@ -145,62 +150,11 @@ __device__ __forceinline__ int kv_tiles_to_run(const Params& p, int q0) {
   return min(n_kv, last / BN + 1);
 }
 
-// The online softmax of one S tile in log2 units: updates the running max m
-// and this thread's share of the row sums l, returns the factor alpha that
-// rescales O, and leaves P in s. Masks (causal, past t_kv) only where
-// `masked`. Element i of the tile sits at row row0 + 8 * ((i >> 1) & 1) and
-// column k0 + 8 * (i >> 2) + 2 * tq + (i & 1).
-template <int BN>
-__device__ __forceinline__ void softmax_tile(float* s, float* m, float* l, float* alpha,
-                                             const Params& p, int k0, int row0, int tq,
-                                             bool masked) {
-  float mx[2] = {-INFINITY, -INFINITY};
-  if (masked) {
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) {
-      const int col = k0 + 8 * (i >> 2) + 2 * tq + (i & 1);
-      const int row = row0 + 8 * ((i >> 1) & 1);
-      const bool visible = col < p.t_kv && (!p.causal || row + p.off >= col);
-      if (!visible) s[i] = -INFINITY;
-      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-  }
-  bool empty[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    const float m_cur = mx[r] == -INFINITY ? kNegInf : mx[r] * p.scale_log2;
-    const float m_new = fmaxf(m[r], m_cur);
-    alpha[r] = fast_exp2(m[r] - m_new);
-    m[r] = m_new;
-    empty[r] = m_new == kNegInf;  // no visible column so far
-  }
-  float rs[2] = {0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) {
-    const int r = (i >> 1) & 1;
-    float pe = fast_exp2(fmaf(s[i], p.scale_log2, -m[r]));
-    if (masked && empty[r]) {
-      // every processed column of the row is masked: p = exp(0) = 1 on each
-      // column of the reference's tile
-      pe = 8 * (i >> 2) + 2 * tq + (i & 1) < p.bk_eff ? 1.f : 0.f;
-    }
-    s[i] = pe;
-    rs[r] += pe;
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
-}
-
 // ---------------------------------------------------------------------------
 // the kernel
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
@@ -327,14 +281,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       named_sync(my_turn);
       fence_regs<BN / 2>(s);
       wgmma_fence();
-      issue_nt<D, BN>(s, q_rows, k_tile(0));
+      issue_nt<D, BN, T>(s, q_rows, k_tile(0));
       wgmma_commit();
       named_arrive(their_turn);
       wgmma_wait<0>();
       fence_regs<BN / 2>(s);
       if (lane == 0) mbar_arrive(bar_k_empty);
-      softmax_tile<BN>(s, m, l, alpha, p, 0, row0, tq, masked(0));
-      to_bf16_a<BN>(s, pa);
+      online_softmax<BN>(s, m, l, alpha, p, 0, row0, tq, masked(0));
+      to_a<BN, T>(s, pa);
 
 #pragma unroll 1
       for (int j = 1; j < n_run; ++j) {
@@ -347,22 +301,22 @@ __global__ void __launch_bounds__(kThreads, 1)
         fence_regs<D / 2>(o);
         fence_regs<BN / 4>(pa);
         wgmma_fence();
-        issue_nt<D, BN>(s, q_rows, k_tile(stage));
+        issue_nt<D, BN, T>(s, q_rows, k_tile(stage));
         wgmma_commit();
-        issue_nn<D, BN>(o, pa, v_tile(prev));
+        issue_nn<D, BN, T>(o, pa, v_tile(prev));
         wgmma_commit();
         named_arrive(their_turn);
         wgmma_wait<1>();  // S of tile j
         fence_regs<BN / 2>(s);
         if (lane == 0) mbar_arrive(bar_k_empty + 8 * stage);
-        softmax_tile<BN>(s, m, l, alpha, p, j * BN, row0, tq, masked(j * BN));
+        online_softmax<BN>(s, m, l, alpha, p, j * BN, row0, tq, masked(j * BN));
         wgmma_wait<0>();  // P V of tile j - 1
         fence_regs<D / 2>(o);
         fence_regs<BN / 4>(pa);
         if (lane == 0) mbar_arrive(bar_v_empty + 8 * prev);
 #pragma unroll
         for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
-        to_bf16_a<BN>(s, pa);
+        to_a<BN, T>(s, pa);
       }
 
       const int last = (n_run - 1) % kStages;
@@ -371,7 +325,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs<D / 2>(o);
       fence_regs<BN / 4>(pa);
       wgmma_fence();
-      issue_nn<D, BN>(o, pa, v_tile(last));
+      issue_nn<D, BN, T>(o, pa, v_tile(last));
       wgmma_commit();
       if (cw == 0) named_arrive(their_turn);  // warpgroup 1's last turn
       wgmma_wait<0>();
@@ -396,7 +350,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     // this warpgroup's 64 rows of Q's buffer are free: its last S wgmma has
     // completed and no other warpgroup reads them
-    write_rows_bf16<D>(smem_raw + (q_rows - smem_u32(smem_raw)), S::kQBox, o, inv, warp, g,
+    write_rows<D, T>(smem_raw + (q_rows - smem_u32(smem_raw)), S::kQBox, o, inv, warp, g,
                        tq);
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("bar.sync %0, 128;\n" ::"r"(kEpilogueBar + cw) : "memory");
@@ -411,16 +365,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int D>
+template <int D, typename T>
 int launch(const void* q, const void* k, const void* v, void* o, const Params& p,
            int bh, cudaStream_t stream) {
   using S = Smem<D>;
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
-  if (make_map(&tm_q, q, D, p.t_q, bh, kBlockM) || make_map(&tm_k, k, D, p.t_kv, bh, S::kBN) ||
-      make_map(&tm_v, v, D, p.t_kv, bh, S::kBN) || make_map(&tm_o, o, D, p.t_q, bh, 64)) {
+  if (make_map<T>(&tm_q, q, D, p.t_q, bh, kBlockM) ||
+      make_map<T>(&tm_k, k, D, p.t_kv, bh, S::kBN) ||
+      make_map<T>(&tm_v, v, D, p.t_kv, bh, S::kBN) || make_map<T>(&tm_o, o, D, p.t_q, bh, 64)) {
     return kTensorMapFailed;
   }
-  auto kernel = flash_fwd_wgmma_kernel<D>;
+  auto kernel = flash_fwd_wgmma_kernel<D, T>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kAlloc);
   if (err != cudaSuccess) return (int)err;
@@ -455,7 +410,7 @@ extern "C" int ray_tpu_flash_fwd_wgmma(const void* q, const void* k, const void*
                                        void* o, void* lse, int bh, int t_q, int t_kv,
                                        int d, int dtype, int causal, float scale,
                                        void* stream) {
-  if (bh <= 0 || t_q <= 0 || t_kv <= 0 || dtype != 0 || !(scale > 0.f) ||
+  if (bh <= 0 || t_q <= 0 || t_kv <= 0 || (dtype != 0 && dtype != 2) || !(scale > 0.f) ||
       (long long)bh * ((t_q + kBlockM - 1) / kBlockM) > 0x7fffffffll) {
     return kUnsupported;
   }
@@ -465,7 +420,7 @@ extern "C" int ray_tpu_flash_fwd_wgmma(const void* q, const void* k, const void*
   p.lse = static_cast<float*>(lse);
   p.bh = bh;
   p.n_q = (t_q + block_q - 1) / block_q;
-  p.group = l2_group(4ll * t_kv * d, bh);  // K and V of one head, bf16
+  p.group = l2_group(4ll * t_kv * d, bh);  // K and V of one head, 2 bytes an element
   p.t_q = t_q;
   p.t_kv = t_kv;
   p.off = t_kv - t_q;
@@ -474,10 +429,17 @@ extern "C" int ray_tpu_flash_fwd_wgmma(const void* q, const void* k, const void*
   p.causal = causal;
   p.scale_log2 = scale * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool half = dtype == 2;
   switch (d) {
-    case 64: return launch<64>(q, k, v, o, p, bh, st);
-    case 128: return launch<128>(q, k, v, o, p, bh, st);
-    case 256: return launch<256>(q, k, v, o, p, bh, st);
+    case 64:
+      return half ? launch<64, __half>(q, k, v, o, p, bh, st)
+                  : launch<64, __nv_bfloat16>(q, k, v, o, p, bh, st);
+    case 128:
+      return half ? launch<128, __half>(q, k, v, o, p, bh, st)
+                  : launch<128, __nv_bfloat16>(q, k, v, o, p, bh, st);
+    case 256:
+      return half ? launch<256, __half>(q, k, v, o, p, bh, st)
+                  : launch<256, __nv_bfloat16>(q, k, v, o, p, bh, st);
   }
   return kUnsupported;
 }

@@ -25,9 +25,12 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -40,6 +43,14 @@ constexpr unsigned long long kWaitLimitNs = 4000000000ull;
 constexpr long long kL2GroupBytes = 16ll << 20;
 constexpr int kUnsupported = 100000;
 constexpr int kTensorMapFailed = 100001;
+
+// The 16-bit input type T of the tensor-core kernels at head_dim 64 and up:
+// bf16 (__nv_bfloat16), or float16 (__half). The products add in float32
+// either way and both types lay out their operands alike, so a kernel takes
+// either by its T alone. The entry points name T by the dtype code 0 (bf16)
+// or 2 (float16).
+template <typename T>
+constexpr bool kHalf = std::is_same<T, __half>::value;
 
 // ---------------------------------------------------------------------------
 // PTX wrappers
@@ -232,122 +243,161 @@ __device__ __forceinline__ void fence_regs(uint32_t* r) {
   "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]), "+f"(d[o + 4]), \
       "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
 
-// D[64 x N] (+)= A[64 x 16] B[16 x N], A and B K-major in shared memory
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int accumulate);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<48>(float* d, uint64_t da, uint64_t db,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23}, "
-      "%24, %25, p, 1, 1, 0, 0;\n}\n"
-      : F8(0), F8(8), F8(16)
+// D[64 x N] (+)= A[64 x 16] B[16 x N], A and B K-major in shared memory, of
+// type T (bf16, or float16 where a kernel is built for it)
+#define WGMMA_SS_48(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23}, " \
+      "%24, %25, p, 1, 1, 0, 0;\n}\n" \
+      : F8(0), F8(8), F8(16) \
       : "l"(da), "l"(db), "r"(accumulate));
+#define WGMMA_SS_64(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+      "%30, %31}, " \
+      "%32, %33, p, 1, 1, 0, 0;\n}\n" \
+      : F8(0), F8(8), F8(16), F8(24) \
+      : "l"(da), "l"(db), "r"(accumulate));
+#define WGMMA_SS_80(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, " \
+      "%40, %41, p, 1, 1, 0, 0;\n}\n" \
+      : F8(0), F8(8), F8(16), F8(24), F8(32) \
+      : "l"(da), "l"(db), "r"(accumulate));
+#define WGMMA_SS_128(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+      "%58, %59, %60, %61, %62, %63}, " \
+      "%64, %65, p, 1, 1, 0, 0;\n}\n" \
+      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56) \
+      : "l"(da), "l"(db), "r"(accumulate));
+
+template <int N, typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int accumulate) {
+  static_assert(N == 48 || N == 64 || N == 80 || N == 128, "wgmma_ss takes N = 48, 64, 80, 128");
+  if constexpr (N == 48) {
+    if constexpr (kHalf<T>) {
+      WGMMA_SS_48("f16");
+    } else {
+      WGMMA_SS_48("bf16");
+    }
+  } else if constexpr (N == 64) {
+    if constexpr (kHalf<T>) {
+      WGMMA_SS_64("f16");
+    } else {
+      WGMMA_SS_64("bf16");
+    }
+  } else if constexpr (N == 80) {
+    if constexpr (kHalf<T>) {
+      WGMMA_SS_80("f16");
+    } else {
+      WGMMA_SS_80("bf16");
+    }
+  } else if constexpr (N == 128) {
+    if constexpr (kHalf<T>) {
+      WGMMA_SS_128("f16");
+    } else {
+      WGMMA_SS_128("bf16");
+    }
+  }
 }
 
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da, uint64_t db,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : F8(0), F8(8), F8(16), F8(24)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<80>(float* d, uint64_t da, uint64_t db,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
-      "%40, %41, p, 1, 1, 0, 0;\n}\n"
-      : F8(0), F8(8), F8(16), F8(24), F8(32)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t da, uint64_t db,
-                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
+#undef WGMMA_SS_48
+#undef WGMMA_SS_64
+#undef WGMMA_SS_80
+#undef WGMMA_SS_128
 
 // D[64 x N] += A[64 x 16] B[16 x N], A in registers (the accumulator layout
-// of a product rounded to bf16), B MN-major in shared memory (transpose bit
-// set)
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : F8(0)
+// of a product rounded to T, bf16 or float16), B MN-major in shared memory
+// (transpose bit set)
+#define WGMMA_RS_16(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, " \
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n" \
+      : F8(0) \
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+#define WGMMA_RS_32(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, " \
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n" \
+      : F8(0), F8(8) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+#define WGMMA_RS_64(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+      "%30, %31}, " \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+      : F8(0), F8(8), F8(16), F8(24) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+#define WGMMA_RS_128(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+      "%58, %59, %60, %61, %62, %63}, " \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n" \
+      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+
+template <int N, typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128, "wgmma_rs takes N = 16, 32, 64, 128");
+  if constexpr (N == 16) {
+    if constexpr (kHalf<T>) {
+      WGMMA_RS_16("f16");
+    } else {
+      WGMMA_RS_16("bf16");
+    }
+  } else if constexpr (N == 32) {
+    if constexpr (kHalf<T>) {
+      WGMMA_RS_32("f16");
+    } else {
+      WGMMA_RS_32("bf16");
+    }
+  } else if constexpr (N == 64) {
+    if constexpr (kHalf<T>) {
+      WGMMA_RS_64("f16");
+    } else {
+      WGMMA_RS_64("bf16");
+    }
+  } else if constexpr (N == 128) {
+    if constexpr (kHalf<T>) {
+      WGMMA_RS_128("f16");
+    } else {
+      WGMMA_RS_128("bf16");
+    }
+  }
 }
 
-template <>
-__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : F8(0), F8(8)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : F8(0), F8(8), F8(16), F8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
+#undef WGMMA_RS_16
+#undef WGMMA_RS_32
+#undef WGMMA_RS_64
+#undef WGMMA_RS_128
 
 #undef F8
 
@@ -360,6 +410,17 @@ __device__ __forceinline__ float fast_exp2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// two floats rounded to T, packed lo first
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kHalf<T>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    return pack_bf16(lo, hi);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -451,50 +512,51 @@ __device__ __forceinline__ void narrow_nn_step(float* acc, const uint32_t* a, ui
 
 // acc[64 x BN] = A B^T: A is the warpgroup's 64 rows of a [kARows, D] tile
 // (`a_rows` points at its first row in box 0), B a [BN, D] tile; both
-// K-major. D / 16 wgmmas, 16 columns of d each.
-template <int D, int BN, int kARows = 128>
+// K-major, of type T. D / 16 wgmmas, 16 columns of d each.
+template <int D, int BN, typename T = __nv_bfloat16, int kARows = 128>
 __device__ __forceinline__ void issue_nt(float* acc, uint32_t a_rows, uint32_t b_tile) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t col_bytes = (kk % 4) * 32;  // 16 columns within a 64-column box
-    wgmma_ss<BN>(acc, kmajor_desc(a_rows + (kk / 4) * (kARows * 128) + col_bytes),
+    wgmma_ss<BN, T>(acc, kmajor_desc(a_rows + (kk / 4) * (kARows * 128) + col_bytes),
                  kmajor_desc(b_tile + (kk / 4) * (BN * 128) + col_bytes), kk > 0);
   }
 }
 
 // acc[64 x D] += A B: A [64 x BN] in registers in the A-operand layout
-// (to_bf16_a), B a [BN, D] tile read MN-major. BN / 16 k-steps of 16 rows of
-// B, each over D in wgmmas of at most 128 columns (two 64-column boxes).
-template <int D, int BN>
+// (to_a), B a [BN, D] tile read MN-major, both of type T. BN / 16 k-steps of
+// 16 rows of B, each over D in wgmmas of at most 128 columns (two 64-column
+// boxes).
+template <int D, int BN, typename T = __nv_bfloat16>
 __device__ __forceinline__ void issue_nn(float* acc, const uint32_t* a, uint32_t b_tile) {
   constexpr int kOn = D < 128 ? D : 128;
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk) {
 #pragma unroll
     for (int h = 0; h < D / kOn; ++h) {
-      wgmma_rs<kOn>(acc + h * (kOn / 2), a + 4 * kk,
+      wgmma_rs<kOn, T>(acc + h * (kOn / 2), a + 4 * kk,
                     mnmajor_desc(b_tile + kk * 16 * 128 + h * (kOn / 64) * (BN * 128),
                                  BN * 128));
     }
   }
 }
 
-// An accumulator [64 x BN] in bf16 in the A-operand layout: k-step kk takes
+// An accumulator [64 x BN] in T in the A-operand layout: k-step kk takes
 // registers 4 kk .. 4 kk + 3 (columns 16 kk .. 16 kk + 15), which is the
 // accumulator's own order
-template <int BN>
-__device__ __forceinline__ void to_bf16_a(const float* s, uint32_t* pa) {
+template <int BN, typename T = __nv_bfloat16>
+__device__ __forceinline__ void to_a(const float* s, uint32_t* pa) {
 #pragma unroll
-  for (int i = 0; i < BN / 4; ++i) pa[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+  for (int i = 0; i < BN / 4; ++i) pa[i] = pack2<T>(s[2 * i], s[2 * i + 1]);
 }
 
 // Writes a warpgroup's accumulator [64 x D], times mul[r] on its rows
 // (element i of the accumulator sits at row 16 * warp + g + 8 * r, r =
-// (i >> 1) & 1, column 8 * (i >> 2) + 2 * tq + (i & 1)), in bf16 into its
-// 64 rows of a swizzled tile whose boxes are `box_bytes` apart, `rows`
-// pointing at the first of them in box 0; a TMA store then takes them.
-template <int D>
-__device__ __forceinline__ void write_rows_bf16(uint8_t* rows, int box_bytes, const float* acc,
+// (i >> 1) & 1, column 8 * (i >> 2) + 2 * tq + (i & 1)), in T into its 64
+// rows of a swizzled tile whose boxes are `box_bytes` apart, `rows` pointing
+// at the first of them in box 0; a TMA store then takes them.
+template <int D, typename T = __nv_bfloat16>
+__device__ __forceinline__ void write_rows(uint8_t* rows, int box_bytes, const float* acc,
                                                 const float* mul, int warp, int g, int tq) {
 #pragma unroll
   for (int i = 0; i < D / 2; i += 2) {
@@ -503,18 +565,74 @@ __device__ __forceinline__ void write_rows_bf16(uint8_t* rows, int box_bytes, co
     const int row = 16 * warp + g + 8 * r;  // within the warpgroup's rows
     const int chunk = ((col % 64) / 8) ^ (row % 8);
     const uint32_t off = (col / 64) * box_bytes + row * 128 + chunk * 16 + (col % 8) * 2;
-    *reinterpret_cast<uint32_t*>(rows + off) = pack_bf16(acc[i] * mul[r], acc[i + 1] * mul[r]);
+    *reinterpret_cast<uint32_t*>(rows + off) = pack2<T>(acc[i] * mul[r], acc[i + 1] * mul[r]);
   }
+}
+
+// The flash forward's online softmax of one S tile (64 rows by BN columns
+// of a warpgroup's accumulator) in log2 units: updates the running max m and
+// this thread's share of the row sums l, returns the factor alpha that
+// rescales O, and leaves P in s. Masks (causal, past t_kv) only where
+// `masked`. Element i of the tile sits at row row0 + 8 * ((i >> 1) & 1) and
+// column k0 + 8 * (i >> 2) + 2 * tq + (i & 1). The max is of the raw scores,
+// the scale (p.scale_log2 = scale * log2 e, P's t_kv, causal, off and bk_eff
+// as the forward kernels' Params name them) folded in after it, so the scale
+// must be positive.
+template <int BN, class P>
+__device__ __forceinline__ void online_softmax(float* s, float* m, float* l, float* alpha,
+                                               const P& p, int k0, int row0, int tq,
+                                               bool masked) {
+  float mx[2] = {-INFINITY, -INFINITY};
+  if (masked) {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      const int col = k0 + 8 * (i >> 2) + 2 * tq + (i & 1);
+      const int row = row0 + 8 * ((i >> 1) & 1);
+      const bool visible = col < p.t_kv && (!p.causal || row + p.off >= col);
+      if (!visible) s[i] = -INFINITY;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  }
+  bool empty[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_cur = mx[r] == -INFINITY ? kNegInf : mx[r] * p.scale_log2;
+    const float m_new = fmaxf(m[r], m_cur);
+    alpha[r] = fast_exp2(m[r] - m_new);
+    m[r] = m_new;
+    empty[r] = m_new == kNegInf;  // no visible column so far
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    const int r = (i >> 1) & 1;
+    float pe = fast_exp2(fmaf(s[i], p.scale_log2, -m[r]));
+    if (masked && empty[r]) {
+      // every processed column of the row is masked: p = exp(0) = 1 on each
+      // column of the reference's tile
+      pe = 8 * (i >> 2) + 2 * tq + (i & 1) < p.bk_eff ? 1.f : 0.f;
+    }
+    s[i] = pe;
+    rs[r] += pe;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
 }
 
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
-// A 3-D tensor map [d, rows, bh] of bf16 with boxes of box_cols columns by
-// box_rows rows, by default 64 columns with the 128-byte swizzle (a narrow
-// tile: box_cols = d = 16 or 32 with the 32- or 64-byte swizzle); reads past
-// `rows` fill zeros, writes are clipped.
+// A 3-D tensor map [d, rows, bh] of T (bf16 or float16) with boxes of
+// box_cols columns by box_rows rows, by default 64 columns with the 128-byte
+// swizzle (a narrow tile: box_cols = d = 16 or 32 with the 32- or 64-byte
+// swizzle); reads past `rows` fill zeros, writes are clipped.
+template <typename T = __nv_bfloat16>
 int make_map(CUtensorMap* map, const void* ptr, int d, int rows, int bh, int box_rows,
              int box_cols = 64, CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)bh};
@@ -522,7 +640,7 @@ int make_map(CUtensorMap* map, const void* ptr, int d, int rows, int bh, int box
   cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
   cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = cuTensorMapEncodeTiled(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+      map, kHalf<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
       box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kTensorMapFailed;

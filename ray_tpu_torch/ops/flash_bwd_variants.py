@@ -1,6 +1,6 @@
 """Variants of the bf16 flash backward kernels, built and timed on the card.
 
-    python -m ray_tpu_torch.ops.flash_bwd_variants [--small-d] [--out results.json]
+    python -m ray_tpu_torch.ops.flash_bwd_variants [--small-d | --d64] [--out results.json]
 
 Each variant is ``csrc/flash_bwd_wgmma.cu`` and ``csrc/hopper.cuh`` with one
 piece of text replaced (``flash_fwd_variants.build_variant``):
@@ -44,7 +44,26 @@ and the tiny flagship's working shapes and at long t (``SMALL_D_SHAPES``):
   chunk of every masked tile computed), which say what the copies, the
   exponentials, the stores and the skip cost.
 
-Each time there is the kernel's device time per call from torch.profiler,
+With ``--d64`` the variants are of ``csrc/flash_bwd_d64.cu``'s dK/dV
+kernel, the design of bf16 at head_dim 64 (``D64_VARIANTS``), timed beside
+the wgmma dK/dV of ``csrc/flash_bwd_wgmma.cu`` that it took over from there
+(``wgmma before``), with the wgmma dQ (which stays on that path) and the
+library's whole backward at gpt_125m's heads at b=4 and b=16, causal, and
+b=4 non-causal (``flash_fwd_variants.D64_SHAPES``):
+
+* ``as built``: the source unchanged;
+* ``two stages``: two stages of Q and dO in the ring instead of three
+  (the design's first run);
+* probes, wrong by design: ``probe: copies only`` (the consumers release
+  each stage as it lands and do no math; K and V are read and dK, dV
+  written as before), ``probe: no ex2`` (P is the exponential's argument)
+  and ``probe: no epilogue`` (no dK or dV written, behind a test of a
+  kernel argument, so the math stays).
+
+There each time is the median and the spread of five alternating turns, as
+``flash_fwd_variants --d64`` takes them.
+
+Each ``--small-d`` time is the kernel's device time per call from torch.profiler,
 the least of five turns after half a second of load to settle the clocks,
 since at these shapes the host's launches take about as long as the
 kernel. It needs a card and ``nvcc``; nothing else of the port calls it.
@@ -55,6 +74,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import statistics
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -64,7 +84,8 @@ import torch.nn.functional as F
 
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import attention as attn
-from ray_tpu_torch.ops.flash_fwd_variants import build_variant, device_ms, ms
+from ray_tpu_torch.ops.flash_fwd_variants import (D64_SHAPES, build_variant, device_ms, ms,
+                                                   turn_order)
 from ray_tpu_torch.ops.tolerance import BWD_TOL, row_err
 
 SOURCE = _build.CSRC_DIR / "flash_bwd_wgmma.cu"
@@ -159,6 +180,106 @@ SMALL_D_SHAPES = [(512, 4, 128, 128, 16, True), (256, 8, 256, 256, 32, True),
                   (16, 4, 2048, 2048, 16, True), (8, 8, 2048, 2048, 32, True)]
 
 
+D64_SOURCE = _build.CSRC_DIR / "flash_bwd_d64.cu"
+D64_VARIANTS = {
+    "as built": [],
+    "two stages": [("constexpr int kStages = 3;      // ring depth",
+                    "constexpr int kStages = 2;      // ring depth")],
+    # probes, wrong by design: the copies alone, the math without MUFU, the
+    # math without the epilogue
+    "probe: copies only": [("    if (n_run > 0) {\n      float s[kBlockQ / 2];       // S^T\n",
+                            "    for (int j = 0; j < n_run; ++j) {\n"
+                            "      if (j == 0) mbar_wait(bar_kv, 0);\n"
+                            "      mbar_wait(bar_full + 8 * (j % kStages), (j / kStages) & 1);\n"
+                            "      if (lane == 0) mbar_arrive(bar_empty + 8 * (j % kStages));\n"
+                            "    }\n"
+                            "    if (false) {\n      float s[kBlockQ / 2];       // S^T\n")],
+    "probe: no ex2": [("float p0 = fast_exp2(fmaf(s[e], p.scale_log2, -l0));",
+                       "float p0 = fmaf(s[e], p.scale_log2, -l0);"),
+                      ("float p1 = fast_exp2(fmaf(s[e + 1], p.scale_log2, -l1));",
+                       "float p1 = fmaf(s[e + 1], p.scale_log2, -l1);")],
+    # a test the compiler cannot decide (bh > 0 at every call)
+    "probe: no epilogue": [("    const float scale[2] = {p.scale, p.scale};\n",
+                            "    if (p.bh > 0) return;\n"
+                            "    const float scale[2] = {p.scale, p.scale};\n")],
+}
+
+
+def _build_d64(name: str):
+    """(dK/dV function, spill bytes) of one head_dim-64 variant."""
+    lib, by_kernel = build_variant(D64_SOURCE, name, D64_VARIANTS[name])
+    fn = lib.ray_tpu_flash_bwd_dkv_d64
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn, sum(by_kernel.values())
+
+
+def main_d64(smi: str, out: str | None) -> int:
+    """The d64 dK/dV's variants beside the wgmma dK/dV, the wgmma dQ and the
+    library's whole backward, device time per call, median and spread of
+    five alternating turns."""
+    with ThreadPoolExecutor(len(D64_VARIANTS)) as pool:  # one nvcc per variant
+        built = dict(zip(D64_VARIANTS, pool.map(_build_d64, D64_VARIANTS)))
+    dq_fn, old_dkv = _bind(attn._kernel_lib("flash_bwd_wgmma"), "ray_tpu_flash_bwd_dq_wgmma",
+                           "ray_tpu_flash_bwd_dkv_wgmma")
+    built["wgmma before"] = (old_dkv, None)
+    for name, (_, spills) in built.items():
+        print(f"[variant] {name:<22} spill bytes {spills}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for b, h, t_q, t_kv, d, causal in D64_SHAPES:
+        q, k, v, do = (torch.randn(b, h, t, d, device="cuda", dtype=torch.bfloat16,
+                                   generator=gen) for t in (t_q, t_kv, t_kv, t_q))
+        scale = d ** -0.5
+        o, lse = attn.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+        delta = attn.flash_bwd_delta(o, do)
+        _, want_dk, want_dv = attn.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                             causal=causal, scale=scale)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        runs = {name: (lambda fn=fn: _call(fn, (q, k, v, do, lse, delta, dk, dv), q, t_kv,
+                                           causal, scale))
+                for name, (fn, _) in built.items()}
+        errs = {}
+        for name, run in runs.items():
+            dk.fill_(float("nan"))
+            dv.fill_(float("nan"))
+            run()
+            torch.cuda.synchronize()
+            errs[name] = {"dk": row_err(dk, want_dk), "dv": row_err(dv, want_dv)}
+        t_end = time.monotonic() + 0.5
+        while time.monotonic() < t_end:
+            runs["as built"]()
+        torch.cuda.synchronize()
+        times = {name: [] for name in built}
+        for name in turn_order(built):
+            times[name].append(device_ms(runs[name]))
+        dq_ms = device_ms(lambda: _call(dq_fn, (q, k, v, do, lse, delta, dq), q, t_kv, causal,
+                                        scale))
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal, scale=scale)
+        sdpa = device_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do,
+                                                     retain_graph=True), per_call=None)
+        med = {n: statistics.median(t) for n, t in times.items()}
+        tol = BWD_TOL[torch.bfloat16]
+        row = dict(shape=[b, h, t_q, t_kv, d], causal=causal, sdpa_bwd_ms=sdpa,
+                   wgmma_dq_ms=dq_ms, dkv_ms=med, turns=times, row_err=errs,
+                   ok={n: max(e.values()) <= tol for n, e in errs.items()})
+        rows.append(row)
+        print(f"[time] {row['shape']} causal={causal}: dK/dV "
+              + " | ".join(f"{n} {med[n]:.4f} ms ({min(times[n]):.4f}-{max(times[n]):.4f})"
+                           + ("" if row["ok"][n] else " (WRONG)") for n in built)
+              + f" | wgmma dQ {dq_ms:.4f} ms | sdpa whole backward {sdpa:.4f} ms", flush=True)
+        print(f"[err] {row['shape']}: " + " | ".join(
+            f"{n} " + " ".join(f"{g} {e:.2e}" for g, e in errs[n].items()) for n in built))
+        del want_dk, want_dv, lib_out
+    if out:
+        with open(out, "w") as f:
+            json.dump(dict(card=smi, spills={n: s for n, (_, s) in built.items()},
+                           times="device time (torch.profiler), median of five turns",
+                           shapes=rows), f, indent=1)
+    return 0
+
+
 def _build_small_d(name: str):
     """(dQ function, dK/dV function, spill bytes of each kernel by head_dim)
     of one small-d variant."""
@@ -244,6 +365,8 @@ def main() -> int:
     ap.add_argument("--out", help="write the results to this JSON file")
     ap.add_argument("--small-d", action="store_true",
                     help="the head_dim 16/32 design's variants beside the mma.sync pair")
+    ap.add_argument("--d64", action="store_true",
+                    help="the head_dim 64 dK/dV design's variants beside the wgmma kernel")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("flash_bwd_variants needs a card")
@@ -253,6 +376,8 @@ def main() -> int:
     print(smi)
     if args.small_d:
         return main_small_d(smi, args.out)
+    if args.d64:
+        return main_d64(smi, args.out)
     with ThreadPoolExecutor(len(VARIANTS)) as pool:  # one nvcc per variant
         built = dict(zip(VARIANTS, pool.map(_build_variant, VARIANTS)))
     for name, (_, _, spills) in built.items():

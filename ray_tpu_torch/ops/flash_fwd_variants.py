@@ -1,6 +1,6 @@
 """Variants of the bf16 flash forwards, built and timed on the card.
 
-    python -m ray_tpu_torch.ops.flash_fwd_variants [--small-d] [--out results.json]
+    python -m ray_tpu_torch.ops.flash_fwd_variants [--small-d | --d64] [--out results.json]
 
 Each variant is ``csrc/flash_fwd_wgmma.cu`` and the headers beside it
 (``csrc/*.cuh``) with one piece of text replaced, built with the port's
@@ -44,6 +44,34 @@ and at long t (``SMALL_D_SHAPES``):
   a conversion) and ``probe: half the exponentials`` (every other one a
   multiply), which say what the conversions and the ex2 pipe cost.
 
+With ``--d64`` the variants are of ``csrc/flash_fwd_d64.cu``, the design of
+bf16 at head_dim 64 (``D64_VARIANTS``), timed beside the wgmma kernel of
+``csrc/flash_fwd_wgmma.cu`` that it took over from there (``wgmma before``,
+the port's own build launched at head_dim 64) and ``scaled_dot_product_attention``
+at gpt_125m's heads (12 x 64, t=2048) at b=4 and b=16, causal, and b=4
+non-causal, whose runs are long (``D64_SHAPES``):
+
+* ``as built``: the source unchanged (a persistent grid taking items from
+  a counter, two consumer warpgroups with turns);
+* ``three consumer warpgroups``: 192-row items of three consumer
+  warpgroups at 160 registers (512 threads, whose launch caps them at 128);
+* ``no turns``: the consumer warpgroups issue without taking turns;
+* ``three stages``: a K/V ring of 3 stages instead of 2;
+* ``split softmax``: a tile whose rows have all seen a key takes its
+  exponentials in a loop of their own, with no select of the value of a
+  row that saw none (``online_softmax`` in ``hopper.cuh``);
+* probes, wrong by design: ``probe: copies only`` (no math: each K/V
+  stage released as it lands, O written as zeros), ``probe: no ex2`` (an
+  FMA in place of every MUFU exponential), ``probe: no epilogue`` (no O
+  or lse written, behind a test of a kernel argument that the compiler
+  cannot decide, so the math stays) and ``probe: no softmax`` (after the
+  first kv tile S goes to P V as it is: the products and copies alone).
+
+Each time there is the kernel's device time per call from torch.profiler,
+the median and the spread of five turns that alternate the variants (in
+order, in reverse, in order, in reverse, in order) after half a second of
+load to settle the clocks.
+
 It prints each variant's spills from the compiler's report, checks each
 against the plain version (worst-row error, ``ops/tolerance.py``), and,
 after half a second of the first variant to settle the clocks, times them
@@ -62,6 +90,7 @@ import argparse
 import ctypes
 import json
 import re
+import statistics
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -71,7 +100,7 @@ import torch.nn.functional as F
 
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import attention as attn
-from ray_tpu_torch.ops.tolerance import FWD_ROW_TOL, row_err
+from ray_tpu_torch.ops.tolerance import FWD_LSE_TOL, FWD_ROW_TOL, row_err
 
 SOURCE = _build.CSRC_DIR / "flash_fwd_wgmma.cu"
 OUT_DIR = _build.BUILD_DIR / "variants"
@@ -135,6 +164,58 @@ SMALL_D_VARIANTS = {
 # (b=256, 8 x 32, t=256), and long t at both head_dims
 SMALL_D_SHAPES = [(512, 4, 128, 128, 16, True), (256, 8, 256, 256, 32, True),
                   (16, 4, 2048, 2048, 16, True), (8, 8, 2048, 2048, 32, True)]
+
+
+D64_SOURCE = _build.CSRC_DIR / "flash_fwd_d64.cu"
+D64_VARIANTS = {
+    "as built": [],
+    "three consumer warpgroups": [("constexpr int kConsumerWGs = 2;",
+                                   "constexpr int kConsumerWGs = 3;")],
+    "no turns": [("constexpr bool kTurns = true;", "constexpr bool kTurns = false;")],
+    "three stages": [("constexpr int kStages = 2;                      // K/V ring depth",
+                      "constexpr int kStages = 3;                      // K/V ring depth")],
+    # the exponentials of a tile with no row that saw no key in a loop of
+    # their own, with no select of the empty-row value
+    "split softmax": [("  float rs[2] = {0.f, 0.f};\n#pragma unroll\n  for (int i = 0; i < BN / 2; ++i) {\n",
+                       "  float rs[2] = {0.f, 0.f};\n"
+                       "  if (!(masked && (empty[0] || empty[1]))) {\n"
+                       "#pragma unroll\n"
+                       "    for (int i = 0; i < BN / 2; ++i) {\n"
+                       "      s[i] = fast_exp2(fmaf(s[i], p.scale_log2, -m[(i >> 1) & 1]));\n"
+                       "      rs[(i >> 1) & 1] += s[i];\n"
+                       "    }\n"
+                       "#pragma unroll\n"
+                       "    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];\n"
+                       "    return;\n"
+                       "  }\n"
+                       "#pragma unroll\n  for (int i = 0; i < BN / 2; ++i) {\n")],
+    # probes, wrong by design: the copies alone, the math without MUFU, the
+    # math without the epilogue
+    "probe: copies only": [("      const int n_run = wg_kv_tiles(p, q_wg);\n",
+                            "      const int n_run = 0 * wg_kv_tiles(p, q_wg);\n")],
+    "probe: no ex2": [("    float pe = fast_exp2(fmaf(s[i], p.scale_log2, -m[r]));",
+                       "    float pe = fmaf(s[i], p.scale_log2, -m[r]) * 0.0625f + 1.f;")],
+    # a test the compiler cannot decide (bh > 0 at every call)
+    "probe: no epilogue": [("      if (q_wg < p.t_q) {\n", "      if (q_wg < p.t_q && p.bh < 0) {\n")],
+    # S taken as P after the first tile: the products and the copies, no
+    # softmax (max, exponentials, sums) between them
+    "probe: no softmax": [(
+        "          online_softmax<kBN>(s, m, l, alpha, p, j * kBN, row0, tq, masked(j * kBN));\n",
+        "          alpha[0] = alpha[1] = 1.f;\n")],
+}
+# b, h, t_q, t_kv, d, causal: gpt_125m's heads at b=4 and at 4h's b=16, and
+# b=4 non-causal (every q tile runs every kv tile)
+D64_SHAPES = [(4, 12, 2048, 2048, 64, True), (16, 12, 2048, 2048, 64, True),
+              (4, 12, 2048, 2048, 64, False)]
+D64_TURNS = 5
+
+
+def turn_order(names):
+    """The order of ``D64_TURNS`` turns over ``names``: in order, in
+    reverse, and so on, so that each variant's readings straddle the
+    others'."""
+    names = list(names)
+    return [n for t in range(D64_TURNS) for n in (names if t % 2 == 0 else names[::-1])]
 
 
 def build_variant(source, name: str, edits):
@@ -218,6 +299,91 @@ def _build_variant(name: str, small_d: bool = False):
     return _bind(getattr(lib, entry)), spills
 
 
+def _bind_d64(fn):
+    """The d64 entry, which takes the launch's own item counter after lse,
+    as a function of the other entries' arguments: each call passes a
+    counter of its own (the launcher zeroes it on the stream)."""
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float,
+                                                                 ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(q, k, v, o, lse, *rest):
+        schedule = torch.empty(1, dtype=torch.int32, device="cuda")
+        return fn(q, k, v, o, lse, schedule.data_ptr(), *rest)
+
+    return call
+
+
+def _build_d64(name: str):
+    """(launch function, spill bytes) of one head_dim-64 variant."""
+    lib, by_kernel = build_variant(D64_SOURCE, name, D64_VARIANTS[name])
+    return _bind_d64(lib.ray_tpu_flash_fwd_d64), sum(by_kernel.values())
+
+
+def main_d64(smi: str, out: str | None) -> int:
+    """The d64 forward's variants beside the wgmma kernel and the library,
+    device time per call, median and spread of five alternating turns."""
+    with ThreadPoolExecutor(len(D64_VARIANTS)) as pool:  # one nvcc per variant
+        built = dict(zip(D64_VARIANTS, pool.map(_build_d64, D64_VARIANTS)))
+    # the kernel this design took over from, from the port's own build
+    built["wgmma before"] = (_bind(attn._kernel_lib("flash_fwd_wgmma").ray_tpu_flash_fwd_wgmma),
+                             None)
+    for name, (_, spills) in built.items():
+        print(f"[variant] {name:<30} spill bytes {spills}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for b, h, t_q, t_kv, d, causal in D64_SHAPES:
+        q, k, v = (torch.randn(b, h, t, d, device="cuda", dtype=torch.bfloat16,
+                               generator=gen) for t in (t_q, t_kv, t_kv))
+        scale = d ** -0.5
+        ref, ref_lse = attn.flash_attention_fwd_plain(q, k, v, causal=causal, scale=scale)
+        errs, lse_errs = {}, {}
+        for name, (fn, _) in built.items():
+            got = torch.full_like(q, float("nan"))
+            lse = torch.full(q.shape[:3], float("nan"), device="cuda")
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), got.data_ptr(), lse.data_ptr(),
+                     b * h, t_q, t_kv, d, 0, int(causal), scale,
+                     torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise SystemExit(f"variant {name!r} launch failed ({err})")
+            torch.cuda.synchronize()
+            errs[name] = row_err(got, ref)
+            lse_errs[name] = float((lse - ref_lse).abs().max())
+        t_end = time.monotonic() + 0.5
+        while time.monotonic() < t_end:
+            _run(built["as built"][0], q, k, v, causal, scale)
+        torch.cuda.synchronize()
+        times = {name: [] for name in built}
+        memset = []
+        for name in turn_order(built):
+            fn = built[name][0]
+            times[name].append(device_ms(lambda: _run(fn, q, k, v, causal, scale)))
+            if name == "as built":
+                memset.append(MEMSET_MS[0])
+        sdpa = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                                scale=scale), per_call=None)
+        med = {n: statistics.median(t) for n, t in times.items()}
+        row = dict(shape=[b, h, t_q, t_kv, d], causal=causal, sdpa_ms=sdpa, ms=med,
+                   counter_memset_ms=statistics.median(memset),
+                   turns=times, row_err=errs, lse_err=lse_errs,
+                   ok={n: errs[n] <= FWD_ROW_TOL[torch.bfloat16]
+                       and lse_errs[n] <= FWD_LSE_TOL[torch.bfloat16] for n in built})
+        rows.append(row)
+        print(f"[time] {row['shape']} causal={causal}: "
+              + " | ".join(f"{n} {med[n]:.4f} ms ({min(times[n]):.4f}-{max(times[n]):.4f})"
+                           + ("" if row["ok"][n] else " (WRONG)") for n in built)
+              + f" | sdpa {sdpa:.4f} ms | as built's counter memset "
+              f"{row['counter_memset_ms']:.4f} ms a call", flush=True)
+        print(f"[err] {row['shape']}: " + " | ".join(
+            f"{n} {errs[n]:.2e} lse {lse_errs[n]:.2e}" for n in built))
+    if out:
+        with open(out, "w") as f:
+            json.dump(dict(card=smi, spills={n: s for n, (_, s) in built.items()},
+                           times="device time (torch.profiler), median of five turns",
+                           shapes=rows), f, indent=1)
+    return 0
+
+
 def _run(fn, q, k, v, causal, scale):
     b, h, t_q, d = q.shape
     out = torch.empty_like(q)
@@ -243,12 +409,17 @@ def ms(fn, iters: int = 30) -> float:
     return start.elapsed_time(end) / iters
 
 
+#: device time per call of the memsets of the last ``device_ms`` window
+MEMSET_MS = [0.0]
+
+
 def device_ms(fn, iters: int = 30, per_call: int | None = 1) -> float:
     """Mean device time per call of the kernels ``fn`` launches, from
     torch.profiler over ``iters`` back-to-back calls after a warm-up. Some
     windows lose kernel records: with ``per_call`` (kernels a call) the mean
-    is taken over the kernels recorded; without, a window is taken again
-    until it holds a whole number of kernels a call."""
+    is taken over the kernels recorded; without, each kernel counts its mean
+    as often as it launches a call (its records over the calls, rounded), and
+    one that launches less than every other call its total over the calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -261,12 +432,21 @@ def device_ms(fn, iters: int = 30, per_call: int | None = 1) -> float:
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        # the d64 forward's launcher zeroes its item counter (a 4-byte
+        # memset) before each launch: kept apart from a kernel's time (a
+        # library call's, without per_call, keeps all it runs)
+        memsets = [e for e in events if per_call and e.key.startswith("Memset")]
+        events = [e for e in events if e not in memsets]
+        MEMSET_MS[0] = sum(e.self_device_time_total for e in memsets) / iters / 1e3
         kernels = sum(e.count for e in events)
         device_us = sum(e.self_device_time_total for e in events)
-        if per_call and kernels >= iters // 2:
+        if kernels < iters // 2:
+            continue
+        if per_call:
             return device_us / kernels * per_call / 1e3
-        if kernels and kernels % iters == 0:
-            return device_us / 1e3 / iters
+        return sum(e.self_device_time_total / e.count * round(e.count / iters)
+                   if round(e.count / iters) else e.self_device_time_total / iters
+                   for e in events if e.count) / 1e3
     raise SystemExit(f"torch.profiler recorded {kernels} kernels over {iters} calls, "
                      f"three times")
 
@@ -276,6 +456,8 @@ def main() -> int:
     ap.add_argument("--out", help="write the results to this JSON file")
     ap.add_argument("--small-d", action="store_true",
                     help="the head_dim 16/32 design's variants beside the mma.sync kernel")
+    ap.add_argument("--d64", action="store_true",
+                    help="the head_dim 64 design's variants beside the wgmma kernel")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("flash_fwd_variants needs a card")
@@ -283,6 +465,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
     print(smi)
+    if args.d64:
+        return main_d64(smi, args.out)
     variants, shapes, timer = ((SMALL_D_VARIANTS, SMALL_D_SHAPES, device_ms) if args.small_d
                                else (VARIANTS, SHAPES, ms))
     with ThreadPoolExecutor(len(variants)) as pool:  # one nvcc per variant

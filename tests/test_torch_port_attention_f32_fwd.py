@@ -32,14 +32,14 @@ TILE = 64
 def test_fwd_designs_send_float32_to_the_tensor_core_design(d):
     """Every float32 head_dim runs the 3xTF32 kernel at 64 x 64 tiles, from
     a source the port builds with the entry point its table binds; bf16
-    keeps wgmma at 64/128/256 and persistent at 16/32."""
+    keeps wgmma at 128/256, d64 at 64 and persistent at 16/32."""
     design = port.FWD_DESIGNS[(d, torch.float32)]
     assert (design.name, design.source, design.entry) == (
         "tf32x3", "flash_fwd_f32", "ray_tpu_flash_fwd_f32")
     assert (design.block_q, design.block_k) == (TILE, TILE) == port.fwd_tiles(d, torch.float32)
     assert (port._build.CSRC_DIR / "flash_fwd_f32.cu").exists()
     assert set(port._SOURCES["flash_fwd_f32"][0]) == {"ray_tpu_flash_fwd_f32"}
-    want = "wgmma" if d in (64, 128, 256) else "persistent"
+    want = {64: "d64", 128: "wgmma", 256: "wgmma"}.get(d, "persistent")
     assert port.FWD_DESIGNS[(d, torch.bfloat16)].name == want
 
 

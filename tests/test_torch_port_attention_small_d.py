@@ -52,13 +52,15 @@ GRAD_NORM_RTOL = 1e-2
 def test_fwd_designs_send_bf16_16_and_32_to_the_persistent_design():
     """bf16 at head_dim 16 and 32 runs ``flash_fwd_persistent.cu`` at 64 x 64
     tiles, bound through the entry its table names; every other entry is
-    the one it was: bf16 64/128/256 on wgmma, float32 on tf32x3."""
+    the one it was: bf16 and float16 128/256 on wgmma, bf16 and float16 64
+    on d64 at wgmma's 128 x 128, float32 on tf32x3."""
     want = {(d, torch.float32): ("tf32x3", "flash_fwd_f32", (64, 64)) for d in port.HEAD_DIMS}
     want.update({(16, BF16): ("persistent", "flash_fwd_persistent", (64, 64)),
                  (32, BF16): ("persistent", "flash_fwd_persistent", (64, 64)),
-                 (64, BF16): ("wgmma", "flash_fwd_wgmma", (128, 128)),
+                 (64, BF16): ("d64", "flash_fwd_d64", (128, 128)),
                  (128, BF16): ("wgmma", "flash_fwd_wgmma", (128, 128)),
                  (256, BF16): ("wgmma", "flash_fwd_wgmma", (128, 80))})
+    want.update({(d, torch.float16): want[(d, BF16)] for d in (64, 128, 256)})
     got = {key: (dz.name, dz.source, (dz.block_q, dz.block_k))
            for key, dz in port.FWD_DESIGNS.items()}
     assert got == want
@@ -92,9 +94,16 @@ def test_bf16_forward_on_cpu_takes_the_plain_version_and_counts_nothing(d):
 @pytest.mark.parametrize("scale", [0.0, -0.25])
 def test_persistent_design_refuses_a_scale_that_is_not_positive(scale):
     """The kernel takes the row max of the raw scores and folds the scale
-    into exp2 after it, which holds for a positive scale only."""
-    with pytest.raises(ValueError, match="positive scale"):
-        port._check_design(port.FWD_DESIGNS[(16, BF16)], 16, scale)
+    into exp2 after it, which holds for a positive scale only: its launcher
+    refuses any other, and the wrapper hands it a positive one with the
+    same scores (``_positive_scale``: -q and -scale, or zeros and 1)."""
+    assert port.FWD_DESIGNS[(16, BF16)].name in port._POSITIVE_SCALE
+    launcher = (port._build.CSRC_DIR / "flash_fwd_persistent.cu").read_text()
+    assert "!(scale > 0.f)" in launcher
+    q = torch.from_numpy(np.random.RandomState(2).randn(1, 2, 8, 16).astype(np.float32)).to(BF16)
+    q2, scale2 = port._positive_scale(q, scale)
+    assert scale2 > 0 and q2.dtype == BF16
+    assert torch.equal(q2.float() * scale2, q.float() * scale)
 
 
 # (b, h, t_q, t_kv, causal): gpt_nano's t=128 (two q tiles, the diagonal

@@ -40,14 +40,22 @@ TILE = 64
 def test_bwd_designs_send_bf16_16_and_32_to_the_persistent_design():
     """bf16 at head_dim 16 and 32 runs ``flash_bwd_persistent.cu``, bound
     through the entry points its table names; every other entry is the one
-    it was: bf16 64/128/256 on wgmma, float32 on tf32x3."""
-    want = {(d, torch.float32): ("tf32x3", "flash_bwd_f32") for d in port.HEAD_DIMS}
-    want.update({(d, BF16): ("persistent", "flash_bwd_persistent") for d in SMALL_D})
-    want.update({(d, BF16): ("wgmma", "flash_bwd_wgmma") for d in (64, 128, 256)})
-    assert {key: (dz.name, dz.source) for key, dz in port.BWD_DESIGNS.items()} == want
+    it was: bf16 and float16 128/256 on wgmma, bf16 and float16 64 on wgmma's
+    dQ and d64's dK/dV, float32 on tf32x3."""
+    pair = {"tf32x3": [("tf32x3", "flash_bwd_f32")] * 2,
+            "persistent": [("persistent", "flash_bwd_persistent")] * 2,
+            "wgmma": [("wgmma", "flash_bwd_wgmma")] * 2,
+            "d64": [("wgmma", "flash_bwd_wgmma"), ("d64", "flash_bwd_d64")]}
+    want = {(d, torch.float32): pair["tf32x3"] for d in port.HEAD_DIMS}
+    want.update({(d, BF16): pair["persistent"] for d in SMALL_D})
+    want.update({(d, BF16): pair["wgmma"] for d in (128, 256)})
+    want[(64, BF16)] = pair["d64"]
+    want.update({(d, torch.float16): want[(d, BF16)] for d in (64, 128, 256)})
+    assert {key: [(kn.name, kn.source) for kn in (dz.dq, dz.dkv)]
+            for key, dz in port.BWD_DESIGNS.items()} == want
     for d in SMALL_D:
         design = port.BWD_DESIGNS[(d, BF16)]
-        assert (design.dq_entry, design.dkv_entry) == ("ray_tpu_flash_bwd_dq_persistent",
+        assert (design.dq.entry, design.dkv.entry) == ("ray_tpu_flash_bwd_dq_persistent",
                                                        "ray_tpu_flash_bwd_dkv_persistent")
     assert (port._build.CSRC_DIR / "flash_bwd_persistent.cu").exists()
     assert port._SOURCES["flash_bwd_persistent"][0] == {

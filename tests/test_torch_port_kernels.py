@@ -146,20 +146,30 @@ def test_kernel_wrapper_refuses_tensors_off_cpu_and_cuda():
 def test_bwd_designs_cover_every_head_dim_and_dtype():
     """The backward's dispatch table names a design for every head_dim the
     kernels take in both dtypes, each from a source the port builds, with
-    entry points that source binds; bf16 at head_dim 64, 128 and 256
-    (gpt_125m's, gpt_1b's and gpt_j_6b's) runs the wgmma kernels, bf16 at 16
-    and 32 (gpt_nano's and the tiny flagship's) the persistent ones."""
+    entry points that source binds; bf16 at head_dim 128 and 256 (gpt_1b's
+    and gpt_j_6b's) runs the wgmma kernels, bf16 at 64 (gpt_125m's) wgmma's
+    dQ and d64's dK/dV, bf16 at 16 and 32 (gpt_nano's and the tiny
+    flagship's) the persistent ones; float16 at 64, 128 and 256 the bf16
+    kernels' float16 builds; every other key the plain design."""
     keys = {(d, dt) for d in port.HEAD_DIMS for dt in (torch.bfloat16, torch.float32)}
+    keys |= {(d, torch.float16) for d in (64, 128, 256)}
     assert set(port.BWD_DESIGNS) == keys
     for design in port.BWD_DESIGNS.values():
-        entries, _ = port._SOURCES[design.source]
-        assert (port._build.CSRC_DIR / f"{design.source}.cu").exists()
-        assert {design.dq_entry, design.dkv_entry} <= set(entries)
-    for name, head_dims in (("wgmma", {64, 128, 256}), ("persistent", {16, 32})):
+        for kernel in (design.dq, design.dkv):
+            entries, _ = port._SOURCES[kernel.source]
+            assert (port._build.CSRC_DIR / f"{kernel.source}.cu").exists()
+            assert kernel.entry in entries
+    for kernel, name, head_dims in (("dq", "wgmma", {64, 128, 256}),
+                                    ("dkv", "wgmma", {128, 256}), ("dkv", "d64", {64}),
+                                    ("dq", "persistent", {16, 32}),
+                                    ("dkv", "persistent", {16, 32})):
         assert {d for (d, dt), design in port.BWD_DESIGNS.items()
-                if design.name == name} == head_dims
-        assert all(dt == torch.bfloat16 for (_, dt), design in port.BWD_DESIGNS.items()
-                   if design.name == name)
+                if getattr(design, kernel).name == name} == head_dims
+        assert {dt for (d, dt), design in port.BWD_DESIGNS.items()
+                if getattr(design, kernel).name == name} == (
+            {torch.bfloat16} if name == "persistent" else {torch.bfloat16, torch.float16})
+    assert port.BWD_DESIGNS[(48, torch.bfloat16)] is port.BWD_DESIGNS.plain
+    assert port.BWD_DESIGNS[(16, torch.float16)] is port.BWD_DESIGNS.plain
 
 
 def test_bwd_wrapper_takes_the_plain_version_on_cpu():
@@ -257,25 +267,221 @@ def test_dispatcher_launches_the_kernel_on_card(card):
     assert row_err(out, plain) <= FWD_ROW_TOL[torch.bfloat16]
 
 
+def _on_card_matches_cpu(card, shape, dtype, designs, scale=None):
+    """``dot_product_attention`` with a backward, on the card and on the
+    CPU: one forward, one dQ and one dK/dV launch on the counters of
+    ``designs`` (forward, dQ, dK/dV) and none on any other design's, and out
+    and the gradients within ``dtype``'s limits of the CPU's. The plain
+    design is the same function on both sides, so its gradients are held to
+    the CPU's own; the kernels' gradients are held to their plain backward
+    on the CPU from the card's out, since the backward reads out through
+    delta = rowsum(dO * O), where a row with few keys cancels, and the
+    forward kernel's rounding of P moves out within its limit but such a
+    row's dq by more than the backward's."""
+    cpu = [t.requires_grad_() for t in _qkv(*shape[:5], dtype=dtype, seed=11)]
+    dev = [t.detach().to(card).requires_grad_() for t in cpu]
+    g = torch.from_numpy(np.random.RandomState(12).randn(*shape[:3], shape[4])
+                         .astype(np.float32)).to(dtype)
+    names = ["flash_fwd_launches", f"flash_fwd_{designs[0]}_launches",
+             "flash_bwd_dq_launches", f"flash_bwd_dq_{designs[1]}_launches",
+             "flash_bwd_dkv_launches", f"flash_bwd_dkv_{designs[2]}_launches"]
+    kernels = [n for n in dir(port) if n.endswith("_launches") and n not in names]
+    before = [getattr(port, n) for n in names + kernels]
+    out = port.dot_product_attention(*dev, causal=shape[5], scale=scale)
+    out.backward(g.to(card))
+    assert [getattr(port, n) - b for n, b in zip(names + kernels, before)] == (
+        [1] * len(names) + [0] * len(kernels))
+    out_cpu = port.dot_product_attention(*cpu, causal=shape[5], scale=scale)
+    out_cpu.backward(g)
+    assert row_err(out.detach().cpu(), out_cpu.detach()) <= FWD_ROW_TOL[dtype]
+    want = [t.grad for t in cpu]
+    if designs != ("plain",) * 3:
+        qkv = [t.detach() for t in cpu]
+        s = shape[4] ** -0.5 if scale is None else scale
+        _, lse = port.flash_attention_fwd_plain(*qkv, causal=shape[5], scale=s)
+        want = port.flash_attention_bwd_plain(*qkv, out.detach().cpu(), lse, g,
+                                              causal=shape[5], scale=s)
+    _assert_grads_close([t.grad.cpu() for t in dev], want, BWD_TOL[dtype])
+
+
+def _plain_on_card_matches_cpu(card, shape, dtype, scale=None):
+    """``_on_card_matches_cpu`` of inputs that no kernel takes: every launch
+    on the plain design."""
+    _on_card_matches_cpu(card, shape, dtype, ("plain",) * 3, scale=scale)
+
+
 @pytest.mark.cuda
 def test_dispatcher_raises_for_what_the_kernel_does_not_take(card):
+    """The refusals left are the tiles, and a head_dim where the reference
+    runs its Pallas kernel and the port has none yet (384); a non-positive
+    scale runs the kernels (the forward's sign handed to q), float16 at 64
+    the d64 and wgmma kernels, head_dim 48 and float16 at 16 the plain
+    design, each as on the CPU."""
     q, k, v = _qkv(1, 2, 64, 64, 64, device=card, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="tiles"):
         port.dot_product_attention(q, k, v, block_q=64, block_k=64)
-    with pytest.raises(ValueError, match="positive scale"):
-        port.dot_product_attention(q, k, v, scale=-0.125)
-    with pytest.raises(ValueError, match="positive scale"):
-        port.dot_product_attention(*_qkv(1, 2, 64, 64, 16, device=card,
-                                         dtype=torch.bfloat16), scale=-0.25)
+    with pytest.raises(ValueError, match="no Hopper kernel"):
+        port.dot_product_attention(*_qkv(1, 1, 64, 64, 384, device=card, dtype=torch.bfloat16))
+    d64 = ("d64", "wgmma", "d64")
+    _on_card_matches_cpu(card, (1, 2, 64, 64, 64, True), torch.bfloat16, d64, scale=-0.125)
+    _on_card_matches_cpu(card, (1, 2, 64, 64, 16, True), torch.bfloat16, ("persistent",) * 3,
+                         scale=-0.25)
+    _on_card_matches_cpu(card, (1, 2, 96, 96, 128, True), torch.bfloat16, ("wgmma",) * 3,
+                         scale=0.0)
     # inputs that require grad go through the FlashAttention Function
     out = port.dot_product_attention(q.clone().requires_grad_(), k, v)
     assert "FlashAttention" in type(out.grad_fn).__name__
-    with pytest.raises(ValueError, match="head_dim"):
-        port.dot_product_attention(*_qkv(1, 1, 64, 64, 48, device=card,
-                                         dtype=torch.bfloat16))
-    with pytest.raises(ValueError, match="dtype"):
-        port.dot_product_attention(*_qkv(1, 1, 64, 64, 64, device=card,
-                                         dtype=torch.float16))
+    _plain_on_card_matches_cpu(card, (1, 1, 64, 64, 48, True), torch.bfloat16)
+    _on_card_matches_cpu(card, (1, 1, 64, 64, 64, True), torch.float16, d64)
+    _plain_on_card_matches_cpu(card, (1, 1, 64, 64, 16, True), torch.float16)
+
+
+# bf16 at head_dim 64 (the d64 forward and dK/dV, wgmma's dQ): gpt_125m's
+# heads (12 x 64, t=2048, causal) at b=4 and at bench.py's b=16, and ragged t
+D64_CASES = [
+    (4, 12, 2048, 2048, 64, True),
+    (16, 12, 2048, 2048, 64, True),
+    (2, 3, 200, 264, 64, True),
+    (1, 4, 320, 200, 64, True),     # t_q > t_kv: leading rows see nothing
+    (2, 2, 136, 136, 64, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", D64_CASES, ids=_ids)
+def test_d64_kernels_match_plain_on_card(card, case):
+    """bf16 at head_dim 64: the forward on the d64 design and the backward
+    on wgmma's dQ and d64's dK/dV, one launch of each on those counters and
+    none on the other designs', every row of out, lse, dq, dk and dv within
+    the bf16 limits of the plain versions (the forward at the table's 128 x
+    128 tiles), and the same bits from a second run."""
+    b, h, tq, tkv, d, causal = case
+    q, k, v = _qkv(b, h, tq, tkv, d, device=card, dtype=torch.bfloat16)
+    fwd = ["flash_fwd_launches", "flash_fwd_d64_launches", "flash_fwd_wgmma_launches",
+           "flash_fwd_plain_launches"]
+    before = [getattr(port, c) for c in fwd]
+    o, lse = port.flash_attention_fwd(q, k, v, causal=causal, scale=d ** -0.5)
+    assert [getattr(port, c) - n for c, n in zip(fwd, before)] == [1, 1, 0, 0]
+    ref_o, ref_lse = port.flash_attention_fwd_plain(q, k, v, causal=causal, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert row_err(o, ref_o) <= FWD_ROW_TOL[torch.bfloat16]
+    torch.testing.assert_close(lse, ref_lse, atol=FWD_LSE_TOL[torch.bfloat16], rtol=1e-6)
+    assert all(torch.equal(a, b_) for a, b_ in zip(
+        (o, lse), port.flash_attention_fwd(q, k, v, causal=causal, scale=d ** -0.5)))
+    do = torch.from_numpy(np.random.RandomState(1).randn(b, h, tq, d).astype(np.float32)).to(
+        card, torch.bfloat16)
+    bwd = ["flash_bwd_dq_wgmma_launches", "flash_bwd_dkv_d64_launches",
+           "flash_bwd_dkv_wgmma_launches", "flash_bwd_dq_plain_launches"]
+    before = [getattr(port, c) for c in bwd]
+    got = port.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, scale=d ** -0.5)
+    assert [getattr(port, c) - n for c, n in zip(bwd, before)] == [1, 1, 0, 0]
+    want = port.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+    _assert_grads_close(got, want, BWD_TOL[torch.bfloat16])
+    again = port.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, scale=d ** -0.5)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))  # no atomics
+
+
+@pytest.mark.cuda
+def test_d64_forwards_on_two_streams_keep_their_own_items(card):
+    """Two d64 forwards launched on two streams at once (together more CTAs
+    than the card holds, so the second starts while the first runs): each
+    launch hands out the items of its own counter, so both give the bits
+    that each gives alone, three times over."""
+    scale = 0.125
+    inputs = [_qkv(1, 12, 1024, 1024, 64, device=card, dtype=torch.bfloat16, seed=1),
+              _qkv(1, 8, 1024, 1024, 64, device=card, dtype=torch.bfloat16, seed=2)]
+    alone = [port.flash_attention_fwd(*x, causal=True, scale=scale) for x in inputs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    before = port.flash_fwd_d64_launches
+    for _ in range(3):
+        got = []
+        for stream, x in zip(streams, inputs):
+            with torch.cuda.stream(stream):
+                got.append(port.flash_attention_fwd(*x, causal=True, scale=scale))
+        torch.cuda.synchronize()
+        for (o, lse), (o1, lse1) in zip(got, alone):
+            assert torch.equal(o, o1) and torch.equal(lse, lse1)
+    assert port.flash_fwd_d64_launches == before + 6
+
+
+# float16 at head_dim 64, 128 and 256: the bf16 kernels' float16 builds
+F16_CASES = [
+    (2, 3, 200, 264, 64, True),
+    (1, 2, 160, 64, 64, True),      # t_q > t_kv: leading rows see nothing
+    (2, 2, 256, 256, 128, True),
+    (1, 2, 136, 136, 128, False),
+    (1, 2, 200, 264, 256, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", F16_CASES, ids=_ids)
+def test_float16_kernels_match_plain_on_card(card, case):
+    """float16 runs the design of its head_dim (d64 / wgmma / d64 at 64,
+    wgmma at 128 and 256), one launch of each kernel on those counters and
+    none on plain, every row of out, lse, dq, dk and dv within the float16
+    limits of the plain versions."""
+    b, h, tq, tkv, d, causal = case
+    f16 = torch.float16
+    q, k, v = _qkv(b, h, tq, tkv, d, device=card, dtype=f16)
+    fwd, bwd = port.FWD_DESIGNS[(d, f16)], port.BWD_DESIGNS[(d, f16)]
+    names = ["flash_fwd_plain_launches", f"flash_fwd_{fwd.name}_launches",
+             f"flash_bwd_dq_{bwd.dq.name}_launches", f"flash_bwd_dkv_{bwd.dkv.name}_launches"]
+    before = [getattr(port, n) for n in names]
+    o, lse = port.flash_attention_fwd(q, k, v, causal=causal, scale=d ** -0.5)
+    ref_o, ref_lse = port.flash_attention_fwd_plain(q, k, v, causal=causal, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert row_err(o, ref_o) <= FWD_ROW_TOL[f16]
+    torch.testing.assert_close(lse, ref_lse, atol=FWD_LSE_TOL[f16], rtol=1e-6)
+    do = torch.from_numpy(np.random.RandomState(1).randn(b, h, tq, d).astype(np.float32)).to(
+        card, f16)
+    got = port.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, scale=d ** -0.5)
+    want = port.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert [getattr(port, n) - c for n, c in zip(names, before)] == [0, 1, 1, 1]
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+    _assert_grads_close(got, want, BWD_TOL[f16])
+
+
+@pytest.mark.cuda
+def test_tf32x3_kernels_take_more_heads_than_grid_y(card):
+    """b * h = 65 600 (t=64) in float32: more than grid.y's 65535, so the
+    tf32x3 launchers run it in two launches of at most 65535 heads; forward
+    and backward within the float32 limits of the plain versions."""
+    q, k, v = _qkv(4, 16400, 64, 64, 16, device=card, dtype=torch.float32)
+    before = (port.flash_fwd_tf32x3_launches, port.flash_bwd_dq_tf32x3_launches,
+              port.flash_bwd_dkv_tf32x3_launches)
+    o, lse = port.flash_attention_fwd(q, k, v, causal=True, scale=0.25)
+    ref_o, ref_lse = port.flash_attention_fwd_plain(q, k, v, causal=True, scale=0.25)
+    assert row_err(o, ref_o) <= FWD_ROW_TOL[torch.float32]
+    torch.testing.assert_close(lse, ref_lse, atol=FWD_LSE_TOL[torch.float32], rtol=1e-6)
+    do = torch.ones_like(q)
+    got = port.flash_attention_bwd(q, k, v, o, lse, do, causal=True, scale=0.25)
+    want = port.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True, scale=0.25)
+    assert (port.flash_fwd_tf32x3_launches, port.flash_bwd_dq_tf32x3_launches,
+            port.flash_bwd_dkv_tf32x3_launches) == tuple(n + 1 for n in before)
+    _assert_grads_close(got, want, BWD_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, dtype", [
+    ((1, 2, 64, 64, 48, True), torch.bfloat16),
+    ((2, 2, 64, 64, 80, False), torch.float32),
+    ((1, 2, 40, 72, 96, True), torch.bfloat16),
+    ((1, 2, 64, 128, 16, True), torch.float16),
+    ((1, 2, 40, 72, 32, True), torch.float16),
+    ((1, 1, 60, 60, 384, True), torch.bfloat16),
+], ids=lambda x: str(x).replace(" ", ""))
+def test_plain_design_on_card_matches_the_cpu(card, shape, dtype):
+    """Inputs that no kernel takes and that the reference sends to its XLA
+    route (head_dims 48, 80, 96, float16 at 16 and 32, head_dim 384 at a
+    length that is not a multiple of 8) compute on the card through the
+    plain design, counted, and agree with the CPU path (the same
+    function)."""
+    _plain_on_card_matches_cpu(card, shape, dtype)
 
 
 @pytest.mark.cuda
@@ -309,9 +515,9 @@ def test_flash_bwd_kernels_match_plain_on_card(card, case, dtype):
     dt = getattr(torch, dtype)
     q, k, v, o, lse, do, scale = _bwd_inputs(*case, device=card, dtype=dt)
     causal = case[5]
-    design = port.BWD_DESIGNS[(case[4], dt)].name
+    design = port.BWD_DESIGNS[(case[4], dt)]
     counters = [f"flash_bwd_{kernel}{suffix}_launches" for kernel in ("dq", "dkv")
-                for suffix in ("", f"_{design}")]
+                for suffix in ("", f"_{getattr(design, kernel).name}")]
     before = [getattr(port, c) for c in counters]
     got = port.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
     assert [getattr(port, c) for c in counters] == [n + 1 for n in before]
@@ -377,10 +583,17 @@ def test_bwd_wrapper_raises_for_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="dtype"):
         port.flash_attention_bwd(q, k, v, o, lse, do.float(), causal=True,
                                  scale=scale)
+    # head_dim 48: no kernel takes it, so the plain design computes it and
+    # counts one launch of each backward kernel
     q48, k48, v48 = _qkv(1, 1, 64, 64, 48, device=card, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim"):
-        port.flash_attention_bwd(q48, k48, v48, q48, lse[:, :1], q48,
-                                 causal=True, scale=scale)
+    before = (port.flash_bwd_dq_plain_launches, port.flash_bwd_dkv_plain_launches)
+    got = port.flash_attention_bwd(q48, k48, v48, q48, lse[:, :1], q48,
+                                   causal=True, scale=scale)
+    assert (port.flash_bwd_dq_plain_launches, port.flash_bwd_dkv_plain_launches) == tuple(
+        n + 1 for n in before)
+    want = port.plain_attention_bwd(*(t.cpu() for t in (q48, k48, v48, q48, lse[:, :1], q48)),
+                                    causal=True, scale=scale)
+    _assert_grads_close([x.cpu() for x in got], want, BWD_TOL[torch.bfloat16])
 
 
 def _nano_grads(cfg, params, tokens):
@@ -396,7 +609,7 @@ def _nano_grads(cfg, params, tokens):
 @pytest.mark.cuda
 @pytest.mark.parametrize("policy", ["attn", "dots"])
 def test_remat_policies_on_card_match_nothing(card, policy):
-    """bf16 blocks at head_dim 64 (the wgmma kernels): under "attn" the
+    """bf16 blocks at head_dim 64 (the d64 forward): under "attn" the
     backward reads the flash forward's kept (out, lse), so the forward
     launches once per layer, not twice; under "dots" twice. Loss and
     gradients equal "nothing"'s: the kept tensors are the finished ones."""
@@ -407,10 +620,10 @@ def test_remat_policies_on_card_match_nothing(card, policy):
     params = inference.init_params(gpt.GPTConfig(**kw), device=card, seed=1)
     tokens = torch.from_numpy(np.random.RandomState(2).randint(0, 256, (2, 256))).to(card)
     loss_ref, g_ref = _nano_grads(gpt.GPTConfig(**kw), params, tokens)
-    before = port.flash_fwd_wgmma_launches
+    before = port.flash_fwd_d64_launches
     loss, grads = _nano_grads(gpt.GPTConfig(**kw, remat_policy=policy), params, tokens)
     per_layer = 1 if policy == "attn" else 2
-    assert port.flash_fwd_wgmma_launches - before == per_layer * kw["num_layers"]
+    assert port.flash_fwd_d64_launches - before == per_layer * kw["num_layers"]
     assert torch.equal(loss, loss_ref)
     for name, a, b in zip(params, grads, g_ref):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5, msg=name)
