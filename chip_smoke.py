@@ -6,56 +6,67 @@
 Phases (any failure exits non-zero; nothing is caught):
   1. build: compile ray_tpu_torch/ops/csrc/flash_fwd_wgmma.cu,
      flash_fwd_d64.cu, flash_fwd_persistent.cu, flash_fwd.cu,
-     flash_fwd_f32.cu, flash_bwd_wgmma.cu, flash_bwd_d64.cu,
-     flash_bwd_persistent.cu, flash_bwd.cu and
-     flash_bwd_f32.cu with nvcc, in parallel, and print their register,
+     flash_fwd_f32.cu, flash_fwd_wide.cu, flash_bwd_wgmma.cu,
+     flash_bwd_d64.cu, flash_bwd_persistent.cu, flash_bwd.cu,
+     flash_bwd_f32.cu and flash_bwd_wide.cu with nvcc, in parallel (one
+     nvcc a source), and print their register,
      shared-memory and spill reports; the wgmma forward and both wgmma
      backward kernels at head_dim 128 and 256 (the train paths': dQ, dK/dV
      and, at 256, the split dK/dV kernel), the persistent forward and the
      persistent dQ and dK/dV kernels at 16 and 32 and the float32 forward
      (3xTF32) and the float32 backward's dQ and dK/dV kernels (3xTF32) at
-     64, 128 and 256 must not spill; the wgmma backward's, the persistent
-     forward's and backward's and the float32 forward's and backward's
-     dynamic shared memory per CTA by head_dim, at most 232448 bytes, and
-     the persistent kernels' CTAs resident per SM, at least one; the d64
-     forward and dK/dV (bf16 at head_dim 64) must not spill, and their
-     shared memory and CTAs an SM are printed and gated the same way;
+     64, 128, 256 and 384 to 768 (WIDE_D) must not spill; the wgmma
+     backward's, the
+     persistent forward's and backward's and the float32 forward's and
+     backward's dynamic shared memory per CTA by head_dim, at most 232448
+     bytes, and the persistent kernels' CTAs resident per SM, at least
+     one; the d64 forward, dQ and dK/dV (bf16 and float16 at head_dim 64)
+     and the wide forward, dQ and dK/dV (bf16 and float16 at WIDE_D)
+     must not spill, and their shared memory and CTAs an SM are printed and
+     gated the same way;
   2. kernel vs plain: the flash forward kernel against its plain PyTorch
      version on the same device tensors, per case (among them the shape of
      each train path and of the forward: gpt_1b at b=12, b=8, b=4 and the
      pipelined step's microbatch, b=3; every float32 case on the tf32x3
      design, every bf16 head_dim-16/32 case on the persistent design and
-     every bf16 head_dim-64 case on d64, one launch of it a case:
-     gpt_nano's working case at 4g's b=512, the tiny flagship's at b=256,
-     gpt_125m's at b=4 and 4h's b=16, and, checked only (CHECK_ONLY), long
-     t, ragged, q the suffix, rows that see no key, ragged non-causal):
+     every bf16 head_dim-64 case on d64 and every bf16 or float16 one at
+     WIDE_D on wide, one launch of it a case: gpt_nano's working case
+     at 4g's b=512, the tiny flagship's at b=256, gpt_125m's at b=4 and 4h's
+     b=16, d384_b2 to d768_b2 (2 x 8 heads x 2048^2, causal, in bf16 and
+     float32), and, checked only (CHECK_ONLY), long t, ragged, q the
+     suffix, rows that see no key, ragged non-causal, float16):
      each row of out held to its own norm and lse to an absolute limit
      (ray_tpu_torch/ops/tolerance.py), max abs error, the kernel's device
      time (torch.profiler's kernel durations over the calls that cuda_ms
      times, beside cuda_ms) / plain / library (scaled_dot_product_attention,
-     a yardstick the port never calls, device time and cuda_ms), the bound
-     and the ex2 floor (one exponential per visible pair at 16 a clock an
-     SM);
+     a yardstick the port never calls, device time and cuda_ms, with the
+     backend that ran it past head_dim 256), the bound and the ex2
+     floor (one exponential per visible pair at 16 a clock an SM);
   3. backward kernels vs plain: the dQ and dK/dV kernels of the design
-     BWD_DESIGNS names (wgmma; at bf16 head_dim 64 wgmma's dQ and d64's
-     dK/dV; persistent for bf16 at head_dim 16 and 32, or, for float32,
-     tf32x3; each case names them and must launch them) against flash_attention_bwd_plain, per
+     BWD_DESIGNS names (wgmma; d64 at bf16 head_dim 64; persistent for
+     bf16 at head_dim 16 and 32; wide for bf16 and float16 at WIDE_D;
+     tf32x3 for float32; each case names them and must launch them)
+     against flash_attention_bwd_plain, per
      case (the train paths' shapes among them, the pipelined step's b=3,
      gpt_j_6b's head_dim 256: its train shape, b=2, non-causal, q the
      suffix, ragged; phase 2's head_dim-16/32 cases; and in float32
      train_f32's shape, head_dims 16 to 256, ragged, non-causal and rows
-     that see no key): each row of dq, dk, dv held to its own norm
-     (ray_tpu_torch/ops/tolerance.py), max abs error, each kernel's device
-     time and cuda_ms, bound and ex2 floor, the plain time and the library
-     time (torch.autograd.grad through scaled_dot_product_attention);
+     that see no key; phase 2's WIDE_D cases): each row of dq,
+     dk, dv held to its own norm (ray_tpu_torch/ops/tolerance.py; float32
+     against the plain backward in float64, with the plain version's own
+     float32 error beside it, not gated), max abs
+     error, each kernel's device time and cuda_ms, bound and ex2 floor, the
+     plain time and the library time (torch.autograd.grad through
+     scaled_dot_product_attention, its backend named past 256);
   3b. plain_design: dot_product_attention with a backward through the
      dispatch tables' plain design (inputs no kernel takes, where the
      reference takes its XLA route: head_dim 48 in bf16, 16 in float16),
      and through the kernels at head_dim 64 in float16 and in bf16 at a
-     negative scale; out and dq, dk, dv held to the CPU's row by row, and
-     the counters of the case's designs risen by exactly one forward and
-     one of each backward launch a case; every other phase gates plain
-     launches at 0;
+     negative scale and at head_dim 384 in bf16 (the wide design); out and
+     dq, dk, dv held to the CPU's row by row, and the counters of the
+     case's designs risen by exactly one forward and one of each backward
+     launch a case; head_dim 896, the first past the designs, raises on the
+     card and launches nothing; every other phase gates plain launches at 0;
   4. train: three float32 gpt_nano steps on the card held to the same steps
      on the CPU; then gpt_1b (bf16 compute, float32 master weights and Adam
      moments, remat "nothing"), b=12, t=2048, ce_chunk 512, lr 1e-4: one
@@ -107,8 +118,8 @@ Phases (any failure exits non-zero; nothing is caught):
      50304) at full width and depth in bf16 compute with float32 master
      weights and moments, remat "nothing", at bench.py's 125m cell (b=16,
      t=2048, ce_chunk 256): one warm-up and 3 timed steps; the gates of
-     phase 4 with 24 forward launches a step on d64, 12 dQ on wgmma and 12
-     dK/dV on d64, none on plain; the warm-up loss within LOSS_125M_RTOL of
+     phase 4 with 24 forward launches a step on d64, 12 dQ and 12 dK/dV on
+     d64, none on wgmma or plain; the warm-up loss within LOSS_125M_RTOL of
      the same step in float32 on the card from the same weights and batch
      (the tf32x3 kernels, 24 / 12 / 12 launches), and the q, k and v
      projections' gradients of a bf16 forward and backward within
@@ -219,7 +230,8 @@ router, dispatch, experts and combine) and the idle share are printed
 
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero without a card.
-Each forward case names the design (FWD_DESIGNS: wgmma, persistent or tf32x3) and the
+Each forward case names the design (FWD_DESIGNS: wgmma, d64, persistent, wide or
+tf32x3) and the
 tiles that ran it; each backward case names its design (BWD_DESIGNS). In
 the kernels line, flash_fwd is the wgmma design, the one the main path
 runs, at gpt_1b's forward shape (b=4) with the forward phase's launches,
@@ -234,12 +246,17 @@ carries the head_dim-256 case's (d256_gpt_j, train_gpt_j's shape) numbers
 under "d256" and the float32 case's (gpt_1b_f32_b4, train_f32's shape, on
 the float32 designs with train_f32's launches) under "f32", which also
 stand as entries of their own (flash_fwd_f32, flash_bwd_dq_f32,
-flash_bwd_dkv_f32: the kernels of train_f32's path), and 4g's kernels
+flash_bwd_dkv_f32: the kernels of train_f32's path, with the float32 cases
+at WIDE_D under "d384" to "d768"), and 4g's kernels
 stand as flash_fwd_persistent, flash_bwd_dq_persistent and
 flash_bwd_dkv_persistent at gpt_nano's working case with 4g's launches, the
-tiny flagship's case under "d32"; 4h's kernels stand as flash_fwd_d64 and
-flash_bwd_dkv_d64 at gpt_125m's b=16 case with 4h's launches, the b=4 case
-under "b4", and wgmma's dQ at those cases under flash_bwd_dq's "d64"; the
+tiny flagship's case under "d32"; 4h's kernels stand as flash_fwd_d64,
+flash_bwd_dq_d64 and flash_bwd_dkv_d64 at gpt_125m's b=16 case with 4h's
+launches, the b=4 case under "b4"; the wide kernels (no model path runs
+them) stand as flash_fwd_wide, flash_bwd_dq_wide and flash_bwd_dkv_wide at
+d512_b2, the other WIDE_D cases under "d384", "d640" and "d768", each naming
+the library's backend, with the paths' launches at that head_dim (the
+port's launches_by_head_dim, read as BY_HEAD_DIM); the
 backward kernels' plain and library
 times are those of the whole backward (dq, dk and dv together). In the
 kernels line ms and library_ms are device times (torch.profiler),
@@ -275,6 +292,11 @@ import torch  # noqa: E402
 # tensor-core kernel above 100% of its bound
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 494.7e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
+# the head_dims past 256 that the hand-written designs take
+# (ray_tpu_torch/ops/attention.py's WIDE_HEAD_DIMS: wide in bf16 and
+# float16, tf32x3 in float32), and the first that they do not
+WIDE_D = (384, 512, 640, 768)
+PAST_WIDE_D = 896
 # gpt_nano float32 steps on the card vs the CPU: summation order through two
 # layers, the loss and three optimizer updates (dense and MoE)
 TRAIN_SMALL_RTOL = 1e-4
@@ -371,6 +393,24 @@ def timed(fn, iters: int, warmup: int = 2, kernel: str | None = None):
                      f"{iters} calls, three times")
 
 
+def sdpa_backend(fn) -> str:
+    """The backend of scaled_dot_product_attention that ``fn`` ran, read
+    from the names of the kernels of one call under torch.profiler: flash,
+    cudnn, efficient (the memory-efficient kernels) or math (plain
+    operators)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = " ".join(e.key.lower() for e in prof.key_averages())
+    for backend, marks in (("flash", ("flash",)), ("cudnn", ("cudnn",)),
+                           ("efficient", ("fmha", "efficient", "mem_eff"))):
+        if any(m in names for m in marks):
+            return backend
+    return "math"
+
+
 def ex2_floor_ms(b, h, t_q, t_kv, causal):
     """One exponential per visible (q, k) pair at the card's special-function
     rate: 16 ``ex2`` results a clock on each SM at the SMs' highest clock
@@ -428,6 +468,10 @@ def bwd_bound(b, h, t_q, t_kv, d, causal, dtype, products):
 
 def phase_build():
     from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops.attention import WIDE_HEAD_DIMS
+
+    if WIDE_HEAD_DIMS != WIDE_D:
+        raise SystemExit(f"the port's wide head_dims are {WIDE_HEAD_DIMS}, this script's {WIDE_D}")
 
     def timed(name):
         t0 = time.monotonic()
@@ -435,8 +479,8 @@ def phase_build():
 
     t0 = time.monotonic()
     names = ("flash_fwd_wgmma", "flash_fwd_d64", "flash_fwd_persistent", "flash_fwd",
-             "flash_fwd_f32", "flash_bwd_wgmma", "flash_bwd_d64", "flash_bwd_persistent",
-             "flash_bwd", "flash_bwd_f32")
+             "flash_fwd_f32", "flash_fwd_wide", "flash_bwd_wgmma", "flash_bwd_d64",
+             "flash_bwd_persistent", "flash_bwd", "flash_bwd_f32", "flash_bwd_wide")
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
         built = dict(zip(names, pool.map(timed, names)))
     out = {"seconds": time.monotonic() - t0}
@@ -453,13 +497,18 @@ def phase_build():
     # the train paths' kernels (each in bf16 and float16: the mangled names
     # differ after the head_dim): the wgmma forward and both wgmma backward
     # kernels at head_dim 128 (gpt_1b) and 256 (gpt_j_6b: dK/dV is the split
-    # kernel there), wgmma's dQ at 64 (gpt_125m), the persistent forward, dQ and dK/dV at 16 (gpt_nano)
-    # and 32, and the float32 forward's and backward's (3xTF32) at 64, 128
-    # and 256
+    # kernel there), wgmma's dQ at 64 (the variants' "before"), the persistent
+    # forward, dQ and dK/dV at 16 (gpt_nano) and 32, the float32 forward's
+    # and backward's (3xTF32) at 64, 128, 256 and WIDE_D, and the wide
+    # forward, dQ and dK/dV at WIDE_D
     f32 = [(source, kernel, d) for source, kernel in (
         ("flash_fwd_f32", "flash_fwd_f32x3_kernel"),
         ("flash_bwd_f32", "flash_bwd_dq_f32x3_kernel"),
-        ("flash_bwd_f32", "flash_bwd_dkv_f32x3_kernel")) for d in (64, 128, 256)]
+        ("flash_bwd_f32", "flash_bwd_dkv_f32x3_kernel")) for d in (64, 128, 256, *WIDE_D)]
+    wide = [(source, kernel, d) for source, kernel in (
+        ("flash_fwd_wide", "flash_fwd_wide_kernel"),
+        ("flash_bwd_wide", "flash_bwd_dq_wide_kernel"),
+        ("flash_bwd_wide", "flash_bwd_dkv_wide_kernel")) for d in WIDE_D]
     for source, kernel, d in (("flash_fwd_wgmma", "flash_fwd_wgmma_kernel", 128),
                               ("flash_fwd_wgmma", "flash_fwd_wgmma_kernel", 256),
                               ("flash_bwd_wgmma", "flash_bwd_dq_wgmma_kernel", 64),
@@ -472,27 +521,36 @@ def phase_build():
                                   ("flash_bwd_persistent", "flash_bwd_dq_persistent_kernel"),
                                   ("flash_bwd_persistent", "flash_bwd_dkv_persistent_kernel"))
                                 for d in (16, 32)],
-                              *f32):
+                              *f32, *wide):
         main = {k: v for k, v in out[source]["spills"].items()
                 if f"{kernel}ILi{d}E" in k}
         if not main or any(main.values()):
             raise SystemExit(f"{kernel} at head_dim {d} spills: {main}")
-    # the head_dim-64 designs (gpt_125m's): one kernel each, no template
-    for source, kernel in (("flash_fwd_d64", "flash_fwd_d64_kernel"),
-                           ("flash_bwd_d64", "flash_bwd_dkv_d64_kernel")):
+    # the head_dim-64 designs (gpt_125m's) and the wide ones (WIDE_D):
+    # no spill in any build, each kernel's shared memory and CTAs an SM (the
+    # backward sources' functions take the kernel, 1 for dK/dV, after d)
+    for source, kernel, head_dims, dkv in (
+            ("flash_fwd_d64", "flash_fwd_d64_kernel", (64,), None),
+            ("flash_bwd_d64", "flash_bwd_dq_d64_kernel", (64,), 0),
+            ("flash_bwd_d64", "flash_bwd_dkv_d64_kernel", (64,), 1),
+            ("flash_fwd_wide", "flash_fwd_wide_kernel", WIDE_D, None),
+            ("flash_bwd_wide", "flash_bwd_dq_wide_kernel", WIDE_D, 0),
+            ("flash_bwd_wide", "flash_bwd_dkv_wide_kernel", WIDE_D, 1)):
         main = {k: v for k, v in out[source]["spills"].items() if kernel in k}
         if not main or any(main.values()):
             raise SystemExit(f"{kernel} spills: {main}")
         lib = ctypes.CDLL(str(built[source][0]))
+        args = () if dkv is None else (dkv,)
         for fn in ("smem_bytes", "ctas_per_sm"):
-            getattr(lib, f"ray_tpu_{source}_{fn}").argtypes = [ctypes.c_int]
-        smem = getattr(lib, f"ray_tpu_{source}_smem_bytes")(64)
-        ctas = getattr(lib, f"ray_tpu_{source}_ctas_per_sm")(64)
-        print(f"[build] {kernel} at head_dim 64: {smem} bytes of dynamic shared memory per "
-              f"CTA (of 232448), {ctas} CTAs resident per SM, spill bytes {main}")
-        if not 0 < smem <= 232448 or ctas < 1:
+            getattr(lib, f"ray_tpu_{source}_{fn}").argtypes = [ctypes.c_int] * (1 + len(args))
+        smem = {d: getattr(lib, f"ray_tpu_{source}_smem_bytes")(d, *args) for d in head_dims}
+        ctas = {d: getattr(lib, f"ray_tpu_{source}_ctas_per_sm")(d, *args) for d in head_dims}
+        print(f"[build] {kernel} by head_dim: {smem} bytes of dynamic shared memory per CTA "
+              f"(of 232448), {ctas} CTAs resident per SM, spill bytes {main}")
+        if any(not 0 < n <= 232448 for n in smem.values()) or any(n < 1 for n in ctas.values()):
             raise SystemExit(f"{kernel} asks for {smem} bytes of shared memory, {ctas} CTAs an SM")
-        out[source].update(smem_bytes={64: smem}, ctas_per_sm={64: ctas})
+        out[source].setdefault("smem_bytes", {})[kernel] = smem
+        out[source].setdefault("ctas_per_sm", {})[kernel] = ctas
     # dynamic shared memory, which the compiler's report does not show
     fwd_lib = ctypes.CDLL(str(built["flash_fwd_wgmma"][0]))
     fwd_lib.ray_tpu_flash_fwd_wgmma_smem_bytes.argtypes = [ctypes.c_int]
@@ -539,7 +597,7 @@ def phase_build():
     f32_lib = ctypes.CDLL(str(built["flash_bwd_f32"][0]))
     f32_lib.ray_tpu_flash_bwd_f32_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     smem = {kernel: {d: f32_lib.ray_tpu_flash_bwd_f32_smem_bytes(d, dkv)
-                     for d in (16, 32, 64, 128, 256)}
+                     for d in (16, 32, 64, 128, 256, *WIDE_D)}
             for kernel, dkv in (("dq", 0), ("dkv", 1))}
     print(f"[build] flash_bwd_f32 dynamic shared memory per CTA by kernel and head_dim: "
           f"{smem} bytes (of 232448)")
@@ -548,7 +606,8 @@ def phase_build():
     out["flash_bwd_f32"]["smem_bytes"] = smem
     fwd_f32_lib = ctypes.CDLL(str(built["flash_fwd_f32"][0]))
     fwd_f32_lib.ray_tpu_flash_fwd_f32_smem_bytes.argtypes = [ctypes.c_int]
-    smem = {d: fwd_f32_lib.ray_tpu_flash_fwd_f32_smem_bytes(d) for d in (16, 32, 64, 128, 256)}
+    smem = {d: fwd_f32_lib.ray_tpu_flash_fwd_f32_smem_bytes(d)
+            for d in (16, 32, 64, 128, 256, *WIDE_D)}
     print(f"[build] flash_fwd_f32 dynamic shared memory per CTA by head_dim: {smem} bytes "
           f"(of 232448)")
     if any(not 0 < n <= 232448 for n in smem.values()):
@@ -594,6 +653,7 @@ def phase_kernel_vs_plain():
         ("f32_ragged_d64", 1, 4, 200, 264, 64, True, torch.float32),
         *F32_CASES,
         *F16_CASES,
+        *WIDE_CASES,
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
@@ -604,15 +664,17 @@ def phase_kernel_vs_plain():
         scale = 1.0 / d ** 0.5
         design = attn.FWD_DESIGNS[(d, dtype)]
         want = ("tf32x3" if dtype == torch.float32 else
-                {16: "persistent", 32: "persistent", 64: "d64"}.get(d, "wgmma"))
+                {16: "persistent", 32: "persistent", 64: "d64",
+                 **dict.fromkeys(WIDE_D, "wide")}.get(d, "wgmma"))
         if design.name != want:
             raise SystemExit(f"FWD_DESIGNS sends {dtype} head_dim {d} to {design.name}, "
                              f"expected {want}")
         before = _launch_counts()
         out, lse = attn.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
         launched = dict(zip(COUNTS, (a - b for a, b in zip(_launch_counts(), before))))
-        if {n: c for n, c in launched.items() if c} != {"flash_fwd": 1,
-                                                        f"flash_fwd_{design.name}": 1}:
+        if {n: c for n, c in launched.items() if c} != {
+                "flash_fwd": 1, f"flash_fwd_{design.name}": 1,
+                **_by_head_dim("flash_fwd", design.name, d)}:
             raise SystemExit(f"case {name}: the forward launched {launched}, expected one "
                              f"launch on the {design.name} design")
         ref_out, ref_lse = attn.flash_attention_fwd_plain(q, k, v, causal=causal, scale=scale)
@@ -651,15 +713,18 @@ def phase_kernel_vs_plain():
         else:
             lib_fn = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, scale=scale)  # noqa: E731
         library_ms, library_device_ms = timed(lib_fn, iters=20 if big else 50, kernel="")
+        backend = sdpa_backend(lib_fn) if d > 256 else None
         bound_ms, bound_by, flops, nbytes = attention_bound(b, h, t_q, t_kv, d, causal, dtype)
         row.update(ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms,
-                   library_device_ms=library_device_ms, bound_ms=bound_ms,
+                   library_device_ms=library_device_ms, library_backend=backend,
+                   bound_ms=bound_ms,
                    bound_by=bound_by, ex2_floor_ms=ex2_floor_ms(b, h, t_q, t_kv, causal),
                    tflops=flops / device_ms / 1e9, bound_share=bound_ms / device_ms)
         print(f"{verdict} | kernel {device_ms:.4f} ms on the device, {ms:.4f} between "
               f"events ({row['tflops']:.1f} TFLOP/s, {100 * row['bound_share']:.1f}% of "
               f"bound) plain {plain_ms:.3f} ms library {library_device_ms:.4f} ms on the "
-              f"device, {library_ms:.4f} between events | bound {bound_ms:.4f} ms "
+              f"device, {library_ms:.4f} between events"
+              f"{'' if backend is None else f' (SDPA backend {backend})'} | bound {bound_ms:.4f} ms "
               f"({bound_by}), ex2 floor {row['ex2_floor_ms']:.4f} ms")
     bad = [(r["case"], r["row_err"], r["lse_max_abs_err"]) for r in rows if not r["ok"]]
     if bad:
@@ -715,8 +780,33 @@ F16_CASES = [
     ("f16_d128_noncausal_t384", 2, 16, 384, 384, 128, False, torch.float16),
     ("f16_d256_ragged_tq200_tkv264", 2, 16, 200, 264, 256, True, torch.float16),
 ]
+# head_dims WIDE_D (no model path: the reference's dispatcher takes any
+# multiple of 128), in both phases, last, 384 and 512 before 640 and 768:
+# timed at 2 x 8 heads x 2048^2, causal (model widths of 3072 to 6144) in
+# bf16 (the wide design) and float32 (tf32x3); checked only, ragged q and kv,
+# rows that see no key (t_q 160, t_kv 64), non-causal, float16, and float32
+# ragged and with rows that see no key
+def _wide_cases(head_dims):
+    return [
+        *[(f"d{d}_b2{suffix}", 2, 8, 2048, 2048, d, True, dtype)
+          for dtype, suffix in ((torch.bfloat16, ""), (torch.float32, "_f32"))
+          for d in head_dims],
+        *[(f"{prefix}d{d}_{name}", b, h, t_q, t_kv, d, causal, dtype)
+          for prefix, dtype in (("", torch.bfloat16), ("f16_", torch.float16),
+                                ("f32_", torch.float32))
+          for d in head_dims
+          for name, b, h, t_q, t_kv, causal in (
+              ("ragged_tq200_tkv264", 2, 8, 200, 264, True),
+              ("tq_gt_tkv", 1, 2, 160, 64, True),
+              ("noncausal_t384", 2, 8, 384, 384, False))],
+    ]
+
+
+WIDE_CASES = _wide_cases(WIDE_D[:2]) + _wide_cases(WIDE_D[2:])
+WIDE_TIMED = {f"d{d}_b2{suffix}" for d in WIDE_D for suffix in ("", "_f32")}
 CHECK_ONLY = ({name for name, *_ in SMALL_D_CASES[2:-2]}
-              | {name for name, *_ in D64_CASES[2:]} | {name for name, *_ in F16_CASES})
+              | {name for name, *_ in D64_CASES[2:]} | {name for name, *_ in F16_CASES}
+              | {name for name, *_ in WIDE_CASES if name not in WIDE_TIMED})
 
 # float32, in both phases: train_f32's shape (gpt_1b at b=4), gpt_125m's and
 # gpt_j_6b's heads, ragged tiles (at 128 and at 256, where the forward and
@@ -757,6 +847,7 @@ BWD_CASES = [
     ("f32_ragged_d64", 1, 4, 200, 264, 64, True, torch.float32),
     *F32_CASES,
     *F16_CASES,
+    *WIDE_CASES,
 ]
 
 
@@ -777,7 +868,9 @@ def phase_bwd_kernels_vs_plain():
         want = ({"dq": "tf32x3", "dkv": "tf32x3"} if dtype == torch.float32 else
                 {16: {"dq": "persistent", "dkv": "persistent"},
                  32: {"dq": "persistent", "dkv": "persistent"},
-                 64: {"dq": "wgmma", "dkv": "d64"}}.get(d, {"dq": "wgmma", "dkv": "wgmma"}))
+                 64: {"dq": "d64", "dkv": "d64"},
+                 **dict.fromkeys(WIDE_D, {"dq": "wide", "dkv": "wide"})}.get(
+                     d, {"dq": "wgmma", "dkv": "wgmma"}))
         if names != want:
             raise SystemExit(f"BWD_DESIGNS sends {dtype} head_dim {d} to {names}, "
                              f"expected {want}")
@@ -787,12 +880,28 @@ def phase_bwd_kernels_vs_plain():
         launched = dict(zip(COUNTS, (a - b for a, b in zip(_launch_counts(), before))))
         expected = {name: n for kernel in ("dq", "dkv")
                     for name, n in ((f"flash_bwd_{kernel}", 1),
-                                    (f"flash_bwd_{kernel}_{names[kernel]}", 1))}
+                                    (f"flash_bwd_{kernel}_{names[kernel]}", 1),
+                                    *_by_head_dim(f"flash_bwd_{kernel}", names[kernel],
+                                                  d).items())}
         if {n: c for n, c in launched.items() if c} != expected:
             raise SystemExit(f"case {name}: the backward launched {launched}, expected "
                              f"{expected}")
+        # float32: the plain backward in float64 from the same inputs. The
+        # exact dq of the first causal row is rounding noise (its one term
+        # has dP = delta), and at long t and head_dim 384 and up the plain
+        # version's own float32 rounding there reaches the gate's 1e-4 of the
+        # row floor; the row's error of the plain version in float32 against
+        # float64 is printed beside the kernels' (not gated)
         want = attn.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal,
                                               scale=scale)
+        plain32_errs = None
+        if dtype == torch.float32:
+            want32 = want
+            want = attn.flash_attention_bwd_plain(
+                *(x.double() for x in (q, k, v, out, lse, do)), causal=causal, scale=scale)
+            plain32_errs = {g_name: row_err(x, ref) for g_name, x, ref in
+                            zip(("dq", "dk", "dv"), want32, want)}
+            del want32
         torch.cuda.synchronize()
         errs, row_errs = {}, {}
         for g_name, x, ref in zip(("dq", "dk", "dv"), got, want):
@@ -808,12 +917,17 @@ def phase_bwd_kernels_vs_plain():
                    sources={kn: f"ray_tpu_torch/ops/csrc/{getattr(design, kn).source}.cu"
                             for kn in ("dq", "dkv")},
                    source=f"ray_tpu_torch/ops/csrc/{design.dq.source}.cu", max_abs_err=errs,
-                   row_err=row_errs, row_err_tol=tol, ok=ok)
+                   row_err=row_errs, row_err_tol=tol, ok=ok,
+                   plain_float32_row_err_vs_float64=plain32_errs)
         rows.append(row)
         verdict = (f"[bwd] {name:<22} {str(row['shape']):<28} {row['design']:<9} worst-row err "
                    f"dq {row_errs['dq']:.2e} dk {row_errs['dk']:.2e} dv {row_errs['dv']:.2e} "
                    f"(limit {tol:.0e}), max abs err {errs['dq']:.2e} {errs['dk']:.2e} "
-                   f"{errs['dv']:.2e} {'ok' if ok else 'FAIL'}")
+                   f"{errs['dv']:.2e} {'ok' if ok else 'FAIL'}"
+                   + ("" if plain32_errs is None else
+                      " (against the plain version in float64; the plain version in float32 "
+                      "against it, not gated: " + " ".join(
+                          f"{g} {e:.2e}" for g, e in plain32_errs.items()) + ")"))
         if name in CHECK_ONLY:
             print(verdict)
             del got, want
@@ -838,8 +952,9 @@ def phase_bwd_kernels_vs_plain():
         else:
             lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
                                                      scale=scale)
-        library_ms, library_device_ms = timed(lambda: torch.autograd.grad(
-            lib_out, (ql, kl, vl), do, retain_graph=True), iters=iters, kernel="")
+        lib_bwd = lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True)  # noqa: E731
+        library_ms, library_device_ms = timed(lib_bwd, iters=iters, kernel="")
+        backend = sdpa_backend(lib_bwd) if d > 256 else None
         dq_bound, dq_by = bwd_bound(b, h, t_q, t_kv, d, causal, dtype, 3)
         dkv_bound, dkv_by = bwd_bound(b, h, t_q, t_kv, d, causal, dtype, 4)
         # dQ and dK/dV each take one exponential per visible pair (P again)
@@ -847,7 +962,8 @@ def phase_bwd_kernels_vs_plain():
         row.update(dq_ms=dq_ms, dkv_ms=dkv_ms, dq_device_ms=dq_device_ms,
                    dkv_device_ms=dkv_device_ms, delta_ms=delta_ms,
                    plain_ms=plain_ms, library_ms=library_ms,
-                   library_device_ms=library_device_ms, dq_bound_ms=dq_bound,
+                   library_device_ms=library_device_ms, library_backend=backend,
+                   dq_bound_ms=dq_bound,
                    dq_bound_by=dq_by, dkv_bound_ms=dkv_bound, dkv_bound_by=dkv_by,
                    ex2_floor_ms=ex2_ms, dq_bound_share=dq_bound / dq_device_ms,
                    dkv_bound_share=dkv_bound / dkv_device_ms)
@@ -856,7 +972,7 @@ def phase_bwd_kernels_vs_plain():
               f"device, {dkv_ms:.4f} between events (bound {dkv_bound:.4f}, {dkv_by}), ex2 "
               f"floor {ex2_ms:.4f} ms each; delta {delta_ms:.4f} ms plain {plain_ms:.3f} ms "
               f"library {library_device_ms:.4f} ms on the device, {library_ms:.4f} between "
-              f"events")
+              f"events{'' if backend is None else f' (SDPA backend {backend})'}")
         del got, want, lib_out
     bad = [(r["case"], r["row_err"]) for r in rows if not r["ok"]]
     if bad:
@@ -867,29 +983,42 @@ def phase_bwd_kernels_vs_plain():
 
 # the launch counts read around each path: every launch of each kernel, and
 # each kernel's by design (the wgmma kernels are the bf16 paths' at head_dim
-# 128 and 256, and dQ's at 64; d64 the forward's and dK/dV's at 64; at 16
-# and 32 the forward and the backward are persistent's; tf32x3 float32;
-# plain every input that no kernel takes, which only the plain_design phase
-# may launch)
+# 128 and 256; d64 the forward's, dQ's and dK/dV's at 64; at 16 and 32 the
+# forward and the backward are persistent's; wide bf16 and float16 at
+# WIDE_D, which no model path runs; tf32x3 float32; plain every input that
+# no kernel takes, which only the plain_design phase may launch), and the
+# wide and tf32x3 kernels' by head_dim at WIDE_D (the port's
+# launches_by_head_dim), which the kernels line reads for its 384-768 entries
 KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-DESIGNS = {"flash_fwd": ("wgmma", "d64", "persistent", "tf32x3", "plain"),
-           "flash_bwd_dq": ("wgmma", "persistent", "tf32x3", "plain"),
-           "flash_bwd_dkv": ("wgmma", "d64", "persistent", "tf32x3", "plain")}
+DESIGNS = {kernel: ("wgmma", "d64", "persistent", "wide", "tf32x3", "plain")
+           for kernel in KERNEL_NAMES}
+BY_HEAD_DIM = tuple(f"{kernel}_{design}_d{d}" for kernel in KERNEL_NAMES
+                    for design in ("wide", "tf32x3") for d in WIDE_D)
 COUNTS = KERNEL_NAMES + tuple(
-    f"{kernel}_{design}" for kernel in KERNEL_NAMES for design in DESIGNS[kernel])
+    f"{kernel}_{design}" for kernel in KERNEL_NAMES for design in DESIGNS[kernel]) + BY_HEAD_DIM
 
 
 def _launch_counts():
     from ray_tpu_torch.ops import attention as attn
 
-    return tuple(getattr(attn, f"{name}_launches") for name in COUNTS)
+    return tuple(attn.launches_by_head_dim[name] if name in BY_HEAD_DIM else
+                 getattr(attn, f"{name}_launches") for name in COUNTS)
 
 
 def _reset_launch_counts():
     from ray_tpu_torch.ops import attention as attn
 
     for name in COUNTS:
-        setattr(attn, f"{name}_launches", 0)
+        if name not in BY_HEAD_DIM:
+            setattr(attn, f"{name}_launches", 0)
+    attn.launches_by_head_dim.clear()
+
+
+def _by_head_dim(kernel: str, design: str, d: int):
+    """The count of BY_HEAD_DIM that a launch of ``kernel`` on ``design`` at
+    head_dim ``d`` adds one to, or none."""
+    name = f"{kernel}_{design}_d{d}"
+    return {name: 1} if name in BY_HEAD_DIM else {}
 
 
 def moe_slots(cfg, params, tokens):
@@ -1260,8 +1389,8 @@ def phase_train_125m(batch: int, seq: int, steps: int):
     full width and depth in bf16 compute with float32 master weights and
     moments, remat "nothing", at bench.py's 125m cell (b=16, t=2048,
     ce_chunk 256): its attention runs the bf16 head_dim-64 kernels, the
-    forward on the d64 design (2 * num_layers = 24 launches a step), dQ on
-    wgmma and dK/dV on d64 (12 each), none on plain. run_train's gates, with
+    forward on the d64 design (2 * num_layers = 24 launches a step), dQ and
+    dK/dV on d64 (12 each), none on wgmma or plain. run_train's gates, with
     one more step under torch.profiler for the idle share; the warm-up
     step's loss within LOSS_125M_RTOL of the same step in float32 on the card
     from the same weights and batch, and the gradients of the q, k and v
@@ -1279,10 +1408,10 @@ def phase_train_125m(batch: int, seq: int, steps: int):
 
     tokens = _train_tokens(cfg, batch, seq)
     rep = run_train(cfg, tokens, steps, 2, "gpt_125m bf16 compute / f32 master", True,
-                    build=build, designs=("d64", "wgmma", "d64"))
+                    build=build, designs=("d64", "d64", "d64"))
     layers = cfg.num_layers
     want = {"bf16": {"flash_fwd": 2 * layers, "flash_fwd_d64": 2 * layers,
-                     "flash_bwd_dq": layers, "flash_bwd_dq_wgmma": layers,
+                     "flash_bwd_dq": layers, "flash_bwd_dq_d64": layers,
                      "flash_bwd_dkv": layers, "flash_bwd_dkv_d64": layers},
             "float32": {"flash_fwd": 2 * layers, "flash_fwd_tf32x3": 2 * layers,
                         **{f"flash_bwd_{k}{s}": layers for k in ("dq", "dkv")
@@ -1350,12 +1479,13 @@ def phase_plain_design():
 
     rows = []
     gen = torch.Generator().manual_seed(9)
-    d64 = ("d64", "wgmma", "d64")
+    d64 = ("d64",) * 3
     for name, shape, dtype, scale, designs in (
             ("plain_d48_bf16", (2, 12, 256, 256, 48), torch.bfloat16, None, ("plain",) * 3),
             ("plain_d16_f16", (2, 12, 256, 256, 16), torch.float16, None, ("plain",) * 3),
             ("kernels_d64_f16", (2, 12, 256, 256, 64), torch.float16, None, d64),
-            ("kernels_d64_scale_neg", (2, 12, 256, 256, 64), torch.bfloat16, -0.125, d64)):
+            ("kernels_d64_scale_neg", (2, 12, 256, 256, 64), torch.bfloat16, -0.125, d64),
+            ("kernels_d384_bf16", (2, 4, 256, 256, 384), torch.bfloat16, None, ("wide",) * 3)):
         b, h, t_q, t_kv, d = shape
         cpu = [torch.randn(b, h, t, d, generator=gen).to(dtype).requires_grad_()
                for t in (t_q, t_kv, t_kv)]
@@ -1369,6 +1499,8 @@ def phase_plain_design():
         want = {n: 1 for n in ("flash_fwd", f"flash_fwd_{designs[0]}", "flash_bwd_dq",
                                f"flash_bwd_dq_{designs[1]}", "flash_bwd_dkv",
                                f"flash_bwd_dkv_{designs[2]}")}
+        for kernel, design in zip(KERNEL_NAMES, designs):
+            want.update(_by_head_dim(kernel, design, d))
         out_cpu = attn.dot_product_attention(*cpu, causal=True, scale=scale)
         out_cpu.backward(g)
         ref_grads = [x.grad for x in cpu]
@@ -1395,6 +1527,23 @@ def phase_plain_design():
         if not ok:
             raise SystemExit(f"3b: {name} disagrees with the CPU or launched "
                              f"{launched}, expected {want}")
+    # the first head_dim past the designs' limit (PAST_WIDE_D: the reference
+    # runs its Pallas kernel there, the port has none) raises on the card,
+    # launching nothing
+    d = PAST_WIDE_D
+    q = torch.randn(1, 2, 64, d, device="cuda", dtype=torch.bfloat16)
+    before = _launch_counts()
+    try:
+        attn.dot_product_attention(q, q, q, causal=True)
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise SystemExit(f"3b: head_dim {d} ran on the card; the designs stop at {WIDE_D[-1]}")
+    if f"no Hopper kernel takes head_dim {d}" not in refusal or _launch_counts() != before:
+        raise SystemExit(f"3b: head_dim {d} raised {refusal!r} or launched a kernel")
+    print(f"[plain] head_dim {d} on the card raises: {refusal}")
+    rows.append(dict(case=f"refused_d{d}_bf16", shape=[1, 2, 64, 64, d], refusal=refusal,
+                     ok=True))
     return rows
 
 
@@ -1664,8 +1813,8 @@ def phase_lse_grad():
     """7a: flash_attention_with_lse, forward and backward under random
     cotangents of both outputs, at gpt_1b's heads (b=2, h=16, t=2048,
     d=128) in bf16 (the wgmma kernels) and float32 (tf32x3 forward and
-    backward) and at gpt_j_6b's (d=256) in bf16 (the wgmma split dK/dV
-    kernel), causal and not. Two gates on every row of dq, dk and dv:
+    backward), at gpt_j_6b's (d=256) in bf16 (the wgmma split dK/dV
+    kernel) and at d=512 in bf16 (the wide kernels), causal and not. Two gates on every row of dq, dk and dv:
     - against the plain flash versions on the same inputs (the forward's
       out and lse feed both backwards, as in phase 3): the kernels'
       arithmetic;
@@ -1686,7 +1835,8 @@ def phase_lse_grad():
     b, h, t = 2, 16, 2048
     gen = torch.Generator(device="cuda").manual_seed(7)
     rows = []
-    for d, dtype in ((128, torch.bfloat16), (128, torch.float32), (256, torch.bfloat16)):
+    for d, dtype in ((128, torch.bfloat16), (128, torch.float32), (256, torch.bfloat16),
+                     (512, torch.bfloat16)):
         scale = 1.0 / d ** 0.5
         design = attn.BWD_DESIGNS[(d, dtype)]
         for causal in (True, False):
@@ -2928,8 +3078,9 @@ def main() -> int:
                           plain_ms=fwd_f32["plain_ms"], bound_ms=fwd_f32["bound_ms"],
                           bound_by=fwd_f32["bound_by"], library_ms=fwd_f32["library_device_ms"],
                           bound_share=fwd_f32["bound_share"], design=fwd_f32["design"],
-                          row_err=fwd_f32["row_err"], shape=fwd_f32_shape,
-                          launches_path="train_f32"),
+                          row_err=fwd_f32["row_err"],
+                          row_err_ref="flash_attention_fwd_plain in float32",
+                          shape=fwd_f32_shape, launches_path="train_f32"),
         **{f"flash_bwd_{k}": dict(name=f"flash_bwd_{k}_f32", route="cuda",
                                   source=bwd_f32["source"],
                                   replaces=f"ray_tpu/ops/attention.py:{line}",
@@ -2947,6 +3098,7 @@ def main() -> int:
                                   row_err=(bwd_f32["row_err"]["dq"] if k == "dq" else
                                            max(bwd_f32["row_err"]["dk"],
                                                bwd_f32["row_err"]["dv"])),
+                                  row_err_ref="flash_attention_bwd_plain in float64",
                                   shape=bwd_f32_shape, launches_path="train_f32",
                                   plain_ms_computes=whole, library_ms_computes=whole)
            for k, line in (("dq", 324), ("dkv", 394))}}
@@ -2986,17 +3138,34 @@ def main() -> int:
                 (report["kernel_cases"], "flash_fwd", 167),
                 (report["bwd_kernel_cases"], "flash_bwd_dq", 324),
                 (report["bwd_kernel_cases"], "flash_bwd_dkv", 394))]
-    # 4h's kernels (bf16 at head_dim 64): the d64 forward and dK/dV at 4h's
-    # case (b=16) with 4h's launches, b=4 under "b4"; the wgmma dQ at the
-    # same cases as the flash_bwd_dq entry's "d64"
+    # 4h's kernels (bf16 at head_dim 64): the d64 forward, dQ and dK/dV at
+    # 4h's case (b=16) with 4h's launches, b=4 under "b4"
+    kernel_rows = ((report["kernel_cases"], "flash_fwd", 167),
+                   (report["bwd_kernel_cases"], "flash_bwd_dq", 324),
+                   (report["bwd_kernel_cases"], "flash_bwd_dkv", 394))
     d64 = [dict(small_d(rows, "d64_gpt_125m_b16", kernel, line, "train_125m"),
                 b4=small_d(rows, "d64_gpt_125m", kernel, line, "train_125m"))
-           for rows, kernel, line in ((report["kernel_cases"], "flash_fwd", 167),
-                                      (report["bwd_kernel_cases"], "flash_bwd_dkv", 394))]
-    dq_d64 = dict(small_d(report["bwd_kernel_cases"], "d64_gpt_125m_b16", "flash_bwd_dq", 324,
-                          "train_125m"),
-                  b4=small_d(report["bwd_kernel_cases"], "d64_gpt_125m", "flash_bwd_dq", 324,
-                             "train_125m"))
+           for rows, kernel, line in kernel_rows]
+
+    # the kernels of head_dims WIDE_D, which no model path runs (cases
+    # only): the wide forward, dQ and dK/dV at d512_b2 (bf16), the other
+    # head_dims' cases under "d384", "d640" and "d768"; the float32 kernels'
+    # cases under the f32 entries' "d384" to "d768". Their launches are the
+    # paths' at that head_dim (BY_HEAD_DIM), summed over the paths
+    def no_path(rows, name, kernel, line, d):
+        entry = small_d(rows, name, kernel, line)
+        key = f"{kernel}_{entry['design']}_d{d}"
+        entry.update(launches=sum(by_path[key].values()), launches_path=None,
+                     launches_by_path=by_path[key],
+                     library_backend=case(rows, name)[0]["library_backend"])
+        return entry
+
+    wide = [dict(no_path(rows, "d512_b2", kernel, line, 512),
+                 **{f"d{d}": no_path(rows, f"d{d}_b2", kernel, line, d)
+                    for d in WIDE_D if d != 512})
+            for rows, kernel, line in kernel_rows]
+    for entry, (rows, kernel, line) in zip(f32.values(), kernel_rows):
+        entry.update({f"d{d}": no_path(rows, f"d{d}_b2_f32", kernel, line, d) for d in WIDE_D})
     kernels = {"kernels": [
         dict(name="flash_fwd", route="cuda", source=fwd_case["source"],
              replaces="ray_tpu/ops/attention.py:167",
@@ -3020,7 +3189,7 @@ def main() -> int:
              cases_by_path=bwd_cases,
              row_err=bwd_case["row_err"]["dq"], row_err_tol=bwd_case["row_err_tol"],
              plain_ms_computes=whole, library_ms_computes=whole, d256=d256["flash_bwd_dq"],
-             f32=f32["flash_bwd_dq"], d64=dq_d64),
+             f32=f32["flash_bwd_dq"]),
         dict(name="flash_bwd_dkv", route="cuda", source=bwd_case["source"],
              replaces="ray_tpu/ops/attention.py:394",
              launches=by_path[f"flash_bwd_dkv_{bwd_case['design']}"]["train"],
@@ -3038,6 +3207,7 @@ def main() -> int:
         *f32.values(),
         *nano,
         *d64,
+        *wide,
     ]}
     report.update(kernels)
     if args.out:

@@ -23,19 +23,22 @@ a shorter q is the suffix of the kv context (``q_pos = q_idx + t_kv - t_q``).
   CTAs take (q tile, head) items from the launch's own counter; bf16 and
   float16 at 64),
   ``csrc/flash_fwd_persistent.cu`` (a persistent grid of several CTAs an
-  SM, a TMA ring; bf16 at head_dim 16, 32) or ``csrc/flash_fwd_f32.cu``
-  (3xTF32 on mma.sync; float32 at every head_dim); ``csrc/flash_fwd.cu``
-  (mma.sync), bf16 16/32's kernel before, is on no path.
+  SM, a TMA ring; bf16 at head_dim 16, 32), ``csrc/flash_fwd_wide.cu``
+  (mma.sync from cp.async tiles, d cut between warps; bf16 and float16 at
+  384, 512, 640 and 768) or ``csrc/flash_fwd_f32.cu`` (3xTF32 on mma.sync; float32 at
+  every head_dim of ``HEAD_DIMS``); ``csrc/flash_fwd.cu`` (mma.sync), bf16
+  16/32's kernel before, is on no path.
   ``flash_attention_bwd`` launches the dQ and dK/dV kernels
   (``flash_bwd_dq``, ``flash_bwd_dkv``) that the dispatch table
   ``BWD_DESIGNS`` names: ``csrc/flash_bwd_wgmma.cu`` (TMA, wgmma,
-  warp-specialised; bf16 and float16 at head_dim 64 (dQ only), 128 and
-  256), ``csrc/flash_bwd_d64.cu`` (dK/dV at bf16 and float16 64: 128-row Q
-  and dO tiles),
+  warp-specialised; bf16 and float16 at head_dim 128 and 256),
+  ``csrc/flash_bwd_d64.cu`` (dQ and dK/dV at bf16 and float16 64),
   ``csrc/flash_bwd_persistent.cu`` (a persistent grid of several CTAs an
-  SM, a TMA ring; bf16 at head_dim 16 and 32) or ``csrc/flash_bwd_f32.cu``
-  (3xTF32 on mma.sync; float32 at every head_dim); ``csrc/flash_bwd.cu``
-  (mma.sync), bf16 16/32's kernels before, is on no path.
+  SM, a TMA ring; bf16 at head_dim 16 and 32), ``csrc/flash_bwd_wide.cu``
+  (mma.sync, d cut between warps; bf16 and float16 at 384, 512, 640 and 768) or
+  ``csrc/flash_bwd_f32.cu`` (3xTF32 on mma.sync; float32 at every head_dim
+  of ``HEAD_DIMS``); ``csrc/flash_bwd.cu`` (mma.sync), bf16 16/32's kernels
+  before, is on no path.
 * Every (head_dim, dtype) that no hand-written design takes (the head_dims
   outside ``HEAD_DIMS``, float16 at 16 and 32) goes to both tables' ``plain``
   design: the reference's own route for the input, ``plain_attention_with_lse``
@@ -43,20 +46,20 @@ a shorter q is the suffix of the kv context (``q_pos = q_idx + t_kv - t_q``).
   only where that route is the reference's ``_attention_xla``
   (``_attention_plain``: head_dims that are neither 64 nor a multiple of
   128, or lengths that are not multiples of 8); where the reference takes
-  its Pallas kernel and the port has none yet (head_dim 384, 512, ...) it
-  raises. On CPU tensors it computes either route
-  (``flash_attention_fwd_plain`` at the reference's tiles on the kernel
-  route).
-* The wgmma, d64 and persistent forward kernels take the row max of the
+  its Pallas kernel and the port has none (head_dim 896 and up, ROADMAP
+  Queue 2) it raises. On CPU
+  tensors it computes either route (``flash_attention_fwd_plain`` at the
+  reference's tiles on the kernel route).
+* The wgmma, d64, persistent and wide forward kernels take the row max of the
   raw scores and fold the scale in after it, so they take a positive scale;
   the wrapper gives them any other as the same scores, exactly: -q and
   -scale for a negative one, zeros and 1 for 0 (``_positive_scale``). The
   backward kernels take any scale.
 * Launches count in ``flash_fwd_launches``, ``flash_bwd_dq_launches`` and
-  ``flash_bwd_dkv_launches`` and in the design's
+  ``flash_bwd_dkv_launches``, in the design's
   ``flash_fwd_<design>_launches`` and ``flash_bwd_{dq,dkv}_<design>_launches``
-  (``plain`` included: its computation on a CUDA tensor counts as its
-  launch). On CPU tensors the wrappers take the plain versions and count
+  and, by head_dim, in ``launches_by_head_dim`` (``plain`` included: its
+  computation on a CUDA tensor counts as its launch). On CPU tensors the wrappers take the plain versions and count
   nothing. On a CUDA tensor they launch or raise: the ``plain`` design is a
   table row with its counters, and runs on the card only where the
   reference runs no kernel either.
@@ -72,6 +75,7 @@ a shorter q is the suffix of the kv context (``q_pos = q_idx + t_kv - t_q``).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import math
@@ -83,8 +87,11 @@ from torch.utils.checkpoint import checkpoint
 from ray_tpu_torch.ops import _build
 
 NEG_INF = -1e30
+#: the head_dims past 256 that the hand-written designs take (``wide`` in
+#: bf16 and float16, ``tf32x3`` in float32): each warp owns 128 columns of d
+WIDE_HEAD_DIMS = (384, 512, 640, 768)
 #: the head_dims of the hand-written designs
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 128, 256) + WIDE_HEAD_DIMS
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 #: the reference's default flash tiles (``ray_tpu/ops/attention.py``'s
 #: ``dot_product_attention``: block_q = block_k = 512), which the plain
@@ -112,12 +119,14 @@ class FwdDesign:
 @dataclasses.dataclass(frozen=True)
 class BwdKernel:
     """One flash backward kernel: the design whose counter it carries, its
-    source ``csrc/<source>.cu`` and its entry point; the ``plain`` design's
-    has neither."""
+    source ``csrc/<source>.cu`` and its entry point, and whether the entry
+    takes an int32 item counter of its own after its outputs (``schedule``);
+    the ``plain`` design's has neither source nor entry."""
 
     name: str
     source: Optional[str]
     entry: Optional[str]
+    schedule: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,34 +165,61 @@ def _wgmma(block_k: int) -> FwdDesign:
     return FwdDesign("wgmma", "flash_fwd_wgmma", "ray_tpu_flash_fwd_wgmma", 128, block_k)
 
 
+def _wide_block_q(head_dim: int) -> int:
+    """q rows of a forward tile at a head_dim of ``WIDE_HEAD_DIMS``, in both
+    designs there: 32 at 384 and 512, 16 from 640 on (so that the warps of a
+    CTA, each owning 16 rows and 128 columns of d, fit an SM's registers).
+    At 384 and 512 64 rows of float32 Q would not fit in shared memory
+    beside the ring."""
+    return 32 if head_dim <= 512 else 16
+
+
+def _wide(head_dim: int) -> FwdDesign:
+    """The wide forward at a head_dim of ``WIDE_HEAD_DIMS``: 64-row kv tiles
+    up to 640, 32-row ones at 768 (two 64-row pieces of K or V would not fit
+    in shared memory beside Q)."""
+    return FwdDesign("wide", "flash_fwd_wide", "ray_tpu_flash_fwd_wide",
+                     _wide_block_q(head_dim), 64 if head_dim <= 640 else 32)
+
+
+def _tf32x3(head_dim: int) -> FwdDesign:
+    if head_dim <= 256:
+        return _TF32X3
+    return dataclasses.replace(_TF32X3, block_q=_wide_block_q(head_dim))
+
+
 #: the forward's dispatch table, keyed on (head_dim, dtype): the kernel each
 #: input launches on the card and the tiles the plain version repeats. Every
 #: design but ``plain`` is a hand-written kernel; a launch that the kernel
 #: refuses raises. float32 runs 3xTF32 on the tensor cores (``flash_fwd_f32.cu``),
 #: bf16 and float16 at head_dim 64 ``flash_fwd_d64.cu`` (a persistent grid;
 #: the wgmma kernel it took over from is timed beside it by
-#: ``ops/flash_fwd_variants.py --d64``), at 128 and 256 ``flash_fwd_wgmma.cu``.
-#: Every other key, the head_dims outside ``HEAD_DIMS`` and float16 at 16
-#: and 32 among them, takes ``plain``. Neither kernel of ``flash_fwd.cu`` is on a path:
+#: ``ops/flash_fwd_variants.py --d64``), at 128 and 256 ``flash_fwd_wgmma.cu``,
+#: at 384, 512, 640 and 768 ``flash_fwd_wide.cu``. Every other key, the head_dims
+#: outside ``HEAD_DIMS`` and float16 at 16 and 32 among them, takes
+#: ``plain``. Neither kernel of ``flash_fwd.cu`` is on a path:
 #: its float32 one (CUDA cores) ``ops/flash_fwd_f32_variants.py`` times
 #: beside ``flash_fwd_f32.cu``, its bf16 one (mma.sync)
 #: ``ops/flash_fwd_variants.py --small-d`` beside ``flash_fwd_persistent.cu``.
 FWD_DESIGNS = DesignTable({
-    **{(d, torch.float32): _TF32X3 for d in HEAD_DIMS},
+    **{(d, torch.float32): _tf32x3(d) for d in HEAD_DIMS},
     (16, torch.bfloat16): _PERSISTENT,
     (32, torch.bfloat16): _PERSISTENT,
     **{(64, dt): _D64 for dt in (torch.bfloat16, torch.float16)},
     **{(128, dt): _wgmma(128) for dt in (torch.bfloat16, torch.float16)},
     **{(256, dt): _wgmma(80) for dt in (torch.bfloat16, torch.float16)},
+    **{(d, dt): _wide(d) for d in WIDE_HEAD_DIMS for dt in (torch.bfloat16, torch.float16)},
 }, _PLAIN)
 
 _BWD_PERSISTENT = BwdDesign(
     BwdKernel("persistent", "flash_bwd_persistent", "ray_tpu_flash_bwd_dq_persistent"),
     BwdKernel("persistent", "flash_bwd_persistent", "ray_tpu_flash_bwd_dkv_persistent"))
-_DQ_WGMMA = BwdKernel("wgmma", "flash_bwd_wgmma", "ray_tpu_flash_bwd_dq_wgmma")
-_BWD_WGMMA = BwdDesign(_DQ_WGMMA,
+_BWD_WGMMA = BwdDesign(BwdKernel("wgmma", "flash_bwd_wgmma", "ray_tpu_flash_bwd_dq_wgmma"),
                        BwdKernel("wgmma", "flash_bwd_wgmma", "ray_tpu_flash_bwd_dkv_wgmma"))
-_BWD_D64 = BwdDesign(_DQ_WGMMA, BwdKernel("d64", "flash_bwd_d64", "ray_tpu_flash_bwd_dkv_d64"))
+_BWD_D64 = BwdDesign(BwdKernel("d64", "flash_bwd_d64", "ray_tpu_flash_bwd_dq_d64", schedule=True),
+                     BwdKernel("d64", "flash_bwd_d64", "ray_tpu_flash_bwd_dkv_d64"))
+_BWD_WIDE = BwdDesign(BwdKernel("wide", "flash_bwd_wide", "ray_tpu_flash_bwd_dq_wide"),
+                      BwdKernel("wide", "flash_bwd_wide", "ray_tpu_flash_bwd_dkv_wide"))
 _BWD_TF32X3 = BwdDesign(BwdKernel("tf32x3", "flash_bwd_f32", "ray_tpu_flash_bwd_dq_f32"),
                         BwdKernel("tf32x3", "flash_bwd_f32", "ray_tpu_flash_bwd_dkv_f32"))
 _BWD_PLAIN = BwdDesign(BwdKernel("plain", None, None), BwdKernel("plain", None, None))
@@ -191,10 +227,12 @@ _BWD_PLAIN = BwdDesign(BwdKernel("plain", None, None), BwdKernel("plain", None, 
 #: the backward's dispatch table, keyed on (head_dim, dtype): the kernels each
 #: input launches on the card. bf16 and float16 at 128 and 256 run
 #: ``flash_bwd_wgmma.cu`` (at 256 its dK/dV kernel splits dV and dK between
-#: its warpgroups); at 64 wgmma's dQ and ``flash_bwd_d64.cu``'s dK/dV
-#: (128-row Q and dO tiles; the wgmma dK/dV it took over from is timed
-#: beside it by ``ops/flash_bwd_variants.py --d64``); bf16 at 16 and 32 runs
-#: ``flash_bwd_persistent.cu``; float32 runs 3xTF32 on the tensor cores
+#: its warpgroups); at 64 ``flash_bwd_d64.cu``'s dQ (a persistent grid over
+#: 128-row q tiles) and dK/dV (128-row Q and dO tiles; the
+#: wgmma pair they took over from is timed beside them by
+#: ``ops/flash_bwd_variants.py --d64``); bf16 at 16 and 32 runs
+#: ``flash_bwd_persistent.cu``; bf16 and float16 at 384, 512, 640 and 768
+#: ``flash_bwd_wide.cu``; float32 runs 3xTF32 on the tensor cores
 #: (``flash_bwd_f32.cu``). Every other key takes ``plain``: the gradient of
 #: the reference's own route. No kernel of ``flash_bwd.cu`` is on a path:
 #: ``ops/flash_bwd_f32_variants.py`` times its float32 ones (CUDA cores)
@@ -205,6 +243,7 @@ BWD_DESIGNS = DesignTable({
     **{(d, torch.bfloat16): _BWD_PERSISTENT for d in (16, 32)},
     **{(64, dt): _BWD_D64 for dt in (torch.bfloat16, torch.float16)},
     **{(d, dt): _BWD_WGMMA for d in (128, 256) for dt in (torch.bfloat16, torch.float16)},
+    **{(d, dt): _BWD_WIDE for d in WIDE_HEAD_DIMS for dt in (torch.bfloat16, torch.float16)},
 }, _BWD_PLAIN)
 
 #: launches of each kernel, counted where it is launched; a launch counts in
@@ -215,19 +254,26 @@ flash_fwd_launches = 0
 flash_fwd_wgmma_launches = 0
 flash_fwd_d64_launches = 0
 flash_fwd_persistent_launches = 0
+flash_fwd_wide_launches = 0
 flash_fwd_tf32x3_launches = 0
 flash_fwd_plain_launches = 0
 flash_bwd_dq_launches = 0
 flash_bwd_dq_wgmma_launches = 0
+flash_bwd_dq_d64_launches = 0
 flash_bwd_dq_persistent_launches = 0
+flash_bwd_dq_wide_launches = 0
 flash_bwd_dq_tf32x3_launches = 0
 flash_bwd_dq_plain_launches = 0
 flash_bwd_dkv_launches = 0
 flash_bwd_dkv_wgmma_launches = 0
 flash_bwd_dkv_d64_launches = 0
 flash_bwd_dkv_persistent_launches = 0
+flash_bwd_dkv_wide_launches = 0
 flash_bwd_dkv_tf32x3_launches = 0
 flash_bwd_dkv_plain_launches = 0
+#: the same launches by head_dim: "<kernel>_<design>_d<head_dim>" -> launches,
+#: counted with the design's count
+launches_by_head_dim: collections.Counter = collections.Counter()
 
 
 def fwd_tiles(head_dim: int, dtype: torch.dtype) -> Tuple[int, int]:
@@ -241,7 +287,7 @@ def fwd_tiles(head_dim: int, dtype: torch.dtype) -> Tuple[int, int]:
 
 # the forward designs that take the row max of the raw scores and fold the
 # scale into exp2 after it, so take a positive scale (``_positive_scale``)
-_POSITIVE_SCALE = ("wgmma", "persistent", "d64")
+_POSITIVE_SCALE = ("wgmma", "persistent", "d64", "wide")
 
 
 def _positive_scale(q: torch.Tensor, scale: float) -> Tuple[torch.Tensor, float]:
@@ -542,7 +588,8 @@ def flash_attention_bwd_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of the flash forward, in the dtypes of q, k and v: the
     arithmetic of the TPU backward kernels (``_flash_bwd_dq_kernel`` and
-    ``_flash_bwd_dkv_kernel``) in float32, over the whole score matrix.
+    ``_flash_bwd_dkv_kernel``) in float32 (float64 for float64 inputs), over
+    the whole score matrix.
 
     P = exp(S - lse) is recomputed from the forward's lse, with S masked to
     NEG_INF under the causal mask (q the suffix of kv); delta = rowsum(dO * O);
@@ -561,14 +608,15 @@ def flash_attention_bwd_plain(
     kernels as well. Under that guard the result does not depend on the tile
     size, apart from the order of summation."""
     t_q, t_kv = q.shape[-2], k.shape[-2]
-    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    delta = (dof * o.float()).sum(-1)
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qf, kf, vf, dof = (x.to(acc) for x in (q, k, v, do))
+    delta = (dof * o.to(acc)).sum(-1)
     if dlse is not None:
-        delta = delta - dlse.float()
+        delta = delta - dlse.to(acc)
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
     if causal:
         s = torch.where(_causal_mask(t_q, t_kv, q.device), s, NEG_INF)
-    p = torch.exp(s - lse[..., None])
+    p = torch.exp(s - lse.to(acc)[..., None])
     if causal and t_q > t_kv:
         p = torch.where(lse[..., None] > NEG_INF / 2, p, 0.0)
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
@@ -586,8 +634,8 @@ def flash_attention_bwd_plain(
 
 # each source's entry points, with their count of leading pointers, and its
 # error-string function; every entry point then takes bh, t_q, t_kv, d,
-# dtype, causal, scale and the stream (the d64 forward's sixth pointer is its
-# item counter)
+# dtype, causal, scale and the stream (the d64 forward's sixth pointer and
+# the d64 dQ's eighth are their item counters)
 _SOURCES = {
     "flash_fwd": ({"ray_tpu_flash_fwd": 5}, "ray_tpu_cuda_error_string"),
     "flash_fwd_wgmma": ({"ray_tpu_flash_fwd_wgmma": 5},
@@ -596,16 +644,20 @@ _SOURCES = {
     "flash_fwd_persistent": ({"ray_tpu_flash_fwd_persistent": 5},
                              "ray_tpu_flash_fwd_persistent_error_string"),
     "flash_fwd_f32": ({"ray_tpu_flash_fwd_f32": 5}, "ray_tpu_flash_fwd_f32_error_string"),
+    "flash_fwd_wide": ({"ray_tpu_flash_fwd_wide": 5}, "ray_tpu_flash_fwd_wide_error_string"),
     "flash_bwd": ({"ray_tpu_flash_bwd_dq": 7, "ray_tpu_flash_bwd_dkv": 8},
                   "ray_tpu_flash_bwd_error_string"),
     "flash_bwd_wgmma": ({"ray_tpu_flash_bwd_dq_wgmma": 7, "ray_tpu_flash_bwd_dkv_wgmma": 8},
                         "ray_tpu_flash_bwd_wgmma_error_string"),
-    "flash_bwd_d64": ({"ray_tpu_flash_bwd_dkv_d64": 8}, "ray_tpu_flash_bwd_d64_error_string"),
+    "flash_bwd_d64": ({"ray_tpu_flash_bwd_dq_d64": 8, "ray_tpu_flash_bwd_dkv_d64": 8},
+                      "ray_tpu_flash_bwd_d64_error_string"),
     "flash_bwd_persistent": ({"ray_tpu_flash_bwd_dq_persistent": 7,
                               "ray_tpu_flash_bwd_dkv_persistent": 8},
                              "ray_tpu_flash_bwd_persistent_error_string"),
     "flash_bwd_f32": ({"ray_tpu_flash_bwd_dq_f32": 7, "ray_tpu_flash_bwd_dkv_f32": 8},
                       "ray_tpu_flash_bwd_f32_error_string"),
+    "flash_bwd_wide": ({"ray_tpu_flash_bwd_dq_wide": 7, "ray_tpu_flash_bwd_dkv_wide": 8},
+                       "ray_tpu_flash_bwd_wide_error_string"),
 }
 _C_TAIL = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
 
@@ -701,6 +753,7 @@ def _check_tiles(design: FwdDesign, head_dim: int, block_q, block_k) -> None:
 _TILES_ENTRIES = {"wgmma": "ray_tpu_flash_fwd_wgmma_tiles",
                   "d64": "ray_tpu_flash_fwd_d64_tiles",
                   "persistent": "ray_tpu_flash_fwd_persistent_tiles",
+                  "wide": "ray_tpu_flash_fwd_wide_tiles",
                   "tf32x3": "ray_tpu_flash_fwd_f32_tiles"}
 
 
@@ -729,8 +782,8 @@ def _check_plain_inputs(q, k, v, *more) -> None:
     k, v and ``more`` on one device, q [b, h, t_q, d] and k, v [b, h, t_kv,
     d] of one floating dtype, and, on the card, inputs that the reference
     sends to ``_attention_xla`` (where it takes its Pallas kernel, the port
-    has no kernel for them yet, and the plain version does not stand in for
-    one on the card)."""
+    has no kernel for them, head_dim 896 and up, and the plain version does
+    not stand in for one on the card)."""
     if len({t.device for t in (q, k, v, *more)}) != 1:
         raise ValueError("q, k, v and the rest must lie on one device")
     if q.dim() != 4 or not q.is_floating_point() or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -779,7 +832,7 @@ def flash_attention_fwd(
                                             block_q=block_q, block_k=block_k)
         if not on_cpu:
             flash_fwd_launches += 1
-            _count_design("flash_fwd", design.name)
+            _count_design("flash_fwd", design.name, d)
         return out, lse
     if on_cpu:
         return flash_attention_fwd_plain(
@@ -795,7 +848,7 @@ def flash_attention_fwd(
         tensors += (torch.empty(1, dtype=torch.int32, device=q.device),)
     _launch(design.source, design.entry, tensors, q, k.shape[2], causal, scale_k)
     flash_fwd_launches += 1
-    _count_design("flash_fwd", design.name)
+    _count_design("flash_fwd", design.name, d)
     return out, lse
 
 
@@ -819,10 +872,11 @@ def _bwd_kernel(kernel: str, q, k, v, do, lse, delta) -> BwdKernel:
     return chosen
 
 
-def _count_design(kernel: str, design: str) -> None:
-    """One more launch in ``<kernel>_<design>_launches``."""
-    name = f"{kernel}_{design}_launches"
-    globals()[name] += 1
+def _count_design(kernel: str, design: str, head_dim: int) -> None:
+    """One more launch in ``<kernel>_<design>_launches`` and in
+    ``launches_by_head_dim``."""
+    globals()[f"{kernel}_{design}_launches"] += 1
+    launches_by_head_dim[f"{kernel}_{design}_d{head_dim}"] += 1
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float
@@ -833,10 +887,12 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float
     global flash_bwd_dq_launches
     kernel = _bwd_kernel("dq", q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
-    _launch(kernel.source, kernel.entry, (q, k, v, do, lse, delta, dq), q,
-            k.shape[2], causal, scale)
+    tensors = (q, k, v, do, lse, delta, dq)
+    if kernel.schedule:
+        tensors += (torch.empty(1, dtype=torch.int32, device=q.device),)
+    _launch(kernel.source, kernel.entry, tensors, q, k.shape[2], causal, scale)
     flash_bwd_dq_launches += 1
-    _count_design("flash_bwd_dq", kernel.name)
+    _count_design("flash_bwd_dq", kernel.name, q.shape[-1])
     return dq
 
 
@@ -852,7 +908,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float
     _launch(kernel.source, kernel.entry, (q, k, v, do, lse, delta, dk, dv),
             q, k.shape[2], causal, scale)
     flash_bwd_dkv_launches += 1
-    _count_design("flash_bwd_dkv", kernel.name)
+    _count_design("flash_bwd_dkv", kernel.name, q.shape[-1])
     return dk, dv
 
 
@@ -891,8 +947,8 @@ def flash_attention_bwd(
         if not on_cpu:
             flash_bwd_dq_launches += 1
             flash_bwd_dkv_launches += 1
-            _count_design("flash_bwd_dq", design.dq.name)
-            _count_design("flash_bwd_dkv", design.dkv.name)
+            _count_design("flash_bwd_dq", design.dq.name, q.shape[-1])
+            _count_design("flash_bwd_dkv", design.dkv.name, q.shape[-1])
         return grads
     if on_cpu:
         return flash_attention_bwd_plain(
@@ -995,9 +1051,10 @@ def dot_product_attention(
     hand-written forward and backward kernels on CUDA tensors, at the
     kernel's tiles unless ``block_q``/``block_k`` say otherwise (the CPU
     path takes any; the card's kernel raises for other tiles), at any
-    scale; every input that no kernel takes (another head_dim, float16 at 16
-    and 32) through the counted ``plain`` design, the reference's own route
-    (on the card only where that route is ``_attention_xla``). With
+    scale; every input that no kernel takes (a head_dim outside
+    ``HEAD_DIMS``, float16 at 16 and 32) through the counted ``plain``
+    design, the reference's own route (on the card only where that route
+    is ``_attention_xla``). With
     ``segment_ids`` it computes ``_attention_plain`` on the tensors' device,
     differentiable through autograd and launching no flash kernel: the
     reference's dispatcher takes its XLA path there, since no kernel has a

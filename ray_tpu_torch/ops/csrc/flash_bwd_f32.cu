@@ -1,7 +1,7 @@
 // Flash-attention backward for float32 on the tensor cores (sm_90a),
 // hand-written CUDA C++: 3xTF32 on mma.sync. The dispatch table in
 // ops/attention.py (BWD_DESIGNS) sends every float32 input here, at
-// head_dim 16, 32, 64, 128 and 256.
+// head_dim 16, 32, 64, 128, 256, 384, 512, 640 and 768.
 //
 // Replaces the two TPU kernels of ray_tpu/ops/attention.py launched by
 // _flash_attention_tpu_bwd there, for float32:
@@ -62,7 +62,11 @@
 //   * dQ: each warp owns 16 q rows of the resident Q and dO tiles and
 //     keeps their dQ in registers; per kv tile it computes S and dP, then
 //     dS, then dQ += dS K. Heaviest q tiles (the last, under the causal
-//     mask) launch first.
+//     mask) launch first. From 384 on a [16 x d] float32 dQ (192 registers
+//     and more) would not fit beside S and dP, so each 16 rows have d / 128
+//     warps, each owning 128 columns of dQ; each sums S and dP over its
+//     columns, and the partials are handed over in shared memory and summed
+//     in one order, as dK/dV's at 256.
 //   * dK/dV: each 16 resident kv rows have two warps (four at d = 256,
 //     each pair taking one half of d). The first computes S^T = K Q^T and
 //     hands it over in shared memory (in its registers' layout, a float4 a
@@ -72,7 +76,15 @@
 //     handed over and summed in one order, so every warp holds the same P^T,
 //     and a warp's accumulator is 16 x 128.
 // The rows of each tile shrink with head_dim (DqTiles, DkvTiles) so that
-// dynamic shared memory stays within 232448 bytes. Each CTA owns its
+// dynamic shared memory stays within 232448 bytes: at 512 (a float32 row
+// is 2 KB) dQ keeps 32 rows of Q and dO and streams K and V 8 rows a stage
+// (206 KB), dK/dV keeps 16 rows of K and V and streams Q and dO 16 rows a
+// stage (207 KB); at 640 and 768 dQ keeps 16 rows (170 and 204 KB) and
+// dK/dV streams 8 rows a stage (170 and 204 KB). dK/dV's 2 d / 128 warps
+// (a pair a 16 rows and 128 columns) leave 204 registers a thread at 640
+// and 170 at 768, in which the build fits it without a spill (168 and 167;
+// 215 at 512, where it has 255). At 896 dQ's 16 resident rows and 8-row
+// stages would take 238 KB: the design stops at 768. Each CTA owns its
 // output rows: no atomics and no split reduction, so equal inputs give
 // equal bits.
 //
@@ -107,26 +119,37 @@ struct Tiles {
   static constexpr int kM = M, kN = N;
 };
 
-// dQ: a warp per 16 resident q rows (kM / 16 warps).
+// dQ: kDqHalves<D> warps per 16 resident q rows (kM / 16 * kDqHalves<D>
+// warps), each owning D / kDqHalves<D> columns of dQ.
 template <int D> struct DqTiles;
+template <int D>
+constexpr int kDqHalves = D > 256 ? D / 128 : 1;
 template <> struct DqTiles<16> : Tiles<64, 64> {};
 template <> struct DqTiles<32> : Tiles<64, 64> {};
 template <> struct DqTiles<64> : Tiles<64, 64> {};
 template <> struct DqTiles<128> : Tiles<128, 32> {};
 template <> struct DqTiles<256> : Tiles<64, 16> {};
+template <> struct DqTiles<384> : Tiles<32, 16> {};
+template <> struct DqTiles<512> : Tiles<32, 8> {};
+template <> struct DqTiles<640> : Tiles<16, 8> {};
+template <> struct DqTiles<768> : Tiles<16, 8> {};
 
 // dK/dV: two warps per 16 resident kv rows and part of d
-// (kM / 8 * kDkvHalves<D> warps). At 256 each warp takes half of d, so that
-// its accumulator is 16 x 128 (64 registers) and not 16 x 256 (128, which
-// spilled).
+// (kM / 8 * kDkvHalves<D> warps). From 256 on each warp takes 128 columns of
+// d, so that its accumulator is 16 x 128 (64 registers) and not 16 x 256
+// (128, which spilled).
 template <int D> struct DkvTiles;
 template <int D>
-constexpr int kDkvHalves = D == 256 ? 2 : 1;
+constexpr int kDkvHalves = D >= 256 ? D / 128 : 1;
 template <> struct DkvTiles<16> : Tiles<64, 64> {};
 template <> struct DkvTiles<32> : Tiles<64, 64> {};
 template <> struct DkvTiles<64> : Tiles<64, 32> {};
 template <> struct DkvTiles<128> : Tiles<64, 32> {};
 template <> struct DkvTiles<256> : Tiles<32, 32> {};
+template <> struct DkvTiles<384> : Tiles<16, 16> {};
+template <> struct DkvTiles<512> : Tiles<16, 16> {};
+template <> struct DkvTiles<640> : Tiles<16, 8> {};
+template <> struct DkvTiles<768> : Tiles<16, 8> {};
 
 struct Params {
   const float* q;
@@ -146,12 +169,14 @@ struct Params {
 };
 
 // Shared memory: the two resident tiles and kStages stages of the two
-// streamed tiles (float32, row stride D + 4); dK/dV adds its hand-over
-// tiles (16 x kN each) and each stage's lse and delta.
+// streamed tiles (float32, row stride D + 4); where d is cut, the hand-over
+// tiles (16 x kN each: dQ's S and dP parts) and, for dK/dV, each stage's
+// lse and delta.
 template <int D>
 constexpr size_t dq_smem_bytes() {
-  constexpr int kM = DqTiles<D>::kM, kN = DqTiles<D>::kN;
-  return (2 * kM + kStages * 2 * kN) * (D + 4) * sizeof(float);
+  constexpr int kM = DqTiles<D>::kM, kN = DqTiles<D>::kN, kHalves = kDqHalves<D>;
+  constexpr int kHandOver = kHalves > 1 ? 2 * kHalves * kM * kN : 0;
+  return ((2 * kM + kStages * 2 * kN) * (D + 4) + kHandOver) * sizeof(float);
 }
 
 // the 16 x kN tiles each 16 dK/dV rows hand over: S^T and, where d is cut,
@@ -313,22 +338,29 @@ __device__ __forceinline__ void store_rows(float* dst, const float (*acc)[4], in
 // ---------------------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(DqTiles<D>::kM * 2)
+__global__ void __launch_bounds__(DqTiles<D>::kM * 2 * kDqHalves<D>)
     flash_bwd_dq_f32x3_kernel(const Params p) {
   constexpr int kM = DqTiles<D>::kM, kN = DqTiles<D>::kN, S = D + 4;
-  constexpr int kThreads = kM * 2;  // a warp per 16 rows
+  constexpr int kHalves = kDqHalves<D>;
+  constexpr int kDc = D / kHalves;     // d columns a warp sums over and owns of dQ
+  constexpr int kGroups = kM / 16;
+  constexpr int kThreads = kM * 2 * kHalves;  // kHalves warps per 16 rows
   constexpr int kTile = kN * S;     // one streamed tile of a stage
   constexpr int kNT = kN / 8;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* dOs = Qs + kM * S;
   float* stages = dOs + kM * S;  // kStages x (K, V)
+  float* slot_s = stages + kStages * 2 * kTile;  // d cut: kGroups x 2 kHalves x 16 x kN
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2;   // mma group: row within the 8-row half
   const int tig = lane & 3;  // thread in group
-  const int r0 = warp * 16;  // the warp's tile rows: r0 + g, r0 + g + 8
+  const int group = warp % kGroups;
+  const int half = warp / kGroups;
+  const int c0 = half * kDc;  // the warp's d columns: c0..c0 + kDc
+  const int r0 = group * 16;  // the warp's tile rows: r0 + g, r0 + g + 8
   // the heaviest q tiles (the last, under the causal mask) launch first
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kM;
   const size_t bh = blockIdx.y;
@@ -356,9 +388,9 @@ __global__ void __launch_bounds__(DqTiles<D>::kM * 2)
     dead[i] = !live || sees_no_key(p, lse_r[i]);
   }
 
-  float acc[D / 8][4];
+  float acc[kDc / 8][4];
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
+  for (int nt = 0; nt < kDc / 8; ++nt) {
     acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
   }
 
@@ -377,8 +409,32 @@ __global__ void __launch_bounds__(DqTiles<D>::kM * 2)
 
     float s[kNT][4];
     float dp[kNT][4];
-    gemm_nt<D, kNT, D, 2>(s, Qs + r0 * S, Kt, g, tig);
-    gemm_nt<D, kNT, D, 2>(dp, dOs + r0 * S, Vt, g, tig);
+    gemm_nt<D, kNT, kDc, 2>(s, Qs + r0 * S + c0, Kt + c0, g, tig);
+    gemm_nt<D, kNT, kDc, 2>(dp, dOs + r0 * S + c0, Vt + c0, g, tig);
+    if constexpr (kHalves > 1) {
+      // the group's partials of S (slot 2 h) and dP (2 h + 1), summed in
+      // one order by every warp of the group
+      float4* slots = reinterpret_cast<float4*>(slot_s) + group * 2 * kHalves * kNT * 32 + lane;
+      hand_over<kNT>(slots + 2 * half * kNT * 32, s);
+      hand_over<kNT>(slots + (2 * half + 1) * kNT * 32, dp);
+      group_sync(1 + group, kHalves * 32);
+      take_over<kNT>(s, slots);
+      take_over<kNT>(dp, slots + kNT * 32);
+#pragma unroll
+      for (int h = 1; h < kHalves; ++h) {
+        float more[kNT][4], more_dp[kNT][4];
+        take_over<kNT>(more, slots + 2 * h * kNT * 32);
+        take_over<kNT>(more_dp, slots + (2 * h + 1) * kNT * 32);
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[nt][e] += more[nt][e];
+            dp[nt][e] += more_dp[nt][e];
+          }
+        }
+      }
+    }
     // P = exp(scale * S - lse), then dS = P * (dP - delta) * scale in s
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt) {
@@ -393,11 +449,11 @@ __global__ void __launch_bounds__(DqTiles<D>::kM * 2)
         s[nt][e] = pe * (dp[nt][e] - delta_r[i]) * p.scale;
       }
     }
-    // dQ += dS K
-    gemm_acc_nn<D, D, kN>(acc, s, Kt, 0, g, tig);
+    // dQ[:, c0:] += dS K[:, c0:]
+    gemm_acc_nn<D, kDc, kN>(acc, s, Kt, c0, g, tig);
   }
   cp_async_wait_all();
-  store_rows<D, D>(p.dq + bh * p.t_q * D, acc, q0, r0 + g, 0, p.t_q, tig);
+  store_rows<D, kDc>(p.dq + bh * p.t_q * D, acc, q0, r0 + g, c0, p.t_q, tig);
 }
 
 // ---------------------------------------------------------------------------
@@ -611,8 +667,8 @@ int launch_d(bool dkv, int bh, cudaStream_t st, const Params& p) {
                      kM * 4 * kDkvHalves<D>, dkv_smem_bytes<D>(), st, p);
   }
   constexpr int kM = DqTiles<D>::kM;
-  return launch<D>(flash_bwd_dq_f32x3_kernel<D>, (p.t_q + kM - 1) / kM, bh, kM * 2,
-                   dq_smem_bytes<D>(), st, p);
+  return launch<D>(flash_bwd_dq_f32x3_kernel<D>, (p.t_q + kM - 1) / kM, bh,
+                   kM * 2 * kDqHalves<D>, dq_smem_bytes<D>(), st, p);
 }
 
 int dispatch(bool dkv, const Params& p, int bh, int d, int dtype, void* stream) {
@@ -624,6 +680,10 @@ int dispatch(bool dkv, const Params& p, int bh, int d, int dtype, void* stream) 
     case 64: return launch_d<64>(dkv, bh, st, p);
     case 128: return launch_d<128>(dkv, bh, st, p);
     case 256: return launch_d<256>(dkv, bh, st, p);
+    case 384: return launch_d<384>(dkv, bh, st, p);
+    case 512: return launch_d<512>(dkv, bh, st, p);
+    case 640: return launch_d<640>(dkv, bh, st, p);
+    case 768: return launch_d<768>(dkv, bh, st, p);
   }
   return kUnsupported;
 }
@@ -674,6 +734,10 @@ extern "C" int ray_tpu_flash_bwd_f32_smem_bytes(int d, int dkv) {
     case 64: return (int)(dkv ? dkv_smem_bytes<64>() : dq_smem_bytes<64>());
     case 128: return (int)(dkv ? dkv_smem_bytes<128>() : dq_smem_bytes<128>());
     case 256: return (int)(dkv ? dkv_smem_bytes<256>() : dq_smem_bytes<256>());
+    case 384: return (int)(dkv ? dkv_smem_bytes<384>() : dq_smem_bytes<384>());
+    case 512: return (int)(dkv ? dkv_smem_bytes<512>() : dq_smem_bytes<512>());
+    case 640: return (int)(dkv ? dkv_smem_bytes<640>() : dq_smem_bytes<640>());
+    case 768: return (int)(dkv ? dkv_smem_bytes<768>() : dq_smem_bytes<768>());
   }
   return -1;
 }

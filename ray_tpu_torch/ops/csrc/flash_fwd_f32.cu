@@ -1,7 +1,7 @@
 // Flash-attention forward for float32 on the tensor cores (sm_90a),
 // hand-written CUDA C++: 3xTF32 on mma.sync. The dispatch table in
 // ops/attention.py (FWD_DESIGNS, design "tf32x3") sends every float32 input
-// here, at head_dim 16, 32, 64, 128 and 256.
+// here, at head_dim 16, 32, 64, 128, 256, 384, 512, 640 and 768.
 //
 // Replaces the TPU kernel ray_tpu/ops/attention.py:_flash_fwd_kernel
 // (launched by _flash_attention_tpu) for float32. It computes what that
@@ -16,9 +16,10 @@
 //   * a row whose processed columns are all masked gets p = exp(0) = 1 on
 //     each of them (the online-softmax max stays at NEG_INF);
 //   * denominator 1 where l == 0, lse = m + log(denom) in float32.
-// Tiles are 64 x 64 (block_q = min(64, t_q), block_k = min(64, t_kv) in the
-// reference's terms): the running max is updated once per 64-column kv
-// tile, as flash_attention_fwd_plain in ops/attention.py does at the tiles
+// Tiles are 64 x 64 up to head_dim 256, 32 x 64 at 384 and 512 and 16 x 64
+// at 640 and 768 (block_q = min(kBlockQ, t_q), block_k = min(64, t_kv) in
+// the reference's terms): the running max is updated once per 64-column kv tile, as
+// flash_attention_fwd_plain in ops/attention.py does at the tiles
 // FWD_DESIGNS names.
 //
 // Arithmetic: both products are 3xTF32 on mma.sync.m16n8k8 (csrc/tf32x3.cuh,
@@ -65,7 +66,15 @@
 // warps, each holding O over one half of d; each computes S over its half
 // of d, the two partials are exchanged through shared memory under a named
 // barrier of the pair and summed in one order, so both warps hold the same
-// S and P. There are no atomics: equal inputs give equal bits.
+// S and P. From 384 on d is cut so in d / 128 (each warp 128 columns), and
+// a CTA takes 32 q rows at 384 and 512: 64 rows of Q at d = 512 are 135 KB
+// of shared memory, which with the ring and the hand-over tiles would pass
+// the 227 KB a block may use; at 32 rows Q, a ring of two 16-row pieces and
+// the hand-over take 164 KB (at 384, with 32-row pieces, 174 KB). A thread
+// takes about 244 registers there, so an SM's 65536 hold 8 warps: at 640
+// and 768 a CTA takes 16 q rows (5 or 6 warps, 146 and 175 KB). The
+// backward's dQ stops the design at 768 (flash_bwd_f32.cu). There are no
+// atomics: equal inputs give equal bits.
 //
 // C interface (bound with ctypes by ray_tpu_torch/ops/attention.py):
 //   int ray_tpu_flash_fwd_f32(q, k, v, o, lse, bh, t_q, t_kv, d, dtype,
@@ -89,22 +98,22 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kUnsupported = 100000;
-constexpr int kBlockQ = 64;
 constexpr int kMaxGridY = 65535;  // the most heads a launch's grid.y holds
 constexpr int kBlockK = 64;
 
 // kP kv rows a piece of the ring, kStages pieces, d cut into kHalves (two
-// warps per 16 q rows at 256), at least kMinBlocks CTAs an SM (the
-// registers a thread may take follow from it), and kVec columns of a V row
-// a lane reads at once in P V (4, or 2 where 4 needs more registers than a
-// thread has: at d = 128 they spilled 24 bytes, which cost nothing in time
-// but fail the build's gate; 2 runs 2% slower on an H100). Shared memory:
-// Q, the ring and, where d is cut, the pairs' hand-over tiles of S.
-template <int P, int Stages, int Halves, int MinBlocks, int Vec>
+// warps per 16 q rows at 256, d / 128 from 384 on), at least
+// kMinBlocks CTAs an SM (the registers a thread may take follow from it),
+// kVec columns of a V row a lane reads at once in P V (4, or 2 where 4 needs
+// more registers than a thread has: at d = 128 they spilled 24 bytes, which
+// cost nothing in time but fail the build's gate; 2 runs 2% slower on an
+// H100), and kBlockQ q rows a CTA (the table's block_q). Shared memory: Q,
+// the ring and, where d is cut, the groups' hand-over tiles of S.
+template <int P, int Stages, int Halves, int MinBlocks, int Vec, int BlockQ = 64>
 struct Tiles {
   static constexpr int kP = P, kStages = Stages, kHalves = Halves, kMinBlocks = MinBlocks;
-  static constexpr int kVec = Vec;
-  static constexpr int kThreads = kBlockQ / 16 * Halves * 32;
+  static constexpr int kVec = Vec, kBlockQ = BlockQ;
+  static constexpr int kThreads = BlockQ / 16 * Halves * 32;
 };
 template <int D> struct FwdTiles;
 template <> struct FwdTiles<16> : Tiles<64, 2, 1, 1, 2> {};
@@ -112,6 +121,10 @@ template <> struct FwdTiles<32> : Tiles<64, 2, 1, 1, 4> {};
 template <> struct FwdTiles<64> : Tiles<64, 2, 1, 1, 4> {};
 template <> struct FwdTiles<128> : Tiles<64, 2, 1, 1, 2> {};
 template <> struct FwdTiles<256> : Tiles<32, 2, 2, 1, 4> {};
+template <> struct FwdTiles<384> : Tiles<32, 2, 3, 1, 4, 32> {};
+template <> struct FwdTiles<512> : Tiles<16, 2, 4, 1, 4, 32> {};
+template <> struct FwdTiles<640> : Tiles<16, 2, 5, 1, 4, 16> {};
+template <> struct FwdTiles<768> : Tiles<16, 2, 6, 1, 4, 16> {};
 
 // Row strides in shared memory, in floats. Q and K are read 16 bytes a
 // lane, rows g and g + 1 of a quarter warp side by side: a stride of 16
@@ -132,7 +145,7 @@ struct Params {
   float* lse;
   int t_q;
   int t_kv;
-  int bq_eff;  // min(64, t_q): the reference's block_q
+  int bq_eff;  // min(kBlockQ, t_q): the reference's block_q
   int bk_eff;  // min(64, t_kv): the reference's block_k
   int causal;
   float scale;
@@ -141,8 +154,8 @@ struct Params {
 template <int D>
 constexpr size_t smem_bytes() {
   using T = FwdTiles<D>;
-  const size_t tiles = (size_t)kBlockQ * kStrideQK<D> + (size_t)T::kStages * kSlot<D>;
-  const size_t hand_over = T::kHalves > 1 ? (size_t)T::kHalves * kBlockQ * kBlockK : 0;
+  const size_t tiles = (size_t)T::kBlockQ * kStrideQK<D> + (size_t)T::kStages * kSlot<D>;
+  const size_t hand_over = T::kHalves > 1 ? (size_t)T::kHalves * T::kBlockQ * kBlockK : 0;
   return (tiles + hand_over) * sizeof(float);
 }
 
@@ -342,7 +355,7 @@ __global__ void __launch_bounds__(FwdTiles<D>::kThreads, FwdTiles<D>::kMinBlocks
     flash_fwd_f32x3_kernel(const Params p) {
   using T = FwdTiles<D>;
   constexpr int kP = T::kP, kStages = T::kStages, kHalves = T::kHalves;
-  constexpr int kThreads = T::kThreads;
+  constexpr int kThreads = T::kThreads, kBlockQ = T::kBlockQ;
   constexpr int SQK = kStrideQK<D>, SV = kStrideV<D>;
   constexpr int kDc = D / kHalves;     // d columns a warp sums S over and owns of O
   constexpr int kSub = kBlockK / kP;   // pieces of K, then of V, a kv tile
@@ -469,7 +482,9 @@ __global__ void __launch_bounds__(FwdTiles<D>::kThreads, FwdTiles<D>::kMinBlocks
 // ---------------------------------------------------------------------------
 
 template <int D>
-int launch_d(int bh, cudaStream_t stream, const Params& p) {
+int launch_d(int bh, cudaStream_t stream, Params p) {
+  constexpr int kBlockQ = FwdTiles<D>::kBlockQ;
+  p.bq_eff = p.t_q < kBlockQ ? p.t_q : kBlockQ;
   const size_t smem = smem_bytes<D>();
   const auto kernel = flash_fwd_f32x3_kernel<D>;
   cudaError_t err =
@@ -508,7 +523,6 @@ extern "C" int ray_tpu_flash_fwd_f32(const void* q, const void* k, const void* v
   p.lse = static_cast<float*>(lse);
   p.t_q = t_q;
   p.t_kv = t_kv;
-  p.bq_eff = t_q < kBlockQ ? t_q : kBlockQ;
   p.bk_eff = t_kv < kBlockK ? t_kv : kBlockK;
   p.causal = causal;
   p.scale = scale;
@@ -519,6 +533,10 @@ extern "C" int ray_tpu_flash_fwd_f32(const void* q, const void* k, const void* v
     case 64: return launch_d<64>(bh, st, p);
     case 128: return launch_d<128>(bh, st, p);
     case 256: return launch_d<256>(bh, st, p);
+    case 384: return launch_d<384>(bh, st, p);
+    case 512: return launch_d<512>(bh, st, p);
+    case 640: return launch_d<640>(bh, st, p);
+    case 768: return launch_d<768>(bh, st, p);
   }
   return kUnsupported;
 }
@@ -530,6 +548,10 @@ extern "C" int ray_tpu_flash_fwd_f32_smem_bytes(int d) {
     case 64: return (int)smem_bytes<64>();
     case 128: return (int)smem_bytes<128>();
     case 256: return (int)smem_bytes<256>();
+    case 384: return (int)smem_bytes<384>();
+    case 512: return (int)smem_bytes<512>();
+    case 640: return (int)smem_bytes<640>();
+    case 768: return (int)smem_bytes<768>();
   }
   return -1;
 }
@@ -537,8 +559,18 @@ extern "C" int ray_tpu_flash_fwd_f32_smem_bytes(int d) {
 // the tiles the kernel computes with (the online softmax's q and kv tiles)
 // at head_dim d: 0, or kUnsupported for a head_dim it does not take
 extern "C" int ray_tpu_flash_fwd_f32_tiles(int d, int* block_q, int* block_k) {
-  if (ray_tpu_flash_fwd_f32_smem_bytes(d) < 0) return kUnsupported;
-  *block_q = kBlockQ;
+  switch (d) {
+    case 16: *block_q = FwdTiles<16>::kBlockQ; break;
+    case 32: *block_q = FwdTiles<32>::kBlockQ; break;
+    case 64: *block_q = FwdTiles<64>::kBlockQ; break;
+    case 128: *block_q = FwdTiles<128>::kBlockQ; break;
+    case 256: *block_q = FwdTiles<256>::kBlockQ; break;
+    case 384: *block_q = FwdTiles<384>::kBlockQ; break;
+    case 512: *block_q = FwdTiles<512>::kBlockQ; break;
+    case 640: *block_q = FwdTiles<640>::kBlockQ; break;
+    case 768: *block_q = FwdTiles<768>::kBlockQ; break;
+    default: return kUnsupported;
+  }
   *block_k = kBlockK;
   return 0;
 }

@@ -1,9 +1,11 @@
-// Hopper (sm_90a) pieces shared by the port's TMA flash kernels
-// (flash_fwd_wgmma.cu, flash_bwd_wgmma.cu, flash_fwd_persistent.cu,
-// flash_bwd_persistent.cu): mbarriers, 3-D TMA loads and stores, swizzled
-// wgmma descriptors, wgmma with A from shared memory or from registers,
-// named barriers, a warp's mma.sync products on narrow tiles through
-// ldmatrix, and the tensor maps of their tiles.
+// Hopper (sm_90a) pieces shared by the port's flash kernels
+// (flash_fwd_wgmma.cu, flash_bwd_wgmma.cu, flash_fwd_d64.cu, flash_bwd_d64.cu,
+// flash_fwd_persistent.cu, flash_bwd_persistent.cu and, through wide.cuh,
+// flash_fwd_wide.cu and flash_bwd_wide.cu): mbarriers, 3-D TMA loads and
+// stores, cp.async copies, swizzled wgmma descriptors, wgmma with A from
+// shared memory or from registers, named barriers, a warp's mma.sync
+// products on narrow tiles through ldmatrix, and the tensor maps of their
+// tiles.
 //
 // At head_dim 64 and up, every tile is a row-major [rows, d] bf16 array cut
 // into 64-column boxes of 128-byte rows that TMA swizzles with the 128-byte
@@ -160,6 +162,23 @@ __device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, int sr
 }
 __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// 16 bytes from global to shared memory without holding the thread: src_bytes
+// of them read (16 or 0), the rest zero; each thread's copies go in commit
+// groups (cp_async_commit), and cp_async_wait<N> waits until all but its
+// newest N groups have landed
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
@@ -440,13 +459,24 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, uint32_t addr) {
                : "r"(addr));
 }
 
+// c[16 x 8] += a[16 x 16] b[16 x 8], of type T (bf16, or float16 where a
+// kernel is built for it), float32 sums
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, uint32_t b0,
                                           uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (kHalf<T>) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
 }
 
 // The A fragments of rows row0 .. row0 + 15 of a narrow [*, D] tile, k-step

@@ -44,21 +44,24 @@ and the tiny flagship's working shapes and at long t (``SMALL_D_SHAPES``):
   chunk of every masked tile computed), which say what the copies, the
   exponentials, the stores and the skip cost.
 
-With ``--d64`` the variants are of ``csrc/flash_bwd_d64.cu``'s dK/dV
-kernel, the design of bf16 at head_dim 64 (``D64_VARIANTS``), timed beside
-the wgmma dK/dV of ``csrc/flash_bwd_wgmma.cu`` that it took over from there
-(``wgmma before``), with the wgmma dQ (which stays on that path) and the
-library's whole backward at gpt_125m's heads at b=4 and b=16, causal, and
-b=4 non-causal (``flash_fwd_variants.D64_SHAPES``):
+With ``--d64`` the variants are of ``csrc/flash_bwd_d64.cu``, the design of
+bf16 at head_dim 64 (``D64_VARIANTS``; ``--only dq`` or ``--only dkv`` for
+one kernel's), each timed beside the kernel of ``csrc/flash_bwd_wgmma.cu``
+that it took over from (``wgmma before``) and the library's whole backward
+at gpt_125m's heads at b=4 and b=16, causal, and b=4 non-causal
+(``flash_fwd_variants.D64_SHAPES``):
 
 * ``as built``: the source unchanged;
-* ``two stages``: two stages of Q and dO in the ring instead of three
-  (the design's first run);
-* probes, wrong by design: ``probe: copies only`` (the consumers release
-  each stage as it lands and do no math; K and V are read and dK, dV
-  written as before), ``probe: no ex2`` (P is the exponential's argument)
-  and ``probe: no epilogue`` (no dK or dV written, behind a test of a
-  kernel argument, so the math stays).
+* dQ: ``64-row kv tiles``, ``two stages`` (of K and V, instead of four),
+  ``scale in dS`` (the scale multiplied into every dS element instead of
+  dQ's epilogue), and probes,
+  wrong by design: ``probe: copies only`` (the consumers release each K/V
+  tile as it lands and do no math), ``probe: no ex2`` (P is the
+  exponential's argument);
+* dK/dV: ``two stages`` (of Q and dO, instead of three), and probes:
+  ``probe: copies only``, ``probe: no ex2`` and ``probe: no epilogue`` (no
+  dK or dV written, behind a test of a kernel argument, so the math
+  stays).
 
 There each time is the median and the spread of five alternating turns, as
 ``flash_fwd_variants --d64`` takes them.
@@ -181,51 +184,99 @@ SMALL_D_SHAPES = [(512, 4, 128, 128, 16, True), (256, 8, 256, 256, 32, True),
 
 
 D64_SOURCE = _build.CSRC_DIR / "flash_bwd_d64.cu"
+_DQ_MATH = "      if (n_cta > 0) {\n        float s[kDqBN / 2];       // S, which gives P\n"
+# each variant's kernel (the one it changes, timed beside its "as built" and
+# its wgmma predecessor: "dq", "dkv", or "both" for "as built") and its edits
 D64_VARIANTS = {
-    "as built": [],
-    "two stages": [("constexpr int kStages = 3;      // ring depth",
-                    "constexpr int kStages = 2;      // ring depth")],
+    "as built": ("both", []),
+    "dQ: 64-row kv tiles": ("dq", [("constexpr int kDqBN = 128;", "constexpr int kDqBN = 64;")]),
+    "dQ: two stages": ("dq", [("constexpr int kDqStages = 4;", "constexpr int kDqStages = 2;")]),
+    "dQ: scale in dS": ("dq", [
+        ("dsa[i / 2] = pack2<T>(p0 * (dp[i] - dl[r]), p1 * (dp[i + 1] - dl[r]));",
+         "dsa[i / 2] = pack2<T>(p0 * (dp[i] - dl[r]) * p.scale, "
+         "p1 * (dp[i + 1] - dl[r]) * p.scale);"),
+        ("        const float scale[2] = {p.scale, p.scale};\n"
+         "        write_rows<kD, T>(gbase + (q_rows - base)",
+         "        const float scale[2] = {1.f, 1.f};\n"
+         "        write_rows<kD, T>(gbase + (q_rows - base)")]),
+    # probes, wrong by design: the dQ consumers releasing each K/V tile as it
+    # lands with no math (the items' Q, dO, lse and delta are read and dQ
+    # written as before), and the math without MUFU
+    "dQ probe: copies only": ("dq", [(_DQ_MATH, (
+        "      for (int j = 0; j < n_cta; ++j) {\n"
+        "        const int stage = (c + j) % kStages, phase = ((c + j) / kStages) & 1;\n"
+        "        mbar_wait(bar_k + 8 * stage, phase);\n"
+        "        mbar_wait(bar_v + 8 * stage, phase);\n"
+        "        if (lane == 0) mbar_arrive(bar_k_empty + 8 * stage);\n"
+        "        if (lane == 0) mbar_arrive(bar_v_empty + 8 * stage);\n"
+        "      }\n"
+        "      if (false) {\n        float s[kDqBN / 2];       // S, which gives P\n"))]),
+    "dQ probe: no ex2": ("dq", [
+        ("float p0 = fast_exp2(fmaf(s[i], p.scale_log2, -lse2[r]));",
+         "float p0 = fmaf(s[i], p.scale_log2, -lse2[r]);"),
+        ("float p1 = fast_exp2(fmaf(s[i + 1], p.scale_log2, -lse2[r]));",
+         "float p1 = fmaf(s[i + 1], p.scale_log2, -lse2[r]);")]),
+    "dK/dV: two stages": ("dkv", [("constexpr int kStages = 3;      // ring depth",
+                                   "constexpr int kStages = 2;      // ring depth")]),
     # probes, wrong by design: the copies alone, the math without MUFU, the
     # math without the epilogue
-    "probe: copies only": [("    if (n_run > 0) {\n      float s[kBlockQ / 2];       // S^T\n",
-                            "    for (int j = 0; j < n_run; ++j) {\n"
-                            "      if (j == 0) mbar_wait(bar_kv, 0);\n"
-                            "      mbar_wait(bar_full + 8 * (j % kStages), (j / kStages) & 1);\n"
-                            "      if (lane == 0) mbar_arrive(bar_empty + 8 * (j % kStages));\n"
-                            "    }\n"
-                            "    if (false) {\n      float s[kBlockQ / 2];       // S^T\n")],
-    "probe: no ex2": [("float p0 = fast_exp2(fmaf(s[e], p.scale_log2, -l0));",
-                       "float p0 = fmaf(s[e], p.scale_log2, -l0);"),
-                      ("float p1 = fast_exp2(fmaf(s[e + 1], p.scale_log2, -l1));",
-                       "float p1 = fmaf(s[e + 1], p.scale_log2, -l1);")],
+    "dK/dV probe: copies only": ("dkv", [(
+        "    if (n_run > 0) {\n      float s[kBlockQ / 2];       // S^T\n",
+        "    for (int j = 0; j < n_run; ++j) {\n"
+        "      if (j == 0) mbar_wait(bar_kv, 0);\n"
+        "      mbar_wait(bar_full + 8 * (j % kStages), (j / kStages) & 1);\n"
+        "      if (lane == 0) mbar_arrive(bar_empty + 8 * (j % kStages));\n"
+        "    }\n"
+        "    if (false) {\n      float s[kBlockQ / 2];       // S^T\n")]),
+    "dK/dV probe: no ex2": ("dkv", [
+        ("float p0 = fast_exp2(fmaf(s[e], p.scale_log2, -l0));",
+         "float p0 = fmaf(s[e], p.scale_log2, -l0);"),
+        ("float p1 = fast_exp2(fmaf(s[e + 1], p.scale_log2, -l1));",
+         "float p1 = fmaf(s[e + 1], p.scale_log2, -l1);")]),
     # a test the compiler cannot decide (bh > 0 at every call)
-    "probe: no epilogue": [("    const float scale[2] = {p.scale, p.scale};\n",
-                            "    if (p.bh > 0) return;\n"
-                            "    const float scale[2] = {p.scale, p.scale};\n")],
+    "dK/dV probe: no epilogue": ("dkv", [("    const float scale[2] = {p.scale, p.scale};\n"
+                                          "    const float one[2] = {1.f, 1.f};\n",
+                                          "    if (p.bh > 0) return;\n"
+                                          "    const float scale[2] = {p.scale, p.scale};\n"
+                                          "    const float one[2] = {1.f, 1.f};\n")]),
 }
 
 
 def _build_d64(name: str):
-    """(dK/dV function, spill bytes) of one head_dim-64 variant."""
-    lib, by_kernel = build_variant(D64_SOURCE, name, D64_VARIANTS[name])
-    fn = lib.ray_tpu_flash_bwd_dkv_d64
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn, sum(by_kernel.values())
+    """(dQ function, dK/dV function, spill bytes by kernel) of one head_dim-64
+    variant."""
+    lib, by_kernel = build_variant(D64_SOURCE, name, D64_VARIANTS[name][1])
+    fns = []
+    for entry in ("ray_tpu_flash_bwd_dq_d64", "ray_tpu_flash_bwd_dkv_d64"):
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float,
+                                                                     ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns.append(fn)
+    spills = {kernel: sum(v for k, v in by_kernel.items() if f"flash_bwd_{kernel}_d64" in k)
+              for kernel in ("dq", "dkv")}
+    return (*fns, spills)
 
 
-def main_d64(smi: str, out: str | None) -> int:
-    """The d64 dK/dV's variants beside the wgmma dK/dV, the wgmma dQ and the
-    library's whole backward, device time per call, median and spread of
-    five alternating turns."""
-    with ThreadPoolExecutor(len(D64_VARIANTS)) as pool:  # one nvcc per variant
-        built = dict(zip(D64_VARIANTS, pool.map(_build_d64, D64_VARIANTS)))
-    dq_fn, old_dkv = _bind(attn._kernel_lib("flash_bwd_wgmma"), "ray_tpu_flash_bwd_dq_wgmma",
-                           "ray_tpu_flash_bwd_dkv_wgmma")
-    built["wgmma before"] = (old_dkv, None)
-    for name, (_, spills) in built.items():
-        print(f"[variant] {name:<22} spill bytes {spills}")
+def main_d64(smi: str, out: str | None, only: str | None = None) -> int:
+    """The d64 pair's variants (``only``: those of one kernel) beside the
+    wgmma pair they took over from and the library's whole backward, device
+    time per call, median and spread of five alternating turns."""
+    names = [n for n, (kernel, _) in D64_VARIANTS.items()
+             if only is None or kernel in (only, "both")]
+    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per variant
+        built = dict(zip(names, pool.map(_build_d64, names)))
+    old_dq, old_dkv = _bind(attn._kernel_lib("flash_bwd_wgmma"), "ray_tpu_flash_bwd_dq_wgmma",
+                            "ray_tpu_flash_bwd_dkv_wgmma")
+    for name, (*_, spills) in built.items():
+        print(f"[variant] {name:<26} spill bytes {spills}")
+    kernels = [k for k in ("dq", "dkv") if only in (None, k)]
+    # each kernel's contenders: its variants and "as built", then its
+    # predecessor
+    timed_names = {k: [n for n in built if D64_VARIANTS[n][0] in (k, "both")] + ["wgmma before"]
+                   for k in kernels}
     gen = torch.Generator(device="cuda").manual_seed(0)
+    schedule = torch.empty(1, dtype=torch.int32, device="cuda")
     rows = []
     for b, h, t_q, t_kv, d, causal in D64_SHAPES:
         q, k, v, do = (torch.randn(b, h, t, d, device="cuda", dtype=torch.bfloat16,
@@ -233,48 +284,62 @@ def main_d64(smi: str, out: str | None) -> int:
         scale = d ** -0.5
         o, lse = attn.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
         delta = attn.flash_bwd_delta(o, do)
-        _, want_dk, want_dv = attn.flash_attention_bwd_plain(q, k, v, o, lse, do,
-                                                             causal=causal, scale=scale)
+        want = attn.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, scale=scale)
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        runs = {name: (lambda fn=fn: _call(fn, (q, k, v, do, lse, delta, dk, dv), q, t_kv,
-                                           causal, scale))
-                for name, (fn, _) in built.items()}
+        outs = {"dq": (q, k, v, do, lse, delta, dq, schedule),
+                "dkv": (q, k, v, do, lse, delta, dk, dv)}
+        runs = {}
+        for name, (dq_fn, dkv_fn, _) in built.items():
+            for kernel, fn in (("dq", dq_fn), ("dkv", dkv_fn)):
+                runs[name, kernel] = lambda fn=fn, t=outs[kernel]: _call(fn, t, q, t_kv, causal,
+                                                                         scale)
+        runs["wgmma before", "dq"] = lambda: _call(old_dq, outs["dq"][:7], q, t_kv, causal,
+                                                   scale)
+        runs["wgmma before", "dkv"] = lambda: _call(old_dkv, outs["dkv"], q, t_kv, causal, scale)
         errs = {}
-        for name, run in runs.items():
-            dk.fill_(float("nan"))
-            dv.fill_(float("nan"))
-            run()
-            torch.cuda.synchronize()
-            errs[name] = {"dk": row_err(dk, want_dk), "dv": row_err(dv, want_dv)}
+        for kernel in kernels:
+            got = (dq,) if kernel == "dq" else (dk, dv)
+            ref = want[:1] if kernel == "dq" else want[1:]
+            for name in timed_names[kernel]:
+                for x in got:
+                    x.fill_(float("nan"))
+                runs[name, kernel]()
+                torch.cuda.synchronize()
+                errs[name, kernel] = max(row_err(x, r) for x, r in zip(got, ref))
         t_end = time.monotonic() + 0.5
         while time.monotonic() < t_end:
-            runs["as built"]()
+            for kernel in kernels:
+                runs["as built", kernel]()
         torch.cuda.synchronize()
-        times = {name: [] for name in built}
-        for name in turn_order(built):
-            times[name].append(device_ms(runs[name]))
-        dq_ms = device_ms(lambda: _call(dq_fn, (q, k, v, do, lse, delta, dq), q, t_kv, causal,
-                                        scale))
+        times = {}
+        for kernel in kernels:
+            for name in turn_order(timed_names[kernel]):
+                times.setdefault((name, kernel), []).append(device_ms(runs[name, kernel]))
         ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
         lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal, scale=scale)
         sdpa = device_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do,
                                                      retain_graph=True), per_call=None)
-        med = {n: statistics.median(t) for n, t in times.items()}
         tol = BWD_TOL[torch.bfloat16]
         row = dict(shape=[b, h, t_q, t_kv, d], causal=causal, sdpa_bwd_ms=sdpa,
-                   wgmma_dq_ms=dq_ms, dkv_ms=med, turns=times, row_err=errs,
-                   ok={n: max(e.values()) <= tol for n, e in errs.items()})
+                   ms={f"{n} ({kn})": statistics.median(t) for (n, kn), t in times.items()},
+                   turns={f"{n} ({kn})": t for (n, kn), t in times.items()},
+                   row_err={f"{n} ({kn})": e for (n, kn), e in errs.items()},
+                   ok={f"{n} ({kn})": e <= tol for (n, kn), e in errs.items()})
         rows.append(row)
-        print(f"[time] {row['shape']} causal={causal}: dK/dV "
-              + " | ".join(f"{n} {med[n]:.4f} ms ({min(times[n]):.4f}-{max(times[n]):.4f})"
-                           + ("" if row["ok"][n] else " (WRONG)") for n in built)
-              + f" | wgmma dQ {dq_ms:.4f} ms | sdpa whole backward {sdpa:.4f} ms", flush=True)
+        for kernel in kernels:
+            label = "dQ" if kernel == "dq" else "dK/dV"
+            print(f"[time] {row['shape']} causal={causal}: {label} " + " | ".join(
+                f"{n} {statistics.median(times[n, kernel]):.4f} ms "
+                f"({min(times[n, kernel]):.4f}-{max(times[n, kernel]):.4f})"
+                + ("" if errs[n, kernel] <= tol else " (WRONG)")
+                for n in timed_names[kernel]), flush=True)
         print(f"[err] {row['shape']}: " + " | ".join(
-            f"{n} " + " ".join(f"{g} {e:.2e}" for g, e in errs[n].items()) for n in built))
-        del want_dk, want_dv, lib_out
+            f"{key} {e:.2e}" for key, e in row["row_err"].items())
+            + f" | sdpa whole backward {sdpa:.4f} ms")
+        del want, lib_out
     if out:
         with open(out, "w") as f:
-            json.dump(dict(card=smi, spills={n: s for n, (_, s) in built.items()},
+            json.dump(dict(card=smi, spills={n: s for n, (*_, s) in built.items()},
                            times="device time (torch.profiler), median of five turns",
                            shapes=rows), f, indent=1)
     return 0
@@ -366,7 +431,9 @@ def main() -> int:
     ap.add_argument("--small-d", action="store_true",
                     help="the head_dim 16/32 design's variants beside the mma.sync pair")
     ap.add_argument("--d64", action="store_true",
-                    help="the head_dim 64 dK/dV design's variants beside the wgmma kernel")
+                    help="the head_dim 64 design's variants beside the wgmma kernels")
+    ap.add_argument("--only", choices=("dq", "dkv"),
+                    help="with --d64: the variants of one kernel")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("flash_bwd_variants needs a card")
@@ -377,7 +444,7 @@ def main() -> int:
     if args.small_d:
         return main_small_d(smi, args.out)
     if args.d64:
-        return main_d64(smi, args.out)
+        return main_d64(smi, args.out, args.only)
     with ThreadPoolExecutor(len(VARIANTS)) as pool:  # one nvcc per variant
         built = dict(zip(VARIANTS, pool.map(_build_variant, VARIANTS)))
     for name, (_, _, spills) in built.items():

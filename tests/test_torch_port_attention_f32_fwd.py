@@ -30,16 +30,21 @@ TILE = 64
 
 @pytest.mark.parametrize("d", port.HEAD_DIMS)
 def test_fwd_designs_send_float32_to_the_tensor_core_design(d):
-    """Every float32 head_dim runs the 3xTF32 kernel at 64 x 64 tiles, from
-    a source the port builds with the entry point its table binds; bf16
-    keeps wgmma at 128/256, d64 at 64 and persistent at 16/32."""
+    """Every float32 head_dim runs the 3xTF32 kernel at 64 x 64 tiles (32 x
+    64 at 384 and 512, where 64 rows of Q would not fit in shared memory, 16
+    x 64 at 640 and 768, where the warps of 32 rows would not fit an SM's
+    registers), from a source the port builds with the entry point its table
+    binds; bf16 keeps wgmma at 128/256, d64 at 64, persistent at 16/32 and
+    wide at 384, 512, 640 and 768."""
     design = port.FWD_DESIGNS[(d, torch.float32)]
     assert (design.name, design.source, design.entry) == (
         "tf32x3", "flash_fwd_f32", "ray_tpu_flash_fwd_f32")
-    assert (design.block_q, design.block_k) == (TILE, TILE) == port.fwd_tiles(d, torch.float32)
+    tiles = (TILE, TILE) if d <= 256 else (32 if d <= 512 else 16, TILE)
+    assert (design.block_q, design.block_k) == tiles == port.fwd_tiles(d, torch.float32)
     assert (port._build.CSRC_DIR / "flash_fwd_f32.cu").exists()
     assert set(port._SOURCES["flash_fwd_f32"][0]) == {"ray_tpu_flash_fwd_f32"}
-    want = {64: "d64", 128: "wgmma", 256: "wgmma"}.get(d, "persistent")
+    want = {64: "d64", 128: "wgmma", 256: "wgmma",
+            **{w: "wide" for w in port.WIDE_HEAD_DIMS}}.get(d, "persistent")
     assert port.FWD_DESIGNS[(d, torch.bfloat16)].name == want
 
 

@@ -181,28 +181,29 @@ def test_positive_scale_gives_the_kernel_the_same_scores(scale):
 
 def test_plain_design_is_a_table_row_with_counters():
     """Both tables name a ``plain`` design for every key they do not hold
-    (head_dims outside HEAD_DIMS, the reference's 384 and 512, float16 at 16
-    and 32), with no source; each of its kernels has its launch counter; the
-    flash route repeats the reference's 512 x 512 tiles. Off the CPU it
-    computes only where the reference takes ``_attention_xla``: at 384 on
-    lengths that are multiples of 8 it raises."""
+    (head_dims outside HEAD_DIMS, the reference's 896 and 1024 past the
+    designs' 768, float16 at 16 and 32), with no source; each of its kernels
+    has its launch counter; the flash route repeats the reference's 512 x
+    512 tiles. Off the CPU it computes only where the reference takes
+    ``_attention_xla``: at 896 on lengths that are multiples of 8 it
+    raises."""
     plain_f, plain_b = port.FWD_DESIGNS.plain, port.BWD_DESIGNS.plain
     assert (plain_f.name, plain_f.source, plain_f.schedule) == ("plain", None, False)
     assert (plain_f.block_q, plain_f.block_k) == (port.REF_BLOCK, port.REF_BLOCK) == (512, 512)
     assert {(kn.name, kn.source) for kn in (plain_b.dq, plain_b.dkv)} == {("plain", None)}
-    meta = [torch.empty(1, 1, 64, d, device="meta") for d in (384, 48)]
+    meta = [torch.empty(1, 1, 64, d, device="meta") for d in (896, 48)]
     with pytest.raises(ValueError, match="no Hopper kernel"):
         port._check_plain_inputs(meta[0], meta[0], meta[0])
     port._check_plain_inputs(meta[1], meta[1], meta[1])
-    port._check_plain_inputs(*(torch.empty(1, 1, 60, 384, device="meta"),) * 3)
+    port._check_plain_inputs(*(torch.empty(1, 1, 60, 896, device="meta"),) * 3)
     for key in [(48, torch.bfloat16), (80, torch.float32), (32, torch.float16),
-                (384, torch.bfloat16), (512, torch.float32), (16, torch.float16)]:
+                (896, torch.bfloat16), (1024, torch.float32), (16, torch.float16)]:
         assert key not in port.FWD_DESIGNS and key not in port.BWD_DESIGNS
         assert port.FWD_DESIGNS[key] is plain_f and port.BWD_DESIGNS[key] is plain_b
     for name in ("flash_fwd_plain_launches", "flash_bwd_dq_plain_launches",
                  "flash_bwd_dkv_plain_launches"):
         assert isinstance(getattr(port, name), int)
-    assert port.reference_takes_kernel(64, 64, 128) and port.reference_takes_kernel(384, 8, 8)
+    assert port.reference_takes_kernel(64, 64, 128) and port.reference_takes_kernel(896, 8, 8)
     assert not port.reference_takes_kernel(48, 64, 64)
     assert not port.reference_takes_kernel(64, 60, 64)
 

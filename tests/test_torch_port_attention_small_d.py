@@ -53,14 +53,23 @@ def test_fwd_designs_send_bf16_16_and_32_to_the_persistent_design():
     """bf16 at head_dim 16 and 32 runs ``flash_fwd_persistent.cu`` at 64 x 64
     tiles, bound through the entry its table names; every other entry is
     the one it was: bf16 and float16 128/256 on wgmma, bf16 and float16 64
-    on d64 at wgmma's 128 x 128, float32 on tf32x3."""
-    want = {(d, torch.float32): ("tf32x3", "flash_fwd_f32", (64, 64)) for d in port.HEAD_DIMS}
+    on d64 at wgmma's 128 x 128, bf16 and float16 384/512 on wide at 32 x
+    64, 640 at 16 x 64 and 768 at 16 x 32, float32 on tf32x3 (32 x 64 at
+    384/512, 16 x 64 at 640/768)."""
+    f32_tiles = {384: (32, 64), 512: (32, 64), 640: (16, 64), 768: (16, 64)}
+    want = {(d, torch.float32): ("tf32x3", "flash_fwd_f32", f32_tiles.get(d, (64, 64)))
+            for d in port.HEAD_DIMS}
     want.update({(16, BF16): ("persistent", "flash_fwd_persistent", (64, 64)),
                  (32, BF16): ("persistent", "flash_fwd_persistent", (64, 64)),
                  (64, BF16): ("d64", "flash_fwd_d64", (128, 128)),
                  (128, BF16): ("wgmma", "flash_fwd_wgmma", (128, 128)),
-                 (256, BF16): ("wgmma", "flash_fwd_wgmma", (128, 80))})
-    want.update({(d, torch.float16): want[(d, BF16)] for d in (64, 128, 256)})
+                 (256, BF16): ("wgmma", "flash_fwd_wgmma", (128, 80)),
+                 (384, BF16): ("wide", "flash_fwd_wide", (32, 64)),
+                 (512, BF16): ("wide", "flash_fwd_wide", (32, 64)),
+                 (640, BF16): ("wide", "flash_fwd_wide", (16, 64)),
+                 (768, BF16): ("wide", "flash_fwd_wide", (16, 32))})
+    want.update({(d, torch.float16): want[(d, BF16)]
+                 for d in (64, 128, 256, 384, 512, 640, 768)})
     got = {key: (dz.name, dz.source, (dz.block_q, dz.block_k))
            for key, dz in port.FWD_DESIGNS.items()}
     assert got == want

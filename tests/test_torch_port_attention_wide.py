@@ -1,0 +1,179 @@
+"""Head_dims 384 to 768, on the CPU: the dispatch tables and the port's
+flash forward and backward against the reference's Pallas kernels.
+
+The reference's dispatcher runs its Pallas kernels at every head_dim that is
+a multiple of 128 (``ray_tpu/ops/attention.py``'s ``dot_product_attention``).
+At 384, 512, 640 and 768 the port's tables name ``wide``
+(``csrc/flash_fwd_wide.cu``, ``csrc/flash_bwd_wide.cu``) for bf16 and
+float16 and ``tf32x3`` for float32, at 32 x 64 tiles up to 512 and 16-row
+q tiles beyond (the wide forward's kv tiles 32 rows at 768); at 896 the
+wide dK/dV kernel spills and the float32 dQ's tiles pass the shared memory,
+so 896 is ``plain`` and raises on the card. The kernels run only on
+the card (``chip_smoke.py`` and the ``cuda``-marked tests of
+``tests/test_torch_port_kernels.py`` hold them to their plain versions);
+here the CPU path, which is their plain version at the design's tiles, is
+held to ``_flash_attention_tpu(..., interpret=True)`` at the same tiles and
+its backward to ``jax.grad`` of the reference's ``flash_attention`` in
+interpret mode. Inputs are float32 numpy draws from a seed; the limits are
+``FWD_ROW_TOL``, ``FWD_LSE_TOL`` and ``BWD_TOL`` for float32 (1e-4 of each
+row's norm, lse 1e-4 absolute): the two sides differ by summation order only.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu.ops.attention import _flash_attention_tpu, flash_attention
+from ray_tpu_torch.ops import attention as port
+from ray_tpu_torch.ops.tolerance import BWD_TOL, FWD_LSE_TOL, FWD_ROW_TOL, row_err
+
+WIDE = (384, 512, 640, 768)
+DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+F32 = torch.float32
+# the forward's tiles by head_dim: the wide design's (bf16 and float16) and
+# tf32x3's (float32)
+TILES = {384: (32, 64), 512: (32, 64), 640: (16, 64), 768: (16, 32)}
+F32_TILES = {384: (32, 64), 512: (32, 64), 640: (16, 64), 768: (16, 64)}
+
+# (t_q, t_kv, causal), b=1 h=2: causal square; q the suffix of a longer kv
+# with a ragged q tile; rows that see no key (t_q > t_kv, t_kv - t_q not a
+# multiple of 32: rows 0-31 lie in a q tile that skips every kv tile, rows
+# 32-47 in one that runs kv tile 0 at 32-row q tiles); non-causal with
+# ragged q and kv tiles. At 640 the rows that see no key (16-row q tiles),
+# at 768 the suffix
+CASES = [(128, 128, True), (40, 120, True), (112, 64, True), (104, 72, False)]
+D_CASES = [(d, case) for d in (384, 512) for case in CASES] + [
+    (640, CASES[2]), (768, CASES[1])]
+
+
+def _ids(case):
+    tq, tkv, causal = case
+    return f"q{tq}-kv{tkv}-{'causal' if causal else 'full'}"
+
+
+def _inputs(tq, tkv, d, seed):
+    rng = np.random.RandomState(seed)
+    q, g = (rng.randn(1, 2, tq, d).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(1, 2, tkv, d).astype(np.float32) for _ in range(2))
+    return q, k, v, g
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d", WIDE)
+def test_tables_name_the_wide_designs(d, dtype):
+    """(384 | 512 | 640 | 768, dtype) is held by both tables: bf16 and
+    float16 on ``wide`` (its forward, dQ and dK/dV entries), float32 on
+    ``tf32x3``; the forwards at their tiles, the wide forward taking only a
+    positive scale (the wrapper hands a non-positive one's sign to q). Each
+    design counts its launches."""
+    fwd, bwd = port.FWD_DESIGNS[(d, dtype)], port.BWD_DESIGNS[(d, dtype)]
+    assert (d, dtype) in port.FWD_DESIGNS and (d, dtype) in port.BWD_DESIGNS
+    assert d in port.HEAD_DIMS and d in port.WIDE_HEAD_DIMS
+    tiles = F32_TILES[d] if dtype == F32 else TILES[d]
+    assert (fwd.block_q, fwd.block_k) == tiles == port.fwd_tiles(d, dtype)
+    if dtype == F32:
+        assert (fwd.name, fwd.source, fwd.entry) == ("tf32x3", "flash_fwd_f32",
+                                                     "ray_tpu_flash_fwd_f32")
+        want = [("tf32x3", "flash_bwd_f32", "ray_tpu_flash_bwd_dq_f32"),
+                ("tf32x3", "flash_bwd_f32", "ray_tpu_flash_bwd_dkv_f32")]
+    else:
+        assert (fwd.name, fwd.source, fwd.entry) == ("wide", "flash_fwd_wide",
+                                                     "ray_tpu_flash_fwd_wide")
+        assert "wide" in port._POSITIVE_SCALE and not fwd.schedule
+        assert port._TILES_ENTRIES["wide"] == "ray_tpu_flash_fwd_wide_tiles"
+        want = [("wide", "flash_bwd_wide", "ray_tpu_flash_bwd_dq_wide"),
+                ("wide", "flash_bwd_wide", "ray_tpu_flash_bwd_dkv_wide")]
+    assert [(kn.name, kn.source, kn.entry) for kn in (bwd.dq, bwd.dkv)] == want
+    for source, entry in [(fwd.source, fwd.entry)] + [(kn.source, kn.entry) for kn in
+                                                      (bwd.dq, bwd.dkv)]:
+        assert (port._build.CSRC_DIR / f"{source}.cu").exists()
+        assert entry in port._SOURCES[source][0]
+    for name in (f"flash_fwd_{fwd.name}_launches", f"flash_bwd_dq_{bwd.dq.name}_launches",
+                 f"flash_bwd_dkv_{bwd.dkv.name}_launches"):
+        assert isinstance(getattr(port, name), int)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_first_head_dim_past_the_designs_is_plain_and_raises_off_the_cpu(dtype):
+    """896, the first multiple of 128 past 768, is no table's key: both give
+    the plain design, which raises off the CPU (the reference runs its
+    Pallas kernel there) and computes on the CPU; at 384 to 768 off the CPU
+    the kernels' own input check answers instead."""
+    assert port.WIDE_HEAD_DIMS == WIDE
+    assert (896, dtype) not in port.FWD_DESIGNS and (896, dtype) not in port.BWD_DESIGNS
+    assert port.FWD_DESIGNS[(896, dtype)] is port.FWD_DESIGNS.plain
+    assert port.BWD_DESIGNS[(896, dtype)] is port.BWD_DESIGNS.plain
+    meta = torch.empty(1, 1, 64, 896, device="meta", dtype=dtype)
+    with pytest.raises(ValueError, match="no Hopper kernel takes head_dim 896"):
+        port._check_plain_inputs(meta, meta, meta)
+    for d in WIDE:
+        wide = torch.empty(1, 1, 64, d, device="meta", dtype=dtype)
+        assert port.FWD_DESIGNS[(d, dtype)] is not port.FWD_DESIGNS.plain
+        with pytest.raises(ValueError, match="needs CUDA"):
+            port.flash_attention_fwd(wide, wide, wide, causal=True, scale=0.1)
+    cpu = torch.ones(1, 1, 16, 896, dtype=dtype)
+    out, lse = port.flash_attention_fwd(cpu, cpu, cpu, causal=True, scale=896 ** -0.5)
+    assert out.shape == cpu.shape and bool(torch.isfinite(lse).all())
+
+
+@pytest.mark.parametrize("d, case", D_CASES, ids=[f"{d}-{_ids(c)}" for d, c in D_CASES])
+def test_cpu_forward_and_backward_match_the_pallas_kernels(d, case):
+    """The port's CPU path (float32: the tf32x3 design's plain version at
+    its tiles, the wide design's too up to 640) against the reference's
+    Pallas forward at the same tiles, and the port's backward through
+    ``dot_product_attention`` against ``jax.grad`` of the reference's
+    ``flash_attention`` (interpret mode) under the same cotangent: every row
+    of out, dq, dk and dv within 1e-4 of its own norm, lse within 1e-4. Rows
+    that see no key get what the reference's kernel gives them at these
+    tiles: 0 and NEG_INF where their q tile skips every kv tile."""
+    tq, tkv, causal = case
+    bq, bk = F32_TILES[d]
+    q, k, v, g = _inputs(tq, tkv, d, seed=d + tq + tkv)
+    scale = d ** -0.5
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    ref_o, ref_lse = _flash_attention_tpu(jq, jk, jv, causal=causal, scale=scale,
+                                          block_q=bq, block_k=bk, interpret=True)
+    ref_grads = jax.grad(
+        lambda *x: jnp.sum(flash_attention(*x, causal, scale, bq, bk, True) * jnp.asarray(g)),
+        argnums=(0, 1, 2))(jq, jk, jv)
+
+    tq_, tk_, tv_ = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    o, lse = port.flash_attention_fwd(*(t.detach() for t in (tq_, tk_, tv_)), causal=causal,
+                                      scale=scale)
+    assert row_err(o, torch.from_numpy(np.array(ref_o))) <= FWD_ROW_TOL[F32]
+    assert float((lse - torch.from_numpy(np.array(ref_lse))).abs().max()) <= FWD_LSE_TOL[F32]
+    if causal and tq - tkv >= bq:
+        assert bool((o[..., :bq, :] == 0).all())
+        assert bool((lse[..., :bq] == port.NEG_INF).all())
+    out = port.dot_product_attention(tq_, tk_, tv_, causal=causal)
+    assert torch.equal(out.detach(), o)
+    out.backward(torch.from_numpy(g))
+    for name, x, want in zip(("dq", "dk", "dv"), (tq_.grad, tk_.grad, tv_.grad), ref_grads):
+        assert bool(torch.isfinite(x).all())
+        err = row_err(x, torch.from_numpy(np.array(want)))
+        assert err <= BWD_TOL[F32], f"{name}: worst row {err:.3e}"
+
+
+@pytest.mark.parametrize("d", WIDE)
+def test_wide_rows_that_see_no_key_follow_the_designs_tiles(d):
+    """At t_q 112, t_kv 64 (causal) rows 0-47 see no key. With 32-row q
+    tiles (384 and 512) rows 0-31 lie in a q tile that skips every kv tile
+    (0 and NEG_INF) and rows 32-47 share a q tile with rows that see keys,
+    so it runs kv tile 0 and they get the mean of V over it (the flash
+    convention at the design's tiles); with 16-row q tiles (640 and 768)
+    every one of rows 0-47 lies in a q tile that skips every kv tile. bf16
+    inputs take the same plain version on the CPU, at the wide forward's
+    tiles."""
+    q, k, v, _ = _inputs(112, 64, d, seed=3)
+    for dtype in (torch.bfloat16, F32):
+        qt, kt, vt = (torch.from_numpy(a).to(dtype) for a in (q, k, v))
+        out, lse = port.flash_attention_fwd(qt, kt, vt, causal=True, scale=d ** -0.5)
+        skipped = 32 if d <= 512 else 48
+        assert bool((out[..., :skipped, :] == 0).all())
+        assert bool((lse[..., :skipped] == port.NEG_INF).all())
+        if skipped < 48:
+            mean_v = vt.float().mean(dim=2, keepdim=True).expand(-1, -1, 48 - skipped, -1)
+            assert row_err(out[..., skipped:48, :], mean_v.to(dtype)) <= FWD_ROW_TOL[dtype]
+        assert bool(torch.isfinite(out[..., 48:, :]).all())

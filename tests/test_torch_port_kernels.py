@@ -147,20 +147,24 @@ def test_bwd_designs_cover_every_head_dim_and_dtype():
     """The backward's dispatch table names a design for every head_dim the
     kernels take in both dtypes, each from a source the port builds, with
     entry points that source binds; bf16 at head_dim 128 and 256 (gpt_1b's
-    and gpt_j_6b's) runs the wgmma kernels, bf16 at 64 (gpt_125m's) wgmma's
-    dQ and d64's dK/dV, bf16 at 16 and 32 (gpt_nano's and the tiny
-    flagship's) the persistent ones; float16 at 64, 128 and 256 the bf16
-    kernels' float16 builds; every other key the plain design."""
+    and gpt_j_6b's) runs the wgmma kernels, bf16 at 64 (gpt_125m's) d64's
+    dQ and dK/dV, bf16 at 16 and 32 (gpt_nano's and the tiny flagship's) the
+    persistent ones, bf16 at 384, 512, 640 and 768 the wide ones; float16 at
+    64, 128, 256, 384, 512, 640 and 768 the bf16 kernels' float16 builds;
+    every other key the plain design."""
+    wide = {384, 512, 640, 768}
     keys = {(d, dt) for d in port.HEAD_DIMS for dt in (torch.bfloat16, torch.float32)}
-    keys |= {(d, torch.float16) for d in (64, 128, 256)}
+    keys |= {(d, torch.float16) for d in {64, 128, 256} | wide}
     assert set(port.BWD_DESIGNS) == keys
     for design in port.BWD_DESIGNS.values():
         for kernel in (design.dq, design.dkv):
             entries, _ = port._SOURCES[kernel.source]
             assert (port._build.CSRC_DIR / f"{kernel.source}.cu").exists()
             assert kernel.entry in entries
-    for kernel, name, head_dims in (("dq", "wgmma", {64, 128, 256}),
-                                    ("dkv", "wgmma", {128, 256}), ("dkv", "d64", {64}),
+    for kernel, name, head_dims in (("dq", "wgmma", {128, 256}),
+                                    ("dkv", "wgmma", {128, 256}), ("dq", "d64", {64}),
+                                    ("dkv", "d64", {64}), ("dq", "wide", wide),
+                                    ("dkv", "wide", wide),
                                     ("dq", "persistent", {16, 32}),
                                     ("dkv", "persistent", {16, 32})):
         assert {d for (d, dt), design in port.BWD_DESIGNS.items()
@@ -313,21 +317,24 @@ def _plain_on_card_matches_cpu(card, shape, dtype, scale=None):
 @pytest.mark.cuda
 def test_dispatcher_raises_for_what_the_kernel_does_not_take(card):
     """The refusals left are the tiles, and a head_dim where the reference
-    runs its Pallas kernel and the port has none yet (384); a non-positive
-    scale runs the kernels (the forward's sign handed to q), float16 at 64
-    the d64 and wgmma kernels, head_dim 48 and float16 at 16 the plain
-    design, each as on the CPU."""
+    runs its Pallas kernel and the port has none (896, the first past the
+    designs' limit); a non-positive scale runs the kernels (the forward's
+    sign handed to q; the wide forward at 384 too), float16 at 64 the d64
+    kernels, head_dim 48 and float16 at 16 the plain design, each as on the
+    CPU."""
     q, k, v = _qkv(1, 2, 64, 64, 64, device=card, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="tiles"):
         port.dot_product_attention(q, k, v, block_q=64, block_k=64)
     with pytest.raises(ValueError, match="no Hopper kernel"):
-        port.dot_product_attention(*_qkv(1, 1, 64, 64, 384, device=card, dtype=torch.bfloat16))
-    d64 = ("d64", "wgmma", "d64")
+        port.dot_product_attention(*_qkv(1, 1, 64, 64, 896, device=card, dtype=torch.bfloat16))
+    d64 = ("d64",) * 3
     _on_card_matches_cpu(card, (1, 2, 64, 64, 64, True), torch.bfloat16, d64, scale=-0.125)
     _on_card_matches_cpu(card, (1, 2, 64, 64, 16, True), torch.bfloat16, ("persistent",) * 3,
                          scale=-0.25)
     _on_card_matches_cpu(card, (1, 2, 96, 96, 128, True), torch.bfloat16, ("wgmma",) * 3,
                          scale=0.0)
+    _on_card_matches_cpu(card, (1, 2, 64, 96, 384, True), torch.bfloat16, ("wide",) * 3,
+                         scale=-0.05)
     # inputs that require grad go through the FlashAttention Function
     out = port.dot_product_attention(q.clone().requires_grad_(), k, v)
     assert "FlashAttention" in type(out.grad_fn).__name__
@@ -351,7 +358,7 @@ D64_CASES = [
 @pytest.mark.parametrize("case", D64_CASES, ids=_ids)
 def test_d64_kernels_match_plain_on_card(card, case):
     """bf16 at head_dim 64: the forward on the d64 design and the backward
-    on wgmma's dQ and d64's dK/dV, one launch of each on those counters and
+    on d64's dQ and dK/dV, one launch of each on those counters and
     none on the other designs', every row of out, lse, dq, dk and dv within
     the bf16 limits of the plain versions (the forward at the table's 128 x
     128 tiles), and the same bits from a second run."""
@@ -370,7 +377,7 @@ def test_d64_kernels_match_plain_on_card(card, case):
         (o, lse), port.flash_attention_fwd(q, k, v, causal=causal, scale=d ** -0.5)))
     do = torch.from_numpy(np.random.RandomState(1).randn(b, h, tq, d).astype(np.float32)).to(
         card, torch.bfloat16)
-    bwd = ["flash_bwd_dq_wgmma_launches", "flash_bwd_dkv_d64_launches",
+    bwd = ["flash_bwd_dq_d64_launches", "flash_bwd_dkv_d64_launches",
            "flash_bwd_dkv_wgmma_launches", "flash_bwd_dq_plain_launches"]
     before = [getattr(port, c) for c in bwd]
     got = port.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, scale=d ** -0.5)
@@ -407,6 +414,69 @@ def test_d64_forwards_on_two_streams_keep_their_own_items(card):
     assert port.flash_fwd_d64_launches == before + 6
 
 
+# head_dims 384 to 768 (the wide design in bf16 and float16, tf32x3 in
+# float32, at the tiles of each head_dim): ragged q and kv, lengths that are
+# not multiples of 8 (the reference takes _attention_xla there; the kernels
+# run, as at 64-256), rows that see no key (some in a q tile that runs kv
+# tile 0), non-causal with a ragged tile, two full heads
+WIDE_CASES = [
+    (1, 2, 200, 264, 384, True),
+    (1, 2, 60, 76, 512, True),      # lengths that are not multiples of 8
+    (1, 2, 112, 64, 512, True),
+    (1, 2, 136, 136, 512, False),
+    (2, 2, 256, 256, 384, True),
+    (1, 2, 200, 264, 640, True),
+    (1, 2, 112, 64, 640, True),
+    (1, 2, 60, 76, 768, True),
+    (1, 2, 104, 72, 768, True),
+    (1, 2, 136, 136, 768, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+@pytest.mark.parametrize("case", WIDE_CASES, ids=_ids)
+def test_wide_head_dim_kernels_match_plain_on_card(card, case, dtype):
+    """At head_dims 384 to 768 the forward, dQ and dK/dV kernels of the
+    design the tables name (wide, or tf32x3 in float32) launch once each on
+    their counters (and on their head_dim's) and none on plain, every row of
+    out, lse, dq, dk and dv within the dtype's limits of the plain versions
+    (the forward at the table's tiles; the backward in float64 for float32,
+    as the smoke script's phase 3 holds it), and a second run gives the same
+    bits."""
+    b, h, tq, tkv, d, causal = case
+    dt = getattr(torch, dtype)
+    q, k, v = _qkv(b, h, tq, tkv, d, device=card, dtype=dt)
+    fwd, bwd = port.FWD_DESIGNS[(d, dt)], port.BWD_DESIGNS[(d, dt)]
+    assert (fwd.name, bwd.dq.name, bwd.dkv.name) == (("tf32x3",) * 3 if dt == torch.float32
+                                                     else ("wide",) * 3)
+    names = ["flash_fwd_plain_launches", "flash_bwd_dq_plain_launches",
+             f"flash_fwd_{fwd.name}_launches", f"flash_bwd_dq_{bwd.dq.name}_launches",
+             f"flash_bwd_dkv_{bwd.dkv.name}_launches"]
+    by_d = [f"flash_fwd_{fwd.name}_d{d}", f"flash_bwd_dq_{bwd.dq.name}_d{d}",
+            f"flash_bwd_dkv_{bwd.dkv.name}_d{d}"]
+    before = [getattr(port, n) for n in names]
+    before_d = [port.launches_by_head_dim[n] for n in by_d]
+    scale = d ** -0.5
+    o, lse = port.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+    do = torch.from_numpy(np.random.RandomState(1).randn(b, h, tq, d).astype(np.float32)).to(
+        card, dt)
+    got = port.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
+    assert [getattr(port, n) - c for n, c in zip(names, before)] == [0, 0, 1, 1, 1]
+    assert [port.launches_by_head_dim[n] - c for n, c in zip(by_d, before_d)] == [1, 1, 1]
+    ref_o, ref_lse = port.flash_attention_fwd_plain(q, k, v, causal=causal, scale=scale)
+    exact = torch.float64 if dt == torch.float32 else dt
+    want = [w.to(dt) for w in port.flash_attention_bwd_plain(
+        *(x.to(exact) for x in (q, k, v, o, lse, do)), causal=causal, scale=scale)]
+    torch.cuda.synchronize()
+    assert row_err(o, ref_o) <= FWD_ROW_TOL[dt]
+    torch.testing.assert_close(lse, ref_lse, atol=FWD_LSE_TOL[dt], rtol=1e-6)
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+    _assert_grads_close(got, want, BWD_TOL[dt])
+    again = port.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))  # no atomics
+
+
 # float16 at head_dim 64, 128 and 256: the bf16 kernels' float16 builds
 F16_CASES = [
     (2, 3, 200, 264, 64, True),
@@ -420,8 +490,8 @@ F16_CASES = [
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", F16_CASES, ids=_ids)
 def test_float16_kernels_match_plain_on_card(card, case):
-    """float16 runs the design of its head_dim (d64 / wgmma / d64 at 64,
-    wgmma at 128 and 256), one launch of each kernel on those counters and
+    """float16 runs the design of its head_dim (d64 at 64, wgmma at 128
+    and 256, wide at 384 and 512), one launch of each kernel on those counters and
     none on plain, every row of out, lse, dq, dk and dv within the float16
     limits of the plain versions."""
     b, h, tq, tkv, d, causal = case
@@ -473,11 +543,11 @@ def test_tf32x3_kernels_take_more_heads_than_grid_y(card):
     ((1, 2, 40, 72, 96, True), torch.bfloat16),
     ((1, 2, 64, 128, 16, True), torch.float16),
     ((1, 2, 40, 72, 32, True), torch.float16),
-    ((1, 1, 60, 60, 384, True), torch.bfloat16),
+    ((1, 1, 60, 60, 896, True), torch.bfloat16),
 ], ids=lambda x: str(x).replace(" ", ""))
 def test_plain_design_on_card_matches_the_cpu(card, shape, dtype):
     """Inputs that no kernel takes and that the reference sends to its XLA
-    route (head_dims 48, 80, 96, float16 at 16 and 32, head_dim 384 at a
+    route (head_dims 48, 80, 96, float16 at 16 and 32, head_dim 896 at a
     length that is not a multiple of 8) compute on the card through the
     plain design, counted, and agree with the CPU path (the same
     function)."""
