@@ -8,8 +8,9 @@ Phases (any failure exits non-zero; nothing is caught):
      flash_fwd_d64.cu, flash_fwd_persistent.cu, flash_fwd.cu,
      flash_fwd_f32.cu, flash_fwd_wide.cu, flash_bwd_wgmma.cu,
      flash_bwd_d64.cu, flash_bwd_persistent.cu, flash_bwd.cu,
-     flash_bwd_f32.cu and flash_bwd_wide.cu with nvcc, in parallel (one
-     nvcc a source), and print their register,
+     flash_bwd_f32.cu, flash_bwd_wide.cu, flash_fwd_dsplit.cu and
+     flash_bwd_dsplit.cu with nvcc, in parallel (one nvcc a source), and
+     print their register,
      shared-memory and spill reports; the wgmma forward and both wgmma
      backward kernels at head_dim 128 and 256 (the train paths': dQ, dK/dV
      and, at 256, the split dK/dV kernel), the persistent forward and the
@@ -23,18 +24,22 @@ Phases (any failure exits non-zero; nothing is caught):
      one; the d64 forward, dQ and dK/dV (bf16 and float16 at head_dim 64)
      and the wide forward, dQ and dK/dV (bf16 and float16 at WIDE_D)
      must not spill, and their shared memory and CTAs an SM are printed and
-     gated the same way;
+     gated the same way; so are the dsplit forward, dQ and dK/dV (head_dim
+     a runtime argument; one build each in bf16, float16 and float32), by
+     dtype, with their registers a thread;
   2. kernel vs plain: the flash forward kernel against its plain PyTorch
      version on the same device tensors, per case (among them the shape of
      each train path and of the forward: gpt_1b at b=12, b=8, b=4 and the
      pipelined step's microbatch, b=3; every float32 case on the tf32x3
      design, every bf16 head_dim-16/32 case on the persistent design and
-     every bf16 head_dim-64 case on d64 and every bf16 or float16 one at
-     WIDE_D on wide, one launch of it a case: gpt_nano's working case
+     every bf16 head_dim-64 case on d64, every bf16 or float16 one at
+     WIDE_D on wide and every case from 896 up on dsplit (the tables'
+     rule), one launch of it a case: gpt_nano's working case
      at 4g's b=512, the tiny flagship's at b=256, gpt_125m's at b=4 and 4h's
-     b=16, d384_b2 to d768_b2 (2 x 8 heads x 2048^2, causal, in bf16 and
-     float32), and, checked only (CHECK_ONLY), long t, ragged, q the
-     suffix, rows that see no key, ragged non-causal, float16):
+     b=16, d384_b2 to d768_b2 and d896_b2, d1024_b2 and d2048_b2 (2 x 8
+     heads x 2048^2, causal, in bf16 and float32), and, checked only
+     (CHECK_ONLY), long t, ragged, q the suffix, rows that see no key,
+     ragged non-causal, float16, and head_dims 1152 and 4096):
      each row of out held to its own norm and lse to an absolute limit
      (ray_tpu_torch/ops/tolerance.py), max abs error, the kernel's device
      time (torch.profiler's kernel durations over the calls that cuda_ms
@@ -45,13 +50,14 @@ Phases (any failure exits non-zero; nothing is caught):
   3. backward kernels vs plain: the dQ and dK/dV kernels of the design
      BWD_DESIGNS names (wgmma; d64 at bf16 head_dim 64; persistent for
      bf16 at head_dim 16 and 32; wide for bf16 and float16 at WIDE_D;
-     tf32x3 for float32; each case names them and must launch them)
+     tf32x3 for float32; dsplit from 896 up in every dtype; each case
+     names them and must launch them)
      against flash_attention_bwd_plain, per
      case (the train paths' shapes among them, the pipelined step's b=3,
      gpt_j_6b's head_dim 256: its train shape, b=2, non-causal, q the
      suffix, ragged; phase 2's head_dim-16/32 cases; and in float32
      train_f32's shape, head_dims 16 to 256, ragged, non-causal and rows
-     that see no key; phase 2's WIDE_D cases): each row of dq,
+     that see no key; phase 2's WIDE_D and dsplit cases): each row of dq,
      dk, dv held to its own norm (ray_tpu_torch/ops/tolerance.py; float32
      against the plain backward in float64, with the plain version's own
      float32 error beside it, not gated), max abs
@@ -62,11 +68,12 @@ Phases (any failure exits non-zero; nothing is caught):
      dispatch tables' plain design (inputs no kernel takes, where the
      reference takes its XLA route: head_dim 48 in bf16, 16 in float16),
      and through the kernels at head_dim 64 in float16 and in bf16 at a
-     negative scale and at head_dim 384 in bf16 (the wide design); out and
-     dq, dk, dv held to the CPU's row by row, and the counters of the
-     case's designs risen by exactly one forward and one of each backward
-     launch a case; head_dim 896, the first past the designs, raises on the
-     card and launches nothing; every other phase gates plain launches at 0;
+     negative scale, at head_dim 384 in bf16 (the wide design) and at 896
+     in bf16 and float32 (dsplit: this slice's path, every count set to 0
+     before each case); out and dq, dk, dv held to the CPU's row by row, and
+     the counters of the case's designs risen by exactly one forward and one
+     of each backward launch a case; every other phase gates plain
+     launches at 0;
   4. train: three float32 gpt_nano steps on the card held to the same steps
      on the CPU; then gpt_1b (bf16 compute, float32 master weights and Adam
      moments, remat "nothing"), b=12, t=2048, ce_chunk 512, lr 1e-4: one
@@ -152,7 +159,9 @@ Phases (any failure exits non-zero; nothing is caught):
   7a. lse_grad: flash_attention_with_lse (out and lse, both differentiable:
      the flash forward, then the dQ and dK/dV kernels with delta - dlse) at
      gpt_1b's heads (b=2, h=16, t=2048, d=128) in bf16 (wgmma) and float32
-     (tf32x3) and gpt_j_6b's (d=256) in bf16, causal (a ring's step 0)
+     (tf32x3), gpt_j_6b's (d=256), d=512 (wide) and d=1024 with 8 heads
+     (dsplit, this slice's path: one launch of each kernel, none on plain)
+     in bf16, causal (a ring's step 0)
      and not (a hop), under random cotangents of both outputs: against the plain flash versions on the same
      inputs, and against autograd through the plain float32
      attention_with_lse with the rounding of out in delta moved into the
@@ -230,8 +239,8 @@ router, dispatch, experts and combine) and the idle share are printed
 
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero without a card.
-Each forward case names the design (FWD_DESIGNS: wgmma, d64, persistent, wide or
-tf32x3) and the
+Each forward case names the design (FWD_DESIGNS: wgmma, d64, persistent, wide,
+tf32x3 or dsplit) and the
 tiles that ran it; each backward case names its design (BWD_DESIGNS). In
 the kernels line, flash_fwd is the wgmma design, the one the main path
 runs, at gpt_1b's forward shape (b=4) with the forward phase's launches,
@@ -256,7 +265,11 @@ launches, the b=4 case under "b4"; the wide kernels (no model path runs
 them) stand as flash_fwd_wide, flash_bwd_dq_wide and flash_bwd_dkv_wide at
 d512_b2, the other WIDE_D cases under "d384", "d640" and "d768", each naming
 the library's backend, with the paths' launches at that head_dim (the
-port's launches_by_head_dim, read as BY_HEAD_DIM); the
+port's launches_by_head_dim, read as BY_HEAD_DIM); the dsplit kernels stand
+as flash_fwd_dsplit, flash_bwd_dq_dsplit and flash_bwd_dkv_dsplit at
+d1024_b2 (bf16), d896_b2 and d2048_b2 under "d896" and "d2048", the float32
+cases under "f32", each naming the library's backend, with the launches of
+this slice's path at that head_dim (3b at 896, 7a at 1024); the
 backward kernels' plain and library
 times are those of the whole backward (dq, dk and dv together). In the
 kernels line ms and library_ms are device times (torch.profiler),
@@ -292,11 +305,15 @@ import torch  # noqa: E402
 # tensor-core kernel above 100% of its bound
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 494.7e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
-# the head_dims past 256 that the hand-written designs take
+# the head_dims past 256 that the tables' rows take
 # (ray_tpu_torch/ops/attention.py's WIDE_HEAD_DIMS: wide in bf16 and
-# float16, tf32x3 in float32), and the first that they do not
+# float16, tf32x3 in float32)
 WIDE_D = (384, 512, 640, 768)
-PAST_WIDE_D = 896
+# the head_dims from 896 up (the tables' rule, from DSPLIT_MIN_D: dsplit in
+# bf16, float16 and float32, d a runtime argument) that phases 2-3 time;
+# they check 1152 and 4096 besides, and count launches at all five
+DSPLIT_D = (896, 1024, 2048)
+DSPLIT_BY_D = (896, 1024, 1152, 2048, 4096)
 # gpt_nano float32 steps on the card vs the CPU: summation order through two
 # layers, the loss and three optimizer updates (dense and MoE)
 TRAIN_SMALL_RTOL = 1e-4
@@ -468,10 +485,11 @@ def bwd_bound(b, h, t_q, t_kv, d, causal, dtype, products):
 
 def phase_build():
     from ray_tpu_torch.ops import _build
-    from ray_tpu_torch.ops.attention import WIDE_HEAD_DIMS
+    from ray_tpu_torch.ops.attention import DSPLIT_MIN_D, WIDE_HEAD_DIMS
 
-    if WIDE_HEAD_DIMS != WIDE_D:
-        raise SystemExit(f"the port's wide head_dims are {WIDE_HEAD_DIMS}, this script's {WIDE_D}")
+    if WIDE_HEAD_DIMS != WIDE_D or DSPLIT_MIN_D != DSPLIT_D[0]:
+        raise SystemExit(f"the port's wide head_dims are {WIDE_HEAD_DIMS} and dsplit's first "
+                         f"{DSPLIT_MIN_D}, this script's {WIDE_D} and {DSPLIT_D[0]}")
 
     def timed(name):
         t0 = time.monotonic()
@@ -480,7 +498,8 @@ def phase_build():
     t0 = time.monotonic()
     names = ("flash_fwd_wgmma", "flash_fwd_d64", "flash_fwd_persistent", "flash_fwd",
              "flash_fwd_f32", "flash_fwd_wide", "flash_bwd_wgmma", "flash_bwd_d64",
-             "flash_bwd_persistent", "flash_bwd", "flash_bwd_f32", "flash_bwd_wide")
+             "flash_bwd_persistent", "flash_bwd", "flash_bwd_f32", "flash_bwd_wide",
+             "flash_fwd_dsplit", "flash_bwd_dsplit")
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
         built = dict(zip(names, pool.map(timed, names)))
     out = {"seconds": time.monotonic() - t0}
@@ -493,7 +512,8 @@ def phase_build():
             if any(w in line for w in ("Compiling entry", "registers", "spill", "warning")):
                 print(f"[build]   {line.strip()}")
         out[name] = {"seconds": seconds, "library": lib.name,
-                     "spills": _spills_by_kernel(report)}
+                     "spills": _spills_by_kernel(report),
+                     "registers": _registers_by_kernel(report)}
     # the train paths' kernels (each in bf16 and float16: the mangled names
     # differ after the head_dim): the wgmma forward and both wgmma backward
     # kernels at head_dim 128 (gpt_1b) and 256 (gpt_j_6b: dK/dV is the split
@@ -551,6 +571,38 @@ def phase_build():
             raise SystemExit(f"{kernel} asks for {smem} bytes of shared memory, {ctas} CTAs an SM")
         out[source].setdefault("smem_bytes", {})[kernel] = smem
         out[source].setdefault("ctas_per_sm", {})[kernel] = ctas
+    # the dsplit kernels (every multiple of 128 from 896 up, d a runtime
+    # argument): one build a dtype, bf16 and float16 on mma.sync m16n8k16 and
+    # float32 in 3xTF32, none may spill; registers a thread, dynamic shared
+    # memory and CTAs an SM by dtype (the backward's functions take 1 for
+    # dK/dV after the dtype code)
+    codes = {"bfloat16": ("I13__nv_bfloat16E", 0), "float16": ("I6__halfE", 2),
+             "float32": ("IfE", 1)}
+    for source, kernel, dkv in (("flash_fwd_dsplit", "flash_fwd_dsplit_kernel", None),
+                                ("flash_bwd_dsplit", "flash_bwd_dq_dsplit_kernel", 0),
+                                ("flash_bwd_dsplit", "flash_bwd_dkv_dsplit_kernel", 1)):
+        spills = {name: next((n for k, n in out[source]["spills"].items() if kernel + mark in k),
+                             None) for name, (mark, _) in codes.items()}
+        regs = {name: next((n for k, n in out[source]["registers"].items()
+                            if kernel + mark in k), None) for name, (mark, _) in codes.items()}
+        lib = ctypes.CDLL(str(built[source][0]))
+        args = () if dkv is None else (dkv,)
+        for fn in ("smem_bytes", "ctas_per_sm"):
+            getattr(lib, f"ray_tpu_{source}_{fn}").argtypes = [ctypes.c_int] * (1 + len(args))
+        smem = {name: getattr(lib, f"ray_tpu_{source}_smem_bytes")(code, *args)
+                for name, (_, code) in codes.items()}
+        ctas = {name: getattr(lib, f"ray_tpu_{source}_ctas_per_sm")(code, *args)
+                for name, (_, code) in codes.items()}
+        print(f"[build] {kernel} by dtype: registers a thread {regs}, spill bytes {spills}, "
+              f"{smem} bytes of dynamic shared memory per CTA (of 232448), {ctas} CTAs "
+              f"resident per SM")
+        if any(n != 0 for n in spills.values()):
+            raise SystemExit(f"{kernel} spills, or a dtype's build is missing: {spills}")
+        if any(not 0 < n <= 232448 for n in smem.values()) or any(n < 1 for n in ctas.values()):
+            raise SystemExit(f"{kernel} asks for {smem} bytes of shared memory, {ctas} CTAs an SM")
+        out[source].setdefault("smem_bytes", {})[kernel] = smem
+        out[source].setdefault("ctas_per_sm", {})[kernel] = ctas
+        out[source].setdefault("registers_by_dtype", {})[kernel] = regs
     # dynamic shared memory, which the compiler's report does not show
     fwd_lib = ctypes.CDLL(str(built["flash_fwd_wgmma"][0]))
     fwd_lib.ray_tpu_flash_fwd_wgmma_smem_bytes.argtypes = [ctypes.c_int]
@@ -616,18 +668,30 @@ def phase_build():
     return out
 
 
-def _spills_by_kernel(report: str):
-    """{mangled kernel name: spill stores + spill loads in bytes} from a
-    ``-Xptxas -v`` report."""
-    spills, current = {}, None
+def _by_kernel(report: str, pattern: str, value):
+    """{mangled kernel name: value(match)} for each line of a ``-Xptxas -v``
+    report that ``pattern`` matches, under the kernel that the report's last
+    "Function properties" line named."""
+    out, current = {}, None
     for line in report.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             current = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        m = re.search(pattern, line)
         if m and current is not None:
-            spills[current] = int(m.group(1)) + int(m.group(2))
-    return spills
+            out[current] = value(m)
+    return out
+
+
+def _spills_by_kernel(report: str):
+    """{mangled kernel name: spill stores + spill loads in bytes}."""
+    return _by_kernel(report, r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      lambda m: int(m.group(1)) + int(m.group(2)))
+
+
+def _registers_by_kernel(report: str):
+    """{mangled kernel name: registers a thread}."""
+    return _by_kernel(report, r"Used (\d+) registers", lambda m: int(m.group(1)))
 
 
 def phase_kernel_vs_plain():
@@ -654,6 +718,7 @@ def phase_kernel_vs_plain():
         *F32_CASES,
         *F16_CASES,
         *WIDE_CASES,
+        *DSPLIT_CASES,
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
@@ -663,7 +728,7 @@ def phase_kernel_vs_plain():
         v = torch.randn(b, h, t_kv, d, device="cuda", dtype=dtype, generator=gen)
         scale = 1.0 / d ** 0.5
         design = attn.FWD_DESIGNS[(d, dtype)]
-        want = ("tf32x3" if dtype == torch.float32 else
+        want = ("dsplit" if d >= DSPLIT_D[0] else "tf32x3" if dtype == torch.float32 else
                 {16: "persistent", 32: "persistent", 64: "d64",
                  **dict.fromkeys(WIDE_D, "wide")}.get(d, "wgmma"))
         if design.name != want:
@@ -700,9 +765,11 @@ def phase_kernel_vs_plain():
             print(verdict)
             continue
         big = b * h * t_q * t_kv >= 2 ** 26
+        # the dsplit cases' kernels take 2.7-41 ms a call: 5 calls a timing
+        iters = 5 if d >= DSPLIT_D[0] else 20 if big else 50
         ms, device_ms = timed(
             lambda: attn.flash_attention_fwd(q, k, v, causal=causal, scale=scale),
-            iters=20 if big else 50, kernel="flash_fwd")
+            iters=iters, kernel="flash_fwd")
         plain_ms = cuda_ms(
             lambda: attn.flash_attention_fwd_plain(q, k, v, causal=causal, scale=scale),
             iters=3, warmup=1)
@@ -712,7 +779,7 @@ def phase_kernel_vs_plain():
             lib_fn = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)  # noqa: E731
         else:
             lib_fn = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, scale=scale)  # noqa: E731
-        library_ms, library_device_ms = timed(lib_fn, iters=20 if big else 50, kernel="")
+        library_ms, library_device_ms = timed(lib_fn, iters=iters, kernel="")
         backend = sdpa_backend(lib_fn) if d > 256 else None
         bound_ms, bound_by, flops, nbytes = attention_bound(b, h, t_q, t_kv, d, causal, dtype)
         row.update(ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms,
@@ -804,9 +871,30 @@ def _wide_cases(head_dims):
 
 WIDE_CASES = _wide_cases(WIDE_D[:2]) + _wide_cases(WIDE_D[2:])
 WIDE_TIMED = {f"d{d}_b2{suffix}" for d in WIDE_D for suffix in ("", "_f32")}
+# head_dims from 896 up (the tables' rule, dsplit; no model path), in both
+# phases, last: timed at 2 x 8 heads x 2048^2, causal, at DSPLIT_D in bf16
+# and float32; checked only, at 1152 (9 chunks of 128 columns, 4.5 column
+# groups) ragged q and kv, rows that see no key (t_q 160, t_kv 64) and
+# non-causal in bf16, float16 and float32, and 4096 at (1, 2, 256, 256)
+DSPLIT_CASES = [
+    *[(f"d{d}_b2{suffix}", 2, 8, 2048, 2048, d, True, dtype)
+      for dtype, suffix in ((torch.bfloat16, ""), (torch.float32, "_f32")) for d in DSPLIT_D],
+    *[(f"{prefix}d1152_{name}", b, h, t_q, t_kv, 1152, causal, dtype)
+      for prefix, dtype in (("", torch.bfloat16), ("f16_", torch.float16),
+                            ("f32_", torch.float32))
+      for name, b, h, t_q, t_kv, causal in (
+          ("ragged_tq200_tkv264", 2, 4, 200, 264, True),
+          ("tq_gt_tkv", 1, 2, 160, 64, True),
+          ("noncausal_t384", 1, 4, 384, 384, False))],
+    *[(f"{prefix}d4096_t256", 1, 2, 256, 256, 4096, True, dtype)
+      for prefix, dtype in (("", torch.bfloat16), ("f16_", torch.float16),
+                            ("f32_", torch.float32))],
+]
+DSPLIT_TIMED = {f"d{d}_b2{suffix}" for d in DSPLIT_D for suffix in ("", "_f32")}
 CHECK_ONLY = ({name for name, *_ in SMALL_D_CASES[2:-2]}
               | {name for name, *_ in D64_CASES[2:]} | {name for name, *_ in F16_CASES}
-              | {name for name, *_ in WIDE_CASES if name not in WIDE_TIMED})
+              | {name for name, *_ in WIDE_CASES if name not in WIDE_TIMED}
+              | {name for name, *_ in DSPLIT_CASES if name not in DSPLIT_TIMED})
 
 # float32, in both phases: train_f32's shape (gpt_1b at b=4), gpt_125m's and
 # gpt_j_6b's heads, ragged tiles (at 128 and at 256, where the forward and
@@ -848,6 +936,7 @@ BWD_CASES = [
     *F32_CASES,
     *F16_CASES,
     *WIDE_CASES,
+    *DSPLIT_CASES,
 ]
 
 
@@ -865,7 +954,8 @@ def phase_bwd_kernels_vs_plain():
         scale = 1.0 / d ** 0.5
         design = attn.BWD_DESIGNS[(d, dtype)]
         names = {"dq": design.dq.name, "dkv": design.dkv.name}
-        want = ({"dq": "tf32x3", "dkv": "tf32x3"} if dtype == torch.float32 else
+        want = ({"dq": "dsplit", "dkv": "dsplit"} if d >= DSPLIT_D[0] else
+                {"dq": "tf32x3", "dkv": "tf32x3"} if dtype == torch.float32 else
                 {16: {"dq": "persistent", "dkv": "persistent"},
                  32: {"dq": "persistent", "dkv": "persistent"},
                  64: {"dq": "d64", "dkv": "d64"},
@@ -933,7 +1023,8 @@ def phase_bwd_kernels_vs_plain():
             del got, want
             continue
         big = b * h * t_q * t_kv >= 2 ** 26
-        iters = 10 if big else 50
+        # the dsplit cases' kernels take 5-132 ms a call: 5 calls a timing
+        iters = 5 if d >= DSPLIT_D[0] else 10 if big else 50
         delta = attn.flash_bwd_delta(out, do)
         delta_ms = cuda_ms(lambda: attn.flash_bwd_delta(out, do), iters=iters)
         dq_ms, dq_device_ms = timed(
@@ -985,15 +1076,18 @@ def phase_bwd_kernels_vs_plain():
 # each kernel's by design (the wgmma kernels are the bf16 paths' at head_dim
 # 128 and 256; d64 the forward's, dQ's and dK/dV's at 64; at 16 and 32 the
 # forward and the backward are persistent's; wide bf16 and float16 at
-# WIDE_D, which no model path runs; tf32x3 float32; plain every input that
-# no kernel takes, which only the plain_design phase may launch), and the
-# wide and tf32x3 kernels' by head_dim at WIDE_D (the port's
-# launches_by_head_dim), which the kernels line reads for its 384-768 entries
+# WIDE_D, which no model path runs; tf32x3 float32; dsplit every dtype from
+# 896 up, which phases 3b and 7a run; plain every input that no kernel
+# takes, which only the plain_design phase may launch), and the wide and
+# tf32x3 kernels' by head_dim at WIDE_D and dsplit's at DSPLIT_BY_D (the
+# port's launches_by_head_dim), which the kernels line reads for its 384-768
+# and dsplit entries
 KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-DESIGNS = {kernel: ("wgmma", "d64", "persistent", "wide", "tf32x3", "plain")
+DESIGNS = {kernel: ("wgmma", "d64", "persistent", "wide", "tf32x3", "dsplit", "plain")
            for kernel in KERNEL_NAMES}
 BY_HEAD_DIM = tuple(f"{kernel}_{design}_d{d}" for kernel in KERNEL_NAMES
-                    for design in ("wide", "tf32x3") for d in WIDE_D)
+                    for design, dims in (("wide", WIDE_D), ("tf32x3", WIDE_D),
+                                         ("dsplit", DSPLIT_BY_D)) for d in dims)
 COUNTS = KERNEL_NAMES + tuple(
     f"{kernel}_{design}" for kernel in KERNEL_NAMES for design in DESIGNS[kernel]) + BY_HEAD_DIM
 
@@ -1465,7 +1559,9 @@ def phase_plain_design():
     the card, once each, causal, through dot_product_attention with a
     backward: the plain design at head_dim 48 in bf16 and 16 in float16 (the
     reference's XLA route), and the kernels at head_dim 64 in float16 and in
-    bf16 at a negative scale (the forward's sign handed to q). Out and dq,
+    bf16 at a negative scale (the forward's sign handed to q), at 384 in
+    bf16 (wide) and at 896 in bf16 and float32 (dsplit, the tables' rule:
+    this slice's path, every count set to 0 before each case). Out and dq,
     dk, dv held to the CPU's (ops/tolerance.py's limits for the dtype, row
     by row): the plain design's to the same function on the CPU, the
     kernels' to their plain backward on the CPU from the card's out (the
@@ -1485,12 +1581,15 @@ def phase_plain_design():
             ("plain_d16_f16", (2, 12, 256, 256, 16), torch.float16, None, ("plain",) * 3),
             ("kernels_d64_f16", (2, 12, 256, 256, 64), torch.float16, None, d64),
             ("kernels_d64_scale_neg", (2, 12, 256, 256, 64), torch.bfloat16, -0.125, d64),
-            ("kernels_d384_bf16", (2, 4, 256, 256, 384), torch.bfloat16, None, ("wide",) * 3)):
+            ("kernels_d384_bf16", (2, 4, 256, 256, 384), torch.bfloat16, None, ("wide",) * 3),
+            ("kernels_d896_bf16", (1, 2, 256, 256, 896), torch.bfloat16, None, ("dsplit",) * 3),
+            ("kernels_d896_f32", (1, 2, 256, 256, 896), torch.float32, None, ("dsplit",) * 3)):
         b, h, t_q, t_kv, d = shape
         cpu = [torch.randn(b, h, t, d, generator=gen).to(dtype).requires_grad_()
                for t in (t_q, t_kv, t_kv)]
         g = torch.randn(b, h, t_q, d, generator=gen).to(dtype)
         dev = [x.detach().cuda().requires_grad_() for x in cpu]
+        _reset_launch_counts()
         before = _launch_counts()
         out = attn.dot_product_attention(*dev, causal=True, scale=scale)
         out.backward(g.cuda())
@@ -1527,23 +1626,6 @@ def phase_plain_design():
         if not ok:
             raise SystemExit(f"3b: {name} disagrees with the CPU or launched "
                              f"{launched}, expected {want}")
-    # the first head_dim past the designs' limit (PAST_WIDE_D: the reference
-    # runs its Pallas kernel there, the port has none) raises on the card,
-    # launching nothing
-    d = PAST_WIDE_D
-    q = torch.randn(1, 2, 64, d, device="cuda", dtype=torch.bfloat16)
-    before = _launch_counts()
-    try:
-        attn.dot_product_attention(q, q, q, causal=True)
-    except ValueError as e:
-        refusal = str(e)
-    else:
-        raise SystemExit(f"3b: head_dim {d} ran on the card; the designs stop at {WIDE_D[-1]}")
-    if f"no Hopper kernel takes head_dim {d}" not in refusal or _launch_counts() != before:
-        raise SystemExit(f"3b: head_dim {d} raised {refusal!r} or launched a kernel")
-    print(f"[plain] head_dim {d} on the card raises: {refusal}")
-    rows.append(dict(case=f"refused_d{d}_bf16", shape=[1, 2, 64, 64, d], refusal=refusal,
-                     ok=True))
     return rows
 
 
@@ -1814,7 +1896,10 @@ def phase_lse_grad():
     cotangents of both outputs, at gpt_1b's heads (b=2, h=16, t=2048,
     d=128) in bf16 (the wgmma kernels) and float32 (tf32x3 forward and
     backward), at gpt_j_6b's (d=256) in bf16 (the wgmma split dK/dV
-    kernel) and at d=512 in bf16 (the wide kernels), causal and not. Two gates on every row of dq, dk and dv:
+    kernel), at d=512 in bf16 (the wide kernels) and at d=1024 in bf16 with
+    8 heads (the dsplit kernels: this slice's path, every count set to 0
+    before it and read after, none on plain), causal and not. Two gates on
+    every row of dq, dk and dv:
     - against the plain flash versions on the same inputs (the forward's
       out and lse feed both backwards, as in phase 3): the kernels'
       arithmetic;
@@ -1832,11 +1917,12 @@ def phase_lse_grad():
     from ray_tpu_torch.ops import attention as attn
     from ray_tpu_torch.ops.tolerance import BWD_TOL, FWD_LSE_TOL, FWD_ROW_TOL, row_err
 
-    b, h, t = 2, 16, 2048
+    b, t = 2, 2048
     gen = torch.Generator(device="cuda").manual_seed(7)
     rows = []
-    for d, dtype in ((128, torch.bfloat16), (128, torch.float32), (256, torch.bfloat16),
-                     (512, torch.bfloat16)):
+    for d, dtype, h in ((128, torch.bfloat16, 16), (128, torch.float32, 16),
+                        (256, torch.bfloat16, 16), (512, torch.bfloat16, 16),
+                        (1024, torch.bfloat16, 8)):
         scale = 1.0 / d ** 0.5
         design = attn.BWD_DESIGNS[(d, dtype)]
         for causal in (True, False):
@@ -1876,12 +1962,13 @@ def phase_lse_grad():
                 return {name: row_err(x, ref) for name, x, ref in
                         zip(("dq", "dk", "dv"), got, want)}
 
-            before = _launch_counts()
+            _reset_launch_counts()
             got = kernel_path()
-            launched = dict(zip(COUNTS, (a - c for a, c in zip(_launch_counts(), before))))
+            launched = dict(zip(COUNTS, _launch_counts()))
             expect = {f"flash_fwd_{attn.FWD_DESIGNS[(d, dtype)].name}": 1,
                       f"flash_bwd_dq_{design.dq.name}": 1,
-                      f"flash_bwd_dkv_{design.dkv.name}": 1}
+                      f"flash_bwd_dkv_{design.dkv.name}": 1,
+                      **{f"{kernel}_plain": 0 for kernel in KERNEL_NAMES}}
             if any(launched[name] != n for name, n in expect.items()):
                 raise SystemExit(f"lse_grad: launched {launched}, expected {expect}")
             want = plain_flash(got[0], got[1])
@@ -1909,7 +1996,8 @@ def phase_lse_grad():
                        lse_max_abs_err=lse_err,
                        row_err_tol={"out": FWD_ROW_TOL[dtype], "grads": BWD_TOL[dtype]},
                        lse_tol=FWD_LSE_TOL[dtype], ok=ok, ms=ms, plain_ms=plain_ms,
-                       flash_attention_ms=flash_ms)
+                       flash_attention_ms=flash_ms,
+                       launches={n: c for n, c in launched.items() if c})
             rows.append(row)
 
             def fmt(e):
@@ -2969,10 +3057,22 @@ def main() -> int:
     EX2_PER_S = ex2_rate()
     report = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
               "ex2_per_s": EX2_PER_S}
+    # the seconds each group of phases took, in order
+    phase_seconds, last = {}, [t_start]
+
+    def mark(name):
+        now = time.monotonic()
+        phase_seconds[name] = now - last[0]
+        last[0] = now
+
     report["build"] = phase_build()
+    mark("build")
     report["kernel_cases"] = phase_kernel_vs_plain()
+    mark("kernel_cases")
     report["bwd_kernel_cases"] = phase_bwd_kernels_vs_plain()
+    mark("bwd_kernel_cases")
     report["plain_design"] = phase_plain_design()
+    mark("plain_design")
     report["train"] = phase_train(batch=12, seq=2048, steps=5, profile=args.profile)
     report["remat_policies"] = phase_remat_policies(report["train"], steps=2,
                                                     profile=args.profile)
@@ -2983,6 +3083,7 @@ def main() -> int:
     report["train_f32"] = phase_train_f32(batch=4, seq=2048, steps=2, profile=args.profile)
     report["train_nano_bf16"] = phase_train_nano_bf16(batch=512, seq=128, steps=3)
     report["train_125m"] = phase_train_125m(batch=16, seq=2048, steps=3)
+    mark("train")
 
     cfg = gpt.gpt_1b(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
     params = init_params(cfg, device="cuda", seed=0)
@@ -2998,14 +3099,21 @@ def main() -> int:
         raise SystemExit("the server left torch's deterministic mode changed after close()")
     report["server"]["deterministic_mode_restored"] = True
     report["device_plane"] = phase_device_plane(params)
+    mark("forward_server_device_plane")
     # the closed server's pool went with it; the weights go here, by
     # reference count (7b's peak memory shows it)
     del params, fwd
     torch.cuda.empty_cache()
     report["lse_grad"] = phase_lse_grad()
+    mark("lse_grad")
     report.update(phase_sharded_ws1(report["train"], steps=3, profile=args.profile))
+    mark("sharded_pp_loop")
     report["rl"] = phase_rl(args.profile)
+    mark("rl")
     report["seconds"] = time.monotonic() - t_start
+    report["phase_seconds"] = phase_seconds
+    print(f"[done] seconds by phase group: "
+          f"{ {name: round(t, 1) for name, t in phase_seconds.items()} }")
 
     # flash_fwd at gpt_1b's forward shape (b=4) with the forward
     # phase's launches; the backward kernels at the train step's case (b=12)
@@ -3166,6 +3274,37 @@ def main() -> int:
             for rows, kernel, line in kernel_rows]
     for entry, (rows, kernel, line) in zip(f32.values(), kernel_rows):
         entry.update({f"d{d}": no_path(rows, f"d{d}_b2_f32", kernel, line, d) for d in WIDE_D})
+
+    # the dsplit kernels (the tables' rule, every multiple of 128 from 896
+    # up), which this slice's path runs and no model path does: 3b at 896
+    # (bf16 and float32) and 7a at 1024 (bf16). Each entry's launches are
+    # that path's at the case's head_dim (BY_HEAD_DIM, counted from 0 on
+    # each of the path's runs); the forward, dQ and dK/dV at d1024_b2
+    # (bf16), d896_b2 and d2048_b2 under "d896" and "d2048", the float32
+    # cases under "f32"
+    def on_path(rows, name, kernel, line, d):
+        entry = small_d(rows, name, kernel, line)
+        key, dtype = f"{kernel}_dsplit_d{d}", case(rows, name)[0]["dtype"]
+        by = {path: sum(r["launches"].get(key, 0) for r in report[path]
+                        if r["dtype"].removeprefix("torch.") == dtype)
+              for path in ("plain_design", "lse_grad")}
+        entry.update(launches=sum(by.values()), launches_path="plain_design, lse_grad",
+                     launches_by_path=by,
+                     library_backend=case(rows, name)[0]["library_backend"])
+        return entry
+
+    dsplit = [dict(on_path(rows, "d1024_b2", kernel, line, 1024),
+                   **{f"d{d}": on_path(rows, f"d{d}_b2", kernel, line, d)
+                      for d in DSPLIT_D if d != 1024},
+                   f32={f"d{d}": on_path(rows, f"d{d}_b2_f32", kernel, line, d)
+                        for d in DSPLIT_D})
+              for rows, kernel, line in kernel_rows]
+    if any(min(e["launches"], e["d896"]["launches"], e["f32"]["d896"]["launches"]) < 1
+           for e in dsplit):
+        raise SystemExit("a dsplit kernel launched no time on its path (7a at 1024 in bf16, 3b "
+                         "at 896 in bf16 and float32): " + str(
+                             {e["name"]: (e["launches"], e["d896"]["launches"],
+                                          e["f32"]["d896"]["launches"]) for e in dsplit}))
     kernels = {"kernels": [
         dict(name="flash_fwd", route="cuda", source=fwd_case["source"],
              replaces="ray_tpu/ops/attention.py:167",
@@ -3208,6 +3347,7 @@ def main() -> int:
         *nano,
         *d64,
         *wide,
+        *dsplit,
     ]}
     report.update(kernels)
     if args.out:

@@ -25,9 +25,12 @@ a shorter q is the suffix of the kv context (``q_pos = q_idx + t_kv - t_q``).
   ``csrc/flash_fwd_persistent.cu`` (a persistent grid of several CTAs an
   SM, a TMA ring; bf16 at head_dim 16, 32), ``csrc/flash_fwd_wide.cu``
   (mma.sync from cp.async tiles, d cut between warps; bf16 and float16 at
-  384, 512, 640 and 768) or ``csrc/flash_fwd_f32.cu`` (3xTF32 on mma.sync; float32 at
-  every head_dim of ``HEAD_DIMS``); ``csrc/flash_fwd.cu`` (mma.sync), bf16
-  16/32's kernel before, is on no path.
+  384, 512, 640 and 768), ``csrc/flash_fwd_f32.cu`` (3xTF32 on mma.sync; float32 at
+  every head_dim of ``HEAD_DIMS``) or ``csrc/flash_fwd_dsplit.cu`` (design
+  ``dsplit``, d a runtime argument, the output's columns split over CTAs;
+  bf16, float16 and float32 at every multiple of 128 from ``DSPLIT_MIN_D``
+  = 896 up); ``csrc/flash_fwd.cu`` (mma.sync), bf16 16/32's kernel before,
+  is on no path.
   ``flash_attention_bwd`` launches the dQ and dK/dV kernels
   (``flash_bwd_dq``, ``flash_bwd_dkv``) that the dispatch table
   ``BWD_DESIGNS`` names: ``csrc/flash_bwd_wgmma.cu`` (TMA, wgmma,
@@ -35,24 +38,33 @@ a shorter q is the suffix of the kv context (``q_pos = q_idx + t_kv - t_q``).
   ``csrc/flash_bwd_d64.cu`` (dQ and dK/dV at bf16 and float16 64),
   ``csrc/flash_bwd_persistent.cu`` (a persistent grid of several CTAs an
   SM, a TMA ring; bf16 at head_dim 16 and 32), ``csrc/flash_bwd_wide.cu``
-  (mma.sync, d cut between warps; bf16 and float16 at 384, 512, 640 and 768) or
+  (mma.sync, d cut between warps; bf16 and float16 at 384, 512, 640 and 768),
   ``csrc/flash_bwd_f32.cu`` (3xTF32 on mma.sync; float32 at every head_dim
-  of ``HEAD_DIMS``); ``csrc/flash_bwd.cu`` (mma.sync), bf16 16/32's kernels
-  before, is on no path.
-* Every (head_dim, dtype) that no hand-written design takes (the head_dims
-  outside ``HEAD_DIMS``, float16 at 16 and 32) goes to both tables' ``plain``
-  design: the reference's own route for the input, ``plain_attention_with_lse``
-  and its gradient ``plain_attention_bwd``. On CUDA tensors it computes
-  only where that route is the reference's ``_attention_xla``
-  (``_attention_plain``: head_dims that are neither 64 nor a multiple of
-  128, or lengths that are not multiples of 8); where the reference takes
-  its Pallas kernel and the port has none (head_dim 896 and up, ROADMAP
-  Queue 2) it raises. On CPU
-  tensors it computes either route (``flash_attention_fwd_plain`` at the
-  reference's tiles on the kernel route).
-* The wgmma, d64, persistent and wide forward kernels take the row max of the
-  raw scores and fold the scale in after it, so they take a positive scale;
-  the wrapper gives them any other as the same scores, exactly: -q and
+  of ``HEAD_DIMS``) or ``csrc/flash_bwd_dsplit.cu`` (bf16, float16 and
+  float32 from 896 up); ``csrc/flash_bwd.cu`` (mma.sync), bf16 16/32's
+  kernels before, is on no path.
+* Both tables hold rows (``HEAD_DIMS``) and a rule (``dsplit_takes``: every
+  multiple of 128 from ``DSPLIT_MIN_D`` up, in bf16, float16 and float32).
+  A key the rule takes runs ``dsplit`` where the reference runs its Pallas
+  kernel (both lengths multiples of 8, ``reference_takes_kernel``) and the
+  reference's own route, ``plain``, where it does not (``_design``), so
+  every input the reference sends to its kernel has a Hopper kernel.
+* Every other (head_dim, dtype) (the head_dims outside ``HEAD_DIMS`` that
+  the rule does not take, float16 at 16 and 32) goes to both tables'
+  ``plain`` design: the reference's own route for the input,
+  ``plain_attention_with_lse`` and its gradient ``plain_attention_bwd``.
+  On CUDA tensors it computes only where that route is the reference's
+  ``_attention_xla`` (``_attention_plain``: head_dims that are neither 64
+  nor a multiple of 128, or lengths that are not multiples of 8), which is
+  every input the dispatcher hands it in bf16, float16 and float32;
+  another dtype where the reference takes its kernel raises
+  (``_check_plain_inputs``). On CPU tensors it computes either route
+  (``flash_attention_fwd_plain`` at the reference's tiles on the kernel
+  route).
+* The wgmma, d64, persistent, wide and dsplit forward kernels take the row
+  max of the raw scores and fold the scale in after it, so they take a
+  positive scale; the wrapper gives them any other as the same scores,
+  exactly: -q and
   -scale for a negative one, zeros and 1 for 0 (``_positive_scale``). The
   backward kernels take any scale.
 * Launches count in ``flash_fwd_launches``, ``flash_bwd_dq_launches`` and
@@ -90,8 +102,13 @@ NEG_INF = -1e30
 #: the head_dims past 256 that the hand-written designs take (``wide`` in
 #: bf16 and float16, ``tf32x3`` in float32): each warp owns 128 columns of d
 WIDE_HEAD_DIMS = (384, 512, 640, 768)
-#: the head_dims of the hand-written designs
+#: the head_dims of the tables' rows (the rule, ``dsplit_takes``, takes
+#: every multiple of 128 from ``DSPLIT_MIN_D`` up besides)
 HEAD_DIMS = (16, 32, 64, 128, 256) + WIDE_HEAD_DIMS
+#: the least head_dim of the ``dsplit`` design (d a runtime argument, the
+#: output's columns split over CTAs), which takes every multiple of 128 from
+#: here up in bf16, float16 and float32
+DSPLIT_MIN_D = 896
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 #: the reference's default flash tiles (``ray_tpu/ops/attention.py``'s
 #: ``dot_product_attention``: block_q = block_k = 512), which the plain
@@ -141,24 +158,44 @@ class BwdDesign:
 
 class DesignTable(dict):
     """A dispatch table keyed on (head_dim, dtype): the hand-written design
-    of each key it holds, and its ``plain`` design for every other key
-    (``table[key]`` gives it; iteration and ``in`` see the held keys only)."""
+    of each key it holds as a row, the design ``by_rule`` of each other key
+    that ``rule(head_dim, dtype)`` takes, and its ``plain`` design for every
+    other key (``table[key]`` gives it). ``in`` answers True for every key
+    that a kernel takes, by row or by rule; iteration sees the rows only."""
 
-    def __init__(self, rows, plain):
+    def __init__(self, rows, plain, rule=None, by_rule=None):
         super().__init__(rows)
         self.plain = plain
+        self.rule, self.by_rule = rule, by_rule
+
+    def takes_by_rule(self, key) -> bool:
+        """Whether the rule, and not a row, gives ``key`` its design."""
+        return (self.rule is not None and not dict.__contains__(self, key)
+                and self.rule(*key))
 
     def __missing__(self, key):
-        return self.plain
+        return self.by_rule if self.takes_by_rule(key) else self.plain
+
+    def __contains__(self, key):
+        return dict.__contains__(self, key) or self.takes_by_rule(key)
 
 
 _PERSISTENT = FwdDesign("persistent", "flash_fwd_persistent",
                         "ray_tpu_flash_fwd_persistent", 64, 64)
 _TF32X3 = FwdDesign("tf32x3", "flash_fwd_f32", "ray_tpu_flash_fwd_f32", 64, 64)
 _D64 = FwdDesign("d64", "flash_fwd_d64", "ray_tpu_flash_fwd_d64", 128, 128, schedule=True)
+#: d a runtime argument: 64 q rows by 32 kv rows in every dtype
+_DSPLIT = FwdDesign("dsplit", "flash_fwd_dsplit", "ray_tpu_flash_fwd_dsplit", 64, 32)
 #: no kernel: the reference's own route for the input (``plain_attention_with_lse``),
 #: at the reference's tiles where it takes its kernel
 _PLAIN = FwdDesign("plain", None, None, REF_BLOCK, REF_BLOCK)
+
+
+def dsplit_takes(head_dim: int, dtype: torch.dtype) -> bool:
+    """The rule of both dispatch tables: ``dsplit`` takes every head_dim
+    that is a multiple of 128 from ``DSPLIT_MIN_D`` up, in bf16, float16 and
+    float32."""
+    return head_dim >= DSPLIT_MIN_D and head_dim % 128 == 0 and dtype in _DTYPE_CODES
 
 
 def _wgmma(block_k: int) -> FwdDesign:
@@ -195,7 +232,9 @@ def _tf32x3(head_dim: int) -> FwdDesign:
 #: bf16 and float16 at head_dim 64 ``flash_fwd_d64.cu`` (a persistent grid;
 #: the wgmma kernel it took over from is timed beside it by
 #: ``ops/flash_fwd_variants.py --d64``), at 128 and 256 ``flash_fwd_wgmma.cu``,
-#: at 384, 512, 640 and 768 ``flash_fwd_wide.cu``. Every other key, the head_dims
+#: at 384, 512, 640 and 768 ``flash_fwd_wide.cu``; by the rule
+#: (``dsplit_takes``) every multiple of 128 from 896 up, in all three
+#: dtypes, ``flash_fwd_dsplit.cu``. Every other key, the other head_dims
 #: outside ``HEAD_DIMS`` and float16 at 16 and 32 among them, takes
 #: ``plain``. Neither kernel of ``flash_fwd.cu`` is on a path:
 #: its float32 one (CUDA cores) ``ops/flash_fwd_f32_variants.py`` times
@@ -209,7 +248,7 @@ FWD_DESIGNS = DesignTable({
     **{(128, dt): _wgmma(128) for dt in (torch.bfloat16, torch.float16)},
     **{(256, dt): _wgmma(80) for dt in (torch.bfloat16, torch.float16)},
     **{(d, dt): _wide(d) for d in WIDE_HEAD_DIMS for dt in (torch.bfloat16, torch.float16)},
-}, _PLAIN)
+}, _PLAIN, dsplit_takes, _DSPLIT)
 
 _BWD_PERSISTENT = BwdDesign(
     BwdKernel("persistent", "flash_bwd_persistent", "ray_tpu_flash_bwd_dq_persistent"),
@@ -222,6 +261,8 @@ _BWD_WIDE = BwdDesign(BwdKernel("wide", "flash_bwd_wide", "ray_tpu_flash_bwd_dq_
                       BwdKernel("wide", "flash_bwd_wide", "ray_tpu_flash_bwd_dkv_wide"))
 _BWD_TF32X3 = BwdDesign(BwdKernel("tf32x3", "flash_bwd_f32", "ray_tpu_flash_bwd_dq_f32"),
                         BwdKernel("tf32x3", "flash_bwd_f32", "ray_tpu_flash_bwd_dkv_f32"))
+_BWD_DSPLIT = BwdDesign(BwdKernel("dsplit", "flash_bwd_dsplit", "ray_tpu_flash_bwd_dq_dsplit"),
+                        BwdKernel("dsplit", "flash_bwd_dsplit", "ray_tpu_flash_bwd_dkv_dsplit"))
 _BWD_PLAIN = BwdDesign(BwdKernel("plain", None, None), BwdKernel("plain", None, None))
 
 #: the backward's dispatch table, keyed on (head_dim, dtype): the kernels each
@@ -233,8 +274,10 @@ _BWD_PLAIN = BwdDesign(BwdKernel("plain", None, None), BwdKernel("plain", None, 
 #: ``ops/flash_bwd_variants.py --d64``); bf16 at 16 and 32 runs
 #: ``flash_bwd_persistent.cu``; bf16 and float16 at 384, 512, 640 and 768
 #: ``flash_bwd_wide.cu``; float32 runs 3xTF32 on the tensor cores
-#: (``flash_bwd_f32.cu``). Every other key takes ``plain``: the gradient of
-#: the reference's own route. No kernel of ``flash_bwd.cu`` is on a path:
+#: (``flash_bwd_f32.cu``); by the rule every multiple of 128 from 896 up, in
+#: all three dtypes, ``flash_bwd_dsplit.cu``. Every other key takes
+#: ``plain``: the gradient of the reference's own route. No kernel of
+#: ``flash_bwd.cu`` is on a path:
 #: ``ops/flash_bwd_f32_variants.py`` times its float32 ones (CUDA cores)
 #: beside ``flash_bwd_f32.cu``, ``ops/flash_bwd_variants.py --small-d`` its
 #: bf16 ones (mma.sync) beside ``flash_bwd_persistent.cu``.
@@ -244,7 +287,7 @@ BWD_DESIGNS = DesignTable({
     **{(64, dt): _BWD_D64 for dt in (torch.bfloat16, torch.float16)},
     **{(d, dt): _BWD_WGMMA for d in (128, 256) for dt in (torch.bfloat16, torch.float16)},
     **{(d, dt): _BWD_WIDE for d in WIDE_HEAD_DIMS for dt in (torch.bfloat16, torch.float16)},
-}, _BWD_PLAIN)
+}, _BWD_PLAIN, dsplit_takes, _BWD_DSPLIT)
 
 #: launches of each kernel, counted where it is launched; a launch counts in
 #: its kernel's total (flash_fwd, flash_bwd_dq, flash_bwd_dkv) and in its
@@ -256,6 +299,7 @@ flash_fwd_d64_launches = 0
 flash_fwd_persistent_launches = 0
 flash_fwd_wide_launches = 0
 flash_fwd_tf32x3_launches = 0
+flash_fwd_dsplit_launches = 0
 flash_fwd_plain_launches = 0
 flash_bwd_dq_launches = 0
 flash_bwd_dq_wgmma_launches = 0
@@ -263,6 +307,7 @@ flash_bwd_dq_d64_launches = 0
 flash_bwd_dq_persistent_launches = 0
 flash_bwd_dq_wide_launches = 0
 flash_bwd_dq_tf32x3_launches = 0
+flash_bwd_dq_dsplit_launches = 0
 flash_bwd_dq_plain_launches = 0
 flash_bwd_dkv_launches = 0
 flash_bwd_dkv_wgmma_launches = 0
@@ -270,6 +315,7 @@ flash_bwd_dkv_d64_launches = 0
 flash_bwd_dkv_persistent_launches = 0
 flash_bwd_dkv_wide_launches = 0
 flash_bwd_dkv_tf32x3_launches = 0
+flash_bwd_dkv_dsplit_launches = 0
 flash_bwd_dkv_plain_launches = 0
 #: the same launches by head_dim: "<kernel>_<design>_d<head_dim>" -> launches,
 #: counted with the design's count
@@ -279,15 +325,16 @@ launches_by_head_dim: collections.Counter = collections.Counter()
 def fwd_tiles(head_dim: int, dtype: torch.dtype) -> Tuple[int, int]:
     """(block_q, block_k) of the forward design that ``FWD_DESIGNS`` names
     for this head_dim and dtype: the one source of the tiles, read by the
-    wrapper, the CPU path and the plain version. A (head_dim, dtype) that no
-    kernel takes gets the plain design's, the reference's 512 x 512."""
+    wrapper, the CPU path and the plain version (``dsplit``'s 64 x 32 for
+    every key of the rule). A (head_dim, dtype) that no kernel takes gets
+    the plain design's, the reference's 512 x 512."""
     design = FWD_DESIGNS[(head_dim, dtype)]
     return design.block_q, design.block_k
 
 
 # the forward designs that take the row max of the raw scores and fold the
 # scale into exp2 after it, so take a positive scale (``_positive_scale``)
-_POSITIVE_SCALE = ("wgmma", "persistent", "d64", "wide")
+_POSITIVE_SCALE = ("wgmma", "persistent", "d64", "wide", "dsplit")
 
 
 def _positive_scale(q: torch.Tensor, scale: float) -> Tuple[torch.Tensor, float]:
@@ -308,6 +355,19 @@ def reference_takes_kernel(head_dim: int, t_q: int, t_kv: int) -> bool:
     lengths multiples of 8; ``ray_tpu/ops/attention.py:575-581``) rather
     than to ``_attention_xla``."""
     return (head_dim % 128 == 0 or head_dim == 64) and t_q % 8 == 0 and t_kv % 8 == 0
+
+
+def _design(table: DesignTable, q: torch.Tensor, t_kv: int):
+    """The design of ``table`` that runs q [b, h, t_q, d] against t_kv keys:
+    the table's for (d, q's dtype), except that a key of the rule runs its
+    kernel only where the reference runs its Pallas kernel
+    (``reference_takes_kernel``) and elsewhere the reference's own route,
+    the ``plain`` design's ``_attention_plain``, as the reference does."""
+    d, t_q = q.shape[-1], q.shape[-2]
+    key = (d, q.dtype)
+    if table.takes_by_rule(key) and not reference_takes_kernel(d, t_q, t_kv):
+        return table.plain
+    return table[key]
 
 
 # ---------------------------------------------------------------------------
@@ -658,6 +718,9 @@ _SOURCES = {
                       "ray_tpu_flash_bwd_f32_error_string"),
     "flash_bwd_wide": ({"ray_tpu_flash_bwd_dq_wide": 7, "ray_tpu_flash_bwd_dkv_wide": 8},
                        "ray_tpu_flash_bwd_wide_error_string"),
+    "flash_fwd_dsplit": ({"ray_tpu_flash_fwd_dsplit": 5}, "ray_tpu_flash_fwd_dsplit_error_string"),
+    "flash_bwd_dsplit": ({"ray_tpu_flash_bwd_dq_dsplit": 7, "ray_tpu_flash_bwd_dkv_dsplit": 8},
+                         "ray_tpu_flash_bwd_dsplit_error_string"),
 }
 _C_TAIL = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
 
@@ -754,7 +817,8 @@ _TILES_ENTRIES = {"wgmma": "ray_tpu_flash_fwd_wgmma_tiles",
                   "d64": "ray_tpu_flash_fwd_d64_tiles",
                   "persistent": "ray_tpu_flash_fwd_persistent_tiles",
                   "wide": "ray_tpu_flash_fwd_wide_tiles",
-                  "tf32x3": "ray_tpu_flash_fwd_f32_tiles"}
+                  "tf32x3": "ray_tpu_flash_fwd_f32_tiles",
+                  "dsplit": "ray_tpu_flash_fwd_dsplit_tiles"}
 
 
 def _check_design(design: FwdDesign, head_dim: int) -> None:
@@ -780,10 +844,11 @@ def _on_cpu(*tensors) -> bool:
 def _check_plain_inputs(q, k, v, *more) -> None:
     """Raise ``ValueError`` unless the plain design takes these tensors: q,
     k, v and ``more`` on one device, q [b, h, t_q, d] and k, v [b, h, t_kv,
-    d] of one floating dtype, and, on the card, inputs that the reference
-    sends to ``_attention_xla`` (where it takes its Pallas kernel, the port
-    has no kernel for them, head_dim 896 and up, and the plain version does
-    not stand in for one on the card)."""
+    d] of one floating dtype, and, on the card, no input that the reference
+    sends to its Pallas kernel while no Hopper kernel takes its (head_dim,
+    dtype): every head_dim the reference's kernel takes has a Hopper kernel
+    in bf16, float16 and float32, so that leaves the other dtypes, for
+    which the plain version does not stand in on the card."""
     if len({t.device for t in (q, k, v, *more)}) != 1:
         raise ValueError("q, k, v and the rest must lie on one device")
     if q.dim() != 4 or not q.is_floating_point() or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -792,9 +857,11 @@ def _check_plain_inputs(q, k, v, *more) -> None:
     b, h, t_q, d = q.shape
     if k.shape != (b, h, k.shape[2], d) or v.shape != k.shape:
         raise ValueError(f"shape mismatch: q {q.shape} k {k.shape} v {v.shape}")
-    if not _on_cpu(q) and reference_takes_kernel(d, t_q, k.shape[2]):
-        raise ValueError(f"no Hopper kernel takes head_dim {d} in {q.dtype} yet; the "
-                         f"reference runs its Pallas kernel there (ROADMAP, Queue 2)")
+    if (not _on_cpu(q) and reference_takes_kernel(d, t_q, k.shape[2])
+            and (d, q.dtype) not in FWD_DESIGNS):
+        raise ValueError(f"no Hopper kernel takes {q.dtype} (the kernels take "
+                         f"{', '.join(map(str, _DTYPE_CODES))}); the reference runs its "
+                         f"Pallas kernel at head_dim {d} with these lengths")
 
 
 def flash_attention_fwd(
@@ -824,7 +891,7 @@ def flash_attention_fwd(
     raises."""
     global flash_fwd_launches
     d = q.shape[-1]
-    design = FWD_DESIGNS[(d, q.dtype)]
+    design = _design(FWD_DESIGNS, q, k.shape[2])
     on_cpu = _on_cpu(q, k, v)
     if design is _PLAIN:
         _check_plain_inputs(q, k, v)
@@ -865,7 +932,7 @@ def _bwd_kernel(kernel: str, q, k, v, do, lse, delta) -> BwdKernel:
     inputs, after the checks every backward kernel needs; raises for inputs
     that no kernel takes."""
     _check_kernel_inputs(q, k, v, ("do", do), rows=(("lse", lse), ("delta", delta)))
-    chosen = getattr(BWD_DESIGNS[(q.shape[-1], q.dtype)], kernel)
+    chosen = getattr(_design(BWD_DESIGNS, q, k.shape[2]), kernel)
     if chosen.source is None:
         raise ValueError(f"no {kernel} kernel takes head_dim {q.shape[-1]} {q.dtype}: the "
                          f"plain design computes it (flash_attention_bwd)")
@@ -938,7 +1005,7 @@ def flash_attention_bwd(
     kernel takes, with o and do like q (contiguous) and lse float32
     [b, h, t_q]. Anything else raises."""
     global flash_bwd_dq_launches, flash_bwd_dkv_launches
-    design = BWD_DESIGNS[(q.shape[-1], q.dtype)]
+    design = _design(BWD_DESIGNS, q, k.shape[2])
     on_cpu = _on_cpu(q, k, v, o, lse, do)
     if design is _BWD_PLAIN:
         _check_plain_inputs(q, k, v, o, lse, do)
@@ -1051,10 +1118,12 @@ def dot_product_attention(
     hand-written forward and backward kernels on CUDA tensors, at the
     kernel's tiles unless ``block_q``/``block_k`` say otherwise (the CPU
     path takes any; the card's kernel raises for other tiles), at any
-    scale; every input that no kernel takes (a head_dim outside
-    ``HEAD_DIMS``, float16 at 16 and 32) through the counted ``plain``
-    design, the reference's own route (on the card only where that route
-    is ``_attention_xla``). With
+    scale (every head_dim that the reference sends to its Pallas kernel has
+    one in bf16, float16 and float32: ``HEAD_DIMS`` and, by the tables'
+    rule, every multiple of 128 from ``DSPLIT_MIN_D`` up); every input that
+    no kernel takes (another head_dim, float16 at 16 and 32) through the
+    counted ``plain`` design, the reference's own route (on the card only
+    where that route is ``_attention_xla``). With
     ``segment_ids`` it computes ``_attention_plain`` on the tensors' device,
     differentiable through autograd and launching no flash kernel: the
     reference's dispatcher takes its XLA path there, since no kernel has a

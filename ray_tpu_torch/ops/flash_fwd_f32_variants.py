@@ -23,7 +23,7 @@ The float32 forward's kernel (``csrc/flash_fwd_f32.cu``, 3xTF32 on
 * ``sdpa``: ``scaled_dot_product_attention`` in float32, the yardstick.
 
 A variant of the source is one piece of its text (or of the shared header
-``csrc/tf32x3.cuh``) replaced, built with ``flash_fwd_variants.build_variant``.
+``csrc/tf32_mma.cuh``) replaced, built with ``flash_fwd_variants.build_variant``.
 The script prints each build's spills, checks each against the plain
 forward (worst-row error of out and lse's largest error,
 ``ops/tolerance.py``, and the three worst rows of out), and times them in
@@ -67,7 +67,7 @@ VARIANTS = {
     "as built": [],
     "one chain for S": [("      mma3_add(acc[nt], a0, b0);\n      mma3_add(acc[nt], a1, b1);",
                          "      mma3(acc[nt], a0, b0);\n      mma3(acc[nt], a1, b1);")],
-    # mma3 and mma3_add are tf32x3.cuh's, shared with the backward
+    # mma3 and mma3_add are tf32_mma.cuh's, shared with the backward
     "1xTF32": BWD_VARIANTS["1xTF32"],
     "S loop not unrolled": [("#pragma unroll 2\n  for (int c = 0; c < kK; c += 16) {",
                              "#pragma unroll 1\n  for (int c = 0; c < kK; c += 16) {")],

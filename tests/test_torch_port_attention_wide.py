@@ -6,17 +6,19 @@ a multiple of 128 (``ray_tpu/ops/attention.py``'s ``dot_product_attention``).
 At 384, 512, 640 and 768 the port's tables name ``wide``
 (``csrc/flash_fwd_wide.cu``, ``csrc/flash_bwd_wide.cu``) for bf16 and
 float16 and ``tf32x3`` for float32, at 32 x 64 tiles up to 512 and 16-row
-q tiles beyond (the wide forward's kv tiles 32 rows at 768); at 896 the
+q tiles beyond (the wide forward's kv tiles 32 rows at 768). Past 768 the
 wide dK/dV kernel spills and the float32 dQ's tiles pass the shared memory,
-so 896 is ``plain`` and raises on the card. The kernels run only on
-the card (``chip_smoke.py`` and the ``cuda``-marked tests of
-``tests/test_torch_port_kernels.py`` hold them to their plain versions);
-here the CPU path, which is their plain version at the design's tiles, is
-held to ``_flash_attention_tpu(..., interpret=True)`` at the same tiles and
-its backward to ``jax.grad`` of the reference's ``flash_attention`` in
-interpret mode. Inputs are float32 numpy draws from a seed; the limits are
-``FWD_ROW_TOL``, ``FWD_LSE_TOL`` and ``BWD_TOL`` for float32 (1e-4 of each
-row's norm, lse 1e-4 absolute): the two sides differ by summation order only.
+so 896 and up take the tables' rule, ``dsplit``
+(tests/test_torch_port_attention_dsplit.py), and run a kernel on the card
+too. The kernels run only on the card (``chip_smoke.py`` and the
+``cuda``-marked tests of ``tests/test_torch_port_kernels.py`` hold them to
+their plain versions); here the CPU path, which is their plain version at
+the design's tiles, is held to ``_flash_attention_tpu(..., interpret=True)``
+at the same tiles and its backward to ``jax.grad`` of the reference's
+``flash_attention`` in interpret mode. Inputs are float32 numpy draws from a
+seed; the limits are ``FWD_ROW_TOL``, ``FWD_LSE_TOL`` and ``BWD_TOL`` for
+float32 (1e-4 of each row's norm, lse 1e-4 absolute): the two sides differ
+by summation order only.
 """
 
 import jax
@@ -97,25 +99,40 @@ def test_tables_name_the_wide_designs(d, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_first_head_dim_past_the_designs_is_plain_and_raises_off_the_cpu(dtype):
-    """896, the first multiple of 128 past 768, is no table's key: both give
-    the plain design, which raises off the CPU (the reference runs its
-    Pallas kernel there) and computes on the CPU; at 384 to 768 off the CPU
-    the kernels' own input check answers instead."""
-    assert port.WIDE_HEAD_DIMS == WIDE
-    assert (896, dtype) not in port.FWD_DESIGNS and (896, dtype) not in port.BWD_DESIGNS
-    assert port.FWD_DESIGNS[(896, dtype)] is port.FWD_DESIGNS.plain
-    assert port.BWD_DESIGNS[(896, dtype)] is port.BWD_DESIGNS.plain
-    meta = torch.empty(1, 1, 64, 896, device="meta", dtype=dtype)
-    with pytest.raises(ValueError, match="no Hopper kernel takes head_dim 896"):
-        port._check_plain_inputs(meta, meta, meta)
-    for d in WIDE:
-        wide = torch.empty(1, 1, 64, d, device="meta", dtype=dtype)
+    """896, the first multiple of 128 past the wide designs' 768, is no
+    row of the tables but their rule's: both give ``dsplit``, which off the
+    CPU launches its kernels (here the meta device, where the kernels' own
+    input check answers "needs CUDA", as at 384 to 768) instead of raising
+    for want of a kernel. The plain design is left at 896 only for lengths
+    that are not multiples of 8 (the reference's XLA route, which it
+    computes off the CPU) and for a dtype that no kernel takes, which
+    raises off the CPU where the reference takes its kernel; on the CPU 896
+    computes at dsplit's tiles."""
+    assert port.WIDE_HEAD_DIMS == WIDE and port.DSPLIT_MIN_D == 896
+    assert (896, dtype) in port.FWD_DESIGNS and (896, dtype) in port.BWD_DESIGNS
+    assert 896 not in {d for d, _ in port.FWD_DESIGNS}  # a key of the rule, not a row
+    assert port.FWD_DESIGNS[(896, dtype)].name == "dsplit"
+    assert (port.BWD_DESIGNS[(896, dtype)].dq.name,
+            port.BWD_DESIGNS[(896, dtype)].dkv.name) == ("dsplit", "dsplit")
+    for d in (*WIDE, 896):
+        meta = torch.empty(1, 1, 64, d, device="meta", dtype=dtype)
         assert port.FWD_DESIGNS[(d, dtype)] is not port.FWD_DESIGNS.plain
+        port._check_plain_inputs(meta, meta, meta)
         with pytest.raises(ValueError, match="needs CUDA"):
-            port.flash_attention_fwd(wide, wide, wide, causal=True, scale=0.1)
+            port.flash_attention_fwd(meta, meta, meta, causal=True, scale=0.1)
+    ragged = torch.empty(1, 1, 60, 896, device="meta", dtype=dtype)
+    assert port._design(port.FWD_DESIGNS, ragged, 60) is port.FWD_DESIGNS.plain
+    port._check_plain_inputs(ragged, ragged, ragged)
+    wide64 = torch.empty(1, 1, 64, 896, device="meta", dtype=torch.float64)
+    assert port.FWD_DESIGNS[(896, torch.float64)] is port.FWD_DESIGNS.plain
+    with pytest.raises(ValueError, match="no Hopper kernel takes torch.float64"):
+        port._check_plain_inputs(wide64, wide64, wide64)
     cpu = torch.ones(1, 1, 16, 896, dtype=dtype)
     out, lse = port.flash_attention_fwd(cpu, cpu, cpu, causal=True, scale=896 ** -0.5)
     assert out.shape == cpu.shape and bool(torch.isfinite(lse).all())
+    want = port.flash_attention_fwd_plain(cpu, cpu, cpu, causal=True, scale=896 ** -0.5,
+                                          block_q=64, block_k=32)
+    assert all(torch.equal(a, b) for a, b in zip((out, lse), want))
 
 
 @pytest.mark.parametrize("d, case", D_CASES, ids=[f"{d}-{_ids(c)}" for d, c in D_CASES])

@@ -316,17 +316,21 @@ def _plain_on_card_matches_cpu(card, shape, dtype, scale=None):
 
 @pytest.mark.cuda
 def test_dispatcher_raises_for_what_the_kernel_does_not_take(card):
-    """The refusals left are the tiles, and a head_dim where the reference
-    runs its Pallas kernel and the port has none (896, the first past the
-    designs' limit); a non-positive scale runs the kernels (the forward's
-    sign handed to q; the wide forward at 384 too), float16 at 64 the d64
+    """The refusals left are the tiles, and a dtype that no kernel takes
+    where the reference runs its Pallas kernel (float64); head_dim 896, the
+    first past the wide designs, runs the dsplit kernels (the tables' rule);
+    a non-positive scale runs the kernels (the forward's sign handed to q;
+    the wide forward at 384 and dsplit's at 896 too), float16 at 64 the d64
     kernels, head_dim 48 and float16 at 16 the plain design, each as on the
     CPU."""
     q, k, v = _qkv(1, 2, 64, 64, 64, device=card, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="tiles"):
         port.dot_product_attention(q, k, v, block_q=64, block_k=64)
-    with pytest.raises(ValueError, match="no Hopper kernel"):
-        port.dot_product_attention(*_qkv(1, 1, 64, 64, 896, device=card, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="no Hopper kernel takes torch.float64"):
+        port.dot_product_attention(*_qkv(1, 1, 64, 64, 128, device=card, dtype=torch.float64))
+    _on_card_matches_cpu(card, (1, 2, 64, 64, 896, True), torch.bfloat16, ("dsplit",) * 3)
+    _on_card_matches_cpu(card, (1, 2, 64, 96, 896, True), torch.float32, ("dsplit",) * 3,
+                         scale=-0.03)
     d64 = ("d64",) * 3
     _on_card_matches_cpu(card, (1, 2, 64, 64, 64, True), torch.bfloat16, d64, scale=-0.125)
     _on_card_matches_cpu(card, (1, 2, 64, 64, 16, True), torch.bfloat16, ("persistent",) * 3,
@@ -475,6 +479,92 @@ def test_wide_head_dim_kernels_match_plain_on_card(card, case, dtype):
     _assert_grads_close(got, want, BWD_TOL[dt])
     again = port.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))  # no atomics
+
+
+# head_dims from 896 up (the tables' rule: dsplit in bf16, float16 and
+# float32, at 64 x 32 forward tiles): the CPU tests' length cases
+# (tests/test_torch_port_attention_dsplit.py) at 896 and 1152 (9 chunks of
+# 128 columns, 4.5 column groups), rows that see no key in a q tile that
+# skips every kv tile, two full heads at 1024, and 2048 and 4096
+DSPLIT_CASES = [
+    (1, 2, 128, 128, 896, True),
+    (1, 2, 40, 120, 896, True),
+    (1, 2, 112, 64, 896, True),
+    (1, 2, 104, 72, 896, False),
+    (1, 2, 128, 128, 1152, True),
+    (1, 2, 40, 120, 1152, True),
+    (1, 2, 112, 64, 1152, True),
+    (1, 2, 104, 72, 1152, False),
+    (1, 2, 160, 64, 1152, True),
+    (2, 2, 256, 256, 1024, True),
+    (1, 2, 128, 128, 2048, True),
+    (1, 2, 64, 64, 4096, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+@pytest.mark.parametrize("case", DSPLIT_CASES, ids=_ids)
+def test_dsplit_kernels_match_plain_on_card(card, case, dtype):
+    """From 896 up the forward, dQ and dK/dV kernels of dsplit launch once
+    each on their counters (and on their head_dim's) and none on plain,
+    every row of out, lse, dq, dk and dv within the dtype's limits of the
+    plain versions (the forward at the table's 64 x 32 tiles; the backward
+    in float64 for float32), and a second run gives the same bits."""
+    b, h, tq, tkv, d, causal = case
+    dt = getattr(torch, dtype)
+    q, k, v = _qkv(b, h, tq, tkv, d, device=card, dtype=dt)
+    fwd, bwd = port.FWD_DESIGNS[(d, dt)], port.BWD_DESIGNS[(d, dt)]
+    assert (fwd.name, bwd.dq.name, bwd.dkv.name) == ("dsplit",) * 3
+    names = ["flash_fwd_plain_launches", "flash_bwd_dq_plain_launches",
+             "flash_fwd_dsplit_launches", "flash_bwd_dq_dsplit_launches",
+             "flash_bwd_dkv_dsplit_launches"]
+    by_d = [f"flash_fwd_dsplit_d{d}", f"flash_bwd_dq_dsplit_d{d}", f"flash_bwd_dkv_dsplit_d{d}"]
+    before = [getattr(port, n) for n in names]
+    before_d = [port.launches_by_head_dim[n] for n in by_d]
+    scale = d ** -0.5
+    o, lse = port.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+    do = torch.from_numpy(np.random.RandomState(1).randn(b, h, tq, d).astype(np.float32)).to(
+        card, dt)
+    got = port.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
+    assert [getattr(port, n) - c for n, c in zip(names, before)] == [0, 0, 1, 1, 1]
+    assert [port.launches_by_head_dim[n] - c for n, c in zip(by_d, before_d)] == [1, 1, 1]
+    ref_o, ref_lse = port.flash_attention_fwd_plain(q, k, v, causal=causal, scale=scale)
+    exact = torch.float64 if dt == torch.float32 else dt
+    want = [w.to(dt) for w in port.flash_attention_bwd_plain(
+        *(x.to(exact) for x in (q, k, v, o, lse, do)), causal=causal, scale=scale)]
+    torch.cuda.synchronize()
+    assert row_err(o, ref_o) <= FWD_ROW_TOL[dt]
+    torch.testing.assert_close(lse, ref_lse, atol=FWD_LSE_TOL[dt], rtol=1e-6)
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+    _assert_grads_close(got, want, BWD_TOL[dt])
+    again = port.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))  # no atomics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+def test_every_head_dim_the_reference_takes_runs_a_kernel_on_card(card, dtype):
+    """Every multiple of 128 from 896 to 8192 at (1, 1, 64, 64), causal,
+    through ``dot_product_attention`` with a backward: no refusal, one
+    launch of each dsplit kernel and none of plain, out within the dtype's
+    limit of the plain forward and the gradients finite."""
+    dt = getattr(torch, dtype)
+    for d in range(896, 8192 + 1, 128):
+        q, k, v = (t.requires_grad_() for t in _qkv(1, 1, 64, 64, d, device=card, dtype=dt,
+                                                    seed=d))
+        names = ["flash_fwd_dsplit_launches", "flash_bwd_dq_dsplit_launches",
+                 "flash_bwd_dkv_dsplit_launches", "flash_fwd_plain_launches",
+                 "flash_bwd_dq_plain_launches", "flash_bwd_dkv_plain_launches"]
+        before = [getattr(port, n) for n in names]
+        out = port.dot_product_attention(q, k, v, causal=True)
+        out.backward(torch.ones_like(out))
+        assert [getattr(port, n) - c for n, c in zip(names, before)] == [1, 1, 1, 0, 0, 0], d
+        plain, _ = port.flash_attention_fwd_plain(q.detach(), k.detach(), v.detach(),
+                                                  causal=True, scale=d ** -0.5)
+        torch.cuda.synchronize()
+        assert row_err(out.detach(), plain) <= FWD_ROW_TOL[dt], d
+        assert all(bool(torch.isfinite(t.grad).all()) for t in (q, k, v)), d
 
 
 # float16 at head_dim 64, 128 and 256: the bf16 kernels' float16 builds
