@@ -8,9 +8,9 @@ Phases (any failure exits non-zero; nothing is caught):
      flash_fwd_d64.cu, flash_fwd_persistent.cu, flash_fwd.cu,
      flash_fwd_f32.cu, flash_fwd_wide.cu, flash_bwd_wgmma.cu,
      flash_bwd_d64.cu, flash_bwd_persistent.cu, flash_bwd.cu,
-     flash_bwd_f32.cu, flash_bwd_wide.cu, flash_fwd_dsplit.cu and
-     flash_bwd_dsplit.cu with nvcc, in parallel (one nvcc a source), and
-     print their register,
+     flash_bwd_f32.cu, flash_bwd_wide.cu, flash_fwd_dsplit.cu,
+     flash_bwd_dsplit.cu and flash_bwd_dcluster.cu with nvcc, in parallel
+     (one nvcc a source), and print their register,
      shared-memory and spill reports; the wgmma forward and both wgmma
      backward kernels at head_dim 128 and 256 (the train paths': dQ, dK/dV
      and, at 256, the split dK/dV kernel), the persistent forward and the
@@ -25,8 +25,14 @@ Phases (any failure exits non-zero; nothing is caught):
      and the wide forward, dQ and dK/dV (bf16 and float16 at WIDE_D)
      must not spill, and their shared memory and CTAs an SM are printed and
      gated the same way; so are the dsplit forward, dQ and dK/dV (head_dim
-     a runtime argument; one build each in bf16, float16 and float32), by
-     dtype, with their registers a thread;
+     a runtime argument; one build each in bf16, float16 and float32; the
+     backward pair is on no path now), by dtype, with their registers a
+     thread; and the dcluster dQ and dK/dV (the backward from 896 up, the
+     CTAs of a cluster sharing a resident tile; a build each in bf16,
+     float16 and float32) must not spill, with their registers a thread,
+     shared memory at most 232448 bytes and the clusters resident at once
+     (cudaOccupancyMaxActiveClusters) at each cluster size the plan uses,
+     printed and above 0;
   2. kernel vs plain: the flash forward kernel against its plain PyTorch
      version on the same device tensors, per case (among them the shape of
      each train path and of the forward: gpt_1b at b=12, b=8, b=4 and the
@@ -50,14 +56,14 @@ Phases (any failure exits non-zero; nothing is caught):
   3. backward kernels vs plain: the dQ and dK/dV kernels of the design
      BWD_DESIGNS names (wgmma; d64 at bf16 head_dim 64; persistent for
      bf16 at head_dim 16 and 32; wide for bf16 and float16 at WIDE_D;
-     tf32x3 for float32; dsplit from 896 up in every dtype; each case
+     tf32x3 for float32; dcluster from 896 up in every dtype; each case
      names them and must launch them)
      against flash_attention_bwd_plain, per
      case (the train paths' shapes among them, the pipelined step's b=3,
      gpt_j_6b's head_dim 256: its train shape, b=2, non-causal, q the
      suffix, ragged; phase 2's head_dim-16/32 cases; and in float32
      train_f32's shape, head_dims 16 to 256, ragged, non-causal and rows
-     that see no key; phase 2's WIDE_D and dsplit cases): each row of dq,
+     that see no key; phase 2's WIDE_D cases and those from 896 up): each row of dq,
      dk, dv held to its own norm (ray_tpu_torch/ops/tolerance.py; float32
      against the plain backward in float64, with the plain version's own
      float32 error beside it, not gated), max abs
@@ -69,8 +75,10 @@ Phases (any failure exits non-zero; nothing is caught):
      reference takes its XLA route: head_dim 48 in bf16, 16 in float16),
      and through the kernels at head_dim 64 in float16 and in bf16 at a
      negative scale, at head_dim 384 in bf16 (the wide design) and at 896
-     in bf16 and float32 (dsplit: this slice's path, every count set to 0
-     before each case); out and dq, dk, dv held to the CPU's row by row, and
+     in bf16 and float32 (the dsplit forward and the dcluster dQ and dK/dV:
+     this slice's path, every count set to 0 before each case); out and dq,
+     dk, dv held to the CPU's row by row (float32 against the plain
+     backward in float64), and
      the counters of the case's designs risen by exactly one forward and one
      of each backward launch a case; every other phase gates plain
      launches at 0;
@@ -160,7 +168,8 @@ Phases (any failure exits non-zero; nothing is caught):
      the flash forward, then the dQ and dK/dV kernels with delta - dlse) at
      gpt_1b's heads (b=2, h=16, t=2048, d=128) in bf16 (wgmma) and float32
      (tf32x3), gpt_j_6b's (d=256), d=512 (wide) and d=1024 with 8 heads
-     (dsplit, this slice's path: one launch of each kernel, none on plain)
+     (the dsplit forward and the dcluster backward, this slice's path: one
+     launch of each kernel, none on plain)
      in bf16, causal (a ring's step 0)
      and not (a hop), under random cotangents of both outputs: against the plain flash versions on the same
      inputs, and against autograd through the plain float32
@@ -241,7 +250,8 @@ Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero without a card.
 Each forward case names the design (FWD_DESIGNS: wgmma, d64, persistent, wide,
 tf32x3 or dsplit) and the
-tiles that ran it; each backward case names its design (BWD_DESIGNS). In
+tiles that ran it; each backward case names its design (BWD_DESIGNS: wgmma,
+d64, persistent, wide, tf32x3 or dcluster). In
 the kernels line, flash_fwd is the wgmma design, the one the main path
 runs, at gpt_1b's forward shape (b=4) with the forward phase's launches,
 and the backward kernels at the train step's shape (b=12) with the train
@@ -265,11 +275,11 @@ launches, the b=4 case under "b4"; the wide kernels (no model path runs
 them) stand as flash_fwd_wide, flash_bwd_dq_wide and flash_bwd_dkv_wide at
 d512_b2, the other WIDE_D cases under "d384", "d640" and "d768", each naming
 the library's backend, with the paths' launches at that head_dim (the
-port's launches_by_head_dim, read as BY_HEAD_DIM); the dsplit kernels stand
-as flash_fwd_dsplit, flash_bwd_dq_dsplit and flash_bwd_dkv_dsplit at
-d1024_b2 (bf16), d896_b2 and d2048_b2 under "d896" and "d2048", the float32
-cases under "f32", each naming the library's backend, with the launches of
-this slice's path at that head_dim (3b at 896, 7a at 1024); the
+port's launches_by_head_dim, read as BY_HEAD_DIM); the kernels from 896 up
+stand as flash_fwd_dsplit, flash_bwd_dq_dcluster and flash_bwd_dkv_dcluster
+at d1024_b2 (bf16), d896_b2 and d2048_b2 under "d896" and "d2048", the
+float32 cases under "f32", each naming the library's backend, with the
+launches of this slice's path at that head_dim (3b at 896, 7a at 1024); the
 backward kernels' plain and library
 times are those of the whole backward (dq, dk and dv together). In the
 kernels line ms and library_ms are device times (torch.profiler),
@@ -309,8 +319,9 @@ HBM_BYTES_PER_S = 3.35e12
 # (ray_tpu_torch/ops/attention.py's WIDE_HEAD_DIMS: wide in bf16 and
 # float16, tf32x3 in float32)
 WIDE_D = (384, 512, 640, 768)
-# the head_dims from 896 up (the tables' rule, from DSPLIT_MIN_D: dsplit in
-# bf16, float16 and float32, d a runtime argument) that phases 2-3 time;
+# the head_dims from 896 up (the tables' rule, from DSPLIT_MIN_D: the forward's
+# dsplit and the backward's dcluster in bf16, float16 and float32, d a
+# runtime argument) that phases 2-3 time;
 # they check 1152 and 4096 besides, and count launches at all five
 DSPLIT_D = (896, 1024, 2048)
 DSPLIT_BY_D = (896, 1024, 1152, 2048, 4096)
@@ -499,7 +510,7 @@ def phase_build():
     names = ("flash_fwd_wgmma", "flash_fwd_d64", "flash_fwd_persistent", "flash_fwd",
              "flash_fwd_f32", "flash_fwd_wide", "flash_bwd_wgmma", "flash_bwd_d64",
              "flash_bwd_persistent", "flash_bwd", "flash_bwd_f32", "flash_bwd_wide",
-             "flash_fwd_dsplit", "flash_bwd_dsplit")
+             "flash_fwd_dsplit", "flash_bwd_dsplit", "flash_bwd_dcluster")
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
         built = dict(zip(names, pool.map(timed, names)))
     out = {"seconds": time.monotonic() - t0}
@@ -603,6 +614,40 @@ def phase_build():
         out[source].setdefault("smem_bytes", {})[kernel] = smem
         out[source].setdefault("ctas_per_sm", {})[kernel] = ctas
         out[source].setdefault("registers_by_dtype", {})[kernel] = regs
+    # the dcluster kernels (the backward from 896 up, d a runtime argument,
+    # the CTAs of a thread-block cluster sharing a resident tile): one build
+    # a dtype and kernel, none may spill; registers a thread, dynamic shared
+    # memory, and the clusters resident at once at each cluster size the
+    # plan gives DSPLIT_BY_D and 8192 (cudaOccupancyMaxActiveClusters), each
+    # above 0
+    from ray_tpu_torch.ops.dcluster import dcluster_plan
+
+    sizes = sorted({dcluster_plan(d, torch.float32).cluster for d in (*DSPLIT_BY_D, 8192)})
+    lib = ctypes.CDLL(str(built["flash_bwd_dcluster"][0]))
+    lib.ray_tpu_flash_bwd_dcluster_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.ray_tpu_flash_bwd_dcluster_max_clusters.argtypes = [ctypes.c_int] * 3
+    for dkv, name in enumerate(("flash_bwd_dq_dcluster", "flash_bwd_dkv_dcluster")):
+        marks = {dt: f"{name}_kernel{tmark}" for dt, (tmark, _) in codes.items()}
+        spills = {dt: next((n for k, n in out["flash_bwd_dcluster"]["spills"].items() if m in k),
+                           None) for dt, m in marks.items()}
+        regs = {dt: next((n for k, n in out["flash_bwd_dcluster"]["registers"].items()
+                          if m in k), None) for dt, m in marks.items()}
+        smem = {dt: lib.ray_tpu_flash_bwd_dcluster_smem_bytes(code, dkv)
+                for dt, (_, code) in codes.items()}
+        clusters = {dt: {c: lib.ray_tpu_flash_bwd_dcluster_max_clusters(code, dkv, c)
+                         for c in sizes} for dt, (_, code) in codes.items()}
+        print(f"[build] {name} by dtype: registers a thread {regs}, spill bytes {spills}, "
+              f"{smem} bytes of dynamic shared memory per CTA (of 232448), clusters resident "
+              f"at once by cluster size {clusters}")
+        if any(n != 0 for n in spills.values()):
+            raise SystemExit(f"{name} spills, or a dtype's build is missing: {spills}")
+        if (any(not 0 < n <= 232448 for n in smem.values())
+                or any(n < 1 for by_c in clusters.values() for n in by_c.values())):
+            raise SystemExit(f"{name} asks for {smem} bytes of shared memory, {clusters} "
+                             f"clusters resident at once")
+        out["flash_bwd_dcluster"].setdefault("smem_bytes", {})[name] = smem
+        out["flash_bwd_dcluster"].setdefault("max_active_clusters", {})[name] = clusters
+        out["flash_bwd_dcluster"].setdefault("registers_by_dtype", {})[name] = regs
     # dynamic shared memory, which the compiler's report does not show
     fwd_lib = ctypes.CDLL(str(built["flash_fwd_wgmma"][0]))
     fwd_lib.ray_tpu_flash_fwd_wgmma_smem_bytes.argtypes = [ctypes.c_int]
@@ -871,7 +916,7 @@ def _wide_cases(head_dims):
 
 WIDE_CASES = _wide_cases(WIDE_D[:2]) + _wide_cases(WIDE_D[2:])
 WIDE_TIMED = {f"d{d}_b2{suffix}" for d in WIDE_D for suffix in ("", "_f32")}
-# head_dims from 896 up (the tables' rule, dsplit; no model path), in both
+# head_dims from 896 up (the tables' rule; no model path), in both
 # phases, last: timed at 2 x 8 heads x 2048^2, causal, at DSPLIT_D in bf16
 # and float32; checked only, at 1152 (9 chunks of 128 columns, 4.5 column
 # groups) ragged q and kv, rows that see no key (t_q 160, t_kv 64) and
@@ -954,7 +999,7 @@ def phase_bwd_kernels_vs_plain():
         scale = 1.0 / d ** 0.5
         design = attn.BWD_DESIGNS[(d, dtype)]
         names = {"dq": design.dq.name, "dkv": design.dkv.name}
-        want = ({"dq": "dsplit", "dkv": "dsplit"} if d >= DSPLIT_D[0] else
+        want = ({"dq": "dcluster", "dkv": "dcluster"} if d >= DSPLIT_D[0] else
                 {"dq": "tf32x3", "dkv": "tf32x3"} if dtype == torch.float32 else
                 {16: {"dq": "persistent", "dkv": "persistent"},
                  32: {"dq": "persistent", "dkv": "persistent"},
@@ -1023,7 +1068,7 @@ def phase_bwd_kernels_vs_plain():
             del got, want
             continue
         big = b * h * t_q * t_kv >= 2 ** 26
-        # the dsplit cases' kernels take 5-132 ms a call: 5 calls a timing
+        # the cases from 896 up take milliseconds a call: 5 calls a timing
         iters = 5 if d >= DSPLIT_D[0] else 10 if big else 50
         delta = attn.flash_bwd_delta(out, do)
         delta_ms = cuda_ms(lambda: attn.flash_bwd_delta(out, do), iters=iters)
@@ -1076,18 +1121,20 @@ def phase_bwd_kernels_vs_plain():
 # each kernel's by design (the wgmma kernels are the bf16 paths' at head_dim
 # 128 and 256; d64 the forward's, dQ's and dK/dV's at 64; at 16 and 32 the
 # forward and the backward are persistent's; wide bf16 and float16 at
-# WIDE_D, which no model path runs; tf32x3 float32; dsplit every dtype from
-# 896 up, which phases 3b and 7a run; plain every input that no kernel
-# takes, which only the plain_design phase may launch), and the wide and
-# tf32x3 kernels' by head_dim at WIDE_D and dsplit's at DSPLIT_BY_D (the
-# port's launches_by_head_dim), which the kernels line reads for its 384-768
-# and dsplit entries
+# WIDE_D, which no model path runs; tf32x3 float32; every dtype from 896 up
+# the forward's dsplit and the backward's dcluster, which phases 3b and 7a
+# run; plain every input that no kernel takes, which only the plain_design
+# phase may launch), and the wide and tf32x3 kernels' by head_dim at WIDE_D
+# and dsplit's and dcluster's at DSPLIT_BY_D (the port's
+# launches_by_head_dim), which the kernels line reads for its 384-768, dsplit
+# and dcluster entries
 KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-DESIGNS = {kernel: ("wgmma", "d64", "persistent", "wide", "tf32x3", "dsplit", "plain")
+DESIGNS = {kernel: ("wgmma", "d64", "persistent", "wide", "tf32x3",
+                   "dsplit" if kernel == "flash_fwd" else "dcluster", "plain")
            for kernel in KERNEL_NAMES}
 BY_HEAD_DIM = tuple(f"{kernel}_{design}_d{d}" for kernel in KERNEL_NAMES
                     for design, dims in (("wide", WIDE_D), ("tf32x3", WIDE_D),
-                                         ("dsplit", DSPLIT_BY_D)) for d in dims)
+                                         (DESIGNS[kernel][5], DSPLIT_BY_D)) for d in dims)
 COUNTS = KERNEL_NAMES + tuple(
     f"{kernel}_{design}" for kernel in KERNEL_NAMES for design in DESIGNS[kernel]) + BY_HEAD_DIM
 
@@ -1560,11 +1607,12 @@ def phase_plain_design():
     backward: the plain design at head_dim 48 in bf16 and 16 in float16 (the
     reference's XLA route), and the kernels at head_dim 64 in float16 and in
     bf16 at a negative scale (the forward's sign handed to q), at 384 in
-    bf16 (wide) and at 896 in bf16 and float32 (dsplit, the tables' rule:
-    this slice's path, every count set to 0 before each case). Out and dq,
-    dk, dv held to the CPU's (ops/tolerance.py's limits for the dtype, row
-    by row): the plain design's to the same function on the CPU, the
-    kernels' to their plain backward on the CPU from the card's out (the
+    bf16 (wide) and at 896 in bf16 and float32 (the tables' rule: the
+    forward's dsplit and the backward's dcluster, this slice's path, every
+    count set to 0 before each case). Out and dq, dk, dv held to the CPU's
+    (ops/tolerance.py's limits for the dtype, row by row): the plain
+    design's to the same function on the CPU, the kernels' to their plain
+    backward on the CPU from the card's out (in float64 for float32; the
     backward reads out through delta, where a row with few keys cancels, so
     the forward kernel's rounding of P moves such a row's dq by more than
     the backward's own), and the
@@ -1576,14 +1624,15 @@ def phase_plain_design():
     rows = []
     gen = torch.Generator().manual_seed(9)
     d64 = ("d64",) * 3
+    d896 = ("dsplit", "dcluster", "dcluster")
     for name, shape, dtype, scale, designs in (
             ("plain_d48_bf16", (2, 12, 256, 256, 48), torch.bfloat16, None, ("plain",) * 3),
             ("plain_d16_f16", (2, 12, 256, 256, 16), torch.float16, None, ("plain",) * 3),
             ("kernels_d64_f16", (2, 12, 256, 256, 64), torch.float16, None, d64),
             ("kernels_d64_scale_neg", (2, 12, 256, 256, 64), torch.bfloat16, -0.125, d64),
             ("kernels_d384_bf16", (2, 4, 256, 256, 384), torch.bfloat16, None, ("wide",) * 3),
-            ("kernels_d896_bf16", (1, 2, 256, 256, 896), torch.bfloat16, None, ("dsplit",) * 3),
-            ("kernels_d896_f32", (1, 2, 256, 256, 896), torch.float32, None, ("dsplit",) * 3)):
+            ("kernels_d896_bf16", (1, 2, 256, 256, 896), torch.bfloat16, None, d896),
+            ("kernels_d896_f32", (1, 2, 256, 256, 896), torch.float32, None, d896)):
         b, h, t_q, t_kv, d = shape
         cpu = [torch.randn(b, h, t, d, generator=gen).to(dtype).requires_grad_()
                for t in (t_q, t_kv, t_kv)]
@@ -1604,11 +1653,15 @@ def phase_plain_design():
         out_cpu.backward(g)
         ref_grads = [x.grad for x in cpu]
         if designs != ("plain",) * 3:
-            qkv = [x.detach() for x in cpu]
+            # the kernels' plain backward from the card's out; in float64
+            # for float32 (the plain version's own float32 rounding reads
+            # 1e-4-scale on the first causal rows from 384 up)
+            exact = torch.float64 if dtype == torch.float32 else dtype
+            qkv = [x.detach().to(exact) for x in cpu]
             s = d ** -0.5 if scale is None else scale
             _, lse = attn.flash_attention_fwd_plain(*qkv, causal=True, scale=s)
-            ref_grads = attn.flash_attention_bwd_plain(*qkv, out.detach().cpu(), lse, g,
-                                                       causal=True, scale=s)
+            ref_grads = attn.flash_attention_bwd_plain(*qkv, out.detach().cpu().to(exact), lse,
+                                                       g.to(exact), causal=True, scale=s)
         errs = {"out": row_err(out.detach().cpu(), out_cpu.detach()),
                 **{n: row_err(x.grad.cpu(), y) for n, x, y in zip(("dq", "dk", "dv"),
                                                                   dev, ref_grads)}}
@@ -1897,8 +1950,9 @@ def phase_lse_grad():
     d=128) in bf16 (the wgmma kernels) and float32 (tf32x3 forward and
     backward), at gpt_j_6b's (d=256) in bf16 (the wgmma split dK/dV
     kernel), at d=512 in bf16 (the wide kernels) and at d=1024 in bf16 with
-    8 heads (the dsplit kernels: this slice's path, every count set to 0
-    before it and read after, none on plain), causal and not. Two gates on
+    8 heads (the dsplit forward and the dcluster backward: this slice's
+    path, every count set to 0 before it and read after, none on plain),
+    causal and not. Two gates on
     every row of dq, dk and dv:
     - against the plain flash versions on the same inputs (the forward's
       out and lse feed both backwards, as in phase 3): the kernels'
@@ -3275,16 +3329,16 @@ def main() -> int:
     for entry, (rows, kernel, line) in zip(f32.values(), kernel_rows):
         entry.update({f"d{d}": no_path(rows, f"d{d}_b2_f32", kernel, line, d) for d in WIDE_D})
 
-    # the dsplit kernels (the tables' rule, every multiple of 128 from 896
-    # up), which this slice's path runs and no model path does: 3b at 896
-    # (bf16 and float32) and 7a at 1024 (bf16). Each entry's launches are
-    # that path's at the case's head_dim (BY_HEAD_DIM, counted from 0 on
-    # each of the path's runs); the forward, dQ and dK/dV at d1024_b2
-    # (bf16), d896_b2 and d2048_b2 under "d896" and "d2048", the float32
-    # cases under "f32"
+    # the kernels of the tables' rule (every multiple of 128 from 896 up):
+    # the dsplit forward and the dcluster dQ and dK/dV, which this slice's
+    # path runs and no model path does: 3b at 896 (bf16 and float32) and 7a
+    # at 1024 (bf16). Each entry's launches are that path's at the case's
+    # head_dim (BY_HEAD_DIM, counted from 0 on each of the path's runs); the
+    # forward, dQ and dK/dV at d1024_b2 (bf16), d896_b2 and d2048_b2 under
+    # "d896" and "d2048", the float32 cases under "f32"
     def on_path(rows, name, kernel, line, d):
         entry = small_d(rows, name, kernel, line)
-        key, dtype = f"{kernel}_dsplit_d{d}", case(rows, name)[0]["dtype"]
+        key, dtype = f"{kernel}_{entry['design']}_d{d}", case(rows, name)[0]["dtype"]
         by = {path: sum(r["launches"].get(key, 0) for r in report[path]
                         if r["dtype"].removeprefix("torch.") == dtype)
               for path in ("plain_design", "lse_grad")}
@@ -3293,18 +3347,18 @@ def main() -> int:
                      library_backend=case(rows, name)[0]["library_backend"])
         return entry
 
-    dsplit = [dict(on_path(rows, "d1024_b2", kernel, line, 1024),
-                   **{f"d{d}": on_path(rows, f"d{d}_b2", kernel, line, d)
-                      for d in DSPLIT_D if d != 1024},
-                   f32={f"d{d}": on_path(rows, f"d{d}_b2_f32", kernel, line, d)
-                        for d in DSPLIT_D})
-              for rows, kernel, line in kernel_rows]
+    by_rule = [dict(on_path(rows, "d1024_b2", kernel, line, 1024),
+                    **{f"d{d}": on_path(rows, f"d{d}_b2", kernel, line, d)
+                       for d in DSPLIT_D if d != 1024},
+                    f32={f"d{d}": on_path(rows, f"d{d}_b2_f32", kernel, line, d)
+                         for d in DSPLIT_D})
+               for rows, kernel, line in kernel_rows]
     if any(min(e["launches"], e["d896"]["launches"], e["f32"]["d896"]["launches"]) < 1
-           for e in dsplit):
-        raise SystemExit("a dsplit kernel launched no time on its path (7a at 1024 in bf16, 3b "
-                         "at 896 in bf16 and float32): " + str(
+           for e in by_rule):
+        raise SystemExit("a kernel from 896 up launched no time on its path (7a at 1024 in bf16, "
+                         "3b at 896 in bf16 and float32): " + str(
                              {e["name"]: (e["launches"], e["d896"]["launches"],
-                                          e["f32"]["d896"]["launches"]) for e in dsplit}))
+                                          e["f32"]["d896"]["launches"]) for e in by_rule}))
     kernels = {"kernels": [
         dict(name="flash_fwd", route="cuda", source=fwd_case["source"],
              replaces="ray_tpu/ops/attention.py:167",
@@ -3347,7 +3401,7 @@ def main() -> int:
         *nano,
         *d64,
         *wide,
-        *dsplit,
+        *by_rule,
     ]}
     report.update(kernels)
     if args.out:

@@ -40,15 +40,22 @@ a shorter q is the suffix of the kv context (``q_pos = q_idx + t_kv - t_q``).
   SM, a TMA ring; bf16 at head_dim 16 and 32), ``csrc/flash_bwd_wide.cu``
   (mma.sync, d cut between warps; bf16 and float16 at 384, 512, 640 and 768),
   ``csrc/flash_bwd_f32.cu`` (3xTF32 on mma.sync; float32 at every head_dim
-  of ``HEAD_DIMS``) or ``csrc/flash_bwd_dsplit.cu`` (bf16, float16 and
-  float32 from 896 up); ``csrc/flash_bwd.cu`` (mma.sync), bf16 16/32's
-  kernels before, is on no path.
+  of ``HEAD_DIMS``) or ``csrc/flash_bwd_dcluster.cu`` (design ``dcluster``,
+  bf16, float16 and float32 from 896 up: the CTAs of a thread-block cluster
+  share a resident tile, each computes S and dP over its own columns, the
+  cluster sums them over distributed shared memory, and each CTA writes its
+  own output columns; the plan is ``ops/dcluster.py``'s);
+  ``csrc/flash_bwd.cu`` (mma.sync), bf16 16/32's kernels before, is on no
+  path, and neither is ``csrc/flash_bwd_dsplit.cu``, the design before
+  ``dcluster``, which ``ops/flash_bwd_variants.py --dsplit`` times beside it.
 * Both tables hold rows (``HEAD_DIMS``) and a rule (``dsplit_takes``: every
   multiple of 128 from ``DSPLIT_MIN_D`` up, in bf16, float16 and float32).
-  A key the rule takes runs ``dsplit`` where the reference runs its Pallas
-  kernel (both lengths multiples of 8, ``reference_takes_kernel``) and the
-  reference's own route, ``plain``, where it does not (``_design``), so
-  every input the reference sends to its kernel has a Hopper kernel.
+  A key the rule takes runs its design (the forward's ``dsplit``, the
+  backward's ``dcluster``) where the
+  reference runs its Pallas kernel (both lengths multiples of 8,
+  ``reference_takes_kernel``) and the reference's own route, ``plain``,
+  where it does not (``_design``), so every input the reference sends to
+  its kernel has a Hopper kernel.
 * Every other (head_dim, dtype) (the head_dims outside ``HEAD_DIMS`` that
   the rule does not take, float16 at 16 and 32) goes to both tables'
   ``plain`` design: the reference's own route for the input,
@@ -96,7 +103,7 @@ from typing import Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ray_tpu_torch.ops import _build
+from ray_tpu_torch.ops import _build, dcluster
 
 NEG_INF = -1e30
 #: the head_dims past 256 that the hand-written designs take (``wide`` in
@@ -105,9 +112,10 @@ WIDE_HEAD_DIMS = (384, 512, 640, 768)
 #: the head_dims of the tables' rows (the rule, ``dsplit_takes``, takes
 #: every multiple of 128 from ``DSPLIT_MIN_D`` up besides)
 HEAD_DIMS = (16, 32, 64, 128, 256) + WIDE_HEAD_DIMS
-#: the least head_dim of the ``dsplit`` design (d a runtime argument, the
-#: output's columns split over CTAs), which takes every multiple of 128 from
-#: here up in bf16, float16 and float32
+#: the least head_dim of the tables' rule: the forward's ``dsplit`` design
+#: (d a runtime argument, the output's columns split over CTAs) and the
+#: backward's ``dcluster`` (the same over the CTAs of a cluster) take every
+#: multiple of 128 from here up in bf16, float16 and float32
 DSPLIT_MIN_D = 896
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 #: the reference's default flash tiles (``ray_tpu/ops/attention.py``'s
@@ -192,9 +200,9 @@ _PLAIN = FwdDesign("plain", None, None, REF_BLOCK, REF_BLOCK)
 
 
 def dsplit_takes(head_dim: int, dtype: torch.dtype) -> bool:
-    """The rule of both dispatch tables: ``dsplit`` takes every head_dim
-    that is a multiple of 128 from ``DSPLIT_MIN_D`` up, in bf16, float16 and
-    float32."""
+    """The rule of both dispatch tables: it takes every head_dim that is a
+    multiple of 128 from ``DSPLIT_MIN_D`` up, in bf16, float16 and float32,
+    to the forward's ``dsplit`` and the backward's ``dcluster``."""
     return head_dim >= DSPLIT_MIN_D and head_dim % 128 == 0 and dtype in _DTYPE_CODES
 
 
@@ -261,8 +269,9 @@ _BWD_WIDE = BwdDesign(BwdKernel("wide", "flash_bwd_wide", "ray_tpu_flash_bwd_dq_
                       BwdKernel("wide", "flash_bwd_wide", "ray_tpu_flash_bwd_dkv_wide"))
 _BWD_TF32X3 = BwdDesign(BwdKernel("tf32x3", "flash_bwd_f32", "ray_tpu_flash_bwd_dq_f32"),
                         BwdKernel("tf32x3", "flash_bwd_f32", "ray_tpu_flash_bwd_dkv_f32"))
-_BWD_DSPLIT = BwdDesign(BwdKernel("dsplit", "flash_bwd_dsplit", "ray_tpu_flash_bwd_dq_dsplit"),
-                        BwdKernel("dsplit", "flash_bwd_dsplit", "ray_tpu_flash_bwd_dkv_dsplit"))
+_BWD_DCLUSTER = BwdDesign(
+    BwdKernel("dcluster", "flash_bwd_dcluster", "ray_tpu_flash_bwd_dq_dcluster"),
+    BwdKernel("dcluster", "flash_bwd_dcluster", "ray_tpu_flash_bwd_dkv_dcluster"))
 _BWD_PLAIN = BwdDesign(BwdKernel("plain", None, None), BwdKernel("plain", None, None))
 
 #: the backward's dispatch table, keyed on (head_dim, dtype): the kernels each
@@ -275,7 +284,9 @@ _BWD_PLAIN = BwdDesign(BwdKernel("plain", None, None), BwdKernel("plain", None, 
 #: ``flash_bwd_persistent.cu``; bf16 and float16 at 384, 512, 640 and 768
 #: ``flash_bwd_wide.cu``; float32 runs 3xTF32 on the tensor cores
 #: (``flash_bwd_f32.cu``); by the rule every multiple of 128 from 896 up, in
-#: all three dtypes, ``flash_bwd_dsplit.cu``. Every other key takes
+#: all three dtypes, ``flash_bwd_dcluster.cu`` (``flash_bwd_variants
+#: --dsplit`` times it beside ``flash_bwd_dsplit.cu``, the design before,
+#: in float32 and bf16). Every other key takes
 #: ``plain``: the gradient of the reference's own route. No kernel of
 #: ``flash_bwd.cu`` is on a path:
 #: ``ops/flash_bwd_f32_variants.py`` times its float32 ones (CUDA cores)
@@ -287,7 +298,7 @@ BWD_DESIGNS = DesignTable({
     **{(64, dt): _BWD_D64 for dt in (torch.bfloat16, torch.float16)},
     **{(d, dt): _BWD_WGMMA for d in (128, 256) for dt in (torch.bfloat16, torch.float16)},
     **{(d, dt): _BWD_WIDE for d in WIDE_HEAD_DIMS for dt in (torch.bfloat16, torch.float16)},
-}, _BWD_PLAIN, dsplit_takes, _BWD_DSPLIT)
+}, _BWD_PLAIN, dsplit_takes, _BWD_DCLUSTER)
 
 #: launches of each kernel, counted where it is launched; a launch counts in
 #: its kernel's total (flash_fwd, flash_bwd_dq, flash_bwd_dkv) and in its
@@ -307,7 +318,7 @@ flash_bwd_dq_d64_launches = 0
 flash_bwd_dq_persistent_launches = 0
 flash_bwd_dq_wide_launches = 0
 flash_bwd_dq_tf32x3_launches = 0
-flash_bwd_dq_dsplit_launches = 0
+flash_bwd_dq_dcluster_launches = 0
 flash_bwd_dq_plain_launches = 0
 flash_bwd_dkv_launches = 0
 flash_bwd_dkv_wgmma_launches = 0
@@ -315,7 +326,7 @@ flash_bwd_dkv_d64_launches = 0
 flash_bwd_dkv_persistent_launches = 0
 flash_bwd_dkv_wide_launches = 0
 flash_bwd_dkv_tf32x3_launches = 0
-flash_bwd_dkv_dsplit_launches = 0
+flash_bwd_dkv_dcluster_launches = 0
 flash_bwd_dkv_plain_launches = 0
 #: the same launches by head_dim: "<kernel>_<design>_d<head_dim>" -> launches,
 #: counted with the design's count
@@ -721,6 +732,9 @@ _SOURCES = {
     "flash_fwd_dsplit": ({"ray_tpu_flash_fwd_dsplit": 5}, "ray_tpu_flash_fwd_dsplit_error_string"),
     "flash_bwd_dsplit": ({"ray_tpu_flash_bwd_dq_dsplit": 7, "ray_tpu_flash_bwd_dkv_dsplit": 8},
                          "ray_tpu_flash_bwd_dsplit_error_string"),
+    "flash_bwd_dcluster": ({"ray_tpu_flash_bwd_dq_dcluster": 7,
+                            "ray_tpu_flash_bwd_dkv_dcluster": 8},
+                           "ray_tpu_flash_bwd_dcluster_error_string"),
 }
 _C_TAIL = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
 
@@ -837,6 +851,24 @@ def _check_design(design: FwdDesign, head_dim: int) -> None:
             f"{design.block_q}x{design.block_k}")
 
 
+def _check_dcluster_plan(head_dim: int, dtype: torch.dtype) -> None:
+    """Raise ``RuntimeError`` unless the built dcluster kernels launch with
+    ``dcluster.dcluster_plan``'s plan at this head_dim and dtype (group
+    columns, CTAs a cluster, passes, shared memory)."""
+    plan = dcluster.dcluster_plan(head_dim, dtype)
+    fn = _kernel_lib("flash_bwd_dcluster").ray_tpu_flash_bwd_dcluster_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    err = fn(head_dim, _DTYPE_CODES[dtype], out)
+    want = (plan.group_cols, plan.cluster, plan.passes, plan.smem_dq, plan.smem_dkv)
+    if err != 0 or tuple(out) != want:
+        raise RuntimeError(
+            f"flash_bwd_dcluster.cu plans {tuple(out)} (group columns, cluster, passes, shared "
+            f"memory of dQ and of dK/dV) at head_dim {head_dim} {dtype} (status {err}); "
+            f"dcluster_plan says {want}")
+
+
 def _on_cpu(*tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
@@ -936,6 +968,8 @@ def _bwd_kernel(kernel: str, q, k, v, do, lse, delta) -> BwdKernel:
     if chosen.source is None:
         raise ValueError(f"no {kernel} kernel takes head_dim {q.shape[-1]} {q.dtype}: the "
                          f"plain design computes it (flash_attention_bwd)")
+    if chosen.name == "dcluster":
+        _check_dcluster_plan(q.shape[-1], q.dtype)
     return chosen
 
 

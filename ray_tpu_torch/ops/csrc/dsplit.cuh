@@ -204,8 +204,8 @@ __device__ __forceinline__ void group_nn(float* acc, const float* p, const uint8
 
 // A warp's accumulator rows (row0 + g and row0 + 8 + g of a matrix whose
 // rows are `ld` elements apart, those below `rows`; columns 0 .. ncols of
-// the group at `dst`) times mul[r], in T, a pair of columns a lane at a time.
-template <typename T>
+// the kCols at `dst`) times mul[r], in T, a pair of columns a lane at a time.
+template <typename T, int kCols = kGroupCols>
 __device__ __forceinline__ void store_group(T* dst, size_t ld, const float* acc, const float* mul,
                                             int row0, int rows, int ncols, int g, int tq) {
 #pragma unroll
@@ -214,7 +214,7 @@ __device__ __forceinline__ void store_group(T* dst, size_t ld, const float* acc,
     if (row >= rows) continue;
     T* out = dst + (size_t)row * ld + 2 * tq;
 #pragma unroll
-    for (int nt = 0; nt < kGroupCols / 8; ++nt) {
+    for (int nt = 0; nt < kCols / 8; ++nt) {
       if (8 * nt < ncols) {
         const float x0 = acc[4 * nt + 2 * r] * mul[r], x1 = acc[4 * nt + 2 * r + 1] * mul[r];
         if constexpr (kF32<T>) {

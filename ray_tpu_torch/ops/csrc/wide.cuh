@@ -178,17 +178,23 @@ __device__ __forceinline__ void store_wide_rows(T* dst, const float* acc, const 
   }
 }
 
-// The CTA's head and the index of its tile among the head's n_tiles, in
-// launch order: heads in groups of `group` whose streamed tiles fit in L2
+// The head and the index of the tile among the head's n_tiles of launch
+// slot `index`: heads in groups of `group` whose streamed tiles fit in L2
 // together, each tile index across the group's heads, tile 0 first.
-__device__ __forceinline__ void wide_slot(int bh_total, int n_tiles, int group, int* bh,
-                                          int* tile) {
+__device__ __forceinline__ void slot_head_tile(int index, int bh_total, int n_tiles, int group,
+                                               int* bh, int* tile) {
   const int per_group = group * n_tiles;
-  const int head0 = blockIdx.x / per_group * group;
+  const int head0 = index / per_group * group;
   const int heads = min(group, bh_total - head0);
-  const int rank = blockIdx.x % per_group;
+  const int rank = index % per_group;
   *bh = head0 + rank % heads;
   *tile = rank / heads;
+}
+
+// the CTA's head and tile, a CTA a slot
+__device__ __forceinline__ void wide_slot(int bh_total, int n_tiles, int group, int* bh,
+                                          int* tile) {
+  slot_head_tile(blockIdx.x, bh_total, n_tiles, group, bh, tile);
 }
 
 }  // namespace

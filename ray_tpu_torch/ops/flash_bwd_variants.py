@@ -1,6 +1,6 @@
 """Variants of the bf16 flash backward kernels, built and timed on the card.
 
-    python -m ray_tpu_torch.ops.flash_bwd_variants [--small-d | --d64] [--out results.json]
+    python -m ray_tpu_torch.ops.flash_bwd_variants [--small-d | --d64 | --dsplit] [--out results.json]
 
 Each variant is ``csrc/flash_bwd_wgmma.cu`` and ``csrc/hopper.cuh`` with one
 piece of text replaced (``flash_fwd_variants.build_variant``):
@@ -66,6 +66,25 @@ at gpt_125m's heads at b=4 and b=16, causal, and b=4 non-causal
 There each time is the median and the spread of five alternating turns, as
 ``flash_fwd_variants --d64`` takes them.
 
+With ``--dsplit`` it times, at head_dims from 896 up, the pair of
+``csrc/flash_bwd_dcluster.cu`` (design ``dcluster``, the port's backward
+there) beside the pair of ``csrc/flash_bwd_dsplit.cu`` that it took over
+from (``dsplit before``, launched directly: it is on no path) and the
+library's whole backward, at ``DSPLIT_SHAPES`` (2 x 8 heads x 2048^2,
+causal, d 896, 1024 and 2048) in float32 and bf16 (``--dtype`` for one):
+both pairs held to the plain backward (float64 for float32), each time the
+device time per call, median and spread of five alternating turns, beside
+the bound (operations: 6 d a visible pair for dQ, 8 d for dK/dV, at 164.9
+TFLOP/s in float32 and 989 in bf16) and its share. ``--probes`` adds
+builds of ``flash_bwd_dcluster.cu`` that are wrong by design
+(``DCLUSTER_PROBES``): ``probe: no streamed loads`` (no streamed tile is
+copied, so the products read what the slot held), ``probe: no exchange``
+(each CTA reduces every position from its own partials alone, so S and dP
+cover its columns only), ``probe: no partial math`` and ``probe: no output
+math`` (the products skipped behind a test of a kernel argument, so the
+rest stays), which say what the loads, the exchange between the CTAs and
+the two products cost.
+
 Each ``--small-d`` time is the kernel's device time per call from torch.profiler,
 the least of five turns after half a second of load to settle the clocks,
 since at these shapes the host's launches take about as long as the
@@ -130,7 +149,8 @@ def _build_variant(name: str):
 
 def _call(fn, tensors, q, t_kv, causal, scale):
     b, h, t_q, d = q.shape
-    err = fn(*(t.data_ptr() for t in tensors), b * h, t_q, t_kv, d, 0, int(causal), scale,
+    err = fn(*(t.data_ptr() for t in tensors), b * h, t_q, t_kv, d,
+             attn._DTYPE_CODES[q.dtype], int(causal), scale,
              torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise SystemExit(f"variant launch failed ({err})")
@@ -345,6 +365,148 @@ def main_d64(smi: str, out: str | None, only: str | None = None) -> int:
     return 0
 
 
+# b, h, t_q, t_kv, d, causal: the timed cases of head_dims from 896 up
+# (chip_smoke.py's d896_b2, d1024_b2 and d2048_b2)
+DSPLIT_SHAPES = [(2, 8, 2048, 2048, d, True) for d in (896, 1024, 2048)]
+DCLUSTER_SOURCE = _build.CSRC_DIR / "flash_bwd_dcluster.cu"
+# probes, wrong by design: what the streamed loads, the exchange and the two
+# products cost (the products and the loads skipped behind a test of a
+# kernel argument that is never true, bh < 0, so the rest stays)
+DCLUSTER_PROBES = {
+    "probe: no streamed loads": [
+        ("    if (i < n_items) {\n      const int c0 = own0",
+         "    if (i < n_items && p.bh < 0) {\n      const int c0 = own0")],
+    "probe: no exchange": [
+        ("const int share = (256 + p.cluster - 1) / p.cluster;", "const int share = 256;"),
+        ("const int n_share = min(share, 256 - rank * share);", "const int n_share = 256;"),
+        ("const uint32_t recv_bytes = (uint32_t)(p.cluster * 2 * n_share * 16);",
+         "const uint32_t recv_bytes = (uint32_t)(2 * n_share * 16);"),
+        ("((rank * 2 + prod) * share + j) * 16;", "(prod * share + j) * 16;"),
+        ("st_async(map_cluster(at, to),", "st_async(map_cluster(at, rank),"),
+        ("map_cluster(recv_bar(i), to));", "map_cluster(recv_bar(i), rank));"),
+        ("const int pos = rank * share + (int)threadIdx.x;", "const int pos = (int)threadIdx.x;"),
+        ("      if (c < p.cluster) {\n        const float4 a = in[2 * c * share]",
+         "      if (c < 1) {\n        const float4 a = in[2 * c * share]"),
+        ("      if (c < p.cluster) {\n        const uint32_t o = map_cluster(out, c), "
+         "b = map_cluster(bar, c);",
+         "      if (c < 1) {\n        const uint32_t o = map_cluster(out, rank), "
+         "b = map_cluster(bar, rank);")],
+    "probe: no partial math": [("      partial_smem<T>(s, smem + L::kX",
+                                "      if (p.bh < 0) partial_smem<T>(s, smem + L::kX")],
+    "probe: no output math": [("    if (oc0 < p.d) rows32_nn<T",
+                               "    if (oc0 < p.d && p.bh < 0) rows32_nn<T")],
+}
+# the dtypes' peak rates for the bound: bf16 on the tensor cores, float32 a
+# third of dense TF32 (3xTF32), as chip_smoke.py's PEAK_FLOPS
+_PEAK = {torch.bfloat16: 989e12, torch.float32: 494.7e12 / 3}
+
+
+def _bwd_bound_ms(b, h, t_q, t_kv, d, causal, dtype, per_pair):
+    """The least time of one backward kernel: ``per_pair`` * d operations a
+    visible (q, k) pair over the dtype's peak (q, k, v, dO and the outputs
+    read or written once take less at these shapes)."""
+    off = t_kv - t_q
+    pairs = (sum(min(max(r + off + 1, 0), t_kv) for r in range(t_q)) if causal
+             else t_q * t_kv)
+    return per_pair * d * b * h * pairs / _PEAK[dtype] * 1e3
+
+
+def main_dsplit(smi: str, out: str | None, dtypes, probes: bool) -> int:
+    """dcluster's pair beside dsplit's (the design before) and the
+    library's whole backward, and with ``probes`` DCLUSTER_PROBES, device
+    time per call, median and spread of five alternating turns, at
+    DSPLIT_SHAPES in each of ``dtypes``."""
+    pairs = {"dcluster": _bind(attn._kernel_lib("flash_bwd_dcluster"),
+                               "ray_tpu_flash_bwd_dq_dcluster", "ray_tpu_flash_bwd_dkv_dcluster"),
+             "dsplit before": _bind(attn._kernel_lib("flash_bwd_dsplit"),
+                                    "ray_tpu_flash_bwd_dq_dsplit", "ray_tpu_flash_bwd_dkv_dsplit")}
+    if probes:
+        names = list(DCLUSTER_PROBES)
+        with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per probe
+            built = dict(zip(names, pool.map(
+                lambda n: build_variant(DCLUSTER_SOURCE, n, DCLUSTER_PROBES[n]), names)))
+        for name, (lib, spills) in built.items():
+            print(f"[variant] {name:<26} spill bytes {sum(spills.values())}")
+            pairs[name] = _bind(lib, "ray_tpu_flash_bwd_dq_dcluster",
+                                "ray_tpu_flash_bwd_dkv_dcluster")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for dtype in dtypes:
+        for b, h, t_q, t_kv, d, causal in DSPLIT_SHAPES:
+            q, k, v, do = (torch.randn(b, h, t, d, device="cuda", dtype=dtype, generator=gen)
+                           for t in (t_q, t_kv, t_kv, t_q))
+            scale = d ** -0.5
+            o, lse = attn.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+            delta = attn.flash_bwd_delta(o, do)
+            exact = torch.float64 if dtype == torch.float32 else dtype
+            want = attn.flash_attention_bwd_plain(*(x.to(exact) for x in (q, k, v, o)), lse,
+                                                  do.to(exact), causal=causal, scale=scale)
+            dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+            runs = {}
+            for name, (dq_fn, dkv_fn) in pairs.items():
+                runs[name, "dq"] = lambda fn=dq_fn: _call(fn, (q, k, v, do, lse, delta, dq), q,
+                                                          t_kv, causal, scale)
+                runs[name, "dkv"] = lambda fn=dkv_fn: _call(
+                    fn, (q, k, v, do, lse, delta, dk, dv), q, t_kv, causal, scale)
+            errs = {}
+            for name in pairs:
+                for x in (dq, dk, dv):
+                    x.fill_(float("nan"))
+                runs[name, "dq"]()
+                runs[name, "dkv"]()
+                torch.cuda.synchronize()
+                errs[name] = {g: row_err(x, w) for g, x, w in zip(("dq", "dk", "dv"),
+                                                                    (dq, dk, dv), want)}
+            del want
+            t_end = time.monotonic() + 0.5  # the card's clocks settle under load
+            while time.monotonic() < t_end:
+                runs["dcluster", "dq"]()
+                runs["dcluster", "dkv"]()
+            torch.cuda.synchronize()
+            times = {}
+            for name in turn_order(pairs):
+                for kernel in ("dq", "dkv"):
+                    times.setdefault((name, kernel), []).append(
+                        device_ms(runs[name, kernel], iters=3))
+            ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+            lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal, scale=scale)
+            sdpa = device_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do,
+                                                         retain_graph=True), iters=3, per_call=None)
+            bound = {"dq": _bwd_bound_ms(b, h, t_q, t_kv, d, causal, dtype, 6),
+                     "dkv": _bwd_bound_ms(b, h, t_q, t_kv, d, causal, dtype, 8)}
+            tol = BWD_TOL[dtype]
+            med = {f"{n} ({kn})": statistics.median(t) for (n, kn), t in times.items()}
+            row = dict(shape=[b, h, t_q, t_kv, d], causal=causal,
+                       dtype=str(dtype).replace("torch.", ""), sdpa_bwd_ms=sdpa,
+                       bound_ms=bound, ms=med, turns={f"{n} ({kn})": t for (n, kn), t in
+                                                      times.items()},
+                       bound_share={key: bound[key.split("(")[1][:-1]] / ms
+                                    for key, ms in med.items()},
+                       row_err=errs, ok={n: max(e.values()) <= tol for n, e in errs.items()})
+            rows.append(row)
+            label = f"d{d}_b{b} {row['dtype']}"
+            for name in pairs:
+                pair = sum(statistics.median(times[name, kn]) for kn in ("dq", "dkv"))
+                probe = name.startswith("probe")
+                print(f"[time] {label}: {name:<13} dQ {statistics.median(times[name, 'dq']):.4f} "
+                      f"({min(times[name, 'dq']):.4f}-{max(times[name, 'dq']):.4f}) dK/dV "
+                      f"{statistics.median(times[name, 'dkv']):.4f} "
+                      f"({min(times[name, 'dkv']):.4f}-{max(times[name, 'dkv']):.4f}) pair "
+                      f"{pair:.4f} ms; share of bound dQ {row['bound_share'][f'{name} (dq)']:.3f} "
+                      f"dK/dV {row['bound_share'][f'{name} (dkv)']:.3f}; worst row "
+                      + " ".join(f"{g} {e:.2e}" for g, e in errs[name].items())
+                      + ("" if row["ok"][name] else " (wrong by design)" if probe
+                         else " (WRONG)"), flush=True)
+            print(f"[time] {label}: bound dQ {bound['dq']:.4f} dK/dV {bound['dkv']:.4f} ms, "
+                  f"sdpa whole backward {sdpa:.4f} ms", flush=True)
+            del lib_out
+    if out:
+        with open(out, "w") as f:
+            json.dump(dict(card=smi, times="device time (torch.profiler), median of five turns",
+                           shapes=rows), f, indent=1)
+    return 0 if all(r["ok"][n] for r in rows for n in ("dcluster", "dsplit before")) else 1
+
+
 def _build_small_d(name: str):
     """(dQ function, dK/dV function, spill bytes of each kernel by head_dim)
     of one small-d variant."""
@@ -434,6 +596,12 @@ def main() -> int:
                     help="the head_dim 64 design's variants beside the wgmma kernels")
     ap.add_argument("--only", choices=("dq", "dkv"),
                     help="with --d64: the variants of one kernel")
+    ap.add_argument("--dsplit", action="store_true",
+                    help="head_dims from 896 up: dcluster's pair beside dsplit's")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    help="with --dsplit: one dtype (default both)")
+    ap.add_argument("--probes", action="store_true",
+                    help="with --dsplit: the probes of dcluster beside it")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("flash_bwd_variants needs a card")
@@ -445,6 +613,10 @@ def main() -> int:
         return main_small_d(smi, args.out)
     if args.d64:
         return main_d64(smi, args.out, args.only)
+    if args.dsplit:
+        dtypes = ((getattr(torch, args.dtype),) if args.dtype else
+                  (torch.float32, torch.bfloat16))
+        return main_dsplit(smi, args.out, dtypes, args.probes)
     with ThreadPoolExecutor(len(VARIANTS)) as pool:  # one nvcc per variant
         built = dict(zip(VARIANTS, pool.map(_build_variant, VARIANTS)))
     for name, (_, _, spills) in built.items():

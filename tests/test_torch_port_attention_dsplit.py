@@ -5,10 +5,12 @@ The reference's dispatcher runs its Pallas kernels at every head_dim that is
 a multiple of 128, with no upper limit, where both lengths are multiples of
 8 (``ray_tpu/ops/attention.py``'s ``dot_product_attention``). Past the wide
 designs' 768 the port's tables take such a head_dim by their rule
-(``dsplit_takes``, from ``DSPLIT_MIN_D`` = 896) to ``dsplit``
-(``csrc/flash_fwd_dsplit.cu``, ``csrc/flash_bwd_dsplit.cu``: d a runtime
-argument, the output's columns split over CTAs) in bf16, float16 and
-float32, at 64 x 32 tiles; where the lengths are not multiples of 8 they
+(``dsplit_takes``, from ``DSPLIT_MIN_D`` = 896): the forward to ``dsplit``
+(``csrc/flash_fwd_dsplit.cu``: d a runtime argument, the output's columns
+split over CTAs) at 64 x 32 tiles, the backward to ``dcluster``
+(``csrc/flash_bwd_dcluster.cu``: the same split over the CTAs of a cluster
+that compute S and dP once; tests/test_torch_port_attention_dcluster.py),
+in bf16, float16 and float32; where the lengths are not multiples of 8 they
 take the reference's own route there, ``plain``. The kernels run only on the
 card (``chip_smoke.py`` and the ``cuda``-marked tests of
 ``tests/test_torch_port_kernels.py`` hold them to their plain versions);
@@ -65,8 +67,12 @@ def test_tables_name_dsplit_by_their_rule(d, dtype):
     """(d, dtype) for d from 896 up is a key of both tables by their rule,
     not a row: ``dsplit`` for the forward (at its 64 x 32 tiles, which
     ``fwd_tiles`` gives, taking only a positive scale, which the wrapper
-    hands it), dQ and dK/dV, from sources that exist with the entry points
-    the port binds; each counts its launches."""
+    hands it) and ``dcluster`` for dQ and dK/dV (the backward's design
+    since ``dsplit``'s pair, which ``flash_bwd_variants --dsplit`` still
+    builds as the one before;
+    tests/test_torch_port_attention_dcluster.py holds its plan), from
+    sources that exist with the entry points the port binds; each counts
+    its launches."""
     fwd, bwd = port.FWD_DESIGNS[(d, dtype)], port.BWD_DESIGNS[(d, dtype)]
     assert port.dsplit_takes(d, dtype)
     assert (d, dtype) in port.FWD_DESIGNS and (d, dtype) in port.BWD_DESIGNS
@@ -78,14 +84,15 @@ def test_tables_name_dsplit_by_their_rule(d, dtype):
     assert "dsplit" in port._POSITIVE_SCALE and not fwd.schedule
     assert port._TILES_ENTRIES["dsplit"] == "ray_tpu_flash_fwd_dsplit_tiles"
     assert [(kn.name, kn.source, kn.entry, kn.schedule) for kn in (bwd.dq, bwd.dkv)] == [
-        ("dsplit", "flash_bwd_dsplit", "ray_tpu_flash_bwd_dq_dsplit", False),
-        ("dsplit", "flash_bwd_dsplit", "ray_tpu_flash_bwd_dkv_dsplit", False)]
+        ("dcluster", "flash_bwd_dcluster", "ray_tpu_flash_bwd_dq_dcluster", False),
+        ("dcluster", "flash_bwd_dcluster", "ray_tpu_flash_bwd_dkv_dcluster", False)]
+    assert "ray_tpu_flash_bwd_dq_dsplit" in port._SOURCES["flash_bwd_dsplit"][0]
     for source, entry in [(fwd.source, fwd.entry)] + [(kn.source, kn.entry) for kn in
                                                       (bwd.dq, bwd.dkv)]:
         assert (port._build.CSRC_DIR / f"{source}.cu").exists()
         assert entry in port._SOURCES[source][0]
-    for name in ("flash_fwd_dsplit_launches", "flash_bwd_dq_dsplit_launches",
-                 "flash_bwd_dkv_dsplit_launches"):
+    for name in ("flash_fwd_dsplit_launches", "flash_bwd_dq_dcluster_launches",
+                 "flash_bwd_dkv_dcluster_launches"):
         assert isinstance(getattr(port, name), int)
 
 

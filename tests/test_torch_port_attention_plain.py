@@ -184,7 +184,8 @@ def test_plain_design_is_a_table_row_with_counters():
     (head_dims outside HEAD_DIMS that their rule does not take, float16 at
     16 and 32), with no source; each of its kernels has its launch counter;
     the flash route repeats the reference's 512 x 512 tiles. The
-    reference's 896 and 1024 are the rule's (``dsplit``), by which every
+    reference's 896 and 1024 are the rule's (``dsplit`` forward, ``dcluster``
+    backward), by which every
     head_dim the reference sends to its kernel has one, so off the CPU the
     plain design computes only where the reference takes ``_attention_xla``,
     and raises only for a dtype that no kernel takes (float64), at 896 on
@@ -207,7 +208,8 @@ def test_plain_design_is_a_table_row_with_counters():
         assert port.FWD_DESIGNS[key] is plain_f and port.BWD_DESIGNS[key] is plain_b
     for key in [(896, torch.bfloat16), (1024, torch.float32)]:
         assert key in port.FWD_DESIGNS and key in port.BWD_DESIGNS
-        assert port.FWD_DESIGNS[key].name == port.BWD_DESIGNS[key].dq.name == "dsplit"
+        assert port.FWD_DESIGNS[key].name == "dsplit"
+        assert port.BWD_DESIGNS[key].dq.name == port.BWD_DESIGNS[key].dkv.name == "dcluster"
     for name in ("flash_fwd_plain_launches", "flash_bwd_dq_plain_launches",
                  "flash_bwd_dkv_plain_launches"):
         assert isinstance(getattr(port, name), int)

@@ -8,8 +8,9 @@ At 384, 512, 640 and 768 the port's tables name ``wide``
 float16 and ``tf32x3`` for float32, at 32 x 64 tiles up to 512 and 16-row
 q tiles beyond (the wide forward's kv tiles 32 rows at 768). Past 768 the
 wide dK/dV kernel spills and the float32 dQ's tiles pass the shared memory,
-so 896 and up take the tables' rule, ``dsplit``
-(tests/test_torch_port_attention_dsplit.py), and run a kernel on the card
+so 896 and up take the tables' rule, ``dsplit`` for the forward and
+``dcluster`` for the backward (tests/test_torch_port_attention_dsplit.py,
+tests/test_torch_port_attention_dcluster.py), and run a kernel on the card
 too. The kernels run only on the card (``chip_smoke.py`` and the
 ``cuda``-marked tests of ``tests/test_torch_port_kernels.py`` hold them to
 their plain versions); here the CPU path, which is their plain version at
@@ -100,7 +101,8 @@ def test_tables_name_the_wide_designs(d, dtype):
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_first_head_dim_past_the_designs_is_plain_and_raises_off_the_cpu(dtype):
     """896, the first multiple of 128 past the wide designs' 768, is no
-    row of the tables but their rule's: both give ``dsplit``, which off the
+    row of the tables but their rule's: ``dsplit`` for the forward and
+    ``dcluster`` for the backward, which off the
     CPU launches its kernels (here the meta device, where the kernels' own
     input check answers "needs CUDA", as at 384 to 768) instead of raising
     for want of a kernel. The plain design is left at 896 only for lengths
@@ -113,7 +115,7 @@ def test_first_head_dim_past_the_designs_is_plain_and_raises_off_the_cpu(dtype):
     assert 896 not in {d for d, _ in port.FWD_DESIGNS}  # a key of the rule, not a row
     assert port.FWD_DESIGNS[(896, dtype)].name == "dsplit"
     assert (port.BWD_DESIGNS[(896, dtype)].dq.name,
-            port.BWD_DESIGNS[(896, dtype)].dkv.name) == ("dsplit", "dsplit")
+            port.BWD_DESIGNS[(896, dtype)].dkv.name) == ("dcluster", "dcluster")
     for d in (*WIDE, 896):
         meta = torch.empty(1, 1, 64, d, device="meta", dtype=dtype)
         assert port.FWD_DESIGNS[(d, dtype)] is not port.FWD_DESIGNS.plain

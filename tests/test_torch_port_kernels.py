@@ -318,7 +318,8 @@ def _plain_on_card_matches_cpu(card, shape, dtype, scale=None):
 def test_dispatcher_raises_for_what_the_kernel_does_not_take(card):
     """The refusals left are the tiles, and a dtype that no kernel takes
     where the reference runs its Pallas kernel (float64); head_dim 896, the
-    first past the wide designs, runs the dsplit kernels (the tables' rule);
+    first past the wide designs, runs the dsplit forward and the dcluster
+    backward (the tables' rule);
     a non-positive scale runs the kernels (the forward's sign handed to q;
     the wide forward at 384 and dsplit's at 896 too), float16 at 64 the d64
     kernels, head_dim 48 and float16 at 16 the plain design, each as on the
@@ -328,9 +329,9 @@ def test_dispatcher_raises_for_what_the_kernel_does_not_take(card):
         port.dot_product_attention(q, k, v, block_q=64, block_k=64)
     with pytest.raises(ValueError, match="no Hopper kernel takes torch.float64"):
         port.dot_product_attention(*_qkv(1, 1, 64, 64, 128, device=card, dtype=torch.float64))
-    _on_card_matches_cpu(card, (1, 2, 64, 64, 896, True), torch.bfloat16, ("dsplit",) * 3)
-    _on_card_matches_cpu(card, (1, 2, 64, 96, 896, True), torch.float32, ("dsplit",) * 3,
-                         scale=-0.03)
+    by_rule = ("dsplit", "dcluster", "dcluster")
+    _on_card_matches_cpu(card, (1, 2, 64, 64, 896, True), torch.bfloat16, by_rule)
+    _on_card_matches_cpu(card, (1, 2, 64, 96, 896, True), torch.float32, by_rule, scale=-0.03)
     d64 = ("d64",) * 3
     _on_card_matches_cpu(card, (1, 2, 64, 64, 64, True), torch.bfloat16, d64, scale=-0.125)
     _on_card_matches_cpu(card, (1, 2, 64, 64, 16, True), torch.bfloat16, ("persistent",) * 3,
@@ -481,8 +482,9 @@ def test_wide_head_dim_kernels_match_plain_on_card(card, case, dtype):
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))  # no atomics
 
 
-# head_dims from 896 up (the tables' rule: dsplit in bf16, float16 and
-# float32, at 64 x 32 forward tiles): the CPU tests' length cases
+# head_dims from 896 up (the tables' rule: the dsplit forward at 64 x 32
+# tiles and the dcluster backward, in bf16, float16 and float32): the CPU
+# tests' length cases
 # (tests/test_torch_port_attention_dsplit.py) at 896 and 1152 (9 chunks of
 # 128 columns, 4.5 column groups), rows that see no key in a q tile that
 # skips every kv tile, two full heads at 1024, and 2048 and 4096
@@ -506,8 +508,8 @@ DSPLIT_CASES = [
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
 @pytest.mark.parametrize("case", DSPLIT_CASES, ids=_ids)
 def test_dsplit_kernels_match_plain_on_card(card, case, dtype):
-    """From 896 up the forward, dQ and dK/dV kernels of dsplit launch once
-    each on their counters (and on their head_dim's) and none on plain,
+    """From 896 up the dsplit forward and the dcluster dQ and dK/dV launch
+    once each on their counters (and on their head_dim's) and none on plain,
     every row of out, lse, dq, dk and dv within the dtype's limits of the
     plain versions (the forward at the table's 64 x 32 tiles; the backward
     in float64 for float32), and a second run gives the same bits."""
@@ -515,11 +517,12 @@ def test_dsplit_kernels_match_plain_on_card(card, case, dtype):
     dt = getattr(torch, dtype)
     q, k, v = _qkv(b, h, tq, tkv, d, device=card, dtype=dt)
     fwd, bwd = port.FWD_DESIGNS[(d, dt)], port.BWD_DESIGNS[(d, dt)]
-    assert (fwd.name, bwd.dq.name, bwd.dkv.name) == ("dsplit",) * 3
+    assert (fwd.name, bwd.dq.name, bwd.dkv.name) == ("dsplit", "dcluster", "dcluster")
     names = ["flash_fwd_plain_launches", "flash_bwd_dq_plain_launches",
-             "flash_fwd_dsplit_launches", "flash_bwd_dq_dsplit_launches",
-             "flash_bwd_dkv_dsplit_launches"]
-    by_d = [f"flash_fwd_dsplit_d{d}", f"flash_bwd_dq_dsplit_d{d}", f"flash_bwd_dkv_dsplit_d{d}"]
+             "flash_fwd_dsplit_launches", "flash_bwd_dq_dcluster_launches",
+             "flash_bwd_dkv_dcluster_launches"]
+    by_d = [f"flash_fwd_dsplit_d{d}", f"flash_bwd_dq_dcluster_d{d}",
+            f"flash_bwd_dkv_dcluster_d{d}"]
     before = [getattr(port, n) for n in names]
     before_d = [port.launches_by_head_dim[n] for n in by_d]
     scale = d ** -0.5
@@ -547,14 +550,15 @@ def test_dsplit_kernels_match_plain_on_card(card, case, dtype):
 def test_every_head_dim_the_reference_takes_runs_a_kernel_on_card(card, dtype):
     """Every multiple of 128 from 896 to 8192 at (1, 1, 64, 64), causal,
     through ``dot_product_attention`` with a backward: no refusal, one
-    launch of each dsplit kernel and none of plain, out within the dtype's
-    limit of the plain forward and the gradients finite."""
+    launch of the dsplit forward and of each dcluster backward kernel and
+    none of plain, out within the dtype's limit of the plain forward and the
+    gradients finite."""
     dt = getattr(torch, dtype)
     for d in range(896, 8192 + 1, 128):
         q, k, v = (t.requires_grad_() for t in _qkv(1, 1, 64, 64, d, device=card, dtype=dt,
                                                     seed=d))
-        names = ["flash_fwd_dsplit_launches", "flash_bwd_dq_dsplit_launches",
-                 "flash_bwd_dkv_dsplit_launches", "flash_fwd_plain_launches",
+        names = ["flash_fwd_dsplit_launches", "flash_bwd_dq_dcluster_launches",
+                 "flash_bwd_dkv_dcluster_launches", "flash_fwd_plain_launches",
                  "flash_bwd_dq_plain_launches", "flash_bwd_dkv_plain_launches"]
         before = [getattr(port, n) for n in names]
         out = port.dot_product_attention(q, k, v, causal=True)
@@ -565,6 +569,43 @@ def test_every_head_dim_the_reference_takes_runs_a_kernel_on_card(card, dtype):
         torch.cuda.synchronize()
         assert row_err(out.detach(), plain) <= FWD_ROW_TOL[dt], d
         assert all(bool(torch.isfinite(t.grad).all()) for t in (q, k, v)), d
+
+
+# the dcluster backward's plans: one pass in clusters of 4 (896) and 8
+# (2048, the last with no recompute), two passes (4096) and four (8192),
+# at t 96 (three 32-row tiles), q the suffix of a longer kv at 2048
+DCLUSTER_CASES = [
+    (1, 2, 96, 96, 896, True),
+    (1, 2, 64, 160, 2048, True),
+    (1, 2, 96, 96, 4096, True),
+    (1, 1, 96, 96, 8192, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", DCLUSTER_CASES, ids=_ids)
+def test_dcluster_backward_matches_plain_and_repeats_its_bits_on_card(card, case, dtype):
+    """The dcluster dQ and dK/dV at each kind of plan (one pass, four and
+    eight CTAs a cluster; two and four passes): one launch of each on their
+    counters, every row of dq, dk and dv within the dtype's limit of the
+    plain backward (in float64 for float32), and a second run bit-equal
+    (every CTA sums the cluster's partials in group order)."""
+    b, h, tq, tkv, d, causal = case
+    dt = getattr(torch, dtype)
+    q, k, v, o, lse, do, scale = _bwd_inputs(b, h, tq, tkv, d, causal, card, dt)
+    names = ["flash_bwd_dq_dcluster_launches", "flash_bwd_dkv_dcluster_launches"]
+    before = [getattr(port, n) for n in names]
+    got = port.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
+    assert [getattr(port, n) - c for n, c in zip(names, before)] == [1, 1]
+    again = port.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
+    exact = torch.float64 if dt == torch.float32 else dt
+    want = [w.to(dt) for w in port.flash_attention_bwd_plain(
+        *(x.to(exact) for x in (q, k, v, o)), lse, do.to(exact), causal=causal, scale=scale)]
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+    _assert_grads_close(got, want, BWD_TOL[dt])
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
 
 
 # float16 at head_dim 64, 128 and 256: the bf16 kernels' float16 builds

@@ -234,7 +234,8 @@ def test_port_imports_no_jax_and_no_ray_tpu():
         "import sys, ray_tpu_torch, ray_tpu_torch.serve.llm, "
         "ray_tpu_torch.models.convert, ray_tpu_torch.models.training, "
         "ray_tpu_torch.models.moe, ray_tpu_torch.ops.attention, ray_tpu_torch.ops.tf32, "
-        "ray_tpu_torch.ops.persistent_bwd, ray_tpu_torch.ops.flash_bwd_variants, "
+        "ray_tpu_torch.ops.persistent_bwd, ray_tpu_torch.ops.dcluster, "
+        "ray_tpu_torch.ops.flash_bwd_variants, "
         "ray_tpu_torch.ops.flash_bwd_f32_variants, ray_tpu_torch.ops.flash_fwd_f32_variants, "
         "ray_tpu_torch.ops.ring, ray_tpu_torch.parallel, ray_tpu_torch.parallel.mesh, "
         "ray_tpu_torch.parallel.sharding, ray_tpu_torch.parallel.comm, "
