@@ -9,7 +9,8 @@ Phases (any failure exits non-zero; nothing is caught):
      flash_fwd_f32.cu, flash_fwd_wide.cu, flash_bwd_wgmma.cu,
      flash_bwd_d64.cu, flash_bwd_persistent.cu, flash_bwd.cu,
      flash_bwd_f32.cu, flash_bwd_wide.cu, flash_fwd_dsplit.cu,
-     flash_bwd_dsplit.cu and flash_bwd_dcluster.cu with nvcc, in parallel
+     flash_bwd_dsplit.cu, flash_bwd_dcluster.cu and flash_fwd_dcluster.cu
+     with nvcc, in parallel
      (one nvcc a source), and print their register,
      shared-memory and spill reports; the wgmma forward and both wgmma
      backward kernels at head_dim 128 and 256 (the train paths': dQ, dK/dV
@@ -25,12 +26,12 @@ Phases (any failure exits non-zero; nothing is caught):
      and the wide forward, dQ and dK/dV (bf16 and float16 at WIDE_D)
      must not spill, and their shared memory and CTAs an SM are printed and
      gated the same way; so are the dsplit forward, dQ and dK/dV (head_dim
-     a runtime argument; one build each in bf16, float16 and float32; the
-     backward pair is on no path now), by dtype, with their registers a
-     thread; and the dcluster dQ and dK/dV (the backward from 896 up, the
-     CTAs of a cluster sharing a resident tile; a build each in bf16,
-     float16 and float32) must not spill, with their registers a thread,
-     shared memory at most 232448 bytes and the clusters resident at once
+     a runtime argument; one build each in bf16, float16 and float32; on
+     no path now), by dtype, with their registers a thread; and the
+     dcluster forward, dQ and dK/dV (from 896 up, the CTAs of a cluster
+     sharing a resident tile; a build each in bf16, float16 and float32)
+     must not spill, with their registers a thread, shared memory at most
+     232448 bytes and the clusters resident at once
      (cudaOccupancyMaxActiveClusters) at each cluster size the plan uses,
      printed and above 0;
   2. kernel vs plain: the flash forward kernel against its plain PyTorch
@@ -39,13 +40,14 @@ Phases (any failure exits non-zero; nothing is caught):
      pipelined step's microbatch, b=3; every float32 case on the tf32x3
      design, every bf16 head_dim-16/32 case on the persistent design and
      every bf16 head_dim-64 case on d64, every bf16 or float16 one at
-     WIDE_D on wide and every case from 896 up on dsplit (the tables'
+     WIDE_D on wide and every case from 896 up on dcluster (the tables'
      rule), one launch of it a case: gpt_nano's working case
      at 4g's b=512, the tiny flagship's at b=256, gpt_125m's at b=4 and 4h's
      b=16, d384_b2 to d768_b2 and d896_b2, d1024_b2 and d2048_b2 (2 x 8
      heads x 2048^2, causal, in bf16 and float32), and, checked only
      (CHECK_ONLY), long t, ragged, q the suffix, rows that see no key,
-     ragged non-causal, float16, and head_dims 1152 and 4096):
+     ragged non-causal, float16, and head_dims 1152 (clusters of 5), 4096
+     and 8192 (two and four passes)):
      each row of out held to its own norm and lse to an absolute limit
      (ray_tpu_torch/ops/tolerance.py), max abs error, the kernel's device
      time (torch.profiler's kernel durations over the calls that cuda_ms
@@ -75,8 +77,8 @@ Phases (any failure exits non-zero; nothing is caught):
      reference takes its XLA route: head_dim 48 in bf16, 16 in float16),
      and through the kernels at head_dim 64 in float16 and in bf16 at a
      negative scale, at head_dim 384 in bf16 (the wide design) and at 896
-     in bf16 and float32 (the dsplit forward and the dcluster dQ and dK/dV:
-     this slice's path, every count set to 0 before each case); out and dq,
+     in bf16 and float32 (the dcluster forward, dQ and dK/dV: this slice's
+     path, every count set to 0 before each case); out and dq,
      dk, dv held to the CPU's row by row (float32 against the plain
      backward in float64), and
      the counters of the case's designs risen by exactly one forward and one
@@ -168,8 +170,8 @@ Phases (any failure exits non-zero; nothing is caught):
      the flash forward, then the dQ and dK/dV kernels with delta - dlse) at
      gpt_1b's heads (b=2, h=16, t=2048, d=128) in bf16 (wgmma) and float32
      (tf32x3), gpt_j_6b's (d=256), d=512 (wide) and d=1024 with 8 heads
-     (the dsplit forward and the dcluster backward, this slice's path: one
-     launch of each kernel, none on plain)
+     (the dcluster forward and backward, this slice's path: one launch of
+     each kernel, none on plain)
      in bf16, causal (a ring's step 0)
      and not (a hop), under random cotangents of both outputs: against the plain flash versions on the same
      inputs, and against autograd through the plain float32
@@ -249,7 +251,7 @@ router, dispatch, experts and combine) and the idle share are printed
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero without a card.
 Each forward case names the design (FWD_DESIGNS: wgmma, d64, persistent, wide,
-tf32x3 or dsplit) and the
+tf32x3 or dcluster) and the
 tiles that ran it; each backward case names its design (BWD_DESIGNS: wgmma,
 d64, persistent, wide, tf32x3 or dcluster). In
 the kernels line, flash_fwd is the wgmma design, the one the main path
@@ -276,7 +278,7 @@ them) stand as flash_fwd_wide, flash_bwd_dq_wide and flash_bwd_dkv_wide at
 d512_b2, the other WIDE_D cases under "d384", "d640" and "d768", each naming
 the library's backend, with the paths' launches at that head_dim (the
 port's launches_by_head_dim, read as BY_HEAD_DIM); the kernels from 896 up
-stand as flash_fwd_dsplit, flash_bwd_dq_dcluster and flash_bwd_dkv_dcluster
+stand as flash_fwd_dcluster, flash_bwd_dq_dcluster and flash_bwd_dkv_dcluster
 at d1024_b2 (bf16), d896_b2 and d2048_b2 under "d896" and "d2048", the
 float32 cases under "f32", each naming the library's backend, with the
 launches of this slice's path at that head_dim (3b at 896, 7a at 1024); the
@@ -319,10 +321,10 @@ HBM_BYTES_PER_S = 3.35e12
 # (ray_tpu_torch/ops/attention.py's WIDE_HEAD_DIMS: wide in bf16 and
 # float16, tf32x3 in float32)
 WIDE_D = (384, 512, 640, 768)
-# the head_dims from 896 up (the tables' rule, from DSPLIT_MIN_D: the forward's
-# dsplit and the backward's dcluster in bf16, float16 and float32, d a
+# the head_dims from 896 up (the tables' rule, from DSPLIT_MIN_D: the
+# forward's and the backward's dcluster in bf16, float16 and float32, d a
 # runtime argument) that phases 2-3 time;
-# they check 1152 and 4096 besides, and count launches at all five
+# they check 1152, 4096 and 8192 besides, and count launches at the first five
 DSPLIT_D = (896, 1024, 2048)
 DSPLIT_BY_D = (896, 1024, 1152, 2048, 4096)
 # gpt_nano float32 steps on the card vs the CPU: summation order through two
@@ -499,7 +501,7 @@ def phase_build():
     from ray_tpu_torch.ops.attention import DSPLIT_MIN_D, WIDE_HEAD_DIMS
 
     if WIDE_HEAD_DIMS != WIDE_D or DSPLIT_MIN_D != DSPLIT_D[0]:
-        raise SystemExit(f"the port's wide head_dims are {WIDE_HEAD_DIMS} and dsplit's first "
+        raise SystemExit(f"the port's wide head_dims are {WIDE_HEAD_DIMS} and dcluster's first "
                          f"{DSPLIT_MIN_D}, this script's {WIDE_D} and {DSPLIT_D[0]}")
 
     def timed(name):
@@ -510,7 +512,7 @@ def phase_build():
     names = ("flash_fwd_wgmma", "flash_fwd_d64", "flash_fwd_persistent", "flash_fwd",
              "flash_fwd_f32", "flash_fwd_wide", "flash_bwd_wgmma", "flash_bwd_d64",
              "flash_bwd_persistent", "flash_bwd", "flash_bwd_f32", "flash_bwd_wide",
-             "flash_fwd_dsplit", "flash_bwd_dsplit", "flash_bwd_dcluster")
+             "flash_fwd_dsplit", "flash_bwd_dsplit", "flash_bwd_dcluster", "flash_fwd_dcluster")
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
         built = dict(zip(names, pool.map(timed, names)))
     out = {"seconds": time.monotonic() - t0}
@@ -614,15 +616,16 @@ def phase_build():
         out[source].setdefault("smem_bytes", {})[kernel] = smem
         out[source].setdefault("ctas_per_sm", {})[kernel] = ctas
         out[source].setdefault("registers_by_dtype", {})[kernel] = regs
-    # the dcluster kernels (the backward from 896 up, d a runtime argument,
-    # the CTAs of a thread-block cluster sharing a resident tile): one build
-    # a dtype and kernel, none may spill; registers a thread, dynamic shared
-    # memory, and the clusters resident at once at each cluster size the
-    # plan gives DSPLIT_BY_D and 8192 (cudaOccupancyMaxActiveClusters), each
-    # above 0
+    # the dcluster kernels (the forward and the backward from 896 up, d a
+    # runtime argument, the CTAs of a thread-block cluster sharing a resident
+    # tile): one build a dtype and kernel, none may spill; registers a
+    # thread, dynamic shared memory, and the clusters resident at once at
+    # each cluster size the plan gives from 896 to 8192 (4 to 8 CTAs;
+    # cudaOccupancyMaxActiveClusters), each above 0
     from ray_tpu_torch.ops.dcluster import dcluster_plan
 
-    sizes = sorted({dcluster_plan(d, torch.float32).cluster for d in (*DSPLIT_BY_D, 8192)})
+    sizes = sorted({dcluster_plan(d, torch.float32).cluster
+                    for d in range(DSPLIT_D[0], 8192 + 1, 128)})
     lib = ctypes.CDLL(str(built["flash_bwd_dcluster"][0]))
     lib.ray_tpu_flash_bwd_dcluster_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.ray_tpu_flash_bwd_dcluster_max_clusters.argtypes = [ctypes.c_int] * 3
@@ -648,6 +651,29 @@ def phase_build():
         out["flash_bwd_dcluster"].setdefault("smem_bytes", {})[name] = smem
         out["flash_bwd_dcluster"].setdefault("max_active_clusters", {})[name] = clusters
         out["flash_bwd_dcluster"].setdefault("registers_by_dtype", {})[name] = regs
+    fwd_dc = ctypes.CDLL(str(built["flash_fwd_dcluster"][0]))
+    fwd_dc.ray_tpu_flash_fwd_dcluster_smem_bytes.argtypes = [ctypes.c_int]
+    fwd_dc.ray_tpu_flash_fwd_dcluster_max_clusters.argtypes = [ctypes.c_int] * 2
+    marks = {dt: f"flash_fwd_dcluster_kernel{tmark}" for dt, (tmark, _) in codes.items()}
+    report = out["flash_fwd_dcluster"]
+    spills = {dt: next((n for k, n in report["spills"].items() if m in k), None)
+              for dt, m in marks.items()}
+    regs = {dt: next((n for k, n in report["registers"].items() if m in k), None)
+            for dt, m in marks.items()}
+    smem = {dt: fwd_dc.ray_tpu_flash_fwd_dcluster_smem_bytes(code)
+            for dt, (_, code) in codes.items()}
+    clusters = {dt: {c: fwd_dc.ray_tpu_flash_fwd_dcluster_max_clusters(code, c) for c in sizes}
+                for dt, (_, code) in codes.items()}
+    print(f"[build] flash_fwd_dcluster by dtype: registers a thread {regs}, spill bytes "
+          f"{spills}, {smem} bytes of dynamic shared memory per CTA (of 232448), clusters "
+          f"resident at once by cluster size {clusters}")
+    if any(n != 0 for n in spills.values()):
+        raise SystemExit(f"flash_fwd_dcluster spills, or a dtype's build is missing: {spills}")
+    if (any(not 0 < n <= 232448 for n in smem.values())
+            or any(n < 1 for by_c in clusters.values() for n in by_c.values())):
+        raise SystemExit(f"flash_fwd_dcluster asks for {smem} bytes of shared memory, "
+                         f"{clusters} clusters resident at once")
+    report.update(smem_bytes=smem, max_active_clusters=clusters, registers_by_dtype=regs)
     # dynamic shared memory, which the compiler's report does not show
     fwd_lib = ctypes.CDLL(str(built["flash_fwd_wgmma"][0]))
     fwd_lib.ray_tpu_flash_fwd_wgmma_smem_bytes.argtypes = [ctypes.c_int]
@@ -773,7 +799,7 @@ def phase_kernel_vs_plain():
         v = torch.randn(b, h, t_kv, d, device="cuda", dtype=dtype, generator=gen)
         scale = 1.0 / d ** 0.5
         design = attn.FWD_DESIGNS[(d, dtype)]
-        want = ("dsplit" if d >= DSPLIT_D[0] else "tf32x3" if dtype == torch.float32 else
+        want = ("dcluster" if d >= DSPLIT_D[0] else "tf32x3" if dtype == torch.float32 else
                 {16: "persistent", 32: "persistent", 64: "d64",
                  **dict.fromkeys(WIDE_D, "wide")}.get(d, "wgmma"))
         if design.name != want:
@@ -810,7 +836,7 @@ def phase_kernel_vs_plain():
             print(verdict)
             continue
         big = b * h * t_q * t_kv >= 2 ** 26
-        # the dsplit cases' kernels take 2.7-41 ms a call: 5 calls a timing
+        # the cases from 896 up take 1.6-41 ms a call: 5 calls a timing
         iters = 5 if d >= DSPLIT_D[0] else 20 if big else 50
         ms, device_ms = timed(
             lambda: attn.flash_attention_fwd(q, k, v, causal=causal, scale=scale),
@@ -918,9 +944,11 @@ WIDE_CASES = _wide_cases(WIDE_D[:2]) + _wide_cases(WIDE_D[2:])
 WIDE_TIMED = {f"d{d}_b2{suffix}" for d in WIDE_D for suffix in ("", "_f32")}
 # head_dims from 896 up (the tables' rule; no model path), in both
 # phases, last: timed at 2 x 8 heads x 2048^2, causal, at DSPLIT_D in bf16
-# and float32; checked only, at 1152 (9 chunks of 128 columns, 4.5 column
-# groups) ragged q and kv, rows that see no key (t_q 160, t_kv 64) and
-# non-causal in bf16, float16 and float32, and 4096 at (1, 2, 256, 256)
+# and float32; checked only, at 1152 (4.5 column groups in clusters of 5,
+# 13 rows a forward reducer, the last 12) ragged q and kv, rows that see no
+# key (t_q 160, t_kv 64) and non-causal in bf16, float16 and float32, 4096
+# at (1, 2, 256, 256) (two passes) and 8192 at (1, 1, 160, 64) (four
+# passes, rows that see no key)
 DSPLIT_CASES = [
     *[(f"d{d}_b2{suffix}", 2, 8, 2048, 2048, d, True, dtype)
       for dtype, suffix in ((torch.bfloat16, ""), (torch.float32, "_f32")) for d in DSPLIT_D],
@@ -932,6 +960,9 @@ DSPLIT_CASES = [
           ("tq_gt_tkv", 1, 2, 160, 64, True),
           ("noncausal_t384", 1, 4, 384, 384, False))],
     *[(f"{prefix}d4096_t256", 1, 2, 256, 256, 4096, True, dtype)
+      for prefix, dtype in (("", torch.bfloat16), ("f16_", torch.float16),
+                            ("f32_", torch.float32))],
+    *[(f"{prefix}d8192_tq_gt_tkv", 1, 1, 160, 64, 8192, True, dtype)
       for prefix, dtype in (("", torch.bfloat16), ("f16_", torch.float16),
                             ("f32_", torch.float32))],
 ]
@@ -1122,15 +1153,13 @@ def phase_bwd_kernels_vs_plain():
 # 128 and 256; d64 the forward's, dQ's and dK/dV's at 64; at 16 and 32 the
 # forward and the backward are persistent's; wide bf16 and float16 at
 # WIDE_D, which no model path runs; tf32x3 float32; every dtype from 896 up
-# the forward's dsplit and the backward's dcluster, which phases 3b and 7a
-# run; plain every input that no kernel takes, which only the plain_design
-# phase may launch), and the wide and tf32x3 kernels' by head_dim at WIDE_D
-# and dsplit's and dcluster's at DSPLIT_BY_D (the port's
-# launches_by_head_dim), which the kernels line reads for its 384-768, dsplit
-# and dcluster entries
+# dcluster, forward and backward, which phases 3b and 7a run; plain every
+# input that no kernel takes, which only the plain_design phase may launch),
+# and the wide and tf32x3 kernels' by head_dim at WIDE_D and dcluster's at
+# DSPLIT_BY_D (the port's launches_by_head_dim), which the kernels line
+# reads for its 384-768 and dcluster entries
 KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-DESIGNS = {kernel: ("wgmma", "d64", "persistent", "wide", "tf32x3",
-                   "dsplit" if kernel == "flash_fwd" else "dcluster", "plain")
+DESIGNS = {kernel: ("wgmma", "d64", "persistent", "wide", "tf32x3", "dcluster", "plain")
            for kernel in KERNEL_NAMES}
 BY_HEAD_DIM = tuple(f"{kernel}_{design}_d{d}" for kernel in KERNEL_NAMES
                     for design, dims in (("wide", WIDE_D), ("tf32x3", WIDE_D),
@@ -1608,7 +1637,7 @@ def phase_plain_design():
     reference's XLA route), and the kernels at head_dim 64 in float16 and in
     bf16 at a negative scale (the forward's sign handed to q), at 384 in
     bf16 (wide) and at 896 in bf16 and float32 (the tables' rule: the
-    forward's dsplit and the backward's dcluster, this slice's path, every
+    forward's and the backward's dcluster, this slice's path, every
     count set to 0 before each case). Out and dq, dk, dv held to the CPU's
     (ops/tolerance.py's limits for the dtype, row by row): the plain
     design's to the same function on the CPU, the kernels' to their plain
@@ -1624,7 +1653,7 @@ def phase_plain_design():
     rows = []
     gen = torch.Generator().manual_seed(9)
     d64 = ("d64",) * 3
-    d896 = ("dsplit", "dcluster", "dcluster")
+    d896 = ("dcluster",) * 3
     for name, shape, dtype, scale, designs in (
             ("plain_d48_bf16", (2, 12, 256, 256, 48), torch.bfloat16, None, ("plain",) * 3),
             ("plain_d16_f16", (2, 12, 256, 256, 16), torch.float16, None, ("plain",) * 3),
@@ -1950,7 +1979,7 @@ def phase_lse_grad():
     d=128) in bf16 (the wgmma kernels) and float32 (tf32x3 forward and
     backward), at gpt_j_6b's (d=256) in bf16 (the wgmma split dK/dV
     kernel), at d=512 in bf16 (the wide kernels) and at d=1024 in bf16 with
-    8 heads (the dsplit forward and the dcluster backward: this slice's
+    8 heads (the dcluster forward and backward: this slice's
     path, every count set to 0 before it and read after, none on plain),
     causal and not. Two gates on
     every row of dq, dk and dv:
@@ -3330,7 +3359,7 @@ def main() -> int:
         entry.update({f"d{d}": no_path(rows, f"d{d}_b2_f32", kernel, line, d) for d in WIDE_D})
 
     # the kernels of the tables' rule (every multiple of 128 from 896 up):
-    # the dsplit forward and the dcluster dQ and dK/dV, which this slice's
+    # the dcluster forward, dQ and dK/dV, which this slice's
     # path runs and no model path does: 3b at 896 (bf16 and float32) and 7a
     # at 1024 (bf16). Each entry's launches are that path's at the case's
     # head_dim (BY_HEAD_DIM, counted from 0 on each of the path's runs); the

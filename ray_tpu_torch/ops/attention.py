@@ -26,11 +26,15 @@ a shorter q is the suffix of the kv context (``q_pos = q_idx + t_kv - t_q``).
   SM, a TMA ring; bf16 at head_dim 16, 32), ``csrc/flash_fwd_wide.cu``
   (mma.sync from cp.async tiles, d cut between warps; bf16 and float16 at
   384, 512, 640 and 768), ``csrc/flash_fwd_f32.cu`` (3xTF32 on mma.sync; float32 at
-  every head_dim of ``HEAD_DIMS``) or ``csrc/flash_fwd_dsplit.cu`` (design
-  ``dsplit``, d a runtime argument, the output's columns split over CTAs;
-  bf16, float16 and float32 at every multiple of 128 from ``DSPLIT_MIN_D``
-  = 896 up); ``csrc/flash_fwd.cu`` (mma.sync), bf16 16/32's kernel before,
-  is on no path.
+  every head_dim of ``HEAD_DIMS``) or ``csrc/flash_fwd_dcluster.cu`` (design
+  ``dcluster``, d a runtime argument: the CTAs of a thread-block cluster
+  share a 64-row q tile, each computes S over its own columns, the cluster
+  sums them over distributed shared memory into one P, and each CTA writes
+  its own columns of O; bf16, float16 and float32 at every multiple of 128
+  from ``DSPLIT_MIN_D`` = 896 up); ``csrc/flash_fwd.cu`` (mma.sync), bf16
+  16/32's kernel before, is on no path, and neither is
+  ``csrc/flash_fwd_dsplit.cu``, the design before ``dcluster``, which
+  ``ops/flash_fwd_variants.py --dsplit`` times beside it.
   ``flash_attention_bwd`` launches the dQ and dK/dV kernels
   (``flash_bwd_dq``, ``flash_bwd_dkv``) that the dispatch table
   ``BWD_DESIGNS`` names: ``csrc/flash_bwd_wgmma.cu`` (TMA, wgmma,
@@ -50,8 +54,7 @@ a shorter q is the suffix of the kv context (``q_pos = q_idx + t_kv - t_q``).
   ``dcluster``, which ``ops/flash_bwd_variants.py --dsplit`` times beside it.
 * Both tables hold rows (``HEAD_DIMS``) and a rule (``dsplit_takes``: every
   multiple of 128 from ``DSPLIT_MIN_D`` up, in bf16, float16 and float32).
-  A key the rule takes runs its design (the forward's ``dsplit``, the
-  backward's ``dcluster``) where the
+  A key the rule takes runs its design (``dcluster`` in both) where the
   reference runs its Pallas kernel (both lengths multiples of 8,
   ``reference_takes_kernel``) and the reference's own route, ``plain``,
   where it does not (``_design``), so every input the reference sends to
@@ -68,7 +71,7 @@ a shorter q is the suffix of the kv context (``q_pos = q_idx + t_kv - t_q``).
   (``_check_plain_inputs``). On CPU tensors it computes either route
   (``flash_attention_fwd_plain`` at the reference's tiles on the kernel
   route).
-* The wgmma, d64, persistent, wide and dsplit forward kernels take the row
+* The wgmma, d64, persistent, wide and dcluster forward kernels take the row
   max of the raw scores and fold the scale in after it, so they take a
   positive scale; the wrapper gives them any other as the same scores,
   exactly: -q and
@@ -112,10 +115,10 @@ WIDE_HEAD_DIMS = (384, 512, 640, 768)
 #: the head_dims of the tables' rows (the rule, ``dsplit_takes``, takes
 #: every multiple of 128 from ``DSPLIT_MIN_D`` up besides)
 HEAD_DIMS = (16, 32, 64, 128, 256) + WIDE_HEAD_DIMS
-#: the least head_dim of the tables' rule: the forward's ``dsplit`` design
-#: (d a runtime argument, the output's columns split over CTAs) and the
-#: backward's ``dcluster`` (the same over the CTAs of a cluster) take every
-#: multiple of 128 from here up in bf16, float16 and float32
+#: the least head_dim of the tables' rule: the forward's and the backward's
+#: ``dcluster`` design (d a runtime argument, the output's columns split over
+#: the CTAs of a cluster) take every multiple of 128 from here up in bf16,
+#: float16 and float32
 DSPLIT_MIN_D = 896
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 #: the reference's default flash tiles (``ray_tpu/ops/attention.py``'s
@@ -193,7 +196,7 @@ _PERSISTENT = FwdDesign("persistent", "flash_fwd_persistent",
 _TF32X3 = FwdDesign("tf32x3", "flash_fwd_f32", "ray_tpu_flash_fwd_f32", 64, 64)
 _D64 = FwdDesign("d64", "flash_fwd_d64", "ray_tpu_flash_fwd_d64", 128, 128, schedule=True)
 #: d a runtime argument: 64 q rows by 32 kv rows in every dtype
-_DSPLIT = FwdDesign("dsplit", "flash_fwd_dsplit", "ray_tpu_flash_fwd_dsplit", 64, 32)
+_DCLUSTER = FwdDesign("dcluster", "flash_fwd_dcluster", "ray_tpu_flash_fwd_dcluster", 64, 32)
 #: no kernel: the reference's own route for the input (``plain_attention_with_lse``),
 #: at the reference's tiles where it takes its kernel
 _PLAIN = FwdDesign("plain", None, None, REF_BLOCK, REF_BLOCK)
@@ -202,7 +205,7 @@ _PLAIN = FwdDesign("plain", None, None, REF_BLOCK, REF_BLOCK)
 def dsplit_takes(head_dim: int, dtype: torch.dtype) -> bool:
     """The rule of both dispatch tables: it takes every head_dim that is a
     multiple of 128 from ``DSPLIT_MIN_D`` up, in bf16, float16 and float32,
-    to the forward's ``dsplit`` and the backward's ``dcluster``."""
+    to the forward's and the backward's ``dcluster``."""
     return head_dim >= DSPLIT_MIN_D and head_dim % 128 == 0 and dtype in _DTYPE_CODES
 
 
@@ -242,9 +245,10 @@ def _tf32x3(head_dim: int) -> FwdDesign:
 #: ``ops/flash_fwd_variants.py --d64``), at 128 and 256 ``flash_fwd_wgmma.cu``,
 #: at 384, 512, 640 and 768 ``flash_fwd_wide.cu``; by the rule
 #: (``dsplit_takes``) every multiple of 128 from 896 up, in all three
-#: dtypes, ``flash_fwd_dsplit.cu``. Every other key, the other head_dims
-#: outside ``HEAD_DIMS`` and float16 at 16 and 32 among them, takes
-#: ``plain``. Neither kernel of ``flash_fwd.cu`` is on a path:
+#: dtypes, ``flash_fwd_dcluster.cu`` (``flash_fwd_variants --dsplit`` times
+#: it beside ``flash_fwd_dsplit.cu``, the design before). Every other key,
+#: the other head_dims outside ``HEAD_DIMS`` and float16 at 16 and 32 among
+#: them, takes ``plain``. Neither kernel of ``flash_fwd.cu`` is on a path:
 #: its float32 one (CUDA cores) ``ops/flash_fwd_f32_variants.py`` times
 #: beside ``flash_fwd_f32.cu``, its bf16 one (mma.sync)
 #: ``ops/flash_fwd_variants.py --small-d`` beside ``flash_fwd_persistent.cu``.
@@ -256,7 +260,7 @@ FWD_DESIGNS = DesignTable({
     **{(128, dt): _wgmma(128) for dt in (torch.bfloat16, torch.float16)},
     **{(256, dt): _wgmma(80) for dt in (torch.bfloat16, torch.float16)},
     **{(d, dt): _wide(d) for d in WIDE_HEAD_DIMS for dt in (torch.bfloat16, torch.float16)},
-}, _PLAIN, dsplit_takes, _DSPLIT)
+}, _PLAIN, dsplit_takes, _DCLUSTER)
 
 _BWD_PERSISTENT = BwdDesign(
     BwdKernel("persistent", "flash_bwd_persistent", "ray_tpu_flash_bwd_dq_persistent"),
@@ -310,7 +314,7 @@ flash_fwd_d64_launches = 0
 flash_fwd_persistent_launches = 0
 flash_fwd_wide_launches = 0
 flash_fwd_tf32x3_launches = 0
-flash_fwd_dsplit_launches = 0
+flash_fwd_dcluster_launches = 0
 flash_fwd_plain_launches = 0
 flash_bwd_dq_launches = 0
 flash_bwd_dq_wgmma_launches = 0
@@ -336,7 +340,7 @@ launches_by_head_dim: collections.Counter = collections.Counter()
 def fwd_tiles(head_dim: int, dtype: torch.dtype) -> Tuple[int, int]:
     """(block_q, block_k) of the forward design that ``FWD_DESIGNS`` names
     for this head_dim and dtype: the one source of the tiles, read by the
-    wrapper, the CPU path and the plain version (``dsplit``'s 64 x 32 for
+    wrapper, the CPU path and the plain version (``dcluster``'s 64 x 32 for
     every key of the rule). A (head_dim, dtype) that no kernel takes gets
     the plain design's, the reference's 512 x 512."""
     design = FWD_DESIGNS[(head_dim, dtype)]
@@ -345,7 +349,7 @@ def fwd_tiles(head_dim: int, dtype: torch.dtype) -> Tuple[int, int]:
 
 # the forward designs that take the row max of the raw scores and fold the
 # scale into exp2 after it, so take a positive scale (``_positive_scale``)
-_POSITIVE_SCALE = ("wgmma", "persistent", "d64", "wide", "dsplit")
+_POSITIVE_SCALE = ("wgmma", "persistent", "d64", "wide", "dcluster")
 
 
 def _positive_scale(q: torch.Tensor, scale: float) -> Tuple[torch.Tensor, float]:
@@ -730,6 +734,8 @@ _SOURCES = {
     "flash_bwd_wide": ({"ray_tpu_flash_bwd_dq_wide": 7, "ray_tpu_flash_bwd_dkv_wide": 8},
                        "ray_tpu_flash_bwd_wide_error_string"),
     "flash_fwd_dsplit": ({"ray_tpu_flash_fwd_dsplit": 5}, "ray_tpu_flash_fwd_dsplit_error_string"),
+    "flash_fwd_dcluster": ({"ray_tpu_flash_fwd_dcluster": 5},
+                           "ray_tpu_flash_fwd_dcluster_error_string"),
     "flash_bwd_dsplit": ({"ray_tpu_flash_bwd_dq_dsplit": 7, "ray_tpu_flash_bwd_dkv_dsplit": 8},
                          "ray_tpu_flash_bwd_dsplit_error_string"),
     "flash_bwd_dcluster": ({"ray_tpu_flash_bwd_dq_dcluster": 7,
@@ -832,7 +838,7 @@ _TILES_ENTRIES = {"wgmma": "ray_tpu_flash_fwd_wgmma_tiles",
                   "persistent": "ray_tpu_flash_fwd_persistent_tiles",
                   "wide": "ray_tpu_flash_fwd_wide_tiles",
                   "tf32x3": "ray_tpu_flash_fwd_f32_tiles",
-                  "dsplit": "ray_tpu_flash_fwd_dsplit_tiles"}
+                  "dcluster": "ray_tpu_flash_fwd_dcluster_tiles"}
 
 
 def _check_design(design: FwdDesign, head_dim: int) -> None:
@@ -851,21 +857,30 @@ def _check_design(design: FwdDesign, head_dim: int) -> None:
             f"{design.block_q}x{design.block_k}")
 
 
-def _check_dcluster_plan(head_dim: int, dtype: torch.dtype) -> None:
-    """Raise ``RuntimeError`` unless the built dcluster kernels launch with
-    ``dcluster.dcluster_plan``'s plan at this head_dim and dtype (group
-    columns, CTAs a cluster, passes, shared memory)."""
+# each dcluster source's plan entry point and the shared memory it reports
+# after (group columns, CTAs a cluster, passes): the plan's fields
+_PLAN_ENTRIES = {"flash_fwd_dcluster": ("ray_tpu_flash_fwd_dcluster_plan", ("smem_fwd",)),
+                 "flash_bwd_dcluster": ("ray_tpu_flash_bwd_dcluster_plan",
+                                        ("smem_dq", "smem_dkv"))}
+
+
+def _check_dcluster_plan(source: str, head_dim: int, dtype: torch.dtype) -> None:
+    """Raise ``RuntimeError`` unless the dcluster kernels built from
+    ``csrc/<source>.cu`` launch with ``dcluster.dcluster_plan``'s plan at
+    this head_dim and dtype (group columns, CTAs a cluster, passes, shared
+    memory: the forward's, or dQ's and dK/dV's)."""
     plan = dcluster.dcluster_plan(head_dim, dtype)
-    fn = _kernel_lib("flash_bwd_dcluster").ray_tpu_flash_bwd_dcluster_plan
+    entry, smem = _PLAN_ENTRIES[source]
+    want = (plan.group_cols, plan.cluster, plan.passes, *(getattr(plan, n) for n in smem))
+    fn = getattr(_kernel_lib(source), entry)
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * len(want))()
     err = fn(head_dim, _DTYPE_CODES[dtype], out)
-    want = (plan.group_cols, plan.cluster, plan.passes, plan.smem_dq, plan.smem_dkv)
     if err != 0 or tuple(out) != want:
         raise RuntimeError(
-            f"flash_bwd_dcluster.cu plans {tuple(out)} (group columns, cluster, passes, shared "
-            f"memory of dQ and of dK/dV) at head_dim {head_dim} {dtype} (status {err}); "
+            f"{source}.cu plans {tuple(out)} (group columns, cluster, passes, shared memory "
+            f"{', '.join(smem)}) at head_dim {head_dim} {dtype} (status {err}); "
             f"dcluster_plan says {want}")
 
 
@@ -939,6 +954,8 @@ def flash_attention_fwd(
     _check_tiles(design, d, block_q, block_k)
     _check_kernel_inputs(q, k, v)
     _check_design(design, d)
+    if design.name == "dcluster":
+        _check_dcluster_plan(design.source, d, q.dtype)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     q_k, scale_k = _positive_scale(q, scale) if design.name in _POSITIVE_SCALE else (q, scale)
@@ -969,7 +986,7 @@ def _bwd_kernel(kernel: str, q, k, v, do, lse, delta) -> BwdKernel:
         raise ValueError(f"no {kernel} kernel takes head_dim {q.shape[-1]} {q.dtype}: the "
                          f"plain design computes it (flash_attention_bwd)")
     if chosen.name == "dcluster":
-        _check_dcluster_plan(q.shape[-1], q.dtype)
+        _check_dcluster_plan(chosen.source, q.shape[-1], q.dtype)
     return chosen
 
 

@@ -1,23 +1,27 @@
-"""The plan of the ``dcluster`` backward kernels, and their schedule in float64.
+"""The plan of the ``dcluster`` kernels, and their schedules in float64.
 
-``csrc/flash_bwd_dcluster.cu`` (``BWD_DESIGNS``' design for float32 from
-head_dim 896 up) splits d into groups of ``GROUP_COLS`` output columns and
-gives each group to one CTA of a thread-block cluster; the CTAs of a
-cluster share one resident tile (32 q rows for dQ, 32 kv rows for dK/dV).
-Per tile pair each CTA computes S and dP over its own columns only, the
+``csrc/flash_fwd_dcluster.cu`` and ``csrc/flash_bwd_dcluster.cu``
+(``FWD_DESIGNS``' and ``BWD_DESIGNS``' design from head_dim 896 up) split d
+into groups of ``GROUP_COLS`` output columns and give each group to one CTA
+of a thread-block cluster; the CTAs of a cluster share one resident tile
+(the forward's 64 q rows, 32 q rows for dQ, 32 kv rows for dK/dV). Per
+tile pair each CTA computes S (and dP) over its own columns only, the
 cluster sums the partials in group order over distributed shared memory,
-and each CTA updates only its own output columns from the same P and dS.
-A portable cluster holds at most ``MAX_CLUSTER`` CTAs, so past 8 groups a
-CTA owns several groups and writes one a pass (``passes``).
+and each CTA updates only its own output columns from the same P (and dS).
+In the forward CTA r reduces whole rows of the q tile (``reducer_rows``),
+runs the online softmax for them and hands every CTA P and the rows'
+rescale. A portable cluster holds at most ``MAX_CLUSTER`` CTAs, so past 8
+groups a CTA owns several groups and writes one a pass (``passes``).
 
 ``dcluster_plan`` is that plan as the wrapper checks it against the built
-kernel (``ray_tpu_flash_bwd_dcluster_plan``), and
-``flash_bwd_dcluster_model`` walks the same tiles, groups and passes in
-float64 on torch tensors, so that a test can hold the schedule (every
+kernels (``ray_tpu_flash_fwd_dcluster_plan``,
+``ray_tpu_flash_bwd_dcluster_plan``), and ``flash_fwd_dcluster_model`` and
+``flash_bwd_dcluster_model`` walk the same tiles, groups and passes in
+float64 on torch tensors, so that a test can hold the schedules (every
 column covered once, the partials summed over the whole cluster, each
-CTA's output its own columns) to ``flash_attention_bwd_plain`` on a
-machine without a card. Only the tests call the model; the wrapper calls
-the plan.
+CTA's output its own columns) to ``flash_attention_fwd_plain`` and
+``flash_attention_bwd_plain`` on a machine without a card. Only the tests
+call the models; the wrapper calls the plan.
 """
 
 from __future__ import annotations
@@ -32,8 +36,11 @@ import torch
 GROUP_COLS = 256
 #: the portable cluster size
 MAX_CLUSTER = 8
-#: rows of the resident tile and of a streamed tile
+#: rows of the backward's resident tile and of a streamed tile
 ROWS = 32
+#: the forward's tiles: 64 q rows (a cluster's), 32 kv rows streamed
+FWD_BLOCK_Q = 64
+FWD_BLOCK_K = 32
 NEG_INF = -1e30
 _ITEMSIZE = {torch.bfloat16: 2, torch.float16: 2, torch.float32: 4}
 
@@ -43,7 +50,7 @@ class DclusterPlan:
     """The launch plan at one head_dim: ``groups`` groups of ``group_cols``
     columns (the last narrower where they do not divide d), ``cluster`` CTAs
     a cluster, ``passes`` output groups a CTA, and the dynamic shared memory
-    of a CTA of the dQ and of the dK/dV kernel."""
+    of a CTA of the forward, the dQ and the dK/dV kernel."""
 
     head_dim: int
     group_cols: int
@@ -52,6 +59,7 @@ class DclusterPlan:
     passes: int
     smem_dq: int
     smem_dkv: int
+    smem_fwd: int
 
     def cta_columns(self, rank: int) -> Tuple[int, int]:
         """[start, stop) of the columns whose partial S and dP CTA ``rank``
@@ -64,6 +72,13 @@ class DclusterPlan:
         ``pass_``: group rank * passes + pass_, empty past d."""
         start = min((rank * self.passes + pass_) * self.group_cols, self.head_dim)
         return start, min(start + self.group_cols, self.head_dim)
+
+    def reducer_rows(self, rank: int) -> Tuple[int, int]:
+        """[start, stop) of the forward's q-tile rows whose partials CTA
+        ``rank`` sums and whose softmax it runs: ceil(64 / C) whole rows
+        each, the last CTA's fewer where C does not divide 64."""
+        per = math.ceil(FWD_BLOCK_Q / self.cluster)
+        return min(rank * per, FWD_BLOCK_Q), min((rank + 1) * per, FWD_BLOCK_Q)
 
 
 def smem_bytes(dtype: torch.dtype, dkv: bool) -> int:
@@ -81,6 +96,25 @@ def smem_bytes(dtype: torch.dtype, dkv: bool) -> int:
             + 4 * 8)
 
 
+def _max_recv_rows() -> int:
+    """The most q rows' partials a forward CTA receives, C ceil(64 / C) over
+    the cluster sizes: 70, at C = 7."""
+    return max(c * math.ceil(FWD_BLOCK_Q / c) for c in range(1, MAX_CLUSTER + 1))
+
+
+def fwd_smem_bytes(dtype: torch.dtype) -> int:
+    """A forward CTA's dynamic shared memory (``Layout<T>::kBytes`` of
+    ``flash_fwd_dcluster.cu``): the resident 64 rows of Q, two stages of the
+    streamed K and V tiles (rows as the backward's), two receive buffers of
+    the partials of the rows the CTA reduces (8 float4 a row), two of P
+    ([64 x 8] float4) with each row's rescale and 1 / l (a float2), and four
+    mbarriers."""
+    row = GROUP_COLS * 4 if dtype == torch.float32 else GROUP_COLS * _ITEMSIZE[dtype] + 16
+    recv = _max_recv_rows() * 8 * 16
+    p = FWD_BLOCK_Q * 8 * 16 + FWD_BLOCK_Q * 8
+    return FWD_BLOCK_Q * row + 2 * (2 * FWD_BLOCK_K * row) + 2 * recv + 2 * p + 4 * 8
+
+
 def dcluster_plan(head_dim: int, dtype: torch.dtype) -> DclusterPlan:
     """The plan at ``head_dim`` (a positive multiple of 128) in ``dtype``:
     G = ceil(d / 256) groups, P = ceil(G / 8) passes, C = ceil(G / P) CTAs
@@ -91,11 +125,80 @@ def dcluster_plan(head_dim: int, dtype: torch.dtype) -> DclusterPlan:
     groups = math.ceil(head_dim / GROUP_COLS)
     passes = math.ceil(groups / MAX_CLUSTER)
     return DclusterPlan(head_dim, GROUP_COLS, groups, math.ceil(groups / passes), passes,
-                        smem_bytes(dtype, False), smem_bytes(dtype, True))
+                        smem_bytes(dtype, False), smem_bytes(dtype, True),
+                        fwd_smem_bytes(dtype))
 
 
-def _tiles(n: int) -> List[Tuple[int, int]]:
-    return [(r, min(r + ROWS, n)) for r in range(0, n, ROWS)]
+def _tiles(n: int, rows: int = ROWS) -> List[Tuple[int, int]]:
+    return [(r, min(r + rows, n)) for r in range(0, n, rows)]
+
+
+def flash_fwd_dcluster_model(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) in float64 as the dcluster forward schedules them: 64-row
+    q tiles against the 32-row kv tiles the causal skip leaves (the
+    reference's test, with block_q = min(64, t_q)), pass by pass; per kv
+    tile each CTA's partial S over its own columns, the partials summed in
+    group order, the masks and the online softmax by rows of the reducing
+    CTAs (a row that has seen no visible key takes p = 1 on each column of
+    the reference's tile, min(32, t_kv) wide), and each CTA's update of its
+    own output columns of the pass only; a q tile that runs no kv tile gets
+    0 and NEG_INF."""
+    t_q, t_kv, d = q.shape[-2], k.shape[-2], q.shape[-1]
+    plan = dcluster_plan(d, q.dtype)
+    bq, bk = min(FWD_BLOCK_Q, t_q), min(FWD_BLOCK_K, t_kv)
+    n_kv = math.ceil(t_kv / FWD_BLOCK_K)
+    pad = n_kv * FWD_BLOCK_K - t_kv  # the last tile's rows past t_kv read zeros
+    qf = q.to(torch.float64)
+    kf, vf = (torch.nn.functional.pad(x.to(torch.float64), (0, 0, 0, pad)) for x in (k, v))
+    off = t_kv - t_q
+    out = torch.zeros(*q.shape, dtype=torch.float64)
+    lse = torch.full(q.shape[:-1], NEG_INF, dtype=torch.float64)
+    col_t = torch.arange(FWD_BLOCK_K)
+    for qs in _tiles(t_q, FWD_BLOCK_Q):
+        last = qs[0] + bq - 1 + off
+        n_run = n_kv if not causal else (0 if last < 0 else min(n_kv, last // FWD_BLOCK_K + 1))
+        q_pos = torch.arange(qs[0], qs[1])[:, None] + off
+        rows = slice(qs[0], qs[1])
+        for pass_ in range(plan.passes if n_run else 0):
+            m = torch.full((*q.shape[:-2], qs[1] - qs[0]), NEG_INF, dtype=torch.float64)
+            l = torch.zeros_like(m)
+            acc = torch.zeros(*q.shape[:-2], qs[1] - qs[0], d, dtype=torch.float64)
+            for j in range(n_run):
+                ks = slice(j * FWD_BLOCK_K, (j + 1) * FWD_BLOCK_K)
+                s = 0
+                for rank in range(plan.cluster):  # the partials, in group order
+                    c0, c1 = plan.cta_columns(rank)
+                    s = s + qf[..., rows, c0:c1] @ kf[..., ks, c0:c1].transpose(-1, -2)
+                k_pos = j * FWD_BLOCK_K + col_t
+                visible = (k_pos < t_kv)[None, :].expand(qs[1] - qs[0], -1)
+                if causal:
+                    visible = visible & (q_pos >= k_pos[None, :])
+                s = torch.where(visible, s * scale, -math.inf)
+                mx = s.amax(dim=-1)
+                m_new = torch.maximum(m, torch.where(mx == -math.inf, NEG_INF, mx))
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(s - m_new[..., None])
+                empty = (m_new == NEG_INF)[..., None]
+                p = torch.where(empty, (col_t < bk).to(torch.float64), p)
+                l = l * alpha + p.sum(-1)
+                for rank in range(plan.cluster):  # each CTA its own columns
+                    o0, o1 = plan.output_columns(rank, pass_)
+                    acc[..., o0:o1] = (acc[..., o0:o1] * alpha[..., None]
+                                       + p @ vf[..., ks, o0:o1])
+                m = m_new
+            denom = torch.where(l == 0.0, 1.0, l)
+            for rank in range(plan.cluster):
+                o0, o1 = plan.output_columns(rank, pass_)
+                out[..., rows, o0:o1] = acc[..., o0:o1] / denom[..., None]
+            lse[..., rows] = m + torch.log(denom)
+    return out, lse
 
 
 def flash_bwd_dcluster_model(

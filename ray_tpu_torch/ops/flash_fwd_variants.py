@@ -1,6 +1,6 @@
 """Variants of the bf16 flash forwards, built and timed on the card.
 
-    python -m ray_tpu_torch.ops.flash_fwd_variants [--small-d | --d64] [--out results.json]
+    python -m ray_tpu_torch.ops.flash_fwd_variants [--small-d | --d64 | --dsplit] [--out results.json]
 
 Each variant is ``csrc/flash_fwd_wgmma.cu`` and the headers beside it
 (``csrc/*.cuh``) with one piece of text replaced, built with the port's
@@ -71,6 +71,25 @@ Each time there is the kernel's device time per call from torch.profiler,
 the median and the spread of five turns that alternate the variants (in
 order, in reverse, in order, in reverse, in order) after half a second of
 load to settle the clocks.
+
+With ``--dsplit`` it times, at head_dims from 896 up, the forward of
+``csrc/flash_fwd_dcluster.cu`` (design ``dcluster``, the port's forward
+there) beside the kernel of ``csrc/flash_fwd_dsplit.cu`` that it took over
+from (``dsplit before``, launched directly: it is on no path) and
+``scaled_dot_product_attention``, at ``DSPLIT_SHAPES`` (2 x 8 heads x
+2048^2, causal, d 896, 1024 and 2048) in float32 and bf16 (``--dtype`` for
+one): each held to the plain forward (worst-row error of out, lse), each
+time the device time per call, median and spread of five alternating
+turns, beside the bound (operations: 4 d a visible pair, at 164.9 TFLOP/s
+in float32 and 989 in bf16) and its share. ``--probes`` adds builds of
+``flash_fwd_dcluster.cu`` that are wrong by design (``DCLUSTER_PROBES``):
+``probe: no streamed loads`` (no K or V tile is copied, so the products
+read what the slot held), ``probe: no exchange`` (each CTA keeps its own
+partials of the rows it reduces and its own P of them: no store to a peer
+and no wait on one) and ``probe: no P.V products`` (the output's products
+skipped behind a test of a kernel argument, so the rest stays), which say
+what the loads, the exchange between the CTAs and the output products
+cost.
 
 It prints each variant's spills from the compiler's report, checks each
 against the plain version (worst-row error, ``ops/tolerance.py``), and,
@@ -208,6 +227,34 @@ D64_VARIANTS = {
 D64_SHAPES = [(4, 12, 2048, 2048, 64, True), (16, 12, 2048, 2048, 64, True),
               (4, 12, 2048, 2048, 64, False)]
 D64_TURNS = 5
+
+# b, h, t_q, t_kv, d, causal: the timed cases of head_dims from 896 up
+# (chip_smoke.py's d896_b2, d1024_b2 and d2048_b2)
+DSPLIT_SHAPES = [(2, 8, 2048, 2048, d, True) for d in (896, 1024, 2048)]
+DCLUSTER_SOURCE = _build.CSRC_DIR / "flash_fwd_dcluster.cu"
+# probes, wrong by design: what the streamed loads, the exchange and the
+# output products cost (the loads and the products skipped behind a test of
+# a kernel argument that is never true, bh < 0, so the rest stays)
+DCLUSTER_PROBES = {
+    "probe: no streamed loads": [
+        ("    if (i < n_items) {\n      const int row0 = i % n_run * kBlockK;",
+         "    if (i < n_items && p.bh < 0) {\n      const int row0 = i % n_run * kBlockK;")],
+    "probe: no exchange": [
+        ("const uint32_t recv_bytes = (uint32_t)(p.cluster * n_rows * kQuads * 16);",
+         "const uint32_t recv_bytes = (uint32_t)(n_rows * kQuads * 16);"),
+        ("const uint32_t p_bytes = L::kPBytes;",
+         "const uint32_t p_bytes = (uint32_t)(n_rows * (kQuads * 16 + 8));"),
+        ("      st_async(map_cluster(at, to),", "      if (to == rank) st_async(map_cluster(at, to),"),
+        ("      if (c < p.cluster) {\n        const float4 a = in[c * per * kQuads];",
+         "      if (c == rank) {\n        const float4 a = in[c * per * kQuads];"),
+        ("        if (c < p.cluster) {\n          const uint32_t b = map_cluster(pd_bar(i), c);",
+         "        if (c == rank) {\n          const uint32_t b = map_cluster(pd_bar(i), c);")],
+    "probe: no P.V products": [("    if (oc0 < p.d) {\n      rows32_nn<T, kG, 64>",
+                                "    if (oc0 < p.d && p.bh < 0) {\n      rows32_nn<T, kG, 64>")],
+}
+# the dtypes' peak rates for the bound: bf16 on the tensor cores, float32 a
+# third of dense TF32 (3xTF32), as chip_smoke.py's PEAK_FLOPS
+_PEAK = {torch.bfloat16: 989e12, torch.float32: 494.7e12 / 3}
 
 
 def turn_order(names):
@@ -384,16 +431,22 @@ def main_d64(smi: str, out: str | None) -> int:
     return 0
 
 
-def _run(fn, q, k, v, causal, scale):
+def _run_with_lse(fn, q, k, v, causal, scale):
+    """(out, lse) of one launch of the forward entry point ``fn`` in q's
+    dtype."""
     b, h, t_q, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(b, h, t_q, device=q.device, dtype=torch.float32)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-             b * h, t_q, k.shape[2], d, 0, int(causal), scale,
+             b * h, t_q, k.shape[2], d, attn._DTYPE_CODES[q.dtype], int(causal), scale,
              torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise SystemExit(f"variant launch failed ({err})")
-    return out
+    return out, lse
+
+
+def _run(fn, q, k, v, causal, scale):
+    return _run_with_lse(fn, q, k, v, causal, scale)[0]
 
 
 def ms(fn, iters: int = 30) -> float:
@@ -451,6 +504,85 @@ def device_ms(fn, iters: int = 30, per_call: int | None = 1) -> float:
                      f"three times")
 
 
+def _fwd_bound_ms(b, h, t_q, t_kv, d, causal, dtype):
+    """The least time of the forward: 4 d operations a visible (q, k) pair
+    over the dtype's peak (q, k, v and o read or written once take less at
+    these shapes)."""
+    off = t_kv - t_q
+    pairs = (sum(min(max(r + off + 1, 0), t_kv) for r in range(t_q)) if causal
+             else t_q * t_kv)
+    return 4 * d * b * h * pairs / _PEAK[dtype] * 1e3
+
+
+def main_dsplit(smi: str, out: str | None, dtypes, probes: bool) -> int:
+    """dcluster's forward beside dsplit's (the design before) and
+    scaled_dot_product_attention, and with ``probes`` DCLUSTER_PROBES,
+    device time per call, median and spread of five alternating turns, at
+    DSPLIT_SHAPES in each of ``dtypes``."""
+    kernels = {
+        "dcluster": _bind(attn._kernel_lib("flash_fwd_dcluster").ray_tpu_flash_fwd_dcluster),
+        "dsplit before": _bind(attn._kernel_lib("flash_fwd_dsplit").ray_tpu_flash_fwd_dsplit)}
+    if probes:
+        names = list(DCLUSTER_PROBES)
+        with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per probe
+            built = dict(zip(names, pool.map(
+                lambda n: build_variant(DCLUSTER_SOURCE, n, DCLUSTER_PROBES[n]), names)))
+        for name, (lib, spills) in built.items():
+            print(f"[variant] {name:<26} spill bytes {sum(spills.values())}")
+            kernels[name] = _bind(lib.ray_tpu_flash_fwd_dcluster)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for dtype in dtypes:
+        for b, h, t_q, t_kv, d, causal in DSPLIT_SHAPES:
+            q, k, v = (torch.randn(b, h, t, d, device="cuda", dtype=dtype, generator=gen)
+                       for t in (t_q, t_kv, t_kv))
+            scale = d ** -0.5
+            ref, ref_lse = attn.flash_attention_fwd_plain(q, k, v, causal=causal, scale=scale)
+            errs = {}
+            for name, fn in kernels.items():
+                o, lse = _run_with_lse(fn, q, k, v, causal, scale)
+                torch.cuda.synchronize()
+                errs[name] = {"out": row_err(o, ref),
+                              "lse": float((lse - ref_lse).abs().max())}
+            del ref, ref_lse
+            runs = {name: (lambda fn=fn: _run(fn, q, k, v, causal, scale))
+                    for name, fn in kernels.items()}
+            t_end = time.monotonic() + 0.5  # the card's clocks settle under load
+            while time.monotonic() < t_end:
+                runs["dcluster"]()
+            torch.cuda.synchronize()
+            times = {}
+            for name in turn_order(kernels):
+                times.setdefault(name, []).append(device_ms(runs[name], iters=3))
+            sdpa = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                                    scale=scale),
+                             iters=3, per_call=None)
+            bound = _fwd_bound_ms(b, h, t_q, t_kv, d, causal, dtype)
+            med = {n: statistics.median(t) for n, t in times.items()}
+            row = dict(shape=[b, h, t_q, t_kv, d], causal=causal,
+                       dtype=str(dtype).replace("torch.", ""), sdpa_ms=sdpa, bound_ms=bound,
+                       ms=med, turns=times, bound_share={n: bound / t for n, t in med.items()},
+                       row_err=errs,
+                       ok={n: e["out"] <= FWD_ROW_TOL[dtype] and e["lse"] <= FWD_LSE_TOL[dtype]
+                           for n, e in errs.items()})
+            rows.append(row)
+            label = f"d{d}_b{b} {row['dtype']}"
+            for name in kernels:
+                probe = name.startswith("probe")
+                print(f"[time] {label}: {name:<24} {med[name]:.4f} ms "
+                      f"({min(times[name]):.4f}-{max(times[name]):.4f}); share of bound "
+                      f"{row['bound_share'][name]:.3f}; sdpa / this {sdpa / med[name]:.3f}; "
+                      f"worst row {errs[name]['out']:.2e} lse {errs[name]['lse']:.2e}"
+                      + ("" if row["ok"][name] else " (wrong by design)" if probe
+                         else " (WRONG)"), flush=True)
+            print(f"[time] {label}: bound {bound:.4f} ms, sdpa {sdpa:.4f} ms", flush=True)
+    if out:
+        with open(out, "w") as f:
+            json.dump(dict(card=smi, times="device time (torch.profiler), median of five turns",
+                           shapes=rows), f, indent=1)
+    return 0 if all(r["ok"][n] for r in rows for n in ("dcluster", "dsplit before")) else 1
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write the results to this JSON file")
@@ -458,6 +590,12 @@ def main() -> int:
                     help="the head_dim 16/32 design's variants beside the mma.sync kernel")
     ap.add_argument("--d64", action="store_true",
                     help="the head_dim 64 design's variants beside the wgmma kernel")
+    ap.add_argument("--dsplit", action="store_true",
+                    help="head_dims from 896 up: dcluster's forward beside dsplit's")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    help="with --dsplit: one dtype (default both)")
+    ap.add_argument("--probes", action="store_true",
+                    help="with --dsplit: the probes of dcluster beside it")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("flash_fwd_variants needs a card")
@@ -467,6 +605,10 @@ def main() -> int:
     print(smi)
     if args.d64:
         return main_d64(smi, args.out)
+    if args.dsplit:
+        dtypes = ((getattr(torch, args.dtype),) if args.dtype else
+                  (torch.float32, torch.bfloat16))
+        return main_dsplit(smi, args.out, dtypes, args.probes)
     variants, shapes, timer = ((SMALL_D_VARIANTS, SMALL_D_SHAPES, device_ms) if args.small_d
                                else (VARIANTS, SHAPES, ms))
     with ThreadPoolExecutor(len(variants)) as pool:  # one nvcc per variant

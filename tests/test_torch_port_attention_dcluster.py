@@ -64,10 +64,11 @@ def test_tables_name_dcluster_by_their_rule(d, dtype):
     """(d, dtype) from 896 up is a key of the backward's table by its rule,
     not a row, and names ``dcluster`` for dQ and dK/dV in every dtype, from
     a source that exists with the entry points the port binds, each
-    counting its launches; the forward keeps ``dsplit``."""
+    counting its launches; the forward is ``dcluster`` too
+    (tests/test_torch_port_attention_dcluster_fwd.py)."""
     bwd = port.BWD_DESIGNS[(d, dtype)]
     assert port.BWD_DESIGNS.takes_by_rule((d, dtype)) and (d, dtype) not in set(port.BWD_DESIGNS)
-    assert port.FWD_DESIGNS[(d, dtype)].name == "dsplit"
+    assert port.FWD_DESIGNS[(d, dtype)].name == "dcluster"
     assert [(kn.name, kn.source, kn.entry, kn.schedule) for kn in (bwd.dq, bwd.dkv)] == [
         ("dcluster", "flash_bwd_dcluster", "ray_tpu_flash_bwd_dq_dcluster", False),
         ("dcluster", "flash_bwd_dcluster", "ray_tpu_flash_bwd_dkv_dcluster", False)]
@@ -89,7 +90,7 @@ def test_plan_covers_every_column_once(d):
     columns; the CTAs' partial columns cover [0, d) once, in group order,
     and so do their output columns over the passes, each CTA writing only
     columns of its own; both kernels' shared memory within the 232448 bytes
-    a block may use in every dtype."""
+    a block may use in every dtype, the forward's too."""
     plan = dcluster.dcluster_plan(d, F32)
     groups = math.ceil(d / 256)
     assert (plan.group_cols, plan.groups) == (256, groups)
@@ -111,6 +112,7 @@ def test_plan_covers_every_column_once(d):
         p = dcluster.dcluster_plan(d, dtype)
         assert (p.cluster, p.passes) == (plan.cluster, plan.passes)
         assert 0 < p.smem_dq <= SMEM_LIMIT and 0 < p.smem_dkv <= SMEM_LIMIT
+        assert 0 < p.smem_fwd <= SMEM_LIMIT
 
 
 def test_plan_refuses_what_the_kernels_do_not_take():

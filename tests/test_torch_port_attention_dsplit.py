@@ -5,12 +5,13 @@ The reference's dispatcher runs its Pallas kernels at every head_dim that is
 a multiple of 128, with no upper limit, where both lengths are multiples of
 8 (``ray_tpu/ops/attention.py``'s ``dot_product_attention``). Past the wide
 designs' 768 the port's tables take such a head_dim by their rule
-(``dsplit_takes``, from ``DSPLIT_MIN_D`` = 896): the forward to ``dsplit``
-(``csrc/flash_fwd_dsplit.cu``: d a runtime argument, the output's columns
-split over CTAs) at 64 x 32 tiles, the backward to ``dcluster``
-(``csrc/flash_bwd_dcluster.cu``: the same split over the CTAs of a cluster
-that compute S and dP once; tests/test_torch_port_attention_dcluster.py),
-in bf16, float16 and float32; where the lengths are not multiples of 8 they
+(``dsplit_takes``, from ``DSPLIT_MIN_D`` = 896): the forward to ``dcluster``
+(``csrc/flash_fwd_dcluster.cu``: d a runtime argument, the output's columns
+split over the CTAs of a cluster that compute S once;
+tests/test_torch_port_attention_dcluster_fwd.py) at 64 x 32 tiles, the
+backward to ``dcluster`` (``csrc/flash_bwd_dcluster.cu``: the same split,
+S and dP once; tests/test_torch_port_attention_dcluster.py), in bf16,
+float16 and float32; where the lengths are not multiples of 8 they
 take the reference's own route there, ``plain``. The kernels run only on the
 card (``chip_smoke.py`` and the ``cuda``-marked tests of
 ``tests/test_torch_port_kernels.py`` hold them to their plain versions);
@@ -37,9 +38,9 @@ from ray_tpu_torch.ops.tolerance import BWD_TOL, FWD_LSE_TOL, FWD_ROW_TOL, row_e
 DSPLIT = (896, 1024, 1152, 2048, 4096, 8192)
 DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 F32 = torch.float32
-TILES = (64, 32)  # dsplit's forward tiles, in every dtype
+TILES = (64, 32)  # the dcluster forward's tiles, in every dtype
 
-# (t_q, t_kv, causal), b=1 h=2, PR 17's four length cases at dsplit's tiles:
+# (t_q, t_kv, causal), b=1 h=2, four length cases at the forward's tiles:
 # causal square; q the suffix of a longer kv with a ragged q tile (40 rows)
 # and a ragged last kv tile; rows that see no key (rows 0-47 of t_q 112
 # against t_kv 64, in a q tile that runs kv tile 0); non-causal with ragged q
@@ -65,24 +66,27 @@ def _inputs(tq, tkv, d, seed):
 @pytest.mark.parametrize("d", DSPLIT)
 def test_tables_name_dsplit_by_their_rule(d, dtype):
     """(d, dtype) for d from 896 up is a key of both tables by their rule,
-    not a row: ``dsplit`` for the forward (at its 64 x 32 tiles, which
+    not a row: ``dcluster`` for the forward (at its 64 x 32 tiles, which
     ``fwd_tiles`` gives, taking only a positive scale, which the wrapper
-    hands it) and ``dcluster`` for dQ and dK/dV (the backward's design
-    since ``dsplit``'s pair, which ``flash_bwd_variants --dsplit`` still
-    builds as the one before;
-    tests/test_torch_port_attention_dcluster.py holds its plan), from
-    sources that exist with the entry points the port binds; each counts
-    its launches."""
+    hands it; the design since ``dsplit``'s forward, which
+    ``flash_fwd_variants --dsplit`` still builds as the one before) and
+    for dQ and dK/dV (the backward's design since ``dsplit``'s pair, which
+    ``flash_bwd_variants --dsplit`` still builds so;
+    tests/test_torch_port_attention_dcluster.py and
+    tests/test_torch_port_attention_dcluster_fwd.py hold their plans),
+    from sources that exist with the entry points the port binds; each
+    counts its launches."""
     fwd, bwd = port.FWD_DESIGNS[(d, dtype)], port.BWD_DESIGNS[(d, dtype)]
     assert port.dsplit_takes(d, dtype)
     assert (d, dtype) in port.FWD_DESIGNS and (d, dtype) in port.BWD_DESIGNS
     assert port.FWD_DESIGNS.takes_by_rule((d, dtype)) and d not in port.HEAD_DIMS
     assert (d, dtype) not in set(port.FWD_DESIGNS) | set(port.BWD_DESIGNS)
-    assert (fwd.name, fwd.source, fwd.entry) == ("dsplit", "flash_fwd_dsplit",
-                                                 "ray_tpu_flash_fwd_dsplit")
+    assert (fwd.name, fwd.source, fwd.entry) == ("dcluster", "flash_fwd_dcluster",
+                                                 "ray_tpu_flash_fwd_dcluster")
     assert (fwd.block_q, fwd.block_k) == TILES == port.fwd_tiles(d, dtype)
-    assert "dsplit" in port._POSITIVE_SCALE and not fwd.schedule
-    assert port._TILES_ENTRIES["dsplit"] == "ray_tpu_flash_fwd_dsplit_tiles"
+    assert "dcluster" in port._POSITIVE_SCALE and not fwd.schedule
+    assert port._TILES_ENTRIES["dcluster"] == "ray_tpu_flash_fwd_dcluster_tiles"
+    assert "ray_tpu_flash_fwd_dsplit" in port._SOURCES["flash_fwd_dsplit"][0]
     assert [(kn.name, kn.source, kn.entry, kn.schedule) for kn in (bwd.dq, bwd.dkv)] == [
         ("dcluster", "flash_bwd_dcluster", "ray_tpu_flash_bwd_dq_dcluster", False),
         ("dcluster", "flash_bwd_dcluster", "ray_tpu_flash_bwd_dkv_dcluster", False)]
@@ -91,7 +95,7 @@ def test_tables_name_dsplit_by_their_rule(d, dtype):
                                                       (bwd.dq, bwd.dkv)]:
         assert (port._build.CSRC_DIR / f"{source}.cu").exists()
         assert entry in port._SOURCES[source][0]
-    for name in ("flash_fwd_dsplit_launches", "flash_bwd_dq_dcluster_launches",
+    for name in ("flash_fwd_dcluster_launches", "flash_bwd_dq_dcluster_launches",
                  "flash_bwd_dkv_dcluster_launches"):
         assert isinstance(getattr(port, name), int)
 
@@ -100,7 +104,7 @@ def test_every_input_the_reference_sends_to_its_kernel_has_a_kernel():
     """For every head_dim the reference's Pallas kernel takes (64 and the
     multiples of 128 up to 8192) in bf16, float16 and float32, at lengths
     that are multiples of 8, both tables name a hand-written design (a row
-    up to 768, the rule's ``dsplit`` from 896) and the plain version's
+    up to 768, the rule's ``dcluster`` from 896) and the plain version's
     input check does not refuse it; at lengths that are not, a key of the
     rule takes ``plain``, the reference's XLA route there. A multiple of 64
     that is not one of 128 (960) is no key: the reference takes XLA at
@@ -121,7 +125,7 @@ def test_every_input_the_reference_sends_to_its_kernel_has_a_kernel():
 
 @pytest.mark.parametrize("d, case", D_CASES, ids=[f"{d}-{_ids(c)}" for d, c in D_CASES])
 def test_cpu_forward_and_backward_match_the_pallas_kernels(d, case):
-    """The port's CPU path at dsplit's tiles (its plain version) against the
+    """The port's CPU path at the forward's tiles (its plain version) against the
     reference's Pallas forward at the same tiles, and the port's backward
     through ``dot_product_attention`` against ``jax.grad`` of the
     reference's ``flash_attention`` (interpret mode) under the same

@@ -8,9 +8,10 @@ At 384, 512, 640 and 768 the port's tables name ``wide``
 float16 and ``tf32x3`` for float32, at 32 x 64 tiles up to 512 and 16-row
 q tiles beyond (the wide forward's kv tiles 32 rows at 768). Past 768 the
 wide dK/dV kernel spills and the float32 dQ's tiles pass the shared memory,
-so 896 and up take the tables' rule, ``dsplit`` for the forward and
-``dcluster`` for the backward (tests/test_torch_port_attention_dsplit.py,
-tests/test_torch_port_attention_dcluster.py), and run a kernel on the card
+so 896 and up take the tables' rule, ``dcluster`` for the forward and
+the backward (tests/test_torch_port_attention_dsplit.py,
+tests/test_torch_port_attention_dcluster.py,
+tests/test_torch_port_attention_dcluster_fwd.py), and run a kernel on the card
 too. The kernels run only on the card (``chip_smoke.py`` and the
 ``cuda``-marked tests of ``tests/test_torch_port_kernels.py`` hold them to
 their plain versions); here the CPU path, which is their plain version at
@@ -101,19 +102,19 @@ def test_tables_name_the_wide_designs(d, dtype):
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_first_head_dim_past_the_designs_is_plain_and_raises_off_the_cpu(dtype):
     """896, the first multiple of 128 past the wide designs' 768, is no
-    row of the tables but their rule's: ``dsplit`` for the forward and
-    ``dcluster`` for the backward, which off the
+    row of the tables but their rule's: ``dcluster`` for the forward and
+    the backward, which off the
     CPU launches its kernels (here the meta device, where the kernels' own
     input check answers "needs CUDA", as at 384 to 768) instead of raising
     for want of a kernel. The plain design is left at 896 only for lengths
     that are not multiples of 8 (the reference's XLA route, which it
     computes off the CPU) and for a dtype that no kernel takes, which
     raises off the CPU where the reference takes its kernel; on the CPU 896
-    computes at dsplit's tiles."""
+    computes at dcluster's tiles."""
     assert port.WIDE_HEAD_DIMS == WIDE and port.DSPLIT_MIN_D == 896
     assert (896, dtype) in port.FWD_DESIGNS and (896, dtype) in port.BWD_DESIGNS
     assert 896 not in {d for d, _ in port.FWD_DESIGNS}  # a key of the rule, not a row
-    assert port.FWD_DESIGNS[(896, dtype)].name == "dsplit"
+    assert port.FWD_DESIGNS[(896, dtype)].name == "dcluster"
     assert (port.BWD_DESIGNS[(896, dtype)].dq.name,
             port.BWD_DESIGNS[(896, dtype)].dkv.name) == ("dcluster", "dcluster")
     for d in (*WIDE, 896):

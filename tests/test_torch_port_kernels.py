@@ -318,10 +318,10 @@ def _plain_on_card_matches_cpu(card, shape, dtype, scale=None):
 def test_dispatcher_raises_for_what_the_kernel_does_not_take(card):
     """The refusals left are the tiles, and a dtype that no kernel takes
     where the reference runs its Pallas kernel (float64); head_dim 896, the
-    first past the wide designs, runs the dsplit forward and the dcluster
-    backward (the tables' rule);
+    first past the wide designs, runs the dcluster forward and backward
+    (the tables' rule);
     a non-positive scale runs the kernels (the forward's sign handed to q;
-    the wide forward at 384 and dsplit's at 896 too), float16 at 64 the d64
+    the wide forward at 384 and dcluster's at 896 too), float16 at 64 the d64
     kernels, head_dim 48 and float16 at 16 the plain design, each as on the
     CPU."""
     q, k, v = _qkv(1, 2, 64, 64, 64, device=card, dtype=torch.bfloat16)
@@ -329,7 +329,7 @@ def test_dispatcher_raises_for_what_the_kernel_does_not_take(card):
         port.dot_product_attention(q, k, v, block_q=64, block_k=64)
     with pytest.raises(ValueError, match="no Hopper kernel takes torch.float64"):
         port.dot_product_attention(*_qkv(1, 1, 64, 64, 128, device=card, dtype=torch.float64))
-    by_rule = ("dsplit", "dcluster", "dcluster")
+    by_rule = ("dcluster", "dcluster", "dcluster")
     _on_card_matches_cpu(card, (1, 2, 64, 64, 896, True), torch.bfloat16, by_rule)
     _on_card_matches_cpu(card, (1, 2, 64, 96, 896, True), torch.float32, by_rule, scale=-0.03)
     d64 = ("d64",) * 3
@@ -482,7 +482,7 @@ def test_wide_head_dim_kernels_match_plain_on_card(card, case, dtype):
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))  # no atomics
 
 
-# head_dims from 896 up (the tables' rule: the dsplit forward at 64 x 32
+# head_dims from 896 up (the tables' rule: the dcluster forward at 64 x 32
 # tiles and the dcluster backward, in bf16, float16 and float32): the CPU
 # tests' length cases
 # (tests/test_torch_port_attention_dsplit.py) at 896 and 1152 (9 chunks of
@@ -508,7 +508,7 @@ DSPLIT_CASES = [
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
 @pytest.mark.parametrize("case", DSPLIT_CASES, ids=_ids)
 def test_dsplit_kernels_match_plain_on_card(card, case, dtype):
-    """From 896 up the dsplit forward and the dcluster dQ and dK/dV launch
+    """From 896 up the dcluster forward, dQ and dK/dV launch
     once each on their counters (and on their head_dim's) and none on plain,
     every row of out, lse, dq, dk and dv within the dtype's limits of the
     plain versions (the forward at the table's 64 x 32 tiles; the backward
@@ -517,11 +517,11 @@ def test_dsplit_kernels_match_plain_on_card(card, case, dtype):
     dt = getattr(torch, dtype)
     q, k, v = _qkv(b, h, tq, tkv, d, device=card, dtype=dt)
     fwd, bwd = port.FWD_DESIGNS[(d, dt)], port.BWD_DESIGNS[(d, dt)]
-    assert (fwd.name, bwd.dq.name, bwd.dkv.name) == ("dsplit", "dcluster", "dcluster")
+    assert (fwd.name, bwd.dq.name, bwd.dkv.name) == ("dcluster", "dcluster", "dcluster")
     names = ["flash_fwd_plain_launches", "flash_bwd_dq_plain_launches",
-             "flash_fwd_dsplit_launches", "flash_bwd_dq_dcluster_launches",
+             "flash_fwd_dcluster_launches", "flash_bwd_dq_dcluster_launches",
              "flash_bwd_dkv_dcluster_launches"]
-    by_d = [f"flash_fwd_dsplit_d{d}", f"flash_bwd_dq_dcluster_d{d}",
+    by_d = [f"flash_fwd_dcluster_d{d}", f"flash_bwd_dq_dcluster_d{d}",
             f"flash_bwd_dkv_dcluster_d{d}"]
     before = [getattr(port, n) for n in names]
     before_d = [port.launches_by_head_dim[n] for n in by_d]
@@ -550,14 +550,14 @@ def test_dsplit_kernels_match_plain_on_card(card, case, dtype):
 def test_every_head_dim_the_reference_takes_runs_a_kernel_on_card(card, dtype):
     """Every multiple of 128 from 896 to 8192 at (1, 1, 64, 64), causal,
     through ``dot_product_attention`` with a backward: no refusal, one
-    launch of the dsplit forward and of each dcluster backward kernel and
+    launch of the dcluster forward and of each dcluster backward kernel and
     none of plain, out within the dtype's limit of the plain forward and the
     gradients finite."""
     dt = getattr(torch, dtype)
     for d in range(896, 8192 + 1, 128):
         q, k, v = (t.requires_grad_() for t in _qkv(1, 1, 64, 64, d, device=card, dtype=dt,
                                                     seed=d))
-        names = ["flash_fwd_dsplit_launches", "flash_bwd_dq_dcluster_launches",
+        names = ["flash_fwd_dcluster_launches", "flash_bwd_dq_dcluster_launches",
                  "flash_bwd_dkv_dcluster_launches", "flash_fwd_plain_launches",
                  "flash_bwd_dq_plain_launches", "flash_bwd_dkv_plain_launches"]
         before = [getattr(port, n) for n in names]
@@ -569,6 +569,78 @@ def test_every_head_dim_the_reference_takes_runs_a_kernel_on_card(card, dtype):
         torch.cuda.synchronize()
         assert row_err(out.detach(), plain) <= FWD_ROW_TOL[dt], d
         assert all(bool(torch.isfinite(t.grad).all()) for t in (q, k, v)), d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+def test_dcluster_forward_at_every_head_dim_matches_plain_and_repeats_its_bits_on_card(
+        card, dtype):
+    """Every multiple of 128 from 896 to 8192 at (1, 2, 96, 96), causal (a
+    ragged second q tile, three kv tiles): one launch of the dcluster
+    forward a call on its counters, every row of out within the dtype's
+    limit of the plain forward at its 64 x 32 tiles, lse within its
+    limit, and a second run bit-equal (each row's partials summed in group
+    order by one reducer, no atomics)."""
+    dt = getattr(torch, dtype)
+    for d in range(896, 8192 + 1, 128):
+        q, k, v = _qkv(1, 2, 96, 96, d, device=card, dtype=dt, seed=d)
+        before = (port.flash_fwd_dcluster_launches,
+                  port.launches_by_head_dim[f"flash_fwd_dcluster_d{d}"])
+        o, lse = port.flash_attention_fwd(q, k, v, causal=True, scale=d ** -0.5)
+        o2, lse2 = port.flash_attention_fwd(q, k, v, causal=True, scale=d ** -0.5)
+        assert (port.flash_fwd_dcluster_launches - before[0],
+                port.launches_by_head_dim[f"flash_fwd_dcluster_d{d}"] - before[1]) == (2, 2), d
+        ref_o, ref_lse = port.flash_attention_fwd_plain(q, k, v, causal=True, scale=d ** -0.5)
+        torch.cuda.synchronize()
+        assert row_err(o, ref_o) <= FWD_ROW_TOL[dt], d
+        torch.testing.assert_close(lse, ref_lse, atol=FWD_LSE_TOL[dt], rtol=1e-6)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2), d
+
+
+# the dcluster forward's plans and edges: clusters of 4 (896), 5 (1152: 13
+# rows a reducer, the last 12), 7 (1664: 10 rows, the last 4) and 8 (2048);
+# two passes in clusters of 5 (2304, the last CTA's second group past d)
+# and of 8 (4096), four passes (8192); rows that see no key (t_q 160 against
+# t_kv 64), q the suffix of a longer kv, non-causal with ragged tiles, both
+# shorter than a tile, and two full heads
+DCLUSTER_FWD_CASES = [
+    (1, 2, 160, 64, 896, True),
+    (1, 2, 40, 120, 1152, True),
+    (1, 2, 104, 72, 1152, False),
+    (1, 2, 160, 64, 1664, True),
+    (1, 2, 24, 16, 1664, True),
+    (1, 2, 200, 264, 2048, True),
+    (1, 2, 160, 64, 2304, True),
+    (1, 2, 136, 136, 4096, False),
+    (1, 1, 160, 64, 8192, True),
+    (2, 8, 2048, 2048, 1024, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+@pytest.mark.parametrize("case", DCLUSTER_FWD_CASES, ids=_ids)
+def test_dcluster_forward_matches_plain_and_repeats_its_bits_on_card(card, case, dtype):
+    """The dcluster forward at each kind of plan and edge: one launch a call,
+    every row of out within the dtype's limit of the plain forward (rows
+    that see no key too: 0 and NEG_INF where the q tile skips every kv
+    tile, the mean of V where it runs one), lse within its limit, and a
+    second run bit-equal."""
+    b, h, tq, tkv, d, causal = case
+    dt = getattr(torch, dtype)
+    q, k, v = _qkv(b, h, tq, tkv, d, device=card, dtype=dt)
+    before = port.flash_fwd_dcluster_launches
+    o, lse = port.flash_attention_fwd(q, k, v, causal=causal, scale=d ** -0.5)
+    o2, lse2 = port.flash_attention_fwd(q, k, v, causal=causal, scale=d ** -0.5)
+    assert port.flash_fwd_dcluster_launches - before == 2
+    ref_o, ref_lse = port.flash_attention_fwd_plain(q, k, v, causal=causal, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(o).all())
+    assert row_err(o, ref_o) <= FWD_ROW_TOL[dt]
+    torch.testing.assert_close(lse, ref_lse, atol=FWD_LSE_TOL[dt], rtol=1e-6)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    if causal and min(64, tq) - 1 < tq - tkv:  # the first q tile skips every kv tile
+        assert bool((o[..., :64, :] == 0).all()) and bool((lse[..., :64] == port.NEG_INF).all())
 
 
 # the dcluster backward's plans: one pass in clusters of 4 (896) and 8
