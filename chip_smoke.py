@@ -9,8 +9,8 @@ Phases (any failure exits non-zero; nothing is caught):
      flash_fwd_f32.cu, flash_fwd_wide.cu, flash_bwd_wgmma.cu,
      flash_bwd_d64.cu, flash_bwd_persistent.cu, flash_bwd.cu,
      flash_bwd_f32.cu, flash_bwd_wide.cu, flash_fwd_dsplit.cu,
-     flash_bwd_dsplit.cu, flash_bwd_dcluster.cu and flash_fwd_dcluster.cu
-     with nvcc, in parallel
+     flash_bwd_dsplit.cu, flash_bwd_dcluster.cu, flash_fwd_dcluster.cu and
+     flash_bwd_dcluster128.cu with nvcc, in parallel
      (one nvcc a source), and print their register,
      shared-memory and spill reports; the wgmma forward and both wgmma
      backward kernels at head_dim 128 and 256 (the train paths': dQ, dK/dV
@@ -33,7 +33,9 @@ Phases (any failure exits non-zero; nothing is caught):
      must not spill, with their registers a thread, shared memory at most
      232448 bytes and the clusters resident at once
      (cudaOccupancyMaxActiveClusters) at each cluster size the plan uses,
-     printed and above 0;
+     printed and above 0; so must the dcluster128 dQ and dK/dV (float32 at
+     WIDE_D, 128-column groups in clusters of 3 to 6), gated and printed
+     the same way;
   2. kernel vs plain: the flash forward kernel against its plain PyTorch
      version on the same device tensors, per case (among them the shape of
      each train path and of the forward: gpt_1b at b=12, b=8, b=4 and the
@@ -58,7 +60,8 @@ Phases (any failure exits non-zero; nothing is caught):
   3. backward kernels vs plain: the dQ and dK/dV kernels of the design
      BWD_DESIGNS names (wgmma; d64 at bf16 head_dim 64; persistent for
      bf16 at head_dim 16 and 32; wide for bf16 and float16 at WIDE_D;
-     tf32x3 for float32; dcluster from 896 up in every dtype; each case
+     tf32x3 for float32, but dcluster128 for float32 at WIDE_D; dcluster
+     from 896 up in every dtype; each case
      names them and must launch them)
      against flash_attention_bwd_plain, per
      case (the train paths' shapes among them, the pipelined step's b=3,
@@ -76,9 +79,11 @@ Phases (any failure exits non-zero; nothing is caught):
      dispatch tables' plain design (inputs no kernel takes, where the
      reference takes its XLA route: head_dim 48 in bf16, 16 in float16),
      and through the kernels at head_dim 64 in float16 and in bf16 at a
-     negative scale, at head_dim 384 in bf16 (the wide design) and at 896
-     in bf16 and float32 (the dcluster forward, dQ and dK/dV: this slice's
-     path, every count set to 0 before each case); out and dq,
+     negative scale, at head_dim 384 in bf16 (the wide design), at 384,
+     512, 640 and 768 in float32 (the tf32x3 forward and the dcluster128
+     dQ and dK/dV: this slice's path) and at 896 in bf16 and float32 (the
+     dcluster forward, dQ and dK/dV), every count set to 0 before each
+     case; out and dq,
      dk, dv held to the CPU's row by row (float32 against the plain
      backward in float64), and
      the counters of the case's designs risen by exactly one forward and one
@@ -253,7 +258,7 @@ its last line {"ok": true, "device": {...}}. Exits non-zero without a card.
 Each forward case names the design (FWD_DESIGNS: wgmma, d64, persistent, wide,
 tf32x3 or dcluster) and the
 tiles that ran it; each backward case names its design (BWD_DESIGNS: wgmma,
-d64, persistent, wide, tf32x3 or dcluster). In
+d64, persistent, wide, tf32x3, dcluster128 or dcluster). In
 the kernels line, flash_fwd is the wgmma design, the one the main path
 runs, at gpt_1b's forward shape (b=4) with the forward phase's launches,
 and the backward kernels at the train step's shape (b=12) with the train
@@ -267,8 +272,8 @@ carries the head_dim-256 case's (d256_gpt_j, train_gpt_j's shape) numbers
 under "d256" and the float32 case's (gpt_1b_f32_b4, train_f32's shape, on
 the float32 designs with train_f32's launches) under "f32", which also
 stand as entries of their own (flash_fwd_f32, flash_bwd_dq_f32,
-flash_bwd_dkv_f32: the kernels of train_f32's path, with the float32 cases
-at WIDE_D under "d384" to "d768"), and 4g's kernels
+flash_bwd_dkv_f32: the kernels of train_f32's path, with the float32
+forward's cases at WIDE_D under "d384" to "d768"), and 4g's kernels
 stand as flash_fwd_persistent, flash_bwd_dq_persistent and
 flash_bwd_dkv_persistent at gpt_nano's working case with 4g's launches, the
 tiny flagship's case under "d32"; 4h's kernels stand as flash_fwd_d64,
@@ -281,8 +286,11 @@ port's launches_by_head_dim, read as BY_HEAD_DIM); the kernels from 896 up
 stand as flash_fwd_dcluster, flash_bwd_dq_dcluster and flash_bwd_dkv_dcluster
 at d1024_b2 (bf16), d896_b2 and d2048_b2 under "d896" and "d2048", the
 float32 cases under "f32", each naming the library's backend, with the
-launches of this slice's path at that head_dim (3b at 896, 7a at 1024); the
-backward kernels' plain and library
+launches of the path at that head_dim (3b at 896, 7a at 1024); the float32
+backward at WIDE_D stands as flash_bwd_dq_dcluster128 and
+flash_bwd_dkv_dcluster128 at d640_b2_f32, the other WIDE_D cases under
+"d384", "d512" and "d768", with the launches of this slice's path at each
+head_dim (3b); the backward kernels' plain and library
 times are those of the whole backward (dq, dk and dv together). In the
 kernels line ms and library_ms are device times (torch.profiler),
 event_ms the time between events.
@@ -512,7 +520,8 @@ def phase_build():
     names = ("flash_fwd_wgmma", "flash_fwd_d64", "flash_fwd_persistent", "flash_fwd",
              "flash_fwd_f32", "flash_fwd_wide", "flash_bwd_wgmma", "flash_bwd_d64",
              "flash_bwd_persistent", "flash_bwd", "flash_bwd_f32", "flash_bwd_wide",
-             "flash_fwd_dsplit", "flash_bwd_dsplit", "flash_bwd_dcluster", "flash_fwd_dcluster")
+             "flash_fwd_dsplit", "flash_bwd_dsplit", "flash_bwd_dcluster", "flash_fwd_dcluster",
+             "flash_bwd_dcluster128")
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
         built = dict(zip(names, pool.map(timed, names)))
     out = {"seconds": time.monotonic() - t0}
@@ -674,6 +683,33 @@ def phase_build():
         raise SystemExit(f"flash_fwd_dcluster asks for {smem} bytes of shared memory, "
                          f"{clusters} clusters resident at once")
     report.update(smem_bytes=smem, max_active_clusters=clusters, registers_by_dtype=regs)
+    # the float32 backward at WIDE_D (dcluster128: 128-column groups, C = d /
+    # 128 CTAs a cluster): no spill, registers a thread, dynamic shared
+    # memory and the clusters resident at once at each cluster size of its
+    # plan (3 to 6), each above 0
+    from ray_tpu_torch.ops.dcluster import dcluster128_plan
+
+    sizes = sorted({dcluster128_plan(d, torch.float32).cluster for d in WIDE_D})
+    lib = ctypes.CDLL(str(built["flash_bwd_dcluster128"][0]))
+    lib.ray_tpu_flash_bwd_dcluster128_smem_bytes.argtypes = [ctypes.c_int]
+    lib.ray_tpu_flash_bwd_dcluster128_max_clusters.argtypes = [ctypes.c_int] * 2
+    report = out["flash_bwd_dcluster128"]
+    for dkv, name in enumerate(("flash_bwd_dq_dcluster128", "flash_bwd_dkv_dcluster128")):
+        spills = next((n for k, n in report["spills"].items() if f"{name}_kernel" in k), None)
+        regs = next((n for k, n in report["registers"].items() if f"{name}_kernel" in k), None)
+        smem = lib.ray_tpu_flash_bwd_dcluster128_smem_bytes(dkv)
+        clusters = {c: lib.ray_tpu_flash_bwd_dcluster128_max_clusters(dkv, c) for c in sizes}
+        print(f"[build] {name}: registers a thread {regs}, spill bytes {spills}, {smem} bytes "
+              f"of dynamic shared memory per CTA (of 232448), clusters resident at once by "
+              f"cluster size {clusters}")
+        if spills != 0:
+            raise SystemExit(f"{name} spills, or its build is missing: {spills}")
+        if not 0 < smem <= 232448 or any(n < 1 for n in clusters.values()):
+            raise SystemExit(f"{name} asks for {smem} bytes of shared memory, {clusters} "
+                             f"clusters resident at once")
+        report.setdefault("smem_bytes", {})[name] = smem
+        report.setdefault("max_active_clusters", {})[name] = clusters
+        report.setdefault("registers_by_kernel", {})[name] = regs
     # dynamic shared memory, which the compiler's report does not show
     fwd_lib = ctypes.CDLL(str(built["flash_fwd_wgmma"][0]))
     fwd_lib.ray_tpu_flash_fwd_wgmma_smem_bytes.argtypes = [ctypes.c_int]
@@ -1031,6 +1067,8 @@ def phase_bwd_kernels_vs_plain():
         design = attn.BWD_DESIGNS[(d, dtype)]
         names = {"dq": design.dq.name, "dkv": design.dkv.name}
         want = ({"dq": "dcluster", "dkv": "dcluster"} if d >= DSPLIT_D[0] else
+                {"dq": "dcluster128", "dkv": "dcluster128"} if dtype == torch.float32
+                and d in WIDE_D else
                 {"dq": "tf32x3", "dkv": "tf32x3"} if dtype == torch.float32 else
                 {16: {"dq": "persistent", "dkv": "persistent"},
                  32: {"dq": "persistent", "dkv": "persistent"},
@@ -1152,18 +1190,22 @@ def phase_bwd_kernels_vs_plain():
 # each kernel's by design (the wgmma kernels are the bf16 paths' at head_dim
 # 128 and 256; d64 the forward's, dQ's and dK/dV's at 64; at 16 and 32 the
 # forward and the backward are persistent's; wide bf16 and float16 at
-# WIDE_D, which no model path runs; tf32x3 float32; every dtype from 896 up
-# dcluster, forward and backward, which phases 3b and 7a run; plain every
+# WIDE_D, which no model path runs; tf32x3 float32, but the float32
+# backward at WIDE_D, dcluster128, which phase 3b runs; every dtype from 896
+# up dcluster, forward and backward, which phases 3b and 7a run; plain every
 # input that no kernel takes, which only the plain_design phase may launch),
-# and the wide and tf32x3 kernels' by head_dim at WIDE_D and dcluster's at
-# DSPLIT_BY_D (the port's launches_by_head_dim), which the kernels line
-# reads for its 384-768 and dcluster entries
+# and the wide, tf32x3 and dcluster128 kernels' by head_dim at WIDE_D and
+# dcluster's at DSPLIT_BY_D (the port's launches_by_head_dim), which the
+# kernels line reads for its 384-768 and dcluster entries
 KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 DESIGNS = {kernel: ("wgmma", "d64", "persistent", "wide", "tf32x3", "dcluster", "plain")
-           for kernel in KERNEL_NAMES}
+           + (() if kernel == "flash_fwd" else ("dcluster128",)) for kernel in KERNEL_NAMES}
 BY_HEAD_DIM = tuple(f"{kernel}_{design}_d{d}" for kernel in KERNEL_NAMES
                     for design, dims in (("wide", WIDE_D), ("tf32x3", WIDE_D),
-                                         (DESIGNS[kernel][5], DSPLIT_BY_D)) for d in dims)
+                                         ("dcluster", DSPLIT_BY_D),
+                                         *((("dcluster128", WIDE_D),)
+                                           if "dcluster128" in DESIGNS[kernel] else ()))
+                    for d in dims)
 COUNTS = KERNEL_NAMES + tuple(
     f"{kernel}_{design}" for kernel in KERNEL_NAMES for design in DESIGNS[kernel]) + BY_HEAD_DIM
 
@@ -1636,9 +1678,10 @@ def phase_plain_design():
     backward: the plain design at head_dim 48 in bf16 and 16 in float16 (the
     reference's XLA route), and the kernels at head_dim 64 in float16 and in
     bf16 at a negative scale (the forward's sign handed to q), at 384 in
-    bf16 (wide) and at 896 in bf16 and float32 (the tables' rule: the
-    forward's and the backward's dcluster, this slice's path, every
-    count set to 0 before each case). Out and dq, dk, dv held to the CPU's
+    bf16 (wide), at 384, 512, 640 and 768 in float32 (the tf32x3 forward
+    and the dcluster128 backward, this slice's path) and at 896 in bf16 and
+    float32 (the tables' rule: the forward's and the backward's dcluster),
+    every count set to 0 before each case. Out and dq, dk, dv held to the CPU's
     (ops/tolerance.py's limits for the dtype, row by row): the plain
     design's to the same function on the CPU, the kernels' to their plain
     backward on the CPU from the card's out (in float64 for float32; the
@@ -1660,6 +1703,8 @@ def phase_plain_design():
             ("kernels_d64_f16", (2, 12, 256, 256, 64), torch.float16, None, d64),
             ("kernels_d64_scale_neg", (2, 12, 256, 256, 64), torch.bfloat16, -0.125, d64),
             ("kernels_d384_bf16", (2, 4, 256, 256, 384), torch.bfloat16, None, ("wide",) * 3),
+            *[(f"kernels_d{d}_f32", (1, 2, 256, 256, d), torch.float32, None,
+               ("tf32x3", "dcluster128", "dcluster128")) for d in WIDE_D],
             ("kernels_d896_bf16", (1, 2, 256, 256, 896), torch.bfloat16, None, d896),
             ("kernels_d896_f32", (1, 2, 256, 256, 896), torch.float32, None, d896)):
         b, h, t_q, t_kv, d = shape
@@ -3355,8 +3400,8 @@ def main() -> int:
                  **{f"d{d}": no_path(rows, f"d{d}_b2", kernel, line, d)
                     for d in WIDE_D if d != 512})
             for rows, kernel, line in kernel_rows]
-    for entry, (rows, kernel, line) in zip(f32.values(), kernel_rows):
-        entry.update({f"d{d}": no_path(rows, f"d{d}_b2_f32", kernel, line, d) for d in WIDE_D})
+    f32["flash_fwd"].update({f"d{d}": no_path(report["kernel_cases"], f"d{d}_b2_f32",
+                                              "flash_fwd", 167, d) for d in WIDE_D})
 
     # the kernels of the tables' rule (every multiple of 128 from 896 up):
     # the dcluster forward, dQ and dK/dV, which this slice's
@@ -3388,6 +3433,20 @@ def main() -> int:
                          "3b at 896 in bf16 and float32): " + str(
                              {e["name"]: (e["launches"], e["d896"]["launches"],
                                           e["f32"]["d896"]["launches"]) for e in by_rule}))
+    # the float32 backward at WIDE_D, dcluster128's dQ and dK/dV, which this
+    # slice's path runs (3b at each of WIDE_D in float32) and no model path
+    # does: at d640_b2_f32, the other head_dims' cases under "d384", "d512"
+    # and "d768", each with 3b's launches at its head_dim
+    wide_f32 = [dict(on_path(rows, "d640_b2_f32", kernel, line, 640),
+                     **{f"d{d}": on_path(rows, f"d{d}_b2_f32", kernel, line, d)
+                        for d in WIDE_D if d != 640})
+                for rows, kernel, line in kernel_rows[1:]]
+    if any(min(e["launches"], *(e[f"d{d}"]["launches"] for d in WIDE_D if d != 640)) < 1
+           for e in wide_f32):
+        raise SystemExit("a float32 backward kernel at 384 to 768 launched no time on its path "
+                         "(3b): " + str({e["name"]: [e["launches"]] + [
+                             e[f"d{d}"]["launches"] for d in WIDE_D if d != 640]
+                                        for e in wide_f32}))
     kernels = {"kernels": [
         dict(name="flash_fwd", route="cuda", source=fwd_case["source"],
              replaces="ray_tpu/ops/attention.py:167",
@@ -3430,6 +3489,7 @@ def main() -> int:
         *nano,
         *d64,
         *wide,
+        *wide_f32,
         *by_rule,
     ]}
     report.update(kernels)

@@ -43,8 +43,13 @@ a shorter q is the suffix of the kv context (``q_pos = q_idx + t_kv - t_q``).
   ``csrc/flash_bwd_persistent.cu`` (a persistent grid of several CTAs an
   SM, a TMA ring; bf16 at head_dim 16 and 32), ``csrc/flash_bwd_wide.cu``
   (mma.sync, d cut between warps; bf16 and float16 at 384, 512, 640 and 768),
-  ``csrc/flash_bwd_f32.cu`` (3xTF32 on mma.sync; float32 at every head_dim
-  of ``HEAD_DIMS``) or ``csrc/flash_bwd_dcluster.cu`` (design ``dcluster``,
+  ``csrc/flash_bwd_f32.cu`` (3xTF32 on mma.sync; float32 at head_dims 16 to
+  256), ``csrc/flash_bwd_dcluster128.cu`` (design ``dcluster128``, float32
+  at 384, 512, 640 and 768: ``dcluster``'s exchange over clusters of d / 128
+  CTAs of 128 columns, the resident side's operands split into TF32 big and
+  small once, in registers, and a warp of its own that reduces; plan
+  ``ops/dcluster.py``'s ``dcluster128_plan``) or
+  ``csrc/flash_bwd_dcluster.cu`` (design ``dcluster``,
   bf16, float16 and float32 from 896 up: the CTAs of a thread-block cluster
   share a resident tile, each computes S and dP over its own columns, the
   cluster sums them over distributed shared memory, and each CTA writes its
@@ -276,6 +281,11 @@ _BWD_TF32X3 = BwdDesign(BwdKernel("tf32x3", "flash_bwd_f32", "ray_tpu_flash_bwd_
 _BWD_DCLUSTER = BwdDesign(
     BwdKernel("dcluster", "flash_bwd_dcluster", "ray_tpu_flash_bwd_dq_dcluster"),
     BwdKernel("dcluster", "flash_bwd_dcluster", "ray_tpu_flash_bwd_dkv_dcluster"))
+#: float32 at 384 to 768: dcluster's exchange over 128-column groups, the
+#: operands split into TF32 big and small once
+_BWD_DCLUSTER128 = BwdDesign(
+    BwdKernel("dcluster128", "flash_bwd_dcluster128", "ray_tpu_flash_bwd_dq_dcluster128"),
+    BwdKernel("dcluster128", "flash_bwd_dcluster128", "ray_tpu_flash_bwd_dkv_dcluster128"))
 _BWD_PLAIN = BwdDesign(BwdKernel("plain", None, None), BwdKernel("plain", None, None))
 
 #: the backward's dispatch table, keyed on (head_dim, dtype): the kernels each
@@ -287,7 +297,10 @@ _BWD_PLAIN = BwdDesign(BwdKernel("plain", None, None), BwdKernel("plain", None, 
 #: ``ops/flash_bwd_variants.py --d64``); bf16 at 16 and 32 runs
 #: ``flash_bwd_persistent.cu``; bf16 and float16 at 384, 512, 640 and 768
 #: ``flash_bwd_wide.cu``; float32 runs 3xTF32 on the tensor cores
-#: (``flash_bwd_f32.cu``); by the rule every multiple of 128 from 896 up, in
+#: (``flash_bwd_f32.cu``), at 384, 512, 640 and 768 ``flash_bwd_dcluster128.cu``
+#: (``flash_bwd_variants --wide-f32`` times it beside ``flash_bwd_f32.cu``,
+#: the design before, and ``flash_bwd_dcluster.cu``'s 256-column plan); by
+#: the rule every multiple of 128 from 896 up, in
 #: all three dtypes, ``flash_bwd_dcluster.cu`` (``flash_bwd_variants
 #: --dsplit`` times it beside ``flash_bwd_dsplit.cu``, the design before,
 #: in float32 and bf16). Every other key takes
@@ -298,6 +311,7 @@ _BWD_PLAIN = BwdDesign(BwdKernel("plain", None, None), BwdKernel("plain", None, 
 #: bf16 ones (mma.sync) beside ``flash_bwd_persistent.cu``.
 BWD_DESIGNS = DesignTable({
     **{(d, torch.float32): _BWD_TF32X3 for d in HEAD_DIMS},
+    **{(d, torch.float32): _BWD_DCLUSTER128 for d in WIDE_HEAD_DIMS},
     **{(d, torch.bfloat16): _BWD_PERSISTENT for d in (16, 32)},
     **{(64, dt): _BWD_D64 for dt in (torch.bfloat16, torch.float16)},
     **{(d, dt): _BWD_WGMMA for d in (128, 256) for dt in (torch.bfloat16, torch.float16)},
@@ -323,6 +337,7 @@ flash_bwd_dq_persistent_launches = 0
 flash_bwd_dq_wide_launches = 0
 flash_bwd_dq_tf32x3_launches = 0
 flash_bwd_dq_dcluster_launches = 0
+flash_bwd_dq_dcluster128_launches = 0
 flash_bwd_dq_plain_launches = 0
 flash_bwd_dkv_launches = 0
 flash_bwd_dkv_wgmma_launches = 0
@@ -331,6 +346,7 @@ flash_bwd_dkv_persistent_launches = 0
 flash_bwd_dkv_wide_launches = 0
 flash_bwd_dkv_tf32x3_launches = 0
 flash_bwd_dkv_dcluster_launches = 0
+flash_bwd_dkv_dcluster128_launches = 0
 flash_bwd_dkv_plain_launches = 0
 #: the same launches by head_dim: "<kernel>_<design>_d<head_dim>" -> launches,
 #: counted with the design's count
@@ -741,6 +757,9 @@ _SOURCES = {
     "flash_bwd_dcluster": ({"ray_tpu_flash_bwd_dq_dcluster": 7,
                             "ray_tpu_flash_bwd_dkv_dcluster": 8},
                            "ray_tpu_flash_bwd_dcluster_error_string"),
+    "flash_bwd_dcluster128": ({"ray_tpu_flash_bwd_dq_dcluster128": 7,
+                               "ray_tpu_flash_bwd_dkv_dcluster128": 8},
+                              "ray_tpu_flash_bwd_dcluster128_error_string"),
 }
 _C_TAIL = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
 
@@ -857,19 +876,24 @@ def _check_design(design: FwdDesign, head_dim: int) -> None:
             f"{design.block_q}x{design.block_k}")
 
 
-# each dcluster source's plan entry point and the shared memory it reports
+# each cluster source's plan entry point and the shared memory it reports
 # after (group columns, CTAs a cluster, passes): the plan's fields
 _PLAN_ENTRIES = {"flash_fwd_dcluster": ("ray_tpu_flash_fwd_dcluster_plan", ("smem_fwd",)),
                  "flash_bwd_dcluster": ("ray_tpu_flash_bwd_dcluster_plan",
-                                        ("smem_dq", "smem_dkv"))}
+                                        ("smem_dq", "smem_dkv")),
+                 "flash_bwd_dcluster128": ("ray_tpu_flash_bwd_dcluster128_plan",
+                                           ("smem_dq", "smem_dkv"))}
+# each cluster source's plan in ops/dcluster.py (dcluster_plan where not named)
+_PLAN_OF = {"flash_bwd_dcluster128": dcluster.dcluster128_plan}
 
 
 def _check_dcluster_plan(source: str, head_dim: int, dtype: torch.dtype) -> None:
-    """Raise ``RuntimeError`` unless the dcluster kernels built from
-    ``csrc/<source>.cu`` launch with ``dcluster.dcluster_plan``'s plan at
+    """Raise ``RuntimeError`` unless the cluster kernels built from
+    ``csrc/<source>.cu`` launch with their plan in ``ops/dcluster.py`` at
     this head_dim and dtype (group columns, CTAs a cluster, passes, shared
     memory: the forward's, or dQ's and dK/dV's)."""
-    plan = dcluster.dcluster_plan(head_dim, dtype)
+    plan_of = _PLAN_OF.get(source, dcluster.dcluster_plan)
+    plan = plan_of(head_dim, dtype)
     entry, smem = _PLAN_ENTRIES[source]
     want = (plan.group_cols, plan.cluster, plan.passes, *(getattr(plan, n) for n in smem))
     fn = getattr(_kernel_lib(source), entry)
@@ -881,7 +905,7 @@ def _check_dcluster_plan(source: str, head_dim: int, dtype: torch.dtype) -> None
         raise RuntimeError(
             f"{source}.cu plans {tuple(out)} (group columns, cluster, passes, shared memory "
             f"{', '.join(smem)}) at head_dim {head_dim} {dtype} (status {err}); "
-            f"dcluster_plan says {want}")
+            f"{plan_of.__name__} says {want}")
 
 
 def _on_cpu(*tensors) -> bool:
@@ -985,7 +1009,7 @@ def _bwd_kernel(kernel: str, q, k, v, do, lse, delta) -> BwdKernel:
     if chosen.source is None:
         raise ValueError(f"no {kernel} kernel takes head_dim {q.shape[-1]} {q.dtype}: the "
                          f"plain design computes it (flash_attention_bwd)")
-    if chosen.name == "dcluster":
+    if chosen.source in _PLAN_ENTRIES:
         _check_dcluster_plan(chosen.source, q.shape[-1], q.dtype)
     return chosen
 

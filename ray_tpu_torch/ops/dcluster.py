@@ -22,6 +22,13 @@ column covered once, the partials summed over the whole cluster, each
 CTA's output its own columns) to ``flash_attention_fwd_plain`` and
 ``flash_attention_bwd_plain`` on a machine without a card. Only the tests
 call the models; the wrapper calls the plan.
+
+``csrc/flash_bwd_dcluster128.cu`` (design ``dcluster128``, the float32
+backward at head_dims 384 to 768) is the same exchange with groups of
+``GROUP_COLS_128`` columns, one group a CTA, C = d / 128 CTAs a cluster and
+one pass, each CTA's partials pushed as two sources (its two 64-column
+halves), the resident side in registers: ``dcluster128_plan`` and
+``flash_bwd_dcluster128_model``.
 """
 
 from __future__ import annotations
@@ -34,6 +41,10 @@ import torch
 
 #: output columns of a group (a CTA's pass)
 GROUP_COLS = 256
+#: the dcluster128 design's group (a CTA's columns) and the columns of each
+#: of the two partial sources a CTA pushes
+GROUP_COLS_128 = 128
+SOURCE_COLS_128 = 64
 #: the portable cluster size
 MAX_CLUSTER = 8
 #: rows of the backward's resident tile and of a streamed tile
@@ -113,6 +124,37 @@ def fwd_smem_bytes(dtype: torch.dtype) -> int:
     recv = _max_recv_rows() * 8 * 16
     p = FWD_BLOCK_Q * 8 * 16 + FWD_BLOCK_Q * 8
     return FWD_BLOCK_Q * row + 2 * (2 * FWD_BLOCK_K * row) + 2 * recv + 2 * p + 4 * 8
+
+
+#: stages of the dcluster128 kernels' streamed ring
+STAGES_128 = 3
+
+
+def smem_bytes_128(dkv: bool) -> int:
+    """A dcluster128 CTA's dynamic shared memory (``Layout<kDkv>::kBytes``
+    of ``flash_bwd_dcluster128.cu``): three stages of the two streamed
+    tiles, 32 raw rows of 128 floats each, two receive buffers of the
+    partials of the positions the CTA reduces from 2 C sources, two of P
+    and dS (dQ: dS only), for dQ the resident rows' lse and delta, and four
+    mbarriers; the resident side lives in registers."""
+    tile = ROWS * GROUP_COLS_128 * 4
+    recv = 2 * 2 * (256 + MAX_CLUSTER - 1) * 16
+    pd = (2 if dkv else 1) * 256 * 16
+    return (STAGES_128 * 2 * tile + 2 * recv + 2 * pd + (0 if dkv else 2 * ROWS * 4)
+            + 4 * 8)
+
+
+def dcluster128_plan(head_dim: int, dtype: torch.dtype) -> DclusterPlan:
+    """The dcluster128 plan at ``head_dim`` (a multiple of 128 up to 1024)
+    in float32, its only dtype: one group of 128 columns a CTA, C = d / 128
+    CTAs a cluster, one pass. It has no forward (``smem_fwd`` 0)."""
+    groups = head_dim // GROUP_COLS_128 if head_dim > 0 and head_dim % 128 == 0 else 0
+    if not 1 <= groups <= MAX_CLUSTER or dtype != torch.float32:
+        raise ValueError(f"dcluster128 takes a multiple of 128 up to "
+                         f"{MAX_CLUSTER * GROUP_COLS_128} in torch.float32, not head_dim "
+                         f"{head_dim} {dtype}")
+    return DclusterPlan(head_dim, GROUP_COLS_128, groups, groups, 1, smem_bytes_128(False),
+                        smem_bytes_128(True), 0)
 
 
 def dcluster_plan(head_dim: int, dtype: torch.dtype) -> DclusterPlan:
@@ -220,8 +262,39 @@ def flash_bwd_dcluster_model(
     sum in group order, P = exp(scale S - lse) with the masks and the
     empty-row guard, dS = P (dP - delta), and each CTA's update of its own
     output columns only; the scale in the epilogues."""
-    t_q, t_kv, d = q.shape[-2], k.shape[-2], q.shape[-1]
-    plan = dcluster_plan(d, q.dtype)
+    plan = dcluster_plan(q.shape[-1], q.dtype)
+    sources = [plan.cta_columns(rank) for rank in range(plan.cluster)]
+    return _bwd_model(q, k, v, o, lse, do, plan, sources, causal=causal, scale=scale, dlse=dlse)
+
+
+def flash_bwd_dcluster128_model(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    causal: bool,
+    scale: float,
+    dlse: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) in float64 as the dcluster128 kernels schedule them:
+    the dcluster schedule at ``dcluster128_plan``'s one pass, the partial S
+    and dP summed over 2 C sources of 64 columns each (CTA r's halves
+    [128 r, 128 r + 64) and [128 r + 64, 128 r + 128)) in column order, each
+    CTA's update of its own 128 output columns."""
+    plan = dcluster128_plan(q.shape[-1], q.dtype)
+    sources = [(c, c + SOURCE_COLS_128) for c in range(0, plan.head_dim, SOURCE_COLS_128)]
+    return _bwd_model(q, k, v, o, lse, do, plan, sources, causal=causal, scale=scale, dlse=dlse)
+
+
+def _bwd_model(q, k, v, o, lse, do, plan: DclusterPlan, sources: List[Tuple[int, int]], *,
+               causal: bool, scale: float, dlse: Optional[torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward's schedule under ``plan``, the partials over the column
+    ranges ``sources`` summed in their order."""
+    t_q, t_kv = q.shape[-2], k.shape[-2]
     qf, kf, vf, dof = (x.to(torch.float64) for x in (q, k, v, do))
     delta = (dof * o.to(torch.float64)).sum(-1)
     if dlse is not None:
@@ -232,10 +305,9 @@ def flash_bwd_dcluster_model(
 
     def p_and_ds(qs, ks):
         """P and dS of q rows qs against kv rows ks, S and dP summed over
-        the cluster's partials in group order."""
+        the partials of ``sources`` in their order."""
         s = dp = 0
-        for rank in range(plan.cluster):
-            c0, c1 = plan.cta_columns(rank)
+        for c0, c1 in sources:
             s = s + qf[..., qs[0]:qs[1], c0:c1] @ kf[..., ks[0]:ks[1], c0:c1].transpose(-1, -2)
             dp = dp + dof[..., qs[0]:qs[1], c0:c1] @ vf[..., ks[0]:ks[1], c0:c1].transpose(-1, -2)
         lse_t = lse64[..., qs[0]:qs[1], None]

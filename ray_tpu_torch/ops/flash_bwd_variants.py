@@ -1,6 +1,6 @@
 """Variants of the bf16 flash backward kernels, built and timed on the card.
 
-    python -m ray_tpu_torch.ops.flash_bwd_variants [--small-d | --d64 | --dsplit] [--out results.json]
+    python -m ray_tpu_torch.ops.flash_bwd_variants [--small-d | --d64 | --dsplit | --wide-f32] [--out results.json]
 
 Each variant is ``csrc/flash_bwd_wgmma.cu`` and ``csrc/hopper.cuh`` with one
 piece of text replaced (``flash_fwd_variants.build_variant``):
@@ -84,6 +84,22 @@ cover its columns only), ``probe: no partial math`` and ``probe: no output
 math`` (the products skipped behind a test of a kernel argument, so the
 rest stays), which say what the loads, the exchange between the CTAs and
 the two products cost.
+
+With ``--wide-f32`` it times the float32 backward at 384, 512, 640 and 768
+(``WIDE_SHAPES``: 2 x 8 heads x 2048^2, causal, chip_smoke.py's timed
+cases): the pair of ``csrc/flash_bwd_dcluster128.cu`` (design
+``dcluster128``, the port's there) beside the pair of
+``csrc/flash_bwd_f32.cu`` it took over from (``tf32x3 before``, launched
+directly), the pair of ``csrc/flash_bwd_dcluster.cu`` at its own
+256-column plan (``dcluster 256``, launched directly: what the cluster alone
+buys) and the library's whole backward, as ``--dsplit`` times them, after
+dcluster128's registers, spills and clusters resident at 3 to 6 CTAs.
+``--probes`` adds the builds that price the split-once: ``probe: split at
+every load`` (``kSplitResident`` false: the resident fragments kept raw and
+split at each use, so no operand is split once) and ``probe: streamed split
+once`` (``kSplitStreamed`` true: the streamed tiles split where they land
+into a big and a small plane, two stages instead of three). Neither is
+wrong: both are held to the plain backward.
 
 Each ``--small-d`` time is the kernel's device time per call from torch.profiler,
 the least of five turns after half a second of load to settle the clocks,
@@ -411,28 +427,87 @@ def _bwd_bound_ms(b, h, t_q, t_kv, d, causal, dtype, per_pair):
     return per_pair * d * b * h * pairs / _PEAK[dtype] * 1e3
 
 
+def _bind_source(source: str):
+    """The dQ and dK/dV entry points of ``csrc/<source>.cu`` as the port
+    builds it."""
+    dq, dkv = attn._SOURCES[source][0]
+    return _bind(attn._kernel_lib(source), dq, dkv)
+
+
+def _build_probes(source, probes, entries, pairs) -> None:
+    """Build ``probes`` of ``source`` (one nvcc each, at once), print their
+    spills and add their pairs (entry points ``entries``) to ``pairs``."""
+    names = list(probes)
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = dict(zip(names, pool.map(lambda n: build_variant(source, n, probes[n]), names)))
+    for name, (lib, spills) in built.items():
+        print(f"[variant] {name:<26} spill bytes {sum(spills.values())}")
+        pairs[name] = _bind(lib, *entries)
+
+
 def main_dsplit(smi: str, out: str | None, dtypes, probes: bool) -> int:
     """dcluster's pair beside dsplit's (the design before) and the
     library's whole backward, and with ``probes`` DCLUSTER_PROBES, device
     time per call, median and spread of five alternating turns, at
     DSPLIT_SHAPES in each of ``dtypes``."""
-    pairs = {"dcluster": _bind(attn._kernel_lib("flash_bwd_dcluster"),
-                               "ray_tpu_flash_bwd_dq_dcluster", "ray_tpu_flash_bwd_dkv_dcluster"),
-             "dsplit before": _bind(attn._kernel_lib("flash_bwd_dsplit"),
-                                    "ray_tpu_flash_bwd_dq_dsplit", "ray_tpu_flash_bwd_dkv_dsplit")}
+    pairs = {"dcluster": _bind_source("flash_bwd_dcluster"),
+             "dsplit before": _bind_source("flash_bwd_dsplit")}
     if probes:
-        names = list(DCLUSTER_PROBES)
-        with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per probe
-            built = dict(zip(names, pool.map(
-                lambda n: build_variant(DCLUSTER_SOURCE, n, DCLUSTER_PROBES[n]), names)))
-        for name, (lib, spills) in built.items():
-            print(f"[variant] {name:<26} spill bytes {sum(spills.values())}")
-            pairs[name] = _bind(lib, "ray_tpu_flash_bwd_dq_dcluster",
-                                "ray_tpu_flash_bwd_dkv_dcluster")
+        _build_probes(DCLUSTER_SOURCE, DCLUSTER_PROBES,
+                      ("ray_tpu_flash_bwd_dq_dcluster", "ray_tpu_flash_bwd_dkv_dcluster"), pairs)
+    return _time_pairs(smi, out, pairs, DSPLIT_SHAPES, dtypes, ("dcluster", "dsplit before"))
+
+
+# b, h, t_q, t_kv, d, causal: chip_smoke.py's timed cases at 384 to 768
+WIDE_SHAPES = [(2, 8, 2048, 2048, d, True) for d in attn.WIDE_HEAD_DIMS]
+DCLUSTER128_SOURCE = _build.CSRC_DIR / "flash_bwd_dcluster128.cu"
+# what the split-once buys: the resident fragments split at every use too
+# (no operand split once, as the designs before), and the streamed tiles
+# split once as well, where they land (two planes a tile, two stages)
+DCLUSTER128_PROBES = {
+    "probe: split at every load": [("constexpr bool kSplitResident = true;",
+                                    "constexpr bool kSplitResident = false;")],
+    "probe: streamed split once": [("constexpr bool kSplitStreamed = false;",
+                                    "constexpr bool kSplitStreamed = true;")]}
+
+
+def main_wide_f32(smi: str, out: str | None, probes: bool) -> int:
+    """The float32 backward at 384 to 768: dcluster128's pair (the port's)
+    beside tf32x3's (the design before, launched directly), dcluster's
+    256-column plan as built (launched directly: it is the design from 896
+    up) and the library's whole backward, and with ``probes``
+    DCLUSTER128_PROBES, at WIDE_SHAPES; each kernel's registers and spills
+    and the clusters resident at dcluster128's cluster sizes first."""
+    log = _build.library_path("flash_bwd_dcluster128").with_name(
+        _build.library_path("flash_bwd_dcluster128").name + ".log")
+    pairs = {"dcluster128": _bind_source("flash_bwd_dcluster128"),
+             "tf32x3 before": _bind_source("flash_bwd_f32"),
+             "dcluster 256": _bind_source("flash_bwd_dcluster")}
+    print("[build] " + " | ".join(line.strip() for line in log.read_text().splitlines()
+                                  if "dcluster128" in line or "registers" in line
+                                  or "spill" in line))
+    lib = attn._kernel_lib("flash_bwd_dcluster128")
+    lib.ray_tpu_flash_bwd_dcluster128_max_clusters.argtypes = [ctypes.c_int] * 2
+    print("[build] dcluster128 clusters resident (dQ, dK/dV) by cluster size: " + ", ".join(
+        f"{c}: {lib.ray_tpu_flash_bwd_dcluster128_max_clusters(0, c)} / "
+        f"{lib.ray_tpu_flash_bwd_dcluster128_max_clusters(1, c)}" for c in (3, 4, 5, 6)))
+    if probes:
+        _build_probes(DCLUSTER128_SOURCE, DCLUSTER128_PROBES,
+                      attn._SOURCES["flash_bwd_dcluster128"][0], pairs)
+    return _time_pairs(smi, out, pairs, WIDE_SHAPES, (torch.float32,),
+                       ("dcluster128", "tf32x3 before", "dcluster 256"))
+
+
+def _time_pairs(smi: str, out: str | None, pairs, shapes, dtypes, checked) -> int:
+    """Each pair of ``pairs`` held to the plain backward (float64 for
+    float32) and timed beside the library's whole backward, device time
+    per call, median and spread of five alternating turns, at ``shapes`` in
+    each of ``dtypes``; 0 where every pair of ``checked`` is within its
+    limit."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for dtype in dtypes:
-        for b, h, t_q, t_kv, d, causal in DSPLIT_SHAPES:
+        for b, h, t_q, t_kv, d, causal in shapes:
             q, k, v, do = (torch.randn(b, h, t, d, device="cuda", dtype=dtype, generator=gen)
                            for t in (t_q, t_kv, t_kv, t_q))
             scale = d ** -0.5
@@ -460,8 +535,8 @@ def main_dsplit(smi: str, out: str | None, dtypes, probes: bool) -> int:
             del want
             t_end = time.monotonic() + 0.5  # the card's clocks settle under load
             while time.monotonic() < t_end:
-                runs["dcluster", "dq"]()
-                runs["dcluster", "dkv"]()
+                runs[checked[0], "dq"]()
+                runs[checked[0], "dkv"]()
             torch.cuda.synchronize()
             times = {}
             for name in turn_order(pairs):
@@ -504,7 +579,7 @@ def main_dsplit(smi: str, out: str | None, dtypes, probes: bool) -> int:
         with open(out, "w") as f:
             json.dump(dict(card=smi, times="device time (torch.profiler), median of five turns",
                            shapes=rows), f, indent=1)
-    return 0 if all(r["ok"][n] for r in rows for n in ("dcluster", "dsplit before")) else 1
+    return 0 if all(r["ok"][n] for r in rows for n in checked) else 1
 
 
 def _build_small_d(name: str):
@@ -600,8 +675,11 @@ def main() -> int:
                     help="head_dims from 896 up: dcluster's pair beside dsplit's")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"),
                     help="with --dsplit: one dtype (default both)")
+    ap.add_argument("--wide-f32", action="store_true",
+                    help="float32 at 384 to 768: dcluster128's pair beside tf32x3's and "
+                         "dcluster's 256-column plan")
     ap.add_argument("--probes", action="store_true",
-                    help="with --dsplit: the probes of dcluster beside it")
+                    help="with --dsplit or --wide-f32: the probes of the design beside it")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("flash_bwd_variants needs a card")
@@ -613,6 +691,8 @@ def main() -> int:
         return main_small_d(smi, args.out)
     if args.d64:
         return main_d64(smi, args.out, args.only)
+    if args.wide_f32:
+        return main_wide_f32(smi, args.out, args.probes)
     if args.dsplit:
         dtypes = ((getattr(torch, args.dtype),) if args.dtype else
                   (torch.float32, torch.bfloat16))

@@ -37,6 +37,7 @@ class WorkerError(RuntimeError):
 
 def _worker(rank: int, world_size: int, backend: str, device: str,
             store_path: str, timeout: float, jobs, results) -> None:
+    joined = False
     try:
         fn = jobs.get()
         if device == "cuda":
@@ -48,12 +49,23 @@ def _worker(rank: int, world_size: int, backend: str, device: str,
         dist.init_process_group(
             backend, store=dist.FileStore(store_path, world_size), rank=rank,
             world_size=world_size, timeout=timedelta(seconds=timeout))
-        try:
-            results.put((rank, True, fn(rank, world_size)))
-        finally:
-            dist.destroy_process_group()
+        joined = True
+        result = (rank, True, fn(rank, world_size))
     except BaseException:  # noqa: BLE001 — handed to the caller, which raises
-        results.put((rank, False, traceback.format_exc()))
+        result = (rank, False, traceback.format_exc())
+    # the result is in the caller's pipe before the group's teardown, which
+    # can fail or stall once a peer has exited: a rank that then dies still
+    # reports what its function did
+    results.put(result)
+    results.close()
+    results.join_thread()
+    if joined:
+        dist.destroy_process_group()
+
+
+# how long the caller still drains the queue once a rank has exited with a
+# non-zero code, for a result the rank put before it died
+_DRAIN_S = 2.0
 
 
 def spawn(fn: Callable[[int, int], Any], world_size: int, *, backend: Optional[str] = None,
@@ -89,6 +101,7 @@ def spawn(fn: Callable[[int, int], Any], world_size: int, *, backend: Optional[s
         for _ in procs:
             jobs.put(fn)
         out: List[Any] = [None] * world_size
+        reported = set()
         try:
             # drain the queue before joining: a worker blocks on a full pipe
             for _ in range(world_size):
@@ -99,17 +112,24 @@ def spawn(fn: Callable[[int, int], Any], world_size: int, *, backend: Optional[s
                     except queue.Empty:
                         pass
                     # a rank that died before it could report (it could not
-                    # unpickle fn, or was killed) never puts a result
+                    # unpickle fn, or was killed) never puts a result; one
+                    # that died after it did may have left it in the pipe
                     dead = [(r, p.exitcode) for r, p in enumerate(procs)
-                            if p.exitcode not in (None, 0)]
+                            if p.exitcode not in (None, 0) and r not in reported]
                     if dead:
-                        raise WorkerError(f"rank {dead[0][0]} of {world_size} exited "
-                                          f"with code {dead[0][1]} without a result")
+                        try:
+                            rank, ok, value = results.get(timeout=_DRAIN_S)
+                            break
+                        except queue.Empty:
+                            raise WorkerError(f"rank {dead[0][0]} of {world_size} exited "
+                                              f"with code {dead[0][1]} without a result"
+                                              ) from None
                     if time.monotonic() > deadline:
                         raise TimeoutError(
                             f"{world_size} ranks did not all return within {timeout} s")
                 if not ok:
                     raise WorkerError(f"rank {rank} of {world_size} failed:\n{value}")
+                reported.add(rank)
                 out[rank] = value
             for p in procs:
                 p.join(max(deadline - time.monotonic(), 1.0))

@@ -23,9 +23,11 @@ binds. Everything is float32. Tolerances:
   same amplification by Adam as above).
 """
 
+import atexit
 import contextlib
 import dataclasses
 import functools
+import os
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -390,6 +392,29 @@ def test_spawn_returns_in_rank_order_and_raises_a_rank_failure():
     assert launch.spawn(_sum_of_ranks, 3, device="cpu") == [3.0, 3.0, 3.0]
     with pytest.raises(launch.WorkerError, match="planted failure"):
         launch.spawn(_fail_on_rank_one, 2, device="cpu")
+
+
+def _exit_3_after_reporting(fail: bool, rank, world):
+    """Rank 1's process exits with code 3 once its result is reported (an
+    exit handler, as a teardown that dies would), having raised or not."""
+    if rank == 1:
+        atexit.register(os._exit, 3)
+        if fail:
+            raise ValueError("planted failure")
+    return rank
+
+
+@pytest.mark.parametrize("fail", [False, True], ids=["returned", "raised"])
+def test_spawn_takes_a_result_reported_before_the_rank_died(fail):
+    """A rank whose process dies after its function's result is reported
+    (a non-zero exit in the group's teardown) is held to that result: its
+    value, or its traceback, and not "exited ... without a result"."""
+    fn = functools.partial(_exit_3_after_reporting, fail)
+    if fail:
+        with pytest.raises(launch.WorkerError, match="planted failure"):
+            launch.spawn(fn, 2, device="cpu", timeout=60.0)
+    else:
+        assert launch.spawn(fn, 2, device="cpu", timeout=60.0) == [0, 1]
 
 
 # ---------------------------------------------------------------------------

@@ -38,16 +38,19 @@ def _as_bits(x):
 
 
 def test_bwd_designs_send_float32_to_the_tensor_core_design():
-    """Every float32 head_dim runs the 3xTF32 kernels; the bf16 rows are the
-    wgmma design at 128/256, d64 at 64, the persistent one at 16/32 and the
-    wide one at 384, 512, 640 and 768."""
+    """Every float32 head_dim runs 3xTF32 kernels on the tensor cores: the
+    tf32x3 pair up to 256, the dcluster128 pair at 384, 512, 640 and 768;
+    the bf16 rows are the wgmma design at 128/256, d64 at 64, the persistent
+    one at 16/32 and the wide one at 384, 512, 640 and 768."""
     for d in port.HEAD_DIMS:
         design = port.BWD_DESIGNS[(d, torch.float32)]
-        assert {(kn.name, kn.source) for kn in (design.dq, design.dkv)} == {
-            ("tf32x3", "flash_bwd_f32")}
-        assert (design.dq.entry, design.dkv.entry) == ("ray_tpu_flash_bwd_dq_f32",
-                                                       "ray_tpu_flash_bwd_dkv_f32")
-        assert (port._build.CSRC_DIR / "flash_bwd_f32.cu").exists()
+        name, source = (("dcluster128", "flash_bwd_dcluster128") if d in port.WIDE_HEAD_DIMS
+                        else ("tf32x3", "flash_bwd_f32"))
+        assert {(kn.name, kn.source) for kn in (design.dq, design.dkv)} == {(name, source)}
+        suffix = "dcluster128" if d in port.WIDE_HEAD_DIMS else "f32"
+        assert (design.dq.entry, design.dkv.entry) == (f"ray_tpu_flash_bwd_dq_{suffix}",
+                                                       f"ray_tpu_flash_bwd_dkv_{suffix}")
+        assert (port._build.CSRC_DIR / f"{source}.cu").exists()
         want = {64: ("d64", "d64"), 128: ("wgmma", "wgmma"), 256: ("wgmma", "wgmma"),
                 **{w: ("wide", "wide") for w in port.WIDE_HEAD_DIMS}}.get(
             d, ("persistent", "persistent"))

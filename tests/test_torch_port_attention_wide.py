@@ -5,8 +5,11 @@ The reference's dispatcher runs its Pallas kernels at every head_dim that is
 a multiple of 128 (``ray_tpu/ops/attention.py``'s ``dot_product_attention``).
 At 384, 512, 640 and 768 the port's tables name ``wide``
 (``csrc/flash_fwd_wide.cu``, ``csrc/flash_bwd_wide.cu``) for bf16 and
-float16 and ``tf32x3`` for float32, at 32 x 64 tiles up to 512 and 16-row
-q tiles beyond (the wide forward's kv tiles 32 rows at 768). Past 768 the
+float16 and, for float32, ``tf32x3``'s forward and ``dcluster128``'s
+backward (``csrc/flash_bwd_dcluster128.cu``,
+tests/test_torch_port_attention_f32_cluster.py), the forwards at 32 x 64
+tiles up to 512 and 16-row q tiles beyond (the wide forward's kv tiles 32
+rows at 768). Past 768 the
 wide dK/dV kernel spills and the float32 dQ's tiles pass the shared memory,
 so 896 and up take the tables' rule, ``dcluster`` for the forward and
 the backward (tests/test_torch_port_attention_dsplit.py,
@@ -69,9 +72,10 @@ def _inputs(tq, tkv, d, seed):
 def test_tables_name_the_wide_designs(d, dtype):
     """(384 | 512 | 640 | 768, dtype) is held by both tables: bf16 and
     float16 on ``wide`` (its forward, dQ and dK/dV entries), float32 on
-    ``tf32x3``; the forwards at their tiles, the wide forward taking only a
-    positive scale (the wrapper hands a non-positive one's sign to q). Each
-    design counts its launches."""
+    ``tf32x3``'s forward and ``dcluster128``'s dQ and dK/dV; the forwards at
+    their tiles, the wide forward taking only a positive scale (the wrapper
+    hands a non-positive one's sign to q). Each design counts its
+    launches."""
     fwd, bwd = port.FWD_DESIGNS[(d, dtype)], port.BWD_DESIGNS[(d, dtype)]
     assert (d, dtype) in port.FWD_DESIGNS and (d, dtype) in port.BWD_DESIGNS
     assert d in port.HEAD_DIMS and d in port.WIDE_HEAD_DIMS
@@ -80,8 +84,8 @@ def test_tables_name_the_wide_designs(d, dtype):
     if dtype == F32:
         assert (fwd.name, fwd.source, fwd.entry) == ("tf32x3", "flash_fwd_f32",
                                                      "ray_tpu_flash_fwd_f32")
-        want = [("tf32x3", "flash_bwd_f32", "ray_tpu_flash_bwd_dq_f32"),
-                ("tf32x3", "flash_bwd_f32", "ray_tpu_flash_bwd_dkv_f32")]
+        want = [("dcluster128", "flash_bwd_dcluster128", "ray_tpu_flash_bwd_dq_dcluster128"),
+                ("dcluster128", "flash_bwd_dcluster128", "ray_tpu_flash_bwd_dkv_dcluster128")]
     else:
         assert (fwd.name, fwd.source, fwd.entry) == ("wide", "flash_fwd_wide",
                                                      "ray_tpu_flash_fwd_wide")

@@ -419,8 +419,9 @@ def test_d64_forwards_on_two_streams_keep_their_own_items(card):
     assert port.flash_fwd_d64_launches == before + 6
 
 
-# head_dims 384 to 768 (the wide design in bf16 and float16, tf32x3 in
-# float32, at the tiles of each head_dim): ragged q and kv, lengths that are
+# head_dims 384 to 768 (the wide design in bf16 and float16; in float32 the
+# tf32x3 forward and the dcluster128 backward; the forwards at the tiles of
+# each head_dim): ragged q and kv, lengths that are
 # not multiples of 8 (the reference takes _attention_xla there; the kernels
 # run, as at 64-256), rows that see no key (some in a q tile that runs kv
 # tile 0), non-causal with a ragged tile, two full heads
@@ -443,7 +444,8 @@ WIDE_CASES = [
 @pytest.mark.parametrize("case", WIDE_CASES, ids=_ids)
 def test_wide_head_dim_kernels_match_plain_on_card(card, case, dtype):
     """At head_dims 384 to 768 the forward, dQ and dK/dV kernels of the
-    design the tables name (wide, or tf32x3 in float32) launch once each on
+    design the tables name (wide; in float32 the tf32x3 forward and the
+    dcluster128 dQ and dK/dV) launch once each on
     their counters (and on their head_dim's) and none on plain, every row of
     out, lse, dq, dk and dv within the dtype's limits of the plain versions
     (the forward at the table's tiles; the backward in float64 for float32,
@@ -453,8 +455,8 @@ def test_wide_head_dim_kernels_match_plain_on_card(card, case, dtype):
     dt = getattr(torch, dtype)
     q, k, v = _qkv(b, h, tq, tkv, d, device=card, dtype=dt)
     fwd, bwd = port.FWD_DESIGNS[(d, dt)], port.BWD_DESIGNS[(d, dt)]
-    assert (fwd.name, bwd.dq.name, bwd.dkv.name) == (("tf32x3",) * 3 if dt == torch.float32
-                                                     else ("wide",) * 3)
+    assert (fwd.name, bwd.dq.name, bwd.dkv.name) == (
+        ("tf32x3", "dcluster128", "dcluster128") if dt == torch.float32 else ("wide",) * 3)
     names = ["flash_fwd_plain_launches", "flash_bwd_dq_plain_launches",
              f"flash_fwd_{fwd.name}_launches", f"flash_bwd_dq_{bwd.dq.name}_launches",
              f"flash_bwd_dkv_{bwd.dkv.name}_launches"]
@@ -677,6 +679,44 @@ def test_dcluster_backward_matches_plain_and_repeats_its_bits_on_card(card, case
     torch.cuda.synchronize()
     assert all(bool(torch.isfinite(x).all()) for x in got)
     _assert_grads_close(got, want, BWD_TOL[dt])
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+# the float32 backward at 384 to 768 (dcluster128: clusters of 3 to 6
+# CTAs of 128 columns): three 32-row tiles causal, rows that see no key (t_q
+# 96 against t_kv 40), a ragged non-causal pair, two heads at t 256
+DCLUSTER128_CASES = [
+    *[(1, 2, 96, 96, d, True) for d in (384, 512, 640, 768)],
+    (1, 2, 96, 40, 640, True),
+    (1, 2, 72, 104, 768, False),
+    (2, 2, 256, 256, 384, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DCLUSTER128_CASES, ids=_ids)
+def test_dcluster128_backward_matches_plain_and_repeats_its_bits_on_card(card, case):
+    """The float32 dQ and dK/dV at 384 to 768 (dcluster128, every cluster
+    size of its plan): one launch of each on their counters and on their
+    head_dim's, none on tf32x3's, every row of dq, dk and dv within 1e-4
+    of the plain backward in float64, and a second run bit-equal (every
+    reducer sums the 2 C partials in column order)."""
+    b, h, tq, tkv, d, causal = case
+    q, k, v, o, lse, do, scale = _bwd_inputs(b, h, tq, tkv, d, causal, card, torch.float32)
+    names = ["flash_bwd_dq_dcluster128_launches", "flash_bwd_dkv_dcluster128_launches",
+             "flash_bwd_dq_tf32x3_launches", "flash_bwd_dkv_tf32x3_launches"]
+    by_d = [f"flash_bwd_dq_dcluster128_d{d}", f"flash_bwd_dkv_dcluster128_d{d}"]
+    before = [getattr(port, n) for n in names]
+    before_d = [port.launches_by_head_dim[n] for n in by_d]
+    got = port.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
+    assert [getattr(port, n) - c for n, c in zip(names, before)] == [1, 1, 0, 0]
+    assert [port.launches_by_head_dim[n] - c for n, c in zip(by_d, before_d)] == [1, 1]
+    again = port.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
+    want = [w.float() for w in port.flash_attention_bwd_plain(
+        *(x.double() for x in (q, k, v, o)), lse, do.double(), causal=causal, scale=scale)]
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+    _assert_grads_close(got, want, BWD_TOL[torch.float32])
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
 
 
