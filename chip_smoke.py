@@ -9,8 +9,9 @@ Phases (any failure exits non-zero; nothing is caught):
      flash_fwd_f32.cu, flash_fwd_wide.cu, flash_bwd_wgmma.cu,
      flash_bwd_d64.cu, flash_bwd_persistent.cu, flash_bwd.cu,
      flash_bwd_f32.cu, flash_bwd_wide.cu, flash_fwd_dsplit.cu,
-     flash_bwd_dsplit.cu, flash_bwd_dcluster.cu, flash_fwd_dcluster.cu and
-     flash_bwd_dcluster128.cu with nvcc, in parallel
+     flash_bwd_dsplit.cu, flash_bwd_dcluster.cu, flash_fwd_dcluster.cu,
+     flash_bwd_dcluster128.cu and flash_fwd_dcluster128.cu with nvcc, in
+     parallel
      (one nvcc a source), and print their register,
      shared-memory and spill reports; the wgmma forward and both wgmma
      backward kernels at head_dim 128 and 256 (the train paths': dQ, dK/dV
@@ -35,14 +36,16 @@ Phases (any failure exits non-zero; nothing is caught):
      (cudaOccupancyMaxActiveClusters) at each cluster size the plan uses,
      printed and above 0; so must the dcluster128 dQ and dK/dV (float32 at
      WIDE_D, 128-column groups in clusters of 3 to 6), gated and printed
-     the same way;
+     the same way, and the dcluster128 forward (bf16, float16 and float32 at
+     WIDE_D, a build each), with its CTAs an SM besides;
   2. kernel vs plain: the flash forward kernel against its plain PyTorch
      version on the same device tensors, per case (among them the shape of
      each train path and of the forward: gpt_1b at b=12, b=8, b=4 and the
-     pipelined step's microbatch, b=3; every float32 case on the tf32x3
-     design, every bf16 head_dim-16/32 case on the persistent design and
-     every bf16 head_dim-64 case on d64, every bf16 or float16 one at
-     WIDE_D on wide and every case from 896 up on dcluster (the tables'
+     pipelined step's microbatch, b=3; every other float32 case on the
+     tf32x3 design, every bf16 head_dim-16/32 case on the persistent design and
+     every bf16 head_dim-64 case on d64, every case at WIDE_D on
+     dcluster128, run twice and bit-equal, and
+     every case from 896 up on dcluster (the tables'
      rule), one launch of it a case: gpt_nano's working case
      at 4g's b=512, the tiny flagship's at b=256, gpt_125m's at b=4 and 4h's
      b=16, d384_b2 to d768_b2 and d896_b2, d1024_b2 and d2048_b2 (2 x 8
@@ -79,11 +82,11 @@ Phases (any failure exits non-zero; nothing is caught):
      dispatch tables' plain design (inputs no kernel takes, where the
      reference takes its XLA route: head_dim 48 in bf16, 16 in float16),
      and through the kernels at head_dim 64 in float16 and in bf16 at a
-     negative scale, at head_dim 384 in bf16 (the wide design), at 384,
-     512, 640 and 768 in float32 (the tf32x3 forward and the dcluster128
-     dQ and dK/dV: this slice's path) and at 896 in bf16 and float32 (the
-     dcluster forward, dQ and dK/dV), every count set to 0 before each
-     case; out and dq,
+     negative scale, at head_dims 384, 512, 640 and 768 in bf16 (the
+     dcluster128 forward, the wide dQ and dK/dV) and in float32 (the
+     dcluster128 forward, dQ and dK/dV: this slice's path) and at 896 in
+     bf16 and float32 (the dcluster forward, dQ and dK/dV), every count set
+     to 0 before each case; out and dq,
      dk, dv held to the CPU's row by row (float32 against the plain
      backward in float64), and
      the counters of the case's designs risen by exactly one forward and one
@@ -174,7 +177,8 @@ Phases (any failure exits non-zero; nothing is caught):
   7a. lse_grad: flash_attention_with_lse (out and lse, both differentiable:
      the flash forward, then the dQ and dK/dV kernels with delta - dlse) at
      gpt_1b's heads (b=2, h=16, t=2048, d=128) in bf16 (wgmma) and float32
-     (tf32x3), gpt_j_6b's (d=256), d=512 (wide) and d=1024 with 8 heads
+     (tf32x3), gpt_j_6b's (d=256), d=512 (the dcluster128 forward, the
+     wide backward) and d=1024 with 8 heads
      (the dcluster forward and backward, this slice's path: one launch of
      each kernel, none on plain)
      in bf16, causal (a ring's step 0)
@@ -255,8 +259,8 @@ router, dispatch, experts and combine) and the idle share are printed
 
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero without a card.
-Each forward case names the design (FWD_DESIGNS: wgmma, d64, persistent, wide,
-tf32x3 or dcluster) and the
+Each forward case names the design (FWD_DESIGNS: wgmma, d64, persistent,
+tf32x3, dcluster128 or dcluster) and the
 tiles that ran it; each backward case names its design (BWD_DESIGNS: wgmma,
 d64, persistent, wide, tf32x3, dcluster128 or dcluster). In
 the kernels line, flash_fwd is the wgmma design, the one the main path
@@ -272,17 +276,20 @@ carries the head_dim-256 case's (d256_gpt_j, train_gpt_j's shape) numbers
 under "d256" and the float32 case's (gpt_1b_f32_b4, train_f32's shape, on
 the float32 designs with train_f32's launches) under "f32", which also
 stand as entries of their own (flash_fwd_f32, flash_bwd_dq_f32,
-flash_bwd_dkv_f32: the kernels of train_f32's path, with the float32
-forward's cases at WIDE_D under "d384" to "d768"), and 4g's kernels
+flash_bwd_dkv_f32: the kernels of train_f32's path), and 4g's kernels
 stand as flash_fwd_persistent, flash_bwd_dq_persistent and
 flash_bwd_dkv_persistent at gpt_nano's working case with 4g's launches, the
 tiny flagship's case under "d32"; 4h's kernels stand as flash_fwd_d64,
 flash_bwd_dq_d64 and flash_bwd_dkv_d64 at gpt_125m's b=16 case with 4h's
-launches, the b=4 case under "b4"; the wide kernels (no model path runs
-them) stand as flash_fwd_wide, flash_bwd_dq_wide and flash_bwd_dkv_wide at
+launches, the b=4 case under "b4"; the wide dQ and dK/dV (no model path
+runs them) stand as flash_bwd_dq_wide and flash_bwd_dkv_wide at
 d512_b2, the other WIDE_D cases under "d384", "d640" and "d768", each naming
 the library's backend, with the paths' launches at that head_dim (the
-port's launches_by_head_dim, read as BY_HEAD_DIM); the kernels from 896 up
+port's launches_by_head_dim, read as BY_HEAD_DIM); the forward at WIDE_D
+stands as flash_fwd_dcluster128 at d640_b2 (bf16), the other WIDE_D cases
+under "d384", "d512" and "d768" and the float32 ones under "f32", each
+with the launches of this slice's path at its head_dim and dtype (3b, and
+7a at 512); the kernels from 896 up
 stand as flash_fwd_dcluster, flash_bwd_dq_dcluster and flash_bwd_dkv_dcluster
 at d1024_b2 (bf16), d896_b2 and d2048_b2 under "d896" and "d2048", the
 float32 cases under "f32", each naming the library's backend, with the
@@ -326,8 +333,9 @@ import torch  # noqa: E402
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 494.7e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 # the head_dims past 256 that the tables' rows take
-# (ray_tpu_torch/ops/attention.py's WIDE_HEAD_DIMS: wide in bf16 and
-# float16, tf32x3 in float32)
+# (ray_tpu_torch/ops/attention.py's WIDE_HEAD_DIMS: the forward's
+# dcluster128 in every dtype, the backward's wide in bf16 and float16 and
+# dcluster128 in float32)
 WIDE_D = (384, 512, 640, 768)
 # the head_dims from 896 up (the tables' rule, from DSPLIT_MIN_D: the
 # forward's and the backward's dcluster in bf16, float16 and float32, d a
@@ -521,7 +529,7 @@ def phase_build():
              "flash_fwd_f32", "flash_fwd_wide", "flash_bwd_wgmma", "flash_bwd_d64",
              "flash_bwd_persistent", "flash_bwd", "flash_bwd_f32", "flash_bwd_wide",
              "flash_fwd_dsplit", "flash_bwd_dsplit", "flash_bwd_dcluster", "flash_fwd_dcluster",
-             "flash_bwd_dcluster128")
+             "flash_bwd_dcluster128", "flash_fwd_dcluster128")
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
         built = dict(zip(names, pool.map(timed, names)))
     out = {"seconds": time.monotonic() - t0}
@@ -710,6 +718,39 @@ def phase_build():
         report.setdefault("smem_bytes", {})[name] = smem
         report.setdefault("max_active_clusters", {})[name] = clusters
         report.setdefault("registers_by_kernel", {})[name] = regs
+    # the forward at WIDE_D (dcluster128: a build each in bf16, float16 and
+    # float32, the same plan): no spill, registers a thread, dynamic shared
+    # memory, CTAs an SM and the clusters resident at once at each cluster
+    # size of its plan (3 to 6), each above 0
+    from ray_tpu_torch.ops.dcluster import dcluster128_fwd_plan
+
+    sizes = sorted({dcluster128_fwd_plan(d, torch.float32).cluster for d in WIDE_D})
+    lib = ctypes.CDLL(str(built["flash_fwd_dcluster128"][0]))
+    for fn, n_args in (("smem_bytes", 1), ("ctas_per_sm", 1), ("max_clusters", 2)):
+        getattr(lib, f"ray_tpu_flash_fwd_dcluster128_{fn}").argtypes = [ctypes.c_int] * n_args
+    report = out["flash_fwd_dcluster128"]
+    marks = {dt: f"flash_fwd_dcluster128_kernel{tmark}" for dt, (tmark, _) in codes.items()}
+    spills = {dt: next((n for k, n in report["spills"].items() if m in k), None)
+              for dt, m in marks.items()}
+    regs = {dt: next((n for k, n in report["registers"].items() if m in k), None)
+            for dt, m in marks.items()}
+    smem = {dt: lib.ray_tpu_flash_fwd_dcluster128_smem_bytes(code)
+            for dt, (_, code) in codes.items()}
+    ctas = {dt: lib.ray_tpu_flash_fwd_dcluster128_ctas_per_sm(code)
+            for dt, (_, code) in codes.items()}
+    clusters = {dt: {c: lib.ray_tpu_flash_fwd_dcluster128_max_clusters(code, c) for c in sizes}
+                for dt, (_, code) in codes.items()}
+    print(f"[build] flash_fwd_dcluster128 by dtype: registers a thread {regs}, spill bytes "
+          f"{spills}, {smem} bytes of dynamic shared memory per CTA (of 232448), {ctas} CTAs "
+          f"resident per SM, clusters resident at once by cluster size {clusters}")
+    if any(n != 0 for n in spills.values()):
+        raise SystemExit(f"flash_fwd_dcluster128 spills, or a dtype's build is missing: {spills}")
+    if (any(not 0 < n <= 232448 for n in smem.values()) or any(n < 1 for n in ctas.values())
+            or any(n < 1 for by_c in clusters.values() for n in by_c.values())):
+        raise SystemExit(f"flash_fwd_dcluster128 asks for {smem} bytes of shared memory, {ctas} "
+                         f"CTAs an SM, {clusters} clusters resident at once")
+    report.update(smem_bytes=smem, ctas_per_sm=ctas, max_active_clusters=clusters,
+                  registers_by_dtype=regs)
     # dynamic shared memory, which the compiler's report does not show
     fwd_lib = ctypes.CDLL(str(built["flash_fwd_wgmma"][0]))
     fwd_lib.ray_tpu_flash_fwd_wgmma_smem_bytes.argtypes = [ctypes.c_int]
@@ -835,9 +876,9 @@ def phase_kernel_vs_plain():
         v = torch.randn(b, h, t_kv, d, device="cuda", dtype=dtype, generator=gen)
         scale = 1.0 / d ** 0.5
         design = attn.FWD_DESIGNS[(d, dtype)]
-        want = ("dcluster" if d >= DSPLIT_D[0] else "tf32x3" if dtype == torch.float32 else
-                {16: "persistent", 32: "persistent", 64: "d64",
-                 **dict.fromkeys(WIDE_D, "wide")}.get(d, "wgmma"))
+        want = ("dcluster" if d >= DSPLIT_D[0] else "dcluster128" if d in WIDE_D else
+                "tf32x3" if dtype == torch.float32 else
+                {16: "persistent", 32: "persistent", 64: "d64"}.get(d, "wgmma"))
         if design.name != want:
             raise SystemExit(f"FWD_DESIGNS sends {dtype} head_dim {d} to {design.name}, "
                              f"expected {want}")
@@ -849,25 +890,31 @@ def phase_kernel_vs_plain():
                 **_by_head_dim("flash_fwd", design.name, d)}:
             raise SystemExit(f"case {name}: the forward launched {launched}, expected one "
                              f"launch on the {design.name} design")
+        # the cluster designs at WIDE_D: a second run gives the same bits
+        again = (attn.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+                 if d in WIDE_D else (out, lse))
         ref_out, ref_lse = attn.flash_attention_fwd_plain(q, k, v, causal=causal, scale=scale)
         torch.cuda.synchronize()
         err = float((out.float() - ref_out.float()).abs().max())
         out_row_err = row_err(out, ref_out)
         lse_err = float((lse - ref_lse).abs().max())
         out_tol, lse_tol = FWD_ROW_TOL[dtype], FWD_LSE_TOL[dtype]
-        ok = (out_row_err <= out_tol and lse_err <= lse_tol
+        bit_equal = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        ok = (out_row_err <= out_tol and lse_err <= lse_tol and bit_equal
               and bool(torch.isfinite(out).all()))
         row = dict(case=name, shape=[b, h, t_q, t_kv, d], causal=causal,
                    dtype=str(dtype).replace("torch.", ""), design=design.name,
                    source=f"ray_tpu_torch/ops/csrc/{design.source}.cu",
                    tiles=[design.block_q, design.block_k], max_abs_err=err,
                    row_err=out_row_err, row_err_tol=out_tol,
-                   lse_max_abs_err=lse_err, lse_tol=lse_tol, ok=ok)
+                   lse_max_abs_err=lse_err, lse_tol=lse_tol, bit_equal=bit_equal, ok=ok)
         rows.append(row)
         verdict = (f"[kernel] {name:<22} {str(row['shape']):<28} {design.name} "
                    f"{design.block_q}x{design.block_k} worst-row err "
                    f"{out_row_err:.2e} (limit {out_tol:.0e}), max abs err {err:.2e}, lse "
-                   f"{lse_err:.2e} (limit {lse_tol:.0e}) {'ok' if ok else 'FAIL'}")
+                   f"{lse_err:.2e} (limit {lse_tol:.0e})"
+                   f"{', second run bit-equal' if d in WIDE_D and bit_equal else ''} "
+                   f"{'ok' if ok else 'FAIL'}")
         if name in CHECK_ONLY:
             print(verdict)
             continue
@@ -902,9 +949,9 @@ def phase_kernel_vs_plain():
               f"({bound_by}), ex2 floor {row['ex2_floor_ms']:.4f} ms")
     bad = [(r["case"], r["row_err"], r["lse_max_abs_err"]) for r in rows if not r["ok"]]
     if bad:
-        raise SystemExit(f"kernel disagrees with its plain version (case, worst-row "
-                         f"error of out against {FWD_ROW_TOL}, lse error against "
-                         f"{FWD_LSE_TOL}): {bad}")
+        raise SystemExit(f"kernel disagrees with its plain version or with its own second "
+                         f"run (case, worst-row error of out against {FWD_ROW_TOL}, lse "
+                         f"error against {FWD_LSE_TOL}): {bad}")
     return rows
 
 
@@ -957,7 +1004,8 @@ F16_CASES = [
 # head_dims WIDE_D (no model path: the reference's dispatcher takes any
 # multiple of 128), in both phases, last, 384 and 512 before 640 and 768:
 # timed at 2 x 8 heads x 2048^2, causal (model widths of 3072 to 6144) in
-# bf16 (the wide design) and float32 (tf32x3); checked only, ragged q and kv,
+# bf16 and float32 (the forward's dcluster128; the backward's wide and
+# dcluster128); checked only, ragged q and kv,
 # rows that see no key (t_q 160, t_kv 64), non-causal, float16, and float32
 # ragged and with rows that see no key
 def _wide_cases(head_dims):
@@ -1189,23 +1237,22 @@ def phase_bwd_kernels_vs_plain():
 # the launch counts read around each path: every launch of each kernel, and
 # each kernel's by design (the wgmma kernels are the bf16 paths' at head_dim
 # 128 and 256; d64 the forward's, dQ's and dK/dV's at 64; at 16 and 32 the
-# forward and the backward are persistent's; wide bf16 and float16 at
-# WIDE_D, which no model path runs; tf32x3 float32, but the float32
-# backward at WIDE_D, dcluster128, which phase 3b runs; every dtype from 896
+# forward and the backward are persistent's; the wide backward bf16 and
+# float16 at WIDE_D, which no model path runs; tf32x3 float32, but the
+# float32 backward at WIDE_D, dcluster128, and the forward at WIDE_D in
+# every dtype, dcluster128, which phases 3b and 7a run; every dtype from 896
 # up dcluster, forward and backward, which phases 3b and 7a run; plain every
 # input that no kernel takes, which only the plain_design phase may launch),
-# and the wide, tf32x3 and dcluster128 kernels' by head_dim at WIDE_D and
+# and the wide and dcluster128 kernels' by head_dim at WIDE_D and
 # dcluster's at DSPLIT_BY_D (the port's launches_by_head_dim), which the
 # kernels line reads for its 384-768 and dcluster entries
 KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-DESIGNS = {kernel: ("wgmma", "d64", "persistent", "wide", "tf32x3", "dcluster", "plain")
-           + (() if kernel == "flash_fwd" else ("dcluster128",)) for kernel in KERNEL_NAMES}
+DESIGNS = {kernel: ("wgmma", "d64", "persistent", "tf32x3", "dcluster", "plain", "dcluster128")
+           + (() if kernel == "flash_fwd" else ("wide",)) for kernel in KERNEL_NAMES}
 BY_HEAD_DIM = tuple(f"{kernel}_{design}_d{d}" for kernel in KERNEL_NAMES
-                    for design, dims in (("wide", WIDE_D), ("tf32x3", WIDE_D),
-                                         ("dcluster", DSPLIT_BY_D),
-                                         *((("dcluster128", WIDE_D),)
-                                           if "dcluster128" in DESIGNS[kernel] else ()))
-                    for d in dims)
+                    for design, dims in (("wide", WIDE_D), ("dcluster", DSPLIT_BY_D),
+                                         ("dcluster128", WIDE_D))
+                    if design in DESIGNS[kernel] for d in dims)
 COUNTS = KERNEL_NAMES + tuple(
     f"{kernel}_{design}" for kernel in KERNEL_NAMES for design in DESIGNS[kernel]) + BY_HEAD_DIM
 
@@ -1677,9 +1724,10 @@ def phase_plain_design():
     the card, once each, causal, through dot_product_attention with a
     backward: the plain design at head_dim 48 in bf16 and 16 in float16 (the
     reference's XLA route), and the kernels at head_dim 64 in float16 and in
-    bf16 at a negative scale (the forward's sign handed to q), at 384 in
-    bf16 (wide), at 384, 512, 640 and 768 in float32 (the tf32x3 forward
-    and the dcluster128 backward, this slice's path) and at 896 in bf16 and
+    bf16 at a negative scale (the forward's sign handed to q), at 384, 512,
+    640 and 768 in bf16 (the dcluster128 forward, the wide dQ and dK/dV)
+    and in float32 (the dcluster128 forward, dQ and dK/dV: this slice's
+    path) and at 896 in bf16 and
     float32 (the tables' rule: the forward's and the backward's dcluster),
     every count set to 0 before each case. Out and dq, dk, dv held to the CPU's
     (ops/tolerance.py's limits for the dtype, row by row): the plain
@@ -1702,9 +1750,10 @@ def phase_plain_design():
             ("plain_d16_f16", (2, 12, 256, 256, 16), torch.float16, None, ("plain",) * 3),
             ("kernels_d64_f16", (2, 12, 256, 256, 64), torch.float16, None, d64),
             ("kernels_d64_scale_neg", (2, 12, 256, 256, 64), torch.bfloat16, -0.125, d64),
-            ("kernels_d384_bf16", (2, 4, 256, 256, 384), torch.bfloat16, None, ("wide",) * 3),
+            *[(f"kernels_d{d}_bf16", (2, 4, 256, 256, d), torch.bfloat16, None,
+               ("dcluster128", "wide", "wide")) for d in WIDE_D],
             *[(f"kernels_d{d}_f32", (1, 2, 256, 256, d), torch.float32, None,
-               ("tf32x3", "dcluster128", "dcluster128")) for d in WIDE_D],
+               ("dcluster128",) * 3) for d in WIDE_D],
             ("kernels_d896_bf16", (1, 2, 256, 256, 896), torch.bfloat16, None, d896),
             ("kernels_d896_f32", (1, 2, 256, 256, 896), torch.float32, None, d896)):
         b, h, t_q, t_kv, d = shape
@@ -2023,9 +2072,10 @@ def phase_lse_grad():
     cotangents of both outputs, at gpt_1b's heads (b=2, h=16, t=2048,
     d=128) in bf16 (the wgmma kernels) and float32 (tf32x3 forward and
     backward), at gpt_j_6b's (d=256) in bf16 (the wgmma split dK/dV
-    kernel), at d=512 in bf16 (the wide kernels) and at d=1024 in bf16 with
-    8 heads (the dcluster forward and backward: this slice's
-    path, every count set to 0 before it and read after, none on plain),
+    kernel), at d=512 in bf16 (the dcluster128 forward, the wide backward)
+    and at d=1024 in bf16 with 8 heads (the dcluster forward and backward:
+    this slice's path, every count set to 0 before it and read after, none
+    on plain),
     causal and not. Two gates on
     every row of dq, dk and dv:
     - against the plain flash versions on the same inputs (the forward's
@@ -3384,10 +3434,9 @@ def main() -> int:
            for rows, kernel, line in kernel_rows]
 
     # the kernels of head_dims WIDE_D, which no model path runs (cases
-    # only): the wide forward, dQ and dK/dV at d512_b2 (bf16), the other
-    # head_dims' cases under "d384", "d640" and "d768"; the float32 kernels'
-    # cases under the f32 entries' "d384" to "d768". Their launches are the
-    # paths' at that head_dim (BY_HEAD_DIM), summed over the paths
+    # only): the wide dQ and dK/dV at d512_b2 (bf16), the other head_dims'
+    # cases under "d384", "d640" and "d768". Their launches are the paths'
+    # at that head_dim (BY_HEAD_DIM), summed over the paths
     def no_path(rows, name, kernel, line, d):
         entry = small_d(rows, name, kernel, line)
         key = f"{kernel}_{entry['design']}_d{d}"
@@ -3399,9 +3448,7 @@ def main() -> int:
     wide = [dict(no_path(rows, "d512_b2", kernel, line, 512),
                  **{f"d{d}": no_path(rows, f"d{d}_b2", kernel, line, d)
                     for d in WIDE_D if d != 512})
-            for rows, kernel, line in kernel_rows]
-    f32["flash_fwd"].update({f"d{d}": no_path(report["kernel_cases"], f"d{d}_b2_f32",
-                                              "flash_fwd", 167, d) for d in WIDE_D})
+            for rows, kernel, line in kernel_rows[1:]]
 
     # the kernels of the tables' rule (every multiple of 128 from 896 up):
     # the dcluster forward, dQ and dK/dV, which this slice's
@@ -3447,6 +3494,24 @@ def main() -> int:
                          "(3b): " + str({e["name"]: [e["launches"]] + [
                              e[f"d{d}"]["launches"] for d in WIDE_D if d != 640]
                                         for e in wide_f32}))
+    # the forward at WIDE_D, dcluster128 in every dtype, which this slice's
+    # path runs (3b at each of WIDE_D in bf16 and float32, 7a at 512 in
+    # bf16) and no model path does: at d640_b2 (bf16), the other head_dims'
+    # cases under "d384", "d512" and "d768", the float32 ones under "f32",
+    # each with the path's launches at its head_dim and dtype
+    fwd_rows = report["kernel_cases"]
+    wide_fwd = dict(on_path(fwd_rows, "d640_b2", "flash_fwd", 167, 640),
+                    **{f"d{d}": on_path(fwd_rows, f"d{d}_b2", "flash_fwd", 167, d)
+                       for d in WIDE_D if d != 640},
+                    f32={f"d{d}": on_path(fwd_rows, f"d{d}_b2_f32", "flash_fwd", 167, d)
+                         for d in WIDE_D})
+    fwd_launches = [wide_fwd["launches"]] + [wide_fwd[f"d{d}"]["launches"]
+                                             for d in WIDE_D if d != 640] + [
+        wide_fwd["f32"][f"d{d}"]["launches"] for d in WIDE_D]
+    if min(fwd_launches) < 1:
+        raise SystemExit(f"the forward at 384 to 768 launched no time on its path (3b, 7a) at "
+                         f"some head_dim and dtype (bf16 640, 384, 512, 768, float32 384 to "
+                         f"768): {fwd_launches}")
     kernels = {"kernels": [
         dict(name="flash_fwd", route="cuda", source=fwd_case["source"],
              replaces="ray_tpu/ops/attention.py:167",
@@ -3488,6 +3553,7 @@ def main() -> int:
         *f32.values(),
         *nano,
         *d64,
+        wide_fwd,
         *wide,
         *wide_f32,
         *by_rule,

@@ -23,10 +23,14 @@ a shorter q is the suffix of the kv context (``q_pos = q_idx + t_kv - t_q``).
   CTAs take (q tile, head) items from the launch's own counter; bf16 and
   float16 at 64),
   ``csrc/flash_fwd_persistent.cu`` (a persistent grid of several CTAs an
-  SM, a TMA ring; bf16 at head_dim 16, 32), ``csrc/flash_fwd_wide.cu``
-  (mma.sync from cp.async tiles, d cut between warps; bf16 and float16 at
-  384, 512, 640 and 768), ``csrc/flash_fwd_f32.cu`` (3xTF32 on mma.sync; float32 at
-  every head_dim of ``HEAD_DIMS``) or ``csrc/flash_fwd_dcluster.cu`` (design
+  SM, a TMA ring; bf16 at head_dim 16, 32), ``csrc/flash_fwd_f32.cu`` (3xTF32
+  on mma.sync; float32 at head_dims 16 to 256),
+  ``csrc/flash_fwd_dcluster128.cu`` (design ``dcluster128``, bf16, float16
+  and float32 at 384, 512, 640 and 768: the d / 128 CTAs of a thread-block
+  cluster share a 64-row q tile, each computes S over its own 128 columns
+  as two 64-column sources, bf16 and float16 on wgmma with K and V by TMA,
+  float32 in 3xTF32 on mma.sync; plan ``ops/dcluster.py``'s
+  ``dcluster128_fwd_plan``) or ``csrc/flash_fwd_dcluster.cu`` (design
   ``dcluster``, d a runtime argument: the CTAs of a thread-block cluster
   share a 64-row q tile, each computes S over its own columns, the cluster
   sums them over distributed shared memory into one P, and each CTA writes
@@ -34,7 +38,9 @@ a shorter q is the suffix of the kv context (``q_pos = q_idx + t_kv - t_q``).
   from ``DSPLIT_MIN_D`` = 896 up); ``csrc/flash_fwd.cu`` (mma.sync), bf16
   16/32's kernel before, is on no path, and neither is
   ``csrc/flash_fwd_dsplit.cu``, the design before ``dcluster``, which
-  ``ops/flash_fwd_variants.py --dsplit`` times beside it.
+  ``ops/flash_fwd_variants.py --dsplit`` times beside it, nor, at 384 to
+  768, ``csrc/flash_fwd_wide.cu`` and ``flash_fwd_f32.cu``'s builds there,
+  the designs before ``dcluster128``, which ``--wide`` times beside it.
   ``flash_attention_bwd`` launches the dQ and dK/dV kernels
   (``flash_bwd_dq``, ``flash_bwd_dkv``) that the dispatch table
   ``BWD_DESIGNS`` names: ``csrc/flash_bwd_wgmma.cu`` (TMA, wgmma,
@@ -76,7 +82,7 @@ a shorter q is the suffix of the kv context (``q_pos = q_idx + t_kv - t_q``).
   (``_check_plain_inputs``). On CPU tensors it computes either route
   (``flash_attention_fwd_plain`` at the reference's tiles on the kernel
   route).
-* The wgmma, d64, persistent, wide and dcluster forward kernels take the row
+* The wgmma, d64, persistent, dcluster and dcluster128 forward kernels take the row
   max of the raw scores and fold the scale in after it, so they take a
   positive scale; the wrapper gives them any other as the same scores,
   exactly: -q and
@@ -114,8 +120,10 @@ from torch.utils.checkpoint import checkpoint
 from ray_tpu_torch.ops import _build, dcluster
 
 NEG_INF = -1e30
-#: the head_dims past 256 that the hand-written designs take (``wide`` in
-#: bf16 and float16, ``tf32x3`` in float32): each warp owns 128 columns of d
+#: the head_dims past 256 that the tables' rows take: the forward's
+#: ``dcluster128`` (a CTA of a cluster owns 128 columns of d) in bf16,
+#: float16 and float32; the backward's ``wide`` in bf16 and float16 (a warp
+#: owns 128 columns) and ``dcluster128`` in float32
 WIDE_HEAD_DIMS = (384, 512, 640, 768)
 #: the head_dims of the tables' rows (the rule, ``dsplit_takes``, takes
 #: every multiple of 128 from ``DSPLIT_MIN_D`` up besides)
@@ -202,6 +210,15 @@ _TF32X3 = FwdDesign("tf32x3", "flash_fwd_f32", "ray_tpu_flash_fwd_f32", 64, 64)
 _D64 = FwdDesign("d64", "flash_fwd_d64", "ray_tpu_flash_fwd_d64", 128, 128, schedule=True)
 #: d a runtime argument: 64 q rows by 32 kv rows in every dtype
 _DCLUSTER = FwdDesign("dcluster", "flash_fwd_dcluster", "ray_tpu_flash_fwd_dcluster", 64, 32)
+#: head_dims 384 to 768 in every dtype: dcluster's exchange over clusters of
+#: d / 128 CTAs, the same 64 x 32 tiles. It read fastest at every one of
+#: those rows in bf16 and float32, against ``dcluster`` at its own
+#: 256-column plan and the designs before (``flash_fwd_wide.cu``,
+#: ``flash_fwd_f32.cu``), in one alternating run of
+#: ``ops/flash_fwd_variants.py --wide`` on an H100 (PERF.md §6); float16
+#: takes bf16's
+_DCLUSTER128 = FwdDesign("dcluster128", "flash_fwd_dcluster128",
+                         "ray_tpu_flash_fwd_dcluster128", 64, 32)
 #: no kernel: the reference's own route for the input (``plain_attention_with_lse``),
 #: at the reference's tiles where it takes its kernel
 _PLAIN = FwdDesign("plain", None, None, REF_BLOCK, REF_BLOCK)
@@ -218,37 +235,18 @@ def _wgmma(block_k: int) -> FwdDesign:
     return FwdDesign("wgmma", "flash_fwd_wgmma", "ray_tpu_flash_fwd_wgmma", 128, block_k)
 
 
-def _wide_block_q(head_dim: int) -> int:
-    """q rows of a forward tile at a head_dim of ``WIDE_HEAD_DIMS``, in both
-    designs there: 32 at 384 and 512, 16 from 640 on (so that the warps of a
-    CTA, each owning 16 rows and 128 columns of d, fit an SM's registers).
-    At 384 and 512 64 rows of float32 Q would not fit in shared memory
-    beside the ring."""
-    return 32 if head_dim <= 512 else 16
-
-
-def _wide(head_dim: int) -> FwdDesign:
-    """The wide forward at a head_dim of ``WIDE_HEAD_DIMS``: 64-row kv tiles
-    up to 640, 32-row ones at 768 (two 64-row pieces of K or V would not fit
-    in shared memory beside Q)."""
-    return FwdDesign("wide", "flash_fwd_wide", "ray_tpu_flash_fwd_wide",
-                     _wide_block_q(head_dim), 64 if head_dim <= 640 else 32)
-
-
-def _tf32x3(head_dim: int) -> FwdDesign:
-    if head_dim <= 256:
-        return _TF32X3
-    return dataclasses.replace(_TF32X3, block_q=_wide_block_q(head_dim))
-
-
 #: the forward's dispatch table, keyed on (head_dim, dtype): the kernel each
 #: input launches on the card and the tiles the plain version repeats. Every
 #: design but ``plain`` is a hand-written kernel; a launch that the kernel
-#: refuses raises. float32 runs 3xTF32 on the tensor cores (``flash_fwd_f32.cu``),
+#: refuses raises. float32 runs 3xTF32 on the tensor cores
+#: (``flash_fwd_f32.cu`` up to 256),
 #: bf16 and float16 at head_dim 64 ``flash_fwd_d64.cu`` (a persistent grid;
 #: the wgmma kernel it took over from is timed beside it by
-#: ``ops/flash_fwd_variants.py --d64``), at 128 and 256 ``flash_fwd_wgmma.cu``,
-#: at 384, 512, 640 and 768 ``flash_fwd_wide.cu``; by the rule
+#: ``ops/flash_fwd_variants.py --d64``), at 128 and 256 ``flash_fwd_wgmma.cu``;
+#: all three dtypes at 384, 512, 640 and 768 ``flash_fwd_dcluster128.cu``
+#: (``flash_fwd_variants --wide`` times it beside ``flash_fwd_wide.cu`` and
+#: ``flash_fwd_f32.cu``, the designs before, and ``flash_fwd_dcluster.cu``'s
+#: 256-column plan); by the rule
 #: (``dsplit_takes``) every multiple of 128 from 896 up, in all three
 #: dtypes, ``flash_fwd_dcluster.cu`` (``flash_fwd_variants --dsplit`` times
 #: it beside ``flash_fwd_dsplit.cu``, the design before). Every other key,
@@ -258,13 +256,13 @@ def _tf32x3(head_dim: int) -> FwdDesign:
 #: beside ``flash_fwd_f32.cu``, its bf16 one (mma.sync)
 #: ``ops/flash_fwd_variants.py --small-d`` beside ``flash_fwd_persistent.cu``.
 FWD_DESIGNS = DesignTable({
-    **{(d, torch.float32): _tf32x3(d) for d in HEAD_DIMS},
+    **{(d, torch.float32): _TF32X3 for d in HEAD_DIMS if d not in WIDE_HEAD_DIMS},
     (16, torch.bfloat16): _PERSISTENT,
     (32, torch.bfloat16): _PERSISTENT,
     **{(64, dt): _D64 for dt in (torch.bfloat16, torch.float16)},
     **{(128, dt): _wgmma(128) for dt in (torch.bfloat16, torch.float16)},
     **{(256, dt): _wgmma(80) for dt in (torch.bfloat16, torch.float16)},
-    **{(d, dt): _wide(d) for d in WIDE_HEAD_DIMS for dt in (torch.bfloat16, torch.float16)},
+    **{(d, dt): _DCLUSTER128 for d in WIDE_HEAD_DIMS for dt in _DTYPE_CODES},
 }, _PLAIN, dsplit_takes, _DCLUSTER)
 
 _BWD_PERSISTENT = BwdDesign(
@@ -326,9 +324,9 @@ flash_fwd_launches = 0
 flash_fwd_wgmma_launches = 0
 flash_fwd_d64_launches = 0
 flash_fwd_persistent_launches = 0
-flash_fwd_wide_launches = 0
 flash_fwd_tf32x3_launches = 0
 flash_fwd_dcluster_launches = 0
+flash_fwd_dcluster128_launches = 0
 flash_fwd_plain_launches = 0
 flash_bwd_dq_launches = 0
 flash_bwd_dq_wgmma_launches = 0
@@ -365,7 +363,7 @@ def fwd_tiles(head_dim: int, dtype: torch.dtype) -> Tuple[int, int]:
 
 # the forward designs that take the row max of the raw scores and fold the
 # scale into exp2 after it, so take a positive scale (``_positive_scale``)
-_POSITIVE_SCALE = ("wgmma", "persistent", "d64", "wide", "dcluster")
+_POSITIVE_SCALE = ("wgmma", "persistent", "d64", "dcluster", "dcluster128")
 
 
 def _positive_scale(q: torch.Tensor, scale: float) -> Tuple[torch.Tensor, float]:
@@ -752,6 +750,8 @@ _SOURCES = {
     "flash_fwd_dsplit": ({"ray_tpu_flash_fwd_dsplit": 5}, "ray_tpu_flash_fwd_dsplit_error_string"),
     "flash_fwd_dcluster": ({"ray_tpu_flash_fwd_dcluster": 5},
                            "ray_tpu_flash_fwd_dcluster_error_string"),
+    "flash_fwd_dcluster128": ({"ray_tpu_flash_fwd_dcluster128": 5},
+                              "ray_tpu_flash_fwd_dcluster128_error_string"),
     "flash_bwd_dsplit": ({"ray_tpu_flash_bwd_dq_dsplit": 7, "ray_tpu_flash_bwd_dkv_dsplit": 8},
                          "ray_tpu_flash_bwd_dsplit_error_string"),
     "flash_bwd_dcluster": ({"ray_tpu_flash_bwd_dq_dcluster": 7,
@@ -855,9 +855,9 @@ def _check_tiles(design: FwdDesign, head_dim: int, block_q, block_k) -> None:
 _TILES_ENTRIES = {"wgmma": "ray_tpu_flash_fwd_wgmma_tiles",
                   "d64": "ray_tpu_flash_fwd_d64_tiles",
                   "persistent": "ray_tpu_flash_fwd_persistent_tiles",
-                  "wide": "ray_tpu_flash_fwd_wide_tiles",
                   "tf32x3": "ray_tpu_flash_fwd_f32_tiles",
-                  "dcluster": "ray_tpu_flash_fwd_dcluster_tiles"}
+                  "dcluster": "ray_tpu_flash_fwd_dcluster_tiles",
+                  "dcluster128": "ray_tpu_flash_fwd_dcluster128_tiles"}
 
 
 def _check_design(design: FwdDesign, head_dim: int) -> None:
@@ -879,12 +879,15 @@ def _check_design(design: FwdDesign, head_dim: int) -> None:
 # each cluster source's plan entry point and the shared memory it reports
 # after (group columns, CTAs a cluster, passes): the plan's fields
 _PLAN_ENTRIES = {"flash_fwd_dcluster": ("ray_tpu_flash_fwd_dcluster_plan", ("smem_fwd",)),
+                 "flash_fwd_dcluster128": ("ray_tpu_flash_fwd_dcluster128_plan",
+                                           ("smem_fwd",)),
                  "flash_bwd_dcluster": ("ray_tpu_flash_bwd_dcluster_plan",
                                         ("smem_dq", "smem_dkv")),
                  "flash_bwd_dcluster128": ("ray_tpu_flash_bwd_dcluster128_plan",
                                            ("smem_dq", "smem_dkv"))}
 # each cluster source's plan in ops/dcluster.py (dcluster_plan where not named)
-_PLAN_OF = {"flash_bwd_dcluster128": dcluster.dcluster128_plan}
+_PLAN_OF = {"flash_bwd_dcluster128": dcluster.dcluster128_plan,
+            "flash_fwd_dcluster128": dcluster.dcluster128_fwd_plan}
 
 
 def _check_dcluster_plan(source: str, head_dim: int, dtype: torch.dtype) -> None:
@@ -978,7 +981,7 @@ def flash_attention_fwd(
     _check_tiles(design, d, block_q, block_k)
     _check_kernel_inputs(q, k, v)
     _check_design(design, d)
-    if design.name == "dcluster":
+    if design.source in _PLAN_ENTRIES:
         _check_dcluster_plan(design.source, d, q.dtype)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)

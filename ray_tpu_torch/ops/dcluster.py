@@ -28,7 +28,12 @@ backward at head_dims 384 to 768) is the same exchange with groups of
 ``GROUP_COLS_128`` columns, one group a CTA, C = d / 128 CTAs a cluster and
 one pass, each CTA's partials pushed as two sources (its two 64-column
 halves), the resident side in registers: ``dcluster128_plan`` and
-``flash_bwd_dcluster128_model``.
+``flash_bwd_dcluster128_model``. ``csrc/flash_fwd_dcluster128.cu`` is the
+forward of that plan in bf16, float16 and float32 (``FWD_DESIGNS``' design
+at 384 to 768): a cluster's 64-row q tile against 32-row kv tiles, two
+sources a CTA, the forward's reducing rows (``reducer_rows``), its shared
+memory by dtype: ``dcluster128_fwd_plan`` and
+``flash_fwd_dcluster128_model``.
 """
 
 from __future__ import annotations
@@ -107,10 +112,11 @@ def smem_bytes(dtype: torch.dtype, dkv: bool) -> int:
             + 4 * 8)
 
 
-def _max_recv_rows() -> int:
-    """The most q rows' partials a forward CTA receives, C ceil(64 / C) over
-    the cluster sizes: 70, at C = 7."""
-    return max(c * math.ceil(FWD_BLOCK_Q / c) for c in range(1, MAX_CLUSTER + 1))
+def _max_recv_rows(sources: int = 1) -> int:
+    """The most q rows' partials a forward CTA receives, ``sources`` C
+    ceil(64 / C) over the cluster sizes: 70 at one source a CTA
+    (``dcluster``), 140 at two (``dcluster128``), both at C = 7."""
+    return max(sources * c * math.ceil(FWD_BLOCK_Q / c) for c in range(1, MAX_CLUSTER + 1))
 
 
 def fwd_smem_bytes(dtype: torch.dtype) -> int:
@@ -145,9 +151,10 @@ def smem_bytes_128(dkv: bool) -> int:
 
 
 def dcluster128_plan(head_dim: int, dtype: torch.dtype) -> DclusterPlan:
-    """The dcluster128 plan at ``head_dim`` (a multiple of 128 up to 1024)
-    in float32, its only dtype: one group of 128 columns a CTA, C = d / 128
-    CTAs a cluster, one pass. It has no forward (``smem_fwd`` 0)."""
+    """The dcluster128 backward's plan at ``head_dim`` (a multiple of 128 up
+    to 1024) in float32, its only dtype: one group of 128 columns a CTA,
+    C = d / 128 CTAs a cluster, one pass. The forward's is
+    ``dcluster128_fwd_plan`` (``smem_fwd`` 0 here)."""
     groups = head_dim // GROUP_COLS_128 if head_dim > 0 and head_dim % 128 == 0 else 0
     if not 1 <= groups <= MAX_CLUSTER or dtype != torch.float32:
         raise ValueError(f"dcluster128 takes a multiple of 128 up to "
@@ -155,6 +162,45 @@ def dcluster128_plan(head_dim: int, dtype: torch.dtype) -> DclusterPlan:
                          f"{head_dim} {dtype}")
     return DclusterPlan(head_dim, GROUP_COLS_128, groups, groups, 1, smem_bytes_128(False),
                         smem_bytes_128(True), 0)
+
+
+#: stages of the dcluster128 forward's ring of K and V tiles
+FWD_STAGES_128 = 3
+
+
+def fwd_smem_bytes_128(dtype: torch.dtype) -> int:
+    """A dcluster128 forward CTA's dynamic shared memory (``Layout<T>::kAlloc``
+    of ``flash_fwd_dcluster128.cu``): in float32 the resident Q (64 swizzled
+    rows of 128 floats; bf16 and float16 keep it in registers), three
+    stages of the K and V tiles (32 rows of 128 columns: 128-byte swizzled
+    boxes in bf16 and float16, swizzled 512-byte rows in float32), two
+    receive buffers of the partials of the rows the CTA reduces from 2 C
+    sources (8 float4 a row), two of P ([64 x 8] float4) with each row's
+    rescale and 1 / l, two receive and two P mbarriers and a full one a
+    stage, and 1024 bytes to align the swizzled tiles: 103480 in bf16 and
+    float16 (two CTAs an SM), 185400 in float32."""
+    tile = FWD_BLOCK_K * GROUP_COLS_128 * _ITEMSIZE[dtype]
+    q = FWD_BLOCK_Q * GROUP_COLS_128 * 4 if dtype == torch.float32 else 0
+    recv = _max_recv_rows(2) * 8 * 16
+    p = FWD_BLOCK_Q * 8 * 16 + FWD_BLOCK_Q * 8
+    return (q + FWD_STAGES_128 * 2 * tile + 2 * recv + 2 * p + (4 + FWD_STAGES_128) * 8
+            + 1024)
+
+
+def dcluster128_fwd_plan(head_dim: int, dtype: torch.dtype) -> DclusterPlan:
+    """The dcluster128 forward's plan at ``head_dim`` (a multiple of 128
+    from 256 to 1024: the reducer's 8 threads a row need C >= 2) in bf16,
+    float16 or float32: one group of 128 columns a CTA, C = d / 128 CTAs a
+    cluster, one pass, each CTA's partial S pushed as two sources of
+    ``SOURCE_COLS_128`` columns. It has no backward (``smem_dq`` and
+    ``smem_dkv`` 0)."""
+    groups = head_dim // GROUP_COLS_128 if head_dim > 0 and head_dim % 128 == 0 else 0
+    if not 2 <= groups <= MAX_CLUSTER or dtype not in _ITEMSIZE:
+        raise ValueError(f"the dcluster128 forward takes a multiple of 128 from 256 to "
+                         f"{MAX_CLUSTER * GROUP_COLS_128} in {list(_ITEMSIZE)}, not head_dim "
+                         f"{head_dim} {dtype}")
+    return DclusterPlan(head_dim, GROUP_COLS_128, groups, groups, 1, 0, 0,
+                        fwd_smem_bytes_128(dtype))
 
 
 def dcluster_plan(head_dim: int, dtype: torch.dtype) -> DclusterPlan:
@@ -192,8 +238,34 @@ def flash_fwd_dcluster_model(
     the reference's tile, min(32, t_kv) wide), and each CTA's update of its
     own output columns of the pass only; a q tile that runs no kv tile gets
     0 and NEG_INF."""
+    plan = dcluster_plan(q.shape[-1], q.dtype)
+    sources = [plan.cta_columns(rank) for rank in range(plan.cluster)]
+    return _fwd_model(q, k, v, plan, sources, causal=causal, scale=scale)
+
+
+def flash_fwd_dcluster128_model(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) in float64 as the dcluster128 forward schedules them: the
+    dcluster schedule at ``dcluster128_fwd_plan``'s one pass, the partial S
+    summed over 2 C sources of 64 columns each (CTA r's halves [128 r,
+    128 r + 64) and [128 r + 64, 128 r + 128)) in column order, each CTA's
+    update of its own 128 output columns."""
+    plan = dcluster128_fwd_plan(q.shape[-1], q.dtype)
+    sources = [(c, c + SOURCE_COLS_128) for c in range(0, plan.head_dim, SOURCE_COLS_128)]
+    return _fwd_model(q, k, v, plan, sources, causal=causal, scale=scale)
+
+
+def _fwd_model(q, k, v, plan: DclusterPlan, sources: List[Tuple[int, int]], *, causal: bool,
+               scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward's schedule under ``plan``, the partial S over the column
+    ranges ``sources`` summed in their order."""
     t_q, t_kv, d = q.shape[-2], k.shape[-2], q.shape[-1]
-    plan = dcluster_plan(d, q.dtype)
     bq, bk = min(FWD_BLOCK_Q, t_q), min(FWD_BLOCK_K, t_kv)
     n_kv = math.ceil(t_kv / FWD_BLOCK_K)
     pad = n_kv * FWD_BLOCK_K - t_kv  # the last tile's rows past t_kv read zeros
@@ -215,8 +287,7 @@ def flash_fwd_dcluster_model(
             for j in range(n_run):
                 ks = slice(j * FWD_BLOCK_K, (j + 1) * FWD_BLOCK_K)
                 s = 0
-                for rank in range(plan.cluster):  # the partials, in group order
-                    c0, c1 = plan.cta_columns(rank)
+                for c0, c1 in sources:  # the partials, in their order
                     s = s + qf[..., rows, c0:c1] @ kf[..., ks, c0:c1].transpose(-1, -2)
                 k_pos = j * FWD_BLOCK_K + col_t
                 visible = (k_pos < t_kv)[None, :].expand(qs[1] - qs[0], -1)

@@ -1,6 +1,7 @@
 """Variants of the bf16 flash forwards, built and timed on the card.
 
-    python -m ray_tpu_torch.ops.flash_fwd_variants [--small-d | --d64 | --dsplit] [--out results.json]
+    python -m ray_tpu_torch.ops.flash_fwd_variants [--small-d | --d64 | --dsplit | --wide]
+        [--dtype float32|bfloat16] [--probes] [--out results.json]
 
 Each variant is ``csrc/flash_fwd_wgmma.cu`` and the headers beside it
 (``csrc/*.cuh``) with one piece of text replaced, built with the port's
@@ -89,6 +90,22 @@ partials of the rows it reduces and its own P of them: no store to a peer
 and no wait on one) and ``probe: no P.V products`` (the output's products
 skipped behind a test of a kernel argument, so the rest stays), which say
 what the loads, the exchange between the CTAs and the output products
+cost.
+
+With ``--wide`` it times, at head_dims 384 to 768, the forward of
+``csrc/flash_fwd_dcluster128.cu`` (design ``dcluster128``) beside the
+designs before it there, launched directly (``wide before``,
+``csrc/flash_fwd_wide.cu``, in bf16; ``tf32x3 before``,
+``csrc/flash_fwd_f32.cu``, in float32), beside ``flash_fwd_dcluster.cu`` at
+its own 256-column plan there (``dcluster 256``: G = 2, 2, 3, 3 groups in
+clusters of as many CTAs, one pass) and ``scaled_dot_product_attention``,
+at ``WIDE_SHAPES`` (2 x 8 heads x 2048^2, causal), as ``--dsplit`` does.
+``--probes`` adds builds of ``flash_fwd_dcluster128.cu`` that are wrong by
+design (``DCLUSTER128_PROBES``): ``probe: copies only`` (the K and V tiles
+stream through the ring under its barriers, with no product, exchange,
+softmax or store of O) and ``probe: no exchange`` (each CTA keeps its own
+partials of the rows it reduces and its own P of them: no store to a peer
+and no wait on one), which say what the K and V traffic and the exchange
 cost.
 
 It prints each variant's spills from the compiler's report, checks each
@@ -251,6 +268,29 @@ DCLUSTER_PROBES = {
          "        if (c == rank) {\n          const uint32_t b = map_cluster(pd_bar(i), c);")],
     "probe: no P.V products": [("    if (oc0 < p.d) {\n      rows32_nn<T, kG, 64>",
                                 "    if (oc0 < p.d && p.bh < 0) {\n      rows32_nn<T, kG, 64>")],
+}
+# b, h, t_q, t_kv, d, causal: the timed cases of head_dims 384 to 768
+# (chip_smoke.py's d384_b2 ... d768_b2)
+WIDE_SHAPES = [(2, 8, 2048, 2048, d, True) for d in (384, 512, 640, 768)]
+DCLUSTER128_SOURCE = _build.CSRC_DIR / "flash_fwd_dcluster128.cu"
+# probes, wrong by design: what the K and V traffic alone (every step but
+# the loads and the barriers skipped behind a test of a kernel argument that
+# is never false, bh >= 0) and the exchange between the CTAs cost
+DCLUSTER128_PROBES = {
+    "probe: copies only": [
+        (f"auto {step} = [&](int i) {{\n", f"auto {step} = [&](int i) {{\n    if (p.bh >= 0) return;\n")
+        for step in ("partial", "push", "reduce", "output", "p_in")],
+    "probe: no exchange": [
+        ("const uint32_t recv_bytes = (uint32_t)(kSources * p.cluster * n_rows * kQuads * 16);",
+         "const uint32_t recv_bytes = (uint32_t)(kSources * n_rows * kQuads * 16);"),
+        ("const uint32_t p_bytes = L::kPBytes;",
+         "const uint32_t p_bytes = (uint32_t)(n_rows * (kQuads * 16 + 8));"),
+        ("        st_async(map_cluster(at, to),\n                 make_float4(s[8 * pp",
+         "        if (to == rank) st_async(map_cluster(at, to),\n                 make_float4(s[8 * pp"),
+        ("    for (int c = 0; c < kSources * p.cluster; ++c) {",
+         "    for (int c = kSources * rank; c < kSources * (rank + 1); ++c) {"),
+        ("      for (int c = 0; c < p.cluster; ++c) {\n        const uint32_t b",
+         "      for (int c = rank; c <= rank; ++c) {\n        const uint32_t b")],
 }
 # the dtypes' peak rates for the bound: bf16 on the tensor cores, float32 a
 # third of dense TF32 (3xTF32), as chip_smoke.py's PEAK_FLOPS
@@ -514,6 +554,79 @@ def _fwd_bound_ms(b, h, t_q, t_kv, d, causal, dtype):
     return 4 * d * b * h * pairs / _PEAK[dtype] * 1e3
 
 
+def _time_designs(kernels, shapes, dtype, first: str):
+    """Rows of ``kernels`` ({name: entry point}) at ``shapes`` in ``dtype``:
+    each held to the plain forward (worst-row error of out, lse), each the
+    device time per call, median and spread of five alternating turns after
+    half a second of ``first``, beside the bound, its share and
+    scaled_dot_product_attention."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for b, h, t_q, t_kv, d, causal in shapes:
+        q, k, v = (torch.randn(b, h, t, d, device="cuda", dtype=dtype, generator=gen)
+                   for t in (t_q, t_kv, t_kv))
+        scale = d ** -0.5
+        ref, ref_lse = attn.flash_attention_fwd_plain(q, k, v, causal=causal, scale=scale)
+        errs = {}
+        for name, fn in kernels.items():
+            o, lse = _run_with_lse(fn, q, k, v, causal, scale)
+            torch.cuda.synchronize()
+            errs[name] = {"out": row_err(o, ref), "lse": float((lse - ref_lse).abs().max())}
+        del ref, ref_lse
+        runs = {name: (lambda fn=fn: _run(fn, q, k, v, causal, scale))
+                for name, fn in kernels.items()}
+        t_end = time.monotonic() + 0.5  # the card's clocks settle under load
+        while time.monotonic() < t_end:
+            runs[first]()
+        torch.cuda.synchronize()
+        times = {}
+        for name in turn_order(kernels):
+            times.setdefault(name, []).append(device_ms(runs[name], iters=3))
+        sdpa = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                                scale=scale),
+                         iters=3, per_call=None)
+        bound = _fwd_bound_ms(b, h, t_q, t_kv, d, causal, dtype)
+        med = {n: statistics.median(t) for n, t in times.items()}
+        row = dict(shape=[b, h, t_q, t_kv, d], causal=causal,
+                   dtype=str(dtype).replace("torch.", ""), sdpa_ms=sdpa, bound_ms=bound,
+                   ms=med, turns=times, bound_share={n: bound / t for n, t in med.items()},
+                   row_err=errs,
+                   ok={n: e["out"] <= FWD_ROW_TOL[dtype] and e["lse"] <= FWD_LSE_TOL[dtype]
+                       for n, e in errs.items()})
+        rows.append(row)
+        label = f"d{d}_b{b} {row['dtype']}"
+        for name in kernels:
+            probe = name.startswith("probe")
+            print(f"[time] {label}: {name:<24} {med[name]:.4f} ms "
+                  f"({min(times[name]):.4f}-{max(times[name]):.4f}); share of bound "
+                  f"{row['bound_share'][name]:.3f}; sdpa / this {sdpa / med[name]:.3f}; "
+                  f"worst row {errs[name]['out']:.2e} lse {errs[name]['lse']:.2e}"
+                  + ("" if row["ok"][name] else " (wrong by design)" if probe
+                     else " (WRONG)"), flush=True)
+        print(f"[time] {label}: bound {bound:.4f} ms, sdpa {sdpa:.4f} ms", flush=True)
+    return rows
+
+
+def _probes(source, edits, entry):
+    """{name: bound entry point} of the probe builds of ``source``, one nvcc
+    each, in parallel; their spills printed."""
+    names = list(edits)
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = dict(zip(names, pool.map(lambda n: build_variant(source, n, edits[n]), names)))
+    out = {}
+    for name, (lib, spills) in built.items():
+        print(f"[variant] {name:<26} spill bytes {sum(spills.values())}")
+        out[name] = _bind(getattr(lib, entry))
+    return out
+
+
+def _write(out, smi, rows):
+    if out:
+        with open(out, "w") as f:
+            json.dump(dict(card=smi, times="device time (torch.profiler), median of five turns",
+                           shapes=rows), f, indent=1)
+
+
 def main_dsplit(smi: str, out: str | None, dtypes, probes: bool) -> int:
     """dcluster's forward beside dsplit's (the design before) and
     scaled_dot_product_attention, and with ``probes`` DCLUSTER_PROBES,
@@ -523,64 +636,35 @@ def main_dsplit(smi: str, out: str | None, dtypes, probes: bool) -> int:
         "dcluster": _bind(attn._kernel_lib("flash_fwd_dcluster").ray_tpu_flash_fwd_dcluster),
         "dsplit before": _bind(attn._kernel_lib("flash_fwd_dsplit").ray_tpu_flash_fwd_dsplit)}
     if probes:
-        names = list(DCLUSTER_PROBES)
-        with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per probe
-            built = dict(zip(names, pool.map(
-                lambda n: build_variant(DCLUSTER_SOURCE, n, DCLUSTER_PROBES[n]), names)))
-        for name, (lib, spills) in built.items():
-            print(f"[variant] {name:<26} spill bytes {sum(spills.values())}")
-            kernels[name] = _bind(lib.ray_tpu_flash_fwd_dcluster)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = []
-    for dtype in dtypes:
-        for b, h, t_q, t_kv, d, causal in DSPLIT_SHAPES:
-            q, k, v = (torch.randn(b, h, t, d, device="cuda", dtype=dtype, generator=gen)
-                       for t in (t_q, t_kv, t_kv))
-            scale = d ** -0.5
-            ref, ref_lse = attn.flash_attention_fwd_plain(q, k, v, causal=causal, scale=scale)
-            errs = {}
-            for name, fn in kernels.items():
-                o, lse = _run_with_lse(fn, q, k, v, causal, scale)
-                torch.cuda.synchronize()
-                errs[name] = {"out": row_err(o, ref),
-                              "lse": float((lse - ref_lse).abs().max())}
-            del ref, ref_lse
-            runs = {name: (lambda fn=fn: _run(fn, q, k, v, causal, scale))
-                    for name, fn in kernels.items()}
-            t_end = time.monotonic() + 0.5  # the card's clocks settle under load
-            while time.monotonic() < t_end:
-                runs["dcluster"]()
-            torch.cuda.synchronize()
-            times = {}
-            for name in turn_order(kernels):
-                times.setdefault(name, []).append(device_ms(runs[name], iters=3))
-            sdpa = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
-                                                                    scale=scale),
-                             iters=3, per_call=None)
-            bound = _fwd_bound_ms(b, h, t_q, t_kv, d, causal, dtype)
-            med = {n: statistics.median(t) for n, t in times.items()}
-            row = dict(shape=[b, h, t_q, t_kv, d], causal=causal,
-                       dtype=str(dtype).replace("torch.", ""), sdpa_ms=sdpa, bound_ms=bound,
-                       ms=med, turns=times, bound_share={n: bound / t for n, t in med.items()},
-                       row_err=errs,
-                       ok={n: e["out"] <= FWD_ROW_TOL[dtype] and e["lse"] <= FWD_LSE_TOL[dtype]
-                           for n, e in errs.items()})
-            rows.append(row)
-            label = f"d{d}_b{b} {row['dtype']}"
-            for name in kernels:
-                probe = name.startswith("probe")
-                print(f"[time] {label}: {name:<24} {med[name]:.4f} ms "
-                      f"({min(times[name]):.4f}-{max(times[name]):.4f}); share of bound "
-                      f"{row['bound_share'][name]:.3f}; sdpa / this {sdpa / med[name]:.3f}; "
-                      f"worst row {errs[name]['out']:.2e} lse {errs[name]['lse']:.2e}"
-                      + ("" if row["ok"][name] else " (wrong by design)" if probe
-                         else " (WRONG)"), flush=True)
-            print(f"[time] {label}: bound {bound:.4f} ms, sdpa {sdpa:.4f} ms", flush=True)
-    if out:
-        with open(out, "w") as f:
-            json.dump(dict(card=smi, times="device time (torch.profiler), median of five turns",
-                           shapes=rows), f, indent=1)
+        kernels.update(_probes(DCLUSTER_SOURCE, DCLUSTER_PROBES, "ray_tpu_flash_fwd_dcluster"))
+    rows = [r for dtype in dtypes for r in _time_designs(kernels, DSPLIT_SHAPES, dtype,
+                                                         "dcluster")]
+    _write(out, smi, rows)
     return 0 if all(r["ok"][n] for r in rows for n in ("dcluster", "dsplit before")) else 1
+
+
+def main_wide(smi: str, out: str | None, dtypes, probes: bool) -> int:
+    """dcluster128's forward beside the designs before it (wide in bf16,
+    tf32x3 in float32), dcluster's 256-column plan and
+    scaled_dot_product_attention, and with ``probes`` DCLUSTER128_PROBES,
+    device time per call, median and spread of five alternating turns, at
+    WIDE_SHAPES in each of ``dtypes``."""
+    new = {"dcluster128": _bind(
+        attn._kernel_lib("flash_fwd_dcluster128").ray_tpu_flash_fwd_dcluster128),
+        "dcluster 256": _bind(attn._kernel_lib("flash_fwd_dcluster").ray_tpu_flash_fwd_dcluster)}
+    if probes:
+        new.update(_probes(DCLUSTER128_SOURCE, DCLUSTER128_PROBES,
+                           "ray_tpu_flash_fwd_dcluster128"))
+    before = {torch.bfloat16: ("wide before", "flash_fwd_wide", "ray_tpu_flash_fwd_wide"),
+              torch.float32: ("tf32x3 before", "flash_fwd_f32", "ray_tpu_flash_fwd_f32")}
+    rows, named = [], ("dcluster128", "dcluster 256")
+    for dtype in dtypes:
+        name, source, entry = before[dtype]
+        kernels = {**new, name: _bind(getattr(attn._kernel_lib(source), entry))}
+        rows += _time_designs(kernels, WIDE_SHAPES, dtype, "dcluster128")
+        named += (name,)
+    _write(out, smi, rows)
+    return 0 if all(r["ok"][n] for r in rows for n in named if n in r["ok"]) else 1
 
 
 def main() -> int:
@@ -592,10 +676,13 @@ def main() -> int:
                     help="the head_dim 64 design's variants beside the wgmma kernel")
     ap.add_argument("--dsplit", action="store_true",
                     help="head_dims from 896 up: dcluster's forward beside dsplit's")
+    ap.add_argument("--wide", action="store_true",
+                    help="head_dims 384 to 768: dcluster128's forward beside the designs "
+                         "before and dcluster's 256-column plan")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"),
-                    help="with --dsplit: one dtype (default both)")
+                    help="with --dsplit or --wide: one dtype (default both)")
     ap.add_argument("--probes", action="store_true",
-                    help="with --dsplit: the probes of dcluster beside it")
+                    help="with --dsplit or --wide: the probes of the design beside it")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("flash_fwd_variants needs a card")
@@ -605,10 +692,11 @@ def main() -> int:
     print(smi)
     if args.d64:
         return main_d64(smi, args.out)
-    if args.dsplit:
+    if args.dsplit or args.wide:
         dtypes = ((getattr(torch, args.dtype),) if args.dtype else
                   (torch.float32, torch.bfloat16))
-        return main_dsplit(smi, args.out, dtypes, args.probes)
+        main_cluster = main_wide if args.wide else main_dsplit
+        return main_cluster(smi, args.out, dtypes, args.probes)
     variants, shapes, timer = ((SMALL_D_VARIANTS, SMALL_D_SHAPES, device_ms) if args.small_d
                                else (VARIANTS, SHAPES, ms))
     with ThreadPoolExecutor(len(variants)) as pool:  # one nvcc per variant

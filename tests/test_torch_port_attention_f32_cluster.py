@@ -58,13 +58,13 @@ def test_table_names_dcluster128_for_the_float32_backward(d):
     """(d, float32) at 384 to 768 is a row of the backward's table naming
     ``dcluster128`` for dQ and dK/dV, from a source that exists with the
     entry points the port binds, each counting its launches; the forward's
-    row stays ``tf32x3``, and bf16 and float16 stay ``wide``."""
+    row is ``dcluster128``'s forward, and bf16 and float16 stay ``wide``."""
     bwd = port.BWD_DESIGNS[(d, F32)]
     assert (d, F32) in set(port.BWD_DESIGNS)
     assert [(kn.name, kn.source, kn.entry, kn.schedule) for kn in (bwd.dq, bwd.dkv)] == [
         ("dcluster128", "flash_bwd_dcluster128", "ray_tpu_flash_bwd_dq_dcluster128", False),
         ("dcluster128", "flash_bwd_dcluster128", "ray_tpu_flash_bwd_dkv_dcluster128", False)]
-    assert port.FWD_DESIGNS[(d, F32)].name == "tf32x3"
+    assert port.FWD_DESIGNS[(d, F32)].name == "dcluster128"
     for dt in (torch.bfloat16, torch.float16):
         assert port.BWD_DESIGNS[(d, dt)].dq.name == "wide"
     assert (port._build.CSRC_DIR / "flash_bwd_dcluster128.cu").exists()

@@ -3,13 +3,12 @@ flash forward and backward against the reference's Pallas kernels.
 
 The reference's dispatcher runs its Pallas kernels at every head_dim that is
 a multiple of 128 (``ray_tpu/ops/attention.py``'s ``dot_product_attention``).
-At 384, 512, 640 and 768 the port's tables name ``wide``
-(``csrc/flash_fwd_wide.cu``, ``csrc/flash_bwd_wide.cu``) for bf16 and
-float16 and, for float32, ``tf32x3``'s forward and ``dcluster128``'s
-backward (``csrc/flash_bwd_dcluster128.cu``,
-tests/test_torch_port_attention_f32_cluster.py), the forwards at 32 x 64
-tiles up to 512 and 16-row q tiles beyond (the wide forward's kv tiles 32
-rows at 768). Past 768 the
+At 384, 512, 640 and 768 the port's forward table names ``dcluster128``
+(``csrc/flash_fwd_dcluster128.cu``,
+tests/test_torch_port_attention_wide_fwd.py) in every dtype, at 64 x 32
+tiles, and the backward's ``wide`` (``csrc/flash_bwd_wide.cu``) for bf16 and
+float16 and ``dcluster128`` (``csrc/flash_bwd_dcluster128.cu``,
+tests/test_torch_port_attention_f32_cluster.py) for float32. Past 768 the
 wide dK/dV kernel spills and the float32 dQ's tiles pass the shared memory,
 so 896 and up take the tables' rule, ``dcluster`` for the forward and
 the backward (tests/test_torch_port_attention_dsplit.py,
@@ -39,17 +38,15 @@ from ray_tpu_torch.ops.tolerance import BWD_TOL, FWD_LSE_TOL, FWD_ROW_TOL, row_e
 WIDE = (384, 512, 640, 768)
 DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 F32 = torch.float32
-# the forward's tiles by head_dim: the wide design's (bf16 and float16) and
-# tf32x3's (float32)
-TILES = {384: (32, 64), 512: (32, 64), 640: (16, 64), 768: (16, 32)}
-F32_TILES = {384: (32, 64), 512: (32, 64), 640: (16, 64), 768: (16, 64)}
+# the forward's tiles by head_dim: dcluster128's, in bf16 and float16 and in
+# float32
+TILES = {384: (64, 32), 512: (64, 32), 640: (64, 32), 768: (64, 32)}
+F32_TILES = {384: (64, 32), 512: (64, 32), 640: (64, 32), 768: (64, 32)}
 
 # (t_q, t_kv, causal), b=1 h=2: causal square; q the suffix of a longer kv
-# with a ragged q tile; rows that see no key (t_q > t_kv, t_kv - t_q not a
-# multiple of 32: rows 0-31 lie in a q tile that skips every kv tile, rows
-# 32-47 in one that runs kv tile 0 at 32-row q tiles); non-causal with
-# ragged q and kv tiles. At 640 the rows that see no key (16-row q tiles),
-# at 768 the suffix
+# with a ragged q tile; rows that see no key (t_q > t_kv: rows 0-47, which
+# lie in the first 64-row q tile, which runs kv tile 0); non-causal with
+# ragged q and kv tiles. At 640 the rows that see no key, at 768 the suffix
 CASES = [(128, 128, True), (40, 120, True), (112, 64, True), (104, 72, False)]
 D_CASES = [(d, case) for d in (384, 512) for case in CASES] + [
     (640, CASES[2]), (768, CASES[1])]
@@ -70,27 +67,24 @@ def _inputs(tq, tkv, d, seed):
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("d", WIDE)
 def test_tables_name_the_wide_designs(d, dtype):
-    """(384 | 512 | 640 | 768, dtype) is held by both tables: bf16 and
-    float16 on ``wide`` (its forward, dQ and dK/dV entries), float32 on
-    ``tf32x3``'s forward and ``dcluster128``'s dQ and dK/dV; the forwards at
-    their tiles, the wide forward taking only a positive scale (the wrapper
-    hands a non-positive one's sign to q). Each design counts its
-    launches."""
+    """(384 | 512 | 640 | 768, dtype) is held by both tables: every dtype's
+    forward on ``dcluster128`` at its 64 x 32 tiles, taking only a positive
+    scale (the wrapper hands a non-positive one's sign to q); bf16 and
+    float16 on ``wide``'s dQ and dK/dV entries, float32 on
+    ``dcluster128``'s. Each design counts its launches."""
     fwd, bwd = port.FWD_DESIGNS[(d, dtype)], port.BWD_DESIGNS[(d, dtype)]
     assert (d, dtype) in port.FWD_DESIGNS and (d, dtype) in port.BWD_DESIGNS
     assert d in port.HEAD_DIMS and d in port.WIDE_HEAD_DIMS
     tiles = F32_TILES[d] if dtype == F32 else TILES[d]
     assert (fwd.block_q, fwd.block_k) == tiles == port.fwd_tiles(d, dtype)
+    assert (fwd.name, fwd.source, fwd.entry) == ("dcluster128", "flash_fwd_dcluster128",
+                                                 "ray_tpu_flash_fwd_dcluster128")
+    assert "dcluster128" in port._POSITIVE_SCALE and not fwd.schedule
+    assert port._TILES_ENTRIES["dcluster128"] == "ray_tpu_flash_fwd_dcluster128_tiles"
     if dtype == F32:
-        assert (fwd.name, fwd.source, fwd.entry) == ("tf32x3", "flash_fwd_f32",
-                                                     "ray_tpu_flash_fwd_f32")
         want = [("dcluster128", "flash_bwd_dcluster128", "ray_tpu_flash_bwd_dq_dcluster128"),
                 ("dcluster128", "flash_bwd_dcluster128", "ray_tpu_flash_bwd_dkv_dcluster128")]
     else:
-        assert (fwd.name, fwd.source, fwd.entry) == ("wide", "flash_fwd_wide",
-                                                     "ray_tpu_flash_fwd_wide")
-        assert "wide" in port._POSITIVE_SCALE and not fwd.schedule
-        assert port._TILES_ENTRIES["wide"] == "ray_tpu_flash_fwd_wide_tiles"
         want = [("wide", "flash_bwd_wide", "ray_tpu_flash_bwd_dq_wide"),
                 ("wide", "flash_bwd_wide", "ray_tpu_flash_bwd_dkv_wide")]
     assert [(kn.name, kn.source, kn.entry) for kn in (bwd.dq, bwd.dkv)] == want
@@ -144,8 +138,8 @@ def test_first_head_dim_past_the_designs_is_plain_and_raises_off_the_cpu(dtype):
 
 @pytest.mark.parametrize("d, case", D_CASES, ids=[f"{d}-{_ids(c)}" for d, c in D_CASES])
 def test_cpu_forward_and_backward_match_the_pallas_kernels(d, case):
-    """The port's CPU path (float32: the tf32x3 design's plain version at
-    its tiles, the wide design's too up to 640) against the reference's
+    """The port's CPU path (float32: the dcluster128 design's plain version
+    at its tiles) against the reference's
     Pallas forward at the same tiles, and the port's backward through
     ``dot_product_attention`` against ``jax.grad`` of the reference's
     ``flash_attention`` (interpret mode) under the same cotangent: every row
@@ -182,22 +176,29 @@ def test_cpu_forward_and_backward_match_the_pallas_kernels(d, case):
 
 @pytest.mark.parametrize("d", WIDE)
 def test_wide_rows_that_see_no_key_follow_the_designs_tiles(d):
-    """At t_q 112, t_kv 64 (causal) rows 0-47 see no key. With 32-row q
-    tiles (384 and 512) rows 0-31 lie in a q tile that skips every kv tile
-    (0 and NEG_INF) and rows 32-47 share a q tile with rows that see keys,
-    so it runs kv tile 0 and they get the mean of V over it (the flash
-    convention at the design's tiles); with 16-row q tiles (640 and 768)
-    every one of rows 0-47 lies in a q tile that skips every kv tile. bf16
-    inputs take the same plain version on the CPU, at the wide forward's
-    tiles."""
+    """At t_q 112, t_kv 64 (causal) rows 0-47 see no key. A row of a q
+    tile that skips every kv tile gets 0 and NEG_INF; a row of a q tile
+    that shares it with rows that see keys runs that tile's kv tiles and
+    gets the mean of V over them (the flash convention at the design's
+    tiles). At dcluster128's 64 x 32 tiles rows 0-47 lie in the first q
+    tile, which runs kv tile 0 (V's rows 0-31). bf16 inputs take the same
+    plain version on the CPU, at the same tiles."""
     q, k, v, _ = _inputs(112, 64, d, seed=3)
+    off = 64 - 112
     for dtype in (torch.bfloat16, F32):
+        bq, bk = port.fwd_tiles(d, dtype)
+        assert (bq, bk) == TILES[d]
         qt, kt, vt = (torch.from_numpy(a).to(dtype) for a in (q, k, v))
         out, lse = port.flash_attention_fwd(qt, kt, vt, causal=True, scale=d ** -0.5)
-        skipped = 32 if d <= 512 else 48
-        assert bool((out[..., :skipped, :] == 0).all())
-        assert bool((lse[..., :skipped] == port.NEG_INF).all())
-        if skipped < 48:
-            mean_v = vt.float().mean(dim=2, keepdim=True).expand(-1, -1, 48 - skipped, -1)
-            assert row_err(out[..., skipped:48, :], mean_v.to(dtype)) <= FWD_ROW_TOL[dtype]
+        for r0 in range(0, 48, bq):  # the q tiles that hold rows 0-47
+            r1, last = min(r0 + bq, 48), r0 + bq - 1 + off
+            if last < 0:  # the q tile skips every kv tile
+                assert bool((out[..., r0:r1, :] == 0).all())
+                assert bool((lse[..., r0:r1] == port.NEG_INF).all())
+            else:  # it runs kv tiles 0 .. last // bk
+                n_kv = min(64, (last // bk + 1) * bk)
+                mean_v = vt[..., :n_kv, :].float().mean(dim=2, keepdim=True).expand(
+                    -1, -1, r1 - r0, -1)
+                assert row_err(out[..., r0:r1, :], mean_v.to(dtype)) <= FWD_ROW_TOL[dtype]
+                assert bool((lse[..., r0:r1] < -1e29).all())
         assert bool(torch.isfinite(out[..., 48:, :]).all())

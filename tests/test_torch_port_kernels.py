@@ -215,11 +215,15 @@ def test_flash_kernel_matches_plain_on_card(card, case, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", port.HEAD_DIMS)
 def test_float32_forward_launches_the_tf32x3_kernel_on_card(card, d):
-    """float32 at every head_dim goes through the 3xTF32 kernel: one launch
-    on its counter and none on the bf16 designs', causal with t_q > t_kv and
-    ragged tiles, every row within the float32 limits of the plain forward."""
+    """float32 at every head_dim up to 256 goes through the 3xTF32 kernel
+    (and at 384 to 768 through dcluster128's 3xTF32 build): one launch on
+    its counter and none on the bf16 designs', causal with t_q > t_kv and
+    ragged tiles, every row within the float32 limits of the plain
+    forward."""
     q, k, v = _qkv(1, 2, 136, 72, d, device=card, dtype=torch.float32)
-    counters = ("flash_fwd_launches", "flash_fwd_tf32x3_launches",
+    design = port.FWD_DESIGNS[(d, torch.float32)].name
+    assert design == ("dcluster128" if d in port.WIDE_HEAD_DIMS else "tf32x3")
+    counters = ("flash_fwd_launches", f"flash_fwd_{design}_launches",
                 "flash_fwd_persistent_launches", "flash_fwd_wgmma_launches")
     before = [getattr(port, c) for c in counters]
     out = port.dot_product_attention(q, k, v, causal=True)
@@ -321,7 +325,7 @@ def test_dispatcher_raises_for_what_the_kernel_does_not_take(card):
     first past the wide designs, runs the dcluster forward and backward
     (the tables' rule);
     a non-positive scale runs the kernels (the forward's sign handed to q;
-    the wide forward at 384 and dcluster's at 896 too), float16 at 64 the d64
+    the dcluster128 forward at 384 and dcluster's at 896 too), float16 at 64 the d64
     kernels, head_dim 48 and float16 at 16 the plain design, each as on the
     CPU."""
     q, k, v = _qkv(1, 2, 64, 64, 64, device=card, dtype=torch.bfloat16)
@@ -338,8 +342,8 @@ def test_dispatcher_raises_for_what_the_kernel_does_not_take(card):
                          scale=-0.25)
     _on_card_matches_cpu(card, (1, 2, 96, 96, 128, True), torch.bfloat16, ("wgmma",) * 3,
                          scale=0.0)
-    _on_card_matches_cpu(card, (1, 2, 64, 96, 384, True), torch.bfloat16, ("wide",) * 3,
-                         scale=-0.05)
+    _on_card_matches_cpu(card, (1, 2, 64, 96, 384, True), torch.bfloat16,
+                         ("dcluster128", "wide", "wide"), scale=-0.05)
     # inputs that require grad go through the FlashAttention Function
     out = port.dot_product_attention(q.clone().requires_grad_(), k, v)
     assert "FlashAttention" in type(out.grad_fn).__name__
@@ -419,9 +423,9 @@ def test_d64_forwards_on_two_streams_keep_their_own_items(card):
     assert port.flash_fwd_d64_launches == before + 6
 
 
-# head_dims 384 to 768 (the wide design in bf16 and float16; in float32 the
-# tf32x3 forward and the dcluster128 backward; the forwards at the tiles of
-# each head_dim): ragged q and kv, lengths that are
+# head_dims 384 to 768 (the dcluster128 forward in every dtype at 64 x 32
+# tiles; the wide backward in bf16 and float16, the dcluster128 backward in
+# float32): ragged q and kv, lengths that are
 # not multiples of 8 (the reference takes _attention_xla there; the kernels
 # run, as at 64-256), rows that see no key (some in a q tile that runs kv
 # tile 0), non-causal with a ragged tile, two full heads
@@ -444,8 +448,8 @@ WIDE_CASES = [
 @pytest.mark.parametrize("case", WIDE_CASES, ids=_ids)
 def test_wide_head_dim_kernels_match_plain_on_card(card, case, dtype):
     """At head_dims 384 to 768 the forward, dQ and dK/dV kernels of the
-    design the tables name (wide; in float32 the tf32x3 forward and the
-    dcluster128 dQ and dK/dV) launch once each on
+    designs the tables name (the dcluster128 forward; the wide dQ and dK/dV,
+    in float32 the dcluster128 ones) launch once each on
     their counters (and on their head_dim's) and none on plain, every row of
     out, lse, dq, dk and dv within the dtype's limits of the plain versions
     (the forward at the table's tiles; the backward in float64 for float32,
@@ -456,7 +460,7 @@ def test_wide_head_dim_kernels_match_plain_on_card(card, case, dtype):
     q, k, v = _qkv(b, h, tq, tkv, d, device=card, dtype=dt)
     fwd, bwd = port.FWD_DESIGNS[(d, dt)], port.BWD_DESIGNS[(d, dt)]
     assert (fwd.name, bwd.dq.name, bwd.dkv.name) == (
-        ("tf32x3", "dcluster128", "dcluster128") if dt == torch.float32 else ("wide",) * 3)
+        ("dcluster128",) * 3 if dt == torch.float32 else ("dcluster128", "wide", "wide"))
     names = ["flash_fwd_plain_launches", "flash_bwd_dq_plain_launches",
              f"flash_fwd_{fwd.name}_launches", f"flash_bwd_dq_{bwd.dq.name}_launches",
              f"flash_bwd_dkv_{bwd.dkv.name}_launches"]
@@ -482,6 +486,55 @@ def test_wide_head_dim_kernels_match_plain_on_card(card, case, dtype):
     _assert_grads_close(got, want, BWD_TOL[dt])
     again = port.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))  # no atomics
+
+
+# the dcluster128 forward (head_dims 384 to 768, every dtype): each cluster
+# size of its plan (3 to 6) causal over two q tiles, rows that see no key
+# (t_q 160 against t_kv 64: rows 0-63 in a q tile that skips every kv tile),
+# q the suffix of a longer kv, non-causal with ragged tiles, both shorter
+# than a tile, three heads at t 300, and two full heads at 2 x 8 x 2048^2
+DCLUSTER128_FWD_CASES = [
+    *[(1, 2, 128, 128, d, True) for d in (384, 512, 640, 768)],
+    (1, 2, 160, 64, 384, True),
+    (1, 2, 40, 120, 640, True),
+    (1, 2, 104, 72, 768, False),
+    (1, 2, 24, 20, 512, True),
+    (1, 3, 300, 300, 640, True),
+    (2, 8, 2048, 2048, 640, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+@pytest.mark.parametrize("case", DCLUSTER128_FWD_CASES, ids=_ids)
+def test_dcluster128_forward_matches_plain_and_repeats_its_bits_on_card(card, case, dtype):
+    """The dcluster128 forward (bf16 and float16 on wgmma, float32 in 3xTF32)
+    at each cluster size and edge: one launch a call on its counter and on
+    its head_dim's, none on tf32x3's or plain's, every row
+    of out within the dtype's limit of the plain forward at its 64 x 32
+    tiles (rows that see no key too: 0 and NEG_INF where the q tile skips
+    every kv tile), lse within its limit, and a second run bit-equal (each
+    row's 2 C partials summed in column order by one reducer, no
+    atomics)."""
+    b, h, tq, tkv, d, causal = case
+    dt = getattr(torch, dtype)
+    q, k, v = _qkv(b, h, tq, tkv, d, device=card, dtype=dt)
+    names = ["flash_fwd_dcluster128_launches", "flash_fwd_tf32x3_launches",
+             "flash_fwd_plain_launches"]
+    before = [getattr(port, n) for n in names]
+    before_d = port.launches_by_head_dim[f"flash_fwd_dcluster128_d{d}"]
+    o, lse = port.flash_attention_fwd(q, k, v, causal=causal, scale=d ** -0.5)
+    o2, lse2 = port.flash_attention_fwd(q, k, v, causal=causal, scale=d ** -0.5)
+    assert [getattr(port, n) - c for n, c in zip(names, before)] == [2, 0, 0]
+    assert port.launches_by_head_dim[f"flash_fwd_dcluster128_d{d}"] - before_d == 2
+    ref_o, ref_lse = port.flash_attention_fwd_plain(q, k, v, causal=causal, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(o).all())
+    assert row_err(o, ref_o) <= FWD_ROW_TOL[dt]
+    torch.testing.assert_close(lse, ref_lse, atol=FWD_LSE_TOL[dt], rtol=1e-6)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    if causal and min(64, tq) - 1 < tq - tkv:  # the first q tile skips every kv tile
+        assert bool((o[..., :64, :] == 0).all()) and bool((lse[..., :64] == port.NEG_INF).all())
 
 
 # head_dims from 896 up (the tables' rule: the dcluster forward at 64 x 32
