@@ -10,8 +10,8 @@ Phases (any failure exits non-zero; nothing is caught):
      flash_bwd_d64.cu, flash_bwd_persistent.cu, flash_bwd.cu,
      flash_bwd_f32.cu, flash_bwd_wide.cu, flash_fwd_dsplit.cu,
      flash_bwd_dsplit.cu, flash_bwd_dcluster.cu, flash_fwd_dcluster.cu,
-     flash_bwd_dcluster128.cu and flash_fwd_dcluster128.cu with nvcc, in
-     parallel
+     flash_bwd_dcluster128.cu, flash_bwd_dcluster128_wgmma.cu and
+     flash_fwd_dcluster128.cu with nvcc, in parallel
      (one nvcc a source), and print their register,
      shared-memory and spill reports; the wgmma forward and both wgmma
      backward kernels at head_dim 128 and 256 (the train paths': dQ, dK/dV
@@ -24,8 +24,8 @@ Phases (any failure exits non-zero; nothing is caught):
      backward's dynamic shared memory per CTA by head_dim, at most 232448
      bytes, and the persistent kernels' CTAs resident per SM, at least
      one; the d64 forward, dQ and dK/dV (bf16 and float16 at head_dim 64)
-     and the wide forward, dQ and dK/dV (bf16 and float16 at WIDE_D)
-     must not spill, and their shared memory and CTAs an SM are printed and
+     and the wide forward, dQ and dK/dV (bf16 and float16 at WIDE_D; on no
+     path now, the variants scripts' "before") must not spill, and their shared memory and CTAs an SM are printed and
      gated the same way; so are the dsplit forward, dQ and dK/dV (head_dim
      a runtime argument; one build each in bf16, float16 and float32; on
      no path now), by dtype, with their registers a thread; and the
@@ -37,7 +37,9 @@ Phases (any failure exits non-zero; nothing is caught):
      printed and above 0; so must the dcluster128 dQ and dK/dV (float32 at
      WIDE_D, 128-column groups in clusters of 3 to 6), gated and printed
      the same way, and the dcluster128 forward (bf16, float16 and float32 at
-     WIDE_D, a build each), with its CTAs an SM besides;
+     WIDE_D, a build each) and the dcluster128 dQ and dK/dV's wgmma builds
+     (bf16 and float16 at WIDE_D, dQ's by cluster size), with their CTAs an
+     SM besides;
   2. kernel vs plain: the flash forward kernel against its plain PyTorch
      version on the same device tensors, per case (among them the shape of
      each train path and of the forward: gpt_1b at b=12, b=8, b=4 and the
@@ -62,10 +64,10 @@ Phases (any failure exits non-zero; nothing is caught):
      floor (one exponential per visible pair at 16 a clock an SM);
   3. backward kernels vs plain: the dQ and dK/dV kernels of the design
      BWD_DESIGNS names (wgmma; d64 at bf16 head_dim 64; persistent for
-     bf16 at head_dim 16 and 32; wide for bf16 and float16 at WIDE_D;
-     tf32x3 for float32, but dcluster128 for float32 at WIDE_D; dcluster
-     from 896 up in every dtype; each case
-     names them and must launch them)
+     bf16 at head_dim 16 and 32; tf32x3 for float32; dcluster128 in every
+     dtype at WIDE_D, where a second run must give the same bits; dcluster
+     from 896 up in every dtype; each case names them and must launch
+     them)
      against flash_attention_bwd_plain, per
      case (the train paths' shapes among them, the pipelined step's b=3,
      gpt_j_6b's head_dim 256: its train shape, b=2, non-causal, q the
@@ -82,9 +84,9 @@ Phases (any failure exits non-zero; nothing is caught):
      dispatch tables' plain design (inputs no kernel takes, where the
      reference takes its XLA route: head_dim 48 in bf16, 16 in float16),
      and through the kernels at head_dim 64 in float16 and in bf16 at a
-     negative scale, at head_dims 384, 512, 640 and 768 in bf16 (the
-     dcluster128 forward, the wide dQ and dK/dV) and in float32 (the
-     dcluster128 forward, dQ and dK/dV: this slice's path) and at 896 in
+     negative scale, at head_dims 384, 512, 640 and 768 in bf16 and in
+     float32 (the dcluster128 forward, dQ and dK/dV: this slice's path, the
+     16-bit backward from its wgmma build) and at 896 in
      bf16 and float32 (the dcluster forward, dQ and dK/dV), every count set
      to 0 before each case; out and dq,
      dk, dv held to the CPU's row by row (float32 against the plain
@@ -177,8 +179,8 @@ Phases (any failure exits non-zero; nothing is caught):
   7a. lse_grad: flash_attention_with_lse (out and lse, both differentiable:
      the flash forward, then the dQ and dK/dV kernels with delta - dlse) at
      gpt_1b's heads (b=2, h=16, t=2048, d=128) in bf16 (wgmma) and float32
-     (tf32x3), gpt_j_6b's (d=256), d=512 (the dcluster128 forward, the
-     wide backward) and d=1024 with 8 heads
+     (tf32x3), gpt_j_6b's (d=256), d=512 (the dcluster128 forward and
+     backward) and d=1024 with 8 heads
      (the dcluster forward and backward, this slice's path: one launch of
      each kernel, none on plain)
      in bf16, causal (a ring's step 0)
@@ -262,7 +264,7 @@ its last line {"ok": true, "device": {...}}. Exits non-zero without a card.
 Each forward case names the design (FWD_DESIGNS: wgmma, d64, persistent,
 tf32x3, dcluster128 or dcluster) and the
 tiles that ran it; each backward case names its design (BWD_DESIGNS: wgmma,
-d64, persistent, wide, tf32x3, dcluster128 or dcluster). In
+d64, persistent, tf32x3, dcluster128 or dcluster). In
 the kernels line, flash_fwd is the wgmma design, the one the main path
 runs, at gpt_1b's forward shape (b=4) with the forward phase's launches,
 and the backward kernels at the train step's shape (b=12) with the train
@@ -281,10 +283,11 @@ stand as flash_fwd_persistent, flash_bwd_dq_persistent and
 flash_bwd_dkv_persistent at gpt_nano's working case with 4g's launches, the
 tiny flagship's case under "d32"; 4h's kernels stand as flash_fwd_d64,
 flash_bwd_dq_d64 and flash_bwd_dkv_d64 at gpt_125m's b=16 case with 4h's
-launches, the b=4 case under "b4"; the wide dQ and dK/dV (no model path
-runs them) stand as flash_bwd_dq_wide and flash_bwd_dkv_wide at
-d512_b2, the other WIDE_D cases under "d384", "d640" and "d768", each naming
-the library's backend, with the paths' launches at that head_dim (the
+launches, the b=4 case under "b4"; the bf16 backward at WIDE_D (no
+model path runs it) stands as flash_bwd_dq_dcluster128_wgmma and
+flash_bwd_dkv_dcluster128_wgmma at d640_b2, the other WIDE_D cases under
+"d384", "d512" and "d768", each naming the library's backend, with the
+launches of this slice's path at its head_dim (3b, and 7a at 512; the
 port's launches_by_head_dim, read as BY_HEAD_DIM); the forward at WIDE_D
 stands as flash_fwd_dcluster128 at d640_b2 (bf16), the other WIDE_D cases
 under "d384", "d512" and "d768" and the float32 ones under "f32", each
@@ -333,9 +336,8 @@ import torch  # noqa: E402
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 494.7e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 # the head_dims past 256 that the tables' rows take
-# (ray_tpu_torch/ops/attention.py's WIDE_HEAD_DIMS: the forward's
-# dcluster128 in every dtype, the backward's wide in bf16 and float16 and
-# dcluster128 in float32)
+# (ray_tpu_torch/ops/attention.py's WIDE_HEAD_DIMS: the forward's and the
+# backward's dcluster128 in every dtype)
 WIDE_D = (384, 512, 640, 768)
 # the head_dims from 896 up (the tables' rule, from DSPLIT_MIN_D: the
 # forward's and the backward's dcluster in bf16, float16 and float32, d a
@@ -529,7 +531,7 @@ def phase_build():
              "flash_fwd_f32", "flash_fwd_wide", "flash_bwd_wgmma", "flash_bwd_d64",
              "flash_bwd_persistent", "flash_bwd", "flash_bwd_f32", "flash_bwd_wide",
              "flash_fwd_dsplit", "flash_bwd_dsplit", "flash_bwd_dcluster", "flash_fwd_dcluster",
-             "flash_bwd_dcluster128", "flash_fwd_dcluster128")
+             "flash_bwd_dcluster128", "flash_bwd_dcluster128_wgmma", "flash_fwd_dcluster128")
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
         built = dict(zip(names, pool.map(timed, names)))
     out = {"seconds": time.monotonic() - t0}
@@ -751,6 +753,46 @@ def phase_build():
                          f"CTAs an SM, {clusters} clusters resident at once")
     report.update(smem_bytes=smem, ctas_per_sm=ctas, max_active_clusters=clusters,
                   registers_by_dtype=regs)
+    # the bf16 and float16 backward at WIDE_D (dcluster128's wgmma build: a
+    # build each in bf16 and float16; dQ's streamed side by cluster size,
+    # two builds a dtype): no build may spill; registers a thread of each
+    # build, and at each of WIDE_D the dynamic shared memory, CTAs an SM and
+    # clusters resident at once of the build it launches there, each above 0
+    source = "flash_bwd_dcluster128_wgmma"
+    lib = ctypes.CDLL(str(built[source][0]))
+    for fn in ("ctas_per_sm", "max_clusters"):
+        getattr(lib, f"ray_tpu_{source}_{fn}").argtypes = [ctypes.c_int] * 3
+    lib.ray_tpu_flash_bwd_dcluster128_wgmma_smem_bytes.argtypes = [ctypes.c_int] * 2
+    report = out[source]
+    half = {dt: c for dt, c in codes.items() if dt != "float32"}
+    for dkv, name in enumerate(("flash_bwd_dq_dcluster128_wgmma",
+                                "flash_bwd_dkv_dcluster128_wgmma")):
+        marks = {dt: f"{name}_kernel{tmark.removesuffix('E')}" for dt, (tmark, _) in
+                 half.items()}
+        spills = {dt: {k: n for k, n in report["spills"].items() if m in k}
+                  for dt, m in marks.items()}
+        regs = {dt: sorted({n for k, n in report["registers"].items() if m in k})
+                for dt, m in marks.items()}
+        smem = {d: lib.ray_tpu_flash_bwd_dcluster128_wgmma_smem_bytes(dkv, d) for d in WIDE_D}
+        ctas = {dt: {d: lib.ray_tpu_flash_bwd_dcluster128_wgmma_ctas_per_sm(code, dkv, d)
+                     for d in WIDE_D} for dt, (_, code) in half.items()}
+        clusters = {dt: {d: lib.ray_tpu_flash_bwd_dcluster128_wgmma_max_clusters(code, dkv, d)
+                         for d in WIDE_D} for dt, (_, code) in half.items()}
+        print(f"[build] {name} by dtype: registers a thread {regs}, spill bytes "
+              f"{ {dt: sum(v.values()) for dt, v in spills.items()} }; by head_dim "
+              f"{smem} bytes of dynamic shared memory per CTA (of 232448), CTAs resident "
+              f"per SM {ctas}, clusters resident at once {clusters}")
+        if any(not v or any(v.values()) for v in spills.values()):
+            raise SystemExit(f"{name} spills, or a dtype's build is missing: {spills}")
+        if (any(not 0 < n <= 232448 for n in smem.values())
+                or any(n < 1 for by_d in (*ctas.values(), *clusters.values())
+                       for n in by_d.values())):
+            raise SystemExit(f"{name} asks for {smem} bytes of shared memory, {ctas} CTAs an "
+                             f"SM, {clusters} clusters resident at once")
+        report.setdefault("smem_bytes", {})[name] = smem
+        report.setdefault("ctas_per_sm", {})[name] = ctas
+        report.setdefault("max_active_clusters", {})[name] = clusters
+        report.setdefault("registers_by_dtype", {})[name] = regs
     # dynamic shared memory, which the compiler's report does not show
     fwd_lib = ctypes.CDLL(str(built["flash_fwd_wgmma"][0]))
     fwd_lib.ray_tpu_flash_fwd_wgmma_smem_bytes.argtypes = [ctypes.c_int]
@@ -1004,8 +1046,8 @@ F16_CASES = [
 # head_dims WIDE_D (no model path: the reference's dispatcher takes any
 # multiple of 128), in both phases, last, 384 and 512 before 640 and 768:
 # timed at 2 x 8 heads x 2048^2, causal (model widths of 3072 to 6144) in
-# bf16 and float32 (the forward's dcluster128; the backward's wide and
-# dcluster128); checked only, ragged q and kv,
+# bf16 and float32 (the forward's and the backward's dcluster128); checked
+# only, ragged q and kv,
 # rows that see no key (t_q 160, t_kv 64), non-causal, float16, and float32
 # ragged and with rows that see no key
 def _wide_cases(head_dims):
@@ -1115,14 +1157,11 @@ def phase_bwd_kernels_vs_plain():
         design = attn.BWD_DESIGNS[(d, dtype)]
         names = {"dq": design.dq.name, "dkv": design.dkv.name}
         want = ({"dq": "dcluster", "dkv": "dcluster"} if d >= DSPLIT_D[0] else
-                {"dq": "dcluster128", "dkv": "dcluster128"} if dtype == torch.float32
-                and d in WIDE_D else
+                {"dq": "dcluster128", "dkv": "dcluster128"} if d in WIDE_D else
                 {"dq": "tf32x3", "dkv": "tf32x3"} if dtype == torch.float32 else
                 {16: {"dq": "persistent", "dkv": "persistent"},
                  32: {"dq": "persistent", "dkv": "persistent"},
-                 64: {"dq": "d64", "dkv": "d64"},
-                 **dict.fromkeys(WIDE_D, {"dq": "wide", "dkv": "wide"})}.get(
-                     d, {"dq": "wgmma", "dkv": "wgmma"}))
+                 64: {"dq": "d64", "dkv": "d64"}}.get(d, {"dq": "wgmma", "dkv": "wgmma"}))
         if names != want:
             raise SystemExit(f"BWD_DESIGNS sends {dtype} head_dim {d} to {names}, "
                              f"expected {want}")
@@ -1138,6 +1177,9 @@ def phase_bwd_kernels_vs_plain():
         if {n: c for n, c in launched.items() if c} != expected:
             raise SystemExit(f"case {name}: the backward launched {launched}, expected "
                              f"{expected}")
+        # the cluster designs at WIDE_D: a second run gives the same bits
+        again = (attn.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, scale=scale)
+                 if d in WIDE_D else got)
         # float32: the plain backward in float64 from the same inputs. The
         # exact dq of the first causal row is rounding noise (its one term
         # has dP = delta), and at long t and head_dim 384 and up the plain
@@ -1160,8 +1202,10 @@ def phase_bwd_kernels_vs_plain():
             errs[g_name] = float((x.float() - ref.float()).abs().max())
             row_errs[g_name] = row_err(x, ref)
         tol = BWD_TOL[dtype]
+        bit_equal = all(torch.equal(x, y) for x, y in zip(got, again))
+        del again
         ok = all(e <= tol for e in row_errs.values()) and all(
-            bool(torch.isfinite(x).all()) for x in got)
+            bool(torch.isfinite(x).all()) for x in got) and bit_equal
         row = dict(case=name, shape=[b, h, t_q, t_kv, d], causal=causal,
                    dtype=str(dtype).replace("torch.", ""),
                    design=names["dq"] if names["dq"] == names["dkv"] else
@@ -1169,13 +1213,14 @@ def phase_bwd_kernels_vs_plain():
                    sources={kn: f"ray_tpu_torch/ops/csrc/{getattr(design, kn).source}.cu"
                             for kn in ("dq", "dkv")},
                    source=f"ray_tpu_torch/ops/csrc/{design.dq.source}.cu", max_abs_err=errs,
-                   row_err=row_errs, row_err_tol=tol, ok=ok,
+                   row_err=row_errs, row_err_tol=tol, ok=ok, second_run_bit_equal=bit_equal,
                    plain_float32_row_err_vs_float64=plain32_errs)
         rows.append(row)
         verdict = (f"[bwd] {name:<22} {str(row['shape']):<28} {row['design']:<9} worst-row err "
                    f"dq {row_errs['dq']:.2e} dk {row_errs['dk']:.2e} dv {row_errs['dv']:.2e} "
                    f"(limit {tol:.0e}), max abs err {errs['dq']:.2e} {errs['dk']:.2e} "
-                   f"{errs['dv']:.2e} {'ok' if ok else 'FAIL'}"
+                   f"{errs['dv']:.2e}{', second run bit-equal' if d in WIDE_D and bit_equal else ''}"
+                   f"{'' if bit_equal else ', second run DIFFERS'} {'ok' if ok else 'FAIL'}"
                    + ("" if plain32_errs is None else
                       " (against the plain version in float64; the plain version in float32 "
                       "against it, not gated: " + " ".join(
@@ -1227,32 +1272,30 @@ def phase_bwd_kernels_vs_plain():
               f"library {library_device_ms:.4f} ms on the device, {library_ms:.4f} between "
               f"events{'' if backend is None else f' (SDPA backend {backend})'}")
         del got, want, lib_out
-    bad = [(r["case"], r["row_err"]) for r in rows if not r["ok"]]
+    bad = [(r["case"], r["row_err"], r["second_run_bit_equal"]) for r in rows if not r["ok"]]
     if bad:
         raise SystemExit(f"backward kernels disagree with their plain version "
-                         f"(worst-row errors against {BWD_TOL}): {bad}")
+                         f"(worst-row errors against {BWD_TOL}) or with their second run: {bad}")
     return rows
 
 
 # the launch counts read around each path: every launch of each kernel, and
 # each kernel's by design (the wgmma kernels are the bf16 paths' at head_dim
 # 128 and 256; d64 the forward's, dQ's and dK/dV's at 64; at 16 and 32 the
-# forward and the backward are persistent's; the wide backward bf16 and
-# float16 at WIDE_D, which no model path runs; tf32x3 float32, but the
-# float32 backward at WIDE_D, dcluster128, and the forward at WIDE_D in
-# every dtype, dcluster128, which phases 3b and 7a run; every dtype from 896
+# forward and the backward are persistent's; tf32x3 float32; the forward
+# and the backward at WIDE_D in every dtype dcluster128, which phases 3b and
+# 7a run and no model path does; every dtype from 896
 # up dcluster, forward and backward, which phases 3b and 7a run; plain every
 # input that no kernel takes, which only the plain_design phase may launch),
-# and the wide and dcluster128 kernels' by head_dim at WIDE_D and
+# and the dcluster128 kernels' by head_dim at WIDE_D and
 # dcluster's at DSPLIT_BY_D (the port's launches_by_head_dim), which the
 # kernels line reads for its 384-768 and dcluster entries
 KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 DESIGNS = {kernel: ("wgmma", "d64", "persistent", "tf32x3", "dcluster", "plain", "dcluster128")
-           + (() if kernel == "flash_fwd" else ("wide",)) for kernel in KERNEL_NAMES}
+           for kernel in KERNEL_NAMES}
 BY_HEAD_DIM = tuple(f"{kernel}_{design}_d{d}" for kernel in KERNEL_NAMES
-                    for design, dims in (("wide", WIDE_D), ("dcluster", DSPLIT_BY_D),
-                                         ("dcluster128", WIDE_D))
-                    if design in DESIGNS[kernel] for d in dims)
+                    for design, dims in (("dcluster", DSPLIT_BY_D), ("dcluster128", WIDE_D))
+                    for d in dims)
 COUNTS = KERNEL_NAMES + tuple(
     f"{kernel}_{design}" for kernel in KERNEL_NAMES for design in DESIGNS[kernel]) + BY_HEAD_DIM
 
@@ -1725,9 +1768,8 @@ def phase_plain_design():
     backward: the plain design at head_dim 48 in bf16 and 16 in float16 (the
     reference's XLA route), and the kernels at head_dim 64 in float16 and in
     bf16 at a negative scale (the forward's sign handed to q), at 384, 512,
-    640 and 768 in bf16 (the dcluster128 forward, the wide dQ and dK/dV)
-    and in float32 (the dcluster128 forward, dQ and dK/dV: this slice's
-    path) and at 896 in bf16 and
+    640 and 768 in bf16 and in float32 (the dcluster128 forward, dQ and
+    dK/dV: this slice's path) and at 896 in bf16 and
     float32 (the tables' rule: the forward's and the backward's dcluster),
     every count set to 0 before each case. Out and dq, dk, dv held to the CPU's
     (ops/tolerance.py's limits for the dtype, row by row): the plain
@@ -1751,7 +1793,7 @@ def phase_plain_design():
             ("kernels_d64_f16", (2, 12, 256, 256, 64), torch.float16, None, d64),
             ("kernels_d64_scale_neg", (2, 12, 256, 256, 64), torch.bfloat16, -0.125, d64),
             *[(f"kernels_d{d}_bf16", (2, 4, 256, 256, d), torch.bfloat16, None,
-               ("dcluster128", "wide", "wide")) for d in WIDE_D],
+               ("dcluster128",) * 3) for d in WIDE_D],
             *[(f"kernels_d{d}_f32", (1, 2, 256, 256, d), torch.float32, None,
                ("dcluster128",) * 3) for d in WIDE_D],
             ("kernels_d896_bf16", (1, 2, 256, 256, 896), torch.bfloat16, None, d896),
@@ -2072,8 +2114,8 @@ def phase_lse_grad():
     cotangents of both outputs, at gpt_1b's heads (b=2, h=16, t=2048,
     d=128) in bf16 (the wgmma kernels) and float32 (tf32x3 forward and
     backward), at gpt_j_6b's (d=256) in bf16 (the wgmma split dK/dV
-    kernel), at d=512 in bf16 (the dcluster128 forward, the wide backward)
-    and at d=1024 in bf16 with 8 heads (the dcluster forward and backward:
+    kernel), at d=512 in bf16 (the dcluster128 forward and backward) and
+    at d=1024 in bf16 with 8 heads (the dcluster forward and backward:
     this slice's path, every count set to 0 before it and read after, none
     on plain),
     causal and not. Two gates on
@@ -3433,23 +3475,6 @@ def main() -> int:
                 b4=small_d(rows, "d64_gpt_125m", kernel, line, "train_125m"))
            for rows, kernel, line in kernel_rows]
 
-    # the kernels of head_dims WIDE_D, which no model path runs (cases
-    # only): the wide dQ and dK/dV at d512_b2 (bf16), the other head_dims'
-    # cases under "d384", "d640" and "d768". Their launches are the paths'
-    # at that head_dim (BY_HEAD_DIM), summed over the paths
-    def no_path(rows, name, kernel, line, d):
-        entry = small_d(rows, name, kernel, line)
-        key = f"{kernel}_{entry['design']}_d{d}"
-        entry.update(launches=sum(by_path[key].values()), launches_path=None,
-                     launches_by_path=by_path[key],
-                     library_backend=case(rows, name)[0]["library_backend"])
-        return entry
-
-    wide = [dict(no_path(rows, "d512_b2", kernel, line, 512),
-                 **{f"d{d}": no_path(rows, f"d{d}_b2", kernel, line, d)
-                    for d in WIDE_D if d != 512})
-            for rows, kernel, line in kernel_rows[1:]]
-
     # the kernels of the tables' rule (every multiple of 128 from 896 up):
     # the dcluster forward, dQ and dK/dV, which this slice's
     # path runs and no model path does: 3b at 896 (bf16 and float32) and 7a
@@ -3480,6 +3505,24 @@ def main() -> int:
                          "3b at 896 in bf16 and float32): " + str(
                              {e["name"]: (e["launches"], e["d896"]["launches"],
                                           e["f32"]["d896"]["launches"]) for e in by_rule}))
+    # the bf16 backward at WIDE_D, dcluster128's dQ and dK/dV from its wgmma
+    # build, which this slice's path runs (3b at each of WIDE_D, 7a at 512,
+    # both in bf16) and no model path does: at d640_b2, the other head_dims'
+    # cases under "d384", "d512" and "d768", each with the path's launches
+    # at its head_dim
+    def wgmma_named(entry):
+        return dict(entry, name=f"{entry['name']}_wgmma")
+
+    wide = [dict(wgmma_named(on_path(rows, "d640_b2", kernel, line, 640)),
+                 **{f"d{d}": wgmma_named(on_path(rows, f"d{d}_b2", kernel, line, d))
+                    for d in WIDE_D if d != 640})
+            for rows, kernel, line in kernel_rows[1:]]
+    if any(min(e["launches"], *(e[f"d{d}"]["launches"] for d in WIDE_D if d != 640)) < 1
+           for e in wide):
+        raise SystemExit("a bf16 backward kernel at 384 to 768 launched no time on its path "
+                         "(3b, 7a): " + str({e["name"]: [e["launches"]] + [
+                             e[f"d{d}"]["launches"] for d in WIDE_D if d != 640]
+                                           for e in wide}))
     # the float32 backward at WIDE_D, dcluster128's dQ and dK/dV, which this
     # slice's path runs (3b at each of WIDE_D in float32) and no model path
     # does: at d640_b2_f32, the other head_dims' cases under "d384", "d512"

@@ -47,14 +47,15 @@ a shorter q is the suffix of the kv context (``q_pos = q_idx + t_kv - t_q``).
   warp-specialised; bf16 and float16 at head_dim 128 and 256),
   ``csrc/flash_bwd_d64.cu`` (dQ and dK/dV at bf16 and float16 64),
   ``csrc/flash_bwd_persistent.cu`` (a persistent grid of several CTAs an
-  SM, a TMA ring; bf16 at head_dim 16 and 32), ``csrc/flash_bwd_wide.cu``
-  (mma.sync, d cut between warps; bf16 and float16 at 384, 512, 640 and 768),
+  SM, a TMA ring; bf16 at head_dim 16 and 32),
   ``csrc/flash_bwd_f32.cu`` (3xTF32 on mma.sync; float32 at head_dims 16 to
   256), ``csrc/flash_bwd_dcluster128.cu`` (design ``dcluster128``, float32
   at 384, 512, 640 and 768: ``dcluster``'s exchange over clusters of d / 128
   CTAs of 128 columns, the resident side's operands split into TF32 big and
-  small once, in registers, and a warp of its own that reduces; plan
-  ``ops/dcluster.py``'s ``dcluster128_plan``) or
+  small once, in registers; plan ``ops/dcluster.py``'s ``dcluster128_plan``),
+  ``csrc/flash_bwd_dcluster128_wgmma.cu`` (design ``dcluster128`` in bf16
+  and float16 at 384, 512, 640 and 768: the same exchange, every product on
+  wgmma with its tiles by TMA; the same plan by dtype) or
   ``csrc/flash_bwd_dcluster.cu`` (design ``dcluster``,
   bf16, float16 and float32 from 896 up: the CTAs of a thread-block cluster
   share a resident tile, each computes S and dP over its own columns, the
@@ -62,7 +63,10 @@ a shorter q is the suffix of the kv context (``q_pos = q_idx + t_kv - t_q``).
   own output columns; the plan is ``ops/dcluster.py``'s);
   ``csrc/flash_bwd.cu`` (mma.sync), bf16 16/32's kernels before, is on no
   path, and neither is ``csrc/flash_bwd_dsplit.cu``, the design before
-  ``dcluster``, which ``ops/flash_bwd_variants.py --dsplit`` times beside it.
+  ``dcluster``, which ``ops/flash_bwd_variants.py --dsplit`` times beside it,
+  nor ``csrc/flash_bwd_wide.cu`` (mma.sync, d cut between warps), bf16's
+  and float16's design before ``dcluster128`` at 384 to 768, which
+  ``--wide`` times beside it.
 * Both tables hold rows (``HEAD_DIMS``) and a rule (``dsplit_takes``: every
   multiple of 128 from ``DSPLIT_MIN_D`` up, in bf16, float16 and float32).
   A key the rule takes runs its design (``dcluster`` in both) where the
@@ -122,8 +126,7 @@ from ray_tpu_torch.ops import _build, dcluster
 NEG_INF = -1e30
 #: the head_dims past 256 that the tables' rows take: the forward's
 #: ``dcluster128`` (a CTA of a cluster owns 128 columns of d) in bf16,
-#: float16 and float32; the backward's ``wide`` in bf16 and float16 (a warp
-#: owns 128 columns) and ``dcluster128`` in float32
+#: float16 and float32, and the backward's ``dcluster128`` in the same three
 WIDE_HEAD_DIMS = (384, 512, 640, 768)
 #: the head_dims of the tables' rows (the rule, ``dsplit_takes``, takes
 #: every multiple of 128 from ``DSPLIT_MIN_D`` up besides)
@@ -272,8 +275,6 @@ _BWD_WGMMA = BwdDesign(BwdKernel("wgmma", "flash_bwd_wgmma", "ray_tpu_flash_bwd_
                        BwdKernel("wgmma", "flash_bwd_wgmma", "ray_tpu_flash_bwd_dkv_wgmma"))
 _BWD_D64 = BwdDesign(BwdKernel("d64", "flash_bwd_d64", "ray_tpu_flash_bwd_dq_d64", schedule=True),
                      BwdKernel("d64", "flash_bwd_d64", "ray_tpu_flash_bwd_dkv_d64"))
-_BWD_WIDE = BwdDesign(BwdKernel("wide", "flash_bwd_wide", "ray_tpu_flash_bwd_dq_wide"),
-                      BwdKernel("wide", "flash_bwd_wide", "ray_tpu_flash_bwd_dkv_wide"))
 _BWD_TF32X3 = BwdDesign(BwdKernel("tf32x3", "flash_bwd_f32", "ray_tpu_flash_bwd_dq_f32"),
                         BwdKernel("tf32x3", "flash_bwd_f32", "ray_tpu_flash_bwd_dkv_f32"))
 _BWD_DCLUSTER = BwdDesign(
@@ -284,6 +285,15 @@ _BWD_DCLUSTER = BwdDesign(
 _BWD_DCLUSTER128 = BwdDesign(
     BwdKernel("dcluster128", "flash_bwd_dcluster128", "ray_tpu_flash_bwd_dq_dcluster128"),
     BwdKernel("dcluster128", "flash_bwd_dcluster128", "ray_tpu_flash_bwd_dkv_dcluster128"))
+#: bf16 and float16 at 384 to 768: the same exchange and plan, every product
+#: on wgmma, the tiles by TMA; ``ops/flash_bwd_variants.py --wide`` timed it
+#: beside ``wide`` (``flash_bwd_wide.cu``, the design before) on an H100
+#: (PERF.md §6), and each row below names the faster of the two there
+_BWD_DCLUSTER128_WGMMA = BwdDesign(
+    BwdKernel("dcluster128", "flash_bwd_dcluster128_wgmma",
+              "ray_tpu_flash_bwd_dq_dcluster128_wgmma"),
+    BwdKernel("dcluster128", "flash_bwd_dcluster128_wgmma",
+              "ray_tpu_flash_bwd_dkv_dcluster128_wgmma"))
 _BWD_PLAIN = BwdDesign(BwdKernel("plain", None, None), BwdKernel("plain", None, None))
 
 #: the backward's dispatch table, keyed on (head_dim, dtype): the kernels each
@@ -294,10 +304,13 @@ _BWD_PLAIN = BwdDesign(BwdKernel("plain", None, None), BwdKernel("plain", None, 
 #: wgmma pair they took over from is timed beside them by
 #: ``ops/flash_bwd_variants.py --d64``); bf16 at 16 and 32 runs
 #: ``flash_bwd_persistent.cu``; bf16 and float16 at 384, 512, 640 and 768
-#: ``flash_bwd_wide.cu``; float32 runs 3xTF32 on the tensor cores
-#: (``flash_bwd_f32.cu``), at 384, 512, 640 and 768 ``flash_bwd_dcluster128.cu``
-#: (``flash_bwd_variants --wide-f32`` times it beside ``flash_bwd_f32.cu``,
-#: the design before, and ``flash_bwd_dcluster.cu``'s 256-column plan); by
+#: ``flash_bwd_dcluster128_wgmma.cu`` (``flash_bwd_variants --wide`` times it
+#: beside ``flash_bwd_wide.cu``, the design before, and
+#: ``flash_bwd_dcluster.cu``'s 256-column plan); float32 runs 3xTF32 on the
+#: tensor cores (``flash_bwd_f32.cu``), at 384, 512, 640 and 768
+#: ``flash_bwd_dcluster128.cu`` (``flash_bwd_variants --wide-f32`` times it
+#: beside ``flash_bwd_f32.cu``, the design before, and
+#: ``flash_bwd_dcluster.cu``'s 256-column plan); by
 #: the rule every multiple of 128 from 896 up, in
 #: all three dtypes, ``flash_bwd_dcluster.cu`` (``flash_bwd_variants
 #: --dsplit`` times it beside ``flash_bwd_dsplit.cu``, the design before,
@@ -313,7 +326,8 @@ BWD_DESIGNS = DesignTable({
     **{(d, torch.bfloat16): _BWD_PERSISTENT for d in (16, 32)},
     **{(64, dt): _BWD_D64 for dt in (torch.bfloat16, torch.float16)},
     **{(d, dt): _BWD_WGMMA for d in (128, 256) for dt in (torch.bfloat16, torch.float16)},
-    **{(d, dt): _BWD_WIDE for d in WIDE_HEAD_DIMS for dt in (torch.bfloat16, torch.float16)},
+    **{(d, dt): _BWD_DCLUSTER128_WGMMA for d in WIDE_HEAD_DIMS
+       for dt in (torch.bfloat16, torch.float16)},
 }, _BWD_PLAIN, dsplit_takes, _BWD_DCLUSTER)
 
 #: launches of each kernel, counted where it is launched; a launch counts in
@@ -332,7 +346,6 @@ flash_bwd_dq_launches = 0
 flash_bwd_dq_wgmma_launches = 0
 flash_bwd_dq_d64_launches = 0
 flash_bwd_dq_persistent_launches = 0
-flash_bwd_dq_wide_launches = 0
 flash_bwd_dq_tf32x3_launches = 0
 flash_bwd_dq_dcluster_launches = 0
 flash_bwd_dq_dcluster128_launches = 0
@@ -341,7 +354,6 @@ flash_bwd_dkv_launches = 0
 flash_bwd_dkv_wgmma_launches = 0
 flash_bwd_dkv_d64_launches = 0
 flash_bwd_dkv_persistent_launches = 0
-flash_bwd_dkv_wide_launches = 0
 flash_bwd_dkv_tf32x3_launches = 0
 flash_bwd_dkv_dcluster_launches = 0
 flash_bwd_dkv_dcluster128_launches = 0
@@ -760,6 +772,9 @@ _SOURCES = {
     "flash_bwd_dcluster128": ({"ray_tpu_flash_bwd_dq_dcluster128": 7,
                                "ray_tpu_flash_bwd_dkv_dcluster128": 8},
                               "ray_tpu_flash_bwd_dcluster128_error_string"),
+    "flash_bwd_dcluster128_wgmma": ({"ray_tpu_flash_bwd_dq_dcluster128_wgmma": 7,
+                                     "ray_tpu_flash_bwd_dkv_dcluster128_wgmma": 8},
+                                    "ray_tpu_flash_bwd_dcluster128_wgmma_error_string"),
 }
 _C_TAIL = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
 
@@ -884,9 +899,13 @@ _PLAN_ENTRIES = {"flash_fwd_dcluster": ("ray_tpu_flash_fwd_dcluster_plan", ("sme
                  "flash_bwd_dcluster": ("ray_tpu_flash_bwd_dcluster_plan",
                                         ("smem_dq", "smem_dkv")),
                  "flash_bwd_dcluster128": ("ray_tpu_flash_bwd_dcluster128_plan",
-                                           ("smem_dq", "smem_dkv"))}
+                                           ("smem_dq", "smem_dkv")),
+                 "flash_bwd_dcluster128_wgmma": ("ray_tpu_flash_bwd_dcluster128_wgmma_plan",
+                                                 ("smem_dq", "smem_dkv", "resident_rows",
+                                                  "streamed_rows_dq", "streamed_rows_dkv"))}
 # each cluster source's plan in ops/dcluster.py (dcluster_plan where not named)
 _PLAN_OF = {"flash_bwd_dcluster128": dcluster.dcluster128_plan,
+            "flash_bwd_dcluster128_wgmma": dcluster.dcluster128_plan,
             "flash_fwd_dcluster128": dcluster.dcluster128_fwd_plan}
 
 
@@ -894,7 +913,8 @@ def _check_dcluster_plan(source: str, head_dim: int, dtype: torch.dtype) -> None
     """Raise ``RuntimeError`` unless the cluster kernels built from
     ``csrc/<source>.cu`` launch with their plan in ``ops/dcluster.py`` at
     this head_dim and dtype (group columns, CTAs a cluster, passes, shared
-    memory: the forward's, or dQ's and dK/dV's)."""
+    memory: the forward's, or dQ's and dK/dV's; and the 16-bit dcluster128
+    backward's resident and streamed rows)."""
     plan_of = _PLAN_OF.get(source, dcluster.dcluster_plan)
     plan = plan_of(head_dim, dtype)
     entry, smem = _PLAN_ENTRIES[source]
@@ -906,7 +926,7 @@ def _check_dcluster_plan(source: str, head_dim: int, dtype: torch.dtype) -> None
     err = fn(head_dim, _DTYPE_CODES[dtype], out)
     if err != 0 or tuple(out) != want:
         raise RuntimeError(
-            f"{source}.cu plans {tuple(out)} (group columns, cluster, passes, shared memory "
+            f"{source}.cu plans {tuple(out)} (group columns, cluster, passes, "
             f"{', '.join(smem)}) at head_dim {head_dim} {dtype} (status {err}); "
             f"{plan_of.__name__} says {want}")
 

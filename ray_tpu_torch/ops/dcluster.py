@@ -28,7 +28,12 @@ backward at head_dims 384 to 768) is the same exchange with groups of
 ``GROUP_COLS_128`` columns, one group a CTA, C = d / 128 CTAs a cluster and
 one pass, each CTA's partials pushed as two sources (its two 64-column
 halves), the resident side in registers: ``dcluster128_plan`` and
-``flash_bwd_dcluster128_model``. ``csrc/flash_fwd_dcluster128.cu`` is the
+``flash_bwd_dcluster128_model``. ``csrc/flash_bwd_dcluster128_wgmma.cu`` is
+the same design in bf16 and float16, its products on wgmma: one source a
+CTA (its 128 columns), a resident tile of ``RESIDENT_ROWS_16`` rows against
+streamed tiles (``stream_16``: by kernel and cluster size), P and dS
+rounded to the dtype for the output products; ``dcluster128_plan`` gives its plan by dtype, and the
+model walks its tiles and sources. ``csrc/flash_fwd_dcluster128.cu`` is the
 forward of that plan in bf16, float16 and float32 (``FWD_DESIGNS``' design
 at 384 to 768): a cluster's 64-row q tile against 32-row kv tiles, two
 sources a CTA, the forward's reducing rows (``reducer_rows``), its shared
@@ -76,6 +81,11 @@ class DclusterPlan:
     smem_dq: int
     smem_dkv: int
     smem_fwd: int
+    #: the backward's resident rows (dQ's q tile, dK/dV's kv tile) and each
+    #: kernel's rows of a streamed tile
+    resident_rows: int = ROWS
+    streamed_rows_dq: int = ROWS
+    streamed_rows_dkv: int = ROWS
 
     def cta_columns(self, rank: int) -> Tuple[int, int]:
         """[start, stop) of the columns whose partial S and dP CTA ``rank``
@@ -150,18 +160,72 @@ def smem_bytes_128(dkv: bool) -> int:
             + 4 * 8)
 
 
+#: the 16-bit dcluster128 backward's resident rows (``kResRows`` of
+#: ``flash_bwd_dcluster128_wgmma.cu``), and each kernel's streamed side
+#: (rows of a streamed tile, stages of its ring): dK/dV's (``DkvStream``),
+#: dQ's below ``DQ_NARROW_FROM`` CTAs a cluster (``DqWide``) and from it on
+#: (``DqNarrow``: two CTAs an SM)
+RESIDENT_ROWS_16 = 64
+DKV_STREAM_16 = (64, 3)
+DQ_WIDE_16 = (64, 3)
+DQ_NARROW_16 = (32, 2)
+DQ_NARROW_FROM = 4
+
+
+def stream_16(dkv: bool, cluster: int) -> Tuple[int, int]:
+    """(streamed rows, stages) of the 16-bit dcluster128 dQ (``dkv`` False)
+    or dK/dV kernel at clusters of ``cluster`` CTAs."""
+    if dkv:
+        return DKV_STREAM_16
+    return DQ_NARROW_16 if cluster >= DQ_NARROW_FROM else DQ_WIDE_16
+
+
+def smem_bytes_128_16(dkv: bool, cluster: int) -> int:
+    """A 16-bit dcluster128 CTA's dynamic shared memory (``Layout<kDkv,
+    S>::kAlloc`` of ``flash_bwd_dcluster128_wgmma.cu``) at clusters of
+    ``cluster`` CTAs: the resident pair (two tiles of ``RESIDENT_ROWS_16``
+    rows of 128 two-byte columns), the stages of the streamed pair
+    (``stream_16``), two receive buffers of the quads (float4) a CTA
+    reduces from C sources and two products, C ceil(Q / C) of each at most
+    Q + 7 (Q the quads of one product), two of P and dS in the dtype (dQ:
+    dS), for dQ the resident rows' lse and delta, the mbarriers (two
+    receive, two P/dS, a full one a stage, the resident pair's), and 1024
+    bytes to align the swizzled tiles."""
+    rows, stages = stream_16(dkv, cluster)
+    quads = RESIDENT_ROWS_16 * rows // 4
+    resident = 2 * RESIDENT_ROWS_16 * GROUP_COLS_128 * 2
+    ring = stages * 2 * rows * GROUP_COLS_128 * 2
+    recv = 2 * (quads + MAX_CLUSTER - 1) * 16
+    pd = quads * (16 if dkv else 8)
+    stats = 0 if dkv else 2 * RESIDENT_ROWS_16 * 4
+    return resident + ring + 2 * recv + 2 * pd + stats + (5 + stages) * 8 + 1024
+
+
 def dcluster128_plan(head_dim: int, dtype: torch.dtype) -> DclusterPlan:
-    """The dcluster128 backward's plan at ``head_dim`` (a multiple of 128 up
-    to 1024) in float32, its only dtype: one group of 128 columns a CTA,
-    C = d / 128 CTAs a cluster, one pass. The forward's is
-    ``dcluster128_fwd_plan`` (``smem_fwd`` 0 here)."""
+    """The dcluster128 backward's plan at ``head_dim``: one group of 128
+    columns a CTA, C = d / 128 CTAs a cluster, one pass. float32
+    (``flash_bwd_dcluster128.cu``) takes every multiple of 128 up to 1024,
+    with 32-row resident and streamed tiles; bf16 and float16
+    (``flash_bwd_dcluster128_wgmma.cu``) every multiple of 128 from 256 to
+    1024 (a reducing thread takes at most two quads, so C >= 2), with
+    ``RESIDENT_ROWS_16`` resident rows, each kernel's streamed side at C
+    (``stream_16``) and their own shared memory. The forward's is ``dcluster128_fwd_plan`` (``smem_fwd`` 0
+    here)."""
     groups = head_dim // GROUP_COLS_128 if head_dim > 0 and head_dim % 128 == 0 else 0
-    if not 1 <= groups <= MAX_CLUSTER or dtype != torch.float32:
+    if dtype == torch.float32:
+        if not 1 <= groups <= MAX_CLUSTER:
+            raise ValueError(f"dcluster128 takes a multiple of 128 up to "
+                             f"{MAX_CLUSTER * GROUP_COLS_128} in torch.float32, not head_dim "
+                             f"{head_dim}")
+        return DclusterPlan(head_dim, GROUP_COLS_128, groups, groups, 1, smem_bytes_128(False),
+                            smem_bytes_128(True), 0)
+    if dtype not in (torch.bfloat16, torch.float16) or not 2 <= groups <= MAX_CLUSTER:
         raise ValueError(f"dcluster128 takes a multiple of 128 up to "
-                         f"{MAX_CLUSTER * GROUP_COLS_128} in torch.float32, not head_dim "
-                         f"{head_dim} {dtype}")
-    return DclusterPlan(head_dim, GROUP_COLS_128, groups, groups, 1, smem_bytes_128(False),
-                        smem_bytes_128(True), 0)
+                         f"{MAX_CLUSTER * GROUP_COLS_128} in torch.float32, and from 256 in "
+                         f"torch.bfloat16 and torch.float16, not head_dim {head_dim} {dtype}")
+    return DclusterPlan(head_dim, GROUP_COLS_128, groups, groups, 1,
+                        smem_bytes_128_16(False, groups), smem_bytes_128_16(True, groups), 0,
+                        RESIDENT_ROWS_16, stream_16(False, groups)[0], stream_16(True, groups)[0])
 
 
 #: stages of the dcluster128 forward's ring of K and V tiles
@@ -351,20 +415,32 @@ def flash_bwd_dcluster128_model(
     dlse: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) in float64 as the dcluster128 kernels schedule them:
-    the dcluster schedule at ``dcluster128_plan``'s one pass, the partial S
+    the dcluster schedule at ``dcluster128_plan``'s one pass and tiles,
+    each CTA's update of its own 128 output columns. float32: the partial S
     and dP summed over 2 C sources of 64 columns each (CTA r's halves
-    [128 r, 128 r + 64) and [128 r + 64, 128 r + 128)) in column order, each
-    CTA's update of its own 128 output columns."""
+    [128 r, 128 r + 64) and [128 r + 64, 128 r + 128)) in column order.
+    bf16 and float16: over C sources, a CTA's 128 columns, in column order,
+    and P and dS rounded to the dtype before the products that take them,
+    as the wgmma kernels round them."""
     plan = dcluster128_plan(q.shape[-1], q.dtype)
-    sources = [(c, c + SOURCE_COLS_128) for c in range(0, plan.head_dim, SOURCE_COLS_128)]
-    return _bwd_model(q, k, v, o, lse, do, plan, sources, causal=causal, scale=scale, dlse=dlse)
+    if q.dtype == torch.float32:
+        sources = [(c, c + SOURCE_COLS_128) for c in range(0, plan.head_dim, SOURCE_COLS_128)]
+        round_to = None
+    else:
+        sources = [plan.cta_columns(rank) for rank in range(plan.cluster)]
+        round_to = q.dtype
+    return _bwd_model(q, k, v, o, lse, do, plan, sources, causal=causal, scale=scale, dlse=dlse,
+                      round_to=round_to)
 
 
 def _bwd_model(q, k, v, o, lse, do, plan: DclusterPlan, sources: List[Tuple[int, int]], *,
-               causal: bool, scale: float, dlse: Optional[torch.Tensor]
+               causal: bool, scale: float, dlse: Optional[torch.Tensor],
+               round_to: Optional[torch.dtype] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The backward's schedule under ``plan``, the partials over the column
-    ranges ``sources`` summed in their order."""
+    """The backward's schedule under ``plan`` (its resident rows and each
+    kernel's streamed rows), the partials over the column ranges ``sources`` summed in their
+    order; P and dS rounded to ``round_to`` for the output products where
+    it is given."""
     t_q, t_kv = q.shape[-2], k.shape[-2]
     qf, kf, vf, dof = (x.to(torch.float64) for x in (q, k, v, do))
     delta = (dof * o.to(torch.float64)).sum(-1)
@@ -390,20 +466,26 @@ def _bwd_model(q, k, v, o, lse, do, plan: DclusterPlan, sources: List[Tuple[int,
         if guard:
             keep = keep & (lse_t > NEG_INF / 2)
         p = torch.where(keep, p, 0.0)
-        return p, p * (dp - delta[..., qs[0]:qs[1], None])
+        ds = p * (dp - delta[..., qs[0]:qs[1], None])
+        if round_to is not None:
+            p, ds = (x.to(round_to).to(torch.float64) for x in (p, ds))
+        return p, ds
 
     dq, dk, dv = (torch.zeros_like(x) for x in (qf, kf, vf))
-    for qs in _tiles(t_q):  # dQ: the resident q tile, the kv tiles it sees
+    res = plan.resident_rows
+    for qs in _tiles(t_q, res):  # dQ: the resident q tile, the kv tiles it sees
         last = qs[1] - 1 + off
-        ks_all = [ks for ks in _tiles(t_kv) if not causal or ks[0] <= last]
+        ks_all = [ks for ks in _tiles(t_kv, plan.streamed_rows_dq)
+                  if not causal or ks[0] <= last]
         for pass_ in range(plan.passes):
             for ks in ks_all:
                 _, ds = p_and_ds(qs, ks)
                 for rank in range(plan.cluster):
                     o0, o1 = plan.output_columns(rank, pass_)
                     dq[..., qs[0]:qs[1], o0:o1] += ds @ kf[..., ks[0]:ks[1], o0:o1]
-    for ks in _tiles(t_kv):  # dK/dV: the resident kv tile, the q tiles that see it
-        qs_all = [qs for qs in _tiles(t_q) if not causal or qs[1] - 1 + off >= ks[0]]
+    for ks in _tiles(t_kv, res):  # dK/dV: the resident kv tile, the q tiles that see it
+        qs_all = [qs for qs in _tiles(t_q, plan.streamed_rows_dkv)
+                  if not causal or qs[1] - 1 + off >= ks[0]]
         for pass_ in range(plan.passes):
             for qs in qs_all:
                 p, ds = p_and_ds(qs, ks)

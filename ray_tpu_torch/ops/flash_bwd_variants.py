@@ -1,6 +1,6 @@
 """Variants of the bf16 flash backward kernels, built and timed on the card.
 
-    python -m ray_tpu_torch.ops.flash_bwd_variants [--small-d | --d64 | --dsplit | --wide-f32] [--out results.json]
+    python -m ray_tpu_torch.ops.flash_bwd_variants [--small-d | --d64 | --dsplit | --wide | --wide-f32] [--out results.json]
 
 Each variant is ``csrc/flash_bwd_wgmma.cu`` and ``csrc/hopper.cuh`` with one
 piece of text replaced (``flash_fwd_variants.build_variant``):
@@ -100,6 +100,26 @@ split at each use, so no operand is split once) and ``probe: streamed split
 once`` (``kSplitStreamed`` true: the streamed tiles split where they land
 into a big and a small plane, two stages instead of three). Neither is
 wrong: both are held to the plain backward.
+
+With ``--wide`` it times the bf16 backward at 384, 512, 640 and 768
+(``WIDE_SHAPES``): the pair of ``csrc/flash_bwd_dcluster128_wgmma.cu``
+(design ``dcluster128``, the port's there) beside the pair of
+``csrc/flash_bwd_wide.cu`` it took over from (``wide before``, launched
+directly), the pair of ``csrc/flash_bwd_dcluster.cu`` at its own 256-column
+plan (``dcluster 256``) and the library's whole backward, as ``--wide-f32``
+does, after the registers, spills, CTAs an SM and clusters resident at 3
+to 6 CTAs of each kernel, and beside builds of other tiles
+(``DCLUSTER128_WGMMA_VARIANTS``: ``dQ 64 rows at every d`` and ``dQ 32
+rows at every d``, dQ's streamed side of clusters of 2 and 3 (64 kv rows,
+three stages, one CTA an SM) or of clusters from 4 (32 rows in a ring of
+two, two CTAs an SM) at every cluster size; ``32 streamed rows`` for both
+kernels in three stages; ``128 resident rows``, two warpgroups of resident
+rows sharing each streamed tile of 32 rows and each exchange round), each
+held to the plain backward. ``--probes`` adds ``probe: copies only`` (the
+streamed tiles land and nothing else runs) and ``probe: no exchange``
+(each CTA reduces every position from its own partials alone, so S and dP
+cover its columns only), wrong by design, which say what the copies and
+the exchange cost.
 
 Each ``--small-d`` time is the kernel's device time per call from torch.profiler,
 the least of five turns after half a second of load to settle the clocks,
@@ -471,6 +491,99 @@ DCLUSTER128_PROBES = {
                                     "constexpr bool kSplitStreamed = true;")]}
 
 
+DCLUSTER128_WGMMA_SOURCE = _build.CSRC_DIR / "flash_bwd_dcluster128_wgmma.cu"
+_STREAM_32 = [("using DkvStream = Stream<64, 3>;", "using DkvStream = Stream<32, 3>;"),
+              ("using DqWide = Stream<64, 3>;", "using DqWide = Stream<32, 3>;"),
+              ("using DqNarrow = Stream<32, 2>;", "using DqNarrow = Stream<32, 3>;")]
+DCLUSTER128_WGMMA_VARIANTS = {
+    "dQ 64 rows at every d": [("constexpr int kDqNarrowFrom = 4;",
+                               "constexpr int kDqNarrowFrom = 9;")],
+    "dQ 32 rows at every d": [("constexpr int kDqNarrowFrom = 4;",
+                               "constexpr int kDqNarrowFrom = 2;")],
+    "32 streamed rows": _STREAM_32,
+    "128 resident rows": [("constexpr int kResRows = 64;", "constexpr int kResRows = 128;"),
+                          *_STREAM_32],
+}
+# wrong by design: the streamed tiles' copies alone, and no exchange (each
+# CTA's own partials reduced as if they were the cluster's)
+DCLUSTER128_WGMMA_PROBES = {
+    "probe: copies only": [(
+        """  if (n_items > 0) {
+    mbar_wait(x_bar, 0);
+    mbar_wait(full_bar(0), 0);
+    partial(0);
+    push(0);
+  }
+#pragma unroll 1
+  for (int i = 0; i < n_items; ++i) {
+    if (i + 1 < n_items) mbar_wait(full_bar(i + 1), ((i + 1) / kStages) & 1);
+    reduce(i);
+    __syncwarp();
+    if (i + 1 < n_items) {
+      partial(i + 1);
+      push(i + 1);
+    }
+    mbar_wait(pd_bar(i), (i >> 1) & 1);  // P and dS of item i are in
+    if (threadIdx.x == 0 && i + 2 < n_items) mbar_arrive_expect_tx(pd_bar(i), L::kPdBytes);
+    output(i);
+    __syncthreads();  // item i's slot is free""",
+        """  if (n_items > 0) mbar_wait(x_bar, 0);
+#pragma unroll 1
+  for (int i = 0; i < n_items; ++i) {
+    mbar_wait(full_bar(i), (i / kStages) & 1);
+    __syncthreads();  // item i's slot is free""")],
+    "probe: no exchange": [
+        ("  static constexpr int kMaxU = ((kQuads + 1) / 2 + kClusterThreads - 1) / kClusterThreads;",
+         "  static constexpr int kMaxU = (kQuads + kClusterThreads - 1) / kClusterThreads;"),
+        ("  const int share = (kQuads + p.cluster - 1) / p.cluster;  // quads a CTA reduces",
+         "  const int share = kQuads;"),
+        ("  const int n_share = min(share, kQuads - rank * share);", "  const int n_share = kQuads;"),
+        ("(uint32_t)(p.cluster * 2 * n_share * 16);", "(uint32_t)(2 * n_share * 16);"),
+        ("        const int to = quad / share, at = quad - to * share;\n"
+         "        const uint32_t dst = recv + ((rank * 2 + prod_of(j)) * share + at) * 16;",
+         "        const int to = rank, at = quad;\n"
+         "        const uint32_t dst = recv + (prod_of(j) * share + at) * 16;"),
+        ("        const int quad = rank * share + at;\n#pragma unroll",
+         "        const int quad = at;\n#pragma unroll"),
+        ("      const int quad = rank * share + at;\n      float sx[4]",
+         "      const int quad = at;\n      float sx[4]"),
+        ("      for (int c = 0; c < p.cluster; ++c) {  // in column order",
+         "      for (int c = 0; c < 1; ++c) {  // in column order"),
+        ("      for (int c = 0; c < p.cluster; ++c) {\n        const uint32_t o = map_cluster(dst, c)",
+         "      for (int c = rank; c < rank + 1; ++c) {\n        const uint32_t o = map_cluster(dst, c)")],
+}
+
+
+def main_wide(smi: str, out: str | None, probes: bool) -> int:
+    """The bf16 backward at 384 to 768: dcluster128's wgmma pair (the
+    port's) beside wide's (the design before, launched directly),
+    dcluster's 256-column plan as built (launched directly) and the
+    library's whole backward, and the builds of DCLUSTER128_WGMMA_VARIANTS
+    and, with ``probes``, DCLUSTER128_WGMMA_PROBES, at WIDE_SHAPES; each
+    kernel's registers, spills, CTAs an SM and clusters resident first."""
+    source = "flash_bwd_dcluster128_wgmma"
+    log = _build.library_path(source).with_name(_build.library_path(source).name + ".log")
+    pairs = {"dcluster128": _bind_source(source),
+             "wide before": _bind_source("flash_bwd_wide"),
+             "dcluster 256": _bind_source("flash_bwd_dcluster")}
+    print("[build] " + " | ".join(line.strip() for line in log.read_text().splitlines()
+                                  if "dcluster128" in line or "registers" in line
+                                  or "spill" in line))
+    lib = attn._kernel_lib(source)
+    for fn in ("ctas_per_sm", "max_clusters"):
+        getattr(lib, f"ray_tpu_{source}_{fn}").argtypes = [ctypes.c_int] * 3
+    for dkv, name in enumerate(("dQ", "dK/dV")):
+        print(f"[build] dcluster128 bf16 {name} by head_dim: CTAs an SM, clusters resident "
+              + ", ".join(f"{d}: {lib.ray_tpu_flash_bwd_dcluster128_wgmma_ctas_per_sm(0, dkv, d)}, "
+                          f"{lib.ray_tpu_flash_bwd_dcluster128_wgmma_max_clusters(0, dkv, d)}"
+                          for d in attn.WIDE_HEAD_DIMS))
+    builds = dict(DCLUSTER128_WGMMA_VARIANTS, **(DCLUSTER128_WGMMA_PROBES if probes else {}))
+    _build_probes(DCLUSTER128_WGMMA_SOURCE, builds, attn._SOURCES[source][0], pairs)
+    return _time_pairs(smi, out, pairs, WIDE_SHAPES, (torch.bfloat16,),
+                       ("dcluster128", "wide before", "dcluster 256",
+                        *DCLUSTER128_WGMMA_VARIANTS))
+
+
 def main_wide_f32(smi: str, out: str | None, probes: bool) -> int:
     """The float32 backward at 384 to 768: dcluster128's pair (the port's)
     beside tf32x3's (the design before, launched directly), dcluster's
@@ -675,11 +788,14 @@ def main() -> int:
                     help="head_dims from 896 up: dcluster's pair beside dsplit's")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"),
                     help="with --dsplit: one dtype (default both)")
+    ap.add_argument("--wide", action="store_true",
+                    help="bf16 at 384 to 768: dcluster128's wgmma pair beside wide's, "
+                         "dcluster's 256-column plan and other tiles")
     ap.add_argument("--wide-f32", action="store_true",
                     help="float32 at 384 to 768: dcluster128's pair beside tf32x3's and "
                          "dcluster's 256-column plan")
     ap.add_argument("--probes", action="store_true",
-                    help="with --dsplit or --wide-f32: the probes of the design beside it")
+                    help="with --dsplit, --wide or --wide-f32: the probes of the design beside it")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("flash_bwd_variants needs a card")
@@ -691,6 +807,8 @@ def main() -> int:
         return main_small_d(smi, args.out)
     if args.d64:
         return main_d64(smi, args.out, args.only)
+    if args.wide:
+        return main_wide(smi, args.out, args.probes)
     if args.wide_f32:
         return main_wide_f32(smi, args.out, args.probes)
     if args.dsplit:

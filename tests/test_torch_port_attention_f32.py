@@ -41,7 +41,7 @@ def test_bwd_designs_send_float32_to_the_tensor_core_design():
     """Every float32 head_dim runs 3xTF32 kernels on the tensor cores: the
     tf32x3 pair up to 256, the dcluster128 pair at 384, 512, 640 and 768;
     the bf16 rows are the wgmma design at 128/256, d64 at 64, the persistent
-    one at 16/32 and the wide one at 384, 512, 640 and 768."""
+    one at 16/32 and dcluster128's wgmma build at 384, 512, 640 and 768."""
     for d in port.HEAD_DIMS:
         design = port.BWD_DESIGNS[(d, torch.float32)]
         name, source = (("dcluster128", "flash_bwd_dcluster128") if d in port.WIDE_HEAD_DIMS
@@ -52,7 +52,7 @@ def test_bwd_designs_send_float32_to_the_tensor_core_design():
                                                        f"ray_tpu_flash_bwd_dkv_{suffix}")
         assert (port._build.CSRC_DIR / f"{source}.cu").exists()
         want = {64: ("d64", "d64"), 128: ("wgmma", "wgmma"), 256: ("wgmma", "wgmma"),
-                **{w: ("wide", "wide") for w in port.WIDE_HEAD_DIMS}}.get(
+                **{w: ("dcluster128", "dcluster128") for w in port.WIDE_HEAD_DIMS}}.get(
             d, ("persistent", "persistent"))
         bf16 = port.BWD_DESIGNS[(d, torch.bfloat16)]
         assert (bf16.dq.name, bf16.dkv.name) == want

@@ -58,7 +58,8 @@ def test_table_names_dcluster128_for_the_float32_backward(d):
     """(d, float32) at 384 to 768 is a row of the backward's table naming
     ``dcluster128`` for dQ and dK/dV, from a source that exists with the
     entry points the port binds, each counting its launches; the forward's
-    row is ``dcluster128``'s forward, and bf16 and float16 stay ``wide``."""
+    row is ``dcluster128``'s forward, and bf16 and float16 run the same
+    design from their own source (``flash_bwd_dcluster128_wgmma.cu``)."""
     bwd = port.BWD_DESIGNS[(d, F32)]
     assert (d, F32) in set(port.BWD_DESIGNS)
     assert [(kn.name, kn.source, kn.entry, kn.schedule) for kn in (bwd.dq, bwd.dkv)] == [
@@ -66,7 +67,8 @@ def test_table_names_dcluster128_for_the_float32_backward(d):
         ("dcluster128", "flash_bwd_dcluster128", "ray_tpu_flash_bwd_dkv_dcluster128", False)]
     assert port.FWD_DESIGNS[(d, F32)].name == "dcluster128"
     for dt in (torch.bfloat16, torch.float16):
-        assert port.BWD_DESIGNS[(d, dt)].dq.name == "wide"
+        assert port.BWD_DESIGNS[(d, dt)].dq.name == "dcluster128"
+        assert port.BWD_DESIGNS[(d, dt)].dq.source == "flash_bwd_dcluster128_wgmma"
     assert (port._build.CSRC_DIR / "flash_bwd_dcluster128.cu").exists()
     entries, error_fn = port._SOURCES["flash_bwd_dcluster128"]
     assert entries == {"ray_tpu_flash_bwd_dq_dcluster128": 7,
@@ -105,13 +107,19 @@ def test_plan_covers_every_column_once(d):
 
 def test_plan_refuses_what_the_kernels_do_not_take():
     """A head_dim that is no multiple of 128, one past 8 groups (the
-    portable cluster), and any dtype but float32 have no plan."""
+    portable cluster), and a dtype that no build takes have no plan; bf16
+    and float16 have their own build's (tests/test_torch_port_attention_wide_bwd.py),
+    which refuses one group."""
     for d in (0, -128, 320, 1000, 1152):
         with pytest.raises(ValueError, match="multiple of 128 up to 1024"):
             dcluster.dcluster128_plan(d, F32)
-    for dtype in (torch.bfloat16, torch.float16, torch.float64):
+    for dtype in (torch.float64, torch.int32):
         with pytest.raises(ValueError, match="float32"):
             dcluster.dcluster128_plan(640, dtype)
+    for dtype in (torch.bfloat16, torch.float16):
+        assert dcluster.dcluster128_plan(640, dtype).resident_rows == dcluster.RESIDENT_ROWS_16
+        with pytest.raises(ValueError, match="from 256"):
+            dcluster.dcluster128_plan(128, dtype)
 
 
 @pytest.mark.parametrize("case", MODEL_CASES, ids=_ids)

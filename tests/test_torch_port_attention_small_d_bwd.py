@@ -41,20 +41,21 @@ def test_bwd_designs_send_bf16_16_and_32_to_the_persistent_design():
     """bf16 at head_dim 16 and 32 runs ``flash_bwd_persistent.cu``, bound
     through the entry points its table names; every other entry is the one
     it was: bf16 and float16 128/256 on wgmma, bf16 and float16 64 on d64's
-    dQ and dK/dV, bf16 and float16 384, 512, 640 and 768 on wide, float32
-    on tf32x3 up to 256 and on dcluster128 at 384, 512, 640 and 768."""
+    dQ and dK/dV, bf16 and float16 384, 512, 640 and 768 on dcluster128's
+    wgmma build, float32 on tf32x3 up to 256 and on dcluster128 at 384,
+    512, 640 and 768."""
     pair = {"tf32x3": [("tf32x3", "flash_bwd_f32")] * 2,
             "dcluster128": [("dcluster128", "flash_bwd_dcluster128")] * 2,
             "persistent": [("persistent", "flash_bwd_persistent")] * 2,
             "wgmma": [("wgmma", "flash_bwd_wgmma")] * 2,
             "d64": [("d64", "flash_bwd_d64")] * 2,
-            "wide": [("wide", "flash_bwd_wide")] * 2}
+            "dcluster128_wgmma": [("dcluster128", "flash_bwd_dcluster128_wgmma")] * 2}
     want = {(d, torch.float32): pair["dcluster128" if d in port.WIDE_HEAD_DIMS else "tf32x3"]
             for d in port.HEAD_DIMS}
     want.update({(d, BF16): pair["persistent"] for d in SMALL_D})
     want.update({(d, BF16): pair["wgmma"] for d in (128, 256)})
     want[(64, BF16)] = pair["d64"]
-    want.update({(d, BF16): pair["wide"] for d in (384, 512, 640, 768)})
+    want.update({(d, BF16): pair["dcluster128_wgmma"] for d in (384, 512, 640, 768)})
     want.update({(d, torch.float16): want[(d, BF16)]
                  for d in (64, 128, 256, 384, 512, 640, 768)})
     assert {key: [(kn.name, kn.source) for kn in (dz.dq, dz.dkv)]

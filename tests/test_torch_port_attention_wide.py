@@ -6,11 +6,12 @@ a multiple of 128 (``ray_tpu/ops/attention.py``'s ``dot_product_attention``).
 At 384, 512, 640 and 768 the port's forward table names ``dcluster128``
 (``csrc/flash_fwd_dcluster128.cu``,
 tests/test_torch_port_attention_wide_fwd.py) in every dtype, at 64 x 32
-tiles, and the backward's ``wide`` (``csrc/flash_bwd_wide.cu``) for bf16 and
-float16 and ``dcluster128`` (``csrc/flash_bwd_dcluster128.cu``,
-tests/test_torch_port_attention_f32_cluster.py) for float32. Past 768 the
-wide dK/dV kernel spills and the float32 dQ's tiles pass the shared memory,
-so 896 and up take the tables' rule, ``dcluster`` for the forward and
+tiles, and the backward's ``dcluster128`` too: for bf16 and float16
+``csrc/flash_bwd_dcluster128_wgmma.cu``
+(tests/test_torch_port_attention_wide_bwd.py), for float32
+``csrc/flash_bwd_dcluster128.cu``
+(tests/test_torch_port_attention_f32_cluster.py). 896 and up take the
+tables' rule, ``dcluster`` for the forward and
 the backward (tests/test_torch_port_attention_dsplit.py,
 tests/test_torch_port_attention_dcluster.py,
 tests/test_torch_port_attention_dcluster_fwd.py), and run a kernel on the card
@@ -70,8 +71,8 @@ def test_tables_name_the_wide_designs(d, dtype):
     """(384 | 512 | 640 | 768, dtype) is held by both tables: every dtype's
     forward on ``dcluster128`` at its 64 x 32 tiles, taking only a positive
     scale (the wrapper hands a non-positive one's sign to q); bf16 and
-    float16 on ``wide``'s dQ and dK/dV entries, float32 on
-    ``dcluster128``'s. Each design counts its launches."""
+    float16 on ``dcluster128``'s wgmma dQ and dK/dV entries, float32 on
+    ``dcluster128``'s 3xTF32 ones. Each design counts its launches."""
     fwd, bwd = port.FWD_DESIGNS[(d, dtype)], port.BWD_DESIGNS[(d, dtype)]
     assert (d, dtype) in port.FWD_DESIGNS and (d, dtype) in port.BWD_DESIGNS
     assert d in port.HEAD_DIMS and d in port.WIDE_HEAD_DIMS
@@ -85,8 +86,10 @@ def test_tables_name_the_wide_designs(d, dtype):
         want = [("dcluster128", "flash_bwd_dcluster128", "ray_tpu_flash_bwd_dq_dcluster128"),
                 ("dcluster128", "flash_bwd_dcluster128", "ray_tpu_flash_bwd_dkv_dcluster128")]
     else:
-        want = [("wide", "flash_bwd_wide", "ray_tpu_flash_bwd_dq_wide"),
-                ("wide", "flash_bwd_wide", "ray_tpu_flash_bwd_dkv_wide")]
+        want = [("dcluster128", "flash_bwd_dcluster128_wgmma",
+                 "ray_tpu_flash_bwd_dq_dcluster128_wgmma"),
+                ("dcluster128", "flash_bwd_dcluster128_wgmma",
+                 "ray_tpu_flash_bwd_dkv_dcluster128_wgmma")]
     assert [(kn.name, kn.source, kn.entry) for kn in (bwd.dq, bwd.dkv)] == want
     for source, entry in [(fwd.source, fwd.entry)] + [(kn.source, kn.entry) for kn in
                                                       (bwd.dq, bwd.dkv)]:

@@ -68,7 +68,8 @@ def test_table_names_the_dcluster128_forward(dtype):
     non-positive scale's sign in q) whose built tiles and plan the wrapper
     checks (``_TILES_ENTRIES``, ``_PLAN_ENTRIES`` and ``_PLAN_OF``), from a
     source with the entry points the port binds, counting its launches in
-    total and by head_dim; the backward's rows stay as they were."""
+    total and by head_dim; the backward's rows name ``dcluster128`` too
+    (its float32 build, and its wgmma build in bf16 and float16)."""
     for d in WIDE:
         design = port.FWD_DESIGNS[(d, dtype)]
         assert not port.FWD_DESIGNS.takes_by_rule((d, dtype))
@@ -76,7 +77,7 @@ def test_table_names_the_dcluster128_forward(dtype):
             "dcluster128", "flash_fwd_dcluster128", "ray_tpu_flash_fwd_dcluster128", False)
         assert (design.block_q, design.block_k) == TILES == port.fwd_tiles(d, dtype)
         bwd = port.BWD_DESIGNS[(d, dtype)]
-        assert bwd.dq.name == bwd.dkv.name == ("dcluster128" if dtype == F32 else "wide")
+        assert bwd.dq.name == bwd.dkv.name == "dcluster128"
     assert "dcluster128" in port._POSITIVE_SCALE
     assert port._TILES_ENTRIES["dcluster128"] == "ray_tpu_flash_fwd_dcluster128_tiles"
     assert port._PLAN_ENTRIES["flash_fwd_dcluster128"] == (

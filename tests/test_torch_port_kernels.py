@@ -149,9 +149,10 @@ def test_bwd_designs_cover_every_head_dim_and_dtype():
     entry points that source binds; bf16 at head_dim 128 and 256 (gpt_1b's
     and gpt_j_6b's) runs the wgmma kernels, bf16 at 64 (gpt_125m's) d64's
     dQ and dK/dV, bf16 at 16 and 32 (gpt_nano's and the tiny flagship's) the
-    persistent ones, bf16 at 384, 512, 640 and 768 the wide ones; float16 at
-    64, 128, 256, 384, 512, 640 and 768 the bf16 kernels' float16 builds;
-    every other key the plain design."""
+    persistent ones, bf16 at 384, 512, 640 and 768 dcluster128's wgmma
+    build (float32 there dcluster128's 3xTF32 build); float16 at 64, 128,
+    256, 384, 512, 640 and 768 the bf16 kernels' float16 builds; every other
+    key the plain design."""
     wide = {384, 512, 640, 768}
     keys = {(d, dt) for d in port.HEAD_DIMS for dt in (torch.bfloat16, torch.float32)}
     keys |= {(d, torch.float16) for d in {64, 128, 256} | wide}
@@ -163,15 +164,17 @@ def test_bwd_designs_cover_every_head_dim_and_dtype():
             assert kernel.entry in entries
     for kernel, name, head_dims in (("dq", "wgmma", {128, 256}),
                                     ("dkv", "wgmma", {128, 256}), ("dq", "d64", {64}),
-                                    ("dkv", "d64", {64}), ("dq", "wide", wide),
-                                    ("dkv", "wide", wide),
+                                    ("dkv", "d64", {64}), ("dq", "dcluster128", wide),
+                                    ("dkv", "dcluster128", wide),
                                     ("dq", "persistent", {16, 32}),
                                     ("dkv", "persistent", {16, 32})):
         assert {d for (d, dt), design in port.BWD_DESIGNS.items()
                 if getattr(design, kernel).name == name} == head_dims
         assert {dt for (d, dt), design in port.BWD_DESIGNS.items()
                 if getattr(design, kernel).name == name} == (
-            {torch.bfloat16} if name == "persistent" else {torch.bfloat16, torch.float16})
+            {torch.bfloat16} if name == "persistent" else
+            {torch.bfloat16, torch.float16, torch.float32} if name == "dcluster128" else
+            {torch.bfloat16, torch.float16})
     assert port.BWD_DESIGNS[(48, torch.bfloat16)] is port.BWD_DESIGNS.plain
     assert port.BWD_DESIGNS[(16, torch.float16)] is port.BWD_DESIGNS.plain
 
@@ -343,7 +346,7 @@ def test_dispatcher_raises_for_what_the_kernel_does_not_take(card):
     _on_card_matches_cpu(card, (1, 2, 96, 96, 128, True), torch.bfloat16, ("wgmma",) * 3,
                          scale=0.0)
     _on_card_matches_cpu(card, (1, 2, 64, 96, 384, True), torch.bfloat16,
-                         ("dcluster128", "wide", "wide"), scale=-0.05)
+                         ("dcluster128",) * 3, scale=-0.05)
     # inputs that require grad go through the FlashAttention Function
     out = port.dot_product_attention(q.clone().requires_grad_(), k, v)
     assert "FlashAttention" in type(out.grad_fn).__name__
@@ -424,8 +427,8 @@ def test_d64_forwards_on_two_streams_keep_their_own_items(card):
 
 
 # head_dims 384 to 768 (the dcluster128 forward in every dtype at 64 x 32
-# tiles; the wide backward in bf16 and float16, the dcluster128 backward in
-# float32): ragged q and kv, lengths that are
+# tiles; the dcluster128 backward, its wgmma build in bf16 and float16):
+# ragged q and kv, lengths that are
 # not multiples of 8 (the reference takes _attention_xla there; the kernels
 # run, as at 64-256), rows that see no key (some in a q tile that runs kv
 # tile 0), non-causal with a ragged tile, two full heads
@@ -448,8 +451,8 @@ WIDE_CASES = [
 @pytest.mark.parametrize("case", WIDE_CASES, ids=_ids)
 def test_wide_head_dim_kernels_match_plain_on_card(card, case, dtype):
     """At head_dims 384 to 768 the forward, dQ and dK/dV kernels of the
-    designs the tables name (the dcluster128 forward; the wide dQ and dK/dV,
-    in float32 the dcluster128 ones) launch once each on
+    designs the tables name (dcluster128's forward, dQ and dK/dV in every
+    dtype: the 16-bit backward from its wgmma build) launch once each on
     their counters (and on their head_dim's) and none on plain, every row of
     out, lse, dq, dk and dv within the dtype's limits of the plain versions
     (the forward at the table's tiles; the backward in float64 for float32,
@@ -459,8 +462,9 @@ def test_wide_head_dim_kernels_match_plain_on_card(card, case, dtype):
     dt = getattr(torch, dtype)
     q, k, v = _qkv(b, h, tq, tkv, d, device=card, dtype=dt)
     fwd, bwd = port.FWD_DESIGNS[(d, dt)], port.BWD_DESIGNS[(d, dt)]
-    assert (fwd.name, bwd.dq.name, bwd.dkv.name) == (
-        ("dcluster128",) * 3 if dt == torch.float32 else ("dcluster128", "wide", "wide"))
+    assert (fwd.name, bwd.dq.name, bwd.dkv.name) == ("dcluster128",) * 3
+    assert bwd.dq.source == ("flash_bwd_dcluster128" if dt == torch.float32 else
+                             "flash_bwd_dcluster128_wgmma")
     names = ["flash_fwd_plain_launches", "flash_bwd_dq_plain_launches",
              f"flash_fwd_{fwd.name}_launches", f"flash_bwd_dq_{bwd.dq.name}_launches",
              f"flash_bwd_dkv_{bwd.dkv.name}_launches"]
@@ -773,6 +777,38 @@ def test_dcluster128_backward_matches_plain_and_repeats_its_bits_on_card(card, c
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("case", DCLUSTER128_CASES, ids=_ids)
+def test_dcluster128_wgmma_backward_matches_plain_and_repeats_its_bits_on_card(card, case,
+                                                                                dtype):
+    """The bf16 and float16 dQ and dK/dV at 384 to 768 (dcluster128's wgmma
+    build, every cluster size of its plan): one launch of each on their
+    counters and on their head_dim's, none on plain's (``wide``, the design
+    before, has no counter: no row names it), every row of dq, dk and dv
+    within the dtype's limit of the plain backward, and a second run
+    bit-equal (every reducer sums the C partials in column order)."""
+    b, h, tq, tkv, d, causal = case
+    dt = getattr(torch, dtype)
+    q, k, v, o, lse, do, scale = _bwd_inputs(b, h, tq, tkv, d, causal, card, dt)
+    assert port.BWD_DESIGNS[(d, dt)].dkv.source == "flash_bwd_dcluster128_wgmma"
+    assert not hasattr(port, "flash_bwd_dq_wide_launches")
+    names = ["flash_bwd_dq_dcluster128_launches", "flash_bwd_dkv_dcluster128_launches",
+             "flash_bwd_dq_plain_launches", "flash_bwd_dkv_plain_launches"]
+    by_d = [f"flash_bwd_dq_dcluster128_d{d}", f"flash_bwd_dkv_dcluster128_d{d}"]
+    before = [getattr(port, n) for n in names]
+    before_d = [port.launches_by_head_dim[n] for n in by_d]
+    got = port.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
+    assert [getattr(port, n) - c for n, c in zip(names, before)] == [1, 1, 0, 0]
+    assert [port.launches_by_head_dim[n] - c for n, c in zip(by_d, before_d)] == [1, 1]
+    again = port.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
+    want = port.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+    _assert_grads_close(got, want, BWD_TOL[dt])
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
 # float16 at head_dim 64, 128 and 256: the bf16 kernels' float16 builds
 F16_CASES = [
     (2, 3, 200, 264, 64, True),
@@ -787,7 +823,7 @@ F16_CASES = [
 @pytest.mark.parametrize("case", F16_CASES, ids=_ids)
 def test_float16_kernels_match_plain_on_card(card, case):
     """float16 runs the design of its head_dim (d64 at 64, wgmma at 128
-    and 256, wide at 384 and 512), one launch of each kernel on those counters and
+    and 256), one launch of each kernel on those counters and
     none on plain, every row of out, lse, dq, dk and dv within the float16
     limits of the plain versions."""
     b, h, tq, tkv, d, causal = case
