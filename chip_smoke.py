@@ -157,6 +157,22 @@ Phases (any failure exits non-zero; nothing is caught):
   5. forward: gpt_1b in bf16 (random weights from a seeded torch.Generator),
      b=4, t=2048; the wgmma forward kernel must launch num_layers times per
      forward;
+  5b. entry_config (run after 8a, once phase 5's weights are freed): the
+     reference's entry and configuration surface, every count set to 0
+     first: (a) ray_tpu_torch.entry.entry() (gpt_1b, bf16 parameters, b=1,
+     t=512; its shape is phase 2's entry_gpt_1b_b1_t512): 16 wgmma forward
+     launches a forward, none on plain, finite logits, ms per forward and,
+     from one more forward under torch.profiler, the idle share; (b) the
+     same parameters with attn_use_pallas=False on random tokens: 16 plain
+     forward launches and no kernel launch, layer 0's attention output
+     within the bf16 row limit of the flash route's, the logits' largest
+     difference printed; (c)
+     bench.py's gpt_1b cell (attn_block_q = attn_block_k = 1024, ce_chunk
+     512, scan_layers=False, bf16 parameters and moments, b=12, t=2048): a
+     warm-up and 3 steps under phase 4's gates (32 / 16 / 16 wgmma launches
+     a step, none on plain, the loss falling, the state bf16), ms per step
+     and peak memory beside phase 4's step; (d) a causal call with t_q >
+     t_kv at 1024 x 1024 tiles is refused, launching nothing;
   6. server: the in-process LLMServer at gpt_1b; 8 requests (4 share a
      512-token prefix), prefix-cache hits, bitwise cached-vs-uncached
      logits, engine prefill vs full forward, no KV block leaked, and
@@ -270,9 +286,11 @@ runs, at gpt_1b's forward shape (b=4) with the forward phase's launches,
 and the backward kernels at the train step's shape (b=12) with the train
 phase's; every entry names its shape and its launches on each path (train,
 remat_attn, remat_dots, train_moe, train_gpt_j, forward, server,
-sharded_ws1, sp_ring_ws1, sp_ulysses_ws1, pp_train_ws1: the timed steps or
-calls of each; train_loop: all of 8b's steps, warm-ups and resumed run
-included)
+sharded_ws1, sp_ring_ws1, sp_ulysses_ws1, pp_train_ws1, entry_forward
+(5b(a)), entry_train (5b(c)): the timed steps or calls of each;
+train_loop: all of 8b's steps, warm-ups and resumed run included); flash_fwd
+carries entry()'s case (entry_gpt_1b_b1_t512) with 5b(a)'s launches under
+"entry"
 and the case of phases 2-3 that checked it at each path's shape, and
 carries the head_dim-256 case's (d256_gpt_j, train_gpt_j's shape) numbers
 under "d256" and the float32 case's (gpt_1b_f32_b4, train_f32's shape, on
@@ -909,6 +927,9 @@ def phase_kernel_vs_plain():
         *F16_CASES,
         *WIDE_CASES,
         *DSPLIT_CASES,
+        # 5b(a)'s shape, entry()'s forward (last, so every earlier case
+        # keeps the inputs the seeded stream gave it before)
+        ("entry_gpt_1b_b1_t512", 1, 16, 512, 512, 128, True, torch.bfloat16),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
@@ -1880,6 +1901,131 @@ def phase_forward(cfg, params, batch: int, seq: int, n_forward: int):
     return fwd, dict(batch=batch, seq=seq, n_forward=n_forward, ms_per_forward=ms,
                      tokens_per_s=tok_s, launches=counts,
                      max_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+# 5b(b): layer 0's attention output (the o projection's input, every head's
+# row of d held to its own norm) under attn_use_pallas=False against the
+# flash route's from the same weights and tokens: the plain route's bf16 P
+# against the kernel's, the forward's bf16 row limit (ops/tolerance.py). The
+# tokens are random: entry()'s zeros give every position the same V, which
+# any weights over the keys return exactly
+def phase_entry_config(smi: str, train_nothing):
+    """5b: the reference's entry and configuration surface on the card, every
+    count set to 0 first. (a) ``ray_tpu_torch.entry.entry()`` (gpt_1b, bf16
+    parameters, b=1, t=512): a warm-up, then 5 timed forwards of 16 wgmma
+    launches each and none on plain, the logits finite, and one more under
+    torch.profiler (device time by kernel, idle share); (b) the same
+    parameters with ``attn_use_pallas=False`` on random tokens: 16 plain
+    forward launches and no kernel launch, layer 0's attention output
+    within the bf16 row limit of the flash route's on the same tokens, the
+    logits' largest difference printed; (c) bench.py's gpt_1b
+    cell (``attn_block_q = attn_block_k = 1024``, ``ce_chunk`` 512,
+    ``scan_layers=False``, bf16 parameters and moments, b=12, t=2048):
+    ``run_train``'s gates over a warm-up and 3 steps (32 / 16 / 16 wgmma
+    launches a step, none on plain, the loss falling, the state bf16); (d)
+    a causal call with t_q > t_kv at 1024 x 1024 tiles raises, launching
+    nothing."""
+    import dataclasses
+
+    from torch.func import functional_call
+
+    from ray_tpu_torch import entry
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.models.inference import make_forward
+    from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.ops.tolerance import FWD_ROW_TOL, row_err
+
+    print(f"[entry] {smi}")
+    _reset_launch_counts()
+    fn, (params, tokens) = entry.entry()
+    cfg = entry.flagship_config()
+    n_forward = 5
+    logits = fn(params, tokens)  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    t0 = time.monotonic()
+    for _ in range(n_forward):
+        logits = fn(params, tokens)
+    torch.cuda.synchronize()
+    ms = (time.monotonic() - t0) / n_forward * 1e3
+    counts = dict(zip(COUNTS, _launch_counts()))
+    want = {"flash_fwd": 16 * n_forward, "flash_fwd_wgmma": 16 * n_forward}
+    if {n: c for n, c in counts.items() if c} != want:
+        raise SystemExit(f"5b(a): entry() launched {counts}, expected {want}")
+    if (tuple(logits.shape) != (1, 512, cfg.vocab_size) or logits.dtype != torch.float32
+            or not bool(torch.isfinite(logits).all())):
+        raise SystemExit(f"5b(a): entry() gave {tuple(logits.shape)} {logits.dtype}, finite "
+                         f"{bool(torch.isfinite(logits).all())}")
+    profile = profile_window(lambda: (fn(params, tokens), torch.cuda.synchronize()),
+                             "one entry() forward, gpt_1b bf16, b=1 t=512")
+    forward = dict(batch=1, seq=512, n_forward=n_forward, ms_per_forward=ms,
+                   tokens_per_s=512 / (ms / 1e3), launches=counts, profile=profile)
+    print(f"[entry] (a) entry(): gpt_1b bf16 parameters, b=1 t=512, {ms:.2f} ms per forward, "
+          f"{forward['tokens_per_s']:.0f} tokens/s, idle share {profile['idle_share']:.3f} "
+          f"(profiled); launches {want} ({smi})")
+
+    plain_cfg = dataclasses.replace(cfg, attn_use_pallas=False)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 512), device="cuda", generator=gen)
+    logits = fn(params, tokens)
+    _reset_launch_counts()
+    plain_logits = make_forward(plain_cfg, "cuda")(params, tokens)
+    torch.cuda.synchronize()
+    counts = {n: c for n, c in zip(COUNTS, _launch_counts()) if c}
+    if counts != {"flash_fwd": 16, "flash_fwd_plain": 16}:
+        raise SystemExit(f"5b(b): attn_use_pallas=False launched {counts}, expected 16 on "
+                         f"plain and no kernel")
+
+    def layer0_attention(c):
+        model = gpt.GPT(c, device="meta")
+        got = []
+        model.blocks[0].attn.o.register_forward_pre_hook(
+            lambda mod, args: got.append(args[0].detach().clone()))
+        with torch.inference_mode():
+            functional_call(model, params, (tokens,))
+        return got[0].view(1, 512, c.num_heads, c.head_dim)
+
+    layer0_err = row_err(layer0_attention(plain_cfg), layer0_attention(cfg))
+    logits_diff = float((plain_logits - logits).abs().max())
+    tol = FWD_ROW_TOL[torch.bfloat16]
+    print(f"[entry] (b) attn_use_pallas=False: plain launches {counts}; layer 0's attention "
+          f"output worst-row err vs the flash route {layer0_err:.2e} (limit {tol:.0e}); logits' "
+          f"largest difference {logits_diff:.4f} (not gated) ({smi})")
+    if not layer0_err <= tol:
+        raise SystemExit(f"5b(b): layer 0's attention output differs from the flash route's "
+                         f"by {layer0_err}")
+    plain = dict(launches=counts, layer0_row_err=layer0_err, row_err_tol=tol,
+                 logits_max_abs_diff=logits_diff)
+    del fn, params, tokens, logits, plain_logits
+    torch.cuda.empty_cache()
+
+    bench_cfg = gpt.gpt_1b(dtype=torch.bfloat16, param_dtype=torch.bfloat16, attn_block_q=1024,
+                           attn_block_k=1024, ce_chunk=512, scan_layers=False)
+    _reset_launch_counts()
+    train = run_train(bench_cfg, _train_tokens(bench_cfg, 12, 2048), 3, 2,
+                      "bench.py's gpt_1b (bf16 parameters and moments, 1024 x 1024 tiles "
+                      "asked, scan_layers=False)", profile=False)
+    train.update(attn_block_q=bench_cfg.attn_block_q, attn_block_k=bench_cfg.attn_block_k,
+                 scan_layers=bench_cfg.scan_layers, phase4_ms_per_step=train_nothing["ms_per_step"])
+    print(f"[entry] (c) bench.py's gpt_1b: {train['ms_per_step']:.1f} ms per step, peak "
+          f"{train['max_memory_gib']:.2f} GiB; phase 4's f32-master step in this run "
+          f"{train_nothing['ms_per_step']:.1f} ms ({smi})")
+
+    gen.manual_seed(11)
+    q = torch.randn(1, 2, 160, 128, device="cuda", dtype=torch.bfloat16, generator=gen)
+    k, v = (torch.randn(1, 2, 64, 128, device="cuda", dtype=torch.bfloat16, generator=gen)
+            for _ in range(2))
+    _reset_launch_counts()
+    try:
+        attn.dot_product_attention(q, k, v, causal=True, block_q=1024, block_k=1024)
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise SystemExit("5b(d): a causal call with t_q > t_kv at 1024 x 1024 tiles ran")
+    if any(_launch_counts()):
+        raise SystemExit("5b(d): the refused call launched a kernel")
+    print(f"[entry] (d) refused: {refusal}")
+    return dict(card=smi, forward=forward, plain_route=plain, train=train, refusal=refusal)
 
 
 def profile_window(fn, label: str):
@@ -3324,6 +3470,8 @@ def main() -> int:
     # reference count (7b's peak memory shows it)
     del params, fwd
     torch.cuda.empty_cache()
+    report["entry_config"] = phase_entry_config(smi, report["train"])
+    mark("entry_config")
     report["lse_grad"] = phase_lse_grad()
     mark("lse_grad")
     report.update(phase_sharded_ws1(report["train"], steps=3, profile=args.profile))
@@ -3360,7 +3508,8 @@ def main() -> int:
              "forward": report["forward"], "server": report["server"],
              **{path: report[path] for path in sharded},
              "pp_train_ws1": report["pp_train_ws1"], "train_loop": report["train_loop"],
-             "rl": report["rl"]}
+             "rl": report["rl"], "entry_forward": report["entry_config"]["forward"],
+             "entry_train": report["entry_config"]["train"]}
     by_path = {name: {path: rep["launches"][name] for path, rep in paths.items()}
                for name in COUNTS}
     # only the plain_design phase may take the plain design
@@ -3374,7 +3523,8 @@ def main() -> int:
                   "remat_dots": "gpt_1b_train_b12", "train_moe": "gpt_1b_moe_b8",
                   "train_gpt_j": "d256_gpt_j", "train_f32": "gpt_1b_f32_b4",
                   **{path: "gpt_1b_train_b12" for path in sharded},
-                  "pp_train_ws1": "gpt_1b_pp_mb3", "train_loop": "gpt_1b_train_b12"}
+                  "pp_train_ws1": "gpt_1b_pp_mb3", "train_loop": "gpt_1b_train_b12",
+                  "entry_train": "gpt_1b_train_b12"}
     # the head_dim-256 case (train_gpt_j's shape) beside each entry's own
     d256 = {
         "flash_fwd": dict(shape=fwd_d256_shape, ms=fwd_d256["device_ms"], event_ms=fwd_d256["ms"],
@@ -3430,7 +3580,18 @@ def main() -> int:
                                   shape=bwd_f32_shape, launches_path="train_f32",
                                   plain_ms_computes=whole, library_ms_computes=whole)
            for k, line in (("dq", 324), ("dkv", 394))}}
-    fwd_cases, bwd_cases = {**train_case, "forward": "gpt_1b"}, train_case
+    fwd_cases = {**train_case, "forward": "gpt_1b", "entry_forward": "entry_gpt_1b_b1_t512"}
+    bwd_cases = train_case
+    # entry()'s forward (5b(a)): its case with 5b(a)'s launches, under
+    # "entry" in flash_fwd's entry
+    entry_row, entry_shape = case(report["kernel_cases"], "entry_gpt_1b_b1_t512")
+    entry_fwd = dict(shape=entry_shape, launches=by_path["flash_fwd_wgmma"]["entry_forward"],
+                     launches_path="entry_forward", ms=entry_row["device_ms"],
+                     event_ms=entry_row["ms"], bound_ms=entry_row["bound_ms"],
+                     bound_by=entry_row["bound_by"], bound_share=entry_row["bound_share"],
+                     plain_ms=entry_row["plain_ms"], library_ms=entry_row["library_device_ms"],
+                     max_abs_err=entry_row["max_abs_err"], row_err=entry_row["row_err"],
+                     design=entry_row["design"], tiles=entry_row["tiles"])
     # 4g's kernels (bf16 at head_dim 16): the persistent forward and the
     # persistent backward pair at gpt_nano's working case, with 4g's launches
     # (its 3 timed steps), and the tiny flagship's head_dim-32 case under
@@ -3566,7 +3727,7 @@ def main() -> int:
              row_err=fwd_case["row_err"], row_err_tol=fwd_case["row_err_tol"],
              shape=fwd_shape, launches_path="forward",
              launches_by_path=by_path["flash_fwd_wgmma"], cases_by_path=fwd_cases,
-             d256=d256["flash_fwd"], f32=f32["flash_fwd"]),
+             d256=d256["flash_fwd"], f32=f32["flash_fwd"], entry=entry_fwd),
         dict(name="flash_bwd_dq", route="cuda", source=bwd_case["source"],
              replaces="ray_tpu/ops/attention.py:324",
              launches=by_path[f"flash_bwd_dq_{bwd_case['design']}"]["train"],

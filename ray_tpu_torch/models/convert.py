@@ -5,7 +5,8 @@
 ``np.asarray``) and returns the port's ``state_dict``; ``params_to_jax``
 goes back. Both per-layer layouts of the reference are handled: stacked
 ``blocks/layers/...`` with a leading ``num_layers`` axis (``scan_layers=True``)
-and ``blocks/layer_{i}/...``.
+and ``blocks/layer_{i}/...`` (``scan_layers=False``): ``params_from_jax``
+reads either, ``params_to_jax`` writes the one ``cfg.scan_layers`` names.
 
 Axis map (flax kernel -> port weight; every port weight is ``[out, in]``,
 the ``nn.Linear`` convention):
@@ -32,7 +33,7 @@ of the flax kernel gives it.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -101,11 +102,14 @@ def params_from_jax(tree: Dict[str, Any], cfg: GPTConfig, device=None
 
 
 def params_to_jax(params: Dict[str, torch.Tensor], cfg: GPTConfig,
-                  stacked: bool = True) -> Dict[str, Any]:
+                  stacked: Optional[bool] = None) -> Dict[str, Any]:
     """The flax ``params`` tree (float32 numpy leaves) from the port's
     ``state_dict``; ``stacked`` picks the ``blocks/layers`` layout, else
-    ``blocks/layer_{i}``."""
+    ``blocks/layer_{i}``, and defaults to ``cfg.scan_layers``: the tree the
+    reference builds for ``cfg``."""
     d, h, hd = cfg.embed_dim, cfg.num_heads, cfg.head_dim
+    if stacked is None:
+        stacked = cfg.scan_layers
 
     def layer(i):
         pre = f"blocks.{i}."

@@ -52,7 +52,12 @@ from torch.utils.checkpoint import (
 )
 
 from ray_tpu_torch import resolve_device
-from ray_tpu_torch.ops.attention import FLASH_FWD, NEG_INF, dot_product_attention
+from ray_tpu_torch.ops.attention import (
+    ATTENTION_PV,
+    FLASH_FWD,
+    NEG_INF,
+    dot_product_attention,
+)
 from ray_tpu_torch.ops.ring import sequence_parallel_attention
 from ray_tpu_torch.parallel import comm
 from ray_tpu_torch.parallel.mesh import MeshGroups
@@ -81,10 +86,27 @@ class GPTConfig:
     #   "dots"    - the outputs of its 2-D matrix products (the reference's
     #               dots_with_no_batch_dims_saveable); the expert bmms and
     #               the flash forward run again;
-    #   "attn"    - the flash forward's (out, lse), so it is not launched
-    #               again (the reference's "attn_out" name)
+    #   "attn"    - the attention's output: the flash forward's (out, lse),
+    #               so it is not launched again, or under
+    #               attn_use_pallas=False the plain route's P V (the
+    #               reference's "attn_out" name)
     remat: bool = True
     remat_policy: str = "nothing"
+    # the layout of the parameter tree the reference builds: its blocks in
+    # one nn.scan (stacked "blocks/layers/...", which the pipeline needs) or
+    # unrolled ("blocks/layer_{i}/..."). The port's module is the same loop
+    # of blocks either way, as the reference's math is; models.convert and
+    # the pipelined step read it
+    scan_layers: bool = True
+    # the attention route: None and True the flash kernels, False the plain
+    # route (ops.attention._attention_plain, the reference's _attention_xla)
+    attn_use_pallas: Optional[bool] = None
+    # the tiles asked of the flash forward (dot_product_attention's
+    # block_q/block_k): the CPU path computes at them, the card runs its
+    # kernel's own wherever tiles cannot change the result (a causal
+    # self-attention never lets them) and raises where they can
+    attn_block_q: int = 512
+    attn_block_k: int = 512
     # sequence rows per [b, chunk, vocab] logits block of the blockwise loss
     ce_chunk: int = 256
     # attention over a sequence cut over sp > 1: "ring" | "ulysses"
@@ -152,7 +174,7 @@ def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
 
 
 def _save_attn(ctx, op, *args, **kwargs) -> CheckpointPolicy:
-    return (CheckpointPolicy.MUST_SAVE if op == FLASH_FWD
+    return (CheckpointPolicy.MUST_SAVE if op in (FLASH_FWD, ATTENTION_PV)
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
@@ -364,7 +386,9 @@ class Attention(nn.Module):
     """Causal self-attention. The head count comes from q's weight, so on a
     mesh each tp rank runs its own heads; with ``groups`` the attention
     goes through ``sequence_parallel_attention`` (ring or Ulysses when sp >
-    1, the flash kernels otherwise)."""
+    1, the flash kernels otherwise). ``cfg.attn_use_pallas`` goes to both
+    routes and the tiles ``cfg.attn_block_q/k`` to ``dot_product_attention``
+    only, as the reference's ``Attention`` passes them."""
 
     def __init__(self, cfg: GPTConfig, device=None, groups: Optional[MeshGroups] = None):
         super().__init__()
@@ -387,10 +411,13 @@ class Attention(nn.Module):
         # [b, t, h, d] -> [b, h, t, d] for the flash kernel
         qh, kh, vh = (a.transpose(1, 2).contiguous() for a in (q, k, v))
         if self.groups is None:
-            out = dot_product_attention(qh, kh, vh, causal=True)
+            out = dot_product_attention(qh, kh, vh, causal=True,
+                                        use_pallas=cfg.attn_use_pallas,
+                                        block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
         else:
             out = sequence_parallel_attention(qh, kh, vh, self.groups.mesh,
-                                              impl=cfg.seq_parallel_impl, causal=True)
+                                              impl=cfg.seq_parallel_impl, causal=True,
+                                              use_pallas=cfg.attn_use_pallas)
         return self.o(out.transpose(1, 2).reshape(b, t, -1))
 
 
@@ -497,8 +524,10 @@ class GPT(nn.Module):
     ``cfg.remat_policy`` names (``REMAT_CONTEXTS``); the backward runs the
     rest of the block's forward again. Under "nothing" and "dots" the
     attention forward launches twice per layer in a train step, under
-    "attn" once. The block's parameters are handed to the checkpointed
-    call, so the recomputation also works under
+    "attn" once (with ``attn_use_pallas=False`` "attn" keeps the plain
+    route's output, ``ATTENTION_PV``, and recomputes its scores). The
+    block's parameters are handed to the checkpointed call, so the
+    recomputation also works under
     ``torch.func.functional_call``, and the aux loss is recomputed with the
     rest."""
 

@@ -788,11 +788,15 @@ def make_pp_train_step(cfg: GPTConfig, optimizer: ClippedAdamW, mesh, *,
     the head on the replicated output, so they are not summed over pp.
     The clip's norm counts each block once (``_global_norm``).
 
-    Raises ``ValueError`` for a tied embedding (the reference reads
-    ``lm_head``) and where num_layers does not divide by pp, and
+    Raises ``ValueError`` without ``cfg.scan_layers`` (the reference's
+    stacked layer tree, which the stages cut), for a tied embedding (the
+    reference reads ``lm_head``) and where num_layers does not divide by pp,
+    and
     ``NotImplementedError`` for pp > 1 with sp > 1 or ep > 1, which the
     reference never runs. A batch that does not split into M microbatches
     over the data ranks raises at the step."""
+    if not cfg.scan_layers:
+        raise ValueError("pipeline parallelism requires cfg.scan_layers=True")
     loss_fn = _PipelinedLoss(cfg, mesh, num_microbatches,
                              pp_rules() if rules is None else rules, state_shardings_tree)
     g = loss_fn.groups

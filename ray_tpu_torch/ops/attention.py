@@ -106,8 +106,19 @@ a shorter q is the suffix of the kv context (``q_pos = q_idx + t_kv - t_q``).
   backward wrapper, giving (out, lse) with a gradient for both;
   ``flash_attention_with_lse`` calls it (ring attention's block); and
   ``dot_product_attention`` the public entry, in the [b, h, t, d] layout,
-  over the Function; with ``segment_ids`` it takes ``_attention_plain`` on
-  any device, as the reference's dispatcher takes its XLA path.
+  over the Function; with ``segment_ids`` or ``use_pallas=False`` it takes
+  ``_attention_plain`` on any device, as the reference's dispatcher takes
+  its XLA path (the False call counted in the ``plain`` design's forward
+  counter), and its output's product is the operator
+  ``ray_tpu_torch::attention_pv`` (``ATTENTION_PV``), which the remat
+  policy "attn" keeps as it keeps the flash forward's.
+* Tiles: a kernel computes at its own tiles. Asked for others
+  (``block_q``/``block_k``, or ``RAYTPU_FLASH_BLOCK_Q``/``_K`` through
+  ``dot_product_attention``), the card runs its own wherever the tiles
+  cannot change the result, and raises where they can: under the causal
+  mask with t_q > t_kv, where they decide what a row that sees no key gets
+  (``tiles_change_result``, ``_check_tiles``). The CPU path computes at
+  any tiles.
 """
 
 from __future__ import annotations
@@ -116,6 +127,7 @@ import collections
 import ctypes
 import dataclasses
 import math
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -435,6 +447,37 @@ def _plain_scores(q, k, causal: bool, scale: float, segment_ids=None) -> torch.T
     return logits
 
 
+@torch.library.custom_op("ray_tpu_torch::attention_pv", mutates_args=())
+def attention_pv(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The last product of ``_attention_plain``, P V [b, h, t_q, d], as one
+    operator, ``ray_tpu_torch.attention_pv`` (``ATTENTION_PV``): the plain
+    route's attention output, which the remat policy "attn" keeps as it
+    keeps the flash forward's (the reference's ``checkpoint_name(out,
+    "attn_out")`` tags the output whichever route computed it)."""
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+
+
+@attention_pv.register_fake
+def _attention_pv_fake(probs, v):
+    return v.new_empty((*probs.shape[:3], v.shape[-1]))
+
+
+def _attention_pv_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _attention_pv_backward(ctx, grad):
+    probs, v = ctx.saved_tensors
+    d_probs, d_v = ctx.needs_input_grad
+    return (torch.einsum("bhqd,bhkd->bhqk", grad, v) if d_probs else None,
+            torch.einsum("bhqk,bhqd->bhkd", probs, grad) if d_v else None)
+
+
+attention_pv.register_autograd(_attention_pv_backward, setup_context=_attention_pv_setup)
+#: the plain route's output operator as a dispatch mode sees it
+ATTENTION_PV = torch.ops.ray_tpu_torch.attention_pv.default
+
+
 def _attention_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -446,11 +489,12 @@ def _attention_plain(
 ) -> torch.Tensor:
     """Softmax attention over the whole [t_q, t_kv] score matrix (the
     reference's ``_attention_xla``). Scores are float32; a row that sees no
-    key gets uniform weights, as the reference's softmax gives it."""
+    key gets uniform weights, as the reference's softmax gives it. The
+    output's product is ``attention_pv``."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     logits = _plain_scores(q, k, causal, scale, segment_ids)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+    return attention_pv(probs, v)
 
 
 def plain_attention_with_lse(q, k, v, *, causal: bool, scale: float,
@@ -854,15 +898,30 @@ def _check_kernel_inputs(q, k, v, *same_as_q, rows=()) -> None:
         raise ValueError(f"unsupported shape q {tuple(q.shape)} k {tuple(k.shape)}")
 
 
-def _check_tiles(design: FwdDesign, head_dim: int, block_q, block_k) -> None:
-    """Raise ``ValueError`` unless ``block_q`` and ``block_k`` (None for
-    the design's own) are the design's tiles."""
+def tiles_change_result(causal: bool, t_q: int, t_kv: int) -> bool:
+    """Whether the flash forward's tiles can change its result for these
+    inputs: only through what a row that sees no key gets (the mean of V
+    over a processed tile's valid rows, or 0 where its q tile skips every
+    kv tile), and a row sees no key only under the causal mask with q the
+    suffix of a shorter kv (t_q > t_kv). Elsewhere the tiles only order the
+    online softmax's sums."""
+    return causal and t_q > t_kv
+
+
+def _check_tiles(design: FwdDesign, head_dim: int, block_q, block_k, *, causal: bool,
+                 t_q: int, t_kv: int) -> None:
+    """Raise ``ValueError`` where ``block_q`` and ``block_k`` (None for the
+    design's own) are not the design's tiles and the tiles can change the
+    result (``tiles_change_result``); elsewhere the card runs the design's
+    own tiles whatever was asked."""
     asked = (design.block_q if block_q is None else block_q,
              design.block_k if block_k is None else block_k)
-    if asked != (design.block_q, design.block_k):
+    if asked != (design.block_q, design.block_k) and tiles_change_result(causal, t_q, t_kv):
         raise ValueError(
             f"the {design.name} flash kernel's tiles at head_dim {head_dim} are "
-            f"{design.block_q}x{design.block_k}, got {asked[0]}x{asked[1]}")
+            f"{design.block_q}x{design.block_k}, got {asked[0]}x{asked[1]}; with t_q "
+            f"{t_q} > t_kv {t_kv} under the causal mask the tiles decide what a row "
+            f"that sees no key gets")
 
 
 # each design's entry point that reports the tiles its built kernel
@@ -978,9 +1037,11 @@ def flash_attention_fwd(
     ``flash_fwd_plain_launches`` (``_check_plain_inputs``). Otherwise CPU
     tensors take ``flash_attention_fwd_plain`` (at ``block_q`` x ``block_k``,
     by default the card kernel's tiles) and launch nothing, and CUDA tensors
-    launch the design's hand-written Hopper kernel: contiguous q
-    [b, h, t_q, d] and k, v [b, h, t_kv, d] of one dtype, the design's tiles
-    (``block_q`` and ``block_k`` left at None or equal to them), any scale
+    launch the design's hand-written Hopper kernel at its own tiles:
+    contiguous q [b, h, t_q, d] and k, v [b, h, t_kv, d] of one dtype, any
+    tiles asked where tiles cannot change the result, and the design's
+    (``block_q`` and ``block_k`` left at None or equal to them) where they
+    can (``tiles_change_result``: causal with t_q > t_kv), any scale
     (``_positive_scale``) and a grid that the launcher takes. Anything else
     raises."""
     global flash_fwd_launches
@@ -998,7 +1059,7 @@ def flash_attention_fwd(
     if on_cpu:
         return flash_attention_fwd_plain(
             q, k, v, causal=causal, scale=scale, block_q=block_q, block_k=block_k)
-    _check_tiles(design, d, block_q, block_k)
+    _check_tiles(design, d, block_q, block_k, causal=causal, t_q=q.shape[2], t_kv=k.shape[2])
     _check_kernel_inputs(q, k, v)
     _check_design(design, d)
     if design.source in _PLAN_ENTRIES:
@@ -1199,6 +1260,12 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _env_tile(name: str, tile: Optional[int]) -> Optional[int]:
+    """The tile the environment variable ``name`` sets, else ``tile``."""
+    value = os.environ.get(name)
+    return tile if value is None else int(value)
+
+
 def dot_product_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -1207,27 +1274,46 @@ def dot_product_attention(
     causal: bool = True,
     scale: Optional[float] = None,
     segment_ids: Optional[torch.Tensor] = None,
+    use_pallas: Optional[bool] = None,
     block_q: Optional[int] = None,
     block_k: Optional[int] = None,
 ) -> torch.Tensor:
     """Attention over [batch, heads, seq, head_dim] inputs, differentiable.
 
-    Goes through ``FlashAttention``: the plain versions on CPU tensors, the
-    hand-written forward and backward kernels on CUDA tensors, at the
-    kernel's tiles unless ``block_q``/``block_k`` say otherwise (the CPU
-    path takes any; the card's kernel raises for other tiles), at any
-    scale (every head_dim that the reference sends to its Pallas kernel has
-    one in bf16, float16 and float32: ``HEAD_DIMS`` and, by the tables'
-    rule, every multiple of 128 from ``DSPLIT_MIN_D`` up); every input that
-    no kernel takes (another head_dim, float16 at 16 and 32) through the
-    counted ``plain`` design, the reference's own route (on the card only
-    where that route is ``_attention_xla``). With
-    ``segment_ids`` it computes ``_attention_plain`` on the tensors' device,
-    differentiable through autograd and launching no flash kernel: the
-    reference's dispatcher takes its XLA path there, since no kernel has a
-    segment mask."""
+    ``use_pallas`` None or True (the reference's names: None is its
+    default, True asks for its kernel) goes through ``FlashAttention``: the
+    plain versions on CPU tensors, the hand-written forward and backward
+    kernels on CUDA tensors, at any scale (every head_dim that the
+    reference sends to its Pallas kernel has one in bf16, float16 and
+    float32: ``HEAD_DIMS`` and, by the tables' rule, every multiple of 128
+    from ``DSPLIT_MIN_D`` up); every input that no kernel takes (another
+    head_dim, float16 at 16 and 32) through the counted ``plain`` design,
+    the reference's own route (on the card only where that route is
+    ``_attention_xla``).
+
+    ``block_q``/``block_k`` (None for the kernel's own), or
+    ``RAYTPU_FLASH_BLOCK_Q``/``_K`` in the environment where set, as the
+    reference's tuning hook reads them, are the tiles. The CPU path
+    computes at any tiles. The card runs the kernel's own tiles wherever
+    tiles cannot change the result, and raises for other tiles where they
+    can: under the causal mask with t_q > t_kv, where they decide what a
+    row that sees no key gets (``tiles_change_result``).
+
+    ``use_pallas=False``, and ``segment_ids`` with any ``use_pallas``,
+    compute ``_attention_plain`` (the reference's ``_attention_xla``) on
+    the tensors' device, differentiable through autograd and launching no
+    flash kernel, as the reference's dispatcher takes its XLA path there.
+    A ``use_pallas=False`` call counts, on any device, in
+    ``flash_fwd_launches`` and the ``plain`` design's forward counter and
+    by head_dim (``_count_design``)."""
+    global flash_fwd_launches
     scale_val = float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    if segment_ids is not None:
+    block_q = _env_tile("RAYTPU_FLASH_BLOCK_Q", block_q)
+    block_k = _env_tile("RAYTPU_FLASH_BLOCK_K", block_k)
+    if use_pallas is False:
+        flash_fwd_launches += 1
+        _count_design("flash_fwd", _PLAIN.name, q.shape[-1])
+    if segment_ids is not None or use_pallas is False:
         return _attention_plain(
             q, k, v, causal=causal, scale=scale_val, segment_ids=segment_ids
         )

@@ -1,6 +1,7 @@
 """Variants of the bf16 flash backward kernels, built and timed on the card.
 
-    python -m ray_tpu_torch.ops.flash_bwd_variants [--small-d | --d64 | --dsplit | --wide | --wide-f32] [--out results.json]
+    python -m ray_tpu_torch.ops.flash_bwd_variants [--small-d | --d64 | --dsplit | --wide
+        | --wide-f32 | --designs] [--dtype float32|bfloat16|float16] [--out results.json]
 
 Each variant is ``csrc/flash_bwd_wgmma.cu`` and ``csrc/hopper.cuh`` with one
 piece of text replaced (``flash_fwd_variants.build_variant``):
@@ -121,6 +122,14 @@ streamed tiles land and nothing else runs) and ``probe: no exchange``
 cover its columns only), wrong by design, which say what the copies and
 the exchange cost.
 
+With ``--designs`` it times no variant: the port's dQ and dK/dV as built,
+through their wrappers (the design ``BWD_DESIGNS`` names), at
+``DESIGN_SHAPES`` (``flash_fwd_variants``': the timed 16-bit cases of
+``PERF.md``'s table) in bf16 and float16 (``--dtype`` for one), the dtypes
+alternating in five turns, each held to the plain backward and timed beside
+the library's whole backward in the same dtype and each kernel's bound.
+``--dtype float16`` also runs ``--dsplit`` on the float16 builds.
+
 Each ``--small-d`` time is the kernel's device time per call from torch.profiler,
 the least of five turns after half a second of load to settle the clocks,
 since at these shapes the host's launches take about as long as the
@@ -142,8 +151,8 @@ import torch.nn.functional as F
 
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import attention as attn
-from ray_tpu_torch.ops.flash_fwd_variants import (D64_SHAPES, build_variant, device_ms, ms,
-                                                   turn_order)
+from ray_tpu_torch.ops.flash_fwd_variants import (D64_SHAPES, DESIGN_SHAPES, build_variant,
+                                                   device_ms, ms, turn_order)
 from ray_tpu_torch.ops.tolerance import BWD_TOL, row_err
 
 SOURCE = _build.CSRC_DIR / "flash_bwd_wgmma.cu"
@@ -434,7 +443,7 @@ DCLUSTER_PROBES = {
 }
 # the dtypes' peak rates for the bound: bf16 on the tensor cores, float32 a
 # third of dense TF32 (3xTF32), as chip_smoke.py's PEAK_FLOPS
-_PEAK = {torch.bfloat16: 989e12, torch.float32: 494.7e12 / 3}
+_PEAK = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 494.7e12 / 3}
 
 
 def _bwd_bound_ms(b, h, t_q, t_kv, d, causal, dtype, per_pair):
@@ -695,6 +704,78 @@ def _time_pairs(smi: str, out: str | None, pairs, shapes, dtypes, checked) -> in
     return 0 if all(r["ok"][n] for r in rows for n in checked) else 1
 
 
+def main_designs(smi: str, out: str | None, dtypes) -> int:
+    """The port's dQ and dK/dV as built, through their wrappers, at
+    DESIGN_SHAPES in each of ``dtypes``: held to the plain backward, device
+    time per call, median and spread of five turns alternating the dtypes,
+    beside the library's whole backward in the same dtype and each kernel's
+    bound."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for b, h, t_q, t_kv, d, causal in DESIGN_SHAPES:
+        scale = d ** -0.5
+        base = [torch.randn(b, h, t, d, device="cuda", generator=gen)
+                for t in (t_q, t_kv, t_kv, t_q)]
+        runs, sdpa_runs, errs = {}, {}, {}
+        for dtype in dtypes:
+            q, k, v, do = (x.to(dtype) for x in base)
+            o, lse = attn.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+            delta = attn.flash_bwd_delta(o, do)
+            want = attn.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                                  scale=scale)
+            args = (q, k, v, do, lse, delta)
+            got = (attn.flash_bwd_dq(*args, causal=causal, scale=scale),
+                   *attn.flash_bwd_dkv(*args, causal=causal, scale=scale))
+            errs[dtype] = {g: row_err(x, w) for g, x, w in zip(("dq", "dk", "dv"), got, want)}
+            del o, want, got
+            runs[dtype, "dq"] = lambda a=args: attn.flash_bwd_dq(*a, causal=causal, scale=scale)
+            runs[dtype, "dkv"] = lambda a=args: attn.flash_bwd_dkv(*a, causal=causal,
+                                                                   scale=scale)
+            ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+            lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal, scale=scale)
+            sdpa_runs[dtype] = lambda o=lib_out, xs=(ql, kl, vl), g=do: torch.autograd.grad(
+                o, xs, g, retain_graph=True)
+        del base
+        t_end = time.monotonic() + 0.5  # the card's clocks settle under load
+        while time.monotonic() < t_end:
+            runs[dtypes[0], "dq"]()
+            runs[dtypes[0], "dkv"]()
+        torch.cuda.synchronize()
+        times = {}
+        for dtype in turn_order(dtypes):
+            for kernel in ("dq", "dkv"):
+                times.setdefault((dtype, kernel), []).append(
+                    device_ms(runs[dtype, kernel], iters=3))
+        for dtype in dtypes:
+            bound = {"dq": _bwd_bound_ms(b, h, t_q, t_kv, d, causal, dtype, 6),
+                     "dkv": _bwd_bound_ms(b, h, t_q, t_kv, d, causal, dtype, 8)}
+            design = attn.BWD_DESIGNS[(d, dtype)].dq.name
+            med = {kn: statistics.median(times[dtype, kn]) for kn in ("dq", "dkv")}
+            sdpa = device_ms(sdpa_runs[dtype], iters=3, per_call=None)
+            ok = max(errs[dtype].values()) <= BWD_TOL[dtype]
+            row = dict(shape=[b, h, t_q, t_kv, d], causal=causal,
+                       dtype=str(dtype).replace("torch.", ""), design=design, ms=med,
+                       turns={kn: times[dtype, kn] for kn in med}, sdpa_bwd_ms=sdpa,
+                       bound_ms=bound, bound_share={kn: bound[kn] / t for kn, t in med.items()},
+                       row_err=errs[dtype], ok=ok)
+            rows.append(row)
+            print(f"[time] d{d}_b{b} {row['dtype']}: {design} " + " ".join(
+                f"{label} {med[kn]:.4f} ({min(times[dtype, kn]):.4f}-"
+                f"{max(times[dtype, kn]):.4f}) bound {bound[kn]:.4f} (share "
+                f"{row['bound_share'][kn]:.3f})" for kn, label in (("dq", "dQ"),
+                                                                    ("dkv", "dK/dV")))
+                + f" ms; pair {med['dq'] + med['dkv']:.4f} ms, sdpa whole backward "
+                f"{sdpa:.4f} ms; worst row " + " ".join(f"{g} {e:.2e}"
+                                                       for g, e in errs[dtype].items())
+                + ("" if ok else " (WRONG)"), flush=True)
+        del runs, sdpa_runs
+    if out:
+        with open(out, "w") as f:
+            json.dump(dict(card=smi, times="device time (torch.profiler), median of five turns",
+                           shapes=rows), f, indent=1)
+    return 0 if all(r["ok"] for r in rows) else 1
+
+
 def _build_small_d(name: str):
     """(dQ function, dK/dV function, spill bytes of each kernel by head_dim)
     of one small-d variant."""
@@ -786,8 +867,12 @@ def main() -> int:
                     help="with --d64: the variants of one kernel")
     ap.add_argument("--dsplit", action="store_true",
                     help="head_dims from 896 up: dcluster's pair beside dsplit's")
-    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
-                    help="with --dsplit: one dtype (default both)")
+    ap.add_argument("--designs", action="store_true",
+                    help="the port's dQ and dK/dV as built at the timed 16-bit cases, bf16 "
+                         "beside float16")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16", "float16"),
+                    help="with --dsplit: one dtype (default float32 and bfloat16); with "
+                         "--designs: one 16-bit dtype (default both)")
     ap.add_argument("--wide", action="store_true",
                     help="bf16 at 384 to 768: dcluster128's wgmma pair beside wide's, "
                          "dcluster's 256-column plan and other tiles")
@@ -805,6 +890,10 @@ def main() -> int:
     print(smi)
     if args.small_d:
         return main_small_d(smi, args.out)
+    if args.designs:
+        dtypes = ((getattr(torch, args.dtype),) if args.dtype else
+                  (torch.bfloat16, torch.float16))
+        return main_designs(smi, args.out, dtypes)
     if args.d64:
         return main_d64(smi, args.out, args.only)
     if args.wide:

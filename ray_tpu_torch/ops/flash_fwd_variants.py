@@ -1,7 +1,7 @@
 """Variants of the bf16 flash forwards, built and timed on the card.
 
-    python -m ray_tpu_torch.ops.flash_fwd_variants [--small-d | --d64 | --dsplit | --wide]
-        [--dtype float32|bfloat16] [--probes] [--out results.json]
+    python -m ray_tpu_torch.ops.flash_fwd_variants [--small-d | --d64 | --dsplit | --wide
+        | --designs] [--dtype float32|bfloat16|float16] [--probes] [--out results.json]
 
 Each variant is ``csrc/flash_fwd_wgmma.cu`` and the headers beside it
 (``csrc/*.cuh``) with one piece of text replaced, built with the port's
@@ -107,6 +107,19 @@ softmax or store of O) and ``probe: no exchange`` (each CTA keeps its own
 partials of the rows it reduces and its own P of them: no store to a peer
 and no wait on one), which say what the K and V traffic and the exchange
 cost.
+
+With ``--designs`` it times no variant: the port's forward as built,
+through its wrapper (the design ``FWD_DESIGNS`` names), at
+``DESIGN_SHAPES`` (the timed 16-bit cases of ``PERF.md``'s table: gpt_1b's
+train step, b=12, and gpt_j_6b's head_dim 256, b=1, on ``wgmma``;
+gpt_125m's at b=16 on ``d64``; ``WIDE_SHAPES`` on ``dcluster128``;
+``DSPLIT_SHAPES`` on ``dcluster``) in bf16 and float16 (``--dtype`` for
+one), the dtypes alternating in five turns, each held to the plain forward
+and timed beside ``scaled_dot_product_attention`` in the same dtype and the
+bound.
+
+``--dtype float16`` also runs ``--dsplit`` and ``--wide`` on the float16
+builds (``wide before`` is the wide kernel's float16 build).
 
 It prints each variant's spills from the compiler's report, checks each
 against the plain version (worst-row error, ``ops/tolerance.py``), and,
@@ -294,7 +307,7 @@ DCLUSTER128_PROBES = {
 }
 # the dtypes' peak rates for the bound: bf16 on the tensor cores, float32 a
 # third of dense TF32 (3xTF32), as chip_smoke.py's PEAK_FLOPS
-_PEAK = {torch.bfloat16: 989e12, torch.float32: 494.7e12 / 3}
+_PEAK = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 494.7e12 / 3}
 
 
 def turn_order(names):
@@ -656,6 +669,7 @@ def main_wide(smi: str, out: str | None, dtypes, probes: bool) -> int:
         new.update(_probes(DCLUSTER128_SOURCE, DCLUSTER128_PROBES,
                            "ray_tpu_flash_fwd_dcluster128"))
     before = {torch.bfloat16: ("wide before", "flash_fwd_wide", "ray_tpu_flash_fwd_wide"),
+              torch.float16: ("wide before", "flash_fwd_wide", "ray_tpu_flash_fwd_wide"),
               torch.float32: ("tf32x3 before", "flash_fwd_f32", "ray_tpu_flash_fwd_f32")}
     rows, named = [], ("dcluster128", "dcluster 256")
     for dtype in dtypes:
@@ -665,6 +679,65 @@ def main_wide(smi: str, out: str | None, dtypes, probes: bool) -> int:
         named += (name,)
     _write(out, smi, rows)
     return 0 if all(r["ok"][n] for r in rows for n in named if n in r["ok"]) else 1
+
+
+# b, h, t_q, t_kv, d, causal: the timed 16-bit cases of PERF.md's table:
+# gpt_1b's train step (b=12) and gpt_j_6b's head_dim 256 (b=1), gpt_125m's
+# at bench.py's b=16, then WIDE_SHAPES and DSPLIT_SHAPES
+DESIGN_SHAPES = [(12, 16, 2048, 2048, 128, True), (1, 16, 2048, 2048, 256, True),
+                 (16, 12, 2048, 2048, 64, True), *WIDE_SHAPES, *DSPLIT_SHAPES]
+
+
+def main_designs(smi: str, out: str | None, dtypes) -> int:
+    """The port's forward as built, through its wrapper, at DESIGN_SHAPES in
+    each of ``dtypes``: held to the plain forward, device time per call,
+    median and spread of five turns alternating the dtypes, beside
+    scaled_dot_product_attention in the same dtype and the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for b, h, t_q, t_kv, d, causal in DESIGN_SHAPES:
+        scale = d ** -0.5
+        base = [torch.randn(b, h, t, d, device="cuda", generator=gen)
+                for t in (t_q, t_kv, t_kv)]
+        runs, sdpa_runs, errs = {}, {}, {}
+        for dtype in dtypes:
+            q, k, v = (x.to(dtype) for x in base)
+            o, lse = attn.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+            ref, ref_lse = attn.flash_attention_fwd_plain(q, k, v, causal=causal, scale=scale)
+            errs[dtype] = {"out": row_err(o, ref), "lse": float((lse - ref_lse).abs().max())}
+            del o, lse, ref, ref_lse
+            runs[dtype] = lambda q=q, k=k, v=v: attn.flash_attention_fwd(q, k, v, causal=causal,
+                                                                         scale=scale)
+            sdpa_runs[dtype] = lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, scale=scale)
+        del base
+        t_end = time.monotonic() + 0.5  # the card's clocks settle under load
+        while time.monotonic() < t_end:
+            runs[dtypes[0]]()
+        torch.cuda.synchronize()
+        times = {}
+        for dtype in turn_order(dtypes):
+            times.setdefault(dtype, []).append(device_ms(runs[dtype], iters=3))
+        for dtype in dtypes:
+            design = attn.FWD_DESIGNS[(d, dtype)].name
+            med = statistics.median(times[dtype])
+            sdpa = device_ms(sdpa_runs[dtype], iters=3, per_call=None)
+            bound = _fwd_bound_ms(b, h, t_q, t_kv, d, causal, dtype)
+            ok = (errs[dtype]["out"] <= FWD_ROW_TOL[dtype]
+                  and errs[dtype]["lse"] <= FWD_LSE_TOL[dtype])
+            row = dict(shape=[b, h, t_q, t_kv, d], causal=causal,
+                       dtype=str(dtype).replace("torch.", ""), design=design, ms=med,
+                       turns=times[dtype], sdpa_ms=sdpa, bound_ms=bound,
+                       bound_share=bound / med, row_err=errs[dtype], ok=ok)
+            rows.append(row)
+            print(f"[time] d{d}_b{b} {row['dtype']}: {design} {med:.4f} ms "
+                  f"({min(times[dtype]):.4f}-{max(times[dtype]):.4f}); bound {bound:.4f} ms "
+                  f"(share {bound / med:.3f}); sdpa {sdpa:.4f} ms (this / sdpa "
+                  f"{med / sdpa:.3f}); worst row {errs[dtype]['out']:.2e} lse "
+                  f"{errs[dtype]['lse']:.2e}" + ("" if ok else " (WRONG)"), flush=True)
+        del runs, sdpa_runs
+    _write(out, smi, rows)
+    return 0 if all(r["ok"] for r in rows) else 1
 
 
 def main() -> int:
@@ -679,8 +752,12 @@ def main() -> int:
     ap.add_argument("--wide", action="store_true",
                     help="head_dims 384 to 768: dcluster128's forward beside the designs "
                          "before and dcluster's 256-column plan")
-    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
-                    help="with --dsplit or --wide: one dtype (default both)")
+    ap.add_argument("--designs", action="store_true",
+                    help="the port's forward as built at the timed 16-bit cases, bf16 "
+                         "beside float16")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16", "float16"),
+                    help="with --dsplit or --wide: one dtype (default float32 and "
+                         "bfloat16); with --designs: one 16-bit dtype (default both)")
     ap.add_argument("--probes", action="store_true",
                     help="with --dsplit or --wide: the probes of the design beside it")
     args = ap.parse_args()
@@ -692,6 +769,10 @@ def main() -> int:
     print(smi)
     if args.d64:
         return main_d64(smi, args.out)
+    if args.designs:
+        dtypes = ((getattr(torch, args.dtype),) if args.dtype else
+                  (torch.bfloat16, torch.float16))
+        return main_designs(smi, args.out, dtypes)
     if args.dsplit or args.wide:
         dtypes = ((getattr(torch, args.dtype),) if args.dtype else
                   (torch.float32, torch.bfloat16))

@@ -24,6 +24,8 @@ fsdp, the heads over tp, as the caller's shards are; the reference's
   trades back. Needs h_loc % sp == 0.
 
 With sp == 1 ``sequence_parallel_attention`` is ``dot_product_attention``.
+``use_pallas`` goes through to it there and to Ulysses, as in the
+reference; ring hops stay on ``flash_attention_with_lse``.
 """
 
 from __future__ import annotations
@@ -83,31 +85,41 @@ def _seq_to_heads(x: torch.Tensor, sp: int, group) -> torch.Tensor:
 
 def ulysses_attention_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                             group: dist.ProcessGroup, causal: bool = True,
-                            scale: Optional[float] = None) -> torch.Tensor:
+                            scale: Optional[float] = None,
+                            use_pallas: Optional[bool] = None) -> torch.Tensor:
     """Ulysses attention of the local chunk [b, h_loc, t_loc, d] over the sp
-    ``group``: all-to-all to [b, h_loc / sp, t, d], flash attention over the
-    whole sequence, all-to-all back. Requires h_loc % sp == 0."""
+    ``group``: all-to-all to [b, h_loc / sp, t, d], ``dot_product_attention``
+    over the whole sequence (``use_pallas`` passed on: the flash kernels, or
+    with False the plain route), all-to-all back. Requires h_loc % sp ==
+    0."""
     sp = dist.get_world_size(group)
     h_loc = q.shape[1]
     if h_loc % sp != 0:
         raise ValueError(f"ulysses needs local heads ({h_loc}) divisible by sp ({sp})")
     out = dot_product_attention(
-        *(_heads_to_seq(x, sp, group) for x in (q, k, v)), causal=causal, scale=scale)
+        *(_heads_to_seq(x, sp, group) for x in (q, k, v)), causal=causal, scale=scale,
+        use_pallas=use_pallas)
     return _seq_to_heads(out, sp, group)
 
 
 def sequence_parallel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 mesh, *, impl: str = "ring", sp_axis: str = "sp",
-                                causal: bool = True, scale: Optional[float] = None
-                                ) -> torch.Tensor:
+                                causal: bool = True, scale: Optional[float] = None,
+                                use_pallas: Optional[bool] = None) -> torch.Tensor:
     """Context-parallel attention of this rank's blocks [b_loc, h_loc, t_loc,
     d], whose sequence is cut over the ``sp_axis`` of ``mesh`` (a
     ``DeviceMesh``). With sp == 1 this is ``dot_product_attention`` (the
-    flash kernels); otherwise ``impl`` "ring" or "ulysses" runs over the
-    mesh's sp group."""
+    flash kernels, or with ``use_pallas=False`` the plain route); otherwise
+    ``impl`` "ring" or "ulysses" runs over the mesh's sp group. Ulysses
+    passes ``use_pallas`` on; the ring's hops are ``flash_attention_with_lse``
+    whatever it says, as the reference's ring takes no ``use_pallas``."""
     if impl not in ("ring", "ulysses"):
         raise ValueError(f"unknown sequence-parallel impl {impl!r}")
     if mesh.size(mesh.mesh_dim_names.index(sp_axis)) == 1:
-        return dot_product_attention(q, k, v, causal=causal, scale=scale)
-    local = ring_attention_local if impl == "ring" else ulysses_attention_local
-    return local(q, k, v, group=mesh.get_group(sp_axis), causal=causal, scale=scale)
+        return dot_product_attention(q, k, v, causal=causal, scale=scale,
+                                     use_pallas=use_pallas)
+    group = mesh.get_group(sp_axis)
+    if impl == "ring":
+        return ring_attention_local(q, k, v, group=group, causal=causal, scale=scale)
+    return ulysses_attention_local(q, k, v, group=group, causal=causal, scale=scale,
+                                   use_pallas=use_pallas)

@@ -1,5 +1,6 @@
 """Multi-rank dry runs of the sharded train step (counterpart of
-``__graft_entry__.py``'s ``dryrun_multichip``, ``_dryrun_pp``,
+``__graft_entry__.py``'s ``dryrun_multichip``, which ``ray_tpu_torch.entry``
+names the same, ``_dryrun_pp``,
 ``_dryrun_ep`` and ``_dryrun_multislice``) and the GPT-J-6B per-card
 sizing (counterpart of its ``_aot_gpt_j_6b``):
 
@@ -178,12 +179,11 @@ def dryrun(n: int, device: str = "cuda", timeout: float = 600.0) -> Dict:
     return results[0]
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("n", type=int, help="ranks")
-    ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"))
-    args = ap.parse_args(argv)
-    for name, res in dryrun(args.n, args.device).items():
+def report(n: int, device: str = "cuda") -> Dict:
+    """``dryrun(n, device)``, each run's mesh and loss printed, then
+    ``gpt_j_6b_sizing()`` printed; rank 0's results."""
+    results = dryrun(n, device)
+    for name, res in results.items():
         print(f"dryrun {name} ok: mesh={res['mesh']} loss={res['loss']!r} "
               f"step={res['step']}")
     for label, res in gpt_j_6b_sizing().items():
@@ -194,6 +194,15 @@ def main(argv=None) -> int:
         print(f"gpt-j-6b sizing [{label}]: {res['num_params'] / 1e9:.2f}B parameters; the "
               f"largest of 64 ranks holds {parts}: {total:.4f} GiB of state at rest "
               f"(from shapes; activations not counted)")
+    return results
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("n", type=int, help="ranks")
+    ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"))
+    args = ap.parse_args(argv)
+    report(args.n, args.device)
     return 0
 
 

@@ -30,6 +30,10 @@ from ray_tpu_torch.parallel.mesh import AXIS_ORDER, MeshSpec
 
 OUT_TOL = dict(atol=2e-5, rtol=1e-4)
 GRAD_TOL = dict(atol=5e-5, rtol=1e-3)
+# each case of the sp runs: sequence_parallel_attention's arguments; the
+# last is Ulysses with use_pallas=False (the plain route on every rank)
+SP_CASES = {"ring": dict(impl="ring"), "ulysses": dict(impl="ulysses"),
+            "ulysses_use_pallas_false": dict(impl="ulysses", use_pallas=False)}
 
 
 def _rand(shape, seed):
@@ -117,8 +121,8 @@ def test_flash_attention_with_lse_bf16_is_the_exact_gradient_of_its_route(causal
 
 def _attention_worker(rank, world, spec_kw, cases, q, k, v, dtype=torch.float32):
     """Each rank's blocks of out and of the gradients of sum(o * sin(o)),
-    for each (impl) of ``cases``, with its mesh coordinates; the inputs cast
-    to ``dtype``, the results float32."""
+    for each case of ``cases`` (``SP_CASES``' names), with its mesh
+    coordinates; the inputs cast to ``dtype``, the results float32."""
     from ray_tpu_torch.ops.ring import sequence_parallel_attention
     from ray_tpu_torch.parallel.mesh import MeshGroups
 
@@ -133,7 +137,7 @@ def _attention_worker(rank, world, spec_kw, cases, q, k, v, dtype=torch.float32)
     for impl in cases:
         xs = [torch.from_numpy(x[rows, heads, seq].copy()).to(dtype).requires_grad_()
               for x in (q, k, v)]
-        o = sequence_parallel_attention(*xs, mesh, impl=impl).float()
+        o = sequence_parallel_attention(*xs, mesh, **SP_CASES[impl]).float()
         grads = torch.autograd.grad((o * torch.sin(o)).sum(), xs)
         out[impl] = [o.detach().numpy()] + [x.float().numpy() for x in grads]
     return out
@@ -150,8 +154,9 @@ def _assemble(results, impl, shape):
 
 def _jax_reference(q, k, v, sp, tp=1, dp=1, impl="ring", dtype=np.float32):
     """The reference's out and q, k, v gradients of sum(o * sin(o)) through
-    its ``sequence_parallel_attention`` on a dp x tp x sp mesh, the inputs
-    cast to ``dtype``, the results float32."""
+    its ``sequence_parallel_attention`` on a dp x tp x sp mesh (``impl`` a
+    case of ``SP_CASES``), the inputs cast to ``dtype``, the results
+    float32."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh
@@ -162,7 +167,7 @@ def _jax_reference(q, k, v, sp, tp=1, dp=1, impl="ring", dtype=np.float32):
     mesh = Mesh(devs, ("dp", "fsdp", "tp", "sp"))
 
     def loss(a, b, c):
-        o = sequence_parallel_attention(a, b, c, mesh, impl=impl).astype(jnp.float32)
+        o = sequence_parallel_attention(a, b, c, mesh, **SP_CASES[impl]).astype(jnp.float32)
         return jnp.sum(o * jnp.sin(o)), o
 
     (_, o), grads = jax.jit(jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True))(
@@ -171,9 +176,10 @@ def _jax_reference(q, k, v, sp, tp=1, dp=1, impl="ring", dtype=np.float32):
 
 
 def _sp_worker(rank, world, q, k, v, q16, k16, v16):
-    """Ring and Ulysses at sp 2 (dp 2) and at sp 4 in float32, and ring at
-    both in bfloat16 (key ("bf16", sp)), on one start of 4 ranks."""
-    out = {sp: _attention_worker(rank, world, dict(dp=4 // sp, sp=sp), ("ring", "ulysses"),
+    """Ring and Ulysses (the flash route and use_pallas=False) at sp 2 (dp
+    2) and at sp 4 in float32, and ring at both in bfloat16 (key ("bf16",
+    sp)), on one start of 4 ranks."""
+    out = {sp: _attention_worker(rank, world, dict(dp=4 // sp, sp=sp), tuple(SP_CASES),
                                  q, k, v) for sp in (2, 4)}
     out.update({("bf16", sp): _attention_worker(rank, world, dict(dp=4 // sp, sp=sp),
                                                 ("ring",), q16, k16, v16, torch.bfloat16)
@@ -196,13 +202,13 @@ def sp_runs():
     res = launch.spawn(functools.partial(_sp_worker, q=q, k=k, v=v, q16=q16, k16=k16,
                                          v16=v16), 4, device="cpu", timeout=240)
     runs = {(impl, sp): _assemble([r[sp] for r in res], impl, q.shape)
-            for sp in (2, 4) for impl in ("ring", "ulysses")}
+            for sp in (2, 4) for impl in SP_CASES}
     runs.update({("bf16", sp): _assemble([r["bf16", sp] for r in res], "ring", q16.shape)
                  for sp in (2, 4)})
     return (q, k, v), runs
 
 
-@pytest.mark.parametrize("impl", ["ring", "ulysses"])
+@pytest.mark.parametrize("impl", list(SP_CASES))
 @pytest.mark.parametrize("sp", [2, 4])
 def test_seq_parallel_matches_jax(sp_runs, impl, sp):
     (q, k, v), runs = sp_runs

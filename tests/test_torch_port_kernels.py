@@ -133,11 +133,17 @@ def test_kernel_wrapper_takes_the_plain_version_on_cpu():
 
 
 def test_kernel_wrapper_refuses_tensors_off_cpu_and_cuda():
+    """Off the CPU and CUDA the wrapper raises; other tiles than the
+    kernel's are refused first where they can change the result (rows that
+    see no key: causal, t_q > t_kv) and are no refusal elsewhere."""
     q, k, v = (t.to("meta") for t in _qkv(1, 1, 64, 64, 64))
     with pytest.raises(ValueError, match="needs CUDA"):
         port.flash_attention_fwd(q, k, v, causal=True, scale=0.125)
-    with pytest.raises(ValueError, match="tiles"):
+    with pytest.raises(ValueError, match="needs CUDA"):
         port.flash_attention_fwd(q, k, v, causal=True, scale=0.125, block_q=128)
+    blind = [t.to("meta") for t in _qkv(1, 1, 160, 64, 64)]
+    with pytest.raises(ValueError, match="tiles"):
+        port.flash_attention_fwd(*blind, causal=True, scale=0.125, block_q=128)
     lse = torch.empty(1, 1, 64, device="meta")
     with pytest.raises(ValueError, match="needs CUDA"):
         port.flash_attention_bwd(q, k, v, q, lse, q, causal=True, scale=0.125)
@@ -323,7 +329,8 @@ def _plain_on_card_matches_cpu(card, shape, dtype, scale=None):
 
 @pytest.mark.cuda
 def test_dispatcher_raises_for_what_the_kernel_does_not_take(card):
-    """The refusals left are the tiles, and a dtype that no kernel takes
+    """The refusals left are other tiles than the kernel's where they can
+    change the result (causal, t_q > t_kv), and a dtype that no kernel takes
     where the reference runs its Pallas kernel (float64); head_dim 896, the
     first past the wide designs, runs the dcluster forward and backward
     (the tables' rule);
@@ -333,7 +340,8 @@ def test_dispatcher_raises_for_what_the_kernel_does_not_take(card):
     CPU."""
     q, k, v = _qkv(1, 2, 64, 64, 64, device=card, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="tiles"):
-        port.dot_product_attention(q, k, v, block_q=64, block_k=64)
+        port.dot_product_attention(*_qkv(1, 2, 160, 64, 64, device=card, dtype=torch.bfloat16),
+                                   block_q=64, block_k=64)
     with pytest.raises(ValueError, match="no Hopper kernel takes torch.float64"):
         port.dot_product_attention(*_qkv(1, 1, 64, 64, 128, device=card, dtype=torch.float64))
     by_rule = ("dcluster", "dcluster", "dcluster")
@@ -1194,3 +1202,43 @@ def test_engine_scopes_deterministic_mode_on_card(card):
     run = subprocess.run([sys.executable, "-c", _ENGINE_AFTER_TRAINING, "refuse"], cwd=repo,
                          env=env, capture_output=True, text=True, timeout=600)
     assert run.returncode == 0 and "refused" in run.stdout, run.stdout + run.stderr
+
+
+@pytest.mark.cuda
+def test_entry_on_card_repeats_its_bits(card):
+    """``ray_tpu_torch.entry.entry()``: gpt_1b in bf16 at b=1, t=512 on the
+    card, 16 forward launches on wgmma and none on plain, finite logits,
+    and a second call bit-equal to the first."""
+    from ray_tpu_torch import entry
+
+    fn, args = entry.entry()
+    before = (port.flash_fwd_wgmma_launches, port.flash_fwd_plain_launches)
+    first = fn(*args)
+    again = fn(*args)
+    torch.cuda.synchronize()
+    assert (port.flash_fwd_wgmma_launches - before[0],
+            port.flash_fwd_plain_launches - before[1]) == (32, 0)
+    assert tuple(first.shape) == (1, 512, 50304) and first.dtype == torch.float32
+    assert bool(torch.isfinite(first).all()) and torch.equal(first, again)
+
+
+@pytest.mark.cuda
+def test_other_tiles_on_card_follow_the_tile_rule(card):
+    """1024 x 1024 tiles (bench.py's gpt_1b) on the GPT's causal
+    self-attention (gpt_1b's heads, b=1, t=512, bf16) give the design's
+    output bit for bit, forward and gradients; with rows that see no key
+    (t_q > t_kv, causal) other tiles raise, and the design's own run."""
+    q, k, v = _qkv(1, 16, 512, 512, 128, device=card, dtype=torch.bfloat16)
+    do = torch.randn_like(q)
+    outs = []
+    for tiles in ((None, None), (1024, 1024)):
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = port.dot_product_attention(*xs, causal=True, block_q=tiles[0], block_k=tiles[1])
+        outs.append([out.detach(), *torch.autograd.grad(out, xs, do)])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    blind = _qkv(1, 2, 160, 64, 128, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="sees no key"):
+        port.dot_product_attention(*blind, causal=True, block_q=1024, block_k=1024)
+    bq, bk = port.fwd_tiles(128, torch.bfloat16)
+    port.dot_product_attention(*blind, causal=True, block_q=bq, block_k=bk)

@@ -252,7 +252,7 @@ def test_port_imports_no_jax_and_no_ray_tpu():
         "ray_tpu_torch.rl.replay_buffers, ray_tpu_torch.rl.dqn, ray_tpu_torch.rl.apex, "
         "ray_tpu_torch.rl.offline, ray_tpu_torch.rl.bc, ray_tpu_torch.rl.sac, "
         "ray_tpu_torch.rl.cql, ray_tpu_torch.rl.td3, ray_tpu_torch.rl.es, "
-        "ray_tpu_torch.rl.policy_server\n"
+        "ray_tpu_torch.rl.policy_server, ray_tpu_torch.entry\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'optax', "
         "'ray_tpu') or m.startswith(('jax.', 'flax.', 'optax.', 'ray_tpu.')))\n"
         "print(bad)\n"
